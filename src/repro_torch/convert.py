@@ -1,0 +1,45 @@
+"""Numpy bridge between the JAX package's parameter trees and the port's.
+
+Both packages keep the same tree: ``embed``, ``final_norm`` (and ``head``
+when untied) and ``layers`` with leaves stacked ``[S, Lps, ...]`` under the
+same names (``ln1``, ``attn/{wq,wk,wv,wo}``, ``ln2``, ``mlp/{w1,w3,w2}``).
+The JAX side is given as numpy arrays, e.g.
+``jax.tree.map(np.asarray, ST.init_stacked_params(...))``.  Dtypes are
+kept: float32 as is, bfloat16 through ``ml_dtypes`` (imported only when a
+bfloat16 tensor is exported).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _to_torch(a: np.ndarray, device) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":          # ml_dtypes.bfloat16, 2 bytes
+        t = torch.from_numpy(np.array(a).view(np.int16))    # a copy
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def from_jax(tree, *, device="cpu"):
+    """A (nested dict) tree of numpy arrays -> the same tree of tensors on
+    ``device``."""
+    if isinstance(tree, dict):
+        return {k: from_jax(v, device=device) for k, v in tree.items()}
+    return _to_torch(tree, device)
+
+
+def to_jax(tree):
+    """The port's tree of tensors -> the same tree of numpy arrays (hand it
+    to ``jax.numpy.asarray`` / ``jax.tree.map``)."""
+    if isinstance(tree, dict):
+        return {k: to_jax(v) for k, v in tree.items()}
+    return _to_numpy(tree)

@@ -1,0 +1,177 @@
+"""Flash attention forward: the hand-written Hopper kernel
+(``csrc/flash_attention.cu``), its wrappers, and its plain versions.
+
+Port of the Pallas TPU kernel ``repro/kernels/flash_attention.py`` (and of
+its oracle ``repro/kernels/ref.py::flash_attention_ref``), grown to the
+function ``repro/models/layers.py::attend`` computes with ``window=None``:
+GQA by head index, per-row ``q_start``/``kv_len``, causal mask
+``kpos <= q_start + i``, masked logits at ``-1e30``.
+
+* :func:`flash_attend` — ``q [B,T,Hq,D]``, ``k/v [B,S,Hkv,D]``, per-row
+  ``q_start``/``kv_len`` ``[B]`` int32 tensors; what the model calls.
+* :func:`flash_attention` — the Pallas function's signature, ``[BH,T,D]``
+  with scalar ``kv_len`` (a view with one head over the same kernel).
+
+A tensor on the CPU takes the plain version (:func:`attend_ref`,
+:func:`flash_attention_ref`); a CUDA tensor launches the kernel or raises.
+``flash_attend.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+HEAD_DIMS = (32, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the CPU path, and the card's reference in chip_smoke.py).
+# ---------------------------------------------------------------------------
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        scale: float, causal: bool = True,
+                        kv_len: Optional[int] = None) -> torch.Tensor:
+    """q: [BH, T, D], k/v: [BH, S, D].  f32 scores, full [T, S] logits."""
+    T, S = q.shape[1], k.shape[1]
+    logits = torch.einsum("btd,bsd->bts", q.float(), k.float()) * scale
+    kpos = torch.arange(S, device=q.device)
+    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= torch.arange(T, device=q.device)[:, None]
+    if kv_len is not None:
+        mask &= kpos[None, :] < kv_len
+    logits = torch.where(mask[None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bts,bsd->btd", p, v.float()).to(q.dtype)
+
+
+def attend_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               scale: float, causal: bool, q_start: torch.Tensor,
+               kv_len: torch.Tensor) -> torch.Tensor:
+    """The model's attention math (``layers._block_attend``) in one block:
+    q [B,T,Hq,D], k/v [B,S,Hkv,D], per-row q_start/kv_len [B]."""
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, T, Hkv, Hq // Hkv, D).float()
+    logits = torch.einsum("btkgd,bskd->bkgts", qg, k.float()) * scale
+    kpos = torch.arange(S, device=q.device)
+    qpos = q_start.to(torch.int64)[:, None] + torch.arange(T, device=q.device)
+    m = kpos[None, None, :] < kv_len.to(torch.int64)[:, None, None]
+    if causal:
+        m = m & (kpos[None, None, :] <= qpos[:, :, None])
+    logits = torch.where(m[:, None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, v.float())
+    return out.reshape(B, T, Hq, v.shape[-1]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's wrappers.
+# ---------------------------------------------------------------------------
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.flash_attention_fwd.argtypes = (
+        [p] * 6 + [i] * 7 + [ll] * 12 + [ctypes.c_float, i, p])
+    lib.flash_attention_fwd.restype = ctypes.c_int
+    lib.flash_attention_error_string.argtypes = [i]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+
+
+def _check_shapes(q, k, v, q_start, kv_len):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"want q [B,T,Hq,D], k/v [B,S,Hkv,D]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, T, Hq, D = q.shape
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[-1] != D:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if Hq % k.shape[2]:
+        raise ValueError(f"{Hq} query heads are not a multiple of "
+                         f"{k.shape[2]} kv heads")
+    for name, t in (("q_start", q_start), ("kv_len", kv_len)):
+        if t.shape != (B,) or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32 [{B}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+
+
+def _check_cuda(q, k, v, q_start, kv_len):
+    dev = q.device
+    for name, t in (("k", k), ("v", v), ("q_start", q_start),
+                    ("kv_len", kv_len)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"the kernel takes float32 or bfloat16 q/k/v of one "
+                        f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.shape[-1] not in HEAD_DIMS or v.shape[-1] != q.shape[-1]:
+        raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS} for q, "
+                         f"k and v; got {q.shape[-1]}, {v.shape[-1]}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must have a unit-stride head dim, "
+                             f"strides {t.stride()}")
+    if not (q_start.is_contiguous() and kv_len.is_contiguous()):
+        raise ValueError("q_start and kv_len must be contiguous")
+    if q.shape[1] == 0 or k.shape[1] == 0:
+        raise ValueError(f"empty sequence: T={q.shape[1]}, S={k.shape[1]}")
+
+
+def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 scale: float, causal: bool, q_start: torch.Tensor,
+                 kv_len: torch.Tensor) -> torch.Tensor:
+    """Attention of q [B,T,Hq,D] over k/v [B,S,Hkv,D] (GQA by head index)
+    with per-row ``q_start``/``kv_len`` [B] int32 on q's device.  Returns
+    [B,T,Hq,D] in q's dtype."""
+    _check_shapes(q, k, v, q_start, kv_len)
+    if q.device.type == "cpu":
+        return attend_ref(q, k, v, scale=scale, causal=causal,
+                          q_start=q_start, kv_len=kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attend runs on cuda or cpu, not {q.device}")
+    _check_cuda(q, k, v, q_start, kv_len)
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty((B, T, Hq, D), dtype=q.dtype, device=q.device)
+    lib = build.load("flash_attention", _declare)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q_start.data_ptr(), kv_len.data_ptr(),
+            B, T, S, Hq, Hkv, D, _DTYPE_CODE[q.dtype],
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], float(scale), int(bool(causal)), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_fwd failed: CUDA error {rc} "
+                           f"({lib.flash_attention_error_string(rc).decode()})")
+    flash_attend.launches += 1
+    return out
+
+
+flash_attend.launches = 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, causal: bool = True,
+                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """The Pallas function's interface: q [BH,T,D], k/v [BH,S,D] ->
+    [BH,T,D]; ``kv_len`` masks the valid key prefix (defaults to S)."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, scale=scale, causal=causal,
+                                   kv_len=kv_len)
+    BH, S = q.shape[0], k.shape[1]
+    q_start = torch.zeros((BH,), dtype=torch.int32, device=q.device)
+    kl = torch.full((BH,), S if kv_len is None else kv_len,
+                    dtype=torch.int32, device=q.device)
+    out = flash_attend(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
+                       scale=scale, causal=causal, q_start=q_start,
+                       kv_len=kl)
+    return out.squeeze(2)

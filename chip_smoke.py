@@ -17,11 +17,25 @@ Phases, each reported on its own lines:
    take (``bound_ms``);
 4. ``repro_torch.launch.serve.main`` at the full width of llama3.2-1b
    (16 layers, 8 stages, 2 micro-batches, batch 8, prompt 512, 32 tokens,
-   f32), with each kernel's launch count over that run;
-5. the whole path, kernel against plain: the same serve at full width and
-   2 layers on the card and on the CPU with the same weights and
+   f32), with each kernel's launch count over that run (flash attention
+   exactly 1024, the SSD scan 0);
+5. the whole llama path, kernel against plain: the same serve at full
+   width and 2 layers on the card and on the CPU with the same weights and
    teacher-forced tokens, logits of every step compared; the card's
-   decode steps run with synchronizing calls made errors.
+   decode steps run with synchronizing calls made errors;
+6. the SSD scan against its plain version on the card (as phase 3: the
+   JAX kernel tests' shapes, a nonzero initial state with y and the final
+   state checked, and the serving path's shape in f32 and bf16; no single
+   PyTorch call computes the scan, so no library time);
+7. ``repro_torch.launch.serve.main`` at the full width of mamba2-2.7b
+   (64 layers, 16 stages, 2 micro-batches, batch 8, prompt 512 = two SSD
+   chunks, 32 tokens, f32): the SSD scan exactly 128 launches (prefill
+   only), flash attention 0;
+8. the whole mamba2 path, kernel against plain, as phase 5 (2 layers, 2
+   stages, batch 4, prompt 512, 8 teacher-forced steps).
+
+Every kernel's launch counter is set to 0 just before each serve (phases
+4 and 7) and read just after it.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -208,14 +222,119 @@ def phase_kernels(FA, results: list) -> list:
     return bad
 
 
-def phase_parity(serve_mods) -> float:
-    """Phase 5: full-width llama3.2-1b cut to 2 layers, served on the card
-    (flash kernel) and on the CPU (plain version) with the same weights
-    and teacher-forced tokens.  Returns the largest logit difference."""
+def ssd_bound(x, N: int, chunk: int, init_state: bool):
+    """Least time (ms) for the SSD scan of these inputs on the card, and
+    which bound sets it.  Bytes: x, dt, Bm, Cm read and y written once;
+    the initial state read (when given) and the final state written (f32).
+    Operations: the chunked decomposition's products at this chunk size,
+    2 flops per multiply-add: per (row, chunk, head) the intra-chunk
+    product over the c(c+1)/2 causal pairs x P, the chunk state c x P x N
+    and the carried-state readout c x N x P; per (row, chunk) the scores
+    C.B^T over the c(c+1)/2 causal pairs x N (shared by all heads)."""
+    B, T, H, P = x.shape
+    el, nc, c = x.element_size(), T // chunk, chunk
+    pairs = c * (c + 1) // 2
+    state = B * H * P * N * 4
+    nbytes = (2 * x.numel() * el + B * T * H * 4 + 2 * B * T * N * el
+              + state * (2 if init_state else 1))
+    ops = 2 * B * nc * (H * (pairs * P + 2 * c * P * N) + pairs * N)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S[x.dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_ssd(SSD, results: list) -> list:
+    """Phase 6: the SSD kernel against its plain version (ssd_chunked_ref)
+    on the card.  Error is the JAX kernel tests' measure, max |y - y_ref|
+    / max |y_ref| (and the same for the final state)."""
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=g)
+    bad = []
+    rel = lambda a, b: ((a.float() - b.float()).abs().max()
+                        / (b.float().abs().max() + 1e-9)).item()
+    cases = [(f"test_kernels {s}", s, False)
+             for s in ((2, 64, 8, 32, 16, 16), (1, 128, 4, 64, 32, 32),
+                       (2, 256, 8, 32, 128, 64), (2, 32, 6, 16, 8, 32))]
+    cases.append(("init_state (2, 256, 8, 32, 128, 64)",
+                  (2, 256, 8, 32, 128, 64), True))
+    # the serving path's call: mamba2-2.7b, a micro-batch of 4 rows, prompt
+    # 512, seeded with the cache's state
+    cases.append(("main-path prefill B=4 T=512 H=80 P=64 N=128 chunk=256",
+                  (4, 512, 80, 64, 128, 256), True))
+    for label, (B, T, H, P, N, chunk), with_init in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = rnd(B, T, H, P).to(dev, dtype)
+            dt = torch.nn.functional.softplus(rnd(B, T, H)).to(dev)
+            A = -torch.exp(rnd(H) * 0.5).to(dev)
+            Bm, Cm = rnd(B, T, N).to(dev, dtype), rnd(B, T, N).to(dev, dtype)
+            kw = dict(chunk=chunk, init_state=rnd(B, H, P, N).to(dev)
+                      if with_init else None)
+            kern = lambda: SSD.ssd_chunked(x, dt, A, Bm, Cm, **kw)
+            plain = lambda: SSD.ssd_chunked_ref(x, dt, A, Bm, Cm, **kw)
+            y, fin = kern()
+            torch.cuda.synchronize()
+            yr, fr = plain()
+            err_y, err_s = rel(y, yr), rel(fin, fr)
+            ok = (max(err_y, err_s) < TOL[dtype]
+                  and bool(torch.isfinite(y.float()).all()))
+            bound, by = ssd_bound(x, N, chunk, with_init)
+            row = dict(label=label, dtype=str(dtype).replace("torch.", ""),
+                       max_abs_err=(y.float() - yr.float()).abs().max().item(),
+                       rel_err=err_y, state_rel_err=err_s, tol=TOL[dtype],
+                       ms=time_ms(kern), call_ms=call_ms(kern),
+                       plain_ms=time_ms(plain), library_ms=None,
+                       bound_ms=bound, bound_by=by, ok=ok)
+            print("kernel " + json.dumps(row), flush=True)
+            results.append(row)
+            if not ok:
+                bad.append(f"{label} {row['dtype']}")
+            del x, Bm, Cm, y, yr, fin, fr
+    return bad
+
+
+def serve_main_path(serve, argv: list, counters: dict, want: dict,
+                    vocab: int) -> dict:
+    """Drive ``serve.main(argv)`` once with every kernel's launch counter
+    set to 0 just before and read just after; fail unless each count is
+    the one wanted and the tokens and logits are sane."""
+    print(f"serve: python -m repro_torch.launch.serve {' '.join(argv)}",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    out = serve.main(argv)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    batch, gen = int(argv[argv.index("--batch") + 1]), \
+        int(argv[argv.index("--gen") + 1])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"serve: prefill {out['prefill_tok_s']:.1f} tok/s, decode "
+          f"{out['decode_tok_s']:.1f} tok/s, warm-up {out['warmup_s']:.3f}s, "
+          f"peak memory {peak:.2f} GiB, launches {json.dumps(launches)} "
+          f"(want {json.dumps(want)})", flush=True)
+    if launches != want:
+        fail(f"kernel launches {launches}, want {want}")
+    toks = out["tokens"]
+    if tuple(toks.shape) != (batch, gen) or not ((toks >= 0) & (toks < vocab)).all():
+        fail(f"serve tokens {tuple(toks.shape)} out of range")
+    if not torch.isfinite(out["last_logits"]).all():
+        fail("serve logits are not finite")
+    res = dict(launches=launches, peak_gib=peak,
+               **{k: out[k] for k in ("prefill_tok_s", "decode_tok_s",
+                                      "warmup_s")})
+    del out
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_parity(serve_mods, arch: str, prompt_len: int) -> float:
+    """Phases 5 and 8: the full width of ``arch`` cut to 2 layers and 2
+    stages, served on the card (the kernels) and on the CPU (their plain
+    versions) with the same weights and teacher-forced tokens.  Returns
+    the largest logit difference."""
     get_config, RT, ST = serve_mods
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2,
-                              stages=2, tensor=1)
-    B, prompt_len, gen = 4, 128, 8
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, stages=2,
+                              tensor=1)
+    B, gen = 4, 8
     plan = ST.plan_stages(cfg)
     pcfg = RT.PipelineConfig(n_microbatches=2)
     prefill = RT.make_serve_step(cfg, plan, pcfg, q_len=prompt_len)
@@ -250,16 +369,18 @@ def phase_parity(serve_mods) -> float:
         del p, cache
     a, b = logits["cuda"], logits["cpu"]
     if a.shape != (gen, B, cfg.padded_vocab(1)) or not torch.isfinite(a).all():
-        fail(f"parity: logits {tuple(a.shape)} finite={torch.isfinite(a).all()}")
+        fail(f"parity {arch}: logits {tuple(a.shape)} "
+             f"finite={torch.isfinite(a).all()}")
     err = (a - b).abs().max().item()
     rel = ((a - b).abs() / (PATH_TOL + PATH_TOL * b.abs())).max().item()
-    print(f"parity: {gen} steps x batch {B}, logits [{B}, 1, "
+    print(f"parity {arch}: prompt {prompt_len}, {gen} steps x batch {B}, "
+          f"logits [{B}, 1, "
           f"{cfg.padded_vocab(1)}] card vs CPU (card decode steps free of "
           f"host syncs): max |diff| {err:.3e} "
           f"(|a-b| <= {PATH_TOL} + {PATH_TOL}|b|: worst ratio {rel:.3f})",
           flush=True)
     if rel > 1.0:
-        fail(f"parity: card and CPU logits differ by {err:.3e}")
+        fail(f"parity {arch}: card and CPU logits differ by {err:.3e}")
     return err
 
 
@@ -272,6 +393,7 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.launch import serve
     from repro_torch.pipeline import runtime as RT
     from repro_torch.pipeline import stage as ST
@@ -293,7 +415,8 @@ def main() -> None:
           f"wall (nvcc, sm_90a)", flush=True)
     for name, log in build.BUILD_LOGS.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
                 print(f"  {name}: {line.strip()}", flush=True)
 
     # ---- 3. kernels against their plain versions --------------------------
@@ -302,45 +425,45 @@ def main() -> None:
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
 
-    # ---- 4. the main path at full width -----------------------------------
-    argv = ["--arch", "llama3.2-1b", "--stages", "8", "--tensor", "1",
-            "--microbatches", "2", "--batch", "8", "--prompt-len", "512",
-            "--gen", "32", "--device", "cuda"]
-    print(f"serve: python -m repro_torch.launch.serve {' '.join(argv)}",
-          flush=True)
-    torch.cuda.reset_peak_memory_stats()
-    FA.flash_attend.launches = 0
-    out = serve.main(argv)
-    launches = FA.flash_attend.launches
-    want = 16 * 2 * (1 + 31)
-    toks = out["tokens"]
-    print(f"serve: prefill {out['prefill_tok_s']:.1f} tok/s, decode "
-          f"{out['decode_tok_s']:.1f} tok/s, warm-up {out['warmup_s']:.3f}s, "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"flash_attention launches {launches} (want {want})", flush=True)
-    if launches != want:
-        fail(f"flash_attention launched {launches} times, want {want}")
-    if tuple(toks.shape) != (8, 32) or not ((toks >= 0) & (toks < 128256)).all():
-        fail(f"serve tokens {tuple(toks.shape)} out of range")
-    if not torch.isfinite(out["last_logits"]).all():
-        fail("serve logits are not finite")
-    del out
-    torch.cuda.empty_cache()
+    # ---- 4. the llama3.2-1b path at full width ---------------------------
+    counters = dict(flash_attention=FA.flash_attend, ssd_scan=SSD.ssd_chunked)
+    llama = serve_main_path(
+        serve, ["--arch", "llama3.2-1b", "--stages", "8", "--tensor", "1",
+                "--microbatches", "2", "--batch", "8", "--prompt-len", "512",
+                "--gen", "32", "--device", "cuda"],
+        counters, dict(flash_attention=16 * 2 * (1 + 31), ssd_scan=0),
+        128256)
 
-    # ---- 5. whole-path parity, kernel vs plain ----------------------------
-    path_err = phase_parity((get_config, RT, ST))
+    # ---- 5. whole llama path, kernel vs plain -----------------------------
+    serve_mods = (get_config, RT, ST)
+    path_err = phase_parity(serve_mods, "llama3.2-1b", 128)
 
-    main_row = next(r for r in rows
-                    if r["label"].startswith("main-path prefill")
-                    and r["dtype"] == "float32")
-    decode_row = next(r for r in rows
-                      if r["label"].startswith("main-path decode")
-                      and r["dtype"] == "float32")
-    kernel = dict(
+    # ---- 6. the SSD scan against its plain version ------------------------
+    ssd_rows: list = []
+    bad = phase_ssd(SSD, ssd_rows)
+    if bad:
+        fail(f"ssd_scan disagrees with its plain version: {bad}")
+
+    # ---- 7. the mamba2-2.7b path at full width ----------------------------
+    mamba = serve_main_path(
+        serve, ["--arch", "mamba2-2.7b", "--stages", "16", "--tensor", "1",
+                "--microbatches", "2", "--batch", "8", "--prompt-len", "512",
+                "--gen", "32", "--device", "cuda"],
+        counters, dict(flash_attention=0, ssd_scan=64 * 2), 50280)
+
+    # ---- 8. whole mamba2 path, kernel vs plain ----------------------------
+    ssd_path_err = phase_parity(serve_mods, "mamba2-2.7b", 512)
+
+    pick = lambda rs, prefix: next(r for r in rs if r["label"].startswith(
+        prefix) and r["dtype"] == "float32")
+    main_row = pick(rows, "main-path prefill")
+    decode_row = pick(rows, "main-path decode")
+    flash = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:84",
-        launches=launches, max_abs_err=main_row["max_abs_err"],
+        launches=llama["launches"]["flash_attention"],
+        max_abs_err=main_row["max_abs_err"],
         ms=main_row["ms"], call_ms=main_row["call_ms"],
         plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
@@ -351,7 +474,26 @@ def main() -> None:
                      "bound_ms",
                      "bound_by", "max_abs_err")),
         path_parity_max_abs_err=path_err)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    ssd_row = pick(ssd_rows, "main-path prefill")
+    ssd_bf16 = next(r for r in ssd_rows if r["label"].startswith(
+        "main-path prefill") and r["dtype"] == "bfloat16")
+    ssd = dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:70",
+        launches=mamba["launches"]["ssd_scan"],
+        max_abs_err=ssd_row["max_abs_err"], rel_err=ssd_row["rel_err"],
+        ms=ssd_row["ms"], call_ms=ssd_row["call_ms"],
+        plain_ms=ssd_row["plain_ms"],
+        bound_ms=ssd_row["bound_ms"], bound_by=ssd_row["bound_by"],
+        library_ms=None, shape=ssd_row["label"] + " f32",
+        bf16=dict((k, ssd_bf16[k]) for k in
+                  ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                   "rel_err")),
+        path_parity_max_abs_err=ssd_path_err)
+    print(json.dumps({"serve": {"llama3.2-1b": llama,
+                                "mamba2-2.7b": mamba}}), flush=True)
+    print(json.dumps({"kernels": [flash, ssd]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,7 +9,7 @@ import importlib
 
 from repro_torch.configs.base import ArchConfig
 
-_ARCHS = ("llama3p2_1b",)
+_ARCHS = ("llama3p2_1b", "mamba2_2p7b")
 
 _BY_ID: dict[str, ArchConfig] = {}
 

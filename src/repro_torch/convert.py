@@ -2,10 +2,13 @@
 
 Both packages keep the same tree: ``embed``, ``final_norm`` (and ``head``
 when untied) and ``layers`` with leaves stacked ``[S, Lps, ...]`` under the
-same names (``ln1``, ``attn/{wq,wk,wv,wo}``, ``ln2``, ``mlp/{w1,w3,w2}``).
-The JAX side is given as numpy arrays, e.g.
-``jax.tree.map(np.asarray, ST.init_stacked_params(...))``.  Dtypes are
-kept: float32 as is, bfloat16 through ``ml_dtypes`` (imported only when a
+same names: ``ln1``, ``attn/{wq,wk,wv,wo}``, ``ln2``, ``mlp/{w1,w3,w2}``
+for a dense block; ``ln1``, ``ssm/{in_proj,conv_w,conv_b,a_log,d_skip,
+dt_bias,gate_norm,out_proj}`` for a Mamba-2 block.  The JAX side is given
+as numpy arrays, e.g. ``jax.tree.map(np.asarray,
+ST.init_stacked_params(...))``.  Every leaf keeps its own dtype: float32
+as is (``a_log``, ``d_skip`` and ``dt_bias`` stay float32 inside a
+bfloat16 tree), bfloat16 through ``ml_dtypes`` (imported only when a
 bfloat16 tensor is exported).
 """
 from __future__ import annotations

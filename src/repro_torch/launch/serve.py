@@ -4,14 +4,23 @@
         --arch llama3.2-1b --stages 8 --microbatches 2 \\
         --batch 8 --prompt-len 512 --gen 32
 
-``--device cpu`` runs the same path on the CPU with the attention
-kernel's plain version (add ``--reduced`` for a small model).
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch mamba2-2.7b --stages 16 --microbatches 2 \\
+        --batch 8 --prompt-len 512 --gen 32
+
+``--device cpu`` runs the same path on the CPU with the kernels' plain
+versions (add ``--reduced`` for a small model).  For mamba2 the prompt
+length must be a multiple of the SSD chunk (256; 16 reduced) or shorter
+than it.
 
 Timing discipline: every phase ends in ``torch.cuda.synchronize()``.
 Warm-up (building the CUDA kernels, first cuBLAS use) is reported apart
 from prefill throughput and steady-state decode throughput.  Warm-up runs
-no model step, so the attention kernel launches exactly
-``layers x microbatches x gen`` times in a call of :func:`main`.
+no model step, so in a call of :func:`main` llama3.2-1b launches the
+flash-attention kernel exactly ``layers x microbatches x gen`` times
+(prefill and every decode step), and mamba2-2.7b launches the SSD kernel
+exactly ``layers x microbatches`` times (prefill only: decode is the
+recurrent update in plain torch).
 """
 from __future__ import annotations
 
@@ -80,7 +89,8 @@ def main(argv=None) -> dict:
     print(f"device: {device} ({torch.cuda.get_device_name(device)})"
           if device.type == "cuda" else f"device: {device}")
 
-    # ---- warm-up: build every kernel, first cuBLAS call; no model step ----
+    # ---- warm-up: build every kernel, first cuBLAS call; no model step,
+    # so the kernels' launch counts cover prefill and decode alone --------
     _fence(device)
     t0 = time.perf_counter()
     if device.type == "cuda":

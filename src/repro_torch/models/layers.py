@@ -1,10 +1,11 @@
-"""Functional building blocks of the dense GQA decoder (the port's share of
-``repro/models/layers.py``: tensor parallel degree 1).
+"""Functional building blocks of the dense GQA decoder and the Mamba-2
+block (the port's share of ``repro/models/layers.py``: tensor parallel
+degree 1).
 
 Plain functions over explicit parameter dictionaries, as in the JAX
-package.  Attention goes through the hand-written flash kernel on a CUDA
-tensor and through its plain version on a CPU tensor; the projections and
-MLP products stay ``torch.matmul``.
+package.  Attention and the SSD scan go through the hand-written kernels
+on a CUDA tensor and through their plain versions on a CPU tensor; the
+projections and MLP products stay ``torch.matmul``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attend
+from repro_torch.kernels.ssd_scan import ssd_chunked
 
 Params = dict
 
@@ -184,3 +186,100 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 def mlp(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     h = _act(x @ p["w1"], act) * (x @ p["w3"])
     return h @ p["w2"]
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD — state-space duality, chunked)
+# ---------------------------------------------------------------------------
+
+def init_ssm(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> Params:
+    """Mamba-2 block parameters.  ``a_log``, ``d_skip`` and ``dt_bias``
+    stay float32 whatever ``dtype`` is; ``conv_w`` is [d_conv, conv_ch]
+    (the JAX layout)."""
+    s = cfg.ssm
+    d = cfg.d_model
+    d_inner = s.expand * d
+    nh = max(1, s.n_heads(d))
+    conv_ch = d_inner + 2 * s.d_state
+    sc = 1.0 / math.sqrt(d)
+    rn = lambda *shape: torch.randn(shape, generator=gen, dtype=dtype,
+                                    device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    return dict(
+        in_proj=rn(d, 2 * d_inner + 2 * s.d_state + nh) * sc,
+        conv_w=rn(s.d_conv, conv_ch) * 0.1,
+        conv_b=torch.zeros((conv_ch,), dtype=dtype, device=device),
+        a_log=torch.log(torch.linspace(1.0, 16.0, nh, **f32)),
+        d_skip=torch.ones((nh,), **f32),
+        dt_bias=torch.zeros((nh,), **f32),
+        gate_norm=init_rms_norm(d_inner, dtype, device),
+        out_proj=rn(d_inner, d) * ((1.0 / math.sqrt(s.expand * d))
+                                   / math.sqrt(2 * cfg.n_layers)),
+    )
+
+
+def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                 init_state: Optional[torch.Tensor] = None):
+    """Chunked SSD scan (Mamba-2, arXiv:2405.21060 §6): one launch of the
+    SSD kernel on a CUDA tensor, its plain version on a CPU tensor.
+    xh [B,T,H,P], dt [B,T,H] f32, A [H] (negative), Bm/Cm [B,T,N].
+    Returns (y [B,T,H,P] in xh's dtype, final_state [B,H,P,N] f32)."""
+    return ssd_chunked(xh, dt, A, Bm, Cm, chunk=chunk,
+                       init_state=None if init_state is None
+                       else init_state.float())
+
+
+def ssm_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
+              cache: Optional[dict] = None
+              ) -> tuple[torch.Tensor, Optional[dict]]:
+    """Mamba-2 block: in_proj -> causal depthwise conv -> SSD -> gated norm
+    -> out_proj.  Without ``cache``: the chunked scan from a zero state.
+    With ``cache`` (conv [B,d_conv-1,conv_ch], state [B,H,P,N]) and T > 1:
+    the chunked scan seeded with the cached state; with T = 1: the O(1)
+    recurrent update in plain torch, as the JAX package computes it.  The
+    new conv window and state are written into the cache in place and the
+    returned cache is the argument."""
+    s = cfg.ssm
+    B, T, d = x.shape
+    d_inner = p["out_proj"].shape[0]
+    nh = p["a_log"].shape[0]
+    P, N = s.head_dim, s.d_state
+    zxbcdt = x @ p["in_proj"]
+    z, xin, Bm, Cm, dt = torch.split(zxbcdt, [d_inner, d_inner, N, N, nh],
+                                     dim=-1)
+    conv_in = torch.cat([xin, Bm, Cm], dim=-1)                # [B,T,conv_ch]
+    # depthwise causal conv as a sum of d_conv shifted products (no
+    # F.conv1d: cuDNN would run an f32 convolution in TF32)
+    if cache is None:
+        window = F.pad(conv_in, (0, 0, s.d_conv - 1, 0))
+    else:
+        window = torch.cat([cache["conv"], conv_in], dim=1)  # [B,dc-1+T,ch]
+    conv = sum(window[:, i:i + T] * p["conv_w"][i] for i in range(s.d_conv))
+    conv = F.silu(conv + p["conv_b"])
+    xc, Bc, Cc = torch.split(conv, [d_inner, N, N], dim=-1)
+    xh = xc.reshape(B, T, nh, P)
+    dt = F.softplus(dt.float() + p["dt_bias"])                # [B,T,H]
+    A = -torch.exp(p["a_log"])                                # [H] negative
+    if cache is None:
+        y, _ = _ssd_chunked(xh, dt, A, Bc, Cc, min(s.chunk, T))
+        y = y.float()
+    elif T > 1:
+        y, final = _ssd_chunked(xh, dt, A, Bc, Cc, min(s.chunk, T),
+                                init_state=cache["state"])
+        y = y.float()
+        cache["state"].copy_(final)
+    else:
+        st = cache["state"].float()                           # [B,H,P,N]
+        dA = torch.exp(dt[:, 0] * A[None])                    # [B,H]
+        upd = (dt[:, 0, :, None] * xh[:, 0].float())[..., None] \
+            * Bc[:, 0].float()[:, None, None, :]              # [B,H,P,N]
+        st = st * dA[:, :, None, None] + upd
+        y = torch.einsum("bn,bhpn->bhp", Cc[:, 0].float(), st)[:, None]
+        cache["state"].copy_(st)
+    if cache is not None:
+        cache["conv"].copy_(window[:, -(s.d_conv - 1):])
+    y = y + xh.float() * p["d_skip"][None, None, :, None]
+    y = y.reshape(B, T, d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
+    return y @ p["out_proj"], cache

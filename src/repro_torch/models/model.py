@@ -1,4 +1,4 @@
-"""Model assembly, dense branch (the port's share of
+"""Model assembly, dense GQA and SSM branches (the port's share of
 ``repro/models/model.py``): ArchConfig -> init / forward / decode.
 
 Layer parameters are stacked on a leading ``[L, ...]`` axis, as in the JAX
@@ -19,11 +19,15 @@ from repro_torch.models import layers as L
 Params = dict
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.attn_kind != "gqa" or cfg.moe is not None:
+def check_ported(cfg: ArchConfig) -> None:
+    """Admit the families the port runs so far: dense GQA and pure SSM
+    (Mamba-2).  MoE, MLA, hybrid, audio and VLM raise."""
+    dense = (cfg.family == "dense" and cfg.attn_kind == "gqa"
+             and cfg.moe is None)
+    if not (dense or cfg.family == "ssm"):
         raise NotImplementedError(
-            f"{cfg.arch_id}: only the dense GQA family is ported so far "
-            f"(family={cfg.family}, attn={cfg.attn_kind})")
+            f"{cfg.arch_id}: only the dense GQA and ssm families are ported "
+            f"so far (family={cfg.family}, attn={cfg.attn_kind})")
 
 
 # ---------------------------------------------------------------------------
@@ -42,8 +46,11 @@ def layer_meta(cfg: ArchConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def init_block(cfg: ArchConfig, gen: torch.Generator, dtype, device) -> Params:
-    _check_dense(cfg)
+    check_ported(cfg)
     d = cfg.d_model
+    if cfg.family == "ssm":
+        return {"ln1": L.init_rms_norm(d, dtype, device),
+                "ssm": L.init_ssm(gen, cfg, dtype, device)}
     return {"ln1": L.init_rms_norm(d, dtype, device),
             "attn": L.init_gqa(gen, cfg, dtype, device),
             "ln2": L.init_rms_norm(d, dtype, device),
@@ -52,10 +59,17 @@ def init_block(cfg: ArchConfig, gen: torch.Generator, dtype, device) -> Params:
 
 def block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, meta_l: dict, *,
                 pos: torch.Tensor, cache_l: Optional[dict] = None):
-    """Apply one dense block.  ``meta_l`` holds this layer's scalars
-    (``rope_theta``).  Returns (x', cache_l', aux_loss); the k/v of
-    ``cache_l`` are updated in place.  A dense block has no auxiliary
-    loss: aux is the Python float 0.0 (no device work, no host sync)."""
+    """Apply one dense or SSM block.  ``meta_l`` holds this layer's
+    scalars (``rope_theta``).  Returns (x', cache_l', aux_loss); the
+    leaves of ``cache_l`` (k/v, or the SSM conv window and state) are
+    updated in place.  Neither block has an auxiliary loss: aux is the
+    Python float 0.0 (no device work, no host sync)."""
+    if cfg.family == "ssm":
+        h, new_ssm = L.ssm_block(
+            p["ssm"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
+            cache=None if cache_l is None else cache_l["ssm"])
+        new_cache = None if cache_l is None else dict(cache_l, ssm=new_ssm)
+        return x + h, new_cache, 0.0
     xin = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     h, new_kv = L.gqa_attention(
         p["attn"], xin, cfg, pos=pos, rope_theta=meta_l["rope_theta"],
@@ -87,7 +101,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
                 device="cuda") -> Params:
     """Unstaged parameters, layers stacked [L, ...].  Weights come from a
     ``torch.Generator`` on ``device`` seeded with ``seed``."""
-    _check_dense(cfg)
+    check_ported(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     embed = torch.randn((cfg.vocab, cfg.d_model), generator=gen, dtype=dtype,
                         device=device) / math.sqrt(cfg.d_model)
@@ -118,7 +132,7 @@ def embed_tokens(cfg: ArchConfig, table: torch.Tensor,
 def forward(cfg: ArchConfig, params: Params, batch: dict, *, cache=None):
     """Full forward.  ``batch``: tokens [B,T] (optional ``pos``).  Returns
     (hidden, aux, cache); the cache is updated in place."""
-    _check_dense(cfg)
+    check_ported(cfg)
     meta = layer_meta(cfg)
     x = embed_tokens(cfg, params["embed"], batch["tokens"])
     pos = batch.get("pos")
@@ -126,12 +140,12 @@ def forward(cfg: ArchConfig, params: Params, batch: dict, *, cache=None):
         pos = _default_pos(batch["tokens"], cache)
     aux = 0.0
     for i in range(cfg.n_layers):
-        cl = None if cache is None else dict(kv=layer_slice(cache["kv"], i))
+        cl = None if cache is None else layer_slice(cache, i)
         x, new_cl, a = block_apply(cfg, layer_slice(params["layers"], i), x,
                                    {k: v[i] for k, v in meta.items()},
                                    pos=pos, cache_l=cl)
         aux += a
-        if cache is not None:
+        if cache is not None and "kv" in cache:
             cache["kv"]["len"][i] = new_cl["kv"]["len"]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux, cache
@@ -141,14 +155,18 @@ def _default_pos(tokens: torch.Tensor, cache) -> torch.Tensor:
     B, T = tokens.shape
     pos = torch.arange(T, device=tokens.device)[None].expand(B, T)
     if cache is not None:
-        pos = pos + _cache_len(cache)[:, None]
+        off = _cache_len(cache)
+        pos = pos + (off[:, None] if isinstance(off, torch.Tensor) else off)
     return pos
 
 
-def _cache_len(cache) -> torch.Tensor:
+def _cache_len(cache):
     """Per-slot [B] offsets: ``cache["kv"]["len"]`` is stacked with
     layer-like leading axes ([L, B], or [S, Lps, B] for a pipeline cache),
-    reduced with max."""
+    reduced with max.  0 for a cache without a ``kv`` subtree (an SSM
+    cache carries no positions)."""
+    if "kv" not in cache:
+        return 0
     l = cache["kv"]["len"]
     return l.reshape(-1, l.shape[-1]).amax(dim=0)
 
@@ -159,13 +177,25 @@ def _cache_len(cache) -> torch.Tensor:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                dtype=torch.float32, device="cuda") -> dict:
-    """Stacked [L, ...] decode cache for every layer (GQA)."""
-    _check_dense(cfg)
+    """Stacked [L, ...] decode cache for every layer: GQA k/v and
+    per-slot ``len``, or the SSM conv window and state (no positions)."""
+    check_ported(cfg)
     n, hd, nkv = cfg.n_layers, cfg.resolved_head_dim, max(1, cfg.n_kv_heads)
     z = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
+    if cfg.family == "ssm":
+        return {"ssm": _ssm_cache(cfg, n, batch, z)}
     return {"kv": dict(k=z(n, batch, max_len, nkv, hd),
                        v=z(n, batch, max_len, nkv, hd),
                        len=z(n, batch, dt=torch.int32))}
+
+
+def _ssm_cache(cfg: ArchConfig, n: int, batch: int, z) -> dict:
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    nh = max(1, s.n_heads(cfg.d_model))
+    conv_ch = d_inner + 2 * s.d_state
+    return dict(conv=z(n, batch, s.d_conv - 1, conv_ch),
+                state=z(n, batch, nh, s.head_dim, s.d_state))
 
 
 def decode_step(cfg: ArchConfig, params: Params, batch: dict, cache: dict):

@@ -32,16 +32,17 @@ class PipelineConfig:
 def apply_stage(cfg: ArchConfig, stage_params: dict, stage_meta: list, x, *,
                 pos, cache=None):
     """Run this stage's Lps layers over hidden state ``x`` [mb,T,d].
-    Padded (inactive) layer slots pass ``x`` through and are not computed.
-    ``cache`` holds this stage's [Lps, mb, ...] kv leaves: k/v are written
-    in place at the ``len`` offsets, which stay as they were (the serve
-    step advances them once per step).  Returns (x', aux, cache)."""
+    Padded (inactive) layer slots pass ``x`` through and are not computed
+    (their cache rows, k/v or SSM state, are left untouched).  ``cache``
+    holds this stage's [Lps, mb, ...] leaves: k/v are written in place at
+    the ``len`` offsets, which stay as they were (the serve step advances
+    them once per step); the SSM conv window and state are overwritten in
+    place.  Returns (x', aux, cache)."""
     aux = 0.0
     for j, ml in enumerate(stage_meta):
         if not ml["active"]:
             continue
-        cl = None if cache is None else dict(
-            kv=M.layer_slice(cache["kv"], j))
+        cl = None if cache is None else M.layer_slice(cache, j)
         x, _, a = M.block_apply(cfg, M.layer_slice(stage_params, j), x, ml,
                                 pos=pos, cache_l=cl)
         aux += a
@@ -52,14 +53,15 @@ def init_pipeline_cache(cfg: ArchConfig, plan: ST.StagePlan, batch: int,
                         max_len: int, *, dtype=torch.float32,
                         device="cuda") -> dict:
     """Cache [S, Lps, B, ...]: k/v [S, Lps, B, max_len, Hkv, D] and
-    per-slot ``len`` offsets [S, Lps, B]."""
+    per-slot ``len`` offsets [S, Lps, B]; or, for the SSM family, the conv
+    window [S, Lps, B, d_conv-1, conv_ch] and state [S, Lps, B, H, P, N]
+    (``max_len`` unused)."""
     if plan.tensor != 1 or plan.virtual != 1:
         raise NotImplementedError("the port's pipeline cache is V = 1, "
                                   "tensor = 1 so far")
     pad_cfg = dataclasses.replace(cfg, n_layers=plan.n_layers_padded)
     c = M.init_cache(pad_cfg, batch, max_len, dtype=dtype, device=device)
-    return {"kv": {k: ST._stack_chunks(a, plan)
-                   for k, a in c["kv"].items()}}
+    return ST._map_layers(lambda a: ST._stack_chunks(a, plan), c)
 
 
 def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
@@ -71,14 +73,15 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
     ``q_len=1`` is one-token decode; ``q_len=seq`` is prefill (KV cache
     populated, logits returned for the last position).  Micro-batches
     split the batch dimension; each (stage, element) pair runs the
-    stage's layers on its micro-batch's rows of the stage's cache.  Cache
-    ``len`` offsets are per-slot [B] vectors, frozen during the ticks
-    (each row is processed exactly once per step) and advanced once at
-    the end.  The KV cache is updated IN PLACE (the JAX step donates it
-    and returns a new one); the returned cache is the argument.
+    stage's layers on its micro-batch's rows of the stage's cache.  KV
+    cache ``len`` offsets are per-slot [B] vectors, frozen during the
+    ticks (each row is processed exactly once per step) and advanced once
+    at the end, only where the cache has a ``kv`` subtree.  The cache (k/v
+    or SSM conv/state) is updated IN PLACE (the JAX step donates it and
+    returns a new one); the returned cache is the argument.
 
     Returns f32 logits ``[B, 1, padded_vocab]``.  Continuous batching
-    (``n_valid``) is not ported yet."""
+    (``n_valid``) is not ported yet, and the SSM family refuses it."""
     if plan.virtual != 1:
         raise NotImplementedError("virtual > 1 serving is not ported yet")
     if plan.tensor != 1 or data != 1:
@@ -92,6 +95,13 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
     MV = lowering.M * lowering.V
 
     def serve_step(params: dict, cache: dict, batch: dict):
+        if "n_valid" in batch and cfg.family in ("ssm", "hybrid", "audio"):
+            raise ValueError(
+                f"continuous batching (n_valid) needs per-token cache "
+                f"offsets to mask padding columns; the {cfg.family} "
+                f"family carries recurrent ssm/conv (or cross-attention) "
+                f"state that padding tokens would pollute — serve it "
+                f"with uniform steps instead")
         if set(batch) != {"tokens"}:
             raise NotImplementedError(
                 f"serve batch keys {sorted(batch)}: only 'tokens' is "
@@ -105,9 +115,7 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
         mb = B // M_
         x_all = M.embed_tokens(cfg, params["embed"], tokens)   # [B,q,d]
         # per-slot cache offsets -> per-row positions
-        cur_len = M._cache_len(cache)
-        pos_all = cur_len[:, None] + torch.arange(q_len, device=tokens.device)
-        kv = cache["kv"]
+        pos_all = M._default_pos(tokens, cache)
 
         carry = [None] * S              # stage s's output at the last tick
         outbuf = [None] * M_
@@ -120,9 +128,9 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
                 mc = lowering.m_of_e[e]
                 rows = slice(mc * mb, (mc + 1) * mb)
                 x_in = x_all[rows] if s == 0 else carry[s - 1]
-                # this micro-batch's rows of the stage's cache; the k/v
-                # views are written in place, 'len' stays frozen
-                c_mb = {"kv": {k: a[s, :, rows] for k, a in kv.items()}}
+                # this micro-batch's rows of the stage's cache; the views
+                # are written in place, 'len' stays frozen
+                c_mb = ST._map_layers(lambda a: a[s, :, rows], cache)
                 y, _, _ = apply_stage(cfg, M.layer_slice(params["layers"], s),
                                       smeta[s], x_in, pos=pos_all[rows],
                                       cache=c_mb)
@@ -130,7 +138,8 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
                 if s == S - 1 and lowering.collect[e]:
                     outbuf[mc] = y
             carry = nxt
-        kv["len"] += q_len              # advance every offset once
+        if "kv" in cache:
+            cache["kv"]["len"] += q_len     # advance every offset once
 
         hidden = torch.cat(outbuf, dim=0)[:, -1:]             # [B,1,d]
         h = LYR.rms_norm(hidden, params["final_norm"], cfg.norm_eps)

@@ -69,7 +69,7 @@ def init_stacked_params(cfg: ArchConfig, seed: int, plan: StagePlan, *,
     weights and are skipped by the ``active`` mask).  Vocab is padded to
     ``cfg.padded_vocab(plan.tensor)``.  Weights come from a
     ``torch.Generator`` on ``device`` seeded with ``seed``."""
-    M._check_dense(cfg)
+    M.check_ported(cfg)
     vocab = cfg.padded_vocab(plan.tensor)
     gen = torch.Generator(device=device).manual_seed(seed)
     embed = torch.randn((vocab, cfg.d_model), generator=gen, dtype=dtype,

@@ -61,9 +61,13 @@ def _tiny_cfg(qk_norm=False):
 # configs and schedule plans
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("reduce", [False, True])
-def test_config_matches_jax(reduce):
-    cfg, jcfg = get_config("llama3.2-1b"), jax_get_config("llama3.2-1b")
+@pytest.mark.parametrize("arch,reduce", [
+    pytest.param("llama3.2-1b", False, id="False"),
+    pytest.param("llama3.2-1b", True, id="True"),
+    pytest.param("mamba2-2.7b", False, id="mamba2-False"),
+    pytest.param("mamba2-2.7b", True, id="mamba2-True")])
+def test_config_matches_jax(arch, reduce):
+    cfg, jcfg = get_config(arch), jax_get_config(arch)
     if reduce:
         cfg, jcfg = cfg.reduced(n_layers=3), jcfg.reduced(n_layers=3)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
@@ -72,8 +76,10 @@ def test_config_matches_jax(reduce):
     assert cfg.padded_vocab(3) == jcfg.padded_vocab(3)
     assert [cfg.is_global_layer(i) for i in range(cfg.n_layers)] == \
         [jcfg.is_global_layer(i) for i in range(jcfg.n_layers)]
+    if cfg.ssm is not None:
+        assert cfg.ssm.n_heads(cfg.d_model) == jcfg.ssm.n_heads(jcfg.d_model)
     with pytest.raises(KeyError):
-        get_config("mamba2-2.7b")
+        get_config("hymba-1.5b")
 
 
 @pytest.mark.parametrize("name", ["gpipe", "1f1b", "1f1b-2x", "1F1B-AS",

@@ -192,14 +192,16 @@ for name in names:
 import torch
 from repro_torch.configs import get_config
 from repro_torch.pipeline import runtime as RT, stage as ST
-cfg = get_config("llama3.2-1b").reduced(n_layers=2, d_model=64)
-plan = ST.plan_stages(cfg, n_stages=2)
-step = RT.make_serve_step(cfg, plan, RT.PipelineConfig(n_microbatches=2),
-                          q_len=3)
-params = ST.init_stacked_params(cfg, 0, plan, device="cpu")
-cache = RT.init_pipeline_cache(cfg, plan, 2, 4, device="cpu")
-lg, _ = step(params, cache, dict(tokens=torch.zeros(2, 3, dtype=torch.long)))
-assert lg.shape == (2, 1, 1024) and torch.isfinite(lg).all()
+for arch in ("llama3.2-1b", "mamba2-2.7b"):
+    cfg = get_config(arch).reduced(n_layers=2, d_model=64)
+    plan = ST.plan_stages(cfg, n_stages=2)
+    step = RT.make_serve_step(cfg, plan, RT.PipelineConfig(n_microbatches=2),
+                              q_len=3)
+    params = ST.init_stacked_params(cfg, 0, plan, device="cpu")
+    cache = RT.init_pipeline_cache(cfg, plan, 2, 4, device="cpu")
+    lg, _ = step(params, cache,
+                 dict(tokens=torch.zeros(2, 3, dtype=torch.long)))
+    assert lg.shape == (2, 1, 1024) and torch.isfinite(lg).all()
 assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
             if sys.modules[m] is not None]
 print("OK", len(names))
@@ -212,7 +214,7 @@ def test_port_imports_and_serves_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.startswith("OK"), res.stdout
-    assert int(res.stdout.split()[1]) >= 15      # every module was imported
+    assert int(res.stdout.split()[1]) >= 17      # every module was imported
 
 
 _FORBIDDEN = re.compile(

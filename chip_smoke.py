@@ -7,18 +7,27 @@ Phases, each reported on its own lines:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. building every CUDA kernel of the serving path from ``src/repro_torch/
-   kernels/csrc`` with nvcc (one compiler per source, all started together);
+   kernels/csrc`` with nvcc (one compiler per source, all started together),
+   then reading the flash library's machine code (``cuobjdump -sass``):
+   every prefill-route kernel must issue tensor-core products (HMMA, from
+   mma.sync) and both routes' kernels must load through cp.async
+   (LDGSTS);
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the JAX kernel tests and at the serving path's shapes, with
    the kernel's device time (``ms``, CUDA-graph replay), its eager
    per-call time (``call_ms``, host issue included), the plain version's
    and one library call's device time (``scaled_dot_product_attention``,
    a yardstick the port never calls) and the least time the card could
-   take (``bound_ms``);
+   take (``bound_ms``: f32 operations at 67 TFLOP/s outside the tensor
+   cores; ``bound_tc_ms``: f32 operations at 495/3 TFLOP/s, the 3xTF32
+   tensor-core rate; bf16 at 989 in both).  Each flash row names the
+   route its shapes take (``decode`` for T * Hq / Hkv <= 16, else
+   ``prefill``); the decode route is also run over S = 4096, many splits;
 4. ``repro_torch.launch.serve.main`` at the full width of llama3.2-1b
    (16 layers, 8 stages, 2 micro-batches, batch 8, prompt 512, 32 tokens,
    f32), with each kernel's launch count over that run (flash attention
-   exactly 1024, the SSD scan 0);
+   exactly 1024: 32 on the prefill route and 992 on the decode route; the
+   SSD scan 0);
 5. the whole llama path, kernel against plain: the same serve at full
    width and 2 layers on the card and on the CPU with the same weights and
    teacher-forced tokens, logits of every step compared; the card's
@@ -30,12 +39,13 @@ Phases, each reported on its own lines:
 7. ``repro_torch.launch.serve.main`` at the full width of mamba2-2.7b
    (64 layers, 16 stages, 2 micro-batches, batch 8, prompt 512 = two SSD
    chunks, 32 tokens, f32): the SSD scan exactly 128 launches (prefill
-   only), flash attention 0;
+   only), flash attention 0 (on either route);
 8. the whole mamba2 path, kernel against plain, as phase 5 (2 layers, 2
    stages, batch 4, prompt 512, 8 teacher-forced steps).
 
-Every kernel's launch counter is set to 0 just before each serve (phases
-4 and 7) and read just after it.
+Every kernel's launch counters (``launches`` and, for flash attention,
+``launches_prefill`` / ``launches_decode``) are set to 0 just before each
+serve (phases 4 and 7) and read just after it.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -44,6 +54,7 @@ Exits non-zero without a CUDA card or outside a checkout.
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -56,6 +67,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PEAK_BYTES_S = 3.35e12                         # H100 SXM HBM3, data sheet
 PEAK_OPS_S = {torch.float32: 67e12,            # f32 outside tensor cores
               torch.bfloat16: 989e12}          # bf16 dense tensor cores
+# f32 products on the tensor cores as split-precision TF32 (three TF32
+# products per f32 product: 495 / 3 TFLOP/s); bf16 as above
+PEAK_OPS_TC_S = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # the JAX kernel tests'
 # whole-path parity, card vs CPU, f32: cuBLAS and the CPU sum the d_ff=8192
 # and vocab-wide products in another order; the error stays ~1e-6 relative
@@ -106,9 +120,20 @@ def call_ms(fn, iters: int = 20) -> float:
     return 1e3 * (time.perf_counter() - t0) / iters
 
 
-def attention_bound(q, k, q_start, kv_len, causal):
-    """Least time (ms) for attention of these inputs on the card, and
-    which bound sets it.  Bytes: q read and the output written once, K/V
+def bounds(nbytes: float, ops: float, dtype) -> dict:
+    """Least time (ms) for ``nbytes`` moved and ``ops`` done on the card:
+    ``bound_ms`` at PEAK_OPS_S, ``bound_tc_ms`` at PEAK_OPS_TC_S, and which
+    of bytes or operations sets ``bound_ms``."""
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops, t_tc = ops / PEAK_OPS_S[dtype], ops / PEAK_OPS_TC_S[dtype]
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_tc_ms=1e3 * max(t_bytes, t_tc))
+
+
+def attention_bound(q, k, q_start, kv_len, causal) -> dict:
+    """Least time (ms) for attention of these inputs on the card
+    (:func:`bounds`).  Bytes: q read and the output written once, K/V
     read once for the keys some row of the batch row can see.  Operations:
     4*D per visible query-key pair (q.k and p.v), counted for this data;
     a row that sees no key averages V over all S keys."""
@@ -124,8 +149,7 @@ def attention_bound(q, k, q_start, kv_len, causal):
     keys = seen.max(dim=1).values.sum().item()
     nbytes = 2 * q.numel() * el + 2 * keys * Hkv * D * el
     ops = 4 * D * Hq * seen.sum().item()
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S[q.dtype]
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return bounds(nbytes, ops, q.dtype)
 
 
 def library_attention(q, k, v, q_start, kv_len, causal, scale):
@@ -145,6 +169,32 @@ def library_attention(q, k, v, q_start, kv_len, causal, scale):
                         enable_gqa=True)
 
 
+def flash_sass(build) -> dict:
+    """Counts of tensor-core products (HMMA) and cp.async loads (LDGSTS) in
+    each kernel of the built flash library, keyed ``route dtype D``; None
+    when the toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(build.library_path(
+        "flash_attention"))], capture_output=True, text=True, timeout=300,
+        check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : \S*flash_(\w+?)_kernelI(f|13__nv_bfloat16)"
+                       r"Li(\d+)E", line)
+        if fn:
+            cur = (f"{fn[1]} {'f32' if fn[2] == 'f' else 'bf16'} "
+                   f"D={fn[3]}")
+            counts[cur] = dict(HMMA=0, LDGSTS=0)
+        elif "Function : " in line:
+            cur = None
+        elif cur:
+            for op in ("HMMA", "LDGSTS"):
+                counts[cur][op] += bool(re.search(rf"\b{op}\b", line))
+    return counts
+
+
 def phase_kernels(FA, results: list) -> list:
     """Phase 3: the flash kernel against its plain version."""
     dev = torch.device("cuda")
@@ -162,13 +212,14 @@ def phase_kernels(FA, results: list) -> list:
         q4 = q if q.dim() == 4 else q.unsqueeze(2)
         k4 = k if k.dim() == 4 else k.unsqueeze(2)
         v4 = v if v.dim() == 4 else v.unsqueeze(2)
-        bound, by = attention_bound(q4, k4, q_start, kv_len, causal)
         row = dict(label=label, dtype=str(dtype).replace("torch.", ""),
+                   route=FA.route(q4.shape[1], q4.shape[2], k4.shape[2]),
                    max_abs_err=err, tol=TOL[dtype], ms=time_ms(kern),
                    call_ms=call_ms(kern), plain_ms=time_ms(plain),
                    library_ms=time_ms(library_attention(
                        q4, k4, v4, q_start, kv_len, causal, scale)),
-                   bound_ms=bound, bound_by=by, ok=ok)
+                   **attention_bound(q4, k4, q_start, kv_len, causal),
+                   ok=ok)
         print("kernel " + json.dumps(row), flush=True)
         results.append(row)
         if not ok:
@@ -203,28 +254,31 @@ def phase_kernels(FA, results: list) -> list:
 
     # the serving path's shapes (llama3.2-1b: 32 q heads, 8 kv heads, D 64)
     # at batch 8 and at the main path's micro-batch of 4 rows; then per-row
-    # offsets with an idle row (kv_len = 0: averages V over all S keys)
-    for label, B, T, q_start, kv_len in (
-            ("prefill B=8", 8, 512, [0] * 8, [512] * 8),
-            ("main-path prefill B=4", 4, 512, [0] * 4, [512] * 4),
-            ("main-path decode B=4 per-row", 4, 1, [527, 520, 300, 543],
+    # offsets with an idle row (kv_len = 0: averages V over all S keys),
+    # and the decode route over a long cache (16 splits of 256 keys)
+    for label, B, T, S, q_start, kv_len in (
+            ("prefill B=8", 8, 512, 544, [0] * 8, [512] * 8),
+            ("main-path prefill B=4", 4, 512, 544, [0] * 4, [512] * 4),
+            ("main-path decode B=4 per-row", 4, 1, 544, [527, 520, 300, 543],
              [528, 521, 301, 544]),
-            ("idle row B=3 per-row", 3, 4, [0, 9, 3], [4, 13, 0])):
+            ("idle row B=3 per-row", 3, 4, 544, [0, 9, 3], [4, 13, 0]),
+            ("long decode B=4 per-row", 4, 1, 4096, [4095, 4000, 2500, 1000],
+             [4096, 4001, 2501, 1001])):
         for dtype in (torch.float32, torch.bfloat16):
             q = rnd(B, T, 32, 64, dt=dtype)
-            k, v = rnd(B, 544, 8, 64, dt=dtype), rnd(B, 544, 8, 64, dt=dtype)
+            k, v = rnd(B, S, 8, 64, dt=dtype), rnd(B, S, 8, 64, dt=dtype)
             qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
             kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
             kw = dict(scale=0.125, causal=True, q_start=qs, kv_len=kl)
-            run(f"{label} T={T} S=544 Hq=32 Hkv=8 D=64", q, k, v, qs, kl,
+            run(f"{label} T={T} S={S} Hq=32 Hkv=8 D=64", q, k, v, qs, kl,
                 True, lambda: FA.flash_attend(q, k, v, **kw),
                 lambda: FA.attend_ref(q, k, v, **kw), dtype)
     return bad
 
 
-def ssd_bound(x, N: int, chunk: int, init_state: bool):
-    """Least time (ms) for the SSD scan of these inputs on the card, and
-    which bound sets it.  Bytes: x, dt, Bm, Cm read and y written once;
+def ssd_bound(x, N: int, chunk: int, init_state: bool) -> dict:
+    """Least time (ms) for the SSD scan of these inputs on the card
+    (:func:`bounds`).  Bytes: x, dt, Bm, Cm read and y written once;
     the initial state read (when given) and the final state written (f32).
     Operations: the chunked decomposition's products at this chunk size,
     2 flops per multiply-add: per (row, chunk, head) the intra-chunk
@@ -238,8 +292,7 @@ def ssd_bound(x, N: int, chunk: int, init_state: bool):
     nbytes = (2 * x.numel() * el + B * T * H * 4 + 2 * B * T * N * el
               + state * (2 if init_state else 1))
     ops = 2 * B * nc * (H * (pairs * P + 2 * c * P * N) + pairs * N)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S[x.dtype]
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return bounds(nbytes, ops, x.dtype)
 
 
 def phase_ssd(SSD, results: list) -> list:
@@ -277,13 +330,12 @@ def phase_ssd(SSD, results: list) -> list:
             err_y, err_s = rel(y, yr), rel(fin, fr)
             ok = (max(err_y, err_s) < TOL[dtype]
                   and bool(torch.isfinite(y.float()).all()))
-            bound, by = ssd_bound(x, N, chunk, with_init)
             row = dict(label=label, dtype=str(dtype).replace("torch.", ""),
                        max_abs_err=(y.float() - yr.float()).abs().max().item(),
                        rel_err=err_y, state_rel_err=err_s, tol=TOL[dtype],
                        ms=time_ms(kern), call_ms=call_ms(kern),
                        plain_ms=time_ms(plain), library_ms=None,
-                       bound_ms=bound, bound_by=by, ok=ok)
+                       **ssd_bound(x, N, chunk, with_init), ok=ok)
             print("kernel " + json.dumps(row), flush=True)
             results.append(row)
             if not ok:
@@ -292,18 +344,28 @@ def phase_ssd(SSD, results: list) -> list:
     return bad
 
 
+def launch_counters(counters: dict) -> dict:
+    """Every launch counter of every kernel wrapper: ``name`` for its
+    ``launches``, ``name.route`` for each ``launches_<route>``."""
+    return {(name if a == "launches" else f"{name}.{a[len('launches_'):]}"):
+            (fn, a)
+            for name, fn in counters.items() for a in sorted(vars(fn))
+            if a == "launches" or a.startswith("launches_")}
+
+
 def serve_main_path(serve, argv: list, counters: dict, want: dict,
                     vocab: int) -> dict:
-    """Drive ``serve.main(argv)`` once with every kernel's launch counter
+    """Drive ``serve.main(argv)`` once with every kernel's launch counters
     set to 0 just before and read just after; fail unless each count is
     the one wanted and the tokens and logits are sane."""
     print(f"serve: python -m repro_torch.launch.serve {' '.join(argv)}",
           flush=True)
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    every = launch_counters(counters)
+    for fn, attr in every.values():
+        setattr(fn, attr, 0)
     out = serve.main(argv)
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = {key: getattr(fn, attr) for key, (fn, attr) in every.items()}
     batch, gen = int(argv[argv.index("--batch") + 1]), \
         int(argv[argv.index("--gen") + 1])
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -418,6 +480,16 @@ def main() -> None:
             if any(k in line for k in ("entry function", "registers",
                                        "spill")):
                 print(f"  {name}: {line.strip()}", flush=True)
+    sass = flash_sass(build)
+    print(f"sass {json.dumps(sass)}", flush=True)
+    if sass is None:
+        print("sass: no cuobjdump beside nvcc; machine code not read",
+              flush=True)
+    elif not sass or any(
+            (k.startswith("prefill") and v["HMMA"] == 0)
+            or (k.split()[0] in ("prefill", "decode") and v["LDGSTS"] == 0)
+            for k, v in sass.items()):
+        fail(f"flash kernels lack tensor-core products or cp.async: {sass}")
 
     # ---- 3. kernels against their plain versions --------------------------
     rows: list = []
@@ -431,7 +503,9 @@ def main() -> None:
         serve, ["--arch", "llama3.2-1b", "--stages", "8", "--tensor", "1",
                 "--microbatches", "2", "--batch", "8", "--prompt-len", "512",
                 "--gen", "32", "--device", "cuda"],
-        counters, dict(flash_attention=16 * 2 * (1 + 31), ssd_scan=0),
+        counters, {"flash_attention": 16 * 2 * (1 + 31),
+                   "flash_attention.prefill": 16 * 2,
+                   "flash_attention.decode": 16 * 2 * 31, "ssd_scan": 0},
         128256)
 
     # ---- 5. whole llama path, kernel vs plain -----------------------------
@@ -449,15 +523,17 @@ def main() -> None:
         serve, ["--arch", "mamba2-2.7b", "--stages", "16", "--tensor", "1",
                 "--microbatches", "2", "--batch", "8", "--prompt-len", "512",
                 "--gen", "32", "--device", "cuda"],
-        counters, dict(flash_attention=0, ssd_scan=64 * 2), 50280)
+        counters, {"flash_attention": 0, "flash_attention.prefill": 0,
+                   "flash_attention.decode": 0, "ssd_scan": 64 * 2}, 50280)
 
     # ---- 8. whole mamba2 path, kernel vs plain ----------------------------
     ssd_path_err = phase_parity(serve_mods, "mamba2-2.7b", 512)
 
-    pick = lambda rs, prefix: next(r for r in rs if r["label"].startswith(
-        prefix) and r["dtype"] == "float32")
+    pick = lambda rs, prefix, dtype="float32": next(
+        r for r in rs if r["label"].startswith(prefix) and r["dtype"] == dtype)
     main_row = pick(rows, "main-path prefill")
-    decode_row = pick(rows, "main-path decode")
+    keys = ("label", "dtype", "ms", "call_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "bound_tc_ms", "max_abs_err")
     flash = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -467,13 +543,20 @@ def main() -> None:
         ms=main_row["ms"], call_ms=main_row["call_ms"],
         plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+        bound_tc_ms=main_row["bound_tc_ms"],
         library_ms=main_row["library_ms"],
         shape=main_row["label"] + " f32",
-        decode=dict((k, decode_row[k]) for k in
-                    ("label", "ms", "call_ms", "plain_ms", "library_ms",
-                     "bound_ms",
-                     "bound_by", "max_abs_err")),
-        path_parity_max_abs_err=path_err)
+        # per kernel route: the main path's launches and the phase-3 rows
+        routes={name: dict(
+            launches=llama["launches"][f"flash_attention.{name}"],
+            rows=[{k: r[k] for k in keys} for r in picked])
+            for name, picked in (
+                ("prefill", [main_row, pick(rows, "main-path prefill",
+                                            "bfloat16")]),
+                ("decode", [pick(rows, "main-path decode"),
+                            pick(rows, "main-path decode", "bfloat16"),
+                            pick(rows, "long decode")]))},
+        sass=sass, path_parity_max_abs_err=path_err)
     ssd_row = pick(ssd_rows, "main-path prefill")
     ssd_bf16 = next(r for r in ssd_rows if r["label"].startswith(
         "main-path prefill") and r["dtype"] == "bfloat16")
@@ -486,10 +569,11 @@ def main() -> None:
         ms=ssd_row["ms"], call_ms=ssd_row["call_ms"],
         plain_ms=ssd_row["plain_ms"],
         bound_ms=ssd_row["bound_ms"], bound_by=ssd_row["bound_by"],
+        bound_tc_ms=ssd_row["bound_tc_ms"],
         library_ms=None, shape=ssd_row["label"] + " f32",
         bf16=dict((k, ssd_bf16[k]) for k in
                   ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-                   "rel_err")),
+                   "bound_tc_ms", "rel_err")),
         path_parity_max_abs_err=ssd_path_err)
     print(json.dumps({"serve": {"llama3.2-1b": llama,
                                 "mamba2-2.7b": mamba}}), flush=True)

@@ -14,40 +14,71 @@
 //   sees no key at all averages V over all S keys, as the reference does;
 //   f32 scores, running max / sum / accumulator; output in q's dtype.
 //
-// Design (simple and right first):
-//   one block per (64-row query tile, query head, batch row), 256 threads,
-//   four threads per query row, each owning D/4 interleaved columns of q
-//   and of the f32 accumulator (column c = 4*i + part, so the four threads
-//   of a row hit four consecutive shared-memory banks);
-//   K/V tiles of 32 keys are staged in shared memory as f32;
-//   a q.k score is four partial dot products joined by two xor shuffles;
-//   online softmax per tile: max over the tile, rescale, exp, P.V;
-//   the kv loop stops at min(kv_len[b], causal limit of the tile's last
-//   row), so decode and short prefixes read only the keys they need.
+// Two routes behind the one entry point; the wrapper picks one from static
+// shapes (flash_attention.py::route): decode when T * (Hq / Hkv) <= 16,
+// prefill otherwise.
 //
-// What bounds it on the H100: at the serving shapes (head_dim 64, f32) the
-// prefill call's least time is set by its operations (4*D flops per
-// visible query-key pair, 67 TFLOP/s of f32 outside the tensor cores) and
-// the decode call's (one query row) by the bytes of the K/V prefix.  This
-// version is held back by its own issue rate instead: every FMA reads its
-// K or V operand with its own 4-byte shared-memory load, so load issue,
-// not the FMA units, sets the pace, and a decode block computes all 64
-// rows of its tile though one is live.  Vectorised shared loads or more
-// rows per thread, mma/wgmma products, double-buffered tiles (cp.async /
-// TMA) and a decode block that packs the query heads of one kv head are
-// the next steps, measured against the bounds in PERF.md.
+// Decode route (split-KV, GQA-packed).  At T = 1 the call is bound by the
+// bytes of the K/V prefix (4 rows x 8 kv heads x ~540 keys x 64 x 4 B x 2
+// at the serving shape: 2.3 us at 3.35 TB/s), so the design is about bytes
+// in flight.  One block per (key split, kv head, batch row) holds all
+// Hq/Hkv query heads x T rows of that kv head (<= 16 rows), so each K/V
+// byte is read once per call.  The split length is a multiple of 64 keys
+// chosen by the wrapper from the static S (never from kv_len) so that the
+// grid fills the card (64 keys a split at the serving shape: 9 splits, 288
+// blocks).  A 64-key K and V tile arrive by 16-byte cp.async (neighbouring
+// threads on neighbouring addresses), double-buffered when a split holds
+// more than one tile.  Scores, softmax and P.V run on the CUDA cores from
+// shared memory (the work is tiny); when the rows are fewer than P.V's
+// lane groups, the spare groups take every other key and their sums are
+// added at the end, so no thread idles.  Each split writes its f32 partial
+// (max, sum, unnormalised acc) into a scratch the wrapper allocates; a
+// combine kernel (one block per query row) merges the splits with
+// log-sum-exp rescaling.  A split past a row's visible keys reports (max
+// -1e30, sum 0) and adds no mass; a row that sees no key takes -1e30
+// logits in every split, so the merge averages V over all S keys.
+//
+// Prefill route (tensor cores, cp.async double buffering).  At T = 512 the
+// call is bound by its operations.  One block per (64 query rows, query
+// head, batch row), four warps of 16 rows each (FlashAttention-2 style);
+// blocks are issued longest-first (the last query tile, which sees the
+// most keys under the causal mask, first) so the diagonal's unequal work
+// does not leave SMs idle at the tail.  K/V tiles of 64 keys (32 for f32
+// at head_dim 128) stream through a two-stage cp.async ring; the kv loop
+// ends at the tile's last visible key.  Q.K^T and P.V run on the tensor
+// cores with mma.sync:
+//   bf16: m16n8k16 with f32 accumulation; the score accumulator of two
+//     key tiles is the A fragment of P.V as it stands, and V's B fragment
+//     comes from ldmatrix.trans;
+//   f32: m16n8k8 TF32 in split precision ("3xTF32"): each operand x is
+//     split as big = tf32(x) (rounded to nearest), small = x - big (exact,
+//     read by the tensor core as TF32, i.e. truncated), and a product is
+//     big*big + big*small + small*big with f32 accumulation.  What it
+//     leaves: small*small (<= 2^-22 |ab|) and the truncation of the small
+//     parts (< 2^-21 |ab| each), about 1e-6 relative per product, against
+//     one TF32 pass's 2^-11 ~ 5e-4, which misses the 2e-5 f32 tolerance
+//     (tests/test_torch_flash_split.py emulates both).  The score accumulator of m16n8k8 is not laid out like
+//     its A fragment; the kernel needs no shuffle because the sum over a
+//     k-step may take its 8 indices in any order: logical k = t and t + 4
+//     are read as physical 2t and 2t + 1 (for d in Q.K^T, for keys in
+//     P.V), which is where the accumulator already holds them.
+// mma.sync with cp.async is the first Hopper design; wgmma with TMA (and
+// V transposed in shared memory for TF32's K-major operands) is the route
+// to the full tensor-core rate.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
-constexpr int BLOCK_Q = 64;             // query rows per block
-constexpr int BLOCK_K = 32;             // keys per shared-memory tile
-constexpr int TPR = 4;                  // threads per query row
-constexpr int THREADS = BLOCK_Q * TPR;  // 256
 constexpr float NEG_MASK = -1e30f;      // the reference's masked logit
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int THREADS = 128;            // both routes: four warps
+constexpr int DEC_ROWS = 16;            // query rows a decode block holds
+constexpr int DEC_TK = 64;              // keys per decode tile
+constexpr int DEC_MAX_SPLITS = 64;
 
 struct Params {
   const void* q;
@@ -56,14 +87,20 @@ struct Params {
   void* o;
   const int* q_start;
   const int* kv_len;
+  float* part;                          // decode: split partials
   int B, T, S, Hq, Hkv;
+  int n_split, split_len;               // decode route
   long long sq_b, sq_t, sq_h;           // strides in elements
   long long sk_b, sk_s, sk_h;
   long long sv_b, sv_s, sv_h;
   long long so_b, so_t, so_h;
-  float scale;
+  float scale_log2;                     // softmax scale * log2(e)
   int causal;
 };
+
+// ---------------------------------------------------------------------------
+// Small helpers
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -73,122 +110,739 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
+// two neighbouring outputs (8- or 4-byte aligned)
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// 16 bytes of shared memory as floats
+__device__ __forceinline__ void load16(const float* p, float (&f)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16-byte async copy; when !pred nothing is read and the 16 bytes are zeroed
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// keys row i may see: [0, row_end); row_end <= 0 means the row sees none
+// and, as in the reference, averages V over all S keys
+__device__ __forceinline__ int row_end(const Params& p, int q0, int kl,
+                                       int i) {
+  return p.causal ? min(kl, q0 + i + 1) : kl;
+}
+// the score of key ``key`` for a row with visible end ``re``: its value if
+// visible, -1e30 for every key < S of a row that sees none, else -inf (no
+// weight at all, which is what -1e30 gives beside a finite logit)
+__device__ __forceinline__ float mask_score(float s, int key, int re, int S) {
+  if (re > 0) return key < re ? s : -INFINITY;
+  return key < S ? NEG_MASK : -INFINITY;
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core products (mma.sync)
+// ---------------------------------------------------------------------------
+
+// x = big + small: big is x rounded to TF32 (to nearest, ties away from
+// zero, as cvt.rna.tf32.f32 gives) by integer ops on its bit pattern, and
+// small = x - big exactly; small goes to the tensor core as it is, which
+// reads its top 19 bits (TF32 truncation of small)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// c += a.b in 3xTF32 (small terms first)
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           const uint32_t (&bb)[2],
+                                           const uint32_t (&bs)[2]) {
+  mma_tf32(c, as, bb);
+  mma_tf32(c, ab, bs);
+  mma_tf32(c, ab, bb);
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// ---------------------------------------------------------------------------
+// Prefill route
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+struct PrefillCfg {
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr int BM = 64;                       // query rows per block
+  static constexpr int BN = (F32 && D == 128) ? 32 : 64;  // keys per tile
+  // row pitches (elements) that keep each warp's fragment loads free of
+  // bank conflicts: 8 extra elements for Q and K; V is read by rows of
+  // keys (f32: two 4-byte loads 2t and 2t+1 keys apart) or by ldmatrix
+  static constexpr int LDQ = D + 8;
+  static constexpr int LDK = D + 8;
+  static constexpr int LDV = D + (F32 ? 4 : 8);
+  static constexpr int SMEM = (BM * LDQ + 2 * BN * LDK + 2 * BN * LDV)
+                              * (int)sizeof(T);
+};
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const Params p) {
-  constexpr int DP = D / TPR;           // columns per thread
-  __shared__ float k_s[BLOCK_K][D];
-  __shared__ float v_s[BLOCK_K][D];
+flash_prefill_kernel(const Params p) {
+  using C = PrefillCfg<T, D>;
+  constexpr int BM = C::BM, BN = C::BN, NT = BN / 8, DT = D / 8;
+  constexpr int LDQ = C::LDQ, LDK = C::LDK, LDV = C::LDV;
+  constexpr int VEC = 16 / (int)sizeof(T);            // elements per 16 B
+  constexpr int CH = D / VEC;                         // 16 B chunks per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);            // [BM][LDQ]
+  T* k_s = q_s + BM * LDQ;                            // [2][BN][LDK]
+  T* v_s = k_s + 2 * BN * LDK;                        // [2][BN][LDV]
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int r = tid / TPR, part = tid % TPR;
-  const int i = qt * BLOCK_Q + r;       // this thread's query row
+  const int n_qt = gridDim.z;
+  const int qt = n_qt - 1 - blockIdx.z;               // longest tiles first
+  const int h = blockIdx.x, b = blockIdx.y;
   const int hk = h / (p.Hq / p.Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
 
   const T* __restrict__ qp = static_cast<const T*>(p.q);
   const T* __restrict__ kp = static_cast<const T*>(p.k);
   const T* __restrict__ vp = static_cast<const T*>(p.v);
   T* __restrict__ op = static_cast<T*>(p.o);
 
-  // keys row ii may see: [0, row_end(ii)); non-decreasing in ii
   const int q0 = p.q_start[b];
   const int kl = min(p.kv_len[b], p.S);
-  auto row_end = [&](int ii) { return p.causal ? min(kl, q0 + ii + 1) : kl; };
-  const int i_first = qt * BLOCK_Q;
-  const int i_last = min(i_first + BLOCK_Q, p.T) - 1;
-  int n_loop = row_end(i_last);
-  // a row that sees no key averages V over all S keys (all logits -1e30)
-  if (row_end(i_first) <= 0) n_loop = p.S;
-  const int my_end = row_end(i);
+  const int i_first = qt * BM;
+  const int i_last = min(i_first + BM, p.T) - 1;
+  // row_end is non-decreasing in i: the last row sees the most keys; a
+  // tile whose first row sees none needs every key (its -1e30 logits)
+  int n_loop = row_end(p, q0, kl, i_last);
+  if (row_end(p, q0, kl, i_first) <= 0) n_loop = p.S;
+  const int n_tiles = (n_loop + BN - 1) / BN;
 
-  float qv[DP], acc[DP];
-#pragma unroll
-  for (int c = 0; c < DP; ++c) {
-    qv[c] = 0.f;
-    acc[c] = 0.f;
-  }
-  if (i < p.T) {
-    const T* qrow = qp + b * p.sq_b + (long long)i * p.sq_t + h * p.sq_h;
-#pragma unroll
-    for (int c = 0; c < DP; ++c) qv[c] = to_f32(qrow[c * TPR + part]);
-  }
-  float m = NEG_MASK, l = 0.f;
+  // this thread's two rows, and the warp's first row (fewest keys)
+  const int r0 = i_first + warp * 16 + g;
+  const int re0 = row_end(p, q0, kl, r0);
+  const int re1 = row_end(p, q0, kl, r0 + 8);
+  const int w_end = row_end(p, q0, kl, i_first + warp * 16);
 
+  // Q tile (its own cp.async group), then K/V tile 0
+  for (int e = tid; e < BM * CH; e += THREADS) {
+    const int r = e / CH, c = e % CH, i = i_first + r;
+    const bool ok = i < p.T;
+    const T* src = qp + b * p.sq_b + (long long)(ok ? i : 0) * p.sq_t
+                   + h * p.sq_h + c * VEC;
+    cp_async16(q_s + r * LDQ + c * VEC, src, ok);
+  }
+  cp_async_commit();
   const long long kbase = b * p.sk_b + hk * p.sk_h;
   const long long vbase = b * p.sv_b + hk * p.sv_h;
-  for (int j0 = 0; j0 < n_loop; j0 += BLOCK_K) {
-    // stage keys/values [j0, j0 + BLOCK_K) as f32; rows past n_loop are
-    // zero and get weight exactly 0 below
-    for (int e = tid; e < BLOCK_K * D; e += THREADS) {
-      const int jj = e / D, c = e % D, key = j0 + jj;
-      float kx = 0.f, vx = 0.f;
-      if (key < n_loop) {
-        kx = to_f32(kp[kbase + (long long)key * p.sk_s + c]);
-        vx = to_f32(vp[vbase + (long long)key * p.sv_s + c]);
+  auto load_kv = [&](int tile, int st) {
+    const int j0 = tile * BN;
+    for (int e = tid; e < BN * CH; e += THREADS) {
+      const int r = e / CH, c = e % CH, key = j0 + r;
+      const bool ok = key < n_loop;                   // zero past the end
+      const long long kk = ok ? key : 0;
+      cp_async16(k_s + (st * BN + r) * LDK + c * VEC,
+                 kp + kbase + kk * p.sk_s + c * VEC, ok);
+      cp_async16(v_s + (st * BN + r) * LDV + c * VEC,
+                 vp + vbase + kk * p.sv_s + c * VEC, ok);
+    }
+    cp_async_commit();
+  };
+  load_kv(0, 0);
+
+  float o[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  float m0 = NEG_MASK, m1 = NEG_MASK, l0 = 0.f, l1 = 0.f;
+  const T* qw = q_s + (warp * 16) * LDQ;
+  // bf16: the warp's Q fragments, held in registers for the whole loop
+  // (f32 re-reads Q from shared memory: its split halves would not fit)
+  uint32_t qf[C::F32 ? 1 : D / 16][4];
+  if constexpr (!C::F32) {
+    cp_async_wait<1>();                         // the Q group has landed
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const T* qa = qw + g * LDQ + kk * 16 + 2 * t4;
+      qf[kk][0] = ld_u32(qa);
+      qf[kk][1] = ld_u32(qa + 8 * LDQ);
+      qf[kk][2] = ld_u32(qa + 8);
+      qf[kk][3] = ld_u32(qa + 8 * LDQ + 8);
+    }
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_tiles) {
+      load_kv(it + 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* ks = k_s + st * BN * LDK;
+    const T* vs = v_s + st * BN * LDV;
+
+    // ---- S = Q K^T (this warp's 16 rows x BN keys) -----------------------
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    if constexpr (C::F32) {
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        // logical k = t4 / t4 + 4 are physical d = 2 t4 / 2 t4 + 1
+        const float* qa = qw + g * LDQ + kk * 8 + 2 * t4;
+        const float2 x0 = *reinterpret_cast<const float2*>(qa);
+        const float2 x1 = *reinterpret_cast<const float2*>(qa + 8 * LDQ);
+        uint32_t ab[4], as[4];
+        split_tf32(x0.x, ab[0], as[0]);
+        split_tf32(x1.x, ab[1], as[1]);
+        split_tf32(x0.y, ab[2], as[2]);
+        split_tf32(x1.y, ab[3], as[3]);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float2 y = *reinterpret_cast<const float2*>(
+              ks + (n * 8 + g) * LDK + kk * 8 + 2 * t4);
+          uint32_t bb[2], bs[2];
+          split_tf32(y.x, bb[0], bs[0]);
+          split_tf32(y.y, bb[1], bs[1]);
+          mma_3xtf32(s[n], ab, as, bb, bs);
+        }
       }
-      k_s[jj][c] = kx;
-      v_s[jj][c] = vx;
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const T* kb = ks + (n * 8 + g) * LDK + kk * 16 + 2 * t4;
+          const uint32_t bf[2] = {ld_u32(kb), ld_u32(kb + 8)};
+          mma_bf16(s[n], qf[kk], bf);
+        }
+      }
+    }
+
+    // ---- online softmax (base 2) ------------------------------------------
+    const int j0 = it * BN;
+    const bool need_mask = w_end <= 0 || j0 + BN > w_end;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float x = s[n][c] * p.scale_log2;
+        if (need_mask)
+          x = mask_score(x, j0 + n * 8 + 2 * t4 + (c & 1), c < 2 ? re0 : re1,
+                         p.S);
+        s[n][c] = x;
+      }
+    }
+    float mx0 = NEG_MASK, mx1 = NEG_MASK;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+#pragma unroll
+    for (int o_ = 1; o_ <= 2; o_ <<= 1) {     // the quad shares the rows
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      s[n][0] = exp2f(s[n][0] - mn0);
+      s[n][1] = exp2f(s[n][1] - mn0);
+      s[n][2] = exp2f(s[n][2] - mn1);
+      s[n][3] = exp2f(s[n][3] - mn1);
+      ps0 += s[n][0] + s[n][1];
+      ps1 += s[n][2] + s[n][3];
+    }
+    l0 = l0 * al0 + ps0;                       // per-thread partial sums
+    l1 = l1 * al1 + ps1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      o[d][0] *= al0;
+      o[d][1] *= al0;
+      o[d][2] *= al1;
+      o[d][3] *= al1;
+    }
+
+    // ---- O += P V ------------------------------------------------------------
+    if constexpr (C::F32) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        // the k-step is key tile n; logical k = t4 / t4 + 4 are keys
+        // 2 t4 / 2 t4 + 1, which this thread's accumulator already holds
+        uint32_t pb[4], pl[4];
+        split_tf32(s[n][0], pb[0], pl[0]);
+        split_tf32(s[n][2], pb[1], pl[1]);
+        split_tf32(s[n][1], pb[2], pl[2]);
+        split_tf32(s[n][3], pb[3], pl[3]);
+        const float* vb = vs + (n * 8 + 2 * t4) * LDV + g;
+#pragma unroll
+        for (int d = 0; d < DT; ++d) {
+          uint32_t bb[2], bs[2];
+          split_tf32(vb[d * 8], bb[0], bs[0]);
+          split_tf32(vb[LDV + d * 8], bb[1], bs[1]);
+          mma_3xtf32(o[d], pb, pl, bb, bs);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int ks2 = 0; ks2 < BN / 16; ++ks2) {
+        const uint32_t a[4] = {pack_bf16(s[2 * ks2][0], s[2 * ks2][1]),
+                               pack_bf16(s[2 * ks2][2], s[2 * ks2][3]),
+                               pack_bf16(s[2 * ks2 + 1][0], s[2 * ks2 + 1][1]),
+                               pack_bf16(s[2 * ks2 + 1][2], s[2 * ks2 + 1][3])};
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t r[4];
+          ldmatrix_x4_trans(
+              r, vs + (ks2 * 16 + (lane & 15)) * LDV + dp * 16 + (lane >> 4) * 8);
+          const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+          mma_bf16(o[2 * dp], a, b0);
+          mma_bf16(o[2 * dp + 1], a, b1);
+        }
+      }
+    }
+    __syncthreads();                            // stage st is free again
+  }
+
+  // ---- normalise and write ---------------------------------------------------
+#pragma unroll
+  for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  T* orow0 = op + b * p.so_b + (long long)r0 * p.so_t + h * p.so_h;
+  T* orow1 = orow0 + 8 * p.so_t;
+#pragma unroll
+  for (int d = 0; d < DT; ++d) {
+    const int c = d * 8 + 2 * t4;
+    if (r0 < p.T) store2(orow0 + c, o[d][0] * inv0, o[d][1] * inv0);
+    if (r0 + 8 < p.T) store2(orow1 + c, o[d][2] * inv1, o[d][3] * inv1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Decode route
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+struct DecodeCfg {
+  static constexpr int VEC = 16 / (int)sizeof(T);     // elements per 16 B
+  static constexpr int CH = D / VEC;                  // 16 B chunks per row
+  static constexpr int LDK = D + VEC;                 // one 16 B pad per row
+  static constexpr int NRG = THREADS / CH;            // P.V row groups
+  static constexpr int RPT = (DEC_ROWS + NRG - 1) / NRG;  // P.V rows/thread
+  static constexpr size_t smem(int stages) {
+    return (size_t)stages * 2 * DEC_TK * LDK * sizeof(T)   // K, V ring
+           + DEC_ROWS * D * 4                             // q (scaled, f32)
+           + DEC_ROWS * DEC_TK * 4                        // p
+           + 2 * DEC_ROWS * 4;                            // alpha, l
+  }
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_decode_kernel(const Params p) {
+  using C = DecodeCfg<T, D>;
+  constexpr int TK = DEC_TK, VEC = C::VEC, CH = C::CH, LDK = C::LDK;
+  constexpr int NRG = C::NRG, RPT = C::RPT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int stages = p.split_len > TK ? 2 : 1;
+  T* k_s = reinterpret_cast<T*>(smem_raw);            // [stages][TK][LDK]
+  T* v_s = k_s + stages * TK * LDK;                   // [stages][TK][LDK]
+  float* q_s = reinterpret_cast<float*>(v_s + stages * TK * LDK);  // [16][D]
+  float* p_s = q_s + DEC_ROWS * D;                    // [16][TK]
+  float* a_s = p_s + DEC_ROWS * TK;                   // [16] rescale
+  float* l_s = a_s + DEC_ROWS;                        // [16] row sums
+
+  const int sp = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int G = p.Hq / p.Hkv, R = G * p.T;            // row r: i = r / G
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  const int q0 = p.q_start[b];
+  const int kl = min(p.kv_len[b], p.S);
+  const int s0 = sp * p.split_len;
+  // the block's last needed key: the last row's visible end, or S when
+  // the first row sees none (its -1e30 logits reach every key)
+  const int need = row_end(p, q0, kl, 0) <= 0 ? p.S
+                                              : row_end(p, q0, kl, p.T - 1);
+  const int e = min(min(s0 + p.split_len, p.S), need);
+
+  const long long pbase = ((long long)(b * p.Hkv + hk) * p.n_split + sp) * R;
+  float* part_acc = p.part;
+  float* part_ml = p.part + (long long)p.B * p.Hkv * p.n_split * R * D;
+  if (e <= s0) {                                      // nothing to see here
+    for (int x = tid; x < R * D; x += THREADS) part_acc[pbase * D + x] = 0.f;
+    for (int r = tid; r < R; r += THREADS) {
+      part_ml[2 * (pbase + r)] = NEG_MASK;
+      part_ml[2 * (pbase + r) + 1] = 0.f;
+    }
+    return;
+  }
+
+  const T* __restrict__ qp = static_cast<const T*>(p.q);
+  const T* __restrict__ kp = static_cast<const T*>(p.k);
+  const T* __restrict__ vp = static_cast<const T*>(p.v);
+  const long long kbase = b * p.sk_b + hk * p.sk_h;
+  const long long vbase = b * p.sv_b + hk * p.sv_h;
+  const int n_tiles = (e - s0 + TK - 1) / TK;
+  auto load_kv = [&](int tile, int st) {
+    const int j0 = s0 + tile * TK;
+    for (int x = tid; x < TK * CH; x += THREADS) {
+      const int r = x / CH, c = x % CH, key = j0 + r;
+      const bool ok = key < e;                        // zero past the end
+      const long long kk = ok ? key : s0;
+      cp_async16(k_s + (st * TK + r) * LDK + c * VEC,
+                 kp + kbase + kk * p.sk_s + c * VEC, ok);
+      cp_async16(v_s + (st * TK + r) * LDK + c * VEC,
+                 vp + vbase + kk * p.sv_s + c * VEC, ok);
+    }
+    cp_async_commit();
+  };
+  load_kv(0, 0);
+
+  // q rows of this kv head, scaled by scale * log2(e), while tile 0 flies
+  for (int x = tid; x < R * D; x += THREADS) {
+    const int r = x / D, c = x % D, i = r / G, hq = hk * G + r % G;
+    q_s[x] = to_f32(qp[b * p.sq_b + (long long)i * p.sq_t + hq * p.sq_h + c])
+             * p.scale_log2;
+  }
+
+  float m_w[4], l_w[4];                               // rows warp + 4 k
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    m_w[k] = NEG_MASK;
+    l_w[k] = 0.f;
+  }
+  float acc[RPT][VEC];
+#pragma unroll
+  for (int k = 0; k < RPT; ++k)
+#pragma unroll
+    for (int c = 0; c < VEC; ++c) acc[k][c] = 0.f;
+
+  const int jj = tid % TK, rg = tid / TK;             // scores: key, rows
+  // P.V: thread = 16 B of columns (cv) x lane group (vg) owning rows vrow,
+  // vrow + NRG, ...; when the rows leave lane groups over (R < NRG), KS =
+  // NRG / R groups share a row, each taking every KS-th key, and their
+  // partial sums are added once, after the last tile
+  const int cv = tid % CH, vg = tid / CH;
+  const int KS = R < NRG ? NRG / R : 1;
+  const int kslice = R < NRG ? vg / R : 0;
+  const int vrow = R < NRG ? vg % R : vg;
+  const bool pv_on = R >= NRG || vg < R * KS;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = stages == 2 ? it & 1 : 0;
+    if (it + 1 < n_tiles) {                           // stages == 2 here
+      load_kv(it + 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const int j0 = s0 + it * TK;
 
-    float s[BLOCK_K];
-    float m_tile = NEG_MASK;
+    // ---- scores: thread = key jj, rows rg, rg + 2, ... ---------------------
+    {
+      float dot[DEC_ROWS / 2];
 #pragma unroll
-    for (int jj = 0; jj < BLOCK_K; ++jj) {
-      float dot = 0.f;
+      for (int k = 0; k < DEC_ROWS / 2; ++k) dot[k] = 0.f;
+      const T* krow = k_s + (st * TK + jj) * LDK;
 #pragma unroll
-      for (int c = 0; c < DP; ++c) dot = fmaf(qv[c], k_s[jj][c * TPR + part], dot);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+      for (int c = 0; c < CH; ++c) {
+        float kf[VEC];
+        load16(krow + c * VEC, kf);
+#pragma unroll
+        for (int k = 0; k < DEC_ROWS / 2; ++k) {
+          const int r = rg + 2 * k;
+          if (r < R) {
+            const float* qr = q_s + r * D + c * VEC;
+#pragma unroll
+            for (int x = 0; x < VEC; x += 4) {
+              const float4 q4 = *reinterpret_cast<const float4*>(qr + x);
+              dot[k] = fmaf(q4.x, kf[x], dot[k]);
+              dot[k] = fmaf(q4.y, kf[x + 1], dot[k]);
+              dot[k] = fmaf(q4.z, kf[x + 2], dot[k]);
+              dot[k] = fmaf(q4.w, kf[x + 3], dot[k]);
+            }
+          }
+        }
+      }
       const int key = j0 + jj;
-      const float sc = key >= n_loop ? -INFINITY
-                       : (key < my_end ? dot * p.scale : NEG_MASK);
-      s[jj] = sc;
-      m_tile = fmaxf(m_tile, sc);
-    }
-    const float m_new = fmaxf(m, m_tile);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
 #pragma unroll
-    for (int jj = 0; jj < BLOCK_K; ++jj) {
-      s[jj] = expf(s[jj] - m_new);
-      psum += s[jj];
+      for (int k = 0; k < DEC_ROWS / 2; ++k) {
+        const int r = rg + 2 * k;
+        if (r < R)
+          p_s[r * TK + jj] = key < e ? mask_score(dot[k], key,
+                                                  row_end(p, q0, kl, r / G),
+                                                  p.S)
+                                     : -INFINITY;
+      }
     }
-    l = l * alpha + psum;
-#pragma unroll
-    for (int c = 0; c < DP; ++c) {
-      float a = acc[c] * alpha;
-#pragma unroll
-      for (int jj = 0; jj < BLOCK_K; ++jj) a = fmaf(s[jj], v_s[jj][c * TPR + part], a);
-      acc[c] = a;
-    }
-    m = m_new;
     __syncthreads();
+
+    // ---- online softmax: warp w owns rows w, w + 4, ... --------------------
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = warp + 4 * k;
+      if (r < R) {
+        float* pr = p_s + r * TK;
+        const float x0 = pr[lane], x1 = pr[lane + 32];
+        const float mn = fmaxf(m_w[k], warp_max(fmaxf(x0, x1)));
+        const float al = exp2f(m_w[k] - mn);
+        const float e0 = exp2f(x0 - mn), e1 = exp2f(x1 - mn);
+        pr[lane] = e0;
+        pr[lane + 32] = e1;
+        l_w[k] = l_w[k] * al + warp_sum(e0 + e1);
+        m_w[k] = mn;
+        if (lane == 0) {
+          a_s[r] = al;
+          l_s[r] = l_w[k];
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- acc = acc * alpha + P V: thread = 16 B of columns, rows vg + ... --
+    {
+      const int nk = min(TK, e - j0);
+#pragma unroll
+      for (int k = 0; k < RPT; ++k) {
+        const int r = vrow + NRG * k;
+        if (pv_on && r < R) {
+          const float al = a_s[r];
+#pragma unroll
+          for (int c = 0; c < VEC; ++c) acc[k][c] *= al;
+        }
+      }
+      const T* vcol = v_s + st * TK * LDK + cv * VEC;
+#pragma unroll 4
+      for (int j = kslice; j < nk; j += KS) {
+        float vf[VEC];
+        load16(vcol + j * LDK, vf);
+#pragma unroll
+        for (int k = 0; k < RPT; ++k) {
+          const int r = vrow + NRG * k;
+          if (pv_on && r < R) {
+            const float pk = p_s[r * TK + j];
+#pragma unroll
+            for (int c = 0; c < VEC; ++c) acc[k][c] = fmaf(pk, vf[c], acc[k][c]);
+          }
+        }
+      }
+    }
+    __syncthreads();                            // stage st and p_s are free
   }
 
-  if (i < p.T) {
-    T* orow = op + b * p.so_b + (long long)i * p.so_t + h * p.so_h;
-    const float inv = 1.f / l;
+  // ---- add the key slices' partial sums (the ring is free now) -------------
+  if (KS > 1) {
+    float* red = reinterpret_cast<float*>(smem_raw);  // [KS - 1][R][D]
+    if (pv_on && kslice > 0) {
 #pragma unroll
-    for (int c = 0; c < DP; ++c) store(orow + c * TPR + part, acc[c] * inv);
+      for (int c = 0; c < VEC; ++c)
+        red[((kslice - 1) * R + vrow) * D + cv * VEC + c] = acc[0][c];
+    }
+    __syncthreads();
+    if (pv_on && kslice == 0) {
+      for (int ks = 1; ks < KS; ++ks)
+#pragma unroll
+        for (int c = 0; c < VEC; ++c)
+          acc[0][c] += red[((ks - 1) * R + vrow) * D + cv * VEC + c];
+    }
   }
+
+  // ---- write: the output itself (one split) or this split's partial ------
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    const int r = vrow + NRG * k;
+    if (!pv_on || kslice > 0 || r >= R) continue;
+    if (p.n_split == 1) {
+      const int i = r / G, hq = hk * G + r % G;
+      T* orow = static_cast<T*>(p.o) + b * p.so_b + (long long)i * p.so_t
+                + hq * p.so_h + cv * VEC;
+      const float inv = 1.f / l_s[r];
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) store(orow + c, acc[k][c] * inv);
+    } else {
+      float* dst = part_acc + (pbase + r) * D + cv * VEC;
+#pragma unroll
+      for (int c = 0; c < VEC; c += 4)
+        *reinterpret_cast<float4*>(dst + c) =
+            make_float4(acc[k][c], acc[k][c + 1], acc[k][c + 2], acc[k][c + 3]);
+    }
+  }
+  if (p.n_split > 1) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = warp + 4 * k;
+      if (r < R && lane == 0) {
+        part_ml[2 * (pbase + r)] = m_w[k];
+        part_ml[2 * (pbase + r) + 1] = l_w[k];
+      }
+    }
+  }
+}
+
+// Merge the splits of one query row (one block per row, kv head, batch row;
+// one thread per column): out = sum_s w_s acc_s / sum_s w_s l_s with
+// w_s = 2^(m_s - max_s m_s), taken online so that the loads of different
+// splits do not wait on each other.
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+flash_combine_kernel(const Params p) {
+  const int r = blockIdx.x, hk = blockIdx.y, b = blockIdx.z, c = threadIdx.x;
+  const int G = p.Hq / p.Hkv, R = G * p.T, ns = p.n_split;
+  // split s of this row is partial index base + s * R
+  const long long base = (long long)(b * p.Hkv + hk) * ns * R + r;
+  const float* __restrict__ acc = p.part;
+  const float* __restrict__ ml = p.part + (long long)p.B * p.Hkv * ns * R * D;
+  float M = ml[2 * base], L = ml[2 * base + 1], A = acc[base * D + c];
+#pragma unroll 4
+  for (int s = 1; s < ns; ++s) {
+    const long long i = base + (long long)s * R;
+    const float m = ml[2 * i], l = ml[2 * i + 1], a = acc[i * D + c];
+    const float mn = fmaxf(M, m), f = exp2f(M - mn), w = exp2f(m - mn);
+    L = L * f + l * w;
+    A = A * f + a * w;
+    M = mn;
+  }
+  const int i = r / G, hq = hk * G + r % G;
+  store(static_cast<T*>(p.o) + b * p.so_b + (long long)i * p.so_t
+            + hq * p.so_h + c, A / L);
+}
+
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+cudaError_t launch_prefill(const Params& p, cudaStream_t stream) {
+  using C = PrefillCfg<T, D>;
+  static bool attr_set = false;         // once per instantiation
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_prefill_kernel<T, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const dim3 grid(p.Hq, p.B, (p.T + C::BM - 1) / C::BM);
+  flash_prefill_kernel<T, D><<<grid, THREADS, C::SMEM, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_decode(const Params& p, cudaStream_t stream) {
+  using C = DecodeCfg<T, D>;
+  static bool attr_set = false;         // once per instantiation
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_decode_kernel<T, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem(2));
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const size_t smem = C::smem(p.split_len > DEC_TK ? 2 : 1);
+  flash_decode_kernel<T, D>
+      <<<dim3(p.n_split, p.Hkv, p.B), THREADS, smem, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.n_split == 1) return err;
+  const int rows = p.T * (p.Hq / p.Hkv);
+  flash_combine_kernel<T, D><<<dim3(rows, p.Hkv, p.B), D, 0, stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.T + BLOCK_Q - 1) / BLOCK_Q, p.Hq, p.B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, 0, stream>>>(p);
-  return cudaGetLastError();
+  return p.n_split > 0 ? launch_decode<T, D>(p, stream)
+                       : launch_prefill<T, D>(p, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = success);
-// the launch is asynchronous on ``stream`` and allocates nothing.
+// dtype: 0 = float32, 1 = bfloat16.  n_split = 0 takes the prefill route;
+// n_split > 0 the decode route, with keys cut into n_split ranges of
+// split_len (a multiple of 64, n_split * split_len >= S, n_split <= 64,
+// T * Hq / Hkv <= 16) and, when n_split > 1, ``workspace`` holding
+// B * Hkv * n_split * (T * Hq / Hkv) * (D + 2) floats.  q/k/v rows and
+// their strides must be 16-byte aligned.  Returns a cudaError_t (0 =
+// success); the launches are asynchronous on ``stream`` and allocate
+// nothing.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         const void* q_start, const void* kv_len,
                         int B, int T, int S, int Hq, int Hkv, int D, int dtype,
@@ -196,14 +850,22 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         long long sk_b, long long sk_s, long long sk_h,
                         long long sv_b, long long sv_s, long long sv_h,
                         long long so_b, long long so_t, long long so_h,
-                        float scale, int causal, void* stream) {
+                        float scale, int causal, int n_split, int split_len,
+                        void* workspace, void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_split > 0 &&
+      (T * (Hq / Hkv) > DEC_ROWS || n_split > DEC_MAX_SPLITS ||
+       split_len <= 0 || split_len % DEC_TK != 0 ||
+       (long long)n_split * split_len < S ||
+       (n_split > 1 && workspace == nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o,
            static_cast<const int*>(q_start), static_cast<const int*>(kv_len),
-           B, T, S, Hq, Hkv,
+           static_cast<float*>(workspace),
+           B, T, S, Hq, Hkv, n_split, split_len,
            sq_b, sq_t, sq_h, sk_b, sk_s, sk_h, sv_b, sv_s, sv_h,
-           so_b, so_t, so_h, scale, causal};
+           so_b, so_t, so_h, scale * LOG2E, causal};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 32) return (int)launch<float, 32>(p, st);
   if (dtype == 0 && D == 64) return (int)launch<float, 64>(p, st);

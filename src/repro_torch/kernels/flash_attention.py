@@ -14,7 +14,14 @@ GQA by head index, per-row ``q_start``/``kv_len``, causal mask
 
 A tensor on the CPU takes the plain version (:func:`attend_ref`,
 :func:`flash_attention_ref`); a CUDA tensor launches the kernel or raises.
-``flash_attend.launches`` counts kernel launches.
+``flash_attend.launches`` counts kernel launches (one per call), and
+``launches_prefill`` / ``launches_decode`` count them by route.
+
+The kernel has two routes, picked from static shapes by :func:`route`:
+``decode`` (split-KV, all query heads of a kv head in one block) when
+``T * Hq / Hkv <= DECODE_MAX_ROWS``, else ``prefill`` (tensor cores).
+:func:`attend_split_ref` is the decode route's algorithm in plain torch
+(per-split partials and their merge), for the tests.
 """
 from __future__ import annotations
 
@@ -28,6 +35,31 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the decode route takes a call when T * Hq / Hkv query rows fit one block
+DECODE_MAX_ROWS = 16
+#: keys per shared-memory tile of the decode route; a split is a multiple
+DECODE_TILE = 64
+#: blocks the decode grid aims for: four per SM of an H100 (132 SMs)
+DECODE_BLOCKS = 4 * 132
+DECODE_MAX_SPLITS = 64
+
+
+def route(T: int, Hq: int, Hkv: int) -> str:
+    """The kernel's route for these static shapes: ``"decode"`` when the
+    T rows of all Hq / Hkv query heads of a kv head fit one block
+    (``T * Hq / Hkv <= DECODE_MAX_ROWS``), else ``"prefill"``."""
+    return "decode" if T * (Hq // Hkv) <= DECODE_MAX_ROWS else "prefill"
+
+
+def decode_splits(B: int, S: int, Hkv: int) -> tuple[int, int]:
+    """``(n_split, split_len)`` of the decode route: S cut into key ranges
+    of a multiple of DECODE_TILE keys so that B * Hkv * n_split blocks come
+    near DECODE_BLOCKS (at most DECODE_MAX_SPLITS ranges).  From static
+    shapes only, never from ``kv_len``."""
+    want = min(DECODE_MAX_SPLITS, -(-DECODE_BLOCKS // (B * Hkv)))
+    per = -(-S // want)
+    split_len = max(DECODE_TILE, -(-per // DECODE_TILE) * DECODE_TILE)
+    return -(-S // split_len), split_len
 
 
 # ---------------------------------------------------------------------------
@@ -71,6 +103,46 @@ def attend_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, T, Hq, v.shape[-1]).to(q.dtype)
 
 
+def attend_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     scale: float, causal: bool, q_start: torch.Tensor,
+                     kv_len: torch.Tensor, n_split: int) -> torch.Tensor:
+    """:func:`attend_ref`'s function computed as the decode route computes
+    it: the S keys cut into ``n_split`` ranges of ceil(S / n_split), each
+    range's partial (max m, sum l, unnormalised acc) over the keys a row
+    sees, then the merge out = sum_s w_s acc_s / sum_s w_s l_s with
+    w_s = exp(m_s - max m).  A range past a row's visible keys has
+    (m, l, acc) = (-1e30, 0, 0) and adds nothing; a row that sees no key
+    takes -1e30 logits over all S keys in every range, so it averages V."""
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    L = -(-S // n_split)
+    qg = q.reshape(B, T, Hkv, Hq // Hkv, D).float()
+    logits = torch.einsum("btkgd,bskd->bkgts", qg, k.float()) * scale
+    kpos = torch.arange(S, device=q.device)
+    end = kv_len.to(torch.int64).clamp(max=S)[:, None].expand(B, T)
+    if causal:
+        qpos = q_start.to(torch.int64)[:, None] + torch.arange(
+            T, device=q.device)
+        end = torch.minimum(end, qpos + 1)
+    idle = (end <= 0)[:, None, None, :, None]                  # [B,1,1,T,1]
+    seen = (kpos[None, None, :] < end[:, :, None])[:, None, None]
+    logits = torch.where(idle, NEG_INF,
+                         torch.where(seen, logits, -torch.inf))
+    pad = n_split * L - S
+    logits = torch.nn.functional.pad(logits, (0, pad), value=-torch.inf)
+    vs = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    lg = logits.unflatten(-1, (n_split, L))                    # [..,T,n,L]
+    m = lg.amax(-1)
+    m = torch.where(m == -torch.inf, NEG_INF, m)               # empty range
+    e = torch.exp(lg - m[..., None])
+    l = e.sum(-1)
+    acc = torch.einsum("bkgtnl,bnlkd->bkgtnd", e,
+                       vs.unflatten(1, (n_split, L)))
+    w = torch.exp(m - m.amax(-1, keepdim=True))
+    out = (w[..., None] * acc).sum(-2) / (w * l).sum(-1)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, D).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # The kernel's wrappers.
 # ---------------------------------------------------------------------------
@@ -78,7 +150,7 @@ def attend_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention_fwd.argtypes = (
-        [p] * 6 + [i] * 7 + [ll] * 12 + [ctypes.c_float, i, p])
+        [p] * 6 + [i] * 7 + [ll] * 12 + [ctypes.c_float, i, i, i, p, p])
     lib.flash_attention_fwd.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -118,6 +190,12 @@ def _check_cuda(q, k, v, q_start, kv_len):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have a unit-stride head dim, "
                              f"strides {t.stride()}")
+        # rows arrive by 16-byte copies (a size-1 dim's stride moves none)
+        el = t.element_size()
+        if t.data_ptr() % 16 or any(st * el % 16 for st, n in zip(
+                t.stride()[:3], t.shape[:3]) if n > 1):
+            raise ValueError(f"{name} rows must be 16-byte aligned: data "
+                             f"pointer {t.data_ptr()}, strides {t.stride()}")
     if not (q_start.is_contiguous() and kv_len.is_contiguous()):
         raise ValueError("q_start and kv_len must be contiguous")
     if q.shape[1] == 0 or k.shape[1] == 0:
@@ -140,6 +218,12 @@ def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, T, Hq, D), dtype=q.dtype, device=q.device)
+    decode = route(T, Hq, Hkv) == "decode"
+    n_split, split_len = decode_splits(B, S, Hkv) if decode else (0, 0)
+    # the decode route's split partials: acc [.., R, D], then (m, l) [.., R]
+    work = (torch.empty(B * Hkv * n_split * T * (Hq // Hkv) * (D + 2),
+                        dtype=torch.float32, device=q.device)
+            if n_split > 1 else None)
     lib = build.load("flash_attention", _declare)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -148,15 +232,23 @@ def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q_start.data_ptr(), kv_len.data_ptr(),
             B, T, S, Hq, Hkv, D, _DTYPE_CODE[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], float(scale), int(bool(causal)), stream)
+            *out.stride()[:3], float(scale), int(bool(causal)),
+            n_split, split_len, None if work is None else work.data_ptr(),
+            stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd failed: CUDA error {rc} "
                            f"({lib.flash_attention_error_string(rc).decode()})")
     flash_attend.launches += 1
+    if decode:
+        flash_attend.launches_decode += 1
+    else:
+        flash_attend.launches_prefill += 1
     return out
 
 
 flash_attend.launches = 0
+flash_attend.launches_prefill = 0
+flash_attend.launches_decode = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -42,6 +42,83 @@ def test_kernel_matches_plain_on_card(dtype):
                                    atol=TOL[dtype], rtol=TOL[dtype])
 
 
+def _flash_inputs(g, B, T, S, Hq, Hkv, D, q_start, kv_len, dtype, dev):
+    rnd = lambda *shape: torch.randn(*shape, generator=g).to(dev, TDT[dtype])
+    return (rnd(B, T, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D),
+            torch.tensor(q_start, dtype=torch.int32, device=dev),
+            torch.tensor(kv_len, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_routes_match_plain_on_card(dtype, D):
+    """Both routes of the kernel against its plain version: GQA groups
+    1/4/8, T on both sides of the decode rule (T * groups <= 16), a ragged
+    T = 100, per-row offsets with a full prefix, kv_len = 40 and an idle
+    row (kv_len = 0), causal and not; then the decode route over S = 4096
+    (many key splits) and an S that is not a multiple of its split."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(D)
+    S, Hkv, seen = 160, 2, set()
+    for groups in (1, 4, 8):
+        Hq = Hkv * groups
+        edge = FA.DECODE_MAX_ROWS // groups
+        for T in sorted({1, 2, edge, edge + 1, 100}):
+            seen.add(FA.route(T, Hq, Hkv))
+            for causal in (True, False):
+                # rows: a prompt from 0, a prefix of 40 keys, an idle row,
+                # the last T positions of a full cache
+                q_start = [0, max(0, 40 - T), 0, S - T]
+                kv_len = [T, 40, 0, S]
+                q, k, v, qs, kl = _flash_inputs(g, 4, T, S, Hq, Hkv, D,
+                                                q_start, kv_len, dtype, dev)
+                kw = dict(scale=D ** -0.5, causal=causal, q_start=qs,
+                          kv_len=kl)
+                got = FA.flash_attend(q, k, v, **kw)
+                want = FA.attend_ref(q, k, v, **kw)
+                torch.testing.assert_close(
+                    got.float(), want.float(), atol=TOL[dtype],
+                    rtol=TOL[dtype], msg=lambda m: f"groups {groups} T {T} "
+                    f"causal {causal}: {m}")
+    assert seen == {"decode", "prefill"}
+    for B, S, q_start, kv_len in ((2, 4096, [4000, 1000], [4001, 1001]),
+                                  (3, 1000, [999, 64, 0], [1000, 65, 0])):
+        q, k, v, qs, kl = _flash_inputs(g, B, 1, S, 32, 8, D, q_start,
+                                        kv_len, dtype, dev)
+        assert FA.decode_splits(B, S, 8)[0] > 1
+        kw = dict(scale=D ** -0.5, causal=True, q_start=qs, kv_len=kl)
+        torch.testing.assert_close(
+            FA.flash_attend(q, k, v, **kw).float(),
+            FA.attend_ref(q, k, v, **kw).float(), atol=TOL[dtype],
+            rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_route_counters_on_card():
+    """One call counts one launch, and one on the route its static shapes
+    pick: the serving decode (T = 1, 4 query heads per kv head) on the
+    decode route, the serving prefill (T = 512) on the prefill route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(3)
+    fa = FA.flash_attend
+    for T, route in ((1, "decode"), (512, "prefill")):
+        q, k, v, qs, kl = _flash_inputs(g, 4, T, 544, 32, 8, 64, [0] * 4,
+                                        [T] * 4, "float32", dev)
+        before = (fa.launches, fa.launches_prefill, fa.launches_decode)
+        fa(q, k, v, scale=0.125, causal=True, q_start=qs, kv_len=kl)
+        after = (fa.launches, fa.launches_prefill, fa.launches_decode)
+        assert FA.route(T, 32, 8) == route
+        assert after[0] == before[0] + 1
+        assert after[1] == before[1] + (route == "prefill")
+        assert after[2] == before[2] + (route == "decode")
+    torch.cuda.synchronize()
+
+
 # the shapes of tests/test_kernels.py's SSD sweep (B, T, H, P, N, chunk),
 # then the serving path's (mamba2-2.7b: 80 heads of 64, d_state 128,
 # chunk 256, a micro-batch of 4 rows, prompt 512)

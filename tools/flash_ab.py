@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""Time the port's flash-attention kernel against another version of its
+source, on one card, in one process.
+
+    git show <commit>:src/repro_torch/kernels/csrc/flash_attention.cu \\
+        > build/flash_baseline.cu
+    python3 tools/flash_ab.py --baseline build/flash_baseline.cu
+
+The baseline is a ``flash_attention.cu`` with the single-route C interface
+(``flash_attention_fwd(..., scale, causal, stream)``, before the decode
+route's split arguments).  It is compiled with the same nvcc flags as the
+port's kernels into ``build/kernels/``.  At the serving path's shapes
+(llama3.2-1b: 32 query heads, 8 kv heads, head_dim 64, S = 544, a
+micro-batch of 4 rows) each shape is timed in turns, baseline, current,
+current, baseline (device time of one call, CUDA-graph replay, as
+chip_smoke.py times it), after both outputs were checked against the
+plain version.  One JSON line per shape; the last line names the card.
+With ``--profile``, each shape's line also carries the current version's
+device time per CUDA kernel (``torch.profiler``, mean over 50 calls), so
+the decode route's split and combine kernels show apart.
+"""
+import argparse
+import ctypes
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def build_baseline(path: str) -> ctypes.CDLL:
+    from repro_torch.kernels import build
+    src = open(path, "rb").read()
+    digest = hashlib.sha256(src + " ".join(build.NVCC_FLAGS).encode()
+                            ).hexdigest()[:12]
+    out = build.BUILD_DIR / f"libflash_baseline-{digest}.so"
+    if not out.exists():
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out),
+                        path], check=True)
+    lib = ctypes.CDLL(str(out))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.flash_attention_fwd.argtypes = (
+        [p] * 6 + [i] * 7 + [ll] * 12 + [ctypes.c_float, i, p])
+    lib.flash_attention_fwd.restype = ctypes.c_int
+    return lib
+
+
+def baseline_call(lib, q, k, v, q_start, kv_len, scale, causal):
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    rc = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q_start.data_ptr(), kv_len.data_ptr(), B, T, S, Hq, Hkv, D,
+        {torch.float32: 0, torch.bfloat16: 1}[q.dtype],
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], float(scale), int(causal),
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"baseline flash_attention_fwd: CUDA error {rc}")
+    return out
+
+
+def kernel_us(fn, calls: int = 50) -> dict:
+    """Mean device time (us) per call of each CUDA kernel ``fn`` runs."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        total = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0))
+        if total > 0:
+            out[e.key[:60]] = total / calls
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", required=True,
+                    help="flash_attention.cu of the version to compare with")
+    ap.add_argument("--profile", action="store_true",
+                    help="also print the current version's device time per "
+                         "CUDA kernel")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("tools/flash_ab.py: needs a CUDA card")
+    from chip_smoke import time_ms
+    from repro_torch.kernels import flash_attention as FA
+    base = build_baseline(args.baseline)
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    cases = (("main-path prefill B=4", 4, 512, [0] * 4, [512] * 4),
+             ("main-path decode B=4 per-row", 4, 1, [527, 520, 300, 543],
+              [528, 521, 301, 544]))
+    for label, B, T, q_start, kv_len in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dtype)
+            q, k, v = rnd(B, T, 32, 64), rnd(B, 544, 8, 64), rnd(B, 544, 8, 64)
+            qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
+            kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+            kw = dict(scale=0.125, causal=True, q_start=qs, kv_len=kl)
+            cur = lambda: FA.flash_attend(q, k, v, **kw)
+            old = lambda: baseline_call(base, q, k, v, qs, kl, 0.125, True)
+            want = FA.attend_ref(q, k, v, **kw).float()
+            errs = {name: (fn().float() - want).abs().max().item()
+                    for name, fn in (("baseline", old), ("current", cur))}
+            if max(errs.values()) > TOL[dtype]:
+                sys.exit(f"{label}: disagrees with the plain version: {errs}")
+            t = [time_ms(fn) for fn in (old, cur, cur, old)]
+            print(json.dumps(dict(
+                label=f"{label} T={T} S=544 Hq=32 Hkv=8 D=64",
+                dtype=str(dtype).replace("torch.", ""),
+                route=FA.route(T, 32, 8), baseline_ms=[t[0], t[3]],
+                current_ms=[t[1], t[2]], max_abs_err=errs,
+                **({"kernel_us": kernel_us(cur)} if args.profile else {}))),
+                flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    print(json.dumps({"card": smi.stdout.strip(),
+                      "device": torch.cuda.get_device_name(0)}))
+
+
+if __name__ == "__main__":
+    main()

@@ -8,10 +8,11 @@ Phases, each reported on its own lines:
 1. the card's name and power limit (``nvidia-smi``);
 2. building every CUDA kernel of the serving path from ``src/repro_torch/
    kernels/csrc`` with nvcc (one compiler per source, all started together),
-   then reading the flash library's machine code (``cuobjdump -sass``):
-   every prefill-route kernel must issue tensor-core products (HMMA, from
+   then reading the libraries' machine code (``cuobjdump -sass``): every
+   flash prefill-route kernel must issue tensor-core products (HMMA, from
    mma.sync) and both routes' kernels must load through cp.async
-   (LDGSTS);
+   (LDGSTS); so must every SSD product kernel (scores, chunk states, chunk
+   outputs) of the f32 and bf16 builds at P = 64;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the JAX kernel tests and at the serving path's shapes, with
    the kernel's device time (``ms``, CUDA-graph replay), its eager
@@ -35,7 +36,9 @@ Phases, each reported on its own lines:
 6. the SSD scan against its plain version on the card (as phase 3: the
    JAX kernel tests' shapes, a nonzero initial state with y and the final
    state checked, and the serving path's shape in f32 and bf16; no single
-   PyTorch call computes the scan, so no library time);
+   PyTorch call computes the scan, so no library time); the serving
+   path's rows add the device time of each of the scan's four CUDA
+   kernels (``kernel_us``, ``torch.profiler``);
 7. ``repro_torch.launch.serve.main`` at the full width of mamba2-2.7b
    (64 layers, 16 stages, 2 micro-batches, batch 8, prompt 512 = two SSD
    chunks, 32 tokens, f32): the SSD scan exactly 128 launches (prefill
@@ -169,23 +172,26 @@ def library_attention(q, k, v, q_start, kv_len, causal, scale):
                         enable_gqa=True)
 
 
-def flash_sass(build) -> dict:
+def sass_counts(build, name: str, prefix: str, dim: str) -> dict:
     """Counts of tensor-core products (HMMA) and cp.async loads (LDGSTS) in
-    each kernel of the built flash library, keyed ``route dtype D``; None
-    when the toolkit has no cuobjdump."""
+    each kernel ``<prefix>_<kind>_kernel<dtype[, size]>`` of the built
+    library ``name``, keyed ``kind dtype <dim>=size`` (``kind dtype`` for a
+    kernel with no size); None when the toolkit has no cuobjdump."""
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     if not os.path.exists(tool):
         return None
-    sass = subprocess.run([tool, "-sass", str(build.library_path(
-        "flash_attention"))], capture_output=True, text=True, timeout=300,
-        check=True).stdout
+    sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
     counts, cur = {}, None
     for line in sass.splitlines():
-        fn = re.search(r"Function : \S*flash_(\w+?)_kernelI(f|13__nv_bfloat16)"
-                       r"Li(\d+)E", line)
+        fn = re.search(rf"Function : \S*{prefix}_(\w+?)_kernel"
+                       r"(?:I(f|13__nv_bfloat16)(?:Li(\d+)E)?)?", line)
         if fn:
-            cur = (f"{fn[1]} {'f32' if fn[2] == 'f' else 'bf16'} "
-                   f"D={fn[3]}")
+            cur = " ".join(
+                [fn[1]] + ([f"{'f32' if fn[2] == 'f' else 'bf16'}"]
+                           if fn[2] else [])
+                + ([f"{dim}={fn[3]}"] if fn[3] else []))
             counts[cur] = dict(HMMA=0, LDGSTS=0)
         elif "Function : " in line:
             cur = None
@@ -193,6 +199,28 @@ def flash_sass(build) -> dict:
             for op in ("HMMA", "LDGSTS"):
                 counts[cur][op] += bool(re.search(rf"\b{op}\b", line))
     return counts
+
+
+def kernel_us(fn, calls: int = 50) -> dict:
+    """Mean device time (us) per call of each CUDA kernel that ``fn``
+    launches (``torch.profiler``), keyed by the kernel's name with its
+    template arguments."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        total = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0))
+        if total > 0:
+            key = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
+            out[key.split("(")[0][:60]] = total / calls
+    return out
 
 
 def phase_kernels(FA, results: list) -> list:
@@ -336,6 +364,13 @@ def phase_ssd(SSD, results: list) -> list:
                        ms=time_ms(kern), call_ms=call_ms(kern),
                        plain_ms=time_ms(plain), library_ms=None,
                        **ssd_bound(x, N, chunk, with_init), ok=ok)
+            if label.startswith("main-path"):
+                # device time of each of the scan's CUDA kernels
+                row["kernel_us"] = us = kernel_us(kern)
+                if sorted(k.split("<")[0] for k in us) != [
+                        "ssd_out_kernel", "ssd_pass_kernel",
+                        "ssd_scores_kernel", "ssd_states_kernel"]:
+                    fail(f"SSD main-path call: profiler shows {us}")
             print("kernel " + json.dumps(row), flush=True)
             results.append(row)
             if not ok:
@@ -480,7 +515,7 @@ def main() -> None:
             if any(k in line for k in ("entry function", "registers",
                                        "spill")):
                 print(f"  {name}: {line.strip()}", flush=True)
-    sass = flash_sass(build)
+    sass = sass_counts(build, "flash_attention", "flash", "D")
     print(f"sass {json.dumps(sass)}", flush=True)
     if sass is None:
         print("sass: no cuobjdump beside nvcc; machine code not read",
@@ -490,6 +525,16 @@ def main() -> None:
             or (k.split()[0] in ("prefill", "decode") and v["LDGSTS"] == 0)
             for k, v in sass.items()):
         fail(f"flash kernels lack tensor-core products or cp.async: {sass}")
+    # every SSD product kernel of both dtypes at P = 64 (the main path's)
+    ssd_sass = sass_counts(build, "ssd_scan", "ssd", "P")
+    print(f"sass ssd_scan {json.dumps(ssd_sass)}", flush=True)
+    if ssd_sass is not None:
+        want = [f"scores {d}" for d in ("f32", "bf16")] + [
+            f"{k} {d} P=64" for k in ("states", "out") for d in ("f32", "bf16")]
+        if any(k not in ssd_sass or ssd_sass[k]["HMMA"] == 0
+               or ssd_sass[k]["LDGSTS"] == 0 for k in want):
+            fail(f"SSD product kernels lack tensor-core products or "
+                 f"cp.async: {ssd_sass}")
 
     # ---- 3. kernels against their plain versions --------------------------
     rows: list = []
@@ -571,10 +616,11 @@ def main() -> None:
         bound_ms=ssd_row["bound_ms"], bound_by=ssd_row["bound_by"],
         bound_tc_ms=ssd_row["bound_tc_ms"],
         library_ms=None, shape=ssd_row["label"] + " f32",
+        kernel_us=ssd_row["kernel_us"],
         bf16=dict((k, ssd_bf16[k]) for k in
                   ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-                   "bound_tc_ms", "rel_err")),
-        path_parity_max_abs_err=ssd_path_err)
+                   "bound_tc_ms", "rel_err", "kernel_us")),
+        sass=ssd_sass, path_parity_max_abs_err=ssd_path_err)
     print(json.dumps({"serve": {"llama3.2-1b": llama,
                                 "mamba2-2.7b": mamba}}), flush=True)
     print(json.dumps({"kernels": [flash, ssd]}), flush=True)

@@ -95,6 +95,21 @@ def build_all(names: Iterable[str] = KERNELS) -> dict[str, float]:
     return seconds
 
 
+def load_file(path: str, stem: str) -> ctypes.CDLL:
+    """Build a CUDA source outside ``csrc/`` (another version of a kernel,
+    for timing against it) with the same flags into
+    ``build/kernels/lib<stem>-<hash>.so``, and load it."""
+    src = pathlib.Path(path).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:12]
+    out = BUILD_DIR / f"lib{stem}-{digest}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(path)],
+                       check=True)
+    return ctypes.CDLL(str(out))
+
+
 def load(name: str,
          declare: Optional[Callable[[ctypes.CDLL], None]] = None
          ) -> ctypes.CDLL:

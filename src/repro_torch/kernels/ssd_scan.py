@@ -11,6 +11,8 @@ both).
   (y, final_state)``; what the model calls.
 * :func:`ssd_scan` — the Pallas function's signature: y only, zero
   initial state, ``chunk`` clipped to T.
+* :func:`ssd_chunked_split_ref` — the kernel's algorithm (Mamba-2's
+  chunk-parallel split) in plain torch, for the tests.
 
 Shapes: x [B,T,H,P], dt [B,T,H], A [H] (negative), Bm/Cm [B,T,N] (one
 group shared by all heads), states [B,H,P,N].  x/Bm/Cm are float32 or
@@ -19,7 +21,9 @@ float32.  T must be a multiple of ``chunk``.
 
 A tensor on the CPU takes the plain version (:func:`ssd_chunked_ref`); a
 CUDA tensor launches the kernel or raises.  ``ssd_chunked.launches``
-counts kernel launches, one per wrapper call.
+counts kernel launches, one per wrapper call (each launch issues the
+kernel's four CUDA kernels: scores, chunk states, state passing, chunk
+outputs).
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
-MAX_STATE = 256                  # d_state the kernel's shared memory takes
+MAX_STATE = 256                  # d_state the kernel is built and tested for
 MAX_CHUNK = 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -104,13 +108,60 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, state
 
 
+def ssd_chunked_split_ref(x: torch.Tensor, dt: torch.Tensor,
+                          A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                          *, chunk: int,
+                          init_state: Optional[torch.Tensor] = None):
+    """The CUDA kernel's algorithm, Mamba-2's chunk-parallel split, in
+    plain torch: the scores C.B^T of every chunk, every chunk's own state
+    from a zero start, then the short pass over chunks that hands each
+    chunk its passed-in state, then every chunk's output from its
+    passed-in state.  dt*A is scanned in double and each decay exponent
+    formed in double, as the kernel does.  Holds [B, nc, c, c, H]
+    intermediates: tests only.  Returns (y [B,T,H,P] in x's dtype,
+    final_state [B,H,P,N] f32)."""
+    Bsz, T, H, P = x.shape
+    N = Bm.shape[-1]
+    nc, c = T // chunk, chunk
+    xf = x.float().reshape(Bsz, nc, c, H, P)
+    dtf = dt.float().reshape(Bsz, nc, c, H)
+    Bf = Bm.float().reshape(Bsz, nc, c, N)
+    Cf = Cm.float().reshape(Bsz, nc, c, N)
+    cum = torch.cumsum(dtf.double() * A.double(), dim=2)       # [B,nc,c,H]
+    # 1. scores, shared by every head
+    G = torch.einsum("bkin,bkjn->bkij", Cf, Bf)
+    # 2. each chunk's own state
+    wend = torch.exp((cum[:, :, -1:] - cum).float()) * dtf     # [B,nc,c,H]
+    S = torch.einsum("bkjhp,bkjh,bkjn->bkhpn", xf, wend, Bf)
+    # 3. state passing
+    state = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    passed = []
+    for k in range(nc):
+        passed.append(state)
+        state = state * torch.exp(cum[:, k, -1].float())[..., None, None] \
+            + S[:, k]
+    S_in = torch.stack(passed, dim=1)                          # [B,nc,H,P,N]
+    # 4. outputs; the mask goes before exp
+    causal = torch.tril(torch.ones((c, c), dtype=torch.bool,
+                                   device=x.device))
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # [B,nc,i,j,H]
+    Lmat = torch.exp(torch.where(causal[None, None, :, :, None], seg,
+                                 NEG_INF).float())
+    W = G[..., None] * Lmat * dtf[:, :, None, :, :]
+    y = torch.einsum("bkijh,bkjhp->bkihp", W, xf) \
+        + torch.einsum("bkin,bkhpn->bkihp", Cf, S_in) \
+        * torch.exp(cum.float())[..., None]
+    return y.reshape(Bsz, T, H, P).to(x.dtype), state
+
+
 # ---------------------------------------------------------------------------
 # The kernel's wrappers.
 # ---------------------------------------------------------------------------
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ssd_scan_fwd.argtypes = [p] * 9 + [i] * 7 + [ll] * 15 + [p]
+    lib.ssd_scan_fwd.argtypes = [p] * 11 + [i] * 8 + [ll] * 15 + [p]
     lib.ssd_scan_fwd.restype = ctypes.c_int
     lib.ssd_scan_error_string.argtypes = [i]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
@@ -170,6 +221,23 @@ def _check_cuda(x, dt, A, Bm, Cm, chunk, init_state):
                          f"strides {init_state.stride()}")
 
 
+def copies_16b(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+               chunk: int) -> bool:
+    """Whether the kernel may load x, Bm, Cm (and its own scratch rows of
+    N states and c scores) by 16-byte copies: every pointer and row stride
+    16-byte aligned (a size-1 dim's stride moves nothing), N and 4 * chunk
+    whole multiples of 16 bytes.  Otherwise it fills the same tiles by
+    plain loads."""
+    el = x.element_size()
+    if Bm.shape[-1] * el % 16 or chunk % 4:
+        return False
+    return all(t.data_ptr() % 16 == 0
+               and all(st * el % 16 == 0
+                       for st, n in zip(t.stride()[:-1], t.shape[:-1])
+                       if n > 1)
+               for t in (x, Bm, Cm))
+
+
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int,
                 init_state: Optional[torch.Tensor] = None):
@@ -188,9 +256,14 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dev = x.device
     y = torch.empty((B, T, H, P), dtype=x.dtype, device=dev)
     final = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
-    # C.B^T once per (batch row, chunk), shared by every head
-    scores = torch.empty((B, T // chunk, chunk, chunk), dtype=torch.float32,
+    nc = T // chunk
+    # scratch: C.B^T once per (batch row, chunk), shared by every head;
+    # each chunk's own state, then (in place) its passed-in state; the
+    # chunk's dt*A scan in double
+    scores = torch.empty((B, nc, chunk, chunk), dtype=torch.float32,
                          device=dev)
+    states = torch.empty((B, nc, H, P, N), dtype=torch.float32, device=dev)
+    cum = torch.empty((B, nc, H, chunk), dtype=torch.float64, device=dev)
     lib = build.load("ssd_scan", _declare)
     si = (0, 0) if init_state is None else init_state.stride()[:2]
     with torch.cuda.device(dev):
@@ -200,8 +273,10 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             Cm.data_ptr(),
             None if init_state is None else init_state.data_ptr(),
             y.data_ptr(), final.data_ptr(), scores.data_ptr(),
+            states.data_ptr(), cum.data_ptr(),
             B, T, H, P, N, chunk, _DTYPE_CODE[x.dtype],
-            *x.stride()[:3], *dt.stride(), *Bm.stride()[:2],
+            int(copies_16b(x, Bm, Cm, chunk)), *x.stride()[:3],
+            *dt.stride(), *Bm.stride()[:2],
             *Cm.stride()[:2], *y.stride()[:3], *si, stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan_fwd failed: CUDA error {rc} "

@@ -200,3 +200,62 @@ def test_ssd_kernel_random_cases_match_sequential_ref():
         y = SSD.ssd_scan(x, dt, A, Bm, Cm, chunk=32)
         yr, _ = SSD.ssd_scan_ref(x, dt, A, Bm, Cm)
         torch.testing.assert_close(y, yr, atol=5e-4, rtol=5e-4)
+
+
+def _ssd_view_inputs(g, B, T, H, P, N, dtype, dev, offset=0):
+    """x, Bm and Cm as views into one wider [B, T, offset + H*P + 2N]
+    tensor, as the model's in_proj split passes them (unit last stride,
+    row stride of the wide tensor); ``offset`` 1 leaves them unaligned."""
+    wide = torch.randn(B, T, offset + H * P + 2 * N, generator=g).to(
+        dev, TDT[dtype])
+    x = wide[..., offset:offset + H * P].reshape(B, T, H, P)
+    Bm = wide[..., offset + H * P:offset + H * P + N]
+    Cm = wide[..., offset + H * P + N:]
+    dt = torch.nn.functional.softplus(torch.randn(B, T, H, generator=g)).to(dev)
+    A = -torch.exp(torch.randn(H, generator=g) * 0.5).to(dev)
+    return x, dt, A, Bm, Cm
+
+
+# (B, T, H, P, N, chunk): 4 chunks (state passing over three hops), chunks
+# of 16 and 32 (below the 64-row tile), N = 8, P = 128 with N = 256 (the
+# largest scratch and tiles), a chunk of 96 (a partial 64-row tile)
+SSD_EDGES = [(2, 256, 4, 64, 128, 64), (2, 64, 3, 32, 16, 16),
+             (2, 96, 3, 16, 32, 32), (1, 128, 2, 64, 8, 64),
+             (1, 256, 2, 128, 256, 128), (2, 192, 2, 64, 64, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_split_kernels_edges_on_card(dtype):
+    """The SSD kernel's four CUDA kernels at their edges (SSD_EDGES), with
+    x/Bm/Cm as strided views of one wider tensor, aligned (16-byte copies)
+    and offset by one element (plain loads), each from a zero and from a
+    random initial state: y and the final state against ssd_chunked_ref,
+    the initial state left unchanged, one launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import ssd_scan as SSD
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(4)
+    for B, T, H, P, N, chunk in SSD_EDGES:
+        for offset in (0, 1):
+            x, dt, A, Bm, Cm = _ssd_view_inputs(g, B, T, H, P, N, dtype, dev,
+                                                offset)
+            assert not x.is_contiguous()
+            assert SSD.copies_16b(x, Bm, Cm, chunk) == (offset == 0)
+            init = torch.randn(B, H, P, N, generator=g).to(dev)
+            kept = init.clone()
+            for state in (None, init):
+                before = SSD.ssd_chunked.launches
+                y, fin = SSD.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk,
+                                         init_state=state)
+                assert SSD.ssd_chunked.launches == before + 1
+                yr, fr = SSD.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=chunk,
+                                             init_state=state)
+                case = (B, T, H, P, N, chunk, offset, state is not None)
+                assert y.dtype == x.dtype and fin.dtype == torch.float32
+                assert _rel_err(y, yr) < TOL[dtype], case
+                assert _rel_err(fin, fr) < TOL[dtype], case
+                assert fin.data_ptr() != init.data_ptr()
+            torch.testing.assert_close(init, kept, atol=0, rtol=0)
+    torch.cuda.synchronize()

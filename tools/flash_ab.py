@@ -21,7 +21,6 @@ the decode route's split and combine kernels show apart.
 """
 import argparse
 import ctypes
-import hashlib
 import json
 import os
 import subprocess
@@ -38,15 +37,7 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
 def build_baseline(path: str) -> ctypes.CDLL:
     from repro_torch.kernels import build
-    src = open(path, "rb").read()
-    digest = hashlib.sha256(src + " ".join(build.NVCC_FLAGS).encode()
-                            ).hexdigest()[:12]
-    out = build.BUILD_DIR / f"libflash_baseline-{digest}.so"
-    if not out.exists():
-        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out),
-                        path], check=True)
-    lib = ctypes.CDLL(str(out))
+    lib = build.load_file(path, "flash_baseline")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention_fwd.argtypes = (
         [p] * 6 + [i] * 7 + [ll] * 12 + [ctypes.c_float, i, p])
@@ -70,25 +61,6 @@ def baseline_call(lib, q, k, v, q_start, kv_len, scale, causal):
     return out
 
 
-def kernel_us(fn, calls: int = 50) -> dict:
-    """Mean device time (us) per call of each CUDA kernel ``fn`` runs."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        total = getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0))
-        if total > 0:
-            out[e.key[:60]] = total / calls
-    return out
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", required=True,
@@ -99,7 +71,7 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("tools/flash_ab.py: needs a CUDA card")
-    from chip_smoke import time_ms
+    from chip_smoke import kernel_us, time_ms
     from repro_torch.kernels import flash_attention as FA
     base = build_baseline(args.baseline)
     dev = torch.device("cuda")

@@ -44,11 +44,31 @@ Phases, each reported on its own lines:
    chunks, 32 tokens, f32): the SSD scan exactly 128 launches (prefill
    only), flash attention 0 (on either route);
 8. the whole mamba2 path, kernel against plain, as phase 5 (2 layers, 2
-   stages, batch 4, prompt 512, 8 teacher-forced steps).
+   stages, batch 4, prompt 512, 8 teacher-forced steps);
+9. the flash-attention backward kernel against its plain version
+   (``attend_bwd_ref``) and against torch autograd of ``attend_ref``, at
+   phase 3's shapes (through a head axis of one), the per-row cases with
+   an idle row, and the training shape (batch 2, T = S = 1024, 32/8 heads,
+   D 64, causal), in f32 and bf16 (relative to max |ref|: 1e-4, 3e-2); a
+   second call must give the same bits; the library time is the backward
+   of ``scaled_dot_product_attention`` (eager, CUDA events);
+10. ``repro_torch.launch.train.main`` at the full width of llama3.2-1b
+   (16 layers, 4 stages x 4 layers, 1f1b, 4 micro-batches, batch 8, seq
+   1024, f32, 3 steps): finite losses, step 0's loss against a
+   non-pipelined ``loss_fn`` on the card with the same weights (1e-4),
+   exactly 128 forward (prefill route) and 64 backward flash launches a
+   step, and the residual stash at ``lower_to_ticks(...).n_x``;
+11. training parity: at full width and 2 layers, gpipe / 1f1b / dapple /
+   zb-h1 agree with each other (loss and gradients, 1e-5 relative) and
+   with one non-pipelined autograd pass of the plain-attention model on
+   the card (the JAX harness's bar: loss 1e-4, gradients 1e-4); then a
+   reduced model (2 layers, d 256) trains one step on the card and on the
+   CPU with the same weights (loss 1e-4, gradients 1e-4).
 
 Every kernel's launch counters (``launches`` and, for flash attention,
-``launches_prefill`` / ``launches_decode``) are set to 0 just before each
-serve (phases 4 and 7) and read just after it.
+``launches_prefill`` / ``launches_decode`` / ``launches_bwd``) are set to
+0 just before each driven path (phases 4, 7 and 10) and read just after
+it.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -56,6 +76,7 @@ Exits non-zero without a CUDA card or outside a checkout.
 """
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -74,6 +95,9 @@ PEAK_OPS_S = {torch.float32: 67e12,            # f32 outside tensor cores
 # products per f32 product: 495 / 3 TFLOP/s); bf16 as above
 PEAK_OPS_TC_S = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # the JAX kernel tests'
+# the backward, relative to max |ref|: f32 at the JAX harness's gradient
+# bar; bf16 as the forward
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # whole-path parity, card vs CPU, f32: cuBLAS and the CPU sum the d_ff=8192
 # and vocab-wide products in another order; the error stays ~1e-6 relative
 # per layer, so 2e-4 (the port-vs-JAX CPU tolerance) leaves a wide margin
@@ -170,6 +194,72 @@ def library_attention(q, k, v, q_start, kv_len, causal, scale):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return lambda: sdpa(qt, kt, vt, attn_mask=mask, scale=scale,
                         enable_gqa=True)
+
+
+def event_ms(fn, iters: int = 10) -> float:
+    """Time of one eager call of ``fn`` between two CUDA events over
+    ``iters`` calls (for calls that a CUDA graph should not capture, such
+    as an autograd backward)."""
+    for _ in range(3):
+        fn()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def backward_bound(q, k, q_start, kv_len, causal) -> dict:
+    """Least time (ms) for the attention backward of these inputs
+    (:func:`bounds`).  Bytes: q, the output and its gradient read once and
+    dq written once; k and v read once for the keys some row of the batch
+    row sees, dk and dv written once for all S keys; the f32 statistics
+    read once.  Operations, counted for this data: 10*D per visible
+    query-key pair (the scores recomputed, dP, dV, dQ, dK: a multiply-add
+    over D each), 2*D per key for a row that sees no key (its dV share)."""
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    qs, kl = q_start.cpu().long(), kv_len.cpu().long().clamp(max=S)
+    qpos = qs[:, None] + torch.arange(T)[None]
+    seen = kl[:, None].expand(B, T)
+    if causal:
+        seen = torch.minimum(seen, qpos + 1)
+    idle = seen <= 0
+    el = q.element_size()
+    keys = torch.where(idle.any(1), S, seen.max(1).values).sum().item()
+    nbytes = (4 * q.numel() * el + 2 * keys * Hkv * D * el
+              + 2 * B * S * Hkv * D * el + B * Hq * T * 4)
+    ops = Hq * D * (10 * seen.clamp(min=0).sum().item()
+                    + 2 * S * idle.sum().item())
+    return bounds(nbytes, ops, q.dtype)
+
+
+def library_attention_bwd(q, k, v, dout, q_start, kv_len, causal, scale):
+    """The backward of scaled_dot_product_attention on the same work
+    (``is_causal`` where the mask is the plain causal one, else the mask
+    built here); the yardstick, never used by the port."""
+    B, T, Hq, D = q.shape
+    S = k.shape[1]
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    plain_causal = (causal and T == S and bool((q_start == 0).all())
+                    and bool((kv_len >= S).all()))
+    if plain_causal:
+        out = sdpa(*leaves, is_causal=True, scale=scale, enable_gqa=True)
+    else:
+        kpos = torch.arange(S, device=q.device)
+        qpos = q_start.long()[:, None] + torch.arange(T, device=q.device)[None]
+        mask = kpos[None, None, :] < kv_len.long()[:, None, None]
+        if causal:
+            mask = mask & (kpos[None, None, :] <= qpos[:, :, None])
+        out = sdpa(*leaves, attn_mask=mask[:, None], scale=scale,
+                   enable_gqa=True)
+    dot = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True)
 
 
 def sass_counts(build, name: str, prefix: str, dim: str) -> dict:
@@ -301,6 +391,75 @@ def phase_kernels(FA, results: list) -> list:
             run(f"{label} T={T} S={S} Hq=32 Hkv=8 D=64", q, k, v, qs, kl,
                 True, lambda: FA.flash_attend(q, k, v, **kw),
                 lambda: FA.attend_ref(q, k, v, **kw), dtype)
+    return bad
+
+
+def phase_backward(FA, results: list) -> list:
+    """Phase 9: the flash backward kernel against its plain version
+    (attend_bwd_ref, from the kernel forward's output and statistics) and
+    against torch autograd of attend_ref; a second call must give the same
+    bits.  Errors are max |got - ref| / max |ref| over dq, dk and dv."""
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    rnd = lambda *s, dt: torch.randn(*s, generator=g).to(dev, dt)
+    rel = lambda a, b: ((a.float() - b.float()).abs().max()
+                        / (b.float().abs().max() + 1e-12)).item()
+    # (label, B, T, S, Hq, Hkv, D, causal, q_start, kv_len)
+    cases = [(f"test_kernels BH={BH} T={T} S={S} D={D} causal={c}",
+              BH, T, S, 1, 1, D, c, [0] * BH, [S] * BH)
+             for BH, T, S, D, c in ((4, 128, 128, 64, True),
+                                    (2, 256, 256, 64, True),
+                                    (2, 100, 100, 32, True),
+                                    (3, 64, 256, 128, False),
+                                    (2, 1, 256, 64, False),
+                                    (1, 512, 512, 128, True))]
+    cases += [("test_kernels kv_len=40", 2, 1, 128, 1, 1, 64, False, [0, 0],
+               [40, 40]),
+              ("decode B=4 per-row", 4, 1, 544, 32, 8, 64, True,
+               [527, 520, 300, 543], [528, 521, 301, 544]),
+              ("idle row B=3 per-row", 3, 4, 544, 32, 8, 64, True,
+               [0, 9, 3], [4, 13, 0]),
+              ("train B=2 T=S=1024", 2, 1024, 1024, 32, 8, 64, True,
+               [0, 0], [1024, 1024])]
+    bad = []
+    for label, B, T, S, Hq, Hkv, D, causal, q_start, kv_len in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, do = rnd(B, T, Hq, D, dt=dtype), rnd(B, T, Hq, D, dt=dtype)
+            k, v = rnd(B, S, Hkv, D, dt=dtype), rnd(B, S, Hkv, D, dt=dtype)
+            qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
+            kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+            kw = dict(scale=D ** -0.5, causal=causal, q_start=qs, kv_len=kl)
+            out, lse = FA.flash_attend(q, k, v, return_lse=True, **kw)
+            kern = lambda: FA.flash_attend_bwd(q, k, v, out, lse, do, **kw)
+            plain = lambda: FA.attend_bwd_ref(q, k, v, out, lse, do, **kw)
+            got = kern()
+            again = kern()
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+            want = plain()
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            auto = torch.autograd.grad(FA.attend_ref(*leaves, **kw), leaves,
+                                       do)
+            err = max(rel(a, b) for a, b in zip(got, want))
+            err_auto = max(rel(a, b) for a, b in zip(got, auto))
+            ok = (max(err, err_auto) <= BWD_TOL[dtype] and bitwise
+                  and all(bool(torch.isfinite(x.float()).all()) for x in got))
+            row = dict(label=f"{label} Hq={Hq} Hkv={Hkv}",
+                       dtype=str(dtype).replace("torch.", ""),
+                       max_abs_err=max((a.float() - b.float()).abs().max()
+                                       .item() for a, b in zip(got, want)),
+                       rel_err=err, rel_err_autograd=err_auto,
+                       tol=BWD_TOL[dtype], bitwise=bitwise,
+                       ms=time_ms(kern), call_ms=call_ms(kern),
+                       plain_ms=time_ms(plain),
+                       library_ms=event_ms(library_attention_bwd(
+                           q, k, v, do, qs, kl, causal, D ** -0.5)),
+                       **backward_bound(q, k, qs, kl, causal), ok=ok)
+            print("kernel " + json.dumps(row), flush=True)
+            results.append(row)
+            if not ok:
+                bad.append(f"{row['label']} {row['dtype']}")
+            del q, k, v, do, out, lse, got, again, want, auto, leaves
     return bad
 
 
@@ -481,6 +640,187 @@ def phase_parity(serve_mods, arch: str, prompt_len: int) -> float:
     return err
 
 
+def _to(tree: dict, dev) -> dict:
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def _unstage(params: dict, plan, n_layers: int, ST) -> dict:
+    """Stacked [S, Lps, ...] parameters -> the unstaged tree loss_fn
+    takes (layers [L, ...])."""
+    return dict(params, layers=ST._map_layers(
+        lambda a: ST.unstack_chunks(a, plan)[:n_layers], params["layers"]))
+
+
+def phase_train(train, counters: dict, mods) -> dict:
+    """Phase 10: ``train.main`` at full width (llama3.2-1b, 4 stages x 4
+    layers, 1f1b, M = 4, batch 8, seq 1024, f32, 3 steps) with every
+    launch counter set to 0 just before and read just after; then step
+    0's loss against a non-pipelined loss_fn on the card with the same
+    weights."""
+    get_config, RT, ST, M, SP, SyntheticLM = mods
+    steps, stages, M_, batch, seq = 3, 4, 4, 8, 1024
+    argv = ["--arch", "llama3.2-1b", "--stages", str(stages), "--schedule",
+            "1f1b", "--microbatches", str(M_), "--batch", str(batch),
+            "--seq", str(seq), "--steps", str(steps), "--log-every", "1",
+            "--device", "cuda"]
+    print(f"train: python -m repro_torch.launch.train {' '.join(argv)}",
+          flush=True)
+    every = launch_counters(counters)
+    for fn, attr in every.values():
+        setattr(fn, attr, 0)
+    out = train.main(argv)
+    launches = {key: getattr(fn, attr) for key, (fn, attr) in every.items()}
+    L = 16
+    per_step = {"flash_attention": 2 * L * M_,
+                "flash_attention.prefill": 2 * L * M_,
+                "flash_attention.decode": 0, "flash_attention.bwd": L * M_,
+                "ssd_scan": 0}
+    want = {k: steps * v for k, v in per_step.items()}
+    losses = out["losses"]
+    n_x = SP.lower_to_ticks(SP.build_schedule("1f1b", M_, stages)).n_x
+    after_first = sum(out["step_s"][1:]) / (steps - 1)
+    res = dict(losses=losses, step_s=out["step_s"],
+               step_ms_after_first=1e3 * after_first,
+               tok_s=out["tok_per_step"] / after_first,
+               peak_gib=out["peak_gib"], launches=launches,
+               launches_per_step=out["launches"],
+               stash_slots=out["stash_slots"], n_x=n_x)
+    del out
+    torch.cuda.empty_cache()
+    print(f"train: losses {losses}, step {res['step_ms_after_first']:.1f} ms "
+          f"after the first ({res['tok_s']:.0f} tok/s), peak memory "
+          f"{res['peak_gib']:.2f} GiB, stash slots {res['stash_slots']} "
+          f"(n_x {n_x}), launches {json.dumps(launches)} (want "
+          f"{json.dumps(want)})", flush=True)
+    if launches != want or any(d != per_step for d in res["launches_per_step"]):
+        fail(f"train launches {launches} / {res['launches_per_step']}, want "
+             f"{want} ({per_step} a step)")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train losses are not finite: {losses}")
+    if max(res["stash_slots"]) != n_x:
+        fail(f"stash slots {res['stash_slots']}, lower_to_ticks n_x {n_x}")
+    # step 0's loss: the same weights (the seed), one non-pipelined pass
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), stages=stages,
+                              tensor=1)
+    plan = ST.plan_stages(cfg)
+    params = _unstage(ST.init_stacked_params(cfg, 0, plan, device="cuda"),
+                      plan, cfg.n_layers, ST)
+    b0 = SyntheticLM(cfg.vocab, seq, batch, seed=0, device="cuda").batch(0)
+    with torch.no_grad():
+        ref = M.loss_fn(cfg, params, b0).item()
+    res["step0_ref_loss"] = ref
+    print(f"train: step 0 loss {losses[0]:.6f}, non-pipelined loss_fn "
+          f"{ref:.6f} (|diff| {abs(losses[0] - ref):.2e}, bar 1e-4)",
+          flush=True)
+    if abs(losses[0] - ref) > 1e-4:
+        fail(f"train step 0 loss {losses[0]} != loss_fn {ref}")
+    del params, b0
+    torch.cuda.empty_cache()
+    return res
+
+
+def _grad_errs(grads: dict, ref: dict) -> dict:
+    """The JAX harness's measures: per layer leaf max |a-b| / max |b|
+    (worst), embed max |a-b| / (max |b| + 1), final_norm relative."""
+    from repro_torch.pipeline.stage import tree_leaves
+    rel = lambda a, b: ((a.float() - b.float()).abs().max()
+                        / (b.float().abs().max() + 1e-9)).item()
+    return dict(
+        layers=max(rel(a, b) for a, b in zip(tree_leaves(grads["layers"]),
+                                             tree_leaves(ref["layers"]))),
+        embed=((grads["embed"] - ref["embed"]).abs().max()
+               / (ref["embed"].abs().max() + 1)).item(),
+        final_norm=rel(grads["final_norm"], ref["final_norm"]))
+
+
+def phase_train_parity(FA, mods) -> dict:
+    """Phase 11: the four ported schedules against each other and against
+    one non-pipelined autograd pass with the plain attention (full width,
+    2 layers, 2 stages, M 2, batch 4, seq 512); then a reduced model on
+    the card and on the CPU with the same weights."""
+    get_config, RT, ST, M, SP, SyntheticLM = mods
+    from repro_torch.models import layers as LYR
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2,
+                              stages=2, tensor=1)
+    plan = ST.plan_stages(cfg)
+    params = ST.init_stacked_params(cfg, 0, plan, device="cuda")
+    batch = SyntheticLM(cfg.vocab, 512, 4, seed=1, device="cuda").batch(0)
+    out = {}
+    for sched in ("gpipe", "1f1b", "dapple", "zb-h1"):
+        step = RT.make_train_step(cfg, plan, RT.PipelineConfig(
+            n_microbatches=2, schedule=sched))
+        loss, grads = step(params, batch)
+        out[sched] = (loss.item(), grads)
+    # the reference: one autograd pass of the unstaged model, attention in
+    # its plain version (layers.attend swapped for attend_ref)
+    leaves = _unstage(params, plan, cfg.n_layers, ST)
+    leaves = dict(embed=leaves["embed"].detach().requires_grad_(),
+                  final_norm=leaves["final_norm"].detach().requires_grad_(),
+                  layers=ST._map_layers(
+                      lambda a: a.detach().requires_grad_(),
+                      leaves["layers"]))
+    kernel_attend = LYR.attend
+
+    def plain_attend(q, k, v, *, scale, causal=True, q_start=0, kv_len=None,
+                     window=None):
+        B, S = q.shape[0], k.shape[1]
+        return FA.attend_ref(q, k, v, scale=scale, causal=causal,
+                             q_start=LYR._per_row(q_start, B, q.device),
+                             kv_len=LYR._per_row(S if kv_len is None
+                                                 else kv_len, B, q.device))
+    LYR.attend = plain_attend
+    try:
+        ref_loss = M.loss_fn(cfg, leaves, batch)
+        g = torch.autograd.grad(ref_loss, [leaves["embed"],
+                                           leaves["final_norm"]]
+                                + ST.tree_leaves(leaves["layers"]))
+    finally:
+        LYR.attend = kernel_attend
+    n_lay = len(ST.tree_leaves(leaves["layers"]))
+    ref = dict(embed=g[0], final_norm=g[1], layers=dict(
+        zip(range(n_lay), g[2:])))
+    res = {}
+    base_loss, base = out["1f1b"]
+    for sched, (loss, grads) in out.items():
+        unst = _unstage(grads, plan, cfg.n_layers, ST)
+        unst["layers"] = dict(zip(range(n_lay),
+                                  ST.tree_leaves(unst["layers"])))
+        errs = _grad_errs(unst, ref)
+        same = _grad_errs(grads, base)
+        res[sched] = dict(loss=loss, ref_loss=ref_loss.item(),
+                          errs_vs_autograd=errs, errs_vs_1f1b=same)
+        print(f"train parity {sched}: loss {loss:.6f} (autograd "
+              f"{ref_loss.item():.6f}), vs autograd {json.dumps(errs)}, vs "
+              f"1f1b {json.dumps(same)}", flush=True)
+        if (abs(loss - ref_loss.item()) > 1e-4 or max(errs.values()) > 1e-4
+                or abs(loss - base_loss) > 1e-5 * abs(base_loss)
+                or max(same.values()) > 1e-5):
+            fail(f"train parity {sched}: {res[sched]}")
+    del out, params, leaves, g, ref
+    torch.cuda.empty_cache()
+
+    # a reduced model on the card and on the CPU, the same weights
+    rcfg = dataclasses.replace(
+        get_config("llama3.2-1b").reduced(n_layers=2, d_model=256), stages=2)
+    rplan = ST.plan_stages(rcfg)
+    step = RT.make_train_step(rcfg, rplan, RT.PipelineConfig(
+        n_microbatches=2, schedule="1f1b"))
+    p_cpu = ST.init_stacked_params(rcfg, 0, rplan, device="cpu")
+    b_cpu = SyntheticLM(rcfg.vocab, 128, 4, seed=2, device="cpu").batch(0)
+    loss_g, grads_g = step(_to(p_cpu, "cuda"), _to(b_cpu, "cuda"))
+    loss_c, grads_c = step(p_cpu, b_cpu)
+    errs = _grad_errs(_to(grads_g, "cpu"), grads_c)
+    res["reduced_card_vs_cpu"] = dict(loss_card=loss_g.item(),
+                                      loss_cpu=loss_c.item(), errs=errs)
+    print(f"train parity reduced (2 layers, d 256) card vs CPU: loss "
+          f"{loss_g.item():.6f} / {loss_c.item():.6f}, {json.dumps(errs)}",
+          flush=True)
+    if abs(loss_g.item() - loss_c.item()) > 1e-4 or max(errs.values()) > 1e-4:
+        fail(f"train parity card vs CPU: {res['reduced_card_vs_cpu']}")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: the port's kernels need a "
@@ -491,7 +831,10 @@ def main() -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ssd_scan as SSD
-    from repro_torch.launch import serve
+    from repro_torch.core import schedplan as SP
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch import serve, train
+    from repro_torch.models import model as M
     from repro_torch.pipeline import runtime as RT
     from repro_torch.pipeline import stage as ST
 
@@ -550,7 +893,8 @@ def main() -> None:
                 "--gen", "32", "--device", "cuda"],
         counters, {"flash_attention": 16 * 2 * (1 + 31),
                    "flash_attention.prefill": 16 * 2,
-                   "flash_attention.decode": 16 * 2 * 31, "ssd_scan": 0},
+                   "flash_attention.decode": 16 * 2 * 31,
+                   "flash_attention.bwd": 0, "ssd_scan": 0},
         128256)
 
     # ---- 5. whole llama path, kernel vs plain -----------------------------
@@ -569,10 +913,25 @@ def main() -> None:
                 "--microbatches", "2", "--batch", "8", "--prompt-len", "512",
                 "--gen", "32", "--device", "cuda"],
         counters, {"flash_attention": 0, "flash_attention.prefill": 0,
-                   "flash_attention.decode": 0, "ssd_scan": 64 * 2}, 50280)
+                   "flash_attention.decode": 0, "flash_attention.bwd": 0,
+                   "ssd_scan": 64 * 2}, 50280)
 
     # ---- 8. whole mamba2 path, kernel vs plain ----------------------------
     ssd_path_err = phase_parity(serve_mods, "mamba2-2.7b", 512)
+
+    # ---- 9. the flash backward against its plain version ------------------
+    bwd_rows: list = []
+    bad = phase_backward(FA, bwd_rows)
+    if bad:
+        fail(f"flash backward disagrees with its plain version or is not "
+             f"bitwise reproducible: {bad}")
+
+    # ---- 10. llama3.2-1b training at full width ---------------------------
+    train_mods = (get_config, RT, ST, M, SP, SyntheticLM)
+    trained = phase_train(train, counters, train_mods)
+
+    # ---- 11. schedules, non-pipelined autograd, card vs CPU ---------------
+    train_parity = phase_train_parity(FA, train_mods)
 
     pick = lambda rs, prefix, dtype="float32": next(
         r for r in rs if r["label"].startswith(prefix) and r["dtype"] == dtype)
@@ -584,6 +943,7 @@ def main() -> None:
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:84",
         launches=llama["launches"]["flash_attention"],
+        launches_train=trained["launches"]["flash_attention"],
         max_abs_err=main_row["max_abs_err"],
         ms=main_row["ms"], call_ms=main_row["call_ms"],
         plain_ms=main_row["plain_ms"],
@@ -621,9 +981,29 @@ def main() -> None:
                   ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
                    "bound_tc_ms", "rel_err", "kernel_us")),
         sass=ssd_sass, path_parity_max_abs_err=ssd_path_err)
+    bwd_row = pick(bwd_rows, "train")
+    bwd_keys = ("label", "dtype", "ms", "call_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "bound_tc_ms", "rel_err", "bitwise")
+    flash_bwd = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        # the gradient of that TPU kernel's function; the Pallas kernel has
+        # no backward (the JAX model differentiates layers.attend, XLA)
+        replaces="src/repro/kernels/flash_attention.py:84",
+        launches=trained["launches"]["flash_attention.bwd"],
+        max_abs_err=bwd_row["max_abs_err"], rel_err=bwd_row["rel_err"],
+        ms=bwd_row["ms"], call_ms=bwd_row["call_ms"],
+        plain_ms=bwd_row["plain_ms"], bound_ms=bwd_row["bound_ms"],
+        bound_by=bwd_row["bound_by"], bound_tc_ms=bwd_row["bound_tc_ms"],
+        library_ms=bwd_row["library_ms"], shape=bwd_row["label"] + " f32",
+        bitwise=all(r["bitwise"] for r in bwd_rows),
+        bf16={k: v for k, v in pick(bwd_rows, "train", "bfloat16").items()
+              if k in bwd_keys})
     print(json.dumps({"serve": {"llama3.2-1b": llama,
                                 "mamba2-2.7b": mamba}}), flush=True)
-    print(json.dumps({"kernels": [flash, ssd]}), flush=True)
+    print(json.dumps({"train": {"llama3.2-1b": trained,
+                                "parity": train_parity}}), flush=True)
+    print(json.dumps({"kernels": [flash, ssd, flash_bwd]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -10,6 +10,11 @@ ST.init_stacked_params(...))``.  Every leaf keeps its own dtype: float32
 as is (``a_log``, ``d_skip`` and ``dt_bias`` stay float32 inside a
 bfloat16 tree), bfloat16 through ``ml_dtypes`` (imported only when a
 bfloat16 tensor is exported).
+
+The AdamW state crosses the same way: ``{"m": tree, "v": tree, "step":
+int}`` in both packages (f32 moments shaped like the parameters; the step
+an int32 scalar, a 0-d array or a Python int on the JAX side, a 0-d int32
+tensor in the port), so one optimizer step can be compared.
 """
 from __future__ import annotations
 
@@ -17,7 +22,9 @@ import numpy as np
 import torch
 
 
-def _to_torch(a: np.ndarray, device) -> torch.Tensor:
+def _to_torch(a, device) -> torch.Tensor:
+    if isinstance(a, (int, np.integer)):    # the optimizer's step counter
+        return torch.tensor(int(a), dtype=torch.int32, device=device)
     if a.dtype.name == "bfloat16":          # ml_dtypes.bfloat16, 2 bytes
         t = torch.from_numpy(np.array(a).view(np.int16))    # a copy
         return t.view(torch.bfloat16).to(device)

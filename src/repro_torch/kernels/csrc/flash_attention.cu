@@ -1,7 +1,10 @@
-// Flash attention forward for Hopper (sm_90a), CUDA C++ behind a plain C
-// interface.  Built by nvcc into a shared library and loaded with ctypes by
-// repro_torch/kernels/build.py; the Python wrapper is
-// repro_torch/kernels/flash_attention.py::flash_attend.
+// Flash attention forward and backward for Hopper (sm_90a), CUDA C++ behind
+// a plain C interface.  Built by nvcc into a shared library and loaded with
+// ctypes by repro_torch/kernels/build.py; the Python wrappers are
+// repro_torch/kernels/flash_attention.py::flash_attend (forward) and
+// ::flash_attend_bwd (backward, the gradient FlashAttention.backward takes;
+// the Pallas kernel has none, the JAX model trains through XLA's gradient
+// of layers.attend).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::
 // flash_attention (body _flash_kernel) and computes the function the JAX
@@ -75,6 +78,7 @@ namespace {
 
 constexpr float NEG_MASK = -1e30f;      // the reference's masked logit
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int THREADS = 128;            // both routes: four warps
 constexpr int DEC_ROWS = 16;            // query rows a decode block holds
 constexpr int DEC_TK = 64;              // keys per decode tile
@@ -88,6 +92,7 @@ struct Params {
   const int* q_start;
   const int* kv_len;
   float* part;                          // decode: split partials
+  float* lse;                           // prefill: per-row log-sum-exp, or null
   int B, T, S, Hq, Hkv;
   int n_split, split_len;               // decode route
   long long sq_b, sq_t, sq_h;           // strides in elements
@@ -249,7 +254,9 @@ struct PrefillCfg {
                               * (int)sizeof(T);
 };
 
-template <typename T, int D>
+// LSE: write the per-row statistics (a separate instantiation, so the
+// serving path's kernel is the one without the epilogue)
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(THREADS)
 flash_prefill_kernel(const Params p) {
   using C = PrefillCfg<T, D>;
@@ -484,6 +491,15 @@ flash_prefill_kernel(const Params p) {
     l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
   }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  if (LSE && t4 == 0) {
+    // natural-log statistics [B, Hq, T] for the backward; a row that sees
+    // no key stores -1e30, what log-sum-exp of its -1e30 logits rounds to
+    float* lrow = p.lse + ((long long)b * p.Hq + h) * p.T;
+    if (r0 < p.T)
+      lrow[r0] = m0 == NEG_MASK ? NEG_MASK : (m0 + log2f(l0)) * LN2;
+    if (r0 + 8 < p.T)
+      lrow[r0 + 8] = m1 == NEG_MASK ? NEG_MASK : (m1 + log2f(l1)) * LN2;
+  }
   T* orow0 = op + b * p.so_b + (long long)r0 * p.so_t + h * p.so_h;
   T* orow1 = orow0 + 8 * p.so_t;
 #pragma unroll
@@ -785,22 +801,533 @@ flash_combine_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// Backward (FlashAttention-2's split, on the tensor cores)
+// ---------------------------------------------------------------------------
+//
+// The gradient of the forward's function: with P the softmax of the masked
+// logits (recomputed from the saved per-row log-sum-exp), D_i = dO_i . O_i,
+//   dV = P^T dO,  dP = dO V^T,  dS = P o (dP - D) (zero where the forward
+//   masked: a masked logit is a constant -1e30 with no gradient),
+//   dQ = scale dS K,  dK = scale dS^T Q.
+// A row that sees no key has P = 1/S over all S keys (its forward output is
+// the mean of V) and dS = 0; its saved statistic (-1e30) cannot give 1/S, so
+// the kernels pick such rows out by their visible end instead.
+//
+// Bound: operations.  Per visible query-key pair the five products take
+// 10 D flops (the scores recomputed, dP, dV, dK, dQ); at the training shape
+// (batch 2, T = S = 1024, 32/8 heads, D 64, causal) that is 21.5 GFLOP
+// against ~84 MB moved.  Three CUDA kernels per call:
+//   * a pre-pass D = rowsum(dO o O) (one warp per row and head);
+//   * dK/dV: one block per (64 keys, kv head, batch row), four warps of 16
+//     keys; it loops over the query tiles of all Hq/Hkv query heads of its
+//     group that see its keys and sums them in registers (S^T = K Q^T and
+//     dP^T = V dO^T, then P^T and dS^T in place, then dV += P^T dO and
+//     dK += dS^T Q): the GQA sum needs no second pass;
+//   * dQ: one block per (64 query rows, query head, batch row), four warps
+//     of 16 rows, looping over the key tiles its rows see (S = Q K^T,
+//     dP = dO V^T, dS, dQ += dS K), longest tiles first.
+// Every output element is written once by one thread, with no atomics, so
+// the gradients are bitwise reproducible.  The products that sum over many
+// rows or keys (dV, dK, dQ) keep the tensor core's accumulator for one
+// tile only (at most 8 k-steps) and then add it into an f32 slot of its
+// thread in shared memory: the tensor core's accumulation truncates, and
+// kept over the 512 k-steps of the training shape's dK/dV it costs ~3e-5
+// of the result; forming every k-step's product from zero instead costs a
+// fifth of the time.  Tiles are staged in shared memory as f32 (bf16
+// widened on the way in; pitch D + 4 keeps the scalar fragment reads of
+// the dV/dK/dQ products free of bank conflicts).  The
+// products run on mma.sync m16n8k8 TF32 with the forward's order trick (the
+// k-step's logical indices t, t + 4 are physical 2t, 2t + 1, so the score
+// accumulators are the A fragments of the next product as they stand).  An
+// f32 operand is split into big + small (3xTF32: three products); a bf16
+// value is exact in TF32 and goes in one part, so with bf16 inputs the
+// scores and dP take one product and dV, dK, dQ (P or dS split) two.
+
+constexpr int BWD_THREADS = 256;        // the D pre-pass: eight rows a block
+constexpr int BWD_ROWS = 64;            // keys (dK/dV) or rows (dQ) a block
+
+struct BwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;                     // [B, Hq, T]
+  float* delta;                         // [B, Hq, T] (pre-pass output)
+  void* dq;                             // [B, T, Hq, D] contiguous
+  void* dk;                             // [B, S, Hkv, D] contiguous
+  void* dv;
+  const int* q_start;
+  const int* kv_len;
+  int B, T, S, Hq, Hkv;
+  long long sq_b, sq_t, sq_h;           // strides in elements
+  long long sk_b, sk_s, sk_h;
+  long long sv_b, sv_s, sv_h;
+  long long so_b, so_t, so_h;
+  long long sd_b, sd_t, sd_h;           // dout
+  float scale, scale_log2;
+  int causal;
+};
+
+__device__ __forceinline__ int bwd_row_end(const BwdParams& p, int q0, int kl,
+                                           int i) {
+  return p.causal ? min(kl, q0 + i + 1) : kl;
+}
+
+// D_i = dO_i . O_i in f32: one warp per (batch row, query row, head)
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_delta_kernel(const BwdParams p) {
+  const long long r = (long long)blockIdx.x * (BWD_THREADS / 32)
+                      + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= (long long)p.B * p.T * p.Hq) return;
+  const int h = (int)(r % p.Hq);
+  const int i = (int)((r / p.Hq) % p.T);
+  const int b = (int)(r / ((long long)p.Hq * p.T));
+  const T* o = static_cast<const T*>(p.o) + b * p.so_b + (long long)i * p.so_t
+               + h * p.so_h;
+  const T* d = static_cast<const T*>(p.dout) + b * p.sd_b
+               + (long long)i * p.sd_t + h * p.sd_h;
+  float acc = 0.f;
+#pragma unroll
+  for (int c = lane; c < D; c += 32) acc = fmaf(to_f32(o[c]), to_f32(d[c]), acc);
+  acc = warp_sum(acc);
+  if (lane == 0) p.delta[((long long)b * p.Hq + h) * p.T + i] = acc;
+}
+
+template <typename T, int D>
+struct BwdCfg {
+  // bf16 values are exact in TF32: no small part
+  static constexpr bool SPLIT = std::is_same<T, float>::value;
+  // the loop tile: query rows (dK/dV kernel) or keys (dQ kernel)
+  static constexpr int BT = D == 128 ? 32 : 64;
+  static constexpr int LD = D + 4;                    // f32 tile pitch
+  static constexpr int ACC = D / 8 * 4;               // sums a thread keeps
+  // dK/dV: K, V, Q, dO tiles, statistics, dK and dV running sums; dQ: the
+  // same tiles (Q, dO of 64 rows, K, V of BT keys), the dQ running sums
+  static constexpr int SMEM_KV =
+      (2 * BWD_ROWS * LD + 2 * BT * LD + 2 * BT + 2 * ACC * THREADS) * 4;
+  static constexpr int SMEM_Q =
+      (2 * BWD_ROWS * LD + 2 * BT * LD + 2 * BWD_ROWS + ACC * THREADS) * 4;
+};
+
+// add a thread's tile accumulators into its f32 running sums in shared
+// memory (slot c * THREADS + tid: neighbouring threads, neighbouring
+// words) and clear them
+template <int N>
+__device__ __forceinline__ void bwd_flush(float (&acc)[N][4], float* sums) {
+#pragma unroll
+  for (int d = 0; d < N; ++d)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      sums[(d * 4 + c) * THREADS + threadIdx.x] += acc[d][c];
+      acc[d][c] = 0.f;
+    }
+}
+
+// rows [r0, r0 + n) of one head of a [B, L, H, D] tensor into an f32 tile
+// of pitch LD, zero past ``limit``
+template <typename T, int D, int LD>
+__device__ __forceinline__ void bwd_stage(float* dst, const void* src,
+                                          long long base, long long s_row,
+                                          int r0, int n, int limit) {
+  const T* sp = static_cast<const T*>(src) + base;
+  for (int e = threadIdx.x; e < n * D; e += THREADS) {
+    const int r = e / D, c = e % D, i = r0 + r;
+    dst[r * LD + c] = i < limit ? to_f32(sp[(long long)i * s_row + c]) : 0.f;
+  }
+}
+
+// the statistics of rows [r0, r0 + n) of head h: log-sum-exp in base 2 (as
+// the scores) and D
+__device__ __forceinline__ void bwd_stage_stats(const BwdParams& p, int b,
+                                                int h, int r0, int n,
+                                                float* ls, float* dls) {
+  for (int r = threadIdx.x; r < n; r += THREADS) {
+    const int i = r0 + r;
+    const long long at = ((long long)b * p.Hq + h) * p.T + i;
+    ls[r] = i < p.T ? p.lse[at] * LOG2E : 0.f;
+    dls[r] = i < p.T ? p.delta[at] : 0.f;
+  }
+}
+
+template <bool SPLIT>
+__device__ __forceinline__ void tf32_parts(float x, uint32_t& big,
+                                           uint32_t& small) {
+  if constexpr (SPLIT) {
+    split_tf32(x, big, small);
+  } else {
+    big = __float_as_uint(x);
+    small = 0u;
+  }
+}
+
+// c += a.b, small terms first; an operand exact in TF32 has no small part
+template <bool SA, bool SB>
+__device__ __forceinline__ void mma_parts(float (&c)[4],
+                                          const uint32_t (&ab)[4],
+                                          const uint32_t (&as)[4],
+                                          const uint32_t (&bb)[2],
+                                          const uint32_t (&bs)[2]) {
+  if constexpr (SA) mma_tf32(c, as, bb);
+  if constexpr (SB) mma_tf32(c, ab, bs);
+  mma_tf32(c, ab, bb);
+}
+
+// A fragment of rows (r, r + 8) at the k-step's columns (2t, 2t + 1) of a
+// row-major f32 tile
+template <bool SPLIT>
+__device__ __forceinline__ void a_frag(const float* row, int ld,
+                                       uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+  const float2 x0 = *reinterpret_cast<const float2*>(row);
+  const float2 x1 = *reinterpret_cast<const float2*>(row + 8 * ld);
+  tf32_parts<SPLIT>(x0.x, big[0], small[0]);
+  tf32_parts<SPLIT>(x1.x, big[1], small[1]);
+  tf32_parts<SPLIT>(x0.y, big[2], small[2]);
+  tf32_parts<SPLIT>(x1.y, big[3], small[3]);
+}
+
+// B fragment of a product whose B is a row-major tile's transpose: its
+// row n at the k-step's columns (2t, 2t + 1)
+template <bool SPLIT>
+__device__ __forceinline__ void bt_frag(const float* row, uint32_t (&big)[2],
+                                        uint32_t (&small)[2]) {
+  const float2 y = *reinterpret_cast<const float2*>(row);
+  tf32_parts<SPLIT>(y.x, big[0], small[0]);
+  tf32_parts<SPLIT>(y.y, big[1], small[1]);
+}
+
+// B fragment of a product whose B is a row-major tile: rows (2t, 2t + 1)
+// of the k-step at column n
+template <bool SPLIT>
+__device__ __forceinline__ void b_frag(const float* at, int ld,
+                                       uint32_t (&big)[2],
+                                       uint32_t (&small)[2]) {
+  tf32_parts<SPLIT>(at[0], big[0], small[0]);
+  tf32_parts<SPLIT>(at[ld], big[1], small[1]);
+}
+
+// an accumulator tile (16 x 8: c0, c1 row g; c2, c3 row g + 8; columns
+// 2t, 2t + 1) as the A fragment of the next product's k-step, split
+__device__ __forceinline__ void acc_frag(const float (&c)[4],
+                                         uint32_t (&big)[4],
+                                         uint32_t (&small)[4]) {
+  split_tf32(c[0], big[0], small[0]);
+  split_tf32(c[2], big[1], small[1]);
+  split_tf32(c[1], big[2], small[2]);
+  split_tf32(c[3], big[3], small[3]);
+}
+
+// P and dS of one score / dP entry (row i, key j) in place
+__device__ __forceinline__ void bwd_p_ds(const BwdParams& p, int q0, int kl,
+                                         int i, int j, float ls, float dl,
+                                         float& s, float& dp) {
+  float pv = 0.f, dv = 0.f;
+  if (i < p.T && j < p.S) {
+    const int re = bwd_row_end(p, q0, kl, i);
+    if (re <= 0) {
+      pv = 1.f / (float)p.S;                  // sees no key: mean of V
+    } else if (j < re) {
+      pv = exp2f(s * p.scale_log2 - ls);
+      dv = pv * (dp - dl);
+    }
+  }
+  s = pv;
+  dp = dv;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkdv_kernel(const BwdParams p) {
+  using C = BwdCfg<T, D>;
+  constexpr int BT = C::BT, LD = C::LD, NT = BT / 8, DT = D / 8;
+  constexpr bool SPLIT = C::SPLIT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);     // [64][LD]
+  float* vs = ks + BWD_ROWS * LD;                     // [64][LD]
+  float* qs = vs + BWD_ROWS * LD;                     // [BT][LD]
+  float* dos = qs + BT * LD;                          // [BT][LD]
+  float* ls = dos + BT * LD;                          // [BT]
+  float* dls = ls + BT;                               // [BT]
+  float* dk_sum = dls + BT;                           // [ACC][THREADS]
+  float* dv_sum = dk_sum + C::ACC * THREADS;          // [ACC][THREADS]
+
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int j0 = blockIdx.x * BWD_ROWS;
+  const int G = p.Hq / p.Hkv;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kw = j0 + warp * 16;                      // this warp's keys
+  const int q0 = p.q_start[b];
+  const int kl = min(p.kv_len[b], p.S);
+
+  bwd_stage<T, D, LD>(ks, p.k, b * p.sk_b + hk * p.sk_h, p.sk_s, j0,
+                      BWD_ROWS, p.S);
+  bwd_stage<T, D, LD>(vs, p.v, b * p.sv_b + hk * p.sv_h, p.sv_s, j0,
+                      BWD_ROWS, p.S);
+
+  float dk[DT][4], dv[DT][4];                         // keys kw + g (+ 8)
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[d][c] = dv[d][c] = 0.f;
+  for (int c = 0; c < C::ACC; ++c)
+    dk_sum[c * THREADS + threadIdx.x] = dv_sum[c * THREADS + threadIdx.x] = 0.f;
+
+  const float* kwr = ks + (warp * 16 + g) * LD + 2 * t4;
+  const float* vwr = vs + (warp * 16 + g) * LD + 2 * t4;
+  const int n_qt = (p.T + BT - 1) / BT;
+  for (int step = 0; step < G * n_qt; ++step) {     // query head, row tile
+    const int h = hk * G + step / n_qt;
+    const int i0 = step % n_qt * BT;
+    const int i_last = min(i0 + BT, p.T) - 1;
+    // a tile touches these keys if its last row (which sees the most
+    // keys) sees one of them, or if its first row sees no key at all
+    const bool idle = bwd_row_end(p, q0, kl, i0) <= 0;
+    const int re_last = bwd_row_end(p, q0, kl, i_last);
+    if (!idle && re_last <= j0) continue;           // the whole block
+    __syncthreads();                        // the last tile's readers done
+    bwd_stage<T, D, LD>(qs, p.q, b * p.sq_b + h * p.sq_h, p.sq_t, i0, BT,
+                        p.T);
+    bwd_stage<T, D, LD>(dos, p.dout, b * p.sd_b + h * p.sd_h, p.sd_t, i0,
+                        BT, p.T);
+    bwd_stage_stats(p, b, h, i0, BT, ls, dls);
+    __syncthreads();
+    if (kw >= p.S || (!idle && re_last <= kw)) continue;   // this warp
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x BT rows
+    float st[NT][4], dpt[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) st[n][c] = dpt[n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DT; ++kk) {
+      uint32_t kb[4], ksm[4], vb[4], vsm[4];
+      a_frag<SPLIT>(kwr + kk * 8, LD, kb, ksm);
+      a_frag<SPLIT>(vwr + kk * 8, LD, vb, vsm);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        uint32_t qb[2], qsm[2], db[2], dsm[2];
+        bt_frag<SPLIT>(qs + (n * 8 + g) * LD + kk * 8 + 2 * t4, qb, qsm);
+        bt_frag<SPLIT>(dos + (n * 8 + g) * LD + kk * 8 + 2 * t4, db, dsm);
+        mma_parts<SPLIT, SPLIT>(st[n], kb, ksm, qb, qsm);
+        mma_parts<SPLIT, SPLIT>(dpt[n], vb, vsm, db, dsm);
+      }
+    }
+    // P^T and dS^T in place
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = n * 8 + 2 * t4 + (c & 1);
+        bwd_p_ds(p, q0, kl, i0 + r, kw + g + (c < 2 ? 0 : 8), ls[r],
+                 dls[r], st[n][c], dpt[n][c]);
+      }
+    // dV += P^T dO, dK += dS^T Q: the k-steps are the row tiles n
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      uint32_t pb[4], pl[4], sb[4], sl[4];
+      acc_frag(st[n], pb, pl);
+      acc_frag(dpt[n], sb, sl);
+      const float* dor = dos + (n * 8 + 2 * t4) * LD + g;
+      const float* qr = qs + (n * 8 + 2 * t4) * LD + g;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        uint32_t bb[2], bs[2];
+        b_frag<SPLIT>(dor + d * 8, LD, bb, bs);
+        mma_parts<true, SPLIT>(dv[d], pb, pl, bb, bs);
+        b_frag<SPLIT>(qr + d * 8, LD, bb, bs);
+        mma_parts<true, SPLIT>(dk[d], sb, sl, bb, bs);
+      }
+    }
+    bwd_flush(dk, dk_sum);
+    bwd_flush(dv, dv_sum);
+  }
+
+  T* dkp = static_cast<T*>(p.dk);
+  T* dvp = static_cast<T*>(p.dv);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int j = kw + g + 8 * half;
+    if (j >= p.S) continue;
+    const long long row = (((long long)b * p.S + j) * p.Hkv + hk) * D;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      const int c = d * 8 + 2 * t4;
+      const float* ks_ = dk_sum + (d * 4 + 2 * half) * THREADS + threadIdx.x;
+      const float* vs_ = dv_sum + (d * 4 + 2 * half) * THREADS + threadIdx.x;
+      store2(dkp + row + c, ks_[0] * p.scale, ks_[THREADS] * p.scale);
+      store2(dvp + row + c, vs_[0], vs_[THREADS]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_kernel(const BwdParams p) {
+  using C = BwdCfg<T, D>;
+  constexpr int BT = C::BT, LD = C::LD, NT = BT / 8, DT = D / 8;
+  constexpr bool SPLIT = C::SPLIT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);     // [64][LD]
+  float* dos = qs + BWD_ROWS * LD;                    // [64][LD]
+  float* ks = dos + BWD_ROWS * LD;                    // [BT][LD]
+  float* vs = ks + BT * LD;                           // [BT][LD]
+  float* ls = vs + BT * LD;                           // [64]
+  float* dls = ls + BWD_ROWS;                         // [64]
+  float* dq_sum = dls + BWD_ROWS;                     // [ACC][THREADS]
+
+  const int n_qt = gridDim.x;
+  const int qt = n_qt - 1 - blockIdx.x;               // longest tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = p.q_start[b];
+  const int kl = min(p.kv_len[b], p.S);
+  const int i0 = qt * BWD_ROWS;
+  const int iw = i0 + warp * 16;                      // this warp's rows
+  // rows that see no key have dS = 0: only visible keys add to dQ
+  const int n_loop = max(0, bwd_row_end(p, q0, kl,
+                                        min(i0 + BWD_ROWS, p.T) - 1));
+  const int w_end = iw < p.T ? bwd_row_end(p, q0, kl, min(iw + 15, p.T - 1))
+                             : 0;
+
+  bwd_stage<T, D, LD>(qs, p.q, b * p.sq_b + h * p.sq_h, p.sq_t, i0,
+                      BWD_ROWS, p.T);
+  bwd_stage<T, D, LD>(dos, p.dout, b * p.sd_b + h * p.sd_h, p.sd_t, i0,
+                      BWD_ROWS, p.T);
+  bwd_stage_stats(p, b, h, i0, BWD_ROWS, ls, dls);
+
+  float dq[DT][4];                                    // rows iw + g (+ 8)
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dq[d][c] = 0.f;
+  for (int c = 0; c < C::ACC; ++c) dq_sum[c * THREADS + threadIdx.x] = 0.f;
+  const float* qwr = qs + (warp * 16 + g) * LD + 2 * t4;
+  const float* dwr = dos + (warp * 16 + g) * LD + 2 * t4;
+  const int r0 = warp * 16 + g;
+
+  for (int j0 = 0; j0 < n_loop; j0 += BT) {
+    __syncthreads();                          // the last tile's readers done
+    bwd_stage<T, D, LD>(ks, p.k, b * p.sk_b + hk * p.sk_h, p.sk_s, j0, BT,
+                        p.S);
+    bwd_stage<T, D, LD>(vs, p.v, b * p.sv_b + hk * p.sv_h, p.sv_s, j0, BT,
+                        p.S);
+    __syncthreads();
+    if (j0 >= w_end) continue;                // this warp's rows see none
+
+    // S = Q K^T and dP = dO V^T: 16 rows x BT keys
+    float s[NT][4], dpm[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = dpm[n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DT; ++kk) {
+      uint32_t qb[4], qsm[4], db[4], dsm[4];
+      a_frag<SPLIT>(qwr + kk * 8, LD, qb, qsm);
+      a_frag<SPLIT>(dwr + kk * 8, LD, db, dsm);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        uint32_t kb[2], ksm[2], vb[2], vsm[2];
+        bt_frag<SPLIT>(ks + (n * 8 + g) * LD + kk * 8 + 2 * t4, kb, ksm);
+        bt_frag<SPLIT>(vs + (n * 8 + g) * LD + kk * 8 + 2 * t4, vb, vsm);
+        mma_parts<SPLIT, SPLIT>(s[n], qb, qsm, kb, ksm);
+        mma_parts<SPLIT, SPLIT>(dpm[n], db, dsm, vb, vsm);
+      }
+    }
+    // dS in place (in dpm); the scores' registers are free after
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = r0 + (c < 2 ? 0 : 8);
+        bwd_p_ds(p, q0, kl, i0 + r, j0 + n * 8 + 2 * t4 + (c & 1), ls[r],
+                 dls[r], s[n][c], dpm[n][c]);
+      }
+    // dQ += dS K: the k-steps are the key tiles n
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      uint32_t sb[4], sl[4];
+      acc_frag(dpm[n], sb, sl);
+      const float* kr = ks + (n * 8 + 2 * t4) * LD + g;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        uint32_t bb[2], bs[2];
+        b_frag<SPLIT>(kr + d * 8, LD, bb, bs);
+        mma_parts<true, SPLIT>(dq[d], sb, sl, bb, bs);
+      }
+    }
+    bwd_flush(dq, dq_sum);
+  }
+
+  T* dqp = static_cast<T*>(p.dq);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = iw + g + 8 * half;
+    if (i >= p.T) continue;
+    const long long row = (((long long)b * p.T + i) * p.Hq + h) * D;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      const float* qs_ = dq_sum + (d * 4 + 2 * half) * THREADS + threadIdx.x;
+      store2(dqp + row + d * 8 + 2 * t4, qs_[0] * p.scale,
+             qs_[THREADS] * p.scale);
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
+  using C = BwdCfg<T, D>;
+  static bool attr_set = false;         // once per instantiation
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkdv_kernel<T, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_KV);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(
+        flash_bwd_dq_kernel<T, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_Q);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const long long rows = (long long)p.B * p.T * p.Hq;
+  const int per = BWD_THREADS / 32;
+  flash_bwd_delta_kernel<T, D>
+      <<<(unsigned)((rows + per - 1) / per), BWD_THREADS, 0, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 gkv((p.S + BWD_ROWS - 1) / BWD_ROWS, p.Hkv, p.B);
+  flash_bwd_dkdv_kernel<T, D><<<gkv, THREADS, C::SMEM_KV, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 gq((p.T + BWD_ROWS - 1) / BWD_ROWS, p.Hq, p.B);
+  flash_bwd_dq_kernel<T, D><<<gq, THREADS, C::SMEM_Q, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 cudaError_t launch_prefill(const Params& p, cudaStream_t stream) {
   using C = PrefillCfg<T, D>;
   static bool attr_set = false;         // once per instantiation
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_prefill_kernel<T, D>,
+        flash_prefill_kernel<T, D, LSE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
   const dim3 grid(p.Hq, p.B, (p.T + C::BM - 1) / C::BM);
-  flash_prefill_kernel<T, D><<<grid, THREADS, C::SMEM, stream>>>(p);
+  flash_prefill_kernel<T, D, LSE><<<grid, THREADS, C::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -827,8 +1354,9 @@ cudaError_t launch_decode(const Params& p, cudaStream_t stream) {
 
 template <typename T, int D>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  return p.n_split > 0 ? launch_decode<T, D>(p, stream)
-                       : launch_prefill<T, D>(p, stream);
+  if (p.n_split > 0) return launch_decode<T, D>(p, stream);
+  return p.lse != nullptr ? launch_prefill<T, D, true>(p, stream)
+                          : launch_prefill<T, D, false>(p, stream);
 }
 
 }  // namespace
@@ -839,10 +1367,11 @@ extern "C" {
 // n_split > 0 the decode route, with keys cut into n_split ranges of
 // split_len (a multiple of 64, n_split * split_len >= S, n_split <= 64,
 // T * Hq / Hkv <= 16) and, when n_split > 1, ``workspace`` holding
-// B * Hkv * n_split * (T * Hq / Hkv) * (D + 2) floats.  q/k/v rows and
-// their strides must be 16-byte aligned.  Returns a cudaError_t (0 =
-// success); the launches are asynchronous on ``stream`` and allocate
-// nothing.
+// B * Hkv * n_split * (T * Hq / Hkv) * (D + 2) floats.  A non-null ``lse``
+// (prefill route only) receives the per-row natural-log log-sum-exp of the
+// masked logits, f32 [B, Hq, T] contiguous.  q/k/v rows and their strides
+// must be 16-byte aligned.  Returns a cudaError_t (0 = success); the
+// launches are asynchronous on ``stream`` and allocate nothing.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         const void* q_start, const void* kv_len,
                         int B, int T, int S, int Hq, int Hkv, int D, int dtype,
@@ -851,18 +1380,18 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         long long sv_b, long long sv_s, long long sv_h,
                         long long so_b, long long so_t, long long so_h,
                         float scale, int causal, int n_split, int split_len,
-                        void* workspace, void* stream) {
+                        void* workspace, void* lse, void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   if (n_split > 0 &&
       (T * (Hq / Hkv) > DEC_ROWS || n_split > DEC_MAX_SPLITS ||
        split_len <= 0 || split_len % DEC_TK != 0 ||
        (long long)n_split * split_len < S ||
-       (n_split > 1 && workspace == nullptr)))
+       (n_split > 1 && workspace == nullptr) || lse != nullptr))
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o,
            static_cast<const int*>(q_start), static_cast<const int*>(kv_len),
-           static_cast<float*>(workspace),
+           static_cast<float*>(workspace), static_cast<float*>(lse),
            B, T, S, Hq, Hkv, n_split, split_len,
            sq_b, sq_t, sq_h, sk_b, sk_s, sk_h, sv_b, sv_s, sv_h,
            so_b, so_t, so_h, scale * LOG2E, causal};
@@ -873,6 +1402,43 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   if (dtype == 1 && D == 32) return (int)launch<__nv_bfloat16, 32>(p, st);
   if (dtype == 1 && D == 64) return (int)launch<__nv_bfloat16, 64>(p, st);
   if (dtype == 1 && D == 128) return (int)launch<__nv_bfloat16, 128>(p, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward: dq [B,T,Hq,D], dk/dv [B,S,Hkv,D] (contiguous, in q's
+// dtype) from q/k/v, the forward's output o and the output gradient dout
+// (strided like q), the forward's ``lse`` (f32 [B,Hq,T] contiguous) and
+// ``delta``, an f32 [B,Hq,T] scratch.  Three CUDA kernels on ``stream``;
+// returns a cudaError_t (0 = success) and allocates nothing.
+
+int flash_attention_bwd(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const void* lse,
+                        void* delta, void* dq, void* dk, void* dv,
+                        const void* q_start, const void* kv_len,
+                        int B, int T, int S, int Hq, int Hkv, int D, int dtype,
+                        long long sq_b, long long sq_t, long long sq_h,
+                        long long sk_b, long long sk_s, long long sk_h,
+                        long long sv_b, long long sv_s, long long sv_h,
+                        long long so_b, long long so_t, long long so_h,
+                        long long sd_b, long long sd_t, long long sd_h,
+                        float scale, int causal, void* stream) {
+  if (B <= 0 || T <= 0 || S <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0)
+    return (int)cudaErrorInvalidValue;
+  BwdParams p{q, k, v, o, dout,
+              static_cast<const float*>(lse), static_cast<float*>(delta),
+              dq, dk, dv,
+              static_cast<const int*>(q_start), static_cast<const int*>(kv_len),
+              B, T, S, Hq, Hkv,
+              sq_b, sq_t, sq_h, sk_b, sk_s, sk_h, sv_b, sv_s, sv_h,
+              so_b, so_t, so_h, sd_b, sd_t, sd_h,
+              scale, scale * LOG2E, causal};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 32) return (int)launch_bwd<float, 32>(p, st);
+  if (dtype == 0 && D == 64) return (int)launch_bwd<float, 64>(p, st);
+  if (dtype == 0 && D == 128) return (int)launch_bwd<float, 128>(p, st);
+  if (dtype == 1 && D == 32) return (int)launch_bwd<__nv_bfloat16, 32>(p, st);
+  if (dtype == 1 && D == 64) return (int)launch_bwd<__nv_bfloat16, 64>(p, st);
+  if (dtype == 1 && D == 128) return (int)launch_bwd<__nv_bfloat16, 128>(p, st);
   return (int)cudaErrorInvalidValue;
 }
 

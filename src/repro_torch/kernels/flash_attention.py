@@ -1,5 +1,5 @@
-"""Flash attention forward: the hand-written Hopper kernel
-(``csrc/flash_attention.cu``), its wrappers, and its plain versions.
+"""Flash attention forward and backward: the hand-written Hopper kernels
+(``csrc/flash_attention.cu``), their wrappers, and their plain versions.
 
 Port of the Pallas TPU kernel ``repro/kernels/flash_attention.py`` (and of
 its oracle ``repro/kernels/ref.py::flash_attention_ref``), grown to the
@@ -12,14 +12,24 @@ GQA by head index, per-row ``q_start``/``kv_len``, causal mask
 * :func:`flash_attention` — the Pallas function's signature, ``[BH,T,D]``
   with scalar ``kv_len`` (a view with one head over the same kernel).
 
-A tensor on the CPU takes the plain version (:func:`attend_ref`,
-:func:`flash_attention_ref`); a CUDA tensor launches the kernel or raises.
-``flash_attend.launches`` counts kernel launches (one per call), and
-``launches_prefill`` / ``launches_decode`` count them by route.
+* :func:`flash_attend_bwd` — the gradient (dq, dk, dv) of
+  :func:`flash_attend`'s function from its output and per-row statistics
+  (``flash_attend(..., return_lse=True)``); :class:`FlashAttention` is the
+  ``torch.autograd.Function`` that joins the two.  The Pallas kernel has no
+  backward (the JAX model trains through XLA's gradient of
+  ``layers.attend``), so this one has no TPU counterpart.
 
-The kernel has two routes, picked from static shapes by :func:`route`:
+A tensor on the CPU takes the plain version (:func:`attend_ref`,
+:func:`flash_attention_ref`, :func:`attend_bwd_ref`); a CUDA tensor
+launches the kernel or raises.  ``flash_attend.launches`` counts forward
+launches (one per call), ``launches_prefill`` / ``launches_decode`` count
+them by route, and ``launches_bwd`` counts backward launches.
+
+The forward has two routes, picked from static shapes by :func:`route`:
 ``decode`` (split-KV, all query heads of a kv head in one block) when
 ``T * Hq / Hkv <= DECODE_MAX_ROWS``, else ``prefill`` (tensor cores).
+Only the prefill route writes the per-row statistics, so a call that asks
+for them (``return_lse=True``) takes the prefill route whatever its shape.
 :func:`attend_split_ref` is the decode route's algorithm in plain torch
 (per-split partials and their merge), for the tests.
 """
@@ -83,11 +93,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bts,bsd->btd", p, v.float()).to(q.dtype)
 
 
-def attend_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-               scale: float, causal: bool, q_start: torch.Tensor,
-               kv_len: torch.Tensor) -> torch.Tensor:
-    """The model's attention math (``layers._block_attend``) in one block:
-    q [B,T,Hq,D], k/v [B,S,Hkv,D], per-row q_start/kv_len [B]."""
+def _scores(q, k, *, scale, causal, q_start, kv_len):
+    """f32 logits [B,Hkv,G,T,S] of q [B,T,Hq,D] against k [B,S,Hkv,D] (GQA
+    by head index) and the visibility mask [B,T,S] (key j seen by row i iff
+    j < kv_len and, when causal, j <= q_start + i)."""
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     qg = q.reshape(B, T, Hkv, Hq // Hkv, D).float()
@@ -97,10 +106,71 @@ def attend_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m = kpos[None, None, :] < kv_len.to(torch.int64)[:, None, None]
     if causal:
         m = m & (kpos[None, None, :] <= qpos[:, :, None])
+    return logits, m
+
+
+def attend_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               scale: float, causal: bool, q_start: torch.Tensor,
+               kv_len: torch.Tensor) -> torch.Tensor:
+    """The model's attention math (``layers._block_attend``) in one block:
+    q [B,T,Hq,D], k/v [B,S,Hkv,D], per-row q_start/kv_len [B].  Masked
+    logits are -1e30 (``torch.where``, so they take no gradient)."""
+    B, T, Hq, D = q.shape
+    logits, m = _scores(q, k, scale=scale, causal=causal, q_start=q_start,
+                        kv_len=kv_len)
     logits = torch.where(m[:, None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v.float())
     return out.reshape(B, T, Hq, v.shape[-1]).to(q.dtype)
+
+
+def attend_lse_ref(q: torch.Tensor, k: torch.Tensor, *, scale: float,
+                   causal: bool, q_start: torch.Tensor,
+                   kv_len: torch.Tensor) -> torch.Tensor:
+    """The per-row statistics the forward saves for the backward: the
+    natural-log log-sum-exp of the masked logits, f32 [B, Hq, T].  A row
+    that sees no key has -1e30 (-1e30 + log S rounds to it in f32)."""
+    B, T, Hq, _ = q.shape
+    logits, m = _scores(q, k, scale=scale, causal=causal, q_start=q_start,
+                        kv_len=kv_len)
+    lse = torch.logsumexp(torch.where(m[:, None, None], logits, NEG_INF), -1)
+    return lse.reshape(B, Hq, T)
+
+
+def attend_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                   *, scale: float, causal: bool, q_start: torch.Tensor,
+                   kv_len: torch.Tensor):
+    """The backward's math in plain torch (not autograd): P recomputed from
+    the saved statistics ``lse`` [B,Hq,T], D = rowsum(dO o O),
+    dS = P o (dP - D) with dP = dO V^T, zero where the forward masked (a
+    masked logit is the constant -1e30);  dV = P^T dO, dQ = scale dS K,
+    dK = scale dS^T Q, GQA heads summed into their kv head.  A row that
+    sees no key has P = 1/S over all S keys (its output is the mean of V)
+    and dS = 0: its statistic, -1e30, cannot give 1/S, so such rows are
+    picked out by their mask, as the kernel does.  Returns (dq, dk, dv) in
+    the inputs' dtypes."""
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    logits, m = _scores(q, k, scale=scale, causal=causal, q_start=q_start,
+                        kv_len=kv_len)
+    seen = m[:, None, None]                                   # [B,1,1,T,S]
+    idle = ~seen.any(-1, keepdim=True)                        # [B,1,1,T,1]
+    p = torch.exp(torch.where(seen, logits, -torch.inf)
+                  - lse.float().reshape(B, Hkv, G, T)[..., None])
+    p = torch.where(idle, 1.0 / S, p)
+    do = dout.reshape(B, T, Hkv, G, D).float()
+    delta = (do * out.reshape(B, T, Hkv, G, D).float()).sum(-1)
+    dp = torch.einsum("btkgd,bskd->bkgts", do, v.float())
+    ds = torch.where(seen, p * (dp - delta.permute(0, 2, 3, 1)[..., None]),
+                     0.0)
+    dv = torch.einsum("bkgts,btkgd->bskd", p, do)
+    dq = torch.einsum("bkgts,bskd->btkgd", ds, k.float()) * scale
+    dk = torch.einsum("bkgts,btkgd->bskd", ds,
+                      q.reshape(B, T, Hkv, G, D).float()) * scale
+    return (dq.reshape(B, T, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def attend_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -150,8 +220,11 @@ def attend_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention_fwd.argtypes = (
-        [p] * 6 + [i] * 7 + [ll] * 12 + [ctypes.c_float, i, i, i, p, p])
+        [p] * 6 + [i] * 7 + [ll] * 12 + [ctypes.c_float, i, i, i, p, p, p])
     lib.flash_attention_fwd.restype = ctypes.c_int
+    lib.flash_attention_bwd.argtypes = (
+        [p] * 12 + [i] * 7 + [ll] * 15 + [ctypes.c_float, i, p])
+    lib.flash_attention_bwd.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
 
@@ -204,21 +277,30 @@ def _check_cuda(q, k, v, q_start, kv_len):
 
 def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  scale: float, causal: bool, q_start: torch.Tensor,
-                 kv_len: torch.Tensor) -> torch.Tensor:
+                 kv_len: torch.Tensor, return_lse: bool = False):
     """Attention of q [B,T,Hq,D] over k/v [B,S,Hkv,D] (GQA by head index)
     with per-row ``q_start``/``kv_len`` [B] int32 on q's device.  Returns
-    [B,T,Hq,D] in q's dtype."""
+    [B,T,Hq,D] in q's dtype; with ``return_lse`` also the per-row
+    statistics f32 [B,Hq,T] (:func:`attend_lse_ref`) the backward needs,
+    and then the kernel takes the prefill route, the one that writes
+    them."""
     _check_shapes(q, k, v, q_start, kv_len)
     if q.device.type == "cpu":
-        return attend_ref(q, k, v, scale=scale, causal=causal,
-                          q_start=q_start, kv_len=kv_len)
+        out = attend_ref(q, k, v, scale=scale, causal=causal,
+                         q_start=q_start, kv_len=kv_len)
+        if not return_lse:
+            return out
+        return out, attend_lse_ref(q, k, scale=scale, causal=causal,
+                                   q_start=q_start, kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attend runs on cuda or cpu, not {q.device}")
     _check_cuda(q, k, v, q_start, kv_len)
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, T, Hq, D), dtype=q.dtype, device=q.device)
-    decode = route(T, Hq, Hkv) == "decode"
+    lse = (torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    decode = not return_lse and route(T, Hq, Hkv) == "decode"
     n_split, split_len = decode_splits(B, S, Hkv) if decode else (0, 0)
     # the decode route's split partials: acc [.., R, D], then (m, l) [.., R]
     work = (torch.empty(B * Hkv * n_split * T * (Hq // Hkv) * (D + 2),
@@ -234,7 +316,7 @@ def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], float(scale), int(bool(causal)),
             n_split, split_len, None if work is None else work.data_ptr(),
-            stream)
+            None if lse is None else lse.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd failed: CUDA error {rc} "
                            f"({lib.flash_attention_error_string(rc).decode()})")
@@ -243,12 +325,92 @@ def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         flash_attend.launches_decode += 1
     else:
         flash_attend.launches_prefill += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attend.launches = 0
 flash_attend.launches_prefill = 0
 flash_attend.launches_decode = 0
+flash_attend.launches_bwd = 0
+
+
+def flash_attend_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     out: torch.Tensor, lse: torch.Tensor,
+                     dout: torch.Tensor, *, scale: float, causal: bool,
+                     q_start: torch.Tensor, kv_len: torch.Tensor):
+    """The gradient of :func:`flash_attend` with respect to q, k and v,
+    from its output ``out`` and statistics ``lse`` (f32 [B,Hq,T], from
+    ``return_lse=True``) and the output gradient ``dout`` [B,T,Hq,D].
+    Returns (dq, dk, dv) in the inputs' dtype, contiguous.  One launch of
+    the backward kernel on a CUDA tensor (counted in
+    ``flash_attend.launches_bwd``); :func:`attend_bwd_ref` on a CPU
+    tensor."""
+    _check_shapes(q, k, v, q_start, kv_len)
+    B, T, Hq, D = q.shape
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} must match q "
+                             f"{tuple(q.shape)}")
+    if lse.shape != (B, Hq, T) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 [{B}, {Hq}, {T}], got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if q.device.type == "cpu":
+        return attend_bwd_ref(q, k, v, out, lse, dout, scale=scale,
+                              causal=causal, q_start=q_start, kv_len=kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attend_bwd runs on cuda or cpu, not "
+                         f"{q.device}")
+    _check_cuda(q, k, v, q_start, kv_len)
+    _check_cuda(out, dout, dout, q_start, kv_len)
+    if lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous on {q.device}")
+    S, Hkv = k.shape[1], k.shape[2]
+    dq = torch.empty((B, T, Hq, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, S, Hkv, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, S, Hkv, D), dtype=q.dtype, device=q.device)
+    delta = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+    lib = build.load("flash_attention", _declare)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            q_start.data_ptr(), kv_len.data_ptr(),
+            B, T, S, Hq, Hkv, D, _DTYPE_CODE[q.dtype],
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], *dout.stride()[:3], float(scale),
+            int(bool(causal)), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd failed: CUDA error {rc} "
+                           f"({lib.flash_attention_error_string(rc).decode()})")
+    flash_attend.launches_bwd += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attend` with a gradient: the forward saves the output
+    and the per-row statistics, the backward is one :func:`flash_attend_bwd`
+    (q/k/v get gradients; the offsets do not)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, causal: bool,
+                q_start: torch.Tensor, kv_len: torch.Tensor):
+        out, lse = flash_attend(q, k, v, scale=scale, causal=causal,
+                                q_start=q_start, kv_len=kv_len,
+                                return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, q_start, kv_len)
+        ctx.scale, ctx.causal = scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, q_start, kv_len = ctx.saved_tensors
+        # autograd may hand a strided or unaligned gradient
+        dq, dk, dv = flash_attend_bwd(
+            q, k, v, out, lse, dout.contiguous(), scale=ctx.scale,
+            causal=ctx.causal, q_start=q_start, kv_len=kv_len)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels.flash_attention import flash_attend
+from repro_torch.kernels.flash_attention import FlashAttention, flash_attend
 from repro_torch.kernels.ssd_scan import ssd_chunked
 
 Params = dict
@@ -76,15 +76,22 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q_start``: absolute position of q[0], a scalar or per-row [B];
     ``kv_len``: valid prefix of k/v (scalar or per-row [B]) or None.
     On a CUDA tensor this is one launch of the flash kernel; on a CPU
-    tensor its plain version.  Offsets stay on the device."""
+    tensor its plain version.  Offsets stay on the device.  When autograd
+    records and q/k/v require grad, a CUDA tensor goes through
+    :class:`FlashAttention` (the forward with statistics, then one launch
+    of the backward kernel) and a CPU tensor through the plain version
+    under torch autograd."""
     if window is not None:
         raise NotImplementedError("sliding-window attention is not ported "
                                   "yet")
     B, S = q.shape[0], k.shape[1]
+    q_start = _per_row(q_start, B, q.device)
+    kv_len = _per_row(S if kv_len is None else kv_len, B, q.device)
+    if (q.device.type == "cuda" and torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return FlashAttention.apply(q, k, v, scale, causal, q_start, kv_len)
     return flash_attend(q, k, v, scale=scale, causal=causal,
-                        q_start=_per_row(q_start, B, q.device),
-                        kv_len=_per_row(S if kv_len is None else kv_len, B,
-                                        q.device))
+                        q_start=q_start, kv_len=kv_len)
 
 
 def _cache_write(buf: torch.Tensor, new: torch.Tensor, idx) -> torch.Tensor:

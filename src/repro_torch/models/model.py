@@ -1,5 +1,5 @@
 """Model assembly, dense GQA and SSM branches (the port's share of
-``repro/models/model.py``): ArchConfig -> init / forward / decode.
+``repro/models/model.py``): ArchConfig -> init / forward / loss / decode.
 
 Layer parameters are stacked on a leading ``[L, ...]`` axis, as in the JAX
 package, so stage slicing and the numpy bridge (``repro_torch.convert``)
@@ -149,6 +149,29 @@ def forward(cfg: ArchConfig, params: Params, batch: dict, *, cache=None):
             cache["kv"]["len"][i] = new_cl["kv"]["len"]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux, cache
+
+
+def logits_and_xent(cfg: ArchConfig, params: Params, x: torch.Tensor,
+                    labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of the f32 logits ``x @ table.T`` against
+    ``labels`` (tensor parallel degree 1).  Rows of a table padded past
+    ``cfg.vocab`` (the stacked parameters' padded vocab) are masked at
+    -1e30, as the JAX pipeline's head does."""
+    table = params.get("head", params["embed"])
+    logits = (x @ table.T).float()                           # [B,T,V]
+    if table.shape[0] > cfg.vocab:
+        valid = torch.arange(table.shape[0], device=x.device) < cfg.vocab
+        logits = torch.where(valid, logits, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - lab)
+
+
+def loss_fn(cfg: ArchConfig, params: Params, batch: dict) -> torch.Tensor:
+    """Non-pipelined loss: ``batch`` holds tokens and labels [B,T];
+    ``params`` the unstaged tree (layers stacked [L, ...])."""
+    x, aux, _ = forward(cfg, params, batch)
+    return logits_and_xent(cfg, params, x, batch["labels"]) + aux
 
 
 def _default_pos(tokens: torch.Tensor, cache) -> torch.Tensor:

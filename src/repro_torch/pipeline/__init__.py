@@ -1,1 +1,1 @@
-"""Stage partitioning and the pipelined serve executor."""
+"""Stage partitioning and the pipelined serve and train executors."""

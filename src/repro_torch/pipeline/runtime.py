@@ -1,14 +1,20 @@
-"""BaPipe pipelined serving on one device (the port's share of
-``repro/pipeline/runtime.py``: serving, V = 1, tensor = 1, data = 1).
+"""BaPipe pipelined serving and training on one device (the port's share
+of ``repro/pipeline/runtime.py``: V = 1, tensor = 1, data = 1).
 
 The JAX runtime runs every stage on its own device inside ``shard_map``
-and shifts activations around a ``ppermute`` ring, one tick at a time.
-Here every stage lives on the one card and :func:`make_serve_step` is an
-in-process executor of the same :func:`repro_torch.core.schedplan.
-lower_to_ring` tables: at tick t, stage s runs element ``e = t - s`` on the
-activation stage s-1 produced at tick t-1.  (stage, tick) pairs with no
-element (pipeline fill and drain) are skipped, not computed and masked,
-which gives what the JAX runtime gives with ``gate_ticks``.
+and shifts activations around ``ppermute`` rings, one tick at a time.
+Here every stage lives on the one card, and the two step factories are
+in-process executors of the same schedule-plan tables:
+
+* :func:`make_serve_step` replays :func:`repro_torch.core.schedplan.
+  lower_to_ring`: at tick t, stage s runs element ``e = t - s`` on the
+  activation stage s-1 produced at tick t-1.  (stage, tick) pairs with no
+  element (pipeline fill and drain) are skipped, not computed and masked,
+  which gives what the JAX runtime gives with ``gate_ticks``.
+* :func:`make_train_step` replays :func:`repro_torch.core.schedplan.
+  lower_to_ticks`: every F, B and W op of the schedule is a tick of its
+  stage, and the forward and backward rings are lists of the previous
+  tick's outputs.
 """
 from __future__ import annotations
 
@@ -26,7 +32,15 @@ from repro_torch.pipeline import stage as ST
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     n_microbatches: int = 4
-    schedule: str = "auto"          # schedplan name: auto | gpipe | 1f1b
+    schedule: str = "auto"          # schedplan name: auto | gpipe | 1f1b |
+                                    # 1f1b-2x | dapple | zb-h1
+    # training knobs of the JAX PipelineConfig; the port runs the
+    # synchronous tick replay with no data-parallel sync, so only these
+    # values are taken (the rest raise, naming their ROADMAP item)
+    runtime: str = "ticks"          # ticks (stream: not ported)
+    grad_sync: str = "auto"         # auto | end (overlap / 2bw: not ported)
+    ar_groups: int = 1
+    mem_limit: int = 0              # zb-auto cap (not ported)
 
 
 def apply_stage(cfg: ArchConfig, stage_params: dict, stage_meta: list, x, *,
@@ -147,3 +161,233 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
         return (h @ table.T).float(), cache
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Training step factory.
+# ---------------------------------------------------------------------------
+
+def _check_train_config(cfg: ArchConfig, plan: ST.StagePlan,
+                        pcfg: PipelineConfig) -> None:
+    """Refuse what the port's train executor does not run yet, naming the
+    ROADMAP item that ports it."""
+    if cfg.family == "ssm":
+        # the SSD kernel has no backward: its output would carry no
+        # gradient on the card
+        raise NotImplementedError(
+            f"{cfg.arch_id}: training the ssm family needs the SSD "
+            f"kernel's backward (ROADMAP 'Still to port': the SSD kernel's "
+            f"backward)")
+    if plan.virtual != 1:
+        raise NotImplementedError(
+            f"virtual={plan.virtual}: interleaved (V > 1) training is not "
+            f"ported yet (ROADMAP 'Still to port': zb-h2/zb-auto/"
+            f"interleaved training)")
+    if plan.tensor != 1:
+        raise NotImplementedError(
+            f"tensor={plan.tensor}: tensor parallelism is not ported yet "
+            f"(ROADMAP 'Still to port': tensor and data parallel over NCCL)")
+    if pcfg.runtime != "ticks":
+        raise NotImplementedError(
+            f"runtime={pcfg.runtime!r}: the stream runtime is not ported yet "
+            f"(ROADMAP 'Still to port': the stream runtime)")
+    if pcfg.grad_sync not in ("auto", "end") or pcfg.ar_groups != 1:
+        raise NotImplementedError(
+            f"grad_sync={pcfg.grad_sync!r}, ar_groups={pcfg.ar_groups}: "
+            f"scheduled gradient sync is not ported yet (ROADMAP 'Still to "
+            f"port': tensor and data parallel over NCCL)")
+    if pcfg.mem_limit:
+        raise NotImplementedError(
+            f"mem_limit={pcfg.mem_limit}: zb-auto is not ported yet (ROADMAP "
+            f"'Still to port': zb-h2/zb-auto/interleaved training)")
+
+
+def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
+                    pcfg: PipelineConfig, *, optimizer=None):
+    """Build the pipelined train step.
+
+    Without an optimizer ``step(params, batch) -> (loss, grads)``; with one
+    ``step(params, opt_state, batch) -> (params, opt_state, metrics)``
+    (``metrics["loss"]``), the parameters and the optimizer state updated
+    in place.  ``batch`` holds ``tokens`` and ``labels`` [B, T]; the loss
+    is the mean cross-entropy over the batch, a 0-dim f32 tensor on the
+    parameters' device (no host sync).
+
+    One call replays the schedule's ``lower_to_ticks`` table once.  At
+    each tick each stage runs its op:
+
+    * F applies the stage under ``torch.no_grad()`` and stashes its input
+      in residual slot ``xw``;
+    * B re-runs the stage from the stashed input under
+      ``torch.enable_grad()`` and back-propagates the ring cotangent (for
+      ``zb-h1`` with respect to the input only, stashing the cotangent in
+      slot ``cw`` for its W);
+    * B_SEED, on the last stage, also runs the loss head (final norm,
+      logits, cross-entropy) and seeds it with ``1/M``;
+    * W (zero-bubble plans) re-runs the stage and takes the weight
+      gradient from the stashed cotangent.
+
+    Stage weights enter each B/W tick as fresh leaves
+    ``p[s].detach().requires_grad_()``; their gradients are added into a
+    grads tree of the stacked ``[S, Lps, ...]`` shape (padded layer slots
+    get zeros).  The stage-0 input cotangents are back-propagated through
+    ``embed_tokens`` once at the end, and a tied head's gradient is added
+    to ``embed``.  ``step.lowering`` is the replayed table; after a call,
+    ``step.stash_slots[s]`` is the number of residual slots stage s wrote
+    (its peak-live count; their maximum is ``lowering.n_x``)."""
+    M.check_ported(cfg)
+    _check_train_config(cfg, plan, pcfg)
+    S, M_ = plan.n_stages, pcfg.n_microbatches
+    sched = SP.resolve_ring_schedule(pcfg.schedule, plan.virtual)
+    lo = SP.lower_to_ticks(SP.build_schedule(sched, M_, S))
+    smeta = ST.stacked_meta(cfg, plan)
+    ct_scale = 1.0 / M_
+
+    def loss_and_grads(params: dict, batch: dict):
+        tokens, labels = batch["tokens"], batch["labels"]
+        B, T = tokens.shape
+        if B % M_:
+            raise ValueError(f"batch {B} not divisible by M={M_}")
+        mb = B // M_
+        dev = tokens.device
+        pos = torch.arange(T, device=dev)[None].expand(mb, T)
+        labels_mb = labels.reshape(M_, mb, T)
+        fn_p = params["final_norm"]
+        head_key = "head" if "head" in params else "embed"
+        head_p = params[head_key]
+        # the injections under autograd: the stage-0 B ticks' input
+        # cotangents are back-propagated through this gather at the end
+        with torch.enable_grad():
+            emb = params["embed"].detach().requires_grad_()
+            inj = M.embed_tokens(cfg, emb, tokens).reshape(M_, mb, T, -1)
+
+        def stage_fn(s, lp, x):
+            y, _, _ = apply_stage(cfg, lp, smeta[s], x, pos=pos)
+            return y
+
+        def head_loss(fnp, hdp, y, m):
+            h = LYR.rms_norm(y, fnp, cfg.norm_eps)
+            return M.logits_and_xent(cfg, {head_key: hdp, "embed": hdp}, h,
+                                     labels_mb[m])
+
+        def leaves_of(s, grad: bool):
+            """Stage s's weights as fresh autograd leaves (or plain
+            views), and the flat list of them."""
+            lp = ST._map_layers(
+                lambda a: a[s].detach().requires_grad_(grad),
+                params["layers"])
+            return lp, ST.tree_leaves(lp)
+
+        dlp = ST._map_layers(torch.zeros_like, params["layers"])
+        dlp_flat = ST.tree_leaves(dlp)
+        dfn = torch.zeros_like(fn_p)
+        dhd = torch.zeros_like(head_p)
+        ce = torch.zeros((), dtype=torch.float32, device=dev)
+        dinj = [None] * M_
+        xs = [[None] * lo.n_x for _ in range(S)]      # residual stash
+        fin = [[None] * lo.n_f for _ in range(S)]     # parked fwd arrivals
+        bin_ = [[None] * lo.n_b for _ in range(S)]    # parked bwd arrivals
+        cts = [[None] * lo.n_c for _ in range(S)]     # zb cotangent stash
+        written = [set() for _ in range(S)]
+        f_arr = [None] * S      # forward ring: what stage s-1 sent last tick
+        b_arr = [None] * S      # backward ring: what stage s+1 sent
+
+        def add_dlp(s, grads):
+            for acc, g in zip(dlp_flat, grads):
+                if g is not None:
+                    acc[s] += g
+
+        for t in range(lo.n_ticks):
+            f_out = [None] * S
+            b_out = [None] * S
+            for s in range(S):
+                if lo.fpark[s][t] >= 0:
+                    fin[s][lo.fpark[s][t]] = f_arr[s]
+                if lo.bpark[s][t] >= 0:
+                    bin_[s][lo.bpark[s][t]] = b_arr[s]
+                kind, m = lo.kind[s][t], lo.m[s][t]
+                if kind == SP.TICK_IDLE:
+                    continue
+                if kind == SP.TICK_F:
+                    src = lo.fsrc[s][t]
+                    x_in = (inj[m].detach() if src == 0 else
+                            f_arr[s] if src == 1 else fin[s][lo.fr[s][t]])
+                    with torch.no_grad():
+                        f_out[s] = stage_fn(s, M.layer_slice(
+                            params["layers"], s), x_in)
+                    xs[s][lo.xw[s][t]] = x_in
+                    written[s].add(lo.xw[s][t])
+                    continue
+                x_res = xs[s][lo.xr[s][t]]
+                if kind == SP.TICK_W:
+                    ctan = cts[s][lo.cr[s][t]]
+                    with torch.enable_grad():
+                        lp, flat = leaves_of(s, True)
+                        y = stage_fn(s, lp, x_res)
+                        if y.requires_grad:     # else every slot is padding
+                            add_dlp(s, torch.autograd.grad(
+                                y, flat, ctan, allow_unused=True))
+                    continue
+                with torch.enable_grad():
+                    x = x_res.detach().requires_grad_()
+                    lp, flat = leaves_of(s, not lo.has_w)
+                    if kind == SP.TICK_B:
+                        ctan = (b_arr[s] if lo.bsrc[s][t] == 1
+                                else bin_[s][lo.br[s][t]])
+                        y = stage_fn(s, lp, x)
+                        if lo.has_w:        # zb: input gradient only
+                            (dx,) = torch.autograd.grad(y, [x], ctan)
+                            cts[s][lo.cw[s][t]] = ctan
+                        else:
+                            dx, *gs = torch.autograd.grad(
+                                y, [x] + flat, ctan, allow_unused=True)
+                            add_dlp(s, gs)
+                    else:                   # TICK_B_SEED: the loss head
+                        fnp = fn_p.detach().requires_grad_()
+                        hdp = head_p.detach().requires_grad_()
+                        seed = torch.full((), ct_scale, device=dev)
+                        if lo.has_w:
+                            # zb: the head's y-cotangent is stashed for W
+                            y = stage_fn(s, lp, x)
+                            yd = y.detach().requires_grad_()
+                            ce_m = head_loss(fnp, hdp, yd, m)
+                            dfn_d, dhd_d, dy = torch.autograd.grad(
+                                ce_m, [fnp, hdp, yd], seed)
+                            (dx,) = torch.autograd.grad(y, [x], dy)
+                            cts[s][lo.cw[s][t]] = dy
+                        else:
+                            ce_m = head_loss(fnp, hdp, stage_fn(s, lp, x), m)
+                            dx, dfn_d, dhd_d, *gs = torch.autograd.grad(
+                                ce_m, [x, fnp, hdp] + flat, seed,
+                                allow_unused=True)
+                            add_dlp(s, gs)
+                        dfn += dfn_d
+                        dhd += dhd_d
+                        ce += ce_m.detach()
+                b_out[s] = dx
+                if lo.dinj[s][t]:
+                    dinj[m] = dx
+            # one-tick neighbour hops: s receives from s-1 (forward ring)
+            # and from s+1 (backward ring)
+            f_arr = [None] + f_out[:-1]
+            b_arr = b_out[1:] + [None]
+
+        (d_embed,) = torch.autograd.grad(inj, emb, torch.stack(dinj))
+        grads = dict(embed=d_embed, layers=dlp, final_norm=dfn)
+        if head_key == "head":
+            grads["head"] = dhd
+        else:
+            grads["embed"] = d_embed + dhd
+        step.stash_slots = [len(w) for w in written]
+        return ce / M_, grads
+
+    if optimizer is None:
+        step = loss_and_grads
+    else:
+        def step(params: dict, opt_state: dict, batch: dict):
+            loss, grads = loss_and_grads(params, batch)
+            params, opt_state = optimizer.update(params, grads, opt_state)
+            return params, opt_state, dict(loss=loss)
+    step.lowering = lo
+    step.stash_slots = None
+    return step

@@ -63,6 +63,14 @@ def _map_layers(fn, tree: dict) -> dict:
             for k, v in tree.items()}
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict in sorted-key order (the order
+    ``jax.tree.leaves`` gives), so two trees with the same keys pair up."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
 def init_stacked_params(cfg: ArchConfig, seed: int, plan: StagePlan, *,
                         dtype=torch.float32, device="cuda") -> dict:
     """Parameters with layers stacked [S, Lps, ...] (padded slots get real

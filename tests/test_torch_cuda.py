@@ -4,9 +4,12 @@ Run on a machine with a CUDA card (no JAX needed):
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Without a card every test here skips.  Tolerances are the JAX kernel
-tests' own: f32 2e-5, bf16 3e-2.
+Without a card every test here skips.  Forward tolerances are the JAX
+kernel tests' own: f32 2e-5, bf16 3e-2; the backward's are relative to
+max |ref|: f32 1e-4 (the harness's gradient bar), bf16 3e-2.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -259,3 +262,148 @@ def test_ssd_split_kernels_edges_on_card(dtype):
                 assert fin.data_ptr() != init.data_ptr()
             torch.testing.assert_close(init, kept, atol=0, rtol=0)
     torch.cuda.synchronize()
+
+
+# the backward: tolerances relative to max |ref| (f32 1e-4, bf16 3e-2)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def _bwd_case(g, B, T, S, Hq, Hkv, D, q_start, kv_len, dtype, dev):
+    q, k, v, qs, kl = _flash_inputs(g, B, T, S, Hq, Hkv, D, q_start, kv_len,
+                                    dtype, dev)
+    dout = torch.randn(B, T, Hq, D, generator=g).to(dev, TDT[dtype])
+    return q, k, v, dout, qs, kl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_bwd_matches_plain_on_card(dtype, D):
+    """The backward kernel against attend_bwd_ref (same output and
+    statistics) and, in f32, against torch autograd of attend_ref: GQA
+    groups 1/4/8, T = 1, 16, 100 (ragged) and 130 over S = 160, causal
+    and not, rows from 0, a 40-key prefix, an idle row (kv_len = 0), a
+    row whose first positions see no key (q_start < 0) and a full cache.
+    The statistics the forward saves match attend_lse_ref."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(10 + D)
+    S, Hkv = 160, 2
+    rel = lambda a, b: _rel_err(a, b)
+    for groups in (1, 4, 8):
+        Hq = Hkv * groups
+        for T in (1, 16, 100, 130):
+            for causal in (True, False):
+                q_start = [0, max(0, 40 - T), 0, -5, S - T]
+                kv_len = [T, 40, 0, S, S]
+                q, k, v, do, qs, kl = _bwd_case(g, 5, T, S, Hq, Hkv, D,
+                                                q_start, kv_len, dtype, dev)
+                kw = dict(scale=D ** -0.5, causal=causal, q_start=qs,
+                          kv_len=kl)
+                out, lse = FA.flash_attend(q, k, v, return_lse=True, **kw)
+                lse_ref = FA.attend_lse_ref(q, k, **kw)
+                case = (groups, T, causal)
+                assert (lse - lse_ref).abs().max().item() < 1e-3, case
+                got = FA.flash_attend_bwd(q, k, v, out, lse, do, **kw)
+                want = FA.attend_bwd_ref(q, k, v, out, lse, do, **kw)
+                for name, a, b in zip("qkv", got, want):
+                    assert a.dtype == b.dtype and a.shape == b.shape
+                    assert rel(a, b) < BWD_TOL[dtype], (name, case)
+                if dtype == "float32":
+                    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                    ref = FA.attend_ref(*leaves, **kw)
+                    auto = torch.autograd.grad(ref, leaves, do)
+                    for name, a, b in zip("qkv", got, auto):
+                        assert rel(a, b) < BWD_TOL[dtype], (name, case)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_bitwise_reproducible_on_card(dtype):
+    """No atomics: two calls on the same inputs give the same bits, at the
+    training shape (B 2, T = S 1024, 32/8 heads, D 64, causal)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(5)
+    q, k, v, do, qs, kl = _bwd_case(g, 2, 1024, 1024, 32, 8, 64, [0, 0],
+                                    [1024, 1024], dtype, dev)
+    kw = dict(scale=0.125, causal=True, q_start=qs, kv_len=kl)
+    out, lse = FA.flash_attend(q, k, v, return_lse=True, **kw)
+    before = FA.flash_attend.launches_bwd
+    first = FA.flash_attend_bwd(q, k, v, out, lse, do, **kw)
+    second = FA.flash_attend_bwd(q, k, v, out, lse, do, **kw)
+    assert FA.flash_attend.launches_bwd == before + 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    want = FA.attend_bwd_ref(q, k, v, out, lse, do, **kw)
+    for a, b in zip(first, want):
+        assert _rel_err(a, b) < BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_attend_under_autograd_launches_both_kernels_on_card():
+    """layers.attend with q/k/v that require grad goes through
+    FlashAttention: one forward launch (prefill route, statistics written,
+    even at a decode shape) and one backward launch; without grad it is
+    one forward launch on its route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.models import layers as LYR
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(6)
+    fa = FA.flash_attend
+    for T in (1, 64):
+        q, k, v, do, qs, kl = _bwd_case(g, 2, T, 64, 8, 2, 64, [0, 0],
+                                        [64, 64], "float32", dev)
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+        before = (fa.launches_prefill, fa.launches_decode, fa.launches_bwd)
+        out = LYR.attend(*leaves, scale=0.125, causal=False)
+        grads = torch.autograd.grad(out, leaves, do)
+        assert (fa.launches_prefill, fa.launches_decode, fa.launches_bwd) \
+            == (before[0] + 1, before[1], before[2] + 1)
+        ref = FA.attend_ref(*leaves, scale=0.125, causal=False, q_start=qs,
+                            kv_len=kl)
+        for a, b in zip(grads, torch.autograd.grad(ref, leaves, do)):
+            assert _rel_err(a, b) < BWD_TOL["float32"]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["1f1b", "zb-h1"])
+def test_reduced_train_step_card_matches_cpu(schedule):
+    """A reduced llama (2 layers, d 128, head_dim 32, 2 stages, M 2)
+    through the pipelined train step on the card and on the CPU with the
+    same weights and batch: loss within 1e-4, every gradient within 1e-4
+    of max |cpu|; the card step launches the forward 2 x 2 x (1 +
+    recomputes) times and the backward once per layer and B/W tick."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.pipeline import runtime as RT
+    from repro_torch.pipeline import stage as ST
+    cfg = dataclasses.replace(
+        get_config("llama3.2-1b").reduced(n_layers=2, d_model=128),
+        n_kv_heads=2, stages=2)
+    plan = ST.plan_stages(cfg)
+    step = RT.make_train_step(cfg, plan, RT.PipelineConfig(
+        n_microbatches=2, schedule=schedule))
+    params = ST.init_stacked_params(cfg, 0, plan, device="cpu")
+    batch = SyntheticLM(cfg.vocab, 64, 4, device="cpu").batch(0)
+    to = lambda tree: {k: to(v) if isinstance(v, dict) else v.cuda()
+                       for k, v in tree.items()}
+    fa = FA.flash_attend
+    before = (fa.launches, fa.launches_bwd)
+    loss_c, grads_c = step(to(params), to(batch))
+    n_bw = 2 if schedule == "zb-h1" else 1
+    assert (fa.launches - before[0], fa.launches_bwd - before[1]) == \
+        (2 * 2 * (1 + n_bw), 2 * 2 * n_bw)
+    loss, grads = step(params, batch)
+    assert abs(loss_c.item() - loss.item()) < 1e-4
+    flat = lambda t: [x for v in t.values()
+                      for x in (flat(v) if isinstance(v, dict) else [v])]
+    for a, b in zip(flat(grads_c), flat(grads)):
+        assert _rel_err(a.cpu(), b) < 1e-4

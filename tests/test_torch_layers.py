@@ -101,7 +101,7 @@ def test_schedule_names_match_jax():
     assert SP.resolve_ring_schedule("auto", 1) == \
         JSP.resolve_ring_schedule("auto", 1)
     with pytest.raises(NotImplementedError):
-        SP.build_schedule("zb-h1", 2, 2)
+        SP.build_schedule("zb-h2", 2, 2)
     with pytest.raises(NotImplementedError):
         SP.resolve_ring_schedule("auto", 2)
     with pytest.raises(ValueError):

@@ -6,9 +6,10 @@ source, on one card, in one process.
         > build/flash_baseline.cu
     python3 tools/flash_ab.py --baseline build/flash_baseline.cu
 
-The baseline is a ``flash_attention.cu`` with the single-route C interface
-(``flash_attention_fwd(..., scale, causal, stream)``, before the decode
-route's split arguments).  It is compiled with the same nvcc flags as the
+The baseline is a ``flash_attention.cu`` with the two-route C interface
+without statistics (``flash_attention_fwd(..., scale, causal, n_split,
+split_len, workspace, stream)``, from the redesign of the kernel up to the
+version before the backward).  It is compiled with the same nvcc flags as the
 port's kernels into ``build/kernels/``.  At the serving path's shapes
 (llama3.2-1b: 32 query heads, 8 kv heads, head_dim 64, S = 544, a
 micro-batch of 4 rows) each shape is timed in turns, baseline, current,
@@ -18,6 +19,13 @@ plain version.  One JSON line per shape; the last line names the card.
 With ``--profile``, each shape's line also carries the current version's
 device time per CUDA kernel (``torch.profiler``, mean over 50 calls), so
 the decode route's split and combine kernels show apart.
+
+With ``--bwd`` the backward is compared instead, at the training path's
+shape (llama3.2-1b: batch 2, T = S = 1024, 32/8 heads, D 64, causal), the
+inputs' output and statistics from the current forward: the baseline must
+have the same ``flash_attention_bwd`` C interface.  Both versions' dq, dk,
+dv are checked against the plain version (relative to max |ref|: f32
+1e-4, bf16 3e-2).
 """
 import argparse
 import ctypes
@@ -40,25 +48,93 @@ def build_baseline(path: str) -> ctypes.CDLL:
     lib = build.load_file(path, "flash_baseline")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention_fwd.argtypes = (
-        [p] * 6 + [i] * 7 + [ll] * 12 + [ctypes.c_float, i, p])
+        [p] * 6 + [i] * 7 + [ll] * 12 + [ctypes.c_float, i, i, i, p, p])
     lib.flash_attention_fwd.restype = ctypes.c_int
     return lib
 
 
 def baseline_call(lib, q, k, v, q_start, kv_len, scale, causal):
+    from repro_torch.kernels import flash_attention as FA
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    decode = FA.route(T, Hq, Hkv) == "decode"
+    n_split, split_len = FA.decode_splits(B, S, Hkv) if decode else (0, 0)
+    work = (torch.empty(B * Hkv * n_split * T * (Hq // Hkv) * (D + 2),
+                        dtype=torch.float32, device=q.device)
+            if n_split > 1 else None)
     rc = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         q_start.data_ptr(), kv_len.data_ptr(), B, T, S, Hq, Hkv, D,
         {torch.float32: 0, torch.bfloat16: 1}[q.dtype],
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], float(scale), int(causal),
+        *out.stride()[:3], float(scale), int(causal), n_split, split_len,
+        None if work is None else work.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"baseline flash_attention_fwd: CUDA error {rc}")
     return out
+
+
+def baseline_bwd_call(lib, q, k, v, out, lse, dout, q_start, kv_len, scale,
+                      causal):
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+    rc = lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), q_start.data_ptr(), kv_len.data_ptr(),
+        B, T, S, Hq, Hkv, D, {torch.float32: 0, torch.bfloat16: 1}[q.dtype],
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], *dout.stride()[:3], float(scale), int(causal),
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"baseline flash_attention_bwd: CUDA error {rc}")
+    return dq, dk, dv
+
+
+def main_bwd(path: str, profile: bool) -> None:
+    from chip_smoke import kernel_us, time_ms
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    base = build.load_file(path, "flash_bwd_baseline")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    base.flash_attention_bwd.argtypes = (
+        [p] * 12 + [i] * 7 + [ll] * 15 + [ctypes.c_float, i, p])
+    base.flash_attention_bwd.restype = ctypes.c_int
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+    rel = lambda a, b: ((a.float() - b.float()).abs().max()
+                        / (b.float().abs().max() + 1e-12)).item()
+    B, T, Hq, Hkv, D = 2, 1024, 32, 8, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dtype)
+        q, do = rnd(B, T, Hq, D), rnd(B, T, Hq, D)
+        k, v = rnd(B, T, Hkv, D), rnd(B, T, Hkv, D)
+        qs = torch.zeros(B, dtype=torch.int32, device=dev)
+        kl = torch.full((B,), T, dtype=torch.int32, device=dev)
+        kw = dict(scale=D ** -0.5, causal=True, q_start=qs, kv_len=kl)
+        out, lse = FA.flash_attend(q, k, v, return_lse=True, **kw)
+        cur = lambda: FA.flash_attend_bwd(q, k, v, out, lse, do, **kw)
+        old = lambda: baseline_bwd_call(base, q, k, v, out, lse, do, qs, kl,
+                                        D ** -0.5, True)
+        want = FA.attend_bwd_ref(q, k, v, out, lse, do, **kw)
+        errs = {name: max(rel(a, b) for a, b in zip(fn(), want))
+                for name, fn in (("baseline", old), ("current", cur))}
+        if max(errs.values()) > tol[dtype]:
+            sys.exit(f"backward disagrees with the plain version: {errs}")
+        t = [time_ms(fn) for fn in (old, cur, cur, old)]
+        print(json.dumps(dict(
+            label=f"backward B={B} T=S={T} Hq={Hq} Hkv={Hkv} D={D} causal",
+            dtype=str(dtype).replace("torch.", ""),
+            baseline_ms=[t[0], t[3]], current_ms=[t[1], t[2]], rel_err=errs,
+            **({"kernel_us": kernel_us(cur),
+                "baseline_kernel_us": kernel_us(old)} if profile else {}))),
+            flush=True)
 
 
 def main() -> None:
@@ -68,9 +144,15 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true",
                     help="also print the current version's device time per "
                          "CUDA kernel")
+    ap.add_argument("--bwd", action="store_true",
+                    help="compare the backward at the training shape")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("tools/flash_ab.py: needs a CUDA card")
+    if args.bwd:
+        main_bwd(args.baseline, args.profile)
+        card_line()
+        return
     from chip_smoke import kernel_us, time_ms
     from repro_torch.kernels import flash_attention as FA
     base = build_baseline(args.baseline)
@@ -101,6 +183,10 @@ def main() -> None:
                 current_ms=[t[1], t[2]], max_abs_err=errs,
                 **({"kernel_us": kernel_us(cur)} if args.profile else {}))),
                 flush=True)
+    card_line()
+
+
+def card_line() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)

@@ -11,8 +11,9 @@ Phases, each reported on its own lines:
    then reading the libraries' machine code (``cuobjdump -sass``): every
    flash prefill-route kernel must issue tensor-core products (HMMA, from
    mma.sync) and both routes' kernels must load through cp.async
-   (LDGSTS); so must every SSD product kernel (scores, chunk states, chunk
-   outputs) of the f32 and bf16 builds at P = 64;
+   (LDGSTS); so must the backward's dK/dV and dQ kernels of the f32 and
+   bf16 builds at D = 64, and every SSD product kernel (scores, chunk
+   states, chunk outputs) of the f32 and bf16 builds at P = 64;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the JAX kernel tests and at the serving path's shapes, with
    the kernel's device time (``ms``, CUDA-graph replay), its eager
@@ -24,6 +25,8 @@ Phases, each reported on its own lines:
    tensor-core rate; bf16 at 989 in both).  Each flash row names the
    route its shapes take (``decode`` for T * Hq / Hkv <= 16, else
    ``prefill``); the decode route is also run over S = 4096, many splits;
+   the training path's forward (batch 2, T = S = 1024, 32/8 heads, D 64,
+   causal) is timed without and with the per-row statistics;
 4. ``repro_torch.launch.serve.main`` at the full width of llama3.2-1b
    (16 layers, 8 stages, 2 micro-batches, batch 8, prompt 512, 32 tokens,
    f32), with each kernel's launch count over that run (flash attention
@@ -51,7 +54,9 @@ Phases, each reported on its own lines:
    an idle row, and the training shape (batch 2, T = S = 1024, 32/8 heads,
    D 64, causal), in f32 and bf16 (relative to max |ref|: 1e-4, 3e-2); a
    second call must give the same bits; the library time is the backward
-   of ``scaled_dot_product_attention`` (eager, CUDA events);
+   of ``scaled_dot_product_attention`` (eager, CUDA events); the training
+   shape's rows add the device time of each of the backward's three CUDA
+   kernels (``kernel_us``, ``torch.profiler``);
 10. ``repro_torch.launch.train.main`` at the full width of llama3.2-1b
    (16 layers, 4 stages x 4 layers, 1f1b, 4 micro-batches, batch 8, seq
    1024, f32, 3 steps): finite losses, step 0's loss against a
@@ -381,15 +386,22 @@ def phase_kernels(FA, results: list) -> list:
              [528, 521, 301, 544]),
             ("idle row B=3 per-row", 3, 4, 544, [0, 9, 3], [4, 13, 0]),
             ("long decode B=4 per-row", 4, 1, 4096, [4095, 4000, 2500, 1000],
-             [4096, 4001, 2501, 1001])):
+             [4096, 4001, 2501, 1001]),
+            ("train B=2", 2, 1024, 1024, [0, 0], [1024, 1024]),
+            ("train B=2 with statistics", 2, 1024, 1024, [0, 0],
+             [1024, 1024])):
         for dtype in (torch.float32, torch.bfloat16):
             q = rnd(B, T, 32, 64, dt=dtype)
             k, v = rnd(B, S, 8, 64, dt=dtype), rnd(B, S, 8, 64, dt=dtype)
             qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
             kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
             kw = dict(scale=0.125, causal=True, q_start=qs, kv_len=kl)
+            # the training path's forward saves the statistics (a template
+            # variant of the prefill route)
+            lse = dict(return_lse=True) if "statistics" in label else {}
             run(f"{label} T={T} S={S} Hq=32 Hkv=8 D=64", q, k, v, qs, kl,
-                True, lambda: FA.flash_attend(q, k, v, **kw),
+                True, lambda: (FA.flash_attend(q, k, v, **lse, **kw)[0]
+                               if lse else FA.flash_attend(q, k, v, **kw)),
                 lambda: FA.attend_ref(q, k, v, **kw), dtype)
     return bad
 
@@ -455,6 +467,14 @@ def phase_backward(FA, results: list) -> list:
                        library_ms=event_ms(library_attention_bwd(
                            q, k, v, do, qs, kl, causal, D ** -0.5)),
                        **backward_bound(q, k, qs, kl, causal), ok=ok)
+            if label.startswith("train"):
+                # device time of each of the backward's CUDA kernels
+                row["kernel_us"] = us = kernel_us(kern)
+                if sorted(k_.split("<")[0] for k_ in us) != [
+                        "flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+                        "flash_bwd_dq_kernel"]:
+                    fail(f"flash backward at the training shape: profiler "
+                         f"shows {us}")
             print("kernel " + json.dumps(row), flush=True)
             results.append(row)
             if not ok:
@@ -660,8 +680,9 @@ def phase_train(train, counters: dict, mods) -> dict:
     weights."""
     get_config, RT, ST, M, SP, SyntheticLM = mods
     steps, stages, M_, batch, seq = 3, 4, 4, 8, 1024
-    argv = ["--arch", "llama3.2-1b", "--stages", str(stages), "--schedule",
-            "1f1b", "--microbatches", str(M_), "--batch", str(batch),
+    argv = ["--arch", "llama3.2-1b", "--tensor", "1", "--stages",
+            str(stages), "--schedule", "1f1b", "--microbatches", str(M_),
+            "--batch", str(batch),
             "--seq", str(seq), "--steps", str(steps), "--log-every", "1",
             "--device", "cuda"]
     print(f"train: python -m repro_torch.launch.train {' '.join(argv)}",
@@ -866,7 +887,10 @@ def main() -> None:
     elif not sass or any(
             (k.startswith("prefill") and v["HMMA"] == 0)
             or (k.split()[0] in ("prefill", "decode") and v["LDGSTS"] == 0)
-            for k, v in sass.items()):
+            for k, v in sass.items()) or any(
+            k not in sass or sass[k]["HMMA"] == 0 or sass[k]["LDGSTS"] == 0
+            for k in (f"bwd_{kind} {d} D=64" for kind in ("dkdv", "dq")
+                      for d in ("f32", "bf16"))):
         fail(f"flash kernels lack tensor-core products or cp.async: {sass}")
     # every SSD product kernel of both dtypes at P = 64 (the main path's)
     ssd_sass = sass_counts(build, "ssd_scan", "ssd", "P")
@@ -961,6 +985,9 @@ def main() -> None:
                 ("decode", [pick(rows, "main-path decode"),
                             pick(rows, "main-path decode", "bfloat16"),
                             pick(rows, "long decode")]))},
+        # the training path's forward, without and with the statistics
+        train_rows=[{k: r[k] for k in keys}
+                    for r in rows if r["label"].startswith("train")],
         sass=sass, path_parity_max_abs_err=path_err)
     ssd_row = pick(ssd_rows, "main-path prefill")
     ssd_bf16 = next(r for r in ssd_rows if r["label"].startswith(
@@ -983,7 +1010,8 @@ def main() -> None:
         sass=ssd_sass, path_parity_max_abs_err=ssd_path_err)
     bwd_row = pick(bwd_rows, "train")
     bwd_keys = ("label", "dtype", "ms", "call_ms", "plain_ms", "library_ms",
-                "bound_ms", "bound_by", "bound_tc_ms", "rel_err", "bitwise")
+                "bound_ms", "bound_by", "bound_tc_ms", "rel_err", "bitwise",
+                "kernel_us")
     flash_bwd = dict(
         name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -996,6 +1024,7 @@ def main() -> None:
         plain_ms=bwd_row["plain_ms"], bound_ms=bwd_row["bound_ms"],
         bound_by=bwd_row["bound_by"], bound_tc_ms=bwd_row["bound_tc_ms"],
         library_ms=bwd_row["library_ms"], shape=bwd_row["label"] + " f32",
+        kernel_us=bwd_row["kernel_us"],
         bitwise=all(r["bitwise"] for r in bwd_rows),
         bf16={k: v for k, v in pick(bwd_rows, "train", "bfloat16").items()
               if k in bwd_keys})

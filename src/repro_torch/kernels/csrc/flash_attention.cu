@@ -817,34 +817,80 @@ flash_combine_kernel(const Params p) {
 // 10 D flops (the scores recomputed, dP, dV, dK, dQ); at the training shape
 // (batch 2, T = S = 1024, 32/8 heads, D 64, causal) that is 21.5 GFLOP
 // against ~84 MB moved.  Three CUDA kernels per call:
-//   * a pre-pass D = rowsum(dO o O) (one warp per row and head);
-//   * dK/dV: one block per (64 keys, kv head, batch row), four warps of 16
-//     keys; it loops over the query tiles of all Hq/Hkv query heads of its
-//     group that see its keys and sums them in registers (S^T = K Q^T and
-//     dP^T = V dO^T, then P^T and dS^T in place, then dV += P^T dO and
-//     dK += dS^T Q): the GQA sum needs no second pass;
-//   * dQ: one block per (64 query rows, query head, batch row), four warps
-//     of 16 rows, looping over the key tiles its rows see (S = Q K^T,
-//     dP = dO V^T, dS, dQ += dS K), longest tiles first.
-// Every output element is written once by one thread, with no atomics, so
-// the gradients are bitwise reproducible.  The products that sum over many
-// rows or keys (dV, dK, dQ) keep the tensor core's accumulator for one
-// tile only (at most 8 k-steps) and then add it into an f32 slot of its
-// thread in shared memory: the tensor core's accumulation truncates, and
-// kept over the 512 k-steps of the training shape's dK/dV it costs ~3e-5
-// of the result; forming every k-step's product from zero instead costs a
-// fifth of the time.  Tiles are staged in shared memory as f32 (bf16
-// widened on the way in; pitch D + 4 keeps the scalar fragment reads of
-// the dV/dK/dQ products free of bank conflicts).  The
-// products run on mma.sync m16n8k8 TF32 with the forward's order trick (the
-// k-step's logical indices t, t + 4 are physical 2t, 2t + 1, so the score
-// accumulators are the A fragments of the next product as they stand).  An
-// f32 operand is split into big + small (3xTF32: three products); a bf16
-// value is exact in TF32 and goes in one part, so with bf16 inputs the
-// scores and dP take one product and dV, dK, dQ (P or dS split) two.
+//   * a pre-pass D = rowsum(dO o O) (16-byte loads, a few lanes a row);
+//   * dK/dV: one block per (BS keys, kv head, batch row), walking the query
+//     tiles of all Hq/Hkv query heads of its group that see its keys (S^T =
+//     K Q^T and dP^T = V dO^T, then P^T and dS^T in place, then dV += P^T dO
+//     and dK += dS^T Q), so the GQA sum needs no second pass.  Blocks are
+//     issued key tile 0 first: under the causal mask every query tile sees
+//     it and the fewest see the last one, so the longest blocks start first
+//     and the short ones fill the tail (on an H100 at the training shape
+//     this took the kernel from 726 to 465 us against the natural order);
+//   * dQ: one block per (BS query rows, query head, batch row), walking the
+//     key tiles its rows see (S = Q K^T, dP = dO V^T, dS, dQ += dS K),
+//     longest tiles first.  S and dP are computed a second time here: dQ
+//     partials written per key tile would move more bytes than the
+//     recompute costs, and atomics would lose bitwise reproducibility.
+// Every output element is written once, with no atomics, so the gradients
+// are bitwise reproducible.
+//
+// Hopper design (mma.sync m16n8k8 TF32 and cp.async):
+//   * Operand planes.  A tile is split once, by one pass over it when it
+//     lands, into TF32 planes in shared memory: big = x rounded to TF32 and
+//     small = x - big, for the forward's split-precision products (3xTF32:
+//     big*big + big*small + small*big); a bf16 value is exact in TF32 and
+//     has only its big plane.  The inner loops load fragments and issue
+//     mma.sync, nothing else: ldmatrix for operands read along rows (the A
+//     fragments of K, V, Q, dO and the B fragments of Q^T, dO^T, K^T, V^T;
+//     the b16 ldmatrix hands each lane one 32-bit word, which is the TF32
+//     fragment), 32-bit loads for B fragments read down columns (dO and Q
+//     in dV += P^T dO and dK += dS^T Q, K in dQ += dS K).  The pitch D + 4
+//     words keeps both free of bank conflicts: an ldmatrix's 8 rows fall on
+//     8 distinct groups of 4 banks, and a column read's rows (2t, 2t + 1)
+//     by columns g cover the 32 banks.
+//   * The stationary tiles (K and V in dK/dV; Q, dO and their statistics in
+//     dQ) land and are split once, at block start.  The streamed tiles (Q,
+//     dO and their statistics in dK/dV; K and V in dQ) pass through a ring
+//     of STAGES slots by 16-byte cp.async (4-byte for the statistics): the
+//     copies of step it + STAGES - 1 go out before step it's products, and
+//     each thread splits the chunks it copied itself as soon as they have
+//     landed (cp.async.wait_group makes a thread's own copies visible to
+//     it), so one barrier a step publishes the new planes and frees the
+//     slot of the step before.
+//   * Warps.  dK/dV: each group of 16 MK keys (MK = 2 m16 tiles up to
+//     D = 64, so every B fragment loaded feeds two products) has, for each
+//     of WT = 2 streamed row halves (RT rows a step), a pair of warps: role
+//     0 forms S^T and P^T and adds dV += P^T dO, role 1 forms dP^T, takes
+//     P^T from its partner through shared memory (a named barrier for the
+//     pair), forms dS^T and adds dK += dS^T Q; each warp keeps one output's
+//     sums.  The two pairs of a key group sum disjoint rows; at the end one
+//     adds the other's partial, handed over in the idle ring, and writes
+//     (the same bits whichever adds).  dQ: a warp takes 16 rows and forms
+//     S, dP, dS and dQ += dS K itself; at D = 64 a block takes 128 rows and
+//     a warp all 32 keys of a step (each K/V tile then serves 128 rows),
+//     elsewhere two warps split a row group's keys as in dK/dV; up to
+//     D = 64 the big planes of a warp's Q and dO fragments stay in
+//     registers for the whole loop.
+//   * A step whose rows are all valid and see all the warp's keys takes a
+//     branch-free path (no mask, no check for rows that see no key); on an
+//     H100 the per-element mask branch had cost ~11% of the dQ kernel.
+//   * Accuracy: the tensor core's accumulation truncates (kept over the 512
+//     k-steps of the training shape's dK/dV it costs ~3e-5 of the result),
+//     so the products that sum over many rows or keys (dV, dK, dQ) form
+//     each step's RT / 8 k-steps in a fresh accumulator and add it into f32
+//     sums held in registers.  With bf16 inputs, P and dS are rounded to
+//     TF32 for their products (one TF32 pass; f32 splits them).
+//   * Tiles and shared memory, in 4-byte words (bf16 rows land raw in the
+//     small plane, which bf16 does not otherwise use): the stationary planes
+//     4 x BS x (D + 4) and their statistics 2 BS, the ring STAGES x (4 x BT
+//     x (D + 4) + 2 BT), and in dK/dV the pairs' hand-over.  D = 64: dK/dV
+//     BS 64 keys, BT 32 rows, three slots, 8 warps, 191,744 bytes; dQ 128
+//     rows, BT 32 keys, two slots, 8 warps, 210,432 bytes; one block an SM.
+//     D = 32: BS 64, BT 32, 8 warps, 109,824 and 93,440 bytes, two blocks an
+//     SM.  D = 128: BS 32, BT 16, 8 and 4 warps, 171,648 and 169,600 bytes,
+//     one block an SM.
 
-constexpr int BWD_THREADS = 256;        // the D pre-pass: eight rows a block
-constexpr int BWD_ROWS = 64;            // keys (dK/dV) or rows (dQ) a block
+constexpr int BWD_THREADS = 256;        // the D pre-pass
 
 struct BwdParams {
   const void* q;
@@ -874,143 +920,210 @@ __device__ __forceinline__ int bwd_row_end(const BwdParams& p, int q0, int kl,
   return p.causal ? min(kl, q0 + i + 1) : kl;
 }
 
-// D_i = dO_i . O_i in f32: one warp per (batch row, query row, head)
+// the first t in [0, n) with pred(t), n if none; pred is monotone (false
+// for a prefix, then true)
+template <typename F>
+__device__ __forceinline__ int bwd_first(int n, F pred) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (pred(mid)) hi = mid; else lo = mid + 1;
+  }
+  return lo;
+}
+
+// D_i = dO_i . O_i in f32: D / VEC lanes per (batch row, query row, head),
+// 16 bytes each (neighbouring lanes on neighbouring bytes), heads fastest
 template <typename T, int D>
 __global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_delta_kernel(const BwdParams p) {
-  const long long r = (long long)blockIdx.x * (BWD_THREADS / 32)
-                      + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (r >= (long long)p.B * p.T * p.Hq) return;
+  constexpr int VEC = 16 / (int)sizeof(T), LPR = D / VEC;
+  const long long r =
+      ((long long)blockIdx.x * BWD_THREADS + threadIdx.x) / LPR;
+  const int c = (threadIdx.x % LPR) * VEC;
+  const bool ok = r < (long long)p.B * p.T * p.Hq;
   const int h = (int)(r % p.Hq);
   const int i = (int)((r / p.Hq) % p.T);
   const int b = (int)(r / ((long long)p.Hq * p.T));
-  const T* o = static_cast<const T*>(p.o) + b * p.so_b + (long long)i * p.so_t
-               + h * p.so_h;
-  const T* d = static_cast<const T*>(p.dout) + b * p.sd_b
-               + (long long)i * p.sd_t + h * p.sd_h;
   float acc = 0.f;
+  if (ok) {
+    float x[VEC], y[VEC];
+    load16(static_cast<const T*>(p.o) + b * p.so_b + (long long)i * p.so_t
+               + h * p.so_h + c, x);
+    load16(static_cast<const T*>(p.dout) + b * p.sd_b + (long long)i * p.sd_t
+               + h * p.sd_h + c, y);
 #pragma unroll
-  for (int c = lane; c < D; c += 32) acc = fmaf(to_f32(o[c]), to_f32(d[c]), acc);
-  acc = warp_sum(acc);
-  if (lane == 0) p.delta[((long long)b * p.Hq + h) * p.T + i] = acc;
+    for (int e = 0; e < VEC; ++e) acc = fmaf(x[e], y[e], acc);
+  }
+#pragma unroll
+  for (int o = LPR / 2; o > 0; o >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (ok && c == 0) p.delta[((long long)b * p.Hq + h) * p.T + i] = acc;
 }
 
 template <typename T, int D>
 struct BwdCfg {
-  // bf16 values are exact in TF32: no small part
-  static constexpr bool SPLIT = std::is_same<T, float>::value;
-  // the loop tile: query rows (dK/dV kernel) or keys (dQ kernel)
-  static constexpr int BT = D == 128 ? 32 : 64;
-  static constexpr int LD = D + 4;                    // f32 tile pitch
-  static constexpr int ACC = D / 8 * 4;               // sums a thread keeps
-  // dK/dV: K, V, Q, dO tiles, statistics, dK and dV running sums; dQ: the
-  // same tiles (Q, dO of 64 rows, K, V of BT keys), the dQ running sums
-  static constexpr int SMEM_KV =
-      (2 * BWD_ROWS * LD + 2 * BT * LD + 2 * BT + 2 * ACC * THREADS) * 4;
-  static constexpr int SMEM_Q =
-      (2 * BWD_ROWS * LD + 2 * BT * LD + 2 * BWD_ROWS + ACC * THREADS) * 4;
+  static constexpr bool SPLIT = std::is_same<T, float>::value;  // small planes
+  static constexpr int BS = D == 128 ? 32 : 64;  // stationary rows a block
+  static constexpr int MK = D == 128 ? 1 : 2;    // m16 tiles a warp holds
+  static constexpr int WK = BS / (16 * MK);      // warp groups along them
+  static constexpr int WT = 2;                   // warps along streamed rows
+  static constexpr int RT = D == 128 ? 8 : 16;   // streamed rows a warp, a step
+  static constexpr int NT = RT / 8;
+  static constexpr int BT = RT * WT;             // streamed rows a step
+  static constexpr int PAIRS = WK * WT;          // two warps (roles) a pair
+  static constexpr int NTH = 2 * 32 * PAIRS;     // dK/dV
+
+  static constexpr int MIN_BLOCKS = D == 32 ? 2 : 1;
+  static constexpr int STAGES = 3;
+  static constexpr int LD = D + 4;               // plane pitch, words
+  static constexpr int PS = BS * LD;             // words of a stationary plane
+  static constexpr int PT = BT * LD;             // words of a streamed plane
+  // a ring slot: two matrices' big and small planes, then lse and D rows
+  static constexpr int SLOT = 4 * PT + 2 * BT;
+  // the stationary planes and statistics come first, then the ring, then
+  // the pairs' hand-over of P (and dS)
+  static constexpr int RING = 4 * PS + 2 * BS;
+  static constexpr int XB = PAIRS * MK * NT * 4 * 32;
+  static constexpr int SMEM = (RING + STAGES * SLOT + XB) * 4;
+  // dQ: 16 rows a warp; at D = 64 a block takes 128 rows (each K/V tile
+  // then serves twice the rows) and a warp all of a step's keys, in two
+  // ring slots (its planes fill 210 KB); elsewhere BS rows and two warps a
+  // row group (D = 32 keeps two blocks an SM within 128 registers)
+  static constexpr int BS_Q = D == 64 ? 128 : BS;
+  static constexpr int WT_Q = D == 64 ? 1 : 2;
+  static constexpr int RT_Q = BT / WT_Q, NT_Q = RT_Q / 8;
+  static constexpr int NTH_Q = 32 * BS_Q / 16 * WT_Q;
+  static constexpr int STAGES_Q = D == 64 ? 2 : 3;
+  static constexpr int SMEM_Q = (4 * BS_Q * LD + 2 * BS_Q + STAGES_Q * SLOT) * 4;
+  static_assert(WT == 2, "the final sums pair two warps");
+  static_assert(BS / 16 * 32 * D <= STAGES * SLOT,
+                "the partial sums fit the ring");
 };
 
-// add a thread's tile accumulators into its f32 running sums in shared
-// memory (slot c * THREADS + tid: neighbouring threads, neighbouring
-// words) and clear them
-template <int N>
-__device__ __forceinline__ void bwd_flush(float (&acc)[N][4], float* sums) {
+// 4-byte async copy (a statistics row need not start 16-byte aligned);
+// when !pred nothing is read and the word is zeroed
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(pred ? 4 : 0));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
+// d = a.b from a zero accumulator
+__device__ __forceinline__ void mma_tf32_z(float (&d)[4],
+                                           const uint32_t (&a)[4],
+                                           const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+// the first k-step of a fresh accumulator starts from zero
+template <bool FIRST>
+__device__ __forceinline__ void mma_step(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  if constexpr (FIRST) mma_tf32_z(d, a, b); else mma_tf32(d, a, b);
+}
+
+// ldmatrix row addresses, in words from a tile's first row and column: the
+// A fragment of 16 rows x 8 columns (registers a0..a3), and the B fragment
+// of 8 rows x 8 columns in both planes (big b0, b1, then small b0, b1, the
+// small plane ``plane`` words on; bf16's x2 load reads the first two)
+__device__ __forceinline__ int lane_a(int lane, int ld) {
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 4;
+}
+__device__ __forceinline__ int lane_b(int lane, int ld, int plane) {
+  return (lane & 7) * ld + ((lane >> 3) & 1) * 4 + (lane >> 4) * plane;
+}
+
+// Copy the N rows of a tile (``src`` at its first row, rows ``s_row``
+// apart; rows at or past ``n_ok`` are zero) into a plane pair by 16-byte
+// cp.async: f32 rows land in the big plane, bf16 rows (D / 2 words) at the
+// start of the small plane's rows.  Thread tid takes chunks tid, tid + NTH,
+// ..., and bwd_split the same ones.
+template <typename T, int D, int LD, int N, int NTH>
+__device__ __forceinline__ void bwd_copy(uint32_t* big, uint32_t* small,
+                                         const T* src, long long s_row,
+                                         int n_ok) {
+  constexpr int VEC = 16 / (int)sizeof(T), CH = D / VEC;
+  uint32_t* land = std::is_same<T, float>::value ? big : small;
 #pragma unroll
-  for (int d = 0; d < N; ++d)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      sums[(d * 4 + c) * THREADS + threadIdx.x] += acc[d][c];
-      acc[d][c] = 0.f;
+  for (int k = 0; k < (N * CH + NTH - 1) / NTH; ++k) {
+    const int e = threadIdx.x + k * NTH;
+    if (N * CH % NTH == 0 || e < N * CH) {
+      const int r = e / CH, c = e % CH;
+      const bool ok = r < n_ok;
+      cp_async16(land + r * LD + c * 4, src + (ok ? r * s_row + c * VEC : 0),
+                 ok);
     }
-}
-
-// rows [r0, r0 + n) of one head of a [B, L, H, D] tensor into an f32 tile
-// of pitch LD, zero past ``limit``
-template <typename T, int D, int LD>
-__device__ __forceinline__ void bwd_stage(float* dst, const void* src,
-                                          long long base, long long s_row,
-                                          int r0, int n, int limit) {
-  const T* sp = static_cast<const T*>(src) + base;
-  for (int e = threadIdx.x; e < n * D; e += THREADS) {
-    const int r = e / D, c = e % D, i = r0 + r;
-    dst[r * LD + c] = i < limit ? to_f32(sp[(long long)i * s_row + c]) : 0.f;
   }
 }
 
-// the statistics of rows [r0, r0 + n) of head h: log-sum-exp in base 2 (as
-// the scores) and D
-__device__ __forceinline__ void bwd_stage_stats(const BwdParams& p, int b,
-                                                int h, int r0, int n,
-                                                float* ls, float* dls) {
-  for (int r = threadIdx.x; r < n; r += THREADS) {
-    const int i = r0 + r;
-    const long long at = ((long long)b * p.Hq + h) * p.T + i;
-    ls[r] = i < p.T ? p.lse[at] * LOG2E : 0.f;
-    dls[r] = i < p.T ? p.delta[at] : 0.f;
+// The split pass over this thread's chunks of a landed tile (bwd_copy's):
+// f32 x becomes big (in place) and small; bf16 widens into the big plane
+// (a bf16 is the top half of its f32)
+template <typename T, int D, int LD, int N, int NTH>
+__device__ __forceinline__ void bwd_split(uint32_t* big, uint32_t* small) {
+  constexpr int VEC = 16 / (int)sizeof(T), CH = D / VEC;
+#pragma unroll
+  for (int k = 0; k < (N * CH + NTH - 1) / NTH; ++k) {
+    const int e = threadIdx.x + k * NTH;
+    if (e < N * CH) {
+      const int r = e / CH, c = e % CH;
+      if constexpr (std::is_same<T, float>::value) {
+        uint4* at = reinterpret_cast<uint4*>(big + r * LD + c * 4);
+        const uint4 x = *at;
+        uint4 hi, lo;
+        split_tf32(__uint_as_float(x.x), hi.x, lo.x);
+        split_tf32(__uint_as_float(x.y), hi.y, lo.y);
+        split_tf32(__uint_as_float(x.z), hi.z, lo.z);
+        split_tf32(__uint_as_float(x.w), hi.w, lo.w);
+        *at = hi;
+        *reinterpret_cast<uint4*>(small + r * LD + c * 4) = lo;
+      } else {
+        const uint4 x = *reinterpret_cast<const uint4*>(small + r * LD + c * 4);
+        uint4* at = reinterpret_cast<uint4*>(big + r * LD + c * 8);
+        at[0] = make_uint4(x.x << 16, x.x & 0xffff0000u, x.y << 16,
+                           x.y & 0xffff0000u);
+        at[1] = make_uint4(x.z << 16, x.z & 0xffff0000u, x.w << 16,
+                           x.w & 0xffff0000u);
+      }
+    }
   }
 }
 
-template <bool SPLIT>
-__device__ __forceinline__ void tf32_parts(float x, uint32_t& big,
-                                           uint32_t& small) {
-  if constexpr (SPLIT) {
-    split_tf32(x, big, small);
-  } else {
-    big = __float_as_uint(x);
-    small = 0u;
+// lse (natural log, as the forward saved it) into ls[0, N) and D into
+// ls[N, 2N) for the N rows from row r0 of head h, zero past T;
+// bwd_split_stats takes lse to base 2 (the scores' base) in this thread's
+// words
+template <int N, int NTH>
+__device__ __forceinline__ void bwd_copy_stats(float* ls, const BwdParams& p,
+                                               int b, int h, int r0) {
+  const long long at = ((long long)b * p.Hq + h) * p.T + r0;
+  for (int e = threadIdx.x; e < 2 * N; e += NTH) {
+    const int r = e % N;
+    const bool ok = r0 + r < p.T;
+    cp_async4(ls + e, (e < N ? p.lse : p.delta) + at + (ok ? r : 0), ok);
   }
 }
-
-// c += a.b, small terms first; an operand exact in TF32 has no small part
-template <bool SA, bool SB>
-__device__ __forceinline__ void mma_parts(float (&c)[4],
-                                          const uint32_t (&ab)[4],
-                                          const uint32_t (&as)[4],
-                                          const uint32_t (&bb)[2],
-                                          const uint32_t (&bs)[2]) {
-  if constexpr (SA) mma_tf32(c, as, bb);
-  if constexpr (SB) mma_tf32(c, ab, bs);
-  mma_tf32(c, ab, bb);
-}
-
-// A fragment of rows (r, r + 8) at the k-step's columns (2t, 2t + 1) of a
-// row-major f32 tile
-template <bool SPLIT>
-__device__ __forceinline__ void a_frag(const float* row, int ld,
-                                       uint32_t (&big)[4],
-                                       uint32_t (&small)[4]) {
-  const float2 x0 = *reinterpret_cast<const float2*>(row);
-  const float2 x1 = *reinterpret_cast<const float2*>(row + 8 * ld);
-  tf32_parts<SPLIT>(x0.x, big[0], small[0]);
-  tf32_parts<SPLIT>(x1.x, big[1], small[1]);
-  tf32_parts<SPLIT>(x0.y, big[2], small[2]);
-  tf32_parts<SPLIT>(x1.y, big[3], small[3]);
-}
-
-// B fragment of a product whose B is a row-major tile's transpose: its
-// row n at the k-step's columns (2t, 2t + 1)
-template <bool SPLIT>
-__device__ __forceinline__ void bt_frag(const float* row, uint32_t (&big)[2],
-                                        uint32_t (&small)[2]) {
-  const float2 y = *reinterpret_cast<const float2*>(row);
-  tf32_parts<SPLIT>(y.x, big[0], small[0]);
-  tf32_parts<SPLIT>(y.y, big[1], small[1]);
-}
-
-// B fragment of a product whose B is a row-major tile: rows (2t, 2t + 1)
-// of the k-step at column n
-template <bool SPLIT>
-__device__ __forceinline__ void b_frag(const float* at, int ld,
-                                       uint32_t (&big)[2],
-                                       uint32_t (&small)[2]) {
-  tf32_parts<SPLIT>(at[0], big[0], small[0]);
-  tf32_parts<SPLIT>(at[ld], big[1], small[1]);
+template <int N, int NTH>
+__device__ __forceinline__ void bwd_split_stats(float* ls) {
+  for (int e = threadIdx.x; e < N; e += NTH) ls[e] *= LOG2E;
 }
 
 // an accumulator tile (16 x 8: c0, c1 row g; c2, c3 row g + 8; columns
-// 2t, 2t + 1) as the A fragment of the next product's k-step, split
+// 2t, 2t + 1) as the A fragment of the next product's k-step, split (the
+// k-step's logical indices t, t + 4 are physical 2t, 2t + 1)
 __device__ __forceinline__ void acc_frag(const float (&c)[4],
                                          uint32_t (&big)[4],
                                          uint32_t (&small)[4]) {
@@ -1038,245 +1151,561 @@ __device__ __forceinline__ void bwd_p_ds(const BwdParams& p, int q0, int kl,
   dp = dv;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkdv_kernel(const BwdParams p) {
-  using C = BwdCfg<T, D>;
-  constexpr int BT = C::BT, LD = C::LD, NT = BT / 8, DT = D / 8;
-  constexpr bool SPLIT = C::SPLIT;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ks = reinterpret_cast<float*>(smem_raw);     // [64][LD]
-  float* vs = ks + BWD_ROWS * LD;                     // [64][LD]
-  float* qs = vs + BWD_ROWS * LD;                     // [BT][LD]
-  float* dos = qs + BT * LD;                          // [BT][LD]
-  float* ls = dos + BT * LD;                          // [BT]
-  float* dls = ls + BT;                               // [BT]
-  float* dk_sum = dls + BT;                           // [ACC][THREADS]
-  float* dv_sum = dk_sum + C::ACC * THREADS;          // [ACC][THREADS]
-
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int j0 = blockIdx.x * BWD_ROWS;
-  const int G = p.Hq / p.Hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int kw = j0 + warp * 16;                      // this warp's keys
-  const int q0 = p.q_start[b];
-  const int kl = min(p.kv_len[b], p.S);
-
-  bwd_stage<T, D, LD>(ks, p.k, b * p.sk_b + hk * p.sk_h, p.sk_s, j0,
-                      BWD_ROWS, p.S);
-  bwd_stage<T, D, LD>(vs, p.v, b * p.sv_b + hk * p.sv_h, p.sv_s, j0,
-                      BWD_ROWS, p.S);
-
-  float dk[DT][4], dv[DT][4];                         // keys kw + g (+ 8)
-#pragma unroll
-  for (int d = 0; d < DT; ++d)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dk[d][c] = dv[d][c] = 0.f;
-  for (int c = 0; c < C::ACC; ++c)
-    dk_sum[c * THREADS + threadIdx.x] = dv_sum[c * THREADS + threadIdx.x] = 0.f;
-
-  const float* kwr = ks + (warp * 16 + g) * LD + 2 * t4;
-  const float* vwr = vs + (warp * 16 + g) * LD + 2 * t4;
-  const int n_qt = (p.T + BT - 1) / BT;
-  for (int step = 0; step < G * n_qt; ++step) {     // query head, row tile
-    const int h = hk * G + step / n_qt;
-    const int i0 = step % n_qt * BT;
-    const int i_last = min(i0 + BT, p.T) - 1;
-    // a tile touches these keys if its last row (which sees the most
-    // keys) sees one of them, or if its first row sees no key at all
-    const bool idle = bwd_row_end(p, q0, kl, i0) <= 0;
-    const int re_last = bwd_row_end(p, q0, kl, i_last);
-    if (!idle && re_last <= j0) continue;           // the whole block
-    __syncthreads();                        // the last tile's readers done
-    bwd_stage<T, D, LD>(qs, p.q, b * p.sq_b + h * p.sq_h, p.sq_t, i0, BT,
-                        p.T);
-    bwd_stage<T, D, LD>(dos, p.dout, b * p.sd_b + h * p.sd_h, p.sd_t, i0,
-                        BT, p.T);
-    bwd_stage_stats(p, b, h, i0, BT, ls, dls);
-    __syncthreads();
-    if (kw >= p.S || (!idle && re_last <= kw)) continue;   // this warp
-
-    // S^T = K Q^T and dP^T = V dO^T: 16 keys x BT rows
-    float st[NT][4], dpt[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) st[n][c] = dpt[n][c] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DT; ++kk) {
-      uint32_t kb[4], ksm[4], vb[4], vsm[4];
-      a_frag<SPLIT>(kwr + kk * 8, LD, kb, ksm);
-      a_frag<SPLIT>(vwr + kk * 8, LD, vb, vsm);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t qb[2], qsm[2], db[2], dsm[2];
-        bt_frag<SPLIT>(qs + (n * 8 + g) * LD + kk * 8 + 2 * t4, qb, qsm);
-        bt_frag<SPLIT>(dos + (n * 8 + g) * LD + kk * 8 + 2 * t4, db, dsm);
-        mma_parts<SPLIT, SPLIT>(st[n], kb, ksm, qb, qsm);
-        mma_parts<SPLIT, SPLIT>(dpt[n], vb, vsm, db, dsm);
-      }
-    }
-    // P^T and dS^T in place
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = n * 8 + 2 * t4 + (c & 1);
-        bwd_p_ds(p, q0, kl, i0 + r, kw + g + (c < 2 ? 0 : 8), ls[r],
-                 dls[r], st[n][c], dpt[n][c]);
-      }
-    // dV += P^T dO, dK += dS^T Q: the k-steps are the row tiles n
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      uint32_t pb[4], pl[4], sb[4], sl[4];
-      acc_frag(st[n], pb, pl);
-      acc_frag(dpt[n], sb, sl);
-      const float* dor = dos + (n * 8 + 2 * t4) * LD + g;
-      const float* qr = qs + (n * 8 + 2 * t4) * LD + g;
-#pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        uint32_t bb[2], bs[2];
-        b_frag<SPLIT>(dor + d * 8, LD, bb, bs);
-        mma_parts<true, SPLIT>(dv[d], pb, pl, bb, bs);
-        b_frag<SPLIT>(qr + d * 8, LD, bb, bs);
-        mma_parts<true, SPLIT>(dk[d], sb, sl, bb, bs);
-      }
-    }
-    bwd_flush(dk, dk_sum);
-    bwd_flush(dv, dv_sum);
-  }
-
-  T* dkp = static_cast<T*>(p.dk);
-  T* dvp = static_cast<T*>(p.dv);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int j = kw + g + 8 * half;
-    if (j >= p.S) continue;
-    const long long row = (((long long)b * p.S + j) * p.Hkv + hk) * D;
-#pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      const int c = d * 8 + 2 * t4;
-      const float* ks_ = dk_sum + (d * 4 + 2 * half) * THREADS + threadIdx.x;
-      const float* vs_ = dv_sum + (d * 4 + 2 * half) * THREADS + threadIdx.x;
-      store2(dkp + row + c, ks_[0] * p.scale, ks_[THREADS] * p.scale);
-      store2(dvp + row + c, vs_[0], vs_[THREADS]);
-    }
+// c += a.b over one k-step of a product whose A is P or dS (split in f32,
+// TF32-rounded with bf16 inputs) and whose B comes from planes (f32: three
+// TF32 products, small terms first; bf16: one)
+template <bool SPLIT, bool FIRST>
+__device__ __forceinline__ void mma_acc(float (&c)[4], const uint32_t (&ab)[4],
+                                        const uint32_t (&as)[4],
+                                        const uint32_t (&bb)[2],
+                                        const uint32_t (&bs)[2]) {
+  if constexpr (SPLIT) {
+    mma_step<FIRST>(c, as, bb);
+    mma_tf32(c, ab, bs);
+    mma_tf32(c, ab, bb);
+  } else {
+    mma_step<FIRST>(c, ab, bb);
   }
 }
 
+// c += a.b over one k-step with A and B both from planes: f32 three TF32
+// products, bf16 one (its values are exact in TF32)
+template <bool SPLIT>
+__device__ __forceinline__ void mma_planes(float (&c)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           const uint32_t (&bf)[4]) {
+  const uint32_t bb[2] = {bf[0], bf[1]};
+  if constexpr (SPLIT) {
+    const uint32_t bs[2] = {bf[2], bf[3]};
+    mma_3xtf32(c, ab, as, bb, bs);
+  } else {
+    mma_tf32(c, ab, bb);
+  }
+}
+
+// the probability of one score entry (row i, key j): its softmax weight if
+// visible, 1/S over all S keys for a row that sees none, else 0
+__device__ __forceinline__ float bwd_p(const BwdParams& p, int q0, int kl,
+                                       int i, int j, float s, float ls) {
+  if (i >= p.T || j >= p.S) return 0.f;
+  const int re = bwd_row_end(p, q0, kl, i);
+  if (re <= 0) return 1.f / (float)p.S;       // sees no key: mean of V
+  return j < re ? exp2f(s * p.scale_log2 - ls) : 0.f;
+}
+
+// bar.sync on a named barrier for ``n`` threads (the two warps of a pair)
+__device__ __forceinline__ void bar_pair(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// dK/dV.  Each group of 16 MK keys has two warps a streamed row half: role
+// 0 forms S^T = K Q^T, P^T, and dV += P^T dO; role 1 forms dP^T = V dO^T,
+// takes P^T from its partner through shared memory (a named barrier for
+// the pair), dS^T, and dK += dS^T Q.  Each warp keeps one matrix's sums
+// for its keys, so every B fragment it loads feeds MK m16 tiles.
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const BwdParams p) {
+__global__ void __launch_bounds__(BwdCfg<T, D>::NTH, BwdCfg<T, D>::MIN_BLOCKS)
+flash_bwd_dkdv_kernel(const BwdParams p) {
   using C = BwdCfg<T, D>;
-  constexpr int BT = C::BT, LD = C::LD, NT = BT / 8, DT = D / 8;
+  constexpr int LD = C::LD, NT = C::NT, DT = D / 8, RT = C::RT, BS = C::BS;
+  constexpr int BT = C::BT, NTH = C::NTH, PS = C::PS, PT = C::PT;
+  constexpr int MK = C::MK, WK = C::WK;
+  constexpr int STAGES = C::STAGES, SLOT = C::SLOT;
   constexpr bool SPLIT = C::SPLIT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);     // [64][LD]
-  float* dos = qs + BWD_ROWS * LD;                    // [64][LD]
-  float* ks = dos + BWD_ROWS * LD;                    // [BT][LD]
-  float* vs = ks + BT * LD;                           // [BT][LD]
-  float* ls = vs + BT * LD;                           // [64]
-  float* dls = ls + BWD_ROWS;                         // [64]
-  float* dq_sum = dls + BWD_ROWS;                     // [ACC][THREADS]
+  // K big, K small, V big, V small [BS][LD]; then the ring of slots: Q big,
+  // Q small, dO big, dO small [BT][LD], lse (base 2) [BT], D [BT]; then the
+  // pairs' P^T hand-over [pair][MK * NT * 4][32]
+  uint32_t* kv = reinterpret_cast<uint32_t*>(smem_raw);
+  uint32_t* ring = kv + C::RING;
+  float* xbuf = reinterpret_cast<float*>(ring + STAGES * SLOT);
 
-  const int n_qt = gridDim.x;
-  const int qt = n_qt - 1 - blockIdx.x;               // longest tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int j0 = blockIdx.z * BS;                     // key tile 0 first
+  const int G = p.Hq / p.Hkv;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ws = warp % WK, wt = warp / WK % C::WT;
+  const int role = warp / (WK * C::WT);
+  const int pair = ws + WK * wt;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kw = j0 + ws * 16 * MK;                   // this warp's keys
+  const int q0 = p.q_start[b];
+  const int kl = min(p.kv_len[b], p.S);
+
+  // the query tiles that touch these keys: those with a row that sees no
+  // key (a prefix: a row's visible end never decreases with i) and those
+  // whose last row sees key j0 (a suffix); steps walk them for each query
+  // head of the group
+  const int n_qt = (p.T + BT - 1) / BT;
+  const int n_idle = bwd_first(n_qt, [&](int t) {
+    return bwd_row_end(p, q0, kl, t * BT) > 0; });
+  const int qt_lo = bwd_first(n_qt, [&](int t) {
+    return bwd_row_end(p, q0, kl, min(t * BT + BT, p.T) - 1) > j0; });
+  const int n_pre = min(n_idle, qt_lo);
+  const int n_act = n_pre + n_qt - qt_lo;
+  const int n_steps = G * n_act;
+  // the first row of the a-th touching tile
+  auto tile_row = [&](int a) { return (a < n_pre ? a : qt_lo + a - n_pre) * BT; };
+  const T* qb = static_cast<const T*>(p.q) + b * p.sq_b + hk * G * p.sq_h;
+  const T* db = static_cast<const T*>(p.dout) + b * p.sd_b + hk * G * p.sd_h;
+  int c_a = 0, c_h = 0;                 // the next step to copy: tile, head
+  auto copy = [&](int s) {                // step s into slot s % STAGES
+    if (s < n_steps) {
+      const int i0 = tile_row(c_a);
+      uint32_t* sl = ring + (s % STAGES) * SLOT;
+      bwd_copy<T, D, LD, BT, NTH>(sl, sl + PT,
+                                  qb + c_h * p.sq_h + i0 * p.sq_t, p.sq_t,
+                                  p.T - i0);
+      bwd_copy<T, D, LD, BT, NTH>(sl + 2 * PT, sl + 3 * PT,
+                                  db + c_h * p.sd_h + i0 * p.sd_t, p.sd_t,
+                                  p.T - i0);
+      bwd_copy_stats<BT, NTH>(reinterpret_cast<float*>(sl + 4 * PT), p, b,
+                              hk * G + c_h, i0);
+      if (++c_a == n_act) { c_a = 0; ++c_h; }
+    }
+    cp_async_commit();
+  };
+  auto split = [&](int s) {
+    if (s < n_steps) {
+      uint32_t* sl = ring + (s % STAGES) * SLOT;
+      bwd_split<T, D, LD, BT, NTH>(sl, sl + PT);
+      bwd_split<T, D, LD, BT, NTH>(sl + 2 * PT, sl + 3 * PT);
+      bwd_split_stats<BT, NTH>(reinterpret_cast<float*>(sl + 4 * PT));
+    }
+  };
+
+  // K and V go with step 0 in the first group, then steps 1 .. STAGES - 2
+  bwd_copy<T, D, LD, BS, NTH>(
+      kv, kv + PS,
+      static_cast<const T*>(p.k) + b * p.sk_b + hk * p.sk_h + j0 * p.sk_s,
+      p.sk_s, p.S - j0);
+  bwd_copy<T, D, LD, BS, NTH>(
+      kv + 2 * PS, kv + 3 * PS,
+      static_cast<const T*>(p.v) + b * p.sv_b + hk * p.sv_h + j0 * p.sv_s,
+      p.sv_s, p.S - j0);
+  for (int s = 0; s < STAGES - 1; ++s) copy(s);
+  cp_async_wait<STAGES - 2>();
+  bwd_split<T, D, LD, BS, NTH>(kv, kv + PS);
+  bwd_split<T, D, LD, BS, NTH>(kv + 2 * PS, kv + 3 * PS);
+  split(0);
+
+  float acc[MK][DT][4];       // dV (role 0) or dK (role 1) sums: keys kw +
+#pragma unroll                // 16 m + g (+ 8), columns d * 8 + 2t (+ 1)
+  for (int m = 0; m < MK; ++m)
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[m][d][c] = 0.f;
+  // role 0 reads K and, in its first product, Q, then dO down the columns;
+  // role 1 V, dO, then Q
+  const uint32_t kv_a = smem_u32(kv)
+      + 4 * (lane_a(lane, LD) + ws * 16 * MK * LD + role * 2 * PS);
+  const int lb = lane_b(lane, LD, PT) + role * 2 * PT;
+  float* xb = xbuf + pair * (MK * NT * 4 * 32) + lane;
+
+  int a = 0;                            // step it's tile
+  for (int it = 0; it < n_steps; ++it, a = a + 1 == n_act ? 0 : a + 1) {
+    __syncthreads();                    // step it is split; slot it-1 is free
+    copy(it + STAGES - 1);
+    const int i0 = tile_row(a);
+    const uint32_t* sl = ring + (it % STAGES) * SLOT;
+    const float* ls = reinterpret_cast<const float*>(sl + 4 * PT);
+    const int ir = wt * RT;             // this warp's rows of the tile
+    const int iw = i0 + ir;
+    const int re_first = bwd_row_end(p, q0, kl, iw);
+    const int re_last = bwd_row_end(p, q0, kl, min(iw + RT, p.T) - 1);
+    // nothing to add: no row, no key, or every row sees keys and none of
+    // these (a row that sees no key adds 1/S of its dO to every dV row);
+    // the same for both warps of the pair
+    const bool none = iw >= p.T || kw >= p.S || (re_first > 0 && re_last <= kw);
+    if (!none) {
+      // every row valid and seeing all 16 MK keys: no mask
+      const bool full = iw + RT <= p.T && kw + 16 * MK <= p.S
+                        && re_first >= kw + 16 * MK;
+      // S^T = K Q^T (role 0) or dP^T = V dO^T (role 1): 16 MK keys x RT rows
+      float st[MK][NT][4];
+#pragma unroll
+      for (int m = 0; m < MK; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) st[m][n][c] = 0.f;
+      const uint32_t ba = smem_u32(sl) + 4 * (lb + ir * LD);
+#pragma unroll
+      for (int kk = 0; kk < DT; ++kk) {
+        uint32_t ka[MK][4], ksm[MK][4] = {};
+#pragma unroll
+        for (int m = 0; m < MK; ++m) {
+          ldsm_x4(ka[m], kv_a + 4 * m * 16 * LD + 32 * kk);
+          if constexpr (SPLIT)
+            ldsm_x4(ksm[m], kv_a + 4 * (PS + m * 16 * LD) + 32 * kk);
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const uint32_t o = 4 * n * 8 * LD + 32 * kk;
+          uint32_t bf[4] = {};
+          if constexpr (SPLIT) {
+            ldsm_x4(bf, ba + o);
+          } else {
+            uint32_t b2[2];
+            ldsm_x2(b2, ba + o);
+            bf[0] = b2[0]; bf[1] = b2[1];
+          }
+#pragma unroll
+          for (int m = 0; m < MK; ++m)
+            mma_planes<SPLIT>(st[m][n], ka[m], ksm[m], bf);
+        }
+      }
+      // role 0: P^T, handed to the partner; role 1: dS^T = P^T o (dP^T - D),
+      // zero for a row that sees no key
+      if (role == 0) {
+        if (full) {
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const float2 l2 = *reinterpret_cast<const float2*>(
+                ls + ir + n * 8 + 2 * t4);
+#pragma unroll
+            for (int m = 0; m < MK; ++m)
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                st[m][n][c] = exp2f(st[m][n][c] * p.scale_log2
+                                    - (c & 1 ? l2.y : l2.x));
+          }
+        } else {
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const int r = ir + n * 8 + 2 * t4;      // tile row of c0, c2
+            const float2 l2 = *reinterpret_cast<const float2*>(ls + r);
+#pragma unroll
+            for (int m = 0; m < MK; ++m)
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                st[m][n][c] = bwd_p(p, q0, kl, i0 + r + (c & 1),
+                                    kw + m * 16 + g + (c < 2 ? 0 : 8),
+                                    st[m][n][c], c & 1 ? l2.y : l2.x);
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < MK; ++m)
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              xb[((m * NT + n) * 4 + c) * 32] = st[m][n][c];
+      }
+      bar_pair(1 + pair, 64);
+      if (role == 1) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int r = ir + n * 8 + 2 * t4;
+          const float2 d2 = *reinterpret_cast<const float2*>(ls + BT + r);
+          // a row that sees no key has dS = 0 (its P is 1/S)
+          const bool idle0 = !full && bwd_row_end(p, q0, kl, i0 + r) <= 0;
+          const bool idle1 = !full && bwd_row_end(p, q0, kl, i0 + r + 1) <= 0;
+#pragma unroll
+          for (int m = 0; m < MK; ++m)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              st[m][n][c] = (c & 1 ? idle1 : idle0) ? 0.f
+                  : xb[((m * NT + n) * 4 + c) * 32]
+                        * (st[m][n][c] - (c & 1 ? d2.y : d2.x));
+        }
+      }
+      // dV += P^T dO (role 0) or dK += dS^T Q (role 1): the k-steps are the
+      // warp's row tiles; B read down the columns (rows 2t, 2t + 1, col g)
+      uint32_t pb[MK][NT][4], pl[MK][NT][4];
+#pragma unroll
+      for (int m = 0; m < MK; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) acc_frag(st[m][n], pb[m][n], pl[m][n]);
+      const uint32_t* bc = sl + (ir + 2 * t4) * LD + g + (1 - role) * 2 * PT;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        float tv[MK][4];
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int o = n * 8 * LD + d * 8;
+          const uint32_t bb[2] = {bc[o], bc[o + LD]};
+          uint32_t bs[2] = {0u, 0u};
+          if constexpr (SPLIT) {
+            bs[0] = bc[o + PT]; bs[1] = bc[o + LD + PT];
+          }
+#pragma unroll
+          for (int m = 0; m < MK; ++m) {
+            if (n == 0) mma_acc<SPLIT, true>(tv[m], pb[m][n], pl[m][n], bb, bs);
+            else mma_acc<SPLIT, false>(tv[m], pb[m][n], pl[m][n], bb, bs);
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < MK; ++m)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[m][d][c] += tv[m][c];
+      }
+    }
+    cp_async_wait<STAGES - 2>();
+    split(it + 1);
+  }
+
+  // the two row halves of a key group summed disjoint rows: wt 1 hands its
+  // sums over in the ring, wt 0 adds them and writes dV (role 0) or dK
+  __syncthreads();                      // the ring is idle: no copy in flight
+  float* part = reinterpret_cast<float*>(ring);
+  constexpr int NS = MK * DT * 4, W = WK * 32;
+  float* mine = part + role * NS * W + ws * 32 + lane;
+  if (wt == 1) {
+#pragma unroll
+    for (int m = 0; m < MK; ++m)
+#pragma unroll
+      for (int d = 0; d < DT; ++d)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          mine[((m * DT + d) * 4 + c) * W] = acc[m][d][c];
+  }
+  __syncthreads();
+  if (wt != 0) return;
+  T* out = static_cast<T*>(role == 0 ? p.dv : p.dk);
+  const float sc = role == 0 ? 1.f : p.scale;
+#pragma unroll
+  for (int m = 0; m < MK; ++m)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int j = kw + m * 16 + g + 8 * half;
+      if (j >= p.S) continue;
+      T* row = out + (((long long)b * p.S + j) * p.Hkv + hk) * D + 2 * t4;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        const float* o = mine + ((m * DT + d) * 4 + 2 * half) * W;
+        store2(row + d * 8, (acc[m][d][2 * half] + o[0]) * sc,
+               (acc[m][d][2 * half + 1] + o[W]) * sc);
+      }
+    }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(BwdCfg<T, D>::NTH_Q, BwdCfg<T, D>::MIN_BLOCKS)
+flash_bwd_dq_kernel(const BwdParams p) {
+  using C = BwdCfg<T, D>;
+  constexpr int LD = C::LD, NT = C::NT_Q, DT = D / 8, RT = C::RT_Q;
+  constexpr int BS = C::BS_Q, BT = C::BT, NTH = C::NTH_Q, PT = C::PT;
+  constexpr int PS = BS * LD, WS = BS / 16, WT = C::WT_Q;
+  constexpr int STAGES = C::STAGES_Q, SLOT = C::SLOT;
+  constexpr bool SPLIT = C::SPLIT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // Q big, Q small, dO big, dO small [BS][LD], lse (base 2) [BS], D [BS];
+  // then the ring of slots: K big, K small, V big, V small [BT][LD]
+  uint32_t* qd = reinterpret_cast<uint32_t*>(smem_raw);
+  float* qst = reinterpret_cast<float*>(qd + 4 * PS);
+  uint32_t* ring = qd + 4 * PS + 2 * BS;
+
+  const int n_qt = gridDim.z;
+  const int qt = n_qt - 1 - blockIdx.z;               // longest tiles first
+  const int h = blockIdx.x, b = blockIdx.y;
   const int hk = h / (p.Hq / p.Hkv);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ws = warp % WS, wt = warp / WS;
   const int g = lane >> 2, t4 = lane & 3;
   const int q0 = p.q_start[b];
   const int kl = min(p.kv_len[b], p.S);
-  const int i0 = qt * BWD_ROWS;
-  const int iw = i0 + warp * 16;                      // this warp's rows
-  // rows that see no key have dS = 0: only visible keys add to dQ
-  const int n_loop = max(0, bwd_row_end(p, q0, kl,
-                                        min(i0 + BWD_ROWS, p.T) - 1));
+  const int i0 = qt * BS;
+  const int iw = i0 + ws * 16;                        // this warp's rows
+  // rows that see no key have dS = 0: only keys some row sees add to dQ
+  const int n_loop = max(0, bwd_row_end(p, q0, kl, min(i0 + BS, p.T) - 1));
+  const int n_steps = (n_loop + BT - 1) / BT;
+  const int w_first = bwd_row_end(p, q0, kl, iw);
   const int w_end = iw < p.T ? bwd_row_end(p, q0, kl, min(iw + 15, p.T - 1))
                              : 0;
 
-  bwd_stage<T, D, LD>(qs, p.q, b * p.sq_b + h * p.sq_h, p.sq_t, i0,
-                      BWD_ROWS, p.T);
-  bwd_stage<T, D, LD>(dos, p.dout, b * p.sd_b + h * p.sd_h, p.sd_t, i0,
-                      BWD_ROWS, p.T);
-  bwd_stage_stats(p, b, h, i0, BWD_ROWS, ls, dls);
+  const T* kb = static_cast<const T*>(p.k) + b * p.sk_b + hk * p.sk_h;
+  const T* vb = static_cast<const T*>(p.v) + b * p.sv_b + hk * p.sv_h;
+  auto copy = [&](int s) {                // key tile s into slot s % STAGES
+    if (s < n_steps) {
+      uint32_t* sl = ring + (s % STAGES) * SLOT;
+      const int j0 = s * BT;
+      bwd_copy<T, D, LD, BT, NTH>(sl, sl + PT, kb + j0 * p.sk_s, p.sk_s,
+                                  p.S - j0);
+      bwd_copy<T, D, LD, BT, NTH>(sl + 2 * PT, sl + 3 * PT, vb + j0 * p.sv_s,
+                                  p.sv_s, p.S - j0);
+    }
+    cp_async_commit();
+  };
+  auto split = [&](int s) {
+    if (s < n_steps) {
+      uint32_t* sl = ring + (s % STAGES) * SLOT;
+      bwd_split<T, D, LD, BT, NTH>(sl, sl + PT);
+      bwd_split<T, D, LD, BT, NTH>(sl + 2 * PT, sl + 3 * PT);
+    }
+  };
 
-  float dq[DT][4];                                    // rows iw + g (+ 8)
+  // Q, dO and their statistics go with key tile 0 in the first group
+  bwd_copy<T, D, LD, BS, NTH>(
+      qd, qd + PS,
+      static_cast<const T*>(p.q) + b * p.sq_b + h * p.sq_h + i0 * p.sq_t,
+      p.sq_t, p.T - i0);
+  bwd_copy<T, D, LD, BS, NTH>(
+      qd + 2 * PS, qd + 3 * PS,
+      static_cast<const T*>(p.dout) + b * p.sd_b + h * p.sd_h + i0 * p.sd_t,
+      p.sd_t, p.T - i0);
+  bwd_copy_stats<BS, NTH>(qst, p, b, h, i0);
+  for (int s = 0; s < STAGES - 1; ++s) copy(s);
+  cp_async_wait<STAGES - 2>();
+  bwd_split<T, D, LD, BS, NTH>(qd, qd + PS);
+  bwd_split<T, D, LD, BS, NTH>(qd + 2 * PS, qd + 3 * PS);
+  bwd_split_stats<BS, NTH>(qst);
+  split(0);
+
+  float dq[DT][4];                      // sums: rows iw + g (+ 8), d 2t (+1)
 #pragma unroll
   for (int d = 0; d < DT; ++d)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dq[d][c] = 0.f;
-  for (int c = 0; c < C::ACC; ++c) dq_sum[c * THREADS + threadIdx.x] = 0.f;
-  const float* qwr = qs + (warp * 16 + g) * LD + 2 * t4;
-  const float* dwr = dos + (warp * 16 + g) * LD + 2 * t4;
-  const int r0 = warp * 16 + g;
-
-  for (int j0 = 0; j0 < n_loop; j0 += BT) {
-    __syncthreads();                          // the last tile's readers done
-    bwd_stage<T, D, LD>(ks, p.k, b * p.sk_b + hk * p.sk_h, p.sk_s, j0, BT,
-                        p.S);
-    bwd_stage<T, D, LD>(vs, p.v, b * p.sv_b + hk * p.sv_h, p.sv_s, j0, BT,
-                        p.S);
-    __syncthreads();
-    if (j0 >= w_end) continue;                // this warp's rows see none
-
-    // S = Q K^T and dP = dO V^T: 16 rows x BT keys
-    float s[NT][4], dpm[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[n][c] = dpm[n][c] = 0.f;
+  const uint32_t qa = smem_u32(qd) + 4 * (lane_a(lane, LD) + ws * 16 * LD);
+  // up to D = 64 the big planes of the warp's Q and dO A fragments stay in
+  // registers for the whole loop (at D = 128 they would cost 128)
+  constexpr bool HOLD = D <= 64;
+  uint32_t qreg[HOLD ? DT : 1][4], dreg[HOLD ? DT : 1][4];
+  if constexpr (HOLD) {
+    __syncthreads();                    // every thread's Q, dO chunks split
 #pragma unroll
     for (int kk = 0; kk < DT; ++kk) {
-      uint32_t qb[4], qsm[4], db[4], dsm[4];
-      a_frag<SPLIT>(qwr + kk * 8, LD, qb, qsm);
-      a_frag<SPLIT>(dwr + kk * 8, LD, db, dsm);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t kb[2], ksm[2], vb[2], vsm[2];
-        bt_frag<SPLIT>(ks + (n * 8 + g) * LD + kk * 8 + 2 * t4, kb, ksm);
-        bt_frag<SPLIT>(vs + (n * 8 + g) * LD + kk * 8 + 2 * t4, vb, vsm);
-        mma_parts<SPLIT, SPLIT>(s[n], qb, qsm, kb, ksm);
-        mma_parts<SPLIT, SPLIT>(dpm[n], db, dsm, vb, vsm);
-      }
+      ldsm_x4(qreg[kk], qa + 32 * kk);
+      ldsm_x4(dreg[kk], qa + 4 * 2 * PS + 32 * kk);
     }
-    // dS in place (in dpm); the scores' registers are free after
+  }
+  const int lb = lane_b(lane, LD, PT);
+
+  for (int it = 0; it < n_steps; ++it) {
+    __syncthreads();                    // step it is split; slot it-1 is free
+    copy(it + STAGES - 1);
+    const uint32_t* sl = ring + (it % STAGES) * SLOT;
+    const int kr = wt * RT;             // this warp's keys of the tile
+    const int kj = it * BT + kr;
+    const bool none = iw >= p.T || kj >= p.S || kj >= w_end;
+    if (!none) {
+      // every row valid and seeing all RT keys: no mask
+      const bool full = iw + 16 <= p.T && kj + RT <= p.S && w_first >= kj + RT;
+      // S = Q K^T and dP = dO V^T: 16 rows x RT keys
+      float s[NT][4], dp[NT][4];
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = r0 + (c < 2 ? 0 : 8);
-        bwd_p_ds(p, q0, kl, i0 + r, j0 + n * 8 + 2 * t4 + (c & 1), ls[r],
-                 dls[r], s[n][c], dpm[n][c]);
+        for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
+      const uint32_t ka = smem_u32(sl) + 4 * (lb + kr * LD);
+      const uint32_t va = ka + 4 * 2 * PT;
+#pragma unroll
+      for (int kk = 0; kk < DT; ++kk) {
+        uint32_t qb[4], qsm[4] = {}, db[4], dsm[4] = {};
+        if constexpr (HOLD) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            qb[c] = qreg[kk][c];
+            db[c] = dreg[kk][c];
+          }
+        } else {
+          ldsm_x4(qb, qa + 32 * kk);
+          ldsm_x4(db, qa + 4 * 2 * PS + 32 * kk);
+        }
+        if constexpr (SPLIT) {
+          ldsm_x4(qsm, qa + 4 * PS + 32 * kk);
+          ldsm_x4(dsm, qa + 4 * 3 * PS + 32 * kk);
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const uint32_t o = 4 * n * 8 * LD + 32 * kk;
+          uint32_t kf[4] = {}, vf[4] = {};
+          if constexpr (SPLIT) {
+            ldsm_x4(kf, ka + o);
+            ldsm_x4(vf, va + o);
+          } else {
+            uint32_t k2[2], v2[2];
+            ldsm_x2(k2, ka + o);
+            ldsm_x2(v2, va + o);
+            kf[0] = k2[0]; kf[1] = k2[1]; vf[0] = v2[0]; vf[1] = v2[1];
+          }
+          mma_planes<SPLIT>(s[n], qb, qsm, kf);
+          mma_planes<SPLIT>(dp[n], db, dsm, vf);
+        }
       }
-    // dQ += dS K: the k-steps are the key tiles n
+      // dS in place (in dp)
+      const int rw = ws * 16 + g;                     // block row of c0, c1
+      const float ls0 = qst[rw], ls1 = qst[rw + 8];
+      const float dl0 = qst[BS + rw], dl1 = qst[BS + rw + 8];
+      if (full) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      uint32_t sb[4], sl[4];
-      acc_frag(dpm[n], sb, sl);
-      const float* kr = ks + (n * 8 + 2 * t4) * LD + g;
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            dp[n][c] = exp2f(s[n][c] * p.scale_log2 - (c < 2 ? ls0 : ls1))
+                       * (dp[n][c] - (c < 2 ? dl0 : dl1));
+      } else {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            bwd_p_ds(p, q0, kl, iw + g + (c < 2 ? 0 : 8),
+                     kj + n * 8 + 2 * t4 + (c & 1), c < 2 ? ls0 : ls1,
+                     c < 2 ? dl0 : dl1, s[n][c], dp[n][c]);
+      }
+      // dQ += dS K: the k-steps are the warp's key tiles; B read down K's
+      // columns (keys 2t, 2t + 1, column g)
+      uint32_t sb[NT][4], sm[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) acc_frag(dp[n], sb[n], sm[n]);
+      const uint32_t* kc = sl + (kr + 2 * t4) * LD + g;
 #pragma unroll
       for (int d = 0; d < DT; ++d) {
-        uint32_t bb[2], bs[2];
-        b_frag<SPLIT>(kr + d * 8, LD, bb, bs);
-        mma_parts<true, SPLIT>(dq[d], sb, sl, bb, bs);
+        float tq[4];
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int o = n * 8 * LD + d * 8;
+          const uint32_t bk[2] = {kc[o], kc[o + LD]};
+          uint32_t bks[2] = {0u, 0u};
+          if constexpr (SPLIT) {
+            bks[0] = kc[o + PT]; bks[1] = kc[o + LD + PT];
+          }
+          if (n == 0) mma_acc<SPLIT, true>(tq, sb[n], sm[n], bk, bks);
+          else mma_acc<SPLIT, false>(tq, sb[n], sm[n], bk, bks);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) dq[d][c] += tq[c];
       }
     }
-    bwd_flush(dq, dq_sum);
+    cp_async_wait<STAGES - 2>();
+    split(it + 1);
   }
 
+  // with two warps a row group (WT = 2) each summed disjoint keys: wt 0
+  // finishes the first half of the columns and wt 1 the second, each adding
+  // the other's partial, handed over in the ring
+  constexpr int W = WS * 32, HALF = DT / 2;
+  const int slot = ws * 32 + lane;
+  float* part = reinterpret_cast<float*>(ring);
+  if constexpr (WT == 2) {
+    __syncthreads();                    // the ring is idle: no copy in flight
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if ((d < HALF) == (wt == 1)) part[(d * 4 + c) * W + slot] = dq[d][c];
+    __syncthreads();
+  }
   T* dqp = static_cast<T*>(p.dq);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int i = iw + g + 8 * half;
     if (i >= p.T) continue;
-    const long long row = (((long long)b * p.T + i) * p.Hq + h) * D;
+    T* row = dqp + (((long long)b * p.T + i) * p.Hq + h) * D + 2 * t4;
 #pragma unroll
     for (int d = 0; d < DT; ++d) {
-      const float* qs_ = dq_sum + (d * 4 + 2 * half) * THREADS + threadIdx.x;
-      store2(dqp + row + d * 8 + 2 * t4, qs_[0] * p.scale,
-             qs_[THREADS] * p.scale);
+      if constexpr (WT == 2) {
+        if ((d < HALF) != (wt == 0)) continue;        // the other warp's half
+        const float* o = part + (d * 4 + 2 * half) * W + slot;
+        store2(row + d * 8, (dq[d][2 * half] + o[0]) * p.scale,
+               (dq[d][2 * half + 1] + o[W]) * p.scale);
+      } else {
+        store2(row + d * 8, dq[d][2 * half] * p.scale,
+               dq[d][2 * half + 1] * p.scale);
+      }
     }
   }
 }
@@ -1288,7 +1717,7 @@ cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
         flash_bwd_dkdv_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_KV);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return err;
     err = cudaFuncSetAttribute(
         flash_bwd_dq_kernel<T, D>,
@@ -1296,18 +1725,19 @@ cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  const long long rows = (long long)p.B * p.T * p.Hq;
-  const int per = BWD_THREADS / 32;
-  flash_bwd_delta_kernel<T, D>
-      <<<(unsigned)((rows + per - 1) / per), BWD_THREADS, 0, stream>>>(p);
+  const long long lanes = (long long)p.B * p.T * p.Hq * D * sizeof(T) / 16;
+  flash_bwd_delta_kernel<T, D><<<(unsigned)((lanes + BWD_THREADS - 1)
+                                            / BWD_THREADS),
+                                 BWD_THREADS, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 gkv((p.S + BWD_ROWS - 1) / BWD_ROWS, p.Hkv, p.B);
-  flash_bwd_dkdv_kernel<T, D><<<gkv, THREADS, C::SMEM_KV, stream>>>(p);
+  // key tiles on z, the slowest index of the issue order: key tile 0 first
+  const dim3 gkv(p.Hkv, p.B, (p.S + C::BS - 1) / C::BS);
+  flash_bwd_dkdv_kernel<T, D><<<gkv, C::NTH, C::SMEM, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 gq((p.T + BWD_ROWS - 1) / BWD_ROWS, p.Hq, p.B);
-  flash_bwd_dq_kernel<T, D><<<gq, THREADS, C::SMEM_Q, stream>>>(p);
+  const dim3 gq(p.Hq, p.B, (p.T + C::BS_Q - 1) / C::BS_Q);
+  flash_bwd_dq_kernel<T, D><<<gq, C::NTH_Q, C::SMEM_Q, stream>>>(p);
   return cudaGetLastError();
 }
 

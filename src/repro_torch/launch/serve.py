@@ -1,7 +1,7 @@
 """Pipelined serving entry point: batched prefill + greedy decode, one card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch llama3.2-1b --stages 8 --microbatches 2 \\
+        --arch llama3.2-1b --tensor 1 --stages 8 --microbatches 2 \\
         --batch 8 --prompt-len 512 --gen 32
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
@@ -9,7 +9,9 @@
         --batch 8 --prompt-len 512 --gen 32
 
 ``--device cpu`` runs the same path on the CPU with the kernels' plain
-versions (add ``--reduced`` for a small model).  For mamba2 the prompt
+versions (add ``--reduced`` for a small model).  A config whose tensor
+degree is above 1 (llama3.2-1b's is 2) is refused unless ``--tensor 1``
+is given, as in the training CLI.  For mamba2 the prompt
 length must be a multiple of the SSD chunk (256; 16 reduced) or shorter
 than it.
 
@@ -32,6 +34,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import build
+from repro_torch.launch import one_card
 from repro_torch.pipeline import runtime as RT
 from repro_torch.pipeline import stage as ST
 
@@ -69,10 +72,9 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced(n_layers=4, d_model=256)
+    cfg = one_card(cfg, args.tensor)
     if args.stages:
         cfg = dataclasses.replace(cfg, stages=args.stages)
-    if args.tensor:
-        cfg = dataclasses.replace(cfg, tensor=args.tensor)
     plan = ST.plan_stages(cfg, virtual=1)
     max_len = args.prompt_len + args.gen
     pcfg = RT.PipelineConfig(n_microbatches=args.microbatches,

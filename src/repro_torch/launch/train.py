@@ -2,15 +2,18 @@
 stage plan and a compiled F/B(/W) schedule, on one card.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
-        --stages 4 --schedule 1f1b --microbatches 4 --batch 8 --seq 1024 \\
-        --steps 3
+        --tensor 1 --stages 4 --schedule 1f1b --microbatches 4 --batch 8 \\
+        --seq 1024 --steps 3
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --reduced --layers 2 --d-model 64 --stages 2 --microbatches 2 \\
         --batch 4 --seq 32 --steps 30 --lr 6e-3 --device cpu
 
 ``--device cpu`` runs the same path on the CPU with the kernels' plain
-versions.  Data come from :class:`repro_torch.data.synthetic.SyntheticLM`
+versions.  As in the JAX CLI, ``--layers``/``--d-model`` apply only
+under ``--reduced``, and a config whose tensor degree is above 1
+(llama3.2-1b's is 2) is refused unless ``--tensor 1`` is given.  Data
+come from :class:`repro_torch.data.synthetic.SyntheticLM`
 (the JAX package's generator, bit-identical tokens); the optimizer is
 AdamW with the reference settings (``warmup_cosine(lr, 20, steps)``,
 weight decay 0.01, b2 0.95, clip 1.0).  Each step prints its loss and
@@ -33,21 +36,21 @@ from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attend
 from repro_torch.kernels.ssd_scan import ssd_chunked
+from repro_torch.launch import PAR_ITEM as _PAR_ITEM, one_card
 from repro_torch.optim.adamw import AdamW, warmup_cosine
 from repro_torch.pipeline import runtime as RT
 from repro_torch.pipeline import stage as ST
 
 _TRAIN_ITEM = "ROADMAP 'Still to port': zb-h2/zb-auto/interleaved training"
-_PAR_ITEM = "ROADMAP 'Still to port': tensor and data parallel over NCCL"
 _CKPT_ITEM = "ROADMAP 'Still to port': checkpoints, reshard and elastic"
 _PLAN_ITEM = "ROADMAP 'Still to port': the analytic planner stack"
 _STREAM_ITEM = "ROADMAP 'Still to port': the stream runtime"
 
 #: flags of the JAX CLI the port does not run yet: (flag, accepted
 #: values, ROADMAP item); any other value raises NotImplementedError
+#: (``--tensor`` is held by :func:`repro_torch.launch.one_card`)
 _REFUSED = (
     ("data", (1,), _PAR_ITEM),
-    ("tensor", (0, 1), _PAR_ITEM),
     ("virtual", (0, 1), _TRAIN_ITEM),
     ("runtime", ("", "ticks"), _STREAM_ITEM),
     ("grad_sync", ("", "auto", "end"), _PAR_ITEM),
@@ -126,25 +129,32 @@ def _counters() -> dict:
     return out
 
 
-def main(argv=None) -> dict:
-    args = _parser().parse_args(argv)
+def build_config(args: argparse.Namespace):
+    """The model the CLI trains, as the JAX CLI builds it from the same
+    argv: ``--layers``/``--d-model`` cut the model only under
+    ``--reduced``; the config's tensor degree must be 1 or be overridden
+    by ``--tensor 1`` (:func:`repro_torch.launch.one_card`).  Refused
+    flags raise NotImplementedError by their ROADMAP item."""
     for flag, ok, item in _REFUSED:
         val = getattr(args, flag)
         if val not in ok:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} {val}: not ported yet ({item})")
-
-    device = torch.device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced(n_layers=args.layers or 4,
                           d_model=args.d_model or 256, seq=args.seq)
-    elif args.layers or args.d_model:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers,
-                                  d_model=args.d_model or cfg.d_model)
-    cfg = dataclasses.replace(cfg, tensor=1, virtual=1,
-                              stages=args.stages or cfg.stages,
-                              schedule=args.schedule or cfg.schedule)
+    cfg = one_card(cfg, args.tensor)
+    return dataclasses.replace(cfg, virtual=1,
+                               stages=args.stages or cfg.stages,
+                               schedule=args.schedule or cfg.schedule)
+
+
+def main(argv=None) -> dict:
+    args = _parser().parse_args(argv)
+
+    device = torch.device(args.device)
+    cfg = build_config(args)
     plan = ST.plan_stages(cfg)
     opt = AdamW(lr=warmup_cosine(args.lr, 20, args.steps), weight_decay=0.01)
     pcfg = RT.PipelineConfig(n_microbatches=args.microbatches,

@@ -152,8 +152,9 @@ def gqa_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, pos, rope_theta)
-    k = apply_rope(k, pos, rope_theta)
+    if cfg.rope_theta:        # static off-switch (learned absolute positions)
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
     new_cache = None
     scale = 1.0 / math.sqrt(hd)
     if cache is not None:

@@ -5,15 +5,18 @@ source, on one card, in one process.
     git show <commit>:src/repro_torch/kernels/csrc/flash_attention.cu \\
         > build/flash_baseline.cu
     python3 tools/flash_ab.py --baseline build/flash_baseline.cu
+    python3 tools/flash_ab.py --bwd --profile --baseline build/flash_baseline.cu
 
 The baseline is a ``flash_attention.cu`` with the two-route C interface
 without statistics (``flash_attention_fwd(..., scale, causal, n_split,
 split_len, workspace, stream)``, from the redesign of the kernel up to the
 version before the backward).  It is compiled with the same nvcc flags as the
-port's kernels into ``build/kernels/``.  At the serving path's shapes
+port's kernels into ``build/kernels/``; ``--baseline`` may be given more
+than once (the sources are compiled in parallel, and every version is
+timed in the same turns).  At the serving path's shapes
 (llama3.2-1b: 32 query heads, 8 kv heads, head_dim 64, S = 544, a
-micro-batch of 4 rows) each shape is timed in turns, baseline, current,
-current, baseline (device time of one call, CUDA-graph replay, as
+micro-batch of 4 rows) each shape is timed in turns, baselines, current,
+current, baselines in reverse (device time of one call, CUDA-graph replay, as
 chip_smoke.py times it), after both outputs were checked against the
 plain version.  One JSON line per shape; the last line names the card.
 With ``--profile``, each shape's line also carries the current version's
@@ -22,12 +25,14 @@ the decode route's split and combine kernels show apart.
 
 With ``--bwd`` the backward is compared instead, at the training path's
 shape (llama3.2-1b: batch 2, T = S = 1024, 32/8 heads, D 64, causal), the
-inputs' output and statistics from the current forward: the baseline must
-have the same ``flash_attention_bwd`` C interface.  Both versions' dq, dk,
-dv are checked against the plain version (relative to max |ref|: f32
-1e-4, bf16 3e-2).
+inputs' output and statistics from the current forward: a baseline must
+have the same ``flash_attention_bwd`` C interface.  Every version's dq,
+dk, dv are checked against the plain version (relative to max |ref|: f32
+1e-4, bf16 3e-2); with ``--profile`` the line carries every version's
+device time per CUDA kernel.
 """
 import argparse
+import concurrent.futures as cf
 import ctypes
 import json
 import os
@@ -43,14 +48,23 @@ sys.path.insert(0, ROOT)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
 
-def build_baseline(path: str) -> ctypes.CDLL:
+def build_baselines(paths: list, stem: str) -> list:
+    """Each source compiled (all at once) and loaded: one library each."""
     from repro_torch.kernels import build
-    lib = build.load_file(path, "flash_baseline")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_attention_fwd.argtypes = (
-        [p] * 6 + [i] * 7 + [ll] * 12 + [ctypes.c_float, i, i, i, p, p])
-    lib.flash_attention_fwd.restype = ctypes.c_int
-    return lib
+    with cf.ThreadPoolExecutor(len(paths)) as pool:
+        return list(pool.map(lambda ip: build.load_file(ip[1], f"{stem}{ip[0]}"),
+                             enumerate(paths)))
+
+
+def turns(fns: dict) -> dict:
+    """Device ms of each named call, timed in turns: in order, then in
+    reverse (so no version always runs first)."""
+    from chip_smoke import time_ms
+    out = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            out[name].append(time_ms(fns[name]))
+    return out
 
 
 def baseline_call(lib, q, k, v, q_start, kv_len, scale, causal):
@@ -96,15 +110,15 @@ def baseline_bwd_call(lib, q, k, v, out, lse, dout, q_start, kv_len, scale,
     return dq, dk, dv
 
 
-def main_bwd(path: str, profile: bool) -> None:
-    from chip_smoke import kernel_us, time_ms
-    from repro_torch.kernels import build
+def main_bwd(paths: list, profile: bool) -> None:
+    from chip_smoke import kernel_us
     from repro_torch.kernels import flash_attention as FA
-    base = build.load_file(path, "flash_bwd_baseline")
+    bases = build_baselines(paths, "flash_bwd_baseline")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    base.flash_attention_bwd.argtypes = (
-        [p] * 12 + [i] * 7 + [ll] * 15 + [ctypes.c_float, i, p])
-    base.flash_attention_bwd.restype = ctypes.c_int
+    for base in bases:
+        base.flash_attention_bwd.argtypes = (
+            [p] * 12 + [i] * 7 + [ll] * 15 + [ctypes.c_float, i, p])
+        base.flash_attention_bwd.restype = ctypes.c_int
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -119,28 +133,29 @@ def main_bwd(path: str, profile: bool) -> None:
         kl = torch.full((B,), T, dtype=torch.int32, device=dev)
         kw = dict(scale=D ** -0.5, causal=True, q_start=qs, kv_len=kl)
         out, lse = FA.flash_attend(q, k, v, return_lse=True, **kw)
-        cur = lambda: FA.flash_attend_bwd(q, k, v, out, lse, do, **kw)
-        old = lambda: baseline_bwd_call(base, q, k, v, out, lse, do, qs, kl,
-                                        D ** -0.5, True)
+        fns = {path: (lambda base=base: baseline_bwd_call(
+                   base, q, k, v, out, lse, do, qs, kl, D ** -0.5, True))
+               for path, base in zip(paths, bases)}
+        fns["current"] = lambda: FA.flash_attend_bwd(q, k, v, out, lse, do,
+                                                     **kw)
         want = FA.attend_bwd_ref(q, k, v, out, lse, do, **kw)
         errs = {name: max(rel(a, b) for a, b in zip(fn(), want))
-                for name, fn in (("baseline", old), ("current", cur))}
+                for name, fn in fns.items()}
         if max(errs.values()) > tol[dtype]:
             sys.exit(f"backward disagrees with the plain version: {errs}")
-        t = [time_ms(fn) for fn in (old, cur, cur, old)]
         print(json.dumps(dict(
             label=f"backward B={B} T=S={T} Hq={Hq} Hkv={Hkv} D={D} causal",
-            dtype=str(dtype).replace("torch.", ""),
-            baseline_ms=[t[0], t[3]], current_ms=[t[1], t[2]], rel_err=errs,
-            **({"kernel_us": kernel_us(cur),
-                "baseline_kernel_us": kernel_us(old)} if profile else {}))),
-            flush=True)
+            dtype=str(dtype).replace("torch.", ""), ms=turns(fns),
+            rel_err=errs,
+            **({"kernel_us": {name: kernel_us(fn) for name, fn in fns.items()}}
+               if profile else {}))), flush=True)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--baseline", required=True,
-                    help="flash_attention.cu of the version to compare with")
+    ap.add_argument("--baseline", required=True, action="append",
+                    help="flash_attention.cu of a version to compare with "
+                         "(repeatable)")
     ap.add_argument("--profile", action="store_true",
                     help="also print the current version's device time per "
                          "CUDA kernel")
@@ -153,9 +168,14 @@ def main() -> None:
         main_bwd(args.baseline, args.profile)
         card_line()
         return
-    from chip_smoke import kernel_us, time_ms
+    from chip_smoke import kernel_us
     from repro_torch.kernels import flash_attention as FA
-    base = build_baseline(args.baseline)
+    bases = build_baselines(args.baseline, "flash_baseline")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for base in bases:
+        base.flash_attention_fwd.argtypes = (
+            [p] * 6 + [i] * 7 + [ll] * 12 + [ctypes.c_float, i, i, i, p, p])
+        base.flash_attention_fwd.restype = ctypes.c_int
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     cases = (("main-path prefill B=4", 4, 512, [0] * 4, [512] * 4),
@@ -168,21 +188,21 @@ def main() -> None:
             qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
             kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
             kw = dict(scale=0.125, causal=True, q_start=qs, kv_len=kl)
-            cur = lambda: FA.flash_attend(q, k, v, **kw)
-            old = lambda: baseline_call(base, q, k, v, qs, kl, 0.125, True)
+            fns = {path: (lambda base=base: baseline_call(
+                       base, q, k, v, qs, kl, 0.125, True))
+                   for path, base in zip(args.baseline, bases)}
+            fns["current"] = lambda: FA.flash_attend(q, k, v, **kw)
             want = FA.attend_ref(q, k, v, **kw).float()
             errs = {name: (fn().float() - want).abs().max().item()
-                    for name, fn in (("baseline", old), ("current", cur))}
+                    for name, fn in fns.items()}
             if max(errs.values()) > TOL[dtype]:
                 sys.exit(f"{label}: disagrees with the plain version: {errs}")
-            t = [time_ms(fn) for fn in (old, cur, cur, old)]
             print(json.dumps(dict(
                 label=f"{label} T={T} S=544 Hq=32 Hkv=8 D=64",
                 dtype=str(dtype).replace("torch.", ""),
-                route=FA.route(T, 32, 8), baseline_ms=[t[0], t[3]],
-                current_ms=[t[1], t[2]], max_abs_err=errs,
-                **({"kernel_us": kernel_us(cur)} if args.profile else {}))),
-                flush=True)
+                route=FA.route(T, 32, 8), ms=turns(fns), max_abs_err=errs,
+                **({"kernel_us": kernel_us(fns["current"])}
+                   if args.profile else {}))), flush=True)
     card_line()
 
 

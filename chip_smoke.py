@@ -26,7 +26,8 @@ Phases, each reported on its own lines:
    route its shapes take (``decode`` for T * Hq / Hkv <= 16, else
    ``prefill``); the decode route is also run over S = 4096, many splits;
    the training path's forward (batch 2, T = S = 1024, 32/8 heads, D 64,
-   causal) is timed without and with the per-row statistics;
+   causal) is timed without and with the per-row statistics, and checked
+   at phase 13's one-row micro-batch as well;
 4. ``repro_torch.launch.serve.main`` at the full width of llama3.2-1b
    (16 layers, 8 stages, 2 micro-batches, batch 8, prompt 512, 32 tokens,
    f32), with each kernel's launch count over that run (flash attention
@@ -51,8 +52,8 @@ Phases, each reported on its own lines:
 9. the flash-attention backward kernel against its plain version
    (``attend_bwd_ref``) and against torch autograd of ``attend_ref``, at
    phase 3's shapes (through a head axis of one), the per-row cases with
-   an idle row, and the training shape (batch 2, T = S = 1024, 32/8 heads,
-   D 64, causal), in f32 and bf16 (relative to max |ref|: 1e-4, 3e-2); a
+   an idle row, and the training shapes (batch 2 and 1, T = S = 1024, 32/8
+   heads, D 64, causal), in f32 and bf16 (relative to max |ref|: 1e-4, 3e-2); a
    second call must give the same bits; the library time is the backward
    of ``scaled_dot_product_attention`` (eager, CUDA events); the training
    shape's rows add the device time of each of the backward's three CUDA
@@ -63,17 +64,30 @@ Phases, each reported on its own lines:
    non-pipelined ``loss_fn`` on the card with the same weights (1e-4),
    exactly 128 forward (prefill route) and 64 backward flash launches a
    step, and the residual stash at ``lower_to_ticks(...).n_x``;
-11. training parity: at full width and 2 layers, gpipe / 1f1b / dapple /
-   zb-h1 agree with each other (loss and gradients, 1e-5 relative) and
-   with one non-pipelined autograd pass of the plain-attention model on
-   the card (the JAX harness's bar: loss 1e-4, gradients 1e-4); then a
-   reduced model (2 layers, d 256) trains one step on the card and on the
-   CPU with the same weights (loss 1e-4, gradients 1e-4).
+11. training parity: at full width and 3 layers, gpipe / 1f1b / dapple /
+   zb-h1 / 1f1b-interleaved-memlean (V 2) / zb-auto (mem_limit 2, M 4) /
+   1f1b under remat 'full' agree with each other (loss and gradients,
+   1e-5 relative) and with one non-pipelined autograd pass of the
+   plain-attention model on the card (the JAX harness's bar: loss 1e-4,
+   gradients 1e-4), each with exactly the flash launches its table and
+   remat imply; whether remat 'full' equals the stage recompute bit for
+   bit is recorded; then a reduced model (3 layers, d 256) trains one step
+   on the card and on the CPU with the same weights (loss 1e-4, gradients
+   1e-4) under 1f1b, the memlean interleave, the capped zb-auto and remat
+   'full';
+12. as phase 10 under 1f1b-interleaved with 2 chunks a stage (4 stages x
+   2 chunks x 2 layers, 4 micro-batches): exactly 128 forward (64 of them
+   with statistics) and 64 backward flash launches a step;
+13. as phase 10 under zb-h2 with 8 micro-batches (its caps 7/5/5/6
+   resident residuals; at 4 micro-batches every cap would be 4 = M and
+   zb-h2 the unbounded zb-auto): exactly 384 forward (256 with
+   statistics: the B and W ticks each re-run the stage) and 256 backward
+   flash launches a step.
 
 Every kernel's launch counters (``launches`` and, for flash attention,
 ``launches_prefill`` / ``launches_decode`` / ``launches_bwd``) are set to
-0 just before each driven path (phases 4, 7 and 10) and read just after
-it.
+0 just before each driven path (phases 4, 7, 10, 12 and 13, and each run
+of phase 11) and read just after it.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -389,7 +403,10 @@ def phase_kernels(FA, results: list) -> list:
              [4096, 4001, 2501, 1001]),
             ("train B=2", 2, 1024, 1024, [0, 0], [1024, 1024]),
             ("train B=2 with statistics", 2, 1024, 1024, [0, 0],
-             [1024, 1024])):
+             [1024, 1024]),
+            # phase 13's micro-batch (zb-h2, M 8: one row)
+            ("train B=1", 1, 1024, 1024, [0], [1024]),
+            ("train B=1 with statistics", 1, 1024, 1024, [0], [1024])):
         for dtype in (torch.float32, torch.bfloat16):
             q = rnd(B, T, 32, 64, dt=dtype)
             k, v = rnd(B, S, 8, 64, dt=dtype), rnd(B, S, 8, 64, dt=dtype)
@@ -432,7 +449,9 @@ def phase_backward(FA, results: list) -> list:
               ("idle row B=3 per-row", 3, 4, 544, 32, 8, 64, True,
                [0, 9, 3], [4, 13, 0]),
               ("train B=2 T=S=1024", 2, 1024, 1024, 32, 8, 64, True,
-               [0, 0], [1024, 1024])]
+               [0, 0], [1024, 1024]),
+              ("train B=1 T=S=1024", 1, 1024, 1024, 32, 8, 64, True,
+               [0], [1024])]
     bad = []
     for label, B, T, S, Hq, Hkv, D, causal, q_start, kv_len in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -666,26 +685,43 @@ def _to(tree: dict, dev) -> dict:
 
 
 def _unstage(params: dict, plan, n_layers: int, ST) -> dict:
-    """Stacked [S, Lps, ...] parameters -> the unstaged tree loss_fn
-    takes (layers [L, ...])."""
+    """Stacked [S, Lps, ...] or [S, V, Lc, ...] parameters -> the
+    unstaged tree loss_fn takes (layers [L, ...])."""
     return dict(params, layers=ST._map_layers(
         lambda a: ST.unstack_chunks(a, plan)[:n_layers], params["layers"]))
 
 
-def phase_train(train, counters: dict, mods) -> dict:
-    """Phase 10: ``train.main`` at full width (llama3.2-1b, 4 stages x 4
-    layers, 1f1b, M = 4, batch 8, seq 1024, f32, 3 steps) with every
-    launch counter set to 0 just before and read just after; then step
-    0's loss against a non-pipelined loss_fn on the card with the same
-    weights."""
+def train_launches(n_layers: int, M: int, has_w: bool, full: bool) -> dict:
+    """Each kernel's launches in one train step: an F tick runs each
+    layer's attention once without statistics; a B tick once with them
+    (twice under remat 'full': the layer's forward re-runs inside the
+    backward) and one backward; a W tick (zero-bubble plans) the same
+    again.  Every forward call takes the prefill route."""
+    fwd_stats = n_layers * M * (1 + has_w) * (1 + full)
+    fwd = n_layers * M + fwd_stats
+    return {"flash_attention": fwd, "flash_attention.prefill": fwd,
+            "flash_attention.decode": 0,
+            "flash_attention.bwd": n_layers * M * (1 + has_w),
+            "ssd_scan": 0}
+
+
+def phase_train(train, counters: dict, mods, *, schedule: str = "1f1b",
+                virtual: int = 1, M_: int = 4) -> dict:
+    """Phases 10, 12 and 13: ``train.main`` at full width (llama3.2-1b,
+    16 layers on 4 stages, as ``virtual`` chunks a stage, batch 8, seq
+    1024, f32, 3 steps) under ``schedule`` with ``M_`` micro-batches, with
+    every launch counter set to 0 just before and read just after; then
+    step 0's loss against a non-pipelined loss_fn on the card with the
+    same weights."""
     get_config, RT, ST, M, SP, SyntheticLM = mods
-    steps, stages, M_, batch, seq = 3, 4, 4, 8, 1024
+    steps, stages, batch, seq = 3, 4, 8, 1024
     argv = ["--arch", "llama3.2-1b", "--tensor", "1", "--stages",
-            str(stages), "--schedule", "1f1b", "--microbatches", str(M_),
-            "--batch", str(batch),
+            str(stages), "--virtual", str(virtual), "--schedule", schedule,
+            "--microbatches", str(M_), "--batch", str(batch),
             "--seq", str(seq), "--steps", str(steps), "--log-every", "1",
             "--device", "cuda"]
-    print(f"train: python -m repro_torch.launch.train {' '.join(argv)}",
+    tag = f"train {schedule} V={virtual} M={M_}"
+    print(f"{tag}: python -m repro_torch.launch.train {' '.join(argv)}",
           flush=True)
     every = launch_counters(counters)
     for fn, attr in every.values():
@@ -693,15 +729,15 @@ def phase_train(train, counters: dict, mods) -> dict:
     out = train.main(argv)
     launches = {key: getattr(fn, attr) for key, (fn, attr) in every.items()}
     L = 16
-    per_step = {"flash_attention": 2 * L * M_,
-                "flash_attention.prefill": 2 * L * M_,
-                "flash_attention.decode": 0, "flash_attention.bwd": L * M_,
-                "ssd_scan": 0}
+    lowering = SP.lower_to_ticks(SP.build_schedule(schedule, M_, stages,
+                                                   virtual))
+    per_step = train_launches(L, M_, lowering.has_w, False)
     want = {k: steps * v for k, v in per_step.items()}
     losses = out["losses"]
-    n_x = SP.lower_to_ticks(SP.build_schedule("1f1b", M_, stages)).n_x
+    n_x = lowering.n_x
     after_first = sum(out["step_s"][1:]) / (steps - 1)
-    res = dict(losses=losses, step_s=out["step_s"],
+    res = dict(schedule=schedule, virtual=virtual, microbatches=M_,
+               losses=losses, step_s=out["step_s"],
                step_ms_after_first=1e3 * after_first,
                tok_s=out["tok_per_step"] / after_first,
                peak_gib=out["peak_gib"], launches=launches,
@@ -709,21 +745,22 @@ def phase_train(train, counters: dict, mods) -> dict:
                stash_slots=out["stash_slots"], n_x=n_x)
     del out
     torch.cuda.empty_cache()
-    print(f"train: losses {losses}, step {res['step_ms_after_first']:.1f} ms "
-          f"after the first ({res['tok_s']:.0f} tok/s), peak memory "
+    print(f"{tag}: losses {losses}, step {res['step_ms_after_first']:.1f} "
+          f"ms after the first ({res['tok_s']:.0f} tok/s), peak memory "
           f"{res['peak_gib']:.2f} GiB, stash slots {res['stash_slots']} "
           f"(n_x {n_x}), launches {json.dumps(launches)} (want "
           f"{json.dumps(want)})", flush=True)
     if launches != want or any(d != per_step for d in res["launches_per_step"]):
-        fail(f"train launches {launches} / {res['launches_per_step']}, want "
+        fail(f"{tag} launches {launches} / {res['launches_per_step']}, want "
              f"{want} ({per_step} a step)")
     if not all(math.isfinite(x) for x in losses):
-        fail(f"train losses are not finite: {losses}")
+        fail(f"{tag} losses are not finite: {losses}")
     if max(res["stash_slots"]) != n_x:
-        fail(f"stash slots {res['stash_slots']}, lower_to_ticks n_x {n_x}")
+        fail(f"{tag} stash slots {res['stash_slots']}, lower_to_ticks n_x "
+             f"{n_x}")
     # step 0's loss: the same weights (the seed), one non-pipelined pass
     cfg = dataclasses.replace(get_config("llama3.2-1b"), stages=stages,
-                              tensor=1)
+                              tensor=1, virtual=virtual)
     plan = ST.plan_stages(cfg)
     params = _unstage(ST.init_stacked_params(cfg, 0, plan, device="cuda"),
                       plan, cfg.n_layers, ST)
@@ -731,11 +768,11 @@ def phase_train(train, counters: dict, mods) -> dict:
     with torch.no_grad():
         ref = M.loss_fn(cfg, params, b0).item()
     res["step0_ref_loss"] = ref
-    print(f"train: step 0 loss {losses[0]:.6f}, non-pipelined loss_fn "
+    print(f"{tag}: step 0 loss {losses[0]:.6f}, non-pipelined loss_fn "
           f"{ref:.6f} (|diff| {abs(losses[0] - ref):.2e}, bar 1e-4)",
           flush=True)
     if abs(losses[0] - ref) > 1e-4:
-        fail(f"train step 0 loss {losses[0]} != loss_fn {ref}")
+        fail(f"{tag} step 0 loss {losses[0]} != loss_fn {ref}")
     del params, b0
     torch.cuda.empty_cache()
     return res
@@ -755,32 +792,75 @@ def _grad_errs(grads: dict, ref: dict) -> dict:
         final_norm=rel(grads["final_norm"], ref["final_norm"]))
 
 
-def phase_train_parity(FA, mods) -> dict:
-    """Phase 11: the four ported schedules against each other and against
-    one non-pipelined autograd pass with the plain attention (full width,
-    2 layers, 2 stages, M 2, batch 4, seq 512); then a reduced model on
-    the card and on the CPU with the same weights."""
+#: phase 11's runs: (label, schedule, V, M, mem_limit, remat)
+PARITY_RUNS = (
+    ("gpipe", "gpipe", 1, 2, 0, "stage"),
+    ("1f1b", "1f1b", 1, 2, 0, "stage"),
+    ("dapple", "dapple", 1, 2, 0, "stage"),
+    ("zb-h1", "zb-h1", 1, 2, 0, "stage"),
+    ("1f1b-interleaved-memlean V=2", "1f1b-interleaved-memlean", 2, 2, 0,
+     "stage"),
+    ("zb-auto mem_limit=2 M=4", "zb-auto", 1, 4, 2, "stage"),
+    ("1f1b remat=full", "1f1b", 1, 2, 0, "full"),
+)
+#: the runs of PARITY_RUNS also held card against CPU on a reduced model
+CARD_VS_CPU = ("1f1b", "1f1b-interleaved-memlean V=2",
+               "zb-auto mem_limit=2 M=4", "1f1b remat=full")
+
+
+def phase_train_parity(FA, counters: dict, mods) -> dict:
+    """Phase 11: the schedules of ``PARITY_RUNS`` against each other and
+    against one non-pipelined autograd pass with the plain attention (full
+    width, 3 layers, 2 stages, batch 4, seq 512; every plan pads the 3
+    layers to 4 slots: at V = 2 stage 0's chunk 1 holds layer 2, so the
+    wrapped rings carry live values both ways, and stage 1's chunk 1 is
+    padding), each run's launches exactly
+    :func:`train_launches`; remat 'full' against the stage recompute
+    (bitwise equality recorded); then a reduced model on the card and on
+    the CPU with the same weights, for the runs of ``CARD_VS_CPU``."""
     get_config, RT, ST, M, SP, SyntheticLM = mods
     from repro_torch.models import layers as LYR
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2,
-                              stages=2, tensor=1)
-    plan = ST.plan_stages(cfg)
-    params = ST.init_stacked_params(cfg, 0, plan, device="cuda")
-    batch = SyntheticLM(cfg.vocab, 512, 4, seed=1, device="cuda").batch(0)
-    out = {}
-    for sched in ("gpipe", "1f1b", "dapple", "zb-h1"):
+    base_cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=3,
+                                   stages=2, tensor=1)
+    batch = SyntheticLM(base_cfg.vocab, 512, 4, seed=1,
+                        device="cuda").batch(0)
+    every = launch_counters(counters)
+    out, params1 = {}, None
+    for label, sched, V, M_, ml, remat in PARITY_RUNS:
+        cfg = dataclasses.replace(base_cfg, virtual=V)
+        plan = ST.plan_stages(cfg)
+        # the same seed draws the same first layers for any plan
+        params = ST.init_stacked_params(cfg, 0, plan, device="cuda")
+        unst = _unstage(params, plan, cfg.n_layers, ST)
+        if params1 is None:
+            params1 = unst
+        elif not all(torch.equal(a, b) for a, b in zip(
+                ST.tree_leaves(unst), ST.tree_leaves(params1))):
+            fail(f"train parity {label}: the weights differ from gpipe's")
         step = RT.make_train_step(cfg, plan, RT.PipelineConfig(
-            n_microbatches=2, schedule=sched))
+            n_microbatches=M_, schedule=sched, mem_limit=ml, remat=remat))
+        for fn, attr in every.values():
+            setattr(fn, attr, 0)
         loss, grads = step(params, batch)
-        out[sched] = (loss.item(), grads)
+        launches = {k: getattr(fn, a) for k, (fn, a) in every.items()}
+        want = train_launches(cfg.n_layers, M_, step.lowering.has_w,
+                              remat == "full")
+        if launches != want:
+            fail(f"train parity {label}: launches {launches}, want {want}")
+        full = ST._map_layers(lambda a: ST.unstack_chunks(a, plan),
+                              grads["layers"])
+        if any(a[cfg.n_layers:].any() for a in ST.tree_leaves(full)):
+            fail(f"train parity {label}: padded slots got gradients")
+        out[label] = (loss.item(), _unstage(grads, plan, cfg.n_layers, ST),
+                      launches, max(step.stash_slots), step.lowering.n_x)
+        del params, grads, full
     # the reference: one autograd pass of the unstaged model, attention in
     # its plain version (layers.attend swapped for attend_ref)
-    leaves = _unstage(params, plan, cfg.n_layers, ST)
-    leaves = dict(embed=leaves["embed"].detach().requires_grad_(),
-                  final_norm=leaves["final_norm"].detach().requires_grad_(),
+    leaves = dict(embed=params1["embed"].detach().requires_grad_(),
+                  final_norm=params1["final_norm"].detach().requires_grad_(),
                   layers=ST._map_layers(
                       lambda a: a.detach().requires_grad_(),
-                      leaves["layers"]))
+                      params1["layers"]))
     kernel_attend = LYR.attend
 
     def plain_attend(q, k, v, *, scale, causal=True, q_start=0, kv_len=None,
@@ -792,7 +872,7 @@ def phase_train_parity(FA, mods) -> dict:
                                                  else kv_len, B, q.device))
     LYR.attend = plain_attend
     try:
-        ref_loss = M.loss_fn(cfg, leaves, batch)
+        ref_loss = M.loss_fn(base_cfg, leaves, batch)
         g = torch.autograd.grad(ref_loss, [leaves["embed"],
                                            leaves["final_norm"]]
                                 + ST.tree_leaves(leaves["layers"]))
@@ -802,43 +882,56 @@ def phase_train_parity(FA, mods) -> dict:
     ref = dict(embed=g[0], final_norm=g[1], layers=dict(
         zip(range(n_lay), g[2:])))
     res = {}
-    base_loss, base = out["1f1b"]
-    for sched, (loss, grads) in out.items():
-        unst = _unstage(grads, plan, cfg.n_layers, ST)
-        unst["layers"] = dict(zip(range(n_lay),
-                                  ST.tree_leaves(unst["layers"])))
+    base_loss, base = out["1f1b"][:2]
+    for label, (loss, unst, launches, slots, n_x) in out.items():
         errs = _grad_errs(unst, ref)
-        same = _grad_errs(grads, base)
-        res[sched] = dict(loss=loss, ref_loss=ref_loss.item(),
-                          errs_vs_autograd=errs, errs_vs_1f1b=same)
-        print(f"train parity {sched}: loss {loss:.6f} (autograd "
+        same = _grad_errs(unst, base)
+        res[label] = dict(loss=loss, ref_loss=ref_loss.item(),
+                          errs_vs_autograd=errs, errs_vs_1f1b=same,
+                          launches=launches, stash_slots=slots, n_x=n_x)
+        print(f"train parity {label}: loss {loss:.6f} (autograd "
               f"{ref_loss.item():.6f}), vs autograd {json.dumps(errs)}, vs "
-              f"1f1b {json.dumps(same)}", flush=True)
+              f"1f1b {json.dumps(same)}, launches {json.dumps(launches)}, "
+              f"stash {slots} (n_x {n_x})", flush=True)
         if (abs(loss - ref_loss.item()) > 1e-4 or max(errs.values()) > 1e-4
                 or abs(loss - base_loss) > 1e-5 * abs(base_loss)
-                or max(same.values()) > 1e-5):
-            fail(f"train parity {sched}: {res[sched]}")
-    del out, params, leaves, g, ref
+                or max(same.values()) > 1e-5 or slots != n_x):
+            fail(f"train parity {label}: {res[label]}")
+    full_loss, full_g = out["1f1b remat=full"][:2]
+    bitwise = full_loss == base_loss and all(
+        torch.equal(a, b) for a, b in zip(ST.tree_leaves(full_g),
+                                          ST.tree_leaves(base)))
+    res["remat_full_bitwise_equal_stage"] = bitwise
+    print(f"train parity: remat full vs stage (1f1b) bitwise equal: "
+          f"{bitwise}", flush=True)
+    del out, params1, leaves, g, ref, base, full_g
     torch.cuda.empty_cache()
 
     # a reduced model on the card and on the CPU, the same weights
     rcfg = dataclasses.replace(
-        get_config("llama3.2-1b").reduced(n_layers=2, d_model=256), stages=2)
-    rplan = ST.plan_stages(rcfg)
-    step = RT.make_train_step(rcfg, rplan, RT.PipelineConfig(
-        n_microbatches=2, schedule="1f1b"))
-    p_cpu = ST.init_stacked_params(rcfg, 0, rplan, device="cpu")
+        get_config("llama3.2-1b").reduced(n_layers=3, d_model=256), stages=2)
     b_cpu = SyntheticLM(rcfg.vocab, 128, 4, seed=2, device="cpu").batch(0)
-    loss_g, grads_g = step(_to(p_cpu, "cuda"), _to(b_cpu, "cuda"))
-    loss_c, grads_c = step(p_cpu, b_cpu)
-    errs = _grad_errs(_to(grads_g, "cpu"), grads_c)
-    res["reduced_card_vs_cpu"] = dict(loss_card=loss_g.item(),
-                                      loss_cpu=loss_c.item(), errs=errs)
-    print(f"train parity reduced (2 layers, d 256) card vs CPU: loss "
-          f"{loss_g.item():.6f} / {loss_c.item():.6f}, {json.dumps(errs)}",
-          flush=True)
-    if abs(loss_g.item() - loss_c.item()) > 1e-4 or max(errs.values()) > 1e-4:
-        fail(f"train parity card vs CPU: {res['reduced_card_vs_cpu']}")
+    res["reduced_card_vs_cpu"] = {}
+    for label, sched, V, M_, ml, remat in PARITY_RUNS:
+        if label not in CARD_VS_CPU:
+            continue
+        cfg = dataclasses.replace(rcfg, virtual=V)
+        rplan = ST.plan_stages(cfg)
+        step = RT.make_train_step(cfg, rplan, RT.PipelineConfig(
+            n_microbatches=M_, schedule=sched, mem_limit=ml, remat=remat))
+        p_cpu = ST.init_stacked_params(cfg, 0, rplan, device="cpu")
+        loss_g, grads_g = step(_to(p_cpu, "cuda"), _to(b_cpu, "cuda"))
+        loss_c, grads_c = step(p_cpu, b_cpu)
+        errs = _grad_errs(_to(grads_g, "cpu"), grads_c)
+        res["reduced_card_vs_cpu"][label] = dict(
+            loss_card=loss_g.item(), loss_cpu=loss_c.item(), errs=errs)
+        print(f"train parity reduced (3 layers, d 256) {label} card vs CPU: "
+              f"loss {loss_g.item():.6f} / {loss_c.item():.6f}, "
+              f"{json.dumps(errs)}", flush=True)
+        if (abs(loss_g.item() - loss_c.item()) > 1e-4
+                or max(errs.values()) > 1e-4):
+            fail(f"train parity card vs CPU {label}: "
+                 f"{res['reduced_card_vs_cpu'][label]}")
     return res
 
 
@@ -955,7 +1048,18 @@ def main() -> None:
     trained = phase_train(train, counters, train_mods)
 
     # ---- 11. schedules, non-pipelined autograd, card vs CPU ---------------
-    train_parity = phase_train_parity(FA, train_mods)
+    train_parity = phase_train_parity(FA, counters, train_mods)
+
+    # ---- 12. interleaved training (V = 2) at full width -------------------
+    interleaved = phase_train(train, counters, train_mods,
+                              schedule="1f1b-interleaved", virtual=2, M_=4)
+
+    # ---- 13. zero-bubble H2 training at full width ------------------------
+    zb_h2 = phase_train(train, counters, train_mods, schedule="zb-h2",
+                        M_=8)
+    train_paths = {f"train {r['schedule']} V={r['virtual']} "
+                   f"M={r['microbatches']}": r["launches"]
+                   for r in (trained, interleaved, zb_h2)}
 
     pick = lambda rs, prefix, dtype="float32": next(
         r for r in rs if r["label"].startswith(prefix) and r["dtype"] == dtype)
@@ -968,6 +1072,9 @@ def main() -> None:
         replaces="src/repro/kernels/flash_attention.py:84",
         launches=llama["launches"]["flash_attention"],
         launches_train=trained["launches"]["flash_attention"],
+        launches_by_path=dict({"serve llama3.2-1b": llama["launches"][
+            "flash_attention"]}, **{k: v["flash_attention"]
+                                    for k, v in train_paths.items()}),
         max_abs_err=main_row["max_abs_err"],
         ms=main_row["ms"], call_ms=main_row["call_ms"],
         plain_ms=main_row["plain_ms"],
@@ -1019,6 +1126,8 @@ def main() -> None:
         # no backward (the JAX model differentiates layers.attend, XLA)
         replaces="src/repro/kernels/flash_attention.py:84",
         launches=trained["launches"]["flash_attention.bwd"],
+        launches_by_path={k: v["flash_attention.bwd"]
+                          for k, v in train_paths.items()},
         max_abs_err=bwd_row["max_abs_err"], rel_err=bwd_row["rel_err"],
         ms=bwd_row["ms"], call_ms=bwd_row["call_ms"],
         plain_ms=bwd_row["plain_ms"], bound_ms=bwd_row["bound_ms"],
@@ -1031,6 +1140,7 @@ def main() -> None:
     print(json.dumps({"serve": {"llama3.2-1b": llama,
                                 "mamba2-2.7b": mamba}}), flush=True)
     print(json.dumps({"train": {"llama3.2-1b": trained,
+                                "interleaved": interleaved, "zb-h2": zb_h2,
                                 "parity": train_parity}}), flush=True)
     print(json.dumps({"kernels": [flash, ssd, flash_bwd]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
-"""Numpy bridge between the JAX package's parameter trees and the port's.
+"""Numpy bridge between the JAX package's parameter trees and the port's,
+leaf by leaf.
 
 Both packages keep the same tree: ``embed``, ``final_norm`` (and ``head``
-when untied) and ``layers`` with leaves stacked ``[S, Lps, ...]`` under the
-same names: ``ln1``, ``attn/{wq,wk,wv,wo}``, ``ln2``, ``mlp/{w1,w3,w2}``
+when untied) and ``layers`` with leaves stacked ``[S, Lps, ...]`` (or
+``[S, V, Lc, ...]`` for an interleaved plan of V chunks per stage: element
+``[n, v]`` is virtual stage ``v*S + n`` in both) under the same names: ``ln1``, ``attn/{wq,wk,wv,wo}``, ``ln2``, ``mlp/{w1,w3,w2}``
 for a dense block; ``ln1``, ``ssm/{in_proj,conv_w,conv_b,a_log,d_skip,
 dt_bias,gate_norm,out_proj}`` for a Mamba-2 block.  The JAX side is given
 as numpy arrays, e.g. ``jax.tree.map(np.asarray,

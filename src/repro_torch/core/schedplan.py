@@ -1,5 +1,5 @@
-"""Schedule-plan IR (the port's copy of the parts of ``repro/core/
-schedplan.py`` that serving and V = 1 training run).
+"""Schedule-plan IR (the port's copy of ``repro/core/schedplan.py``
+without the gradient-sync AR ops and the instruction lowering).
 
 A :class:`SchedPlan` holds, per physical device, the exact sequence of
 ``F``/``B`` (and, for zero-bubble plans, ``W``) ops tagged with
@@ -12,15 +12,174 @@ micro-batch ``m`` and virtual chunk ``v``.  Two lowerings compile it:
   stash, the inbox slots and the zero-bubble cotangent stash allocated
   statically from the table.
 
-Ported builders: ``gpipe``, ``1f1b`` (``1f1b-2x`` with the doubled
-warm-up), ``dapple`` and ``zb-h1``.  ``zb-h2``, ``zb-auto``, the
-interleaved builders, the gradient-sync AR ops and the instruction
-lowering stay in the JAX package until they are ported (ROADMAP "Still to
-port"); :func:`build_schedule` names them and raises.
+Builders (:data:`BUILDER_NAMES`): ``gpipe``, ``1f1b`` (``1f1b-2x`` with
+the doubled warm-up), ``dapple``, ``zb-h1``, ``zb-h2``, ``zb-auto`` (the
+greedy zero-bubble scheduler under a peak-live ``mem_limit`` cap, with
+its portfolio steps replayed by :mod:`repro_torch.core.simulator`),
+``1f1b-interleaved`` and ``1f1b-interleaved-memlean`` (V chunks per
+device).  :meth:`SchedPlan.peak_live` and :func:`live_activation_counts`
+give each device's resident-activation row.  The gradient-sync AR ops
+(``grad_sync``) and the instruction lowering stay in the JAX package
+until they are ported (ROADMAP "Still to port");
+:func:`build_schedule` names them and raises.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Sequence, Union
+
+
+@dataclasses.dataclass(frozen=True)
+class StageCosts:
+    """First-class per-device cost vector — the heterogeneous
+    generalisation of the scalar ``(F, B, SR)`` interface (BaPipe's §V
+    FPGA clusters are heterogeneous; collapsing the partitioner's
+    per-stage times into bottleneck scalars before the schedule sees
+    them throws the balance information away).
+
+    ``F[n]`` / ``B[n]`` / ``W[n]`` are device n's forward,
+    input-gradient and weight-gradient times per micro-batch (the full
+    backward is ``B[n] + W[n]``; two-op schedules simply run the full
+    backward, zero-bubble schedules split it).  ``SR[k]`` is the
+    send/receive time of the boundary between devices k and k+1 —
+    per *hop*, from that boundary's actual link bandwidth, not a
+    ``max`` over the chain.
+
+    Consumers: :func:`build_zb_auto` shapes its table by the vector,
+    :func:`repro_torch.core.simulator.simulate` replays any plan under
+    per-device durations, and the JAX package's ``eval_*_hetero``
+    closed forms (``core/schedules.py``, not ported yet) reduce to the
+    uniform forms exactly when :attr:`uniform` holds.
+
+    ``width[n]`` annotates how many chips device n's stage actually
+    occupies (its ``dp * tp`` shard of the 3D plan; empty = all 1).
+    The times already price the sharding — width changes no replay
+    duration — but the annotation travels with the vector so the
+    simulator and the hetero evals can report device-seconds and
+    budget-normalised makespans for non-uniform candidates."""
+    F: tuple[float, ...]
+    B: tuple[float, ...]
+    W: tuple[float, ...]
+    SR: tuple[float, ...] = ()
+    width: tuple[int, ...] = ()
+
+    def __post_init__(self):
+        object.__setattr__(self, "F", tuple(float(x) for x in self.F))
+        object.__setattr__(self, "B", tuple(float(x) for x in self.B))
+        object.__setattr__(self, "W", tuple(float(x) for x in self.W))
+        object.__setattr__(self, "SR", tuple(float(x) for x in self.SR))
+        object.__setattr__(self, "width",
+                           tuple(int(w) for w in self.width))
+        n = len(self.F)
+        if not (len(self.B) == len(self.W) == n):
+            raise ValueError(f"StageCosts vectors disagree on N: "
+                             f"F={len(self.F)} B={len(self.B)} "
+                             f"W={len(self.W)}")
+        if self.SR and len(self.SR) != n - 1:
+            raise ValueError(f"StageCosts.SR needs one entry per hop "
+                             f"({n - 1}), got {len(self.SR)}")
+        if any(x <= 0 for x in self.F + self.B + self.W):
+            raise ValueError(f"StageCosts times must be positive: {self}")
+        if any(x < 0 for x in self.SR):
+            raise ValueError(f"StageCosts.SR must be >= 0: {self.SR}")
+        if self.width:
+            if len(self.width) != n:
+                raise ValueError(f"StageCosts.width needs one entry per "
+                                 f"device ({n}), got {len(self.width)}")
+            if any(w < 1 for w in self.width):
+                raise ValueError(f"StageCosts.width must be >= 1: "
+                                 f"{self.width}")
+
+    @property
+    def n(self) -> int:
+        return len(self.F)
+
+    @property
+    def widths(self) -> tuple[int, ...]:
+        """Per-device chip widths, materialised (ones when unannotated)."""
+        return self.width if self.width else (1,) * self.n
+
+    @property
+    def uniform_width(self) -> bool:
+        """All stages occupy the same chip width — the regime the SPMD
+        runtime can execute directly on a rectangular mesh; non-uniform
+        widths stay analytic (simulator-ranked)."""
+        return len(set(self.widths)) == 1
+
+    def devices_used(self) -> int:
+        """Total chips the annotated plan occupies."""
+        return sum(self.widths)
+
+    @property
+    def B_full(self) -> tuple[float, ...]:
+        """Per-device full backward time (input-grad + weight-grad)."""
+        return tuple(b + w for b, w in zip(self.B, self.W))
+
+    @property
+    def w_frac(self) -> tuple[float, ...]:
+        """Per-device weight-gradient fraction of the full backward."""
+        return tuple(w / (b + w) for b, w in zip(self.B, self.W))
+
+    @property
+    def sr_hops(self) -> tuple[float, ...]:
+        """Per-hop SR, materialised (zeros when unspecified)."""
+        return self.SR if self.SR else (0.0,) * max(0, self.n - 1)
+
+    @property
+    def uniform(self) -> bool:
+        """All devices share one (F, B, W) and all hops one SR — the
+        regime where every hetero form must reduce to the uniform one."""
+        return (len(set(self.F)) == 1 and len(set(self.B)) == 1
+                and len(set(self.W)) == 1 and len(set(self.sr_hops)) <= 1)
+
+    @property
+    def even_split(self) -> bool:
+        """Every device's backward splits evenly (B == W) — the design
+        point the uniform zero-bubble closed forms assume."""
+        return all(b == w for b, w in zip(self.B, self.W))
+
+    def bottleneck(self) -> tuple[float, float, float]:
+        """The legacy scalar collapse ``(max F, max B_full, max SR)`` —
+        what the explorer fed the schedule formulas before costs were
+        first-class.  Kept for the uniform-scalar portfolio/baselines."""
+        return (max(self.F), max(self.B_full),
+                max(self.sr_hops, default=0.0))
+
+    def max_scalar(self) -> "StageCosts":
+        """Uniform collapse: every device pays the bottleneck device's
+        times (and every hop the worst hop) — the cost vector the old
+        scalar interface implied.  The width annotation is preserved:
+        collapsing times says nothing about chip occupancy."""
+        return StageCosts(F=(max(self.F),) * self.n,
+                          B=(max(self.B),) * self.n,
+                          W=(max(self.W),) * self.n,
+                          SR=(max(self.sr_hops, default=0.0),)
+                          * max(0, self.n - 1),
+                          width=self.width)
+
+    @classmethod
+    def uniform_costs(cls, N: int, F: float, B_full: float,
+                      SR: float = 0.0, w_frac: float = 0.5
+                      ) -> "StageCosts":
+        """Lift the scalar interface into a (trivially uniform) vector."""
+        return cls(F=(float(F),) * N,
+                   B=(B_full * (1.0 - w_frac),) * N,
+                   W=(B_full * w_frac,) * N,
+                   SR=(float(SR),) * max(0, N - 1))
+
+
+CostVec = Union[float, Sequence[float]]
+
+
+def _cost_vec(x: CostVec, N: int, what: str) -> list[float]:
+    """Normalise a scalar-or-sequence cost knob to a length-N list."""
+    if isinstance(x, (int, float)):
+        return [float(x)] * N
+    xs = [float(v) for v in x]
+    if len(xs) != N:
+        raise ValueError(f"{what} needs one entry per device ({N}), "
+                         f"got {len(xs)}")
+    return xs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +257,28 @@ class SchedPlan:
                 if op.kind == "F"]
 
 
+    def peak_live(self) -> list[int]:
+        """Symbolic replay: per-device peak count of resident chunk
+        activations (F issued, residual not yet released) — the
+        features-memory row the closed forms tabulate, derived directly
+        from the table.  The residual is released by the op that last
+        reads it: B for two-op plans, W for zero-bubble plans (the
+        weight gradient still needs the stage input)."""
+        release = "W" if self.has_w else "B"
+        peaks = []
+        for ops in self.device_ops:
+            live = peak = 0
+            for op in ops:
+                if op.kind == "F":
+                    live += 1
+                elif op.kind == release:
+                    live -= 1
+                peak = max(peak, live)
+            peaks.append(peak)
+        return peaks
+
+
+
 # ---------------------------------------------------------------------------
 # Builders.
 # ---------------------------------------------------------------------------
@@ -141,6 +322,25 @@ def build_1f1b(M: int, N: int, *, double_warmup: bool = False) -> SchedPlan:
     return _ops_from_seqs(name, M, N, 1, fwd, bwd, warm)
 
 
+def build_1f1b_interleaved(M: int, N: int, V: int) -> SchedPlan:
+    """Streaming chunk passes (PR 1's circular-ppermute order): forward
+    element ``e`` on every device is micro-batch ``e % M`` chunk
+    ``e // M``; backwards mirror (last chunk first).  Warm-up must cover
+    the full first V-1 passes plus the 1F1B ``N - n`` window, hence the
+    ``(V-1)M`` resident-features term.  Requires ``M >= N`` so chunk
+    passes stream through the ring without stalling."""
+    if V < 1:
+        raise ValueError(f"V must be >= 1, got {V}")
+    if M < N:
+        raise ValueError(f"1F1B-I needs M >= N to stream chunk passes "
+                         f"(got M={M}, N={N})")
+    MV = M * V
+    fwd = [[(e % M, e // M) for e in range(MV)]] * N
+    bwd = [[(e % M, V - 1 - e // M) for e in range(MV)]] * N
+    warm = [(V - 1) * M + (N - n) for n in range(N)]
+    return _ops_from_seqs("1f1b-interleaved", M, N, V, fwd, bwd, warm)
+
+
 def build_dapple(M: int, N: int) -> SchedPlan:
     """DAPPLE early-backward schedule (arXiv 2007.01045): warm-up
     ``N - n`` forwards per device, then strict one-backward-one-forward
@@ -175,6 +375,264 @@ def build_zb_h1(M: int, N: int) -> SchedPlan:
                      device_ops=tuple(device_ops)).validate()
 
 
+def zb_h2_mem_caps(M: int, N: int) -> list[int]:
+    """ZB-H2's per-device peak-live row ``max(2(N-n)-1, n + ceil((N+1)/2))``
+    — which is also the cap under which :func:`build_zb_auto` emits the
+    ZB-H2 table.
+
+    Two constraints meet: device n admits ``2(N-n) - 1`` warm-up forwards
+    (double 1F1B's depth, so the error of micro-batch 0 arrives exactly
+    when the deepened fill ends), and the zero-bubble *drain* needs the
+    downstream devices to bank weight gradients past their last
+    input-gradient — each hop the error travels upstream exposes ``F + b``
+    of downstream wait that only postponed W ops can cover, growing the
+    resident-residual count to ``n + ceil((N+1)/2)``.  Both are bounded by
+    ``2N - 1``: the "~2x 1F1B warm-up memory" the zero-bubble paper
+    (arXiv 2211.05953) quotes for ZB-H2."""
+    return [max(1, min(M, max(2 * (N - n) - 1, n + (N + 2) // 2)))
+            for n in range(N)]
+
+
+def _normalize_caps(mem_limit, M: int, N: int) -> list[int]:
+    """Resolve a ``mem_limit`` knob to per-device peak-live caps in
+    [1, M]: falsy (None or 0) = unbounded, int = uniform, length-N
+    sequence = per-device (0 entries = that device unbounded)."""
+    if not mem_limit:
+        caps = [M] * N
+    elif isinstance(mem_limit, (int, float)):
+        caps = [int(mem_limit)] * N
+    else:
+        caps = [int(c) or M for c in mem_limit]
+        if len(caps) != N:
+            raise ValueError(f"mem_limit needs one cap per device "
+                             f"({N}), got {len(caps)}")
+    return [max(1, min(M, c)) for c in caps]
+
+
+def _replay_makespan(plan: SchedPlan, F_cs: Sequence[float],
+                     B_cs: Sequence[float], W_cs: Sequence[float],
+                     sr: Optional[Sequence[float]] = None) -> float:
+    """Makespan of a fixed op table at per-device per-op costs
+    (F, input-grad B, weight-grad W) — the discrete-event simulator's
+    replay, with the full backward re-expressed as its per-device
+    ``w_frac`` split and per-hop SR under the latency model (free comm
+    when every hop is zero).  Imported lazily: the simulator imports
+    this module at load time, but only calls back in here at run
+    time."""
+    from repro_torch.core.simulator import simulate
+    B_full = [b + w for b, w in zip(B_cs, W_cs)]
+    wf = [w / bf for w, bf in zip(W_cs, B_full)]
+    if sr is not None and any(s > 0 for s in sr):
+        return simulate(plan, plan.M, plan.N, list(F_cs), B_full,
+                        list(sr), w_frac=wf, comm="latency").makespan
+    return simulate(plan, plan.M, plan.N, list(F_cs), B_full, 0.0,
+                    w_frac=wf).makespan
+
+
+def build_zb_auto(M: int, N: int, costs=(1.0, 1.0, 1.0),
+                  mem_limit=None, *, name: str = "zb-auto") -> SchedPlan:
+    """Automatic zero-bubble scheduler (arXiv 2211.05953's heuristic,
+    adapted to the IR): an event-driven greedy list scheduler over F/B/W
+    op placement that fills device idle slots with W ops subject to a
+    per-device peak-live cap.
+
+    Each device always has at most three candidate next ops — its next
+    backward ``B`` (ready once its own F ran and the downstream error
+    arrived), its next forward ``F`` (admissible only while the resident
+    activation count is below the cap; the residual is released at W), and
+    its oldest banked weight-gradient ``W`` (always startable).  The
+    device picks the candidate with the earliest start time, breaking
+    ties ``B > F > W`` — with one guard: once the next B's arrival time is
+    known, an F or W is only admissible if it *fits entirely before* that
+    arrival.  Errors are the critical path (every upstream device transits
+    them), so the device would rather idle briefly than start a long op in
+    front of an imminent backward; W ops are pure filler.  Devices commit
+    ops in global start-time order, so the emitted per-device op list is
+    exactly the order a work-conserving runtime would execute.
+
+    ``costs`` is ``(F, B, W)`` — forward, input-gradient and
+    weight-gradient durations (the closed forms' even split is
+    ``B = W =`` half the full backward) — where each entry may be a
+    scalar (uniform devices, today's interface) or a length-N sequence
+    (heterogeneous devices), or a :class:`StageCosts` vector, whose
+    per-hop ``SR`` then also delays cross-device arrivals (latency
+    model), so the emitted table is genuinely *cost-shaped*: the greedy
+    sees each device's real F/B/W and each boundary's real transfer
+    time when it decides what fits before the next backward.  Uniform
+    vectors reproduce the scalar interface's tables exactly (pinned).
+    ``mem_limit`` is the peak-live cap: ``None``/``0`` (unbounded: peak
+    climbs to M while every bubble after the fill ramp vanishes), an
+    int (uniform), or a length-N sequence.
+    The cap reproduces the hand-written tables as special cases — the
+    1F1B window ``N - n`` yields exactly :func:`build_zb_h1`'s table, and
+    :func:`zb_h2_mem_caps` yields ZB-H2 (:func:`build_zb_h2`) — pinned in
+    the JAX package's ``tests/test_schedplan_properties.py``.
+
+    A greedy list scheduler can still lose to a hand-written order at
+    adversarial cost ratios, so the builder ends with a portfolio step:
+    whenever the ZB-H1 table fits the cap, both tables are replayed at
+    ``costs`` and the cheaper one is returned (ties keep the greedy, so
+    the special-case reproductions above are exact table equalities).
+    That makes ``zb-auto <= zb-h1`` *structural* for any cap that admits
+    the 1F1B window — the property the randomized differential sweep in
+    the JAX package's ``tests/test_simulator_vs_closed_form.py`` pins.  For heterogeneous
+    vectors a second portfolio member is the table the *scalar collapse*
+    ``(max F, max B, max W)`` would have built, replayed at the true
+    vector costs — so ``zb-auto(vector) <= zb-auto(max-scalar)`` is
+    structural too (the cost-shaped table can only win)."""
+    if isinstance(costs, StageCosts):
+        if costs.n != N:
+            raise ValueError(f"costs are for {costs.n} devices, "
+                             f"build_zb_auto was asked for N={N}")
+        F_cs, B_cs, W_cs = list(costs.F), list(costs.B), list(costs.W)
+        sr = list(costs.sr_hops)
+    else:
+        F_c, B_c, W_c = costs
+        F_cs = _cost_vec(F_c, N, "zb-auto F costs")
+        B_cs = _cost_vec(B_c, N, "zb-auto B costs")
+        W_cs = _cost_vec(W_c, N, "zb-auto W costs")
+        sr = [0.0] * max(0, N - 1)
+    if any(c <= 0 for c in F_cs + B_cs + W_cs):
+        raise ValueError(f"zb-auto op costs must be positive, got {costs}")
+    hetero = (len(set(F_cs)) > 1 or len(set(B_cs)) > 1
+              or len(set(W_cs)) > 1)
+    caps = _normalize_caps(mem_limit, M, N)
+    f_done = [[None] * N for _ in range(M)]
+    b_done = [[None] * N for _ in range(M)]
+    dev_free = [0.0] * N
+    nf = [0] * N                    # next F micro-batch per device
+    nb = [0] * N                    # next B micro-batch per device
+    nw = [0] * N                    # next W micro-batch per device
+    live = [0] * N                  # resident activations (F issued, W not)
+    ops: list[list[Op]] = [[] for _ in range(N)]
+    makespan = 0.0
+    eps = 1e-9
+    for _ in range(3 * M * N):
+        best = None                 # (start, prio, device, kind)
+        for n in range(N):
+            cands = []
+            t_b = None              # known start of the next backward
+            m = nb[n]
+            if m < M and f_done[m][n] is not None:
+                if n == N - 1:
+                    arr = f_done[m][n]
+                else:
+                    arr = b_done[m][n + 1]
+                    if arr is not None:
+                        arr += sr[n]
+                if arr is not None:
+                    t_b = max(dev_free[n], arr)
+                    cands.append((t_b, 0, "B"))
+            m = nf[n]
+            if m < M and live[n] < caps[n]:
+                arr = 0.0 if n == 0 else f_done[m][n - 1]
+                if arr is not None:
+                    if n > 0:
+                        arr += sr[n - 1]
+                    s = max(dev_free[n], arr)
+                    if t_b is None or s + F_cs[n] <= t_b + eps:
+                        cands.append((s, 1, "F"))
+            if nw[n] < nb[n]:
+                s = dev_free[n]
+                # the fits-before-B guard is waived when the cap binds: a
+                # W then gates the next F admission (it releases the
+                # residual slot), so it is on the forward-supply critical
+                # path, not filler
+                if (t_b is None or s + W_cs[n] <= t_b + eps
+                        or (nf[n] < M and live[n] >= caps[n])):
+                    cands.append((s, 2, "W"))
+            if cands:
+                s, p, k = min(cands)
+                if best is None or (s, p, n) < best[:3]:
+                    best = (s, p, n, k)
+        assert best is not None, "zb-auto scheduler stalled (internal bug)"
+        s, _, n, kind = best
+        if kind == "F":
+            m = nf[n]
+            end = s + F_cs[n]
+            f_done[m][n] = end
+            nf[n] += 1
+            live[n] += 1
+        elif kind == "B":
+            m = nb[n]
+            end = s + B_cs[n]
+            b_done[m][n] = end
+            nb[n] += 1
+        else:
+            m = nw[n]
+            end = s + W_cs[n]
+            nw[n] += 1
+            live[n] -= 1
+        dev_free[n] = end
+        makespan = max(makespan, end)
+        ops[n].append(Op(kind, m, 0, n, N, 1))
+    plan = SchedPlan(name=name, M=M, N=N, V=1,
+                     device_ops=tuple(tuple(o) for o in ops)).validate()
+    # portfolio step: never lose to the hand-written ZB-H1 order when it
+    # fits the cap (strict improvement required, so exact special-case
+    # reproductions keep the greedy's table)
+    h1 = build_zb_h1(M, N)
+    if all(p <= c for p, c in zip(h1.peak_live(), caps)):
+        h1_ms = _replay_makespan(h1, F_cs, B_cs, W_cs, sr)
+        if h1_ms < makespan - 1e-12:
+            plan = dataclasses.replace(h1, name=name)
+            makespan = h1_ms
+    # heterogeneous portfolio step: the table the legacy scalar collapse
+    # (max F, max B, max W) would have built, replayed at the TRUE vector
+    # costs — makes zb-auto(vector) <= zb-auto(max-scalar) structural
+    # (again strict, so uniform vectors keep the greedy's table)
+    if hetero:
+        scal = build_zb_auto(M, N, costs=(max(F_cs), max(B_cs), max(W_cs)),
+                             mem_limit=mem_limit)
+        if _replay_makespan(scal, F_cs, B_cs, W_cs, sr) < makespan - 1e-12:
+            plan = dataclasses.replace(scal, name=name)
+    return plan
+
+
+def build_zb_h2(M: int, N: int) -> SchedPlan:
+    """Zero-bubble H2 (arXiv 2211.05953): the bubble-free hand-crafted
+    point — warm-up ``2(N-n) - 1`` forwards (double 1F1B's pipelining
+    depth) and weight-gradients banked past the drain downstream, so
+    after the unavoidable ``(N-1)F`` fill ramp the makespan-carrying
+    device never idles: makespan ``M(F+B) + (N-1)F`` (the whole
+    ``(N-1)(F + B)`` 1F1B flush bubble is gone) at
+    ``max(2(N-n)-1, n + ceil((N+1)/2))`` resident activations
+    (:func:`zb_h2_mem_caps`) — the "~2x 1F1B memory" trade.  Derived as
+    the :func:`build_zb_auto` table under that cap at unit costs, so H2
+    *is* a special case of the automatic scheduler's cap."""
+    return dataclasses.replace(
+        build_zb_auto(M, N, mem_limit=zb_h2_mem_caps(M, N)), name="zb-h2")
+
+
+def build_1f1b_interleaved_memlean(M: int, N: int, V: int) -> SchedPlan:
+    """Megatron-style memory-lean interleaved 1F1B: micro-batches advance
+    in groups of N, cycling the V chunks inside each group, with warm-up
+    ``2(N - n - 1) + (V-1)N``.  Peak resident features fall from
+    ``(V-1)M + N - n`` (streaming) to ``2(N - n - 1) + (V-1)N`` while the
+    makespan is unchanged.  Requires ``M % N == 0`` (Megatron's
+    constraint): with group size N, micro-batch m's pass v+1 is issued
+    exactly N elements after pass v, which is also the tick count for the
+    ring return to travel the daisy chain back to stage 0."""
+    if V < 1:
+        raise ValueError(f"V must be >= 1, got {V}")
+    if M < N or M % N != 0:
+        raise ValueError(
+            f"1f1b-interleaved-memlean needs M % N == 0 (micro-batch "
+            f"groups of the pipeline depth), got M={M}, N={N}")
+    fwd_seq = [(g * N + r, v)
+               for g in range(M // N) for v in range(V) for r in range(N)]
+    bwd_seq = [(g * N + r, V - 1 - vv)
+               for g in range(M // N) for vv in range(V) for r in range(N)]
+    fwd = [fwd_seq] * N
+    bwd = [bwd_seq] * N
+    # Megatron counts warm-up forwards before the first steady-state
+    # *forward* (F-then-B iterations); our skeleton alternates B-first, so
+    # its warm-up is one deeper.  Peak resident features are identical:
+    # 2(N-n-1) + (V-1)N + 1.
+    warm = [2 * (N - n - 1) + (V - 1) * N + 1 for n in range(N)]
+    return _ops_from_seqs("1f1b-interleaved-memlean", M, N, V, fwd, bwd, warm)
+
+
 # canonical builder names + legacy schedule-table aliases -------------------
 _ALIASES = {
     "gpipe": ("gpipe", {}),
@@ -205,11 +663,20 @@ _ALIASES = {
 _BUILDERS = {
     "gpipe": lambda M, N, V, **kw: build_gpipe(M, N),
     "1f1b": lambda M, N, V, **kw: build_1f1b(M, N, **kw),
+    "1f1b-interleaved": lambda M, N, V, **kw: build_1f1b_interleaved(M, N, V),
+    "1f1b-interleaved-memlean":
+        lambda M, N, V, **kw: build_1f1b_interleaved_memlean(M, N, V),
     "dapple": lambda M, N, V, **kw: build_dapple(M, N),
     "zb-h1": lambda M, N, V, **kw: build_zb_h1(M, N),
+    "zb-h2": lambda M, N, V, **kw: build_zb_h2(M, N),
+    "zb-auto": lambda M, N, V, **kw: build_zb_auto(M, N, **kw),
 }
 
 INTERLEAVED = ("1f1b-interleaved", "1f1b-interleaved-memlean")
+
+#: every canonical builder name
+BUILDER_NAMES = ("gpipe", "1f1b", "dapple", "zb-h1", "zb-h2", "zb-auto",
+                 "1f1b-interleaved", "1f1b-interleaved-memlean")
 
 
 def canonical_name(name: str) -> str:
@@ -220,31 +687,90 @@ def canonical_name(name: str) -> str:
     return _ALIASES[name][0]
 
 
-def build_schedule(name: str, M: int, N: int, V: int = 1) -> SchedPlan:
-    """Build the op table for a schedule by canonical or legacy name."""
+def build_schedule(name: str, M: int, N: int, V: int = 1,
+                   mem_limit=None,
+                   grad_sync: Union[bool, int] = False) -> SchedPlan:
+    """Build the op table for a schedule by canonical or legacy name.
+    ``mem_limit`` is the automatic zero-bubble scheduler's peak-live cap
+    (``zb-auto`` only: None = unbounded, int = uniform, sequence =
+    per-device); other schedules' memory behaviour is fixed by their
+    table and the knob is rejected.  ``grad_sync`` (the data-parallel
+    gradient-sync AR ops) is not ported and raises."""
     builder, kw = _ALIASES.get(name, (None, None))
     if builder is None:
         raise ValueError(name)
     if V != 1 and canonical_name(name) not in INTERLEAVED:
         raise ValueError(f"V={V} only supported for interleaved schedules "
                          f"(got {name})")
-    if builder not in _BUILDERS:
+    if mem_limit is not None:
+        if builder != "zb-auto":
+            raise ValueError(f"mem_limit only applies to zb-auto "
+                             f"(got {name})")
+        kw = dict(kw, mem_limit=mem_limit)
+    if grad_sync:
         raise NotImplementedError(
-            f"schedule {name!r} ({builder}) is not ported yet (ROADMAP "
-            f"'Still to port': zb-h2/zb-auto/interleaved training); the "
-            f"port builds {sorted(_BUILDERS)}")
+            f"grad_sync={grad_sync!r}: the gradient-sync AR ops are not "
+            f"ported yet (ROADMAP 'Still to port': tensor and data "
+            f"parallel over NCCL)")
     return _BUILDERS[builder](M, N, V, **kw)
 
 
 def resolve_ring_schedule(schedule: str, V: int) -> str:
     """Resolve ``PipelineConfig.schedule`` to a canonical builder name:
-    ``auto`` is the plain 1F1B ring (V == 1; interleaved serving is not
-    ported yet)."""
-    if V != 1:
-        raise NotImplementedError(f"virtual={V} serving is not ported yet")
+    ``auto`` is the plain 1F1B ring for V == 1 and the streaming
+    interleave for V > 1."""
     if schedule in ("auto", "", None):
-        return "1f1b"
-    return canonical_name(schedule)
+        return "1f1b" if V == 1 else "1f1b-interleaved"
+    name = canonical_name(schedule)
+    if V > 1 and name not in INTERLEAVED:
+        raise ValueError(f"schedule {schedule!r} cannot run virtual={V} "
+                         f"chunks; pick an interleaved schedule")
+    return name
+
+
+# ---------------------------------------------------------------------------
+# Closed-form resident-features counts (validated against peak_live()).
+# ---------------------------------------------------------------------------
+
+def live_activation_counts(name: str, M: int, N: int, V: int = 1,
+                           feat_mult: int = 1, mem_limit=None) -> list[int]:
+    """Per-device peak resident chunk-activation counts — the algebraic
+    form of :meth:`SchedPlan.peak_live`, O(1) per device so the explorer
+    can sweep huge M without materialising tables.  ``feat_mult`` doubles
+    the 1F1B window (FBP-AS / 1F1B-SO); ``mem_limit`` is the zb-auto
+    peak-live cap (None = unbounded, where the cost of a fully bubble-free
+    schedule is GPipe-like M resident activations).  Differentially tested
+    against the symbolic replay in ``tests/test_torch_schedules.py``."""
+    cname = canonical_name(name)
+    caps = _normalize_caps(mem_limit, M, N) if cname == "zb-auto" else None
+    out = []
+    for n in range(N):
+        if cname == "gpipe":
+            w = M * V
+        elif cname == "1f1b":
+            # feat_mult=2 is the doubled-warm-up window (FBP-AS/1F1B-SO);
+            # the symbolic replay gives 2(N-n)-1, the schedule tables round
+            # up to 2(N-n) — kept here so partition.stage_memory is
+            # bit-identical to the pre-IR arithmetic.
+            w = feat_mult * (N - n)
+        elif cname in ("dapple", "zb-h1"):
+            # dapple == synchronous 1F1B; ZB-H1 keeps the same warm-up and
+            # its W directly follows each B, so both hold the 1F1B window
+            w = N - n
+        elif cname == "zb-h2":
+            # deep warm-up upstream, postponed weight-grads downstream
+            # (see zb_h2_mem_caps)
+            w = max(2 * (N - n) - 1, n + (N + 2) // 2)
+        elif cname == "zb-auto":
+            # the greedy fills to its cap (unbounded: every residual is
+            # held until the drain's W sweep, so the row is M)
+            w = caps[n]
+        elif cname == "1f1b-interleaved":
+            w = (V - 1) * M + (N - n)
+        else:                          # 1f1b-interleaved-memlean
+            w = 2 * (N - n - 1) + (V - 1) * N + 1
+        out.append(max(1, min(M * V, w)))
+    return out
 
 
 # ---------------------------------------------------------------------------

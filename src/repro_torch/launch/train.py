@@ -9,6 +9,15 @@ stage plan and a compiled F/B(/W) schedule, on one card.
         --reduced --layers 2 --d-model 64 --stages 2 --microbatches 2 \\
         --batch 4 --seq 32 --steps 30 --lr 6e-3 --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+        --tensor 1 --stages 4 --virtual 2 --schedule 1f1b-interleaved \\
+        --microbatches 4 --batch 8 --seq 1024 --steps 3
+
+``--schedule`` takes any of the eight builders of
+:data:`repro_torch.core.schedplan.BUILDER_NAMES` (``--virtual V`` chunks
+per stage for the interleaved two); ``--mem-limit`` caps ``zb-auto``'s
+resident residuals and, as in the JAX CLI, is an error with any other
+schedule; ``--remat full`` recomputes each layer inside the backward.
 ``--device cpu`` runs the same path on the CPU with the kernels' plain
 versions.  As in the JAX CLI, ``--layers``/``--d-model`` apply only
 under ``--reduced``, and a config whose tensor degree is above 1
@@ -32,6 +41,7 @@ import time
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import schedplan as SP
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attend
@@ -41,7 +51,6 @@ from repro_torch.optim.adamw import AdamW, warmup_cosine
 from repro_torch.pipeline import runtime as RT
 from repro_torch.pipeline import stage as ST
 
-_TRAIN_ITEM = "ROADMAP 'Still to port': zb-h2/zb-auto/interleaved training"
 _CKPT_ITEM = "ROADMAP 'Still to port': checkpoints, reshard and elastic"
 _PLAN_ITEM = "ROADMAP 'Still to port': the analytic planner stack"
 _STREAM_ITEM = "ROADMAP 'Still to port': the stream runtime"
@@ -51,12 +60,9 @@ _STREAM_ITEM = "ROADMAP 'Still to port': the stream runtime"
 #: (``--tensor`` is held by :func:`repro_torch.launch.one_card`)
 _REFUSED = (
     ("data", (1,), _PAR_ITEM),
-    ("virtual", (0, 1), _TRAIN_ITEM),
     ("runtime", ("", "ticks"), _STREAM_ITEM),
     ("grad_sync", ("", "auto", "end"), _PAR_ITEM),
     ("ar_groups", (1,), _PAR_ITEM),
-    ("mem_limit", (0,), _TRAIN_ITEM),
-    ("remat", ("stage", "none", "stage_save_moe"), _TRAIN_ITEM),
     ("ckpt", ("",), _CKPT_ITEM),
     ("ckpt_every", (0,), _CKPT_ITEM),
     ("resume", ("",), _CKPT_ITEM),
@@ -81,7 +87,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--stages", type=int, default=0)
     ap.add_argument("--schedule", default="",
                     help="op order: auto | gpipe | 1f1b | 1f1b-2x | dapple "
-                         "| zb-h1")
+                         "| zb-h1 | zb-h2 | zb-auto | 1f1b-interleaved | "
+                         "1f1b-interleaved-memlean")
     ap.add_argument("--microbatches", type=int, default=2)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
@@ -92,15 +99,19 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--losses-out", default="",
                     help="write {start, losses} JSON here")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--virtual", type=int, default=0,
+                    help="chunks per stage (V) for the interleaved "
+                         "schedules")
+    ap.add_argument("--mem-limit", type=int, default=0,
+                    help="zb-auto peak-live cap per stage (0 = unbounded)")
+    ap.add_argument("--remat", default="stage",
+                    help="none | stage | stage_save_moe | full")
     # the JAX CLI's other flags: accepted, refused unless at their default
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--tensor", type=int, default=0)
-    ap.add_argument("--virtual", type=int, default=0)
     ap.add_argument("--runtime", default="")
     ap.add_argument("--grad-sync", default="")
     ap.add_argument("--ar-groups", type=int, default=1)
-    ap.add_argument("--mem-limit", type=int, default=0)
-    ap.add_argument("--remat", default="stage")
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", default="")
@@ -133,8 +144,10 @@ def build_config(args: argparse.Namespace):
     """The model the CLI trains, as the JAX CLI builds it from the same
     argv: ``--layers``/``--d-model`` cut the model only under
     ``--reduced``; the config's tensor degree must be 1 or be overridden
-    by ``--tensor 1`` (:func:`repro_torch.launch.one_card`).  Refused
-    flags raise NotImplementedError by their ROADMAP item."""
+    by ``--tensor 1`` (:func:`repro_torch.launch.one_card`);
+    ``--mem-limit`` without ``--schedule zb-auto`` is a usage error
+    (SystemExit 2), as in the JAX CLI.  Refused flags raise
+    NotImplementedError by their ROADMAP item."""
     for flag, ok, item in _REFUSED:
         val = getattr(args, flag)
         if val not in ok:
@@ -145,9 +158,17 @@ def build_config(args: argparse.Namespace):
         cfg = cfg.reduced(n_layers=args.layers or 4,
                           d_model=args.d_model or 256, seq=args.seq)
     cfg = one_card(cfg, args.tensor)
-    return dataclasses.replace(cfg, virtual=1,
-                               stages=args.stages or cfg.stages,
-                               schedule=args.schedule or cfg.schedule)
+    cfg = dataclasses.replace(cfg, virtual=args.virtual or cfg.virtual,
+                              stages=args.stages or cfg.stages,
+                              schedule=args.schedule or cfg.schedule)
+    if args.mem_limit:
+        sched = cfg.schedule if cfg.schedule not in ("auto", "") else "1f1b"
+        if SP.canonical_name(sched) != "zb-auto":
+            _parser().error(f"--mem-limit only applies to --schedule "
+                            f"zb-auto (or --auto-plan); got --schedule "
+                            f"{sched}")
+        cfg = dataclasses.replace(cfg, mem_limit=args.mem_limit)
+    return cfg
 
 
 def main(argv=None) -> dict:
@@ -158,7 +179,8 @@ def main(argv=None) -> dict:
     plan = ST.plan_stages(cfg)
     opt = AdamW(lr=warmup_cosine(args.lr, 20, args.steps), weight_decay=0.01)
     pcfg = RT.PipelineConfig(n_microbatches=args.microbatches,
-                             schedule=cfg.schedule)
+                             schedule=cfg.schedule, mem_limit=cfg.mem_limit,
+                             remat=args.remat)
     step_fn = RT.make_train_step(cfg, plan, pcfg, optimizer=opt)
     params = ST.init_stacked_params(cfg, args.seed, plan, device=device)
     opt_state = opt.init(params)
@@ -166,7 +188,7 @@ def main(argv=None) -> dict:
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"arch={cfg.arch_id} layers={cfg.n_layers} d={cfg.d_model} "
-          f"stages={plan.n_stages}x{plan.layers_per_stage} "
+          f"stages={plan.n_stages}x{plan.layers_per_stage} V={plan.virtual} "
           f"schedule={step_fn.lowering.schedule} M={args.microbatches} "
           f"params={n_params / 1e6:.1f}M device={device} ({name})",
           flush=True)

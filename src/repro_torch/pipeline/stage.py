@@ -3,7 +3,8 @@ port's copy of ``repro/pipeline/stage.py``, tensor parallel degree 1).
 
 The BaPipe partitioner decides which contiguous layers each stage owns;
 stages are homogeneous, so layers are stacked to ``[S, Lps, ...]``
-(Lps = ceil(L/S)) with an ``active`` mask for the padded slots (inactive
+(Lps = ceil(L/S)), or ``[S, V, Lc, ...]`` for an interleaved plan of V
+chunks per stage, with an ``active`` mask for the padded slots (inactive
 slots pass activations through unchanged).
 """
 from __future__ import annotations
@@ -38,24 +39,25 @@ def plan_stages(cfg: ArchConfig, n_stages: Optional[int] = None,
                      n_layers_padded=S * V * lps, virtual=V)
 
 
-def _check_contiguous(plan: StagePlan) -> None:
-    if plan.virtual != 1:
-        raise NotImplementedError("interleaved (V > 1) stage layouts are "
-                                  "not ported yet")
-
-
 def _stack_chunks(a, plan: StagePlan):
-    """[Lp, ...] -> [S, Lps, ...]: stage s owns layers s*Lps .. s*Lps +
-    Lps - 1.  Works on tensors and numpy arrays."""
-    _check_contiguous(plan)
-    return a.reshape((plan.n_stages, plan.layers_per_stage)
-                     + tuple(a.shape[1:]))
+    """[Lp, ...] -> [S, Lps, ...] (V == 1) or [S, V, Lc, ...] (V > 1),
+    where element [n, v] is virtual stage v*S + n (the Megatron
+    assignment of the JAX package: a micro-batch's pass v visits stages
+    0..S-1 applying chunks v*S .. v*S + S - 1).  Works on tensors and
+    numpy arrays; the V > 1 layout is a contiguous copy, since the
+    optimizer updates the stacked leaves in place."""
+    S, V, Lc = plan.n_stages, plan.virtual, plan.layers_per_stage
+    if V == 1:
+        return a.reshape((S, Lc) + tuple(a.shape[1:]))
+    out = a.reshape((V, S, Lc) + tuple(a.shape[1:])).swapaxes(0, 1)
+    return out.contiguous() if isinstance(out, torch.Tensor) else out.copy()
 
 
 def unstack_chunks(a, plan: StagePlan):
     """Inverse of ``_stack_chunks``: recover the global [L, ...] order."""
-    _check_contiguous(plan)
-    return a.reshape((-1,) + tuple(a.shape[2:]))
+    if plan.virtual == 1:
+        return a.reshape((-1,) + tuple(a.shape[2:]))
+    return a.swapaxes(0, 1).reshape((-1,) + tuple(a.shape[3:]))
 
 
 def _map_layers(fn, tree: dict) -> dict:
@@ -73,8 +75,9 @@ def tree_leaves(tree) -> list:
 
 def init_stacked_params(cfg: ArchConfig, seed: int, plan: StagePlan, *,
                         dtype=torch.float32, device="cuda") -> dict:
-    """Parameters with layers stacked [S, Lps, ...] (padded slots get real
-    weights and are skipped by the ``active`` mask).  Vocab is padded to
+    """Parameters with layers stacked [S, Lps, ...] or [S, V, Lc, ...]
+    (padded slots get real weights and are skipped by the ``active``
+    mask); the global layers are drawn in the same order for any V.  Vocab is padded to
     ``cfg.padded_vocab(plan.tensor)``.  Weights come from a
     ``torch.Generator`` on ``device`` seeded with ``seed``."""
     M.check_ported(cfg)
@@ -96,20 +99,20 @@ def init_stacked_params(cfg: ArchConfig, seed: int, plan: StagePlan, *,
 
 
 def stacked_meta(cfg: ArchConfig, plan: StagePlan) -> list:
-    """Per-stage, per-slot layer metadata: ``meta[s][j]`` is the dict of
-    layer scalars (``rope_theta``, ...) of slot j on stage s, plus
-    ``active`` (False for padded slots)."""
-    _check_contiguous(plan)
+    """Per-slot layer metadata: ``meta[s][j]`` (V == 1) or
+    ``meta[s][v][j]`` (V > 1) is the dict of layer scalars
+    (``rope_theta``, ...) of that slot, plus ``active`` (False for padded
+    slots).  Slots are numbered as :func:`_stack_chunks` stacks layers."""
     meta = M.layer_meta(cfg)
-    Lps = plan.layers_per_stage
-    out = []
-    for s in range(plan.n_stages):
-        row = []
-        for j in range(Lps):
-            i = s * Lps + j
-            src = min(i, cfg.n_layers - 1)     # pads repeat the last layer
-            ml = {k: v[src] for k, v in meta.items()}
-            ml["active"] = i < cfg.n_layers
-            row.append(ml)
-        out.append(row)
-    return out
+    S, V, Lc = plan.n_stages, plan.virtual, plan.layers_per_stage
+
+    def slot(i: int) -> dict:
+        src = min(i, cfg.n_layers - 1)         # pads repeat the last layer
+        ml = {k: v[src] for k, v in meta.items()}
+        ml["active"] = i < cfg.n_layers
+        return ml
+
+    if V == 1:
+        return [[slot(s * Lc + j) for j in range(Lc)] for s in range(S)]
+    return [[[slot((v * S + s) * Lc + j) for j in range(Lc)]
+             for v in range(V)] for s in range(S)]

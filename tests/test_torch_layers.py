@@ -98,12 +98,13 @@ def test_ring_lowering_matches_jax(name, M_, N):
 def test_schedule_names_match_jax():
     for name in JSP._ALIASES:
         assert SP.canonical_name(name) == JSP.canonical_name(name)
-    assert SP.resolve_ring_schedule("auto", 1) == \
-        JSP.resolve_ring_schedule("auto", 1)
-    with pytest.raises(NotImplementedError):
-        SP.build_schedule("zb-h2", 2, 2)
-    with pytest.raises(NotImplementedError):
-        SP.resolve_ring_schedule("auto", 2)
+    for V in (1, 2):
+        assert SP.resolve_ring_schedule("auto", V) == \
+            JSP.resolve_ring_schedule("auto", V)
+    assert [[dataclasses.astuple(o) for o in ops]
+            for ops in SP.build_schedule("zb-h2", 2, 2).device_ops] == \
+        [[dataclasses.astuple(o) for o in ops]
+         for ops in JSP.build_schedule("zb-h2", 2, 2).device_ops]
     with pytest.raises(ValueError):
         SP.canonical_name("nope")
 
@@ -262,7 +263,8 @@ def test_mlp_matches_jax():
 @pytest.mark.parametrize("stages", [1, 2, 3])
 def test_stacking_matches_jax(stages):
     """[S, Lps] stacking, its inverse and the per-slot metadata (3 stages
-    pad 4 layers to 6: two inactive slots)."""
+    pad 4 layers to 6: two inactive slots); at V = 2 the [S][V][Lc]
+    ``active`` mask (tests/test_torch_schedules.py holds the rest)."""
     cfg, jcfg = _tiny_cfg()
     plan = ST.plan_stages(cfg, n_stages=stages)
     jplan = JST.plan_stages(jcfg, n_stages=stages)
@@ -277,8 +279,12 @@ def test_stacking_matches_jax(stages):
     for key in ("active", "rope_theta", "is_global"):
         np.testing.assert_array_equal(
             np.array([[ml[key] for ml in row] for row in tm]), jm[key])
-    with pytest.raises(NotImplementedError):
-        ST.stacked_meta(cfg, ST.plan_stages(cfg, n_stages=stages, virtual=2))
+    iplan = ST.plan_stages(cfg, n_stages=stages, virtual=2)
+    jm = jax.tree.map(np.asarray, JST.stacked_meta(
+        jcfg, JST.plan_stages(jcfg, n_stages=stages, virtual=2)))
+    np.testing.assert_array_equal(
+        np.array([[[ml["active"] for ml in chunk] for chunk in row]
+                  for row in ST.stacked_meta(cfg, iplan)]), jm["active"])
 
 
 def test_init_stacked_params_shapes_match_jax():

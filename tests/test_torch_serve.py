@@ -207,9 +207,11 @@ from repro_torch.launch import train
 with contextlib.redirect_stdout(io.StringIO()):
     out = train.main(["--arch", "llama3.2-1b", "--reduced", "--layers", "2",
                       "--d-model", "64", "--stages", "2", "--schedule",
-                      "zb-h1", "--microbatches", "2", "--batch", "2",
+                      "zb-auto", "--microbatches", "2", "--batch", "2",
                       "--seq", "8", "--steps", "2", "--device", "cpu"])
 assert len(out["losses"]) == 2 and all(x == x for x in out["losses"])
+# zb-auto's portfolio step replays its tables through the simulator
+assert "repro_torch.core.simulator" in sys.modules
 assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
             if sys.modules[m] is not None]
 print("OK", len(names))
@@ -222,7 +224,7 @@ def test_port_imports_and_serves_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.startswith("OK"), res.stdout
-    assert int(res.stdout.split()[1]) >= 22      # every module was imported
+    assert int(res.stdout.split()[1]) >= 23      # every module was imported
 
 
 _FORBIDDEN = re.compile(

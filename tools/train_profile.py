@@ -3,6 +3,7 @@
 
     python3 tools/train_profile.py            # llama3.2-1b, full width
     python3 tools/train_profile.py --schedule zb-h1
+    python3 tools/train_profile.py --schedule 1f1b-interleaved --virtual 2
 
 Builds the training path of ``repro_torch.launch.train`` (full published
 width unless ``--layers`` cuts the depth; random weights from seed 0;
@@ -92,6 +93,7 @@ def main() -> None:
     ap.add_argument("--layers", type=int, default=0)
     ap.add_argument("--stages", type=int, default=4)
     ap.add_argument("--schedule", default="1f1b")
+    ap.add_argument("--virtual", type=int, default=1)
     ap.add_argument("--microbatches", type=int, default=4)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=1024)
@@ -112,7 +114,8 @@ def main() -> None:
 
     cfg = get_config(args.arch)
     cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers,
-                              stages=args.stages, tensor=1)
+                              stages=args.stages, tensor=1,
+                              virtual=args.virtual)
     plan = ST.plan_stages(cfg)
     dev = torch.device("cuda")
     spans = Spans()
@@ -145,6 +148,7 @@ def main() -> None:
     tot = spans.totals()
     print(json.dumps(dict(
         what="step", schedule=args.schedule, stages=args.stages,
+        virtual=args.virtual,
         layers=cfg.n_layers, microbatches=args.microbatches,
         batch=args.batch, seq=args.seq, wall_ms=wall,
         tok_s=args.batch * args.seq / wall * 1e3, loss=float(m["loss"]),

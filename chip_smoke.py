@@ -82,12 +82,30 @@ Phases, each reported on its own lines:
    resident residuals; at 4 micro-batches every cap would be 4 = M and
    zb-h2 the unbounded zb-auto): exactly 384 forward (256 with
    statistics: the B and W ticks each re-run the stage) and 256 backward
-   flash launches a step.
+   flash launches a step;
+14. BaPipe's planner on the card: the card's f32 cuBLAS rate over one
+   training layer's GEMMs, a device copy's bandwidth and its memory
+   (``device_rates``) beside ``repro_torch.core.hardware.H100``; the
+   measured B/W split (``measure_w_frac``, ``profile_arch`` in its
+   measured mode) against the analytic one; ``measure_stage_times``
+   against ``planned_stage_costs`` for 4 and 3 stages, with the
+   ``DriftMonitor`` drift between them; then ``train.main`` at phase 10's
+   width and data under ``--stages 4 --auto-plan --cluster
+   h100,h100,h100,h100`` and ``--stages 4 --auto-plan3d --pool 4``: each
+   plan first computed by the port's planner on the same inputs, a plan
+   that needs tensor or data parallelism (the homogeneous ``--auto-plan``
+   too) printed and refused before anything is allocated, and, where
+   pool 4's plan is refused, the largest smaller pool whose plan runs on
+   one card trained instead; each trained plan gets phase 10's checks
+   (launches exactly :func:`train_launches` of its table, stash
+   ``n_x``, step 0's loss against ``loss_fn``), the adopted stages,
+   schedule, M and V equal to the planner's, and its predicted step time
+   beside the measured one.
 
 Every kernel's launch counters (``launches`` and, for flash attention,
 ``launches_prefill`` / ``launches_decode`` / ``launches_bwd``) are set to
 0 just before each driven path (phases 4, 7, 10, 12 and 13, and each run
-of phase 11) and read just after it.
+of phases 11 and 14) and read just after it.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -124,7 +142,10 @@ PATH_TOL = 2e-4
 
 
 def fail(msg: str) -> None:
+    """Report a failed check on both streams (a caller that keeps only the
+    end of standard error still sees why) and exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"chip_smoke.py FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -675,7 +696,13 @@ def phase_parity(serve_mods, arch: str, prompt_len: int) -> float:
           f"(|a-b| <= {PATH_TOL} + {PATH_TOL}|b|: worst ratio {rel:.3f})",
           flush=True)
     if rel > 1.0:
-        fail(f"parity {arch}: card and CPU logits differ by {err:.3e}")
+        ratio = (a - b).abs() / (PATH_TOL + PATH_TOL * b.abs())
+        at = [int(i) for i in torch.unravel_index(ratio.argmax(), ratio.shape)]
+        fail(f"parity {arch}: card and CPU logits differ by {err:.3e}; "
+             f"worst at [step, row, column] {at}: card "
+             f"{a[tuple(at)].item():.6e}, CPU {b[tuple(at)].item():.6e}; "
+             f"{int((ratio > 1).sum())} of {ratio.numel()} logits over "
+             f"the bar; CPU logits finite: {bool(torch.isfinite(b).all())}")
     return err
 
 
@@ -706,21 +733,26 @@ def train_launches(n_layers: int, M: int, has_w: bool, full: bool) -> dict:
 
 
 def phase_train(train, counters: dict, mods, *, schedule: str = "1f1b",
-                virtual: int = 1, M_: int = 4) -> dict:
-    """Phases 10, 12 and 13: ``train.main`` at full width (llama3.2-1b,
-    16 layers on 4 stages, as ``virtual`` chunks a stage, batch 8, seq
-    1024, f32, 3 steps) under ``schedule`` with ``M_`` micro-batches, with
-    every launch counter set to 0 just before and read just after; then
-    step 0's loss against a non-pipelined loss_fn on the card with the
-    same weights."""
+                virtual: int = 1, M_: int = 4, stages: int = 4,
+                planner: list = None) -> dict:
+    """Phases 10, 12, 13 and 14: ``train.main`` at full width
+    (llama3.2-1b, 16 layers on ``stages`` stages, as ``virtual`` chunks a
+    stage, batch 8, seq 1024, f32, 3 steps) under ``schedule`` with
+    ``M_`` micro-batches, with every launch counter set to 0 just before
+    and read just after; then step 0's loss against a non-pipelined
+    loss_fn on the card with the same weights.  With ``planner`` (phase
+    14: ``--stages 4`` and the planner's flags in place of the plan's)
+    the CLI must adopt exactly that plan."""
     get_config, RT, ST, M, SP, SyntheticLM = mods
-    steps, stages, batch, seq = 3, 4, 8, 1024
-    argv = ["--arch", "llama3.2-1b", "--tensor", "1", "--stages",
-            str(stages), "--virtual", str(virtual), "--schedule", schedule,
-            "--microbatches", str(M_), "--batch", str(batch),
-            "--seq", str(seq), "--steps", str(steps), "--log-every", "1",
-            "--device", "cuda"]
-    tag = f"train {schedule} V={virtual} M={M_}"
+    steps, batch, seq = 3, 8, 1024
+    plan_flags = (["--stages", "4"] + planner if planner else
+                  ["--stages", str(stages), "--virtual", str(virtual),
+                   "--schedule", schedule, "--microbatches", str(M_)])
+    argv = (["--arch", "llama3.2-1b", "--tensor", "1"] + plan_flags
+            + ["--batch", str(batch), "--seq", str(seq), "--steps",
+               str(steps), "--log-every", "1", "--device", "cuda"])
+    tag = (f"train {' '.join(planner)}" if planner else
+           f"train {schedule} V={virtual} M={M_}")
     print(f"{tag}: python -m repro_torch.launch.train {' '.join(argv)}",
           flush=True)
     every = launch_counters(counters)
@@ -731,12 +763,18 @@ def phase_train(train, counters: dict, mods, *, schedule: str = "1f1b",
     L = 16
     lowering = SP.lower_to_ticks(SP.build_schedule(schedule, M_, stages,
                                                    virtual))
+    adopted = (out["stages"], out["virtual"], out["schedule"],
+               out["microbatches"])
+    if adopted != (stages, virtual, lowering.schedule, M_):
+        fail(f"{tag} ran stages/V/schedule/M {adopted}, want "
+             f"{(stages, virtual, lowering.schedule, M_)}")
     per_step = train_launches(L, M_, lowering.has_w, False)
     want = {k: steps * v for k, v in per_step.items()}
     losses = out["losses"]
     n_x = lowering.n_x
     after_first = sum(out["step_s"][1:]) / (steps - 1)
-    res = dict(schedule=schedule, virtual=virtual, microbatches=M_,
+    res = dict(schedule=lowering.schedule, virtual=virtual,
+               microbatches=M_, stages=stages,
                losses=losses, step_s=out["step_s"],
                step_ms_after_first=1e3 * after_first,
                tok_s=out["tok_per_step"] / after_first,
@@ -935,6 +973,181 @@ def phase_train_parity(FA, counters: dict, mods) -> dict:
     return res
 
 
+def _refused(train, argv: list, tag: str) -> None:
+    """``train.main(argv)`` must print its plan and refuse it by the
+    tensor-and-data-parallel item before allocating anything."""
+    before = torch.cuda.memory_allocated()
+    try:
+        train.main(argv)
+    except NotImplementedError as e:
+        if "tensor and data parallel over NCCL" not in str(e):
+            fail(f"{tag}: refused by another item: {e}")
+    else:
+        fail(f"{tag}: a plan that needs more than one card was run")
+    if torch.cuda.memory_allocated() != before:
+        fail(f"{tag}: the CLI allocated before refusing")
+    print(f"{tag}: refused before allocating (tensor and data parallel "
+          f"over NCCL)", flush=True)
+
+
+def phase_planner(train, counters: dict, mods) -> dict:
+    """Phase 14: BaPipe's planner on the card.  The card's own rates
+    beside the ``H100`` constants; the measured B/W split against the
+    analytic one; the measured per-stage cost vector against the planned
+    one, and the drift monitor between them; then ``train.main`` under
+    ``--auto-plan --cluster h100 x 4`` and ``--auto-plan3d --pool 4``
+    (and the homogeneous ``--auto-plan``): each plan is first computed by
+    the port's planner on the same inputs; a one-card plan is trained
+    (phase 10's checks, plus the adopted plan), any other must be
+    printed and refused before allocating.  When pool 4's plan needs
+    more cards, the largest smaller pool whose plan runs on one card is
+    trained instead."""
+    from repro_torch.core import autoplan as AP
+    from repro_torch.core import explorer as EX
+    from repro_torch.core import hardware as HW
+    from repro_torch.core import profiler as PR
+    get_config, RT, ST, M, SP, SyntheticLM = mods
+    H = HW.H100
+    rates = device_rates()
+    by_shape = {k: round(v, 2) for k, v in
+                rates["gemm_tflops_by_shape"].items()}
+    print(f"planner: H100 constants: effective {H.effective_flops / 1e12:.2f}"
+          f" TFLOP/s (peak {H.peak_flops / 1e12:.0f} x efficiency "
+          f"{H.efficiency}), HBM {H.hbm_bandwidth / 1e9:.0f} GB/s, memory "
+          f"{H.memory_capacity} B; measured now: f32 GEMMs "
+          f"{rates['layer_gemm_tflops']:.2f} TFLOP/s over a layer "
+          f"({json.dumps(by_shape)}, head {rates['head_gemm_tflops']:.2f}), copy "
+          f"{rates['copy_bytes_s'] / 1e9:.1f} GB/s, memory "
+          f"{rates['memory_capacity']} B", flush=True)
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), tensor=1, stages=4)
+    batch, seq = 8, 1024
+    # the B/W split: measured on the card against the analytic model
+    w_meas = [PR.measure_w_frac(cfg, seq=128) for _ in range(3)]
+    prof_m = PR.profile_arch(dataclasses.replace(
+        cfg, profile_w_frac="measured"), seq=seq)
+    prof_a = PR.profile_arch(cfg, seq=seq)
+    res = dict(rates=rates, w_frac_measured=w_meas,
+               w_frac_profile_measured=prof_m.layers[0].w_frac,
+               w_frac_analytic=prof_a.layers[0].w_frac)
+    print(f"planner: w_frac measured {w_meas} (profile_arch 'measured' "
+          f"{prof_m.layers[0].w_frac}), analytic "
+          f"{prof_a.layers[0].w_frac}", flush=True)
+    # the measured per-stage cost vector against the planned one
+    for S in (4, 3):
+        plan = ST.plan_stages(cfg, S)
+        measured = PR.measure_stage_times(cfg, plan)
+        planned = PR.planned_stage_costs(cfg, plan, seq=seq)
+        mon = PR.DriftMonitor(planned=tuple(planned))
+        drift = mon.update(measured)
+        res[f"stage_costs_{S}"] = dict(measured_s=measured, planned=planned,
+                                       drift=drift, slowdown=mon.slowdown())
+        print(f"planner: {S} stages x {plan.layers_per_stage} layers: "
+              f"measured {measured} s, planned {planned} flops, drift "
+              f"{drift:.3e}, slowdown {mon.slowdown()}", flush=True)
+        if (measured is None or len(measured) != S
+                or not all(t > 0 for t in measured)):
+            fail(f"planner: measured stage costs {measured}")
+    base = ["--arch", "llama3.2-1b", "--tensor", "1", "--stages", "4",
+            "--batch", str(batch), "--seq", str(seq), "--steps", "1",
+            "--device", "cuda"]
+    kw = dict(global_batch=batch, seq_len=seq)
+    homog = AP.auto_plan(cfg, model_axis=4, data_axis=1, device=H, **kw)
+    print(f"planner: homogeneous auto_plan {homog}", flush=True)
+    if homog.tensor > 1 or homog.data_axis > 1:
+        _refused(train, base + ["--auto-plan"], "train --auto-plan")
+    runs = []
+    t0 = time.perf_counter()
+    cluster = AP.auto_plan(cfg, model_axis=4, data_axis=1, device=H,
+                           devices=[H] * 4, **kw)
+    res["plan_s"] = {"cluster": time.perf_counter() - t0}
+    runs.append((["--auto-plan", "--cluster", "h100,h100,h100,h100"],
+                 cluster))
+    for pool in (4, 3, 2, 1):
+        t0 = time.perf_counter()
+        p3 = AP.auto_plan3d(cfg, n_devices=pool, device=H, **kw)
+        res["plan_s"][f"pool {pool}"] = time.perf_counter() - t0
+        print(f"planner: auto_plan3d pool {pool}: {p3}", flush=True)
+        if p3.tensor == 1 and p3.data_axis == 1:
+            runs.append((["--auto-plan3d", "--pool", str(pool)], p3))
+            break
+        _refused(train, base + ["--auto-plan3d", "--pool", str(pool)],
+                 f"train --auto-plan3d --pool {pool}")
+    print(f"planner: host seconds to plan {json.dumps(res['plan_s'])}",
+          flush=True)
+    # the model's memory (bf16 weights, grads and boundary activations)
+    # beside the f32 runs' measured peak
+    prof = PR.profile_arch(cfg, seq=seq)
+    res["runs"] = []
+    for flags, want in runs:
+        applied = want.apply(cfg)
+        r = phase_train(train, counters, mods, schedule=applied.schedule,
+                        virtual=applied.virtual, M_=want.n_microbatches,
+                        stages=applied.stages, planner=flags)
+        ex = EX.explore(prof, HW.homogeneous_cluster(H, want.stages),
+                        batch * seq, candidate_Ms=[want.n_microbatches],
+                        consider_dp=False)
+        r.update(flags=flags, plan=dataclasses.asdict(want),
+                 predicted_ms=1e3 * want.predicted_step_time,
+                 measured_over_predicted=r["step_ms_after_first"]
+                 / (1e3 * want.predicted_step_time),
+                 model_stage_memory_gib=[m / 2**30
+                                         for m in ex.per_stage_memory])
+        print(f"train {' '.join(flags)}: plan stages={want.stages} "
+              f"M={want.n_microbatches} sched={want.schedule} "
+              f"V={want.virtual}, predicted {r['predicted_ms']:.2f} ms a "
+              f"step (per-device makespan), measured "
+              f"{r['step_ms_after_first']:.1f} ms (every stage on one "
+              f"card), ratio {r['measured_over_predicted']:.3f}; model "
+              f"memory per stage {r['model_stage_memory_gib']} GiB (bf16) "
+              f"against a measured peak of {r['peak_gib']:.2f} GiB (f32, "
+              f"all stages)", flush=True)
+        res["runs"].append(r)
+    return res
+
+
+#: the f32 GEMMs of one llama3.2-1b layer's forward at a micro-batch of
+#: 2048 tokens (batch 8 x seq 1024 in 4 micro-batches): (m, k, n, count)
+#: for q and o, k and v, the gate and up projections, the down projection
+LAYER_GEMMS = ((2048, 2048, 2048, 2), (2048, 2048, 512, 2),
+               (2048, 2048, 8192, 2), (2048, 8192, 2048, 1))
+
+
+def device_rates() -> dict:
+    """The card's own numbers behind ``repro_torch.core.hardware.H100``:
+    the f32 cuBLAS GEMM rate over one training layer's GEMMs
+    (:data:`LAYER_GEMMS`, tf32 off) and at the loss head's shape, a
+    device-to-device copy's bandwidth (bytes read + written over time),
+    and the memory ``get_device_properties`` reports."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rand = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    flops = ms = 0.0
+    per_shape = {}
+    for m, k, n, count in LAYER_GEMMS:
+        a, b = rand(m, k), rand(k, n)
+        t = event_ms(lambda: a @ b, iters=20)
+        per_shape[f"{m}x{k}x{n}"] = 2 * m * k * n / t / 1e9
+        flops += count * 2 * m * k * n
+        ms += count * t
+        del a, b
+    a, b = rand(2048, 2048), rand(2048, 128256)
+    head_ms = event_ms(lambda: a @ b, iters=10)
+    head_tflops = 2 * 2048 * 2048 * 128256 / head_ms / 1e9
+    del a, b
+    src = torch.empty(2**29, device="cuda")                 # 2 GiB of f32
+    dst = torch.empty_like(src)
+    copy_ms = event_ms(lambda: dst.copy_(src), iters=10)
+    copy_bw = 2 * src.numel() * 4 / (copy_ms / 1e3)
+    del src, dst
+    torch.cuda.empty_cache()
+    layer_tflops = flops / ms / 1e9
+    return dict(gemm_tflops_by_shape=per_shape, layer_gemm_tflops=layer_tflops,
+                efficiency_vs_67=layer_tflops / 67.0,
+                head_gemm_tflops=head_tflops, copy_bytes_s=copy_bw,
+                memory_capacity=torch.cuda.get_device_properties(0)
+                .total_memory)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: the port's kernels need a "
@@ -1057,9 +1270,14 @@ def main() -> None:
     # ---- 13. zero-bubble H2 training at full width ------------------------
     zb_h2 = phase_train(train, counters, train_mods, schedule="zb-h2",
                         M_=8)
+
+    # ---- 14. the planner: --auto-plan, --cluster, --auto-plan3d ----------
+    planner = phase_planner(train, counters, train_mods)
     train_paths = {f"train {r['schedule']} V={r['virtual']} "
                    f"M={r['microbatches']}": r["launches"]
                    for r in (trained, interleaved, zb_h2)}
+    train_paths.update({f"train {' '.join(r['flags'])}": r["launches"]
+                        for r in planner["runs"]})
 
     pick = lambda rs, prefix, dtype="float32": next(
         r for r in rs if r["label"].startswith(prefix) and r["dtype"] == dtype)
@@ -1141,7 +1359,8 @@ def main() -> None:
                                 "mamba2-2.7b": mamba}}), flush=True)
     print(json.dumps({"train": {"llama3.2-1b": trained,
                                 "interleaved": interleaved, "zb-h2": zb_h2,
-                                "parity": train_parity}}), flush=True)
+                                "parity": train_parity,
+                                "planner": planner}}), flush=True)
     print(json.dumps({"kernels": [flash, ssd, flash_bwd]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

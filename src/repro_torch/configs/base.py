@@ -4,8 +4,7 @@
 One ``ArchConfig`` fully describes a model family member: the transformer /
 SSM backbone, attention flavour, FFN flavour, modality frontend stubs, and
 the BaPipe pipeline defaults.  Every field is kept so a config reads the
-same in both packages; ``param_count`` is left out (the JAX package
-computes it with its analytic profiler).
+same in both packages.
 """
 from __future__ import annotations
 
@@ -117,6 +116,15 @@ class ArchConfig:
         if self.global_every <= 0:
             return False
         return (i + 1) % self.global_every == 0
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding included once if tied)."""
+        from repro_torch.core.profiler import profile_arch   # avoids a cycle
+        prof = profile_arch(self)
+        body = sum(l.bytes_weights for l in prof.layers) // prof.bytes_per_param
+        emb = self.vocab * self.d_model
+        head = 0 if self.tie_embeddings else self.vocab * self.d_model
+        return body + emb + head
 
     def padded_vocab(self, tp: int) -> int:
         """Vocab rounded up so the embedding shards evenly over ``tp``."""

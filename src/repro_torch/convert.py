@@ -41,9 +41,9 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-def from_jax(tree, *, device="cpu"):
+def from_jax(tree, *, device="cuda"):
     """A (nested dict) tree of numpy arrays -> the same tree of tensors on
-    ``device``."""
+    ``device`` (the card unless the caller asks for the CPU)."""
     if isinstance(tree, dict):
         return {k: from_jax(v, device=device) for k, v in tree.items()}
     return _to_torch(tree, device)

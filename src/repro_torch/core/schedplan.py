@@ -47,9 +47,9 @@ class StageCosts:
 
     Consumers: :func:`build_zb_auto` shapes its table by the vector,
     :func:`repro_torch.core.simulator.simulate` replays any plan under
-    per-device durations, and the JAX package's ``eval_*_hetero``
-    closed forms (``core/schedules.py``, not ported yet) reduce to the
-    uniform forms exactly when :attr:`uniform` holds.
+    per-device durations, and the ``eval_*_hetero`` closed forms in
+    :mod:`repro_torch.core.schedules` reduce to the uniform forms
+    exactly when :attr:`uniform` holds.
 
     ``width[n]`` annotates how many chips device n's stage actually
     occupies (its ``dp * tp`` shard of the 3D plan; empty = all 1).

@@ -13,14 +13,24 @@ stage plan and a compiled F/B(/W) schedule, on one card.
         --tensor 1 --stages 4 --virtual 2 --schedule 1f1b-interleaved \\
         --microbatches 4 --batch 8 --seq 1024 --steps 3
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+        --tensor 1 --stages 4 --auto-plan --cluster h100,h100,h100,h100 \\
+        --batch 8 --seq 1024 --steps 3
+
 ``--schedule`` takes any of the eight builders of
 :data:`repro_torch.core.schedplan.BUILDER_NAMES` (``--virtual V`` chunks
 per stage for the interleaved two); ``--mem-limit`` caps ``zb-auto``'s
 resident residuals and, as in the JAX CLI, is an error with any other
 schedule; ``--remat full`` recomputes each layer inside the backward.
-``--device cpu`` runs the same path on the CPU with the kernels' plain
-versions.  As in the JAX CLI, ``--layers``/``--d-model`` apply only
-under ``--reduced``, and a config whose tensor degree is above 1
+``--auto-plan`` (with ``--cluster`` naming one catalogue device a stage,
+and ``--mem-limit``) and ``--auto-plan3d`` (over ``--pool`` devices, the
+cards present by default) let BaPipe's planner
+(:mod:`repro_torch.core.autoplan`, planning for the port's ``H100``)
+pick the stages, tensor degree, micro-batches, schedule and V, as the
+JAX CLI does; a plan that needs tensor or data parallelism is printed,
+then refused.  ``--device cpu`` runs the same path on the CPU with the
+kernels' plain versions.  As in the JAX CLI, ``--layers``/``--d-model``
+apply only under ``--reduced``, and a config whose tensor degree is above 1
 (llama3.2-1b's is 2) is refused unless ``--tensor 1`` is given.  Data
 come from :class:`repro_torch.data.synthetic.SyntheticLM`
 (the JAX package's generator, bit-identical tokens); the optimizer is
@@ -42,6 +52,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import schedplan as SP
+from repro_torch.core.autoplan import auto_plan, auto_plan3d
+from repro_torch.core.hardware import CATALOGUE, H100
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attend
@@ -52,7 +64,6 @@ from repro_torch.pipeline import runtime as RT
 from repro_torch.pipeline import stage as ST
 
 _CKPT_ITEM = "ROADMAP 'Still to port': checkpoints, reshard and elastic"
-_PLAN_ITEM = "ROADMAP 'Still to port': the analytic planner stack"
 _STREAM_ITEM = "ROADMAP 'Still to port': the stream runtime"
 
 #: flags of the JAX CLI the port does not run yet: (flag, accepted
@@ -71,10 +82,6 @@ _REFUSED = (
     ("drift_threshold", (None,), _CKPT_ITEM),
     ("drift_inject", ("",), _CKPT_ITEM),
     ("replan_budget", (None,), _CKPT_ITEM),
-    ("auto_plan", (False,), _PLAN_ITEM),
-    ("auto_plan3d", (False,), _PLAN_ITEM),
-    ("pool", (0,), _PLAN_ITEM),
-    ("cluster", ("",), _PLAN_ITEM),
 )
 
 
@@ -106,6 +113,18 @@ def _parser() -> argparse.ArgumentParser:
                     help="zb-auto peak-live cap per stage (0 = unbounded)")
     ap.add_argument("--remat", default="stage",
                     help="none | stage | stage_save_moe | full")
+    ap.add_argument("--auto-plan", action="store_true",
+                    help="let the BaPipe explorer pick stages/tensor/M")
+    ap.add_argument("--auto-plan3d", action="store_true",
+                    help="search per-stage (data, tensor) degrees over "
+                         "--pool devices and adopt the best uniform plan")
+    ap.add_argument("--pool", type=int, default=0,
+                    help="device-pool size for --auto-plan3d (default: "
+                         "the CUDA cards present)")
+    ap.add_argument("--cluster", default="",
+                    help="comma-separated per-stage device names for "
+                         "--auto-plan (" + "|".join(CATALOGUE) + "); "
+                         "fixes the stage count to the list length")
     # the JAX CLI's other flags: accepted, refused unless at their default
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--tensor", type=int, default=0)
@@ -120,10 +139,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--drift-threshold", type=float, default=None)
     ap.add_argument("--drift-inject", default="")
     ap.add_argument("--replan-budget", type=float, default=None)
-    ap.add_argument("--auto-plan", action="store_true")
-    ap.add_argument("--auto-plan3d", action="store_true")
-    ap.add_argument("--pool", type=int, default=0)
-    ap.add_argument("--cluster", default="")
+    ap.set_defaults(plan=None)          # the adopted AutoPlan, if any
     return ap
 
 
@@ -145,9 +161,13 @@ def build_config(args: argparse.Namespace):
     argv: ``--layers``/``--d-model`` cut the model only under
     ``--reduced``; the config's tensor degree must be 1 or be overridden
     by ``--tensor 1`` (:func:`repro_torch.launch.one_card`);
-    ``--mem-limit`` without ``--schedule zb-auto`` is a usage error
-    (SystemExit 2), as in the JAX CLI.  Refused flags raise
-    NotImplementedError by their ROADMAP item."""
+    ``--mem-limit`` without ``--schedule zb-auto`` (or ``--auto-plan``),
+    ``--cluster`` without ``--auto-plan``, and ``--auto-plan`` with
+    ``--auto-plan3d`` are usage errors (SystemExit 2), as in the JAX CLI.
+    Under a planner flag the plan is printed and applied
+    (``args.microbatches`` takes its M), or refused when it needs tensor
+    or data parallelism.  Refused flags raise NotImplementedError by
+    their ROADMAP item."""
     for flag, ok, item in _REFUSED:
         val = getattr(args, flag)
         if val not in ok:
@@ -163,12 +183,61 @@ def build_config(args: argparse.Namespace):
                               schedule=args.schedule or cfg.schedule)
     if args.mem_limit:
         sched = cfg.schedule if cfg.schedule not in ("auto", "") else "1f1b"
-        if SP.canonical_name(sched) != "zb-auto":
+        if not args.auto_plan and SP.canonical_name(sched) != "zb-auto":
             _parser().error(f"--mem-limit only applies to --schedule "
                             f"zb-auto (or --auto-plan); got --schedule "
                             f"{sched}")
         cfg = dataclasses.replace(cfg, mem_limit=args.mem_limit)
-    return cfg
+    if args.cluster and not args.auto_plan:
+        _parser().error("--cluster only applies to --auto-plan")
+    if args.auto_plan and args.auto_plan3d:
+        _parser().error("--auto-plan and --auto-plan3d are mutually "
+                        "exclusive")
+    if args.auto_plan3d:
+        pool = args.pool or (torch.cuda.device_count()
+                             if torch.device(args.device).type == "cuda"
+                             else 0)
+        if pool < 1:
+            _parser().error("--auto-plan3d needs --pool N (no CUDA card "
+                            "to count)")
+        plan_ = auto_plan3d(cfg, global_batch=args.batch, seq_len=args.seq,
+                            n_devices=pool, device=H100,
+                            mem_limit=args.mem_limit or None)
+        widths = "x".join(str(w) for w in plan_.stage_widths)
+        print(f"auto-plan3d: stages={plan_.stages} data={plan_.data_axis} "
+              f"tensor={plan_.tensor} M={plan_.n_microbatches} "
+              f"sched={plan_.schedule} widths={widths} "
+              f"(predicted {plan_.predicted_step_time*1e3:.2f} ms/step, "
+              f"{plan_.predicted_speedup_over_dp:.2f}x over best "
+              f"pipeline-only)", flush=True)
+    elif args.auto_plan:
+        devices = None
+        if args.cluster:
+            try:
+                devices = [CATALOGUE[s.strip()]
+                           for s in args.cluster.split(",")]
+            except KeyError as e:
+                _parser().error(f"unknown device {e.args[0]!r} in --cluster "
+                                f"(know: {', '.join(sorted(CATALOGUE))})")
+        plan_ = auto_plan(cfg, global_batch=args.batch, seq_len=args.seq,
+                          model_axis=cfg.stages * cfg.tensor,
+                          data_axis=args.data, device=H100, devices=devices,
+                          mem_limit=args.mem_limit or None)
+        print(f"auto-plan: stages={plan_.stages} tensor={plan_.tensor} "
+              f"M={plan_.n_microbatches} sched={plan_.schedule} "
+              f"V={plan_.virtual} "
+              f"(predicted {plan_.predicted_step_time*1e3:.2f} ms/step)",
+              flush=True)
+    else:
+        return cfg
+    if plan_.tensor != 1 or plan_.data_axis != 1:
+        raise NotImplementedError(
+            f"the plan needs tensor={plan_.tensor} x data="
+            f"{plan_.data_axis}: not ported yet ({_PAR_ITEM}); the port "
+            f"runs one card")
+    args.microbatches = plan_.n_microbatches
+    args.plan = plan_
+    return plan_.apply(cfg)
 
 
 def main(argv=None) -> dict:
@@ -231,7 +300,10 @@ def main(argv=None) -> dict:
     if args.losses_out:
         with open(args.losses_out, "w") as f:
             json.dump(dict(start=0, losses=losses), f)
-    return dict(losses=losses, step_s=step_s, wall_s=wall,
+    return dict(plan=args.plan, schedule=step_fn.lowering.schedule,
+                stages=plan.n_stages, virtual=plan.virtual,
+                microbatches=args.microbatches,
+                losses=losses, step_s=step_s, wall_s=wall,
                 tok_per_step=args.batch * args.seq, launches=launches,
                 stash_slots=step_fn.stash_slots, n_x=step_fn.lowering.n_x,
                 peak_gib=peak, params=params, opt_state=opt_state)

@@ -11,6 +11,14 @@ the port's attention switches RoPE off as the reference does, on the CPU.
   absolute positions) the port's ``gqa_attention`` equals the JAX
   package's on the same numpy-made inputs and weights (f32, 1e-4 as in
   tests/test_torch_layers.py) and has no NaN.
+* ``--auto-plan`` (with ``--cluster``, ``--mem-limit``) and
+  ``--auto-plan3d --pool`` adopt exactly the plan the JAX package's
+  planner makes on the same inputs (the port's ``H100`` handed to it
+  field by field) and train under it with the losses of a run given the
+  same stages, micro-batches, schedule and V explicitly, bit for bit; a
+  plan with tensor or data above 1 is printed, then refused before
+  anything is allocated; the reference CLI's usage errors are SystemExit
+  2.
 """
 import dataclasses
 
@@ -20,9 +28,12 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.core import autoplan as JA
+from repro.core import hardware as JH
 from repro.models import layers as L
 from repro_torch import convert
 from repro_torch.configs import get_config
+from repro_torch.core import hardware as TH
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
 from repro_torch.models import layers as TL
@@ -129,7 +140,7 @@ def test_gqa_attention_without_rope_matches_jax(cached):
                        len=torch.from_numpy(length)) if cached else None)
     want, _ = L.gqa_attention(p, jnp.asarray(x), jcfg, pos=jnp.asarray(pos),
                               is_global=True, rope_theta=0.0, cache=jc)
-    got, _ = TL.gqa_attention(convert.from_jax(p), torch.from_numpy(x), cfg,
+    got, _ = TL.gqa_attention(convert.from_jax(p, device="cpu"), torch.from_numpy(x), cfg,
                               pos=torch.from_numpy(pos), rope_theta=0.0,
                               cache=tc())
     assert not torch.isnan(got).any()
@@ -138,7 +149,123 @@ def test_gqa_attention_without_rope_matches_jax(cached):
     # RoPE does act when it is on: the same inputs with the config's theta
     # give another output
     on, _ = TL.gqa_attention(
-        convert.from_jax(p), torch.from_numpy(x),
+        convert.from_jax(p, device="cpu"), torch.from_numpy(x),
         dataclasses.replace(cfg, rope_theta=500000.0),
         pos=torch.from_numpy(pos), rope_theta=500000.0, cache=tc())
     assert (on - got).abs().max().item() > 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the planner flags
+# ---------------------------------------------------------------------------
+
+_RED = ["--arch", "llama3.2-1b", "--reduced", "--layers", "4", "--d-model",
+        "64", "--batch", "8", "--seq", "32", "--steps", "2", "--device",
+        "cpu"]
+_JH100 = JH.DeviceSpec(**dataclasses.asdict(TH.H100))
+
+
+def _jax_cfg(stages=0):
+    cfg = jax_get_config("llama3.2-1b").reduced(n_layers=4, d_model=64,
+                                                seq=32)
+    return dataclasses.replace(cfg, stages=stages) if stages else cfg
+
+
+def _plan_fields(p):
+    return (p.stages, p.tensor, p.n_microbatches, p.schedule, p.virtual,
+            p.data_axis, p.predicted_step_time)
+
+
+def _explicit(out) -> list:
+    """The flags that give the adopted plan without the planner."""
+    return ["--stages", str(out["stages"]), "--virtual", str(out["virtual"]),
+            "--schedule", out["schedule"], "--microbatches",
+            str(out["microbatches"])]
+
+
+def test_auto_plan_on_a_cluster_adopts_the_jax_plan():
+    out = ttrain.main(_RED + ["--stages", "2", "--auto-plan", "--cluster",
+                              "v100,v100"])
+    want = JA.auto_plan(_jax_cfg(2), global_batch=8, seq_len=32,
+                        model_axis=2, data_axis=1,
+                        devices=[JH.V100, JH.V100])
+    assert _plan_fields(out["plan"]) == _plan_fields(want)
+    applied = want.apply(_jax_cfg(2))
+    assert (out["stages"], out["virtual"], out["schedule"],
+            out["microbatches"]) == (applied.stages, applied.virtual,
+                                     applied.schedule, want.n_microbatches)
+    again = ttrain.main(_RED + _explicit(out))
+    assert out["losses"] == again["losses"]
+
+
+def test_auto_plan_takes_mem_limit():
+    args = ttrain._parser().parse_args(
+        _RED + ["--stages", "2", "--auto-plan", "--cluster", "h100,h100",
+                "--mem-limit", "2"])
+    cfg = ttrain.build_config(args)
+    want = JA.auto_plan(_jax_cfg(2), global_batch=8, seq_len=32,
+                        model_axis=2, data_axis=1, devices=[_JH100] * 2,
+                        mem_limit=2)
+    assert _plan_fields(args.plan) == _plan_fields(want)
+    assert args.plan.mem_limit == 2
+    assert cfg.mem_limit == want.apply(_jax_cfg(2)).mem_limit
+
+
+def test_homogeneous_auto_plan_with_tensor_parallel_is_printed_then_refused(
+        no_allocation, capsys):
+    want = JA.auto_plan(_jax_cfg(4), global_batch=8, seq_len=32,
+                        model_axis=4, data_axis=1, device=_JH100)
+    assert want.tensor > 1
+    with pytest.raises(NotImplementedError, match=_NCCL):
+        ttrain.main(_RED + ["--stages", "4", "--auto-plan"])
+    assert (f"auto-plan: stages={want.stages} tensor={want.tensor} "
+            f"M={want.n_microbatches} sched={want.schedule}"
+            in capsys.readouterr().out)
+
+
+@pytest.mark.parametrize("pool", [1, 2, 3, 4])
+def test_auto_plan3d_trains_its_plan_or_refuses_it(pool, request, capsys):
+    """The pool's plan, read from the JAX planner: a one-card plan trains
+    with the losses of the same flags given explicitly; a plan with
+    tensor or data above 1 is printed, then refused before anything is
+    allocated (at the port's H100, pools 2 and 4 buy data parallelism,
+    pools 1 and 3 a pipeline)."""
+    want = JA.auto_plan3d(_jax_cfg(), global_batch=8, seq_len=32,
+                          n_devices=pool, device=_JH100)
+    argv = _RED + ["--auto-plan3d", "--pool", str(pool)]
+    if want.tensor > 1 or want.data_axis > 1:
+        request.getfixturevalue("no_allocation")
+        with pytest.raises(NotImplementedError, match=_NCCL):
+            ttrain.main(argv)
+        assert (f"auto-plan3d: stages={want.stages} data={want.data_axis} "
+                f"tensor={want.tensor}" in capsys.readouterr().out)
+        return
+    out = ttrain.main(argv)
+    assert _plan_fields(out["plan"]) == _plan_fields(want)
+    assert out["plan"].stage_widths == want.stage_widths
+    applied = want.apply(_jax_cfg())
+    assert (out["stages"], out["schedule"], out["microbatches"]) == \
+        (applied.stages, applied.schedule, want.n_microbatches)
+    assert out["losses"] == ttrain.main(_RED + _explicit(out))["losses"]
+
+
+@pytest.mark.parametrize("extra", [
+    pytest.param(["--cluster", "v100,v100"], id="cluster-alone"),
+    pytest.param(["--auto-plan", "--auto-plan3d", "--pool", "2"],
+                 id="both-planners"),
+    pytest.param(["--auto-plan", "--stages", "2", "--cluster", "v100,a100"],
+                 id="unknown-device"),
+    pytest.param(["--auto-plan3d"], id="plan3d-cpu-without-pool"),
+    pytest.param(["--auto-plan3d", "--pool", "2", "--mem-limit", "2"],
+                 id="mem-limit-without-zb-auto")])
+def test_planner_usage_errors_exit_2(extra, no_allocation):
+    with pytest.raises(SystemExit) as e:
+        ttrain.main(_RED + extra)
+    assert e.value.code == 2
+
+
+def test_drift_flags_stay_refused_under_the_planner(no_allocation):
+    with pytest.raises(NotImplementedError,
+                       match="checkpoints, reshard and elastic"):
+        ttrain.main(_RED + ["--stages", "2", "--auto-plan", "--cluster",
+                            "v100,v100", "--drift-every", "2"])

@@ -169,7 +169,7 @@ def test_gqa_attention_matches_jax(qk_norm, cached):
     x = _rand(rng, (B, T, cfg.d_model))
     length = np.array([0, 4], np.int32)
     pos = (length[:, None] + np.arange(T)[None]).astype(np.int32)
-    tp = convert.from_jax(p)
+    tp = convert.from_jax(p, device="cpu")
     jc = tc = None
     if cached:
         hd = cfg.resolved_head_dim
@@ -199,7 +199,7 @@ def test_block_apply_and_decode_step_match_jax():
     cfg, jcfg = _tiny_cfg()
     init = jax.jit(lambda k: M.init_params(jcfg, k))
     jp = jax.tree.map(np.asarray, init(jax.random.PRNGKey(0)))
-    tp = convert.from_jax(jp)
+    tp = convert.from_jax(jp, device="cpu")
     rng = np.random.default_rng(4)
     B, T = 2, 6
     x = _rand(rng, (B, T, cfg.d_model))
@@ -252,7 +252,7 @@ def test_mlp_matches_jax():
              w2=_rand(rng, (40, 16), 0.15))
     x = _rand(rng, (2, 3, 16))
     for act in ("silu", "gelu"):
-        _close(TL.mlp(convert.from_jax(p), torch.from_numpy(x), act),
+        _close(TL.mlp(convert.from_jax(p, device="cpu"), torch.from_numpy(x), act),
                L.mlp(p, jnp.asarray(x), act), 1e-5)
 
 
@@ -315,7 +315,7 @@ def test_convert_round_trip(dtype):
     init = jax.jit(lambda k: JST.init_stacked_params(jcfg, k, jplan,
                                                      dtype=jdt))
     jp = jax.tree.map(np.asarray, init(jax.random.PRNGKey(1)))
-    tp = convert.from_jax(jp)
+    tp = convert.from_jax(jp, device="cpu")
     assert tp["layers"]["attn"]["wq"].dtype == getattr(torch, dtype)
     back = convert.to_jax(tp)
     flat = lambda t: jax.tree_util.tree_leaves_with_path(t)

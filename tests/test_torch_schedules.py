@@ -313,7 +313,7 @@ def test_jax_interleaved_params_cross_into_the_port_layout():
     plan = ST.plan_stages(cfg, n_stages=2, virtual=2)
     jp = jax.tree.map(np.asarray, JST.init_stacked_params(
         jcfg, jax.random.PRNGKey(0), jplan))
-    tp = convert.from_jax(jp)
+    tp = convert.from_jax(jp, device="cpu")
     for key in ("embed", "final_norm"):
         np.testing.assert_array_equal(tp[key].numpy(), jp[key])
     for got, want in zip(ST.tree_leaves(tp["layers"]),

@@ -72,7 +72,7 @@ def _port_serve(cfg, params_np, prompt, forced, schedule="auto"):
     pcfg = RT.PipelineConfig(n_microbatches=2, schedule=schedule)
     prefill = RT.make_serve_step(cfg, plan, pcfg, q_len=PROMPT)
     decode = RT.make_serve_step(cfg, plan, pcfg, q_len=1)
-    params = convert.from_jax(params_np)
+    params = convert.from_jax(params_np, device="cpu")
     cache = RT.init_pipeline_cache(cfg, plan, B, MAX_LEN, device="cpu")
     lg, cache = prefill(params, cache, dict(tokens=torch.from_numpy(prompt)))
     out = [lg[:, 0]]

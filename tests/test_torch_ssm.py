@@ -169,7 +169,7 @@ def test_ssm_block_matches_jax(branch):
     cfg, jcfg = _cfgs()
     s = cfg.ssm
     jp = _block_params(jcfg)
-    tp = convert.from_jax(jp)
+    tp = convert.from_jax(jp, device="cpu")
     rng = np.random.default_rng(4)
     Bsz, T = 2, (1 if branch == "decode" else 32)
     x = rng.standard_normal((Bsz, T, cfg.d_model)).astype(np.float32)
@@ -201,7 +201,7 @@ def test_decode_step_matches_jax(ref):
     against the JAX M.decode_step."""
     cfg, jcfg = ref["cfg"], ref["jcfg"]
     jp = dict(ref["pnp"], layers=ref["flat"])
-    tp = convert.from_jax(jp)
+    tp = convert.from_jax(jp, device="cpu")
     rng = np.random.default_rng(8)
     x = rng.standard_normal((B, PROMPT, cfg.d_model)).astype(np.float32)
     pos = np.broadcast_to(np.arange(PROMPT), (B, PROMPT)).astype(np.int32)
@@ -248,7 +248,7 @@ def _port_serve(cfg, params_np, prompt, forced):
     pcfg = RT.PipelineConfig(n_microbatches=2)
     prefill = RT.make_serve_step(cfg, plan, pcfg, q_len=PROMPT)
     decode = RT.make_serve_step(cfg, plan, pcfg, q_len=1)
-    params = convert.from_jax(params_np)
+    params = convert.from_jax(params_np, device="cpu")
     cache = RT.init_pipeline_cache(cfg, plan, B, PROMPT + GEN, device="cpu")
     lg, cache = prefill(params, cache, dict(tokens=torch.from_numpy(prompt)))
     out = [lg[:, 0]]
@@ -377,7 +377,7 @@ def test_convert_round_trip_bf16_keeps_f32_leaves():
     jplan = JST.plan_stages(jcfg)
     jp = jax.tree.map(np.asarray, jax.jit(lambda k: JST.init_stacked_params(
         jcfg, k, jplan, dtype=jnp.bfloat16))(jax.random.PRNGKey(1)))
-    tp = convert.from_jax(jp)
+    tp = convert.from_jax(jp, device="cpu")
     ssm = tp["layers"]["ssm"]
     assert ssm["in_proj"].dtype == torch.bfloat16
     for name in ("a_log", "d_skip", "dt_bias"):

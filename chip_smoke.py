@@ -11,9 +11,10 @@ Phases, each reported on its own lines:
    then reading the libraries' machine code (``cuobjdump -sass``): every
    flash prefill-route kernel must issue tensor-core products (HMMA, from
    mma.sync) and both routes' kernels must load through cp.async
-   (LDGSTS); so must the backward's dK/dV and dQ kernels of the f32 and
-   bf16 builds at D = 64, and every SSD product kernel (scores, chunk
-   states, chunk outputs) of the f32 and bf16 builds at P = 64;
+   (LDGSTS); so must the prefill route's kernels at D = 256 and the
+   backward's dK/dV and dQ kernels of the f32 and bf16 builds at D = 64
+   and D = 256, and every SSD product kernel (scores, chunk states, chunk
+   outputs) of the f32 and bf16 builds at P = 64;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the JAX kernel tests and at the serving path's shapes, with
    the kernel's device time (``ms``, CUDA-graph replay), its eager
@@ -27,7 +28,15 @@ Phases, each reported on its own lines:
    ``prefill``); the decode route is also run over S = 4096, many splits;
    the training path's forward (batch 2, T = S = 1024, 32/8 heads, D 64,
    causal) is timed without and with the per-row statistics, and checked
-   at phase 13's one-row micro-batch as well;
+   at phase 13's one-row micro-batch as well; so are gemma3-1b's training
+   shapes (batch 2, T = S = 1024, 4/1 heads, D 256) on its global layers
+   and its local ones (sliding window 512), its serving shapes (batch 4:
+   the 1024-token prompt's prefill into a 1056-key cache and the decode
+   over it, window 512 and global) and qwen3-1.7b's (16/8 heads, D 128:
+   training, and serving's prefill of a 512-token prompt into a 544-key
+   cache and per-row decode); the windowed prefill at T = S = 4096 (window 512:
+   0.23x the operations) must take at most half the global call's device
+   time in f32;
 4. ``repro_torch.launch.serve.main`` at the full width of llama3.2-1b
    (16 layers, 8 stages, 2 micro-batches, batch 8, prompt 512, 32 tokens,
    f32), with each kernel's launch count over that run (flash attention
@@ -53,11 +62,14 @@ Phases, each reported on its own lines:
    (``attend_bwd_ref``) and against torch autograd of ``attend_ref``, at
    phase 3's shapes (through a head axis of one), the per-row cases with
    an idle row, and the training shapes (batch 2 and 1, T = S = 1024, 32/8
-   heads, D 64, causal), in f32 and bf16 (relative to max |ref|: 1e-4, 3e-2); a
-   second call must give the same bits; the library time is the backward
-   of ``scaled_dot_product_attention`` (eager, CUDA events); the training
-   shape's rows add the device time of each of the backward's three CUDA
-   kernels (``kernel_us``, ``torch.profiler``);
+   heads, D 64, causal), gemma3-1b's global and local (window 512) and
+   qwen3-1.7b's training shapes and a windowed per-row case with idle
+   rows, in f32 and bf16 (relative to max |ref|: 1e-4, 3e-2); a second
+   call must give the same bits; the library time is the backward of
+   ``scaled_dot_product_attention`` (eager, CUDA events; ``is_causal`` for
+   the plain causal mask, else an explicit mask, a window's band
+   included); the training shapes' rows add the device time of each of
+   the backward's three CUDA kernels (``kernel_us``, ``torch.profiler``);
 10. ``repro_torch.launch.train.main`` at the full width of llama3.2-1b
    (16 layers, 4 stages x 4 layers, 1f1b, 4 micro-batches, batch 8, seq
    1024, f32, 3 steps): finite losses, step 0's loss against a
@@ -100,12 +112,31 @@ Phases, each reported on its own lines:
    (launches exactly :func:`train_launches` of its table, stash
    ``n_x``, step 0's loss against ``loss_fn``), the adopted stages,
    schedule, M and V equal to the planner's, and its predicted step time
-   beside the measured one.
+   beside the measured one;
+15. ``repro_torch.launch.serve.main`` at the full width of gemma3-1b (26
+   layers: 22 with a sliding window of 512 keys, 4 global; d_model 1152,
+   4/1 heads of 256, vocab 262144; 2 stages, 2 micro-batches, batch 8,
+   prompt 1024, 32 tokens, f32): flash attention exactly 1664 launches, 52
+   on the prefill route and 1612 on the decode route;
+16. the whole gemma3 path, kernel against plain, as phase 5: full width
+   cut to 2 layers, the first local (window 512) and the second global,
+   prompt 640;
+17. ``repro_torch.launch.serve.main`` at the full width of qwen3-1.7b (28
+   layers, d_model 2048, 16/8 heads of 128, vocab 151936; 4 stages,
+   prompt 512, as phase 4): exactly 1792 launches, 56 prefill and 1736
+   decode; then the whole qwen3 path, kernel against plain, as phase 5
+   (2 layers, prompt 512);
+18. as phase 10 for gemma3-1b (26 layers on 4 stages of 7 slots, the last
+   2 padded) and qwen3-1.7b (28 layers, 4 x 7): exactly 208 + 104 and
+   224 + 112 flash launches a step;
+19. as phase 11 for gemma3-1b at full width and 3 layers (the last global,
+   the others window 512), seq 1024, under 1f1b and zb-h1, against
+   autograd of the plain-attention model.
 
 Every kernel's launch counters (``launches`` and, for flash attention,
 ``launches_prefill`` / ``launches_decode`` / ``launches_bwd``) are set to
-0 just before each driven path (phases 4, 7, 10, 12 and 13, and each run
-of phases 11 and 14) and read just after it.
+0 just before each driven path (phases 4, 7, 10, 12, 13, 15, 17 and 18,
+and each run of phases 11, 14 and 19) and read just after it.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -198,40 +229,76 @@ def bounds(nbytes: float, ops: float, dtype) -> dict:
                 bound_tc_ms=1e3 * max(t_bytes, t_tc))
 
 
-def attention_bound(q, k, q_start, kv_len, causal) -> dict:
+def visible_keys(T: int, S: int, q_start, kv_len, causal: bool,
+                 window: int = 0):
+    """Per row (b, i) the range [start, end) of keys it sees, as int64 [B,
+    T] tensors on the CPU, and whether it sees none (it then averages V over
+    all S keys)."""
+    qs, kl = q_start.cpu().long(), kv_len.cpu().long().clamp(max=S)
+    qpos = qs[:, None] + torch.arange(T)[None]
+    end = kl[:, None].expand(qpos.shape)
+    if causal:
+        end = torch.minimum(end, qpos + 1)
+    start = ((qpos - window + 1).clamp(min=0) if window
+             else torch.zeros_like(end))
+    return start, end, start >= end
+
+
+def attention_bound(q, k, q_start, kv_len, causal, window: int = 0) -> dict:
     """Least time (ms) for attention of these inputs on the card
     (:func:`bounds`).  Bytes: q read and the output written once, K/V
     read once for the keys some row of the batch row can see.  Operations:
-    4*D per visible query-key pair (q.k and p.v), counted for this data;
-    a row that sees no key averages V over all S keys."""
+    4*D per visible query-key pair (q.k and p.v), counted for this data
+    (a sliding ``window`` included); a row that sees no key averages V over
+    all S keys."""
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
-    qs, kl = q_start.cpu().long(), kv_len.cpu().long().clamp(max=S)
-    qpos = qs[:, None] + torch.arange(T)[None]
-    seen = kl[:, None].expand(B, T)
-    if causal:
-        seen = torch.minimum(seen, qpos + 1)
-    seen = torch.where(seen <= 0, torch.full_like(seen, S), seen)
+    start, end, idle = visible_keys(T, S, q_start, kv_len, causal, window)
+    start = torch.where(idle, 0, start)
+    end = torch.where(idle, S, end)
     el = q.element_size()
-    keys = seen.max(dim=1).values.sum().item()
+    keys = (end.max(dim=1).values - start.min(dim=1).values).sum().item()
     nbytes = 2 * q.numel() * el + 2 * keys * Hkv * D * el
-    ops = 4 * D * Hq * seen.sum().item()
+    ops = 4 * D * Hq * (end - start).sum().item()
     return bounds(nbytes, ops, q.dtype)
 
 
-def library_attention(q, k, v, q_start, kv_len, causal, scale):
-    """scaled_dot_product_attention on the same work (mask built here,
-    outside the timed call); the yardstick, never used by the port."""
-    B, T, Hq, D = q.shape
-    S = k.shape[1]
-    kpos = torch.arange(S, device=q.device)
-    qpos = q_start.long()[:, None] + torch.arange(T, device=q.device)[None]
+def attention_mask(T: int, S: int, q_start, kv_len, causal: bool,
+                   window: int = 0):
+    """The boolean visibility mask [B, 1, T, S] on q_start's device (the
+    band of a sliding window included)."""
+    dev = q_start.device
+    kpos = torch.arange(S, device=dev)
+    qpos = q_start.long()[:, None] + torch.arange(T, device=dev)[None]
     mask = kpos[None, None, :] < kv_len.long()[:, None, None]
     if causal:
         mask = mask & (kpos[None, None, :] <= qpos[:, :, None])
-    mask = mask[:, None]                               # [B,1,T,S]
+    if window:
+        mask = mask & (kpos[None, None, :] > qpos[:, :, None] - window)
+    return mask[:, None]
+
+
+def plain_causal(T: int, S: int, q_start, kv_len, causal: bool,
+                 window: int) -> bool:
+    """Whether the mask is the plain causal one (``is_causal``)."""
+    return (causal and not window and T == S and bool((q_start == 0).all())
+            and bool((kv_len >= S).all()))
+
+
+def library_attention(q, k, v, q_start, kv_len, causal, scale,
+                      window: int = 0):
+    """scaled_dot_product_attention on the same work (``is_causal`` where
+    the mask is the plain causal one, else the mask, a window's band
+    included, built here outside the timed call); the yardstick, never used
+    by the port."""
+    B, T, Hq, D = q.shape
+    S = k.shape[1]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    if plain_causal(T, S, q_start, kv_len, causal, window):
+        return lambda: sdpa(qt, kt, vt, is_causal=True, scale=scale,
+                            enable_gqa=True)
+    mask = attention_mask(T, S, q_start, kv_len, causal, window)
     return lambda: sdpa(qt, kt, vt, attn_mask=mask, scale=scale,
                         enable_gqa=True)
 
@@ -253,51 +320,45 @@ def event_ms(fn, iters: int = 10) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def backward_bound(q, k, q_start, kv_len, causal) -> dict:
+def backward_bound(q, k, q_start, kv_len, causal, window: int = 0) -> dict:
     """Least time (ms) for the attention backward of these inputs
     (:func:`bounds`).  Bytes: q, the output and its gradient read once and
     dq written once; k and v read once for the keys some row of the batch
     row sees, dk and dv written once for all S keys; the f32 statistics
-    read once.  Operations, counted for this data: 10*D per visible
-    query-key pair (the scores recomputed, dP, dV, dQ, dK: a multiply-add
-    over D each), 2*D per key for a row that sees no key (its dV share)."""
+    read once.  Operations, counted for this data (a sliding ``window``
+    included): 10*D per visible query-key pair (the scores recomputed, dP,
+    dV, dQ, dK: a multiply-add over D each), 2*D per key for a row that
+    sees no key (its dV share)."""
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
-    qs, kl = q_start.cpu().long(), kv_len.cpu().long().clamp(max=S)
-    qpos = qs[:, None] + torch.arange(T)[None]
-    seen = kl[:, None].expand(B, T)
-    if causal:
-        seen = torch.minimum(seen, qpos + 1)
-    idle = seen <= 0
+    start, end, idle = visible_keys(T, S, q_start, kv_len, causal, window)
+    seen = torch.where(idle, 0, end - start)
     el = q.element_size()
-    keys = torch.where(idle.any(1), S, seen.max(1).values).sum().item()
+    lo = torch.where(idle, 0, start).min(1).values
+    hi = torch.where(idle, S, end).max(1).values
+    keys = (hi - lo).sum().item()
     nbytes = (4 * q.numel() * el + 2 * keys * Hkv * D * el
               + 2 * B * S * Hkv * D * el + B * Hq * T * 4)
-    ops = Hq * D * (10 * seen.clamp(min=0).sum().item()
-                    + 2 * S * idle.sum().item())
+    ops = Hq * D * (10 * seen.sum().item() + 2 * S * idle.sum().item())
     return bounds(nbytes, ops, q.dtype)
 
 
-def library_attention_bwd(q, k, v, dout, q_start, kv_len, causal, scale):
+def library_attention_bwd(q, k, v, dout, q_start, kv_len, causal, scale,
+                          window: int = 0):
     """The backward of scaled_dot_product_attention on the same work
-    (``is_causal`` where the mask is the plain causal one, else the mask
-    built here); the yardstick, never used by the port."""
+    (``is_causal`` where the mask is the plain causal one, else the mask,
+    a window's band included, built here); the yardstick, never used by
+    the port."""
     B, T, Hq, D = q.shape
     S = k.shape[1]
     leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    plain_causal = (causal and T == S and bool((q_start == 0).all())
-                    and bool((kv_len >= S).all()))
-    if plain_causal:
+    if plain_causal(T, S, q_start, kv_len, causal, window):
         out = sdpa(*leaves, is_causal=True, scale=scale, enable_gqa=True)
     else:
-        kpos = torch.arange(S, device=q.device)
-        qpos = q_start.long()[:, None] + torch.arange(T, device=q.device)[None]
-        mask = kpos[None, None, :] < kv_len.long()[:, None, None]
-        if causal:
-            mask = mask & (kpos[None, None, :] <= qpos[:, :, None])
-        out = sdpa(*leaves, attn_mask=mask[:, None], scale=scale,
-                   enable_gqa=True)
+        out = sdpa(*leaves, attn_mask=attention_mask(
+            T, S, q_start, kv_len, causal, window), scale=scale,
+            enable_gqa=True)
     dot = dout.transpose(1, 2)
     return lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True)
 
@@ -360,7 +421,8 @@ def phase_kernels(FA, results: list) -> list:
     rnd = lambda *s, dt: torch.randn(*s, generator=g).to(dev, dt)
     bad = []
 
-    def run(label, q, k, v, q_start, kv_len, causal, kern, plain, dtype):
+    def run(label, q, k, v, q_start, kv_len, causal, kern, plain, dtype,
+            window=0):
         scale = q.shape[-1] ** -0.5
         out = kern()
         torch.cuda.synchronize()
@@ -375,8 +437,9 @@ def phase_kernels(FA, results: list) -> list:
                    max_abs_err=err, tol=TOL[dtype], ms=time_ms(kern),
                    call_ms=call_ms(kern), plain_ms=time_ms(plain),
                    library_ms=time_ms(library_attention(
-                       q4, k4, v4, q_start, kv_len, causal, scale)),
-                   **attention_bound(q4, k4, q_start, kv_len, causal),
+                       q4, k4, v4, q_start, kv_len, causal, scale, window)),
+                   **attention_bound(q4, k4, q_start, kv_len, causal,
+                                     window),
                    ok=ok)
         print("kernel " + json.dumps(row), flush=True)
         results.append(row)
@@ -441,6 +504,54 @@ def phase_kernels(FA, results: list) -> list:
                 True, lambda: (FA.flash_attend(q, k, v, **lse, **kw)[0]
                                if lse else FA.flash_attend(q, k, v, **kw)),
                 lambda: FA.attend_ref(q, k, v, **kw), dtype)
+
+    # the dense variants' paths: gemma3-1b (4/1 heads, D 256) trained at a
+    # micro-batch of 2 rows, T = S = 1024, on its global layers and its
+    # local ones (window 512), and served (a micro-batch of 4 rows: the
+    # 1024-token prompt's prefill into the 1056-key cache of the prompt and
+    # 32 tokens, then decode over it, local and global); qwen3-1.7b (16/8
+    # heads, D 128) trained and served (prefill of a 512-token prompt into
+    # a 544-key cache, decode per row); then the windowed prefill at
+    # T = S = 4096 beside the global one
+    tr, dq_ = ([0, 0], [1024, 1024]), ([1055, 1040, 1030, 1024],
+                                        [1056, 1041, 1031, 1025])
+    gp, qp = ([0] * 4, [1024] * 4), ([0] * 4, [512] * 4)
+    qd = ([527, 520, 300, 543], [528, 521, 301, 544])
+    for label, B, T, S, Hq, Hkv, D, (q_start, kv_len), window in (
+            ("gemma3 train global", 2, 1024, 1024, 4, 1, 256, tr, 0),
+            ("gemma3 train global with statistics", 2, 1024, 1024, 4, 1,
+             256, tr, 0),
+            ("gemma3 train local", 2, 1024, 1024, 4, 1, 256, tr, 512),
+            ("gemma3 train local with statistics", 2, 1024, 1024, 4, 1,
+             256, tr, 512),
+            ("gemma3 serve prefill local", 4, 1024, 1056, 4, 1, 256, gp,
+             512),
+            ("gemma3 serve prefill global", 4, 1024, 1056, 4, 1, 256, gp, 0),
+            ("gemma3 decode local per-row", 4, 1, 1056, 4, 1, 256, dq_, 512),
+            ("gemma3 decode global per-row", 4, 1, 1056, 4, 1, 256, dq_, 0),
+            ("qwen3 train", 2, 1024, 1024, 16, 8, 128, tr, 0),
+            ("qwen3 train with statistics", 2, 1024, 1024, 16, 8, 128, tr,
+             0),
+            ("qwen3 serve prefill", 4, 512, 544, 16, 8, 128, qp, 0),
+            ("qwen3 decode per-row", 4, 1, 544, 16, 8, 128, qd, 0),
+            ("long prefill global", 1, 4096, 4096, 4, 1, 256, ([0], [4096]),
+             0),
+            ("long prefill local", 1, 4096, 4096, 4, 1, 256, ([0], [4096]),
+             512)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = rnd(B, T, Hq, D, dt=dtype)
+            k, v = rnd(B, S, Hkv, D, dt=dtype), rnd(B, S, Hkv, D, dt=dtype)
+            qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
+            kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+            kw = dict(scale=D ** -0.5, causal=True, q_start=qs, kv_len=kl,
+                      window=window)
+            lse = dict(return_lse=True) if "statistics" in label else {}
+            run(f"{label} B={B} T={T} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+                f"window={window}", q, k, v, qs, kl, True,
+                lambda: (FA.flash_attend(q, k, v, **lse, **kw)[0]
+                         if lse else FA.flash_attend(q, k, v, **kw)),
+                lambda: FA.attend_ref(q, k, v, **kw), dtype, window)
+            del q, k, v
     return bad
 
 
@@ -454,7 +565,7 @@ def phase_backward(FA, results: list) -> list:
     rnd = lambda *s, dt: torch.randn(*s, generator=g).to(dev, dt)
     rel = lambda a, b: ((a.float() - b.float()).abs().max()
                         / (b.float().abs().max() + 1e-12)).item()
-    # (label, B, T, S, Hq, Hkv, D, causal, q_start, kv_len)
+    # (label, B, T, S, Hq, Hkv, D, causal, q_start, kv_len[, window])
     cases = [(f"test_kernels BH={BH} T={T} S={S} D={D} causal={c}",
               BH, T, S, 1, 1, D, c, [0] * BH, [S] * BH)
              for BH, T, S, D, c in ((4, 128, 128, 64, True),
@@ -472,15 +583,27 @@ def phase_backward(FA, results: list) -> list:
               ("train B=2 T=S=1024", 2, 1024, 1024, 32, 8, 64, True,
                [0, 0], [1024, 1024]),
               ("train B=1 T=S=1024", 1, 1024, 1024, 32, 8, 64, True,
-               [0], [1024])]
+               [0], [1024]),
+              # the dense variants' training shapes: gemma3-1b's global and
+              # local (window 512) layers, qwen3-1.7b's layers
+              ("gemma3 train global T=S=1024", 2, 1024, 1024, 4, 1, 256,
+               True, [0, 0], [1024, 1024], 0),
+              ("gemma3 train local T=S=1024 window=512", 2, 1024, 1024, 4, 1,
+               256, True, [0, 0], [1024, 1024], 512),
+              ("qwen3 train T=S=1024", 2, 1024, 1024, 16, 8, 128, True,
+               [0, 0], [1024, 1024], 0),
+              ("window=8 per-row with idle rows", 4, 40, 96, 4, 1, 256,
+               True, [0, 30, 0, 90], [40, 70, 0, 20], 8)]
     bad = []
-    for label, B, T, S, Hq, Hkv, D, causal, q_start, kv_len in cases:
+    for label, B, T, S, Hq, Hkv, D, causal, q_start, kv_len, *w in cases:
+        window = w[0] if w else 0
         for dtype in (torch.float32, torch.bfloat16):
             q, do = rnd(B, T, Hq, D, dt=dtype), rnd(B, T, Hq, D, dt=dtype)
             k, v = rnd(B, S, Hkv, D, dt=dtype), rnd(B, S, Hkv, D, dt=dtype)
             qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
             kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
-            kw = dict(scale=D ** -0.5, causal=causal, q_start=qs, kv_len=kl)
+            kw = dict(scale=D ** -0.5, causal=causal, q_start=qs, kv_len=kl,
+                      window=window)
             out, lse = FA.flash_attend(q, k, v, return_lse=True, **kw)
             kern = lambda: FA.flash_attend_bwd(q, k, v, out, lse, do, **kw)
             plain = lambda: FA.attend_bwd_ref(q, k, v, out, lse, do, **kw)
@@ -505,9 +628,9 @@ def phase_backward(FA, results: list) -> list:
                        ms=time_ms(kern), call_ms=call_ms(kern),
                        plain_ms=time_ms(plain),
                        library_ms=event_ms(library_attention_bwd(
-                           q, k, v, do, qs, kl, causal, D ** -0.5)),
-                       **backward_bound(q, k, qs, kl, causal), ok=ok)
-            if label.startswith("train"):
+                           q, k, v, do, qs, kl, causal, D ** -0.5, window)),
+                       **backward_bound(q, k, qs, kl, causal, window), ok=ok)
+            if "train" in label:
                 # device time of each of the backward's CUDA kernels
                 row["kernel_us"] = us = kernel_us(kern)
                 if sorted(k_.split("<")[0] for k_ in us) != [
@@ -642,14 +765,14 @@ def serve_main_path(serve, argv: list, counters: dict, want: dict,
     return res
 
 
-def phase_parity(serve_mods, arch: str, prompt_len: int) -> float:
-    """Phases 5 and 8: the full width of ``arch`` cut to 2 layers and 2
-    stages, served on the card (the kernels) and on the CPU (their plain
-    versions) with the same weights and teacher-forced tokens.  Returns
-    the largest logit difference."""
+def phase_parity(serve_mods, arch: str, prompt_len: int, **over) -> float:
+    """Phases 5, 8, 16 and 17: the full width of ``arch`` cut to 2 layers and
+    2 stages (and the fields ``over``), served on the card (the kernels)
+    and on the CPU (their plain versions) with the same weights and
+    teacher-forced tokens.  Returns the largest logit difference."""
     get_config, RT, ST = serve_mods
     cfg = dataclasses.replace(get_config(arch), n_layers=2, stages=2,
-                              tensor=1)
+                              tensor=1, **over)
     B, gen = 4, 8
     plan = ST.plan_stages(cfg)
     pcfg = RT.PipelineConfig(n_microbatches=2)
@@ -734,25 +857,25 @@ def train_launches(n_layers: int, M: int, has_w: bool, full: bool) -> dict:
 
 def phase_train(train, counters: dict, mods, *, schedule: str = "1f1b",
                 virtual: int = 1, M_: int = 4, stages: int = 4,
-                planner: list = None) -> dict:
-    """Phases 10, 12, 13 and 14: ``train.main`` at full width
-    (llama3.2-1b, 16 layers on ``stages`` stages, as ``virtual`` chunks a
-    stage, batch 8, seq 1024, f32, 3 steps) under ``schedule`` with
-    ``M_`` micro-batches, with every launch counter set to 0 just before
-    and read just after; then step 0's loss against a non-pipelined
-    loss_fn on the card with the same weights.  With ``planner`` (phase
-    14: ``--stages 4`` and the planner's flags in place of the plan's)
-    the CLI must adopt exactly that plan."""
+                planner: list = None, arch: str = "llama3.2-1b") -> dict:
+    """Phases 10, 12, 13, 14 and 17: ``train.main`` at full width (``arch``,
+    llama3.2-1b's 16 layers by default, on ``stages`` stages, as
+    ``virtual`` chunks a stage, batch 8, seq 1024, f32, 3 steps) under
+    ``schedule`` with ``M_`` micro-batches, with every launch counter set
+    to 0 just before and read just after; then step 0's loss against a
+    non-pipelined loss_fn on the card with the same weights.  With
+    ``planner`` (phase 14: ``--stages 4`` and the planner's flags in place
+    of the plan's) the CLI must adopt exactly that plan."""
     get_config, RT, ST, M, SP, SyntheticLM = mods
     steps, batch, seq = 3, 8, 1024
     plan_flags = (["--stages", "4"] + planner if planner else
                   ["--stages", str(stages), "--virtual", str(virtual),
                    "--schedule", schedule, "--microbatches", str(M_)])
-    argv = (["--arch", "llama3.2-1b", "--tensor", "1"] + plan_flags
+    argv = (["--arch", arch, "--tensor", "1"] + plan_flags
             + ["--batch", str(batch), "--seq", str(seq), "--steps",
                str(steps), "--log-every", "1", "--device", "cuda"])
     tag = (f"train {' '.join(planner)}" if planner else
-           f"train {schedule} V={virtual} M={M_}")
+           f"train {arch} {schedule} V={virtual} M={M_}")
     print(f"{tag}: python -m repro_torch.launch.train {' '.join(argv)}",
           flush=True)
     every = launch_counters(counters)
@@ -760,7 +883,7 @@ def phase_train(train, counters: dict, mods, *, schedule: str = "1f1b",
         setattr(fn, attr, 0)
     out = train.main(argv)
     launches = {key: getattr(fn, attr) for key, (fn, attr) in every.items()}
-    L = 16
+    L = get_config(arch).n_layers
     lowering = SP.lower_to_ticks(SP.build_schedule(schedule, M_, stages,
                                                    virtual))
     adopted = (out["stages"], out["virtual"], out["schedule"],
@@ -773,7 +896,7 @@ def phase_train(train, counters: dict, mods, *, schedule: str = "1f1b",
     losses = out["losses"]
     n_x = lowering.n_x
     after_first = sum(out["step_s"][1:]) / (steps - 1)
-    res = dict(schedule=lowering.schedule, virtual=virtual,
+    res = dict(arch=arch, schedule=lowering.schedule, virtual=virtual,
                microbatches=M_, stages=stages,
                losses=losses, step_s=out["step_s"],
                step_ms_after_first=1e3 * after_first,
@@ -797,7 +920,7 @@ def phase_train(train, counters: dict, mods, *, schedule: str = "1f1b",
         fail(f"{tag} stash slots {res['stash_slots']}, lower_to_ticks n_x "
              f"{n_x}")
     # step 0's loss: the same weights (the seed), one non-pipelined pass
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), stages=stages,
+    cfg = dataclasses.replace(get_config(arch), stages=stages,
                               tensor=1, virtual=virtual)
     plan = ST.plan_stages(cfg)
     params = _unstage(ST.init_stacked_params(cfg, 0, plan, device="cuda"),
@@ -846,25 +969,30 @@ CARD_VS_CPU = ("1f1b", "1f1b-interleaved-memlean V=2",
                "zb-auto mem_limit=2 M=4", "1f1b remat=full")
 
 
-def phase_train_parity(FA, counters: dict, mods) -> dict:
-    """Phase 11: the schedules of ``PARITY_RUNS`` against each other and
-    against one non-pipelined autograd pass with the plain attention (full
-    width, 3 layers, 2 stages, batch 4, seq 512; every plan pads the 3
+def phase_train_parity(FA, counters: dict, mods, arch: str = "llama3.2-1b",
+                       over: dict = None, runs=None, card_vs_cpu=None,
+                       seq: int = 512) -> dict:
+    """Phases 11 and 18: the schedules of ``runs`` (``PARITY_RUNS``)
+    against each other and against one non-pipelined autograd pass with
+    the plain attention (``arch`` at full width, 3 layers and the fields
+    ``over``, 2 stages, batch 4, ``seq`` tokens; every plan pads the 3
     layers to 4 slots: at V = 2 stage 0's chunk 1 holds layer 2, so the
     wrapped rings carry live values both ways, and stage 1's chunk 1 is
-    padding), each run's launches exactly
-    :func:`train_launches`; remat 'full' against the stage recompute
-    (bitwise equality recorded); then a reduced model on the card and on
-    the CPU with the same weights, for the runs of ``CARD_VS_CPU``."""
+    padding), each run's launches exactly :func:`train_launches`; remat
+    'full' against the stage recompute (bitwise equality recorded); then a
+    reduced model on the card and on the CPU with the same weights, for
+    the runs of ``card_vs_cpu`` (``CARD_VS_CPU``)."""
     get_config, RT, ST, M, SP, SyntheticLM = mods
     from repro_torch.models import layers as LYR
-    base_cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=3,
-                                   stages=2, tensor=1)
-    batch = SyntheticLM(base_cfg.vocab, 512, 4, seed=1,
+    runs = PARITY_RUNS if runs is None else runs
+    card_vs_cpu = CARD_VS_CPU if card_vs_cpu is None else card_vs_cpu
+    base_cfg = dataclasses.replace(get_config(arch), n_layers=3,
+                                   stages=2, tensor=1, **(over or {}))
+    batch = SyntheticLM(base_cfg.vocab, seq, 4, seed=1,
                         device="cuda").batch(0)
     every = launch_counters(counters)
     out, params1 = {}, None
-    for label, sched, V, M_, ml, remat in PARITY_RUNS:
+    for label, sched, V, M_, ml, remat in runs:
         cfg = dataclasses.replace(base_cfg, virtual=V)
         plan = ST.plan_stages(cfg)
         # the same seed draws the same first layers for any plan
@@ -884,7 +1012,8 @@ def phase_train_parity(FA, counters: dict, mods) -> dict:
         want = train_launches(cfg.n_layers, M_, step.lowering.has_w,
                               remat == "full")
         if launches != want:
-            fail(f"train parity {label}: launches {launches}, want {want}")
+            fail(f"train parity {arch} {label}: launches {launches}, want "
+                 f"{want}")
         full = ST._map_layers(lambda a: ST.unstack_chunks(a, plan),
                               grads["layers"])
         if any(a[cfg.n_layers:].any() for a in ST.tree_leaves(full)):
@@ -907,7 +1036,8 @@ def phase_train_parity(FA, counters: dict, mods) -> dict:
         return FA.attend_ref(q, k, v, scale=scale, causal=causal,
                              q_start=LYR._per_row(q_start, B, q.device),
                              kv_len=LYR._per_row(S if kv_len is None
-                                                 else kv_len, B, q.device))
+                                                 else kv_len, B, q.device),
+                             window=window or 0)
     LYR.attend = plain_attend
     try:
         ref_loss = M.loss_fn(base_cfg, leaves, batch)
@@ -927,31 +1057,34 @@ def phase_train_parity(FA, counters: dict, mods) -> dict:
         res[label] = dict(loss=loss, ref_loss=ref_loss.item(),
                           errs_vs_autograd=errs, errs_vs_1f1b=same,
                           launches=launches, stash_slots=slots, n_x=n_x)
-        print(f"train parity {label}: loss {loss:.6f} (autograd "
+        print(f"train parity {arch} {label}: loss {loss:.6f} (autograd "
               f"{ref_loss.item():.6f}), vs autograd {json.dumps(errs)}, vs "
               f"1f1b {json.dumps(same)}, launches {json.dumps(launches)}, "
               f"stash {slots} (n_x {n_x})", flush=True)
         if (abs(loss - ref_loss.item()) > 1e-4 or max(errs.values()) > 1e-4
                 or abs(loss - base_loss) > 1e-5 * abs(base_loss)
                 or max(same.values()) > 1e-5 or slots != n_x):
-            fail(f"train parity {label}: {res[label]}")
-    full_loss, full_g = out["1f1b remat=full"][:2]
-    bitwise = full_loss == base_loss and all(
-        torch.equal(a, b) for a, b in zip(ST.tree_leaves(full_g),
-                                          ST.tree_leaves(base)))
-    res["remat_full_bitwise_equal_stage"] = bitwise
-    print(f"train parity: remat full vs stage (1f1b) bitwise equal: "
-          f"{bitwise}", flush=True)
-    del out, params1, leaves, g, ref, base, full_g
+            fail(f"train parity {arch} {label}: {res[label]}")
+    if "1f1b remat=full" in out:
+        full_loss, full_g = out["1f1b remat=full"][:2]
+        bitwise = full_loss == base_loss and all(
+            torch.equal(a, b) for a, b in zip(ST.tree_leaves(full_g),
+                                              ST.tree_leaves(base)))
+        res["remat_full_bitwise_equal_stage"] = bitwise
+        print(f"train parity: remat full vs stage (1f1b) bitwise equal: "
+              f"{bitwise}", flush=True)
+    del out, params1, leaves, g, ref, base
     torch.cuda.empty_cache()
+    if not card_vs_cpu:
+        return res
 
     # a reduced model on the card and on the CPU, the same weights
     rcfg = dataclasses.replace(
-        get_config("llama3.2-1b").reduced(n_layers=3, d_model=256), stages=2)
+        get_config(arch).reduced(n_layers=3, d_model=256), stages=2)
     b_cpu = SyntheticLM(rcfg.vocab, 128, 4, seed=2, device="cpu").batch(0)
     res["reduced_card_vs_cpu"] = {}
-    for label, sched, V, M_, ml, remat in PARITY_RUNS:
-        if label not in CARD_VS_CPU:
+    for label, sched, V, M_, ml, remat in runs:
+        if label not in card_vs_cpu:
             continue
         cfg = dataclasses.replace(rcfg, virtual=V)
         rplan = ST.plan_stages(cfg)
@@ -1195,8 +1328,9 @@ def main() -> None:
             or (k.split()[0] in ("prefill", "decode") and v["LDGSTS"] == 0)
             for k, v in sass.items()) or any(
             k not in sass or sass[k]["HMMA"] == 0 or sass[k]["LDGSTS"] == 0
-            for k in (f"bwd_{kind} {d} D=64" for kind in ("dkdv", "dq")
-                      for d in ("f32", "bf16"))):
+            for k in [f"bwd_{kind} {d} D={D}" for kind in ("dkdv", "dq")
+                      for d in ("f32", "bf16") for D in (64, 256)]
+            + [f"prefill {d} D=256" for d in ("f32", "bf16")]):
         fail(f"flash kernels lack tensor-core products or cp.async: {sass}")
     # every SSD product kernel of both dtypes at P = 64 (the main path's)
     ssd_sass = sass_counts(build, "ssd_scan", "ssd", "P")
@@ -1214,6 +1348,18 @@ def main() -> None:
     bad = phase_kernels(FA, rows)
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
+    pick = lambda rs, prefix, dtype="float32": next(
+        r for r in rs if r["label"].startswith(prefix) and r["dtype"] == dtype)
+    # the window skips work: T = S = 4096, window 512 does 0.23x the
+    # global call's operations
+    window_ratio = {dt: pick(rows, "long prefill local", dt)["ms"]
+                    / pick(rows, "long prefill global", dt)["ms"]
+                    for dt in ("float32", "bfloat16")}
+    print(f"window: prefill T=S=4096 window 512 over global, device time "
+          f"{json.dumps(window_ratio)} (bar 0.5 in f32)", flush=True)
+    if window_ratio["float32"] > 0.5:
+        fail(f"the windowed prefill takes {window_ratio} of the global "
+             f"call's time")
 
     # ---- 4. the llama3.2-1b path at full width ---------------------------
     counters = dict(flash_attention=FA.flash_attend, ssd_scan=SSD.ssd_chunked)
@@ -1273,14 +1419,55 @@ def main() -> None:
 
     # ---- 14. the planner: --auto-plan, --cluster, --auto-plan3d ----------
     planner = phase_planner(train, counters, train_mods)
+
+    # ---- 15. the gemma3-1b path at full width -----------------------------
+    # 26 layers (22 local, window 512; 4 global), head_dim 256, 2 stages of
+    # 13 layers; every decode step on the decode route (T * 4 / 1 <= 16)
+    gemma = serve_main_path(
+        serve, ["--arch", "gemma3-1b", "--stages", "2", "--tensor", "1",
+                "--microbatches", "2", "--batch", "8", "--prompt-len", "1024",
+                "--gen", "32", "--device", "cuda"],
+        counters, {"flash_attention": 26 * 2 * 32,
+                   "flash_attention.prefill": 26 * 2,
+                   "flash_attention.decode": 26 * 2 * 31,
+                   "flash_attention.bwd": 0, "ssd_scan": 0}, 262144)
+
+    # ---- 16. whole gemma3 path, kernel vs plain ---------------------------
+    # one local layer (window 512) and one global, a prompt past the window
+    gemma_path_err = phase_parity(serve_mods, "gemma3-1b", 640,
+                                  global_every=2)
+
+    # ---- 17. the qwen3-1.7b path at full width ----------------------------
+    qwen = serve_main_path(
+        serve, ["--arch", "qwen3-1.7b", "--stages", "4", "--tensor", "1",
+                "--microbatches", "2", "--batch", "8", "--prompt-len", "512",
+                "--gen", "32", "--device", "cuda"],
+        counters, {"flash_attention": 28 * 2 * 32,
+                   "flash_attention.prefill": 28 * 2,
+                   "flash_attention.decode": 28 * 2 * 31,
+                   "flash_attention.bwd": 0, "ssd_scan": 0}, 151936)
+
+    # whole qwen3 path, kernel vs plain: 2 layers, the served prompt length
+    qwen_path_err = phase_parity(serve_mods, "qwen3-1.7b", 512)
+
+    # ---- 18. gemma3-1b and qwen3-1.7b training at full width --------------
+    dense_trained = {arch: phase_train(train, counters, train_mods, arch=arch)
+                     for arch in ("gemma3-1b", "qwen3-1.7b")}
+
+    # ---- 19. gemma3 training parity: 3 layers, local + global -------------
+    gemma_parity = phase_train_parity(
+        FA, counters, train_mods, arch="gemma3-1b", over=dict(global_every=3),
+        runs=[r for r in PARITY_RUNS if r[0] in ("1f1b", "zb-h1")],
+        card_vs_cpu=(), seq=1024)
+
     train_paths = {f"train {r['schedule']} V={r['virtual']} "
                    f"M={r['microbatches']}": r["launches"]
                    for r in (trained, interleaved, zb_h2)}
     train_paths.update({f"train {' '.join(r['flags'])}": r["launches"]
                         for r in planner["runs"]})
+    train_paths.update({f"train {arch} 1f1b M=4": r["launches"]
+                        for arch, r in dense_trained.items()})
 
-    pick = lambda rs, prefix, dtype="float32": next(
-        r for r in rs if r["label"].startswith(prefix) and r["dtype"] == dtype)
     main_row = pick(rows, "main-path prefill")
     keys = ("label", "dtype", "ms", "call_ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by", "bound_tc_ms", "max_abs_err")
@@ -1290,9 +1477,11 @@ def main() -> None:
         replaces="src/repro/kernels/flash_attention.py:84",
         launches=llama["launches"]["flash_attention"],
         launches_train=trained["launches"]["flash_attention"],
-        launches_by_path=dict({"serve llama3.2-1b": llama["launches"][
-            "flash_attention"]}, **{k: v["flash_attention"]
-                                    for k, v in train_paths.items()}),
+        launches_by_path=dict({
+            f"serve {name}": r["launches"]["flash_attention"]
+            for name, r in (("llama3.2-1b", llama), ("gemma3-1b", gemma),
+                            ("qwen3-1.7b", qwen))},
+            **{k: v["flash_attention"] for k, v in train_paths.items()}),
         max_abs_err=main_row["max_abs_err"],
         ms=main_row["ms"], call_ms=main_row["call_ms"],
         plain_ms=main_row["plain_ms"],
@@ -1313,7 +1502,15 @@ def main() -> None:
         # the training path's forward, without and with the statistics
         train_rows=[{k: r[k] for k in keys}
                     for r in rows if r["label"].startswith("train")],
-        sass=sass, path_parity_max_abs_err=path_err)
+        # gemma3-1b (window 512 and global, D 256), qwen3-1.7b, and the
+        # long windowed prefill beside the global one
+        dense_variant_rows=[{k: r[k] for k in keys} for r in rows
+                            if r["label"].startswith(("gemma3", "qwen3",
+                                                      "long prefill"))],
+        window_prefill_ratio=window_ratio,
+        sass=sass, path_parity_max_abs_err=path_err,
+        gemma3_path_parity_max_abs_err=gemma_path_err,
+        qwen3_path_parity_max_abs_err=qwen_path_err)
     ssd_row = pick(ssd_rows, "main-path prefill")
     ssd_bf16 = next(r for r in ssd_rows if r["label"].startswith(
         "main-path prefill") and r["dtype"] == "bfloat16")
@@ -1354,13 +1551,18 @@ def main() -> None:
         kernel_us=bwd_row["kernel_us"],
         bitwise=all(r["bitwise"] for r in bwd_rows),
         bf16={k: v for k, v in pick(bwd_rows, "train", "bfloat16").items()
-              if k in bwd_keys})
+              if k in bwd_keys},
+        dense_variant_rows=[{k: r[k] for k in bwd_keys} for r in bwd_rows
+                            if r["label"].startswith(("gemma3", "qwen3"))])
     print(json.dumps({"serve": {"llama3.2-1b": llama,
-                                "mamba2-2.7b": mamba}}), flush=True)
+                                "mamba2-2.7b": mamba, "gemma3-1b": gemma,
+                                "qwen3-1.7b": qwen}}), flush=True)
     print(json.dumps({"train": {"llama3.2-1b": trained,
                                 "interleaved": interleaved, "zb-h2": zb_h2,
                                 "parity": train_parity,
-                                "planner": planner}}), flush=True)
+                                "planner": planner, **dense_trained,
+                                "gemma3-1b parity": gemma_parity}}),
+          flush=True)
     print(json.dumps({"kernels": [flash, ssd, flash_bwd]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

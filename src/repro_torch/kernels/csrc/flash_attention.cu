@@ -8,14 +8,30 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::
 // flash_attention (body _flash_kernel) and computes the function the JAX
-// model's attention computes (repro/models/layers.py::attend, window=None):
-//   q [B,T,Hq,D], k/v [B,S,Hkv,D], read in place through strides;
+// model's attention computes (repro/models/layers.py::attend):
+//   q [B,T,Hq,D], k/v [B,S,Hkv,D] (D = 32, 64, 128 or 256), read in place
+//   through strides;
 //   GQA by head index: query head h reads kv head h / (Hq / Hkv);
-//   per-row q_start[b] and kv_len[b] (int32 device arrays);
-//   key j is visible to query row i iff j < kv_len[b] and, when causal,
-//   j <= q_start[b] + i;  masked logits are -1e30 (finite), so a row that
-//   sees no key at all averages V over all S keys, as the reference does;
+//   per-row q_start[b] and kv_len[b] (int32 device arrays), and a sliding
+//   window w per call (0 = global);
+//   key j is visible to query row i iff j < kv_len[b], when causal
+//   j <= q_start[b] + i, and when w > 0 j > q_start[b] + i - w: a row sees
+//   the keys [row_start, row_end), both non-decreasing in i, so the rows
+//   that see none are a prefix and/or a suffix of the rows;  masked logits
+//   are -1e30 (finite), so a row that sees no key at all averages V over
+//   all S keys, as the reference does;
 //   f32 scores, running max / sum / accumulator; output in q's dtype.
+//
+// The window bounds every route's work by what the rows see: at most
+// w + (tile rows - 1) keys a query tile instead of up to S, so a causal
+// call's operations fall from ~T S / 2 to ~T w pairs (at T = S = 4096,
+// w = 512: 0.23x) and the decode route's bytes from the whole cache to
+// the last w keys (S 1056 at gemma3's decode: 4.2 of 8.7 MB a layer).
+// The prefill route's and the backward's kernels are built with and
+// without the window (template WIN) and a call without one runs the
+// WIN = false kernels: with the window's bounds compiled in, nvcc gave
+// the f32 D = 64 prefill kernel 133 registers instead of 157, and it ran
+// 38% slower on an H100.
 //
 // Two routes behind the one entry point; the wrapper picks one from static
 // shapes (flash_attention.py::route): decode when T * (Hq / Hkv) <= 16,
@@ -37,18 +53,25 @@
 // added at the end, so no thread idles.  Each split writes its f32 partial
 // (max, sum, unnormalised acc) into a scratch the wrapper allocates; a
 // combine kernel (one block per query row) merges the splits with
-// log-sum-exp rescaling.  A split past a row's visible keys reports (max
+// log-sum-exp rescaling.  A split starts at the first key some row of its
+// block sees (so under a window a split wholly before it loads nothing)
+// and ends at the last; a split outside a row's visible keys reports (max
 // -1e30, sum 0) and adds no mass; a row that sees no key takes -1e30
-// logits in every split, so the merge averages V over all S keys.
+// logits in every split, so the merge averages V over all S keys.  At
+// D = 256 in f32 the K/V ring has one slot (two would need 266 KB).
 //
 // Prefill route (tensor cores, cp.async double buffering).  At T = 512 the
 // call is bound by its operations.  One block per (64 query rows, query
 // head, batch row), four warps of 16 rows each (FlashAttention-2 style);
 // blocks are issued longest-first (the last query tile, which sees the
 // most keys under the causal mask, first) so the diagonal's unequal work
-// does not leave SMs idle at the tail.  K/V tiles of 64 keys (32 for f32
-// at head_dim 128) stream through a two-stage cp.async ring; the kv loop
-// ends at the tile's last visible key.  Q.K^T and P.V run on the tensor
+// does not leave SMs idle at the tail (under a window the work is nearly
+// uniform and the order does not matter).  K/V tiles of 64 keys (32 for
+// f32 at head_dim 128 and 256) stream through a two-stage cp.async ring;
+// the kv loop starts at the tile of the first row's first visible key and
+// ends at the last row's last one.  At D = 256 a warp's f32 accumulator
+// alone is 128 registers a thread, so bf16 reads its Q fragments from
+// shared memory as f32 always does.  Q.K^T and P.V run on the tensor
 // cores with mma.sync:
 //   bf16: m16n8k16 with f32 accumulation; the score accumulator of two
 //     key tiles is the A fragment of P.V as it stands, and V's B fragment
@@ -101,6 +124,7 @@ struct Params {
   long long so_b, so_t, so_h;
   float scale_log2;                     // softmax scale * log2(e)
   int causal;
+  int window;                           // sliding window; 0 = global
 };
 
 // ---------------------------------------------------------------------------
@@ -167,17 +191,31 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// keys row i may see: [0, row_end); row_end <= 0 means the row sees none
-// and, as in the reference, averages V over all S keys
-__device__ __forceinline__ int row_end(const Params& p, int q0, int kl,
-                                       int i) {
+// keys row i may see: [row_start, row_end) (kl = min(kv_len, S)); an empty
+// range means the row sees none and, as in the reference, averages V over
+// all S keys.  P is Params or BwdParams.  WIN = false compiles the window
+// out (row_start is 0): the prefill and backward kernels are instantiated
+// both ways and a call without a window takes the WIN = false kernels,
+// whose code is what it was before the window.
+template <class P>
+__device__ __forceinline__ int row_end(const P& p, int q0, int kl, int i) {
   return p.causal ? min(kl, q0 + i + 1) : kl;
 }
-// the score of key ``key`` for a row with visible end ``re``: its value if
+template <bool WIN = true, class P>
+__device__ __forceinline__ int row_start(const P& p, int q0, int i) {
+  return WIN && p.window > 0 ? max(0, q0 + i - p.window + 1) : 0;
+}
+template <bool WIN = true, class P>
+__device__ __forceinline__ bool row_idle(const P& p, int q0, int kl, int i) {
+  return row_start<WIN>(p, q0, i) >= row_end(p, q0, kl, i);
+}
+// the score of key ``key`` for a row that sees [rs, re): its value if
 // visible, -1e30 for every key < S of a row that sees none, else -inf (no
 // weight at all, which is what -1e30 gives beside a finite logit)
-__device__ __forceinline__ float mask_score(float s, int key, int re, int S) {
-  if (re > 0) return key < re ? s : -INFINITY;
+template <bool WIN = true>
+__device__ __forceinline__ float mask_score(float s, int key, int rs, int re,
+                                            int S) {
+  if (rs < re) return (!WIN || key >= rs) && key < re ? s : -INFINITY;
   return key < S ? NEG_MASK : -INFINITY;
 }
 
@@ -243,7 +281,9 @@ template <typename T, int D>
 struct PrefillCfg {
   static constexpr bool F32 = std::is_same<T, float>::value;
   static constexpr int BM = 64;                       // query rows per block
-  static constexpr int BN = (F32 && D == 128) ? 32 : 64;  // keys per tile
+  static constexpr int BN = (F32 && D >= 128) ? 32 : 64;  // keys per tile
+  // bf16 holds the warp's Q fragments in registers up to D = 128
+  static constexpr bool HOLDQ = !F32 && D <= 128;
   // row pitches (elements) that keep each warp's fragment loads free of
   // bank conflicts: 8 extra elements for Q and K; V is read by rows of
   // keys (f32: two 4-byte loads 2t and 2t+1 keys apart) or by ldmatrix
@@ -255,8 +295,9 @@ struct PrefillCfg {
 };
 
 // LSE: write the per-row statistics (a separate instantiation, so the
-// serving path's kernel is the one without the epilogue)
-template <typename T, int D, bool LSE>
+// serving path's kernel is the one without the epilogue); WIN: a sliding
+// window (row_start)
+template <typename T, int D, bool LSE, bool WIN>
 __global__ void __launch_bounds__(THREADS)
 flash_prefill_kernel(const Params p) {
   using C = PrefillCfg<T, D>;
@@ -285,17 +326,29 @@ flash_prefill_kernel(const Params p) {
   const int kl = min(p.kv_len[b], p.S);
   const int i_first = qt * BM;
   const int i_last = min(i_first + BM, p.T) - 1;
-  // row_end is non-decreasing in i: the last row sees the most keys; a
-  // tile whose first row sees none needs every key (its -1e30 logits)
-  int n_loop = row_end(p, q0, kl, i_last);
-  if (row_end(p, q0, kl, i_first) <= 0) n_loop = p.S;
-  const int n_tiles = (n_loop + BN - 1) / BN;
+  // the tile's keys run from its first row's start to its last row's end;
+  // a tile with a row that sees none (its first or last: such rows are a
+  // prefix and/or a suffix) needs every key (its -1e30 logits)
+  int k_lo = row_start<WIN>(p, q0, i_first);
+  int k_hi = row_end(p, q0, kl, i_last);
+  if (row_idle<WIN>(p, q0, kl, i_first) || row_idle<WIN>(p, q0, kl, i_last)) {
+    k_lo = 0;
+    k_hi = p.S;
+  }
+  const int t_lo = k_lo / BN;
+  const int n_tiles = (k_hi + BN - 1) / BN - t_lo;
 
-  // this thread's two rows, and the warp's first row (fewest keys)
+  // this thread's two rows, and the warp's first row (fewest keys, the
+  // earliest end) and last (the latest start)
   const int r0 = i_first + warp * 16 + g;
-  const int re0 = row_end(p, q0, kl, r0);
+  const int rs0 = row_start<WIN>(p, q0, r0), re0 = row_end(p, q0, kl, r0);
+  const int rs1 = row_start<WIN>(p, q0, r0 + 8);
   const int re1 = row_end(p, q0, kl, r0 + 8);
-  const int w_end = row_end(p, q0, kl, i_first + warp * 16);
+  const int wf = i_first + warp * 16;
+  const int w_end = row_end(p, q0, kl, wf);
+  const int w_start = row_start<WIN>(p, q0, wf + 15);
+  const bool w_idle = row_idle<WIN>(p, q0, kl, wf)
+                      || row_idle<WIN>(p, q0, kl, wf + 15);
 
   // Q tile (its own cp.async group), then K/V tile 0
   for (int e = tid; e < BM * CH; e += THREADS) {
@@ -309,10 +362,10 @@ flash_prefill_kernel(const Params p) {
   const long long kbase = b * p.sk_b + hk * p.sk_h;
   const long long vbase = b * p.sv_b + hk * p.sv_h;
   auto load_kv = [&](int tile, int st) {
-    const int j0 = tile * BN;
+    const int j0 = (t_lo + tile) * BN;
     for (int e = tid; e < BN * CH; e += THREADS) {
       const int r = e / CH, c = e % CH, key = j0 + r;
-      const bool ok = key < n_loop;                   // zero past the end
+      const bool ok = key < k_hi;                     // zero past the end
       const long long kk = ok ? key : 0;
       cp_async16(k_s + (st * BN + r) * LDK + c * VEC,
                  kp + kbase + kk * p.sk_s + c * VEC, ok);
@@ -328,10 +381,11 @@ flash_prefill_kernel(const Params p) {
   for (int d = 0; d < DT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
   float m0 = NEG_MASK, m1 = NEG_MASK, l0 = 0.f, l1 = 0.f;
   const T* qw = q_s + (warp * 16) * LDQ;
-  // bf16: the warp's Q fragments, held in registers for the whole loop
-  // (f32 re-reads Q from shared memory: its split halves would not fit)
-  uint32_t qf[C::F32 ? 1 : D / 16][4];
-  if constexpr (!C::F32) {
+  // bf16 up to D = 128: the warp's Q fragments, held in registers for the
+  // whole loop (f32 re-reads Q from shared memory: its split halves would
+  // not fit; so does bf16 at D = 256 beside its 128-register accumulator)
+  uint32_t qf[C::HOLDQ ? D / 16 : 1][4];
+  if constexpr (C::HOLDQ) {
     cp_async_wait<1>();                         // the Q group has landed
     __syncthreads();
 #pragma unroll
@@ -385,26 +439,37 @@ flash_prefill_kernel(const Params p) {
     } else {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qa[4];
+        if constexpr (C::HOLDQ) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) qa[c] = qf[kk][c];
+        } else {
+          const T* qr = qw + g * LDQ + kk * 16 + 2 * t4;
+          qa[0] = ld_u32(qr);
+          qa[1] = ld_u32(qr + 8 * LDQ);
+          qa[2] = ld_u32(qr + 8);
+          qa[3] = ld_u32(qr + 8 * LDQ + 8);
+        }
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           const T* kb = ks + (n * 8 + g) * LDK + kk * 16 + 2 * t4;
           const uint32_t bf[2] = {ld_u32(kb), ld_u32(kb + 8)};
-          mma_bf16(s[n], qf[kk], bf);
+          mma_bf16(s[n], qa, bf);
         }
       }
     }
 
     // ---- online softmax (base 2) ------------------------------------------
-    const int j0 = it * BN;
-    const bool need_mask = w_end <= 0 || j0 + BN > w_end;
+    const int j0 = (t_lo + it) * BN;
+    const bool need_mask = w_idle || (WIN && j0 < w_start) || j0 + BN > w_end;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         float x = s[n][c] * p.scale_log2;
         if (need_mask)
-          x = mask_score(x, j0 + n * 8 + 2 * t4 + (c & 1), c < 2 ? re0 : re1,
-                         p.S);
+          x = mask_score<WIN>(x, j0 + n * 8 + 2 * t4 + (c & 1),
+                              c < 2 ? rs0 : rs1, c < 2 ? re0 : re1, p.S);
         s[n][c] = x;
       }
     }
@@ -527,6 +592,9 @@ struct DecodeCfg {
            + DEC_ROWS * DEC_TK * 4                        // p
            + 2 * DEC_ROWS * 4;                            // alpha, l
   }
+  // a two-slot ring where it fits a block's 232,448 bytes (not f32 at
+  // D = 256: 286,848)
+  static constexpr int MAX_STAGES = smem(2) <= 232448 ? 2 : 1;
 };
 
 template <typename T, int D>
@@ -536,7 +604,7 @@ flash_decode_kernel(const Params p) {
   constexpr int TK = DEC_TK, VEC = C::VEC, CH = C::CH, LDK = C::LDK;
   constexpr int NRG = C::NRG, RPT = C::RPT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int stages = p.split_len > TK ? 2 : 1;
+  const int stages = p.split_len > TK ? C::MAX_STAGES : 1;
   T* k_s = reinterpret_cast<T*>(smem_raw);            // [stages][TK][LDK]
   T* v_s = k_s + stages * TK * LDK;                   // [stages][TK][LDK]
   float* q_s = reinterpret_cast<float*>(v_s + stages * TK * LDK);  // [16][D]
@@ -551,16 +619,20 @@ flash_decode_kernel(const Params p) {
   const int q0 = p.q_start[b];
   const int kl = min(p.kv_len[b], p.S);
   const int s0 = sp * p.split_len;
-  // the block's last needed key: the last row's visible end, or S when
-  // the first row sees none (its -1e30 logits reach every key)
-  const int need = row_end(p, q0, kl, 0) <= 0 ? p.S
-                                              : row_end(p, q0, kl, p.T - 1);
-  const int e = min(min(s0 + p.split_len, p.S), need);
+  // the block's keys: from the first row's start to the last row's end,
+  // or all S when a row sees none (its -1e30 logits reach every key)
+  int lo = row_start(p, q0, 0), hi = row_end(p, q0, kl, p.T - 1);
+  if (row_idle(p, q0, kl, 0) || row_idle(p, q0, kl, p.T - 1)) {
+    lo = 0;
+    hi = p.S;
+  }
+  const int sb = max(s0, lo);                         // this split's keys:
+  const int e = min(min(s0 + p.split_len, p.S), hi);  // [sb, e)
 
   const long long pbase = ((long long)(b * p.Hkv + hk) * p.n_split + sp) * R;
   float* part_acc = p.part;
   float* part_ml = p.part + (long long)p.B * p.Hkv * p.n_split * R * D;
-  if (e <= s0) {                                      // nothing to see here
+  if (e <= sb) {                                      // nothing to see here
     for (int x = tid; x < R * D; x += THREADS) part_acc[pbase * D + x] = 0.f;
     for (int r = tid; r < R; r += THREADS) {
       part_ml[2 * (pbase + r)] = NEG_MASK;
@@ -574,13 +646,13 @@ flash_decode_kernel(const Params p) {
   const T* __restrict__ vp = static_cast<const T*>(p.v);
   const long long kbase = b * p.sk_b + hk * p.sk_h;
   const long long vbase = b * p.sv_b + hk * p.sv_h;
-  const int n_tiles = (e - s0 + TK - 1) / TK;
+  const int n_tiles = (e - sb + TK - 1) / TK;
   auto load_kv = [&](int tile, int st) {
-    const int j0 = s0 + tile * TK;
+    const int j0 = sb + tile * TK;
     for (int x = tid; x < TK * CH; x += THREADS) {
       const int r = x / CH, c = x % CH, key = j0 + r;
       const bool ok = key < e;                        // zero past the end
-      const long long kk = ok ? key : s0;
+      const long long kk = ok ? key : sb;
       cp_async16(k_s + (st * TK + r) * LDK + c * VEC,
                  kp + kbase + kk * p.sk_s + c * VEC, ok);
       cp_async16(v_s + (st * TK + r) * LDK + c * VEC,
@@ -622,14 +694,14 @@ flash_decode_kernel(const Params p) {
 
   for (int it = 0; it < n_tiles; ++it) {
     const int st = stages == 2 ? it & 1 : 0;
-    if (it + 1 < n_tiles) {                           // stages == 2 here
+    if (stages == 2 && it + 1 < n_tiles) {
       load_kv(it + 1, st ^ 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int j0 = s0 + it * TK;
+    const int j0 = sb + it * TK;
 
     // ---- scores: thread = key jj, rows rg, rg + 2, ... ---------------------
     {
@@ -663,6 +735,7 @@ flash_decode_kernel(const Params p) {
         const int r = rg + 2 * k;
         if (r < R)
           p_s[r * TK + jj] = key < e ? mask_score(dot[k], key,
+                                                  row_start(p, q0, r / G),
                                                   row_end(p, q0, kl, r / G),
                                                   p.S)
                                      : -INFINITY;
@@ -721,6 +794,7 @@ flash_decode_kernel(const Params p) {
       }
     }
     __syncthreads();                            // stage st and p_s are free
+    if (stages == 1 && it + 1 < n_tiles) load_kv(it + 1, 0);
   }
 
   // ---- add the key slices' partial sums (the ring is free now) -------------
@@ -888,7 +962,14 @@ flash_combine_kernel(const Params p) {
 //     rows, BT 32 keys, two slots, 8 warps, 210,432 bytes; one block an SM.
 //     D = 32: BS 64, BT 32, 8 warps, 109,824 and 93,440 bytes, two blocks an
 //     SM.  D = 128: BS 32, BT 16, 8 and 4 warps, 171,648 and 169,600 bytes,
-//     one block an SM.
+//     one block an SM.  D = 256 (D = 128's settings would need ~335 KB):
+//     BS 16, BT 16, two slots, 4 and 2 warps, 201,088 and 200,064 bytes,
+//     one block an SM; a warp's sums are 128 registers a thread.
+//   * The window.  A row sees [row_start, row_end), both non-decreasing in
+//     the row, so the rows that see a key tile are one range, and the rows
+//     that see none a prefix and/or a suffix: dK/dV walks the query tiles
+//     of those three ranges only, dQ the key tiles from its first seeing
+//     row's start to its last one's end.
 
 constexpr int BWD_THREADS = 256;        // the D pre-pass
 
@@ -913,12 +994,8 @@ struct BwdParams {
   long long sd_b, sd_t, sd_h;           // dout
   float scale, scale_log2;
   int causal;
+  int window;                           // sliding window; 0 = global
 };
-
-__device__ __forceinline__ int bwd_row_end(const BwdParams& p, int q0, int kl,
-                                           int i) {
-  return p.causal ? min(kl, q0 + i + 1) : kl;
-}
 
 // the first t in [0, n) with pred(t), n if none; pred is monotone (false
 // for a prefix, then true)
@@ -932,12 +1009,19 @@ __device__ __forceinline__ int bwd_first(int n, F pred) {
   return lo;
 }
 
-// D_i = dO_i . O_i in f32: D / VEC lanes per (batch row, query row, head),
-// 16 bytes each (neighbouring lanes on neighbouring bytes), heads fastest
+// D_i = dO_i . O_i in f32: LPR lanes per (batch row, query row, head),
+// 16 bytes each, PER times (neighbouring lanes on neighbouring bytes),
+// heads fastest
+template <typename T, int D>
+struct DeltaCfg {
+  static constexpr int VEC = 16 / (int)sizeof(T), CHUNKS = D / VEC;
+  static constexpr int LPR = CHUNKS < 32 ? CHUNKS : 32, PER = CHUNKS / LPR;
+};
 template <typename T, int D>
 __global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_delta_kernel(const BwdParams p) {
-  constexpr int VEC = 16 / (int)sizeof(T), LPR = D / VEC;
+  using C = DeltaCfg<T, D>;
+  constexpr int VEC = C::VEC, LPR = C::LPR;
   const long long r =
       ((long long)blockIdx.x * BWD_THREADS + threadIdx.x) / LPR;
   const int c = (threadIdx.x % LPR) * VEC;
@@ -947,13 +1031,17 @@ flash_bwd_delta_kernel(const BwdParams p) {
   const int b = (int)(r / ((long long)p.Hq * p.T));
   float acc = 0.f;
   if (ok) {
-    float x[VEC], y[VEC];
-    load16(static_cast<const T*>(p.o) + b * p.so_b + (long long)i * p.so_t
-               + h * p.so_h + c, x);
-    load16(static_cast<const T*>(p.dout) + b * p.sd_b + (long long)i * p.sd_t
-               + h * p.sd_h + c, y);
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc = fmaf(x[e], y[e], acc);
+    for (int k = 0; k < C::PER; ++k) {
+      float x[VEC], y[VEC];
+      const int cc = c + k * LPR * VEC;
+      load16(static_cast<const T*>(p.o) + b * p.so_b + (long long)i * p.so_t
+                 + h * p.so_h + cc, x);
+      load16(static_cast<const T*>(p.dout) + b * p.sd_b
+                 + (long long)i * p.sd_t + h * p.sd_h + cc, y);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc = fmaf(x[e], y[e], acc);
+    }
   }
 #pragma unroll
   for (int o = LPR / 2; o > 0; o >>= 1)
@@ -964,18 +1052,18 @@ flash_bwd_delta_kernel(const BwdParams p) {
 template <typename T, int D>
 struct BwdCfg {
   static constexpr bool SPLIT = std::is_same<T, float>::value;  // small planes
-  static constexpr int BS = D == 128 ? 32 : 64;  // stationary rows a block
-  static constexpr int MK = D == 128 ? 1 : 2;    // m16 tiles a warp holds
+  static constexpr int BS = D == 256 ? 16 : D == 128 ? 32 : 64;  // stationary
+  static constexpr int MK = D >= 128 ? 1 : 2;    // m16 tiles a warp holds
   static constexpr int WK = BS / (16 * MK);      // warp groups along them
   static constexpr int WT = 2;                   // warps along streamed rows
-  static constexpr int RT = D == 128 ? 8 : 16;   // streamed rows a warp, a step
+  static constexpr int RT = D >= 128 ? 8 : 16;   // streamed rows a warp, a step
   static constexpr int NT = RT / 8;
   static constexpr int BT = RT * WT;             // streamed rows a step
   static constexpr int PAIRS = WK * WT;          // two warps (roles) a pair
   static constexpr int NTH = 2 * 32 * PAIRS;     // dK/dV
 
   static constexpr int MIN_BLOCKS = D == 32 ? 2 : 1;
-  static constexpr int STAGES = 3;
+  static constexpr int STAGES = D == 256 ? 2 : 3;
   static constexpr int LD = D + 4;               // plane pitch, words
   static constexpr int PS = BS * LD;             // words of a stationary plane
   static constexpr int PT = BT * LD;             // words of a streamed plane
@@ -994,7 +1082,7 @@ struct BwdCfg {
   static constexpr int WT_Q = D == 64 ? 1 : 2;
   static constexpr int RT_Q = BT / WT_Q, NT_Q = RT_Q / 8;
   static constexpr int NTH_Q = 32 * BS_Q / 16 * WT_Q;
-  static constexpr int STAGES_Q = D == 64 ? 2 : 3;
+  static constexpr int STAGES_Q = D == 64 || D == 256 ? 2 : 3;
   static constexpr int SMEM_Q = (4 * BS_Q * LD + 2 * BS_Q + STAGES_Q * SLOT) * 4;
   static_assert(WT == 2, "the final sums pair two warps");
   static_assert(BS / 16 * 32 * D <= STAGES * SLOT,
@@ -1134,15 +1222,16 @@ __device__ __forceinline__ void acc_frag(const float (&c)[4],
 }
 
 // P and dS of one score / dP entry (row i, key j) in place
+template <bool WIN>
 __device__ __forceinline__ void bwd_p_ds(const BwdParams& p, int q0, int kl,
                                          int i, int j, float ls, float dl,
                                          float& s, float& dp) {
   float pv = 0.f, dv = 0.f;
   if (i < p.T && j < p.S) {
-    const int re = bwd_row_end(p, q0, kl, i);
-    if (re <= 0) {
+    const int rs = row_start<WIN>(p, q0, i), re = row_end(p, q0, kl, i);
+    if (rs >= re) {
       pv = 1.f / (float)p.S;                  // sees no key: mean of V
-    } else if (j < re) {
+    } else if ((!WIN || j >= rs) && j < re) {
       pv = exp2f(s * p.scale_log2 - ls);
       dv = pv * (dp - dl);
     }
@@ -1186,12 +1275,13 @@ __device__ __forceinline__ void mma_planes(float (&c)[4],
 
 // the probability of one score entry (row i, key j): its softmax weight if
 // visible, 1/S over all S keys for a row that sees none, else 0
+template <bool WIN>
 __device__ __forceinline__ float bwd_p(const BwdParams& p, int q0, int kl,
                                        int i, int j, float s, float ls) {
   if (i >= p.T || j >= p.S) return 0.f;
-  const int re = bwd_row_end(p, q0, kl, i);
-  if (re <= 0) return 1.f / (float)p.S;       // sees no key: mean of V
-  return j < re ? exp2f(s * p.scale_log2 - ls) : 0.f;
+  const int rs = row_start<WIN>(p, q0, i), re = row_end(p, q0, kl, i);
+  if (rs >= re) return 1.f / (float)p.S;      // sees no key: mean of V
+  return (!WIN || j >= rs) && j < re ? exp2f(s * p.scale_log2 - ls) : 0.f;
 }
 
 // bar.sync on a named barrier for ``n`` threads (the two warps of a pair)
@@ -1204,7 +1294,7 @@ __device__ __forceinline__ void bar_pair(int id, int n) {
 // takes P^T from its partner through shared memory (a named barrier for
 // the pair), dS^T, and dK += dS^T Q.  Each warp keeps one matrix's sums
 // for its keys, so every B fragment it loads feeds MK m16 tiles.
-template <typename T, int D>
+template <typename T, int D, bool WIN>
 __global__ void __launch_bounds__(BwdCfg<T, D>::NTH, BwdCfg<T, D>::MIN_BLOCKS)
 flash_bwd_dkdv_kernel(const BwdParams p) {
   using C = BwdCfg<T, D>;
@@ -1233,20 +1323,36 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
   const int q0 = p.q_start[b];
   const int kl = min(p.kv_len[b], p.S);
 
-  // the query tiles that touch these keys: those with a row that sees no
-  // key (a prefix: a row's visible end never decreases with i) and those
-  // whose last row sees key j0 (a suffix); steps walk them for each query
-  // head of the group
+  // the query tiles that touch these keys, as up to three ranges [0, n1),
+  // [b_lo, b_hi) and [c_lo, n_qt); steps walk them in order, each once,
+  // for each query head of the group.  The rows that see no key (each adds
+  // 1/S of its dO to every dV row) are a prefix [0, n_pre) (row_end <= 0)
+  // and a suffix [n_suf, T) (past the window's reach; empty without one);
+  // between them the rows that see one of keys [j0, j0 + BS) are
+  // [s_lo, s_hi) (a row's start and end never decrease with i)
   const int n_qt = (p.T + BT - 1) / BT;
-  const int n_idle = bwd_first(n_qt, [&](int t) {
-    return bwd_row_end(p, q0, kl, t * BT) > 0; });
-  const int qt_lo = bwd_first(n_qt, [&](int t) {
-    return bwd_row_end(p, q0, kl, min(t * BT + BT, p.T) - 1) > j0; });
-  const int n_pre = min(n_idle, qt_lo);
-  const int n_act = n_pre + n_qt - qt_lo;
+  const int n_pre = bwd_first(p.T, [&](int i) {
+    return row_end(p, q0, kl, i) > 0; });
+  const int n_suf = n_pre + bwd_first(p.T - n_pre, [&](int i) {
+    return row_idle<WIN>(p, q0, kl, n_pre + i); });
+  const int s_lo = max(n_pre, bwd_first(p.T, [&](int i) {
+    return row_end(p, q0, kl, i) > j0; }));
+  const int s_hi = min(n_suf, bwd_first(p.T, [&](int i) {
+    return row_start<WIN>(p, q0, i) >= j0 + BS; }));
+  const bool see = s_lo < s_hi;
+  const int n1 = (n_pre + BT - 1) / BT;
+  const int b_lo = see ? max(s_lo / BT, n1) : n1;
+  const int b_hi = see ? max((s_hi + BT - 1) / BT, b_lo) : n1;
+  const int c_lo = max(n_suf < p.T ? n_suf / BT : n_qt, b_hi);
+  const int n12 = n1 + b_hi - b_lo;
+  const int n_act = n12 + n_qt - c_lo;
   const int n_steps = G * n_act;
-  // the first row of the a-th touching tile
-  auto tile_row = [&](int a) { return (a < n_pre ? a : qt_lo + a - n_pre) * BT; };
+  // the first row of the a-th touching tile (without a window the third
+  // range is empty: a test per copy that the f32 D = 64 dK/dV kernel
+  // takes 2.5% longer for)
+  auto tile_row = [&](int a) {
+    if constexpr (!WIN) return (a < n1 ? a : b_lo + a - n1) * BT;
+    return (a < n1 ? a : a < n12 ? b_lo + a - n1 : c_lo + a - n12) * BT; };
   const T* qb = static_cast<const T*>(p.q) + b * p.sq_b + hk * G * p.sq_h;
   const T* db = static_cast<const T*>(p.dout) + b * p.sd_b + hk * G * p.sd_h;
   int c_a = 0, c_h = 0;                 // the next step to copy: tile, head
@@ -1313,16 +1419,26 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
     const float* ls = reinterpret_cast<const float*>(sl + 4 * PT);
     const int ir = wt * RT;             // this warp's rows of the tile
     const int iw = i0 + ir;
-    const int re_first = bwd_row_end(p, q0, kl, iw);
-    const int re_last = bwd_row_end(p, q0, kl, min(iw + RT, p.T) - 1);
+    const int il = min(iw + RT, p.T) - 1;
+    const int re_first = row_end(p, q0, kl, iw);
+    const int re_last = row_end(p, q0, kl, il);
     // nothing to add: no row, no key, or every row sees keys and none of
-    // these (a row that sees no key adds 1/S of its dO to every dV row);
+    // these (a row that sees no key adds 1/S of its dO to every dV row; such
+    // rows are a prefix and/or a suffix, so the first and last rows tell);
     // the same for both warps of the pair
-    const bool none = iw >= p.T || kw >= p.S || (re_first > 0 && re_last <= kw);
+    bool none = iw >= p.T || kw >= p.S;
+    if constexpr (WIN)
+      none = none || (!row_idle<WIN>(p, q0, kl, iw)
+                      && !row_idle<WIN>(p, q0, kl, il)
+                      && (re_last <= kw
+                          || row_start<WIN>(p, q0, iw) >= kw + 16 * MK));
+    else
+      none = none || (re_first > 0 && re_last <= kw);
     if (!none) {
       // every row valid and seeing all 16 MK keys: no mask
       const bool full = iw + RT <= p.T && kw + 16 * MK <= p.S
-                        && re_first >= kw + 16 * MK;
+                        && re_first >= kw + 16 * MK
+                        && (!WIN || row_start<WIN>(p, q0, il) <= kw);
       // S^T = K Q^T (role 0) or dP^T = V dO^T (role 1): 16 MK keys x RT rows
       float st[MK][NT][4];
 #pragma unroll
@@ -1381,7 +1497,7 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
             for (int m = 0; m < MK; ++m)
 #pragma unroll
               for (int c = 0; c < 4; ++c)
-                st[m][n][c] = bwd_p(p, q0, kl, i0 + r + (c & 1),
+                st[m][n][c] = bwd_p<WIN>(p, q0, kl, i0 + r + (c & 1),
                                     kw + m * 16 + g + (c < 2 ? 0 : 8),
                                     st[m][n][c], c & 1 ? l2.y : l2.x);
           }
@@ -1401,8 +1517,8 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
           const int r = ir + n * 8 + 2 * t4;
           const float2 d2 = *reinterpret_cast<const float2*>(ls + BT + r);
           // a row that sees no key has dS = 0 (its P is 1/S)
-          const bool idle0 = !full && bwd_row_end(p, q0, kl, i0 + r) <= 0;
-          const bool idle1 = !full && bwd_row_end(p, q0, kl, i0 + r + 1) <= 0;
+          const bool idle0 = !full && row_idle<WIN>(p, q0, kl, i0 + r);
+          const bool idle1 = !full && row_idle<WIN>(p, q0, kl, i0 + r + 1);
 #pragma unroll
           for (int m = 0; m < MK; ++m)
 #pragma unroll
@@ -1482,7 +1598,7 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
     }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool WIN>
 __global__ void __launch_bounds__(BwdCfg<T, D>::NTH_Q, BwdCfg<T, D>::MIN_BLOCKS)
 flash_bwd_dq_kernel(const BwdParams p) {
   using C = BwdCfg<T, D>;
@@ -1509,19 +1625,29 @@ flash_bwd_dq_kernel(const BwdParams p) {
   const int kl = min(p.kv_len[b], p.S);
   const int i0 = qt * BS;
   const int iw = i0 + ws * 16;                        // this warp's rows
-  // rows that see no key have dS = 0: only keys some row sees add to dQ
-  const int n_loop = max(0, bwd_row_end(p, q0, kl, min(i0 + BS, p.T) - 1));
-  const int n_steps = (n_loop + BT - 1) / BT;
-  const int w_first = bwd_row_end(p, q0, kl, iw);
-  const int w_end = iw < p.T ? bwd_row_end(p, q0, kl, min(iw + 15, p.T - 1))
-                             : 0;
+  // rows that see no key have dS = 0: only keys some row sees add to dQ,
+  // from the first seeing row's start to the last one's end
+  int k_lo = 0, k_hi = max(0, row_end(p, q0, kl, min(i0 + BS, p.T) - 1));
+  if constexpr (WIN) {
+    k_lo = p.S;
+    k_hi = 0;
+    for (int i = i0; i < min(i0 + BS, p.T); ++i) {
+      if (!row_idle<WIN>(p, q0, kl, i)) {
+        k_lo = min(k_lo, row_start<WIN>(p, q0, i));
+        k_hi = max(k_hi, row_end(p, q0, kl, i));
+      }
+    }
+  }
+  const int t0 = k_lo < k_hi ? k_lo / BT : 0;
+  const int n_steps = k_lo < k_hi ? (k_hi + BT - 1) / BT - t0 : 0;
+  const int wl = min(iw + 15, p.T - 1);               // the warp's last row
 
   const T* kb = static_cast<const T*>(p.k) + b * p.sk_b + hk * p.sk_h;
   const T* vb = static_cast<const T*>(p.v) + b * p.sv_b + hk * p.sv_h;
   auto copy = [&](int s) {                // key tile s into slot s % STAGES
     if (s < n_steps) {
       uint32_t* sl = ring + (s % STAGES) * SLOT;
-      const int j0 = s * BT;
+      const int j0 = (t0 + s) * BT;
       bwd_copy<T, D, LD, BT, NTH>(sl, sl + PT, kb + j0 * p.sk_s, p.sk_s,
                                   p.S - j0);
       bwd_copy<T, D, LD, BT, NTH>(sl + 2 * PT, sl + 3 * PT, vb + j0 * p.sv_s,
@@ -1579,11 +1705,15 @@ flash_bwd_dq_kernel(const BwdParams p) {
     copy(it + STAGES - 1);
     const uint32_t* sl = ring + (it % STAGES) * SLOT;
     const int kr = wt * RT;             // this warp's keys of the tile
-    const int kj = it * BT + kr;
-    const bool none = iw >= p.T || kj >= p.S || kj >= w_end;
+    const int kj = (t0 + it) * BT + kr;
+    const bool none = iw >= p.T || kj >= p.S
+        || row_end(p, q0, kl, wl) <= kj
+        || (WIN && row_start<WIN>(p, q0, iw) >= kj + RT);
     if (!none) {
       // every row valid and seeing all RT keys: no mask
-      const bool full = iw + 16 <= p.T && kj + RT <= p.S && w_first >= kj + RT;
+      const bool full = iw + 16 <= p.T && kj + RT <= p.S
+                        && row_end(p, q0, kl, iw) >= kj + RT
+                        && (!WIN || row_start<WIN>(p, q0, iw + 15) <= kj);
       // S = Q K^T and dP = dO V^T: 16 rows x RT keys
       float s[NT][4], dp[NT][4];
 #pragma unroll
@@ -1642,7 +1772,7 @@ flash_bwd_dq_kernel(const BwdParams p) {
         for (int n = 0; n < NT; ++n)
 #pragma unroll
           for (int c = 0; c < 4; ++c)
-            bwd_p_ds(p, q0, kl, iw + g + (c < 2 ? 0 : 8),
+            bwd_p_ds<WIN>(p, q0, kl, iw + g + (c < 2 ? 0 : 8),
                      kj + n * 8 + 2 * t4 + (c & 1), c < 2 ? ls0 : ls1,
                      c < 2 ? dl0 : dl1, s[n][c], dp[n][c]);
       }
@@ -1710,22 +1840,22 @@ flash_bwd_dq_kernel(const BwdParams p) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool WIN>
 cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
   using C = BwdCfg<T, D>;
   static bool attr_set = false;         // once per instantiation
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkdv_kernel<T, D>,
+        flash_bwd_dkdv_kernel<T, D, WIN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return err;
     err = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<T, D>,
+        flash_bwd_dq_kernel<T, D, WIN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_Q);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  const long long lanes = (long long)p.B * p.T * p.Hq * D * sizeof(T) / 16;
+  const long long lanes = (long long)p.B * p.T * p.Hq * DeltaCfg<T, D>::LPR;
   flash_bwd_delta_kernel<T, D><<<(unsigned)((lanes + BWD_THREADS - 1)
                                             / BWD_THREADS),
                                  BWD_THREADS, 0, stream>>>(p);
@@ -1733,31 +1863,37 @@ cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   // key tiles on z, the slowest index of the issue order: key tile 0 first
   const dim3 gkv(p.Hkv, p.B, (p.S + C::BS - 1) / C::BS);
-  flash_bwd_dkdv_kernel<T, D><<<gkv, C::NTH, C::SMEM, stream>>>(p);
+  flash_bwd_dkdv_kernel<T, D, WIN><<<gkv, C::NTH, C::SMEM, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 gq(p.Hq, p.B, (p.T + C::BS_Q - 1) / C::BS_Q);
-  flash_bwd_dq_kernel<T, D><<<gq, C::NTH_Q, C::SMEM_Q, stream>>>(p);
+  flash_bwd_dq_kernel<T, D, WIN><<<gq, C::NTH_Q, C::SMEM_Q, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
+  return p.window > 0 ? launch_bwd<T, D, true>(p, stream)
+                      : launch_bwd<T, D, false>(p, stream);
 }
 
 // ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, bool LSE>
+template <typename T, int D, bool LSE, bool WIN>
 cudaError_t launch_prefill(const Params& p, cudaStream_t stream) {
   using C = PrefillCfg<T, D>;
   static bool attr_set = false;         // once per instantiation
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_prefill_kernel<T, D, LSE>,
+        flash_prefill_kernel<T, D, LSE, WIN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
   const dim3 grid(p.Hq, p.B, (p.T + C::BM - 1) / C::BM);
-  flash_prefill_kernel<T, D, LSE><<<grid, THREADS, C::SMEM, stream>>>(p);
+  flash_prefill_kernel<T, D, LSE, WIN><<<grid, THREADS, C::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1768,11 +1904,12 @@ cudaError_t launch_decode(const Params& p, cudaStream_t stream) {
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
         flash_decode_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem(2));
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)C::smem(C::MAX_STAGES));
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  const size_t smem = C::smem(p.split_len > DEC_TK ? 2 : 1);
+  const size_t smem = C::smem(p.split_len > DEC_TK ? C::MAX_STAGES : 1);
   flash_decode_kernel<T, D>
       <<<dim3(p.n_split, p.Hkv, p.B), THREADS, smem, stream>>>(p);
   cudaError_t err = cudaGetLastError();
@@ -1785,15 +1922,19 @@ cudaError_t launch_decode(const Params& p, cudaStream_t stream) {
 template <typename T, int D>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   if (p.n_split > 0) return launch_decode<T, D>(p, stream);
-  return p.lse != nullptr ? launch_prefill<T, D, true>(p, stream)
-                          : launch_prefill<T, D, false>(p, stream);
+  if (p.window > 0)
+    return p.lse != nullptr ? launch_prefill<T, D, true, true>(p, stream)
+                            : launch_prefill<T, D, false, true>(p, stream);
+  return p.lse != nullptr ? launch_prefill<T, D, true, false>(p, stream)
+                          : launch_prefill<T, D, false, false>(p, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  n_split = 0 takes the prefill route;
+// dtype: 0 = float32, 1 = bfloat16; window >= 0 (0 = global).  n_split = 0
+// takes the prefill route;
 // n_split > 0 the decode route, with keys cut into n_split ranges of
 // split_len (a multiple of 64, n_split * split_len >= S, n_split <= 64,
 // T * Hq / Hkv <= 16) and, when n_split > 1, ``workspace`` holding
@@ -1809,9 +1950,11 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         long long sk_b, long long sk_s, long long sk_h,
                         long long sv_b, long long sv_s, long long sv_h,
                         long long so_b, long long so_t, long long so_h,
-                        float scale, int causal, int n_split, int split_len,
-                        void* workspace, void* lse, void* stream) {
-  if (B <= 0 || T <= 0 || S <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0)
+                        float scale, int causal, int window, int n_split,
+                        int split_len, void* workspace, void* lse,
+                        void* stream) {
+  if (B <= 0 || T <= 0 || S <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0
+      || window < 0)
     return (int)cudaErrorInvalidValue;
   if (n_split > 0 &&
       (T * (Hq / Hkv) > DEC_ROWS || n_split > DEC_MAX_SPLITS ||
@@ -1824,14 +1967,16 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
            static_cast<float*>(workspace), static_cast<float*>(lse),
            B, T, S, Hq, Hkv, n_split, split_len,
            sq_b, sq_t, sq_h, sk_b, sk_s, sk_h, sv_b, sv_s, sv_h,
-           so_b, so_t, so_h, scale * LOG2E, causal};
+           so_b, so_t, so_h, scale * LOG2E, causal, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 32) return (int)launch<float, 32>(p, st);
   if (dtype == 0 && D == 64) return (int)launch<float, 64>(p, st);
   if (dtype == 0 && D == 128) return (int)launch<float, 128>(p, st);
+  if (dtype == 0 && D == 256) return (int)launch<float, 256>(p, st);
   if (dtype == 1 && D == 32) return (int)launch<__nv_bfloat16, 32>(p, st);
   if (dtype == 1 && D == 64) return (int)launch<__nv_bfloat16, 64>(p, st);
   if (dtype == 1 && D == 128) return (int)launch<__nv_bfloat16, 128>(p, st);
+  if (dtype == 1 && D == 256) return (int)launch<__nv_bfloat16, 256>(p, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1851,8 +1996,9 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                         long long sv_b, long long sv_s, long long sv_h,
                         long long so_b, long long so_t, long long so_h,
                         long long sd_b, long long sd_t, long long sd_h,
-                        float scale, int causal, void* stream) {
-  if (B <= 0 || T <= 0 || S <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0)
+                        float scale, int causal, int window, void* stream) {
+  if (B <= 0 || T <= 0 || S <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0
+      || window < 0)
     return (int)cudaErrorInvalidValue;
   BwdParams p{q, k, v, o, dout,
               static_cast<const float*>(lse), static_cast<float*>(delta),
@@ -1861,14 +2007,16 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
               B, T, S, Hq, Hkv,
               sq_b, sq_t, sq_h, sk_b, sk_s, sk_h, sv_b, sv_s, sv_h,
               so_b, so_t, so_h, sd_b, sd_t, sd_h,
-              scale, scale * LOG2E, causal};
+              scale, scale * LOG2E, causal, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 32) return (int)launch_bwd<float, 32>(p, st);
   if (dtype == 0 && D == 64) return (int)launch_bwd<float, 64>(p, st);
   if (dtype == 0 && D == 128) return (int)launch_bwd<float, 128>(p, st);
+  if (dtype == 0 && D == 256) return (int)launch_bwd<float, 256>(p, st);
   if (dtype == 1 && D == 32) return (int)launch_bwd<__nv_bfloat16, 32>(p, st);
   if (dtype == 1 && D == 64) return (int)launch_bwd<__nv_bfloat16, 64>(p, st);
   if (dtype == 1 && D == 128) return (int)launch_bwd<__nv_bfloat16, 128>(p, st);
+  if (dtype == 1 && D == 256) return (int)launch_bwd<__nv_bfloat16, 256>(p, st);
   return (int)cudaErrorInvalidValue;
 }
 

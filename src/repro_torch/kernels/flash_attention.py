@@ -3,9 +3,11 @@
 
 Port of the Pallas TPU kernel ``repro/kernels/flash_attention.py`` (and of
 its oracle ``repro/kernels/ref.py::flash_attention_ref``), grown to the
-function ``repro/models/layers.py::attend`` computes with ``window=None``:
-GQA by head index, per-row ``q_start``/``kv_len``, causal mask
-``kpos <= q_start + i``, masked logits at ``-1e30``.
+function ``repro/models/layers.py::attend`` computes: GQA by head index,
+per-row ``q_start``/``kv_len``, causal mask ``kpos <= q_start + i``, a
+per-call sliding ``window`` (key j seen by row i only if ``j > q_start + i
+- window``; 0 is global), masked logits at ``-1e30``.  Head dims 32, 64,
+128 and 256.
 
 * :func:`flash_attend` — ``q [B,T,Hq,D]``, ``k/v [B,S,Hkv,D]``, per-row
   ``q_start``/``kv_len`` ``[B]`` int32 tensors; what the model calls.
@@ -43,7 +45,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the decode route takes a call when T * Hq / Hkv query rows fit one block
 DECODE_MAX_ROWS = 16
@@ -93,10 +95,11 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bts,bsd->btd", p, v.float()).to(q.dtype)
 
 
-def _scores(q, k, *, scale, causal, q_start, kv_len):
+def _scores(q, k, *, scale, causal, q_start, kv_len, window=0):
     """f32 logits [B,Hkv,G,T,S] of q [B,T,Hq,D] against k [B,S,Hkv,D] (GQA
     by head index) and the visibility mask [B,T,S] (key j seen by row i iff
-    j < kv_len and, when causal, j <= q_start + i)."""
+    j < kv_len, when causal j <= q_start + i, and when ``window`` > 0
+    j > q_start + i - window)."""
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     qg = q.reshape(B, T, Hkv, Hq // Hkv, D).float()
@@ -106,18 +109,21 @@ def _scores(q, k, *, scale, causal, q_start, kv_len):
     m = kpos[None, None, :] < kv_len.to(torch.int64)[:, None, None]
     if causal:
         m = m & (kpos[None, None, :] <= qpos[:, :, None])
+    if window:
+        m = m & (kpos[None, None, :] > qpos[:, :, None] - window)
     return logits, m
 
 
 def attend_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                scale: float, causal: bool, q_start: torch.Tensor,
-               kv_len: torch.Tensor) -> torch.Tensor:
+               kv_len: torch.Tensor, window: int = 0) -> torch.Tensor:
     """The model's attention math (``layers._block_attend``) in one block:
-    q [B,T,Hq,D], k/v [B,S,Hkv,D], per-row q_start/kv_len [B].  Masked
-    logits are -1e30 (``torch.where``, so they take no gradient)."""
+    q [B,T,Hq,D], k/v [B,S,Hkv,D], per-row q_start/kv_len [B], sliding
+    ``window`` (0: global).  Masked logits are -1e30 (``torch.where``, so
+    they take no gradient)."""
     B, T, Hq, D = q.shape
     logits, m = _scores(q, k, scale=scale, causal=causal, q_start=q_start,
-                        kv_len=kv_len)
+                        kv_len=kv_len, window=window)
     logits = torch.where(m[:, None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v.float())
@@ -126,13 +132,13 @@ def attend_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attend_lse_ref(q: torch.Tensor, k: torch.Tensor, *, scale: float,
                    causal: bool, q_start: torch.Tensor,
-                   kv_len: torch.Tensor) -> torch.Tensor:
+                   kv_len: torch.Tensor, window: int = 0) -> torch.Tensor:
     """The per-row statistics the forward saves for the backward: the
     natural-log log-sum-exp of the masked logits, f32 [B, Hq, T].  A row
     that sees no key has -1e30 (-1e30 + log S rounds to it in f32)."""
     B, T, Hq, _ = q.shape
     logits, m = _scores(q, k, scale=scale, causal=causal, q_start=q_start,
-                        kv_len=kv_len)
+                        kv_len=kv_len, window=window)
     lse = torch.logsumexp(torch.where(m[:, None, None], logits, NEG_INF), -1)
     return lse.reshape(B, Hq, T)
 
@@ -140,7 +146,7 @@ def attend_lse_ref(q: torch.Tensor, k: torch.Tensor, *, scale: float,
 def attend_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                    *, scale: float, causal: bool, q_start: torch.Tensor,
-                   kv_len: torch.Tensor):
+                   kv_len: torch.Tensor, window: int = 0):
     """The backward's math in plain torch (not autograd): P recomputed from
     the saved statistics ``lse`` [B,Hq,T], D = rowsum(dO o O),
     dS = P o (dP - D) with dP = dO V^T, zero where the forward masked (a
@@ -154,7 +160,7 @@ def attend_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     S, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     logits, m = _scores(q, k, scale=scale, causal=causal, q_start=q_start,
-                        kv_len=kv_len)
+                        kv_len=kv_len, window=window)
     seen = m[:, None, None]                                   # [B,1,1,T,S]
     idle = ~seen.any(-1, keepdim=True)                        # [B,1,1,T,1]
     p = torch.exp(torch.where(seen, logits, -torch.inf)
@@ -175,27 +181,31 @@ def attend_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attend_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      scale: float, causal: bool, q_start: torch.Tensor,
-                     kv_len: torch.Tensor, n_split: int) -> torch.Tensor:
+                     kv_len: torch.Tensor, n_split: int,
+                     window: int = 0) -> torch.Tensor:
     """:func:`attend_ref`'s function computed as the decode route computes
     it: the S keys cut into ``n_split`` ranges of ceil(S / n_split), each
     range's partial (max m, sum l, unnormalised acc) over the keys a row
     sees, then the merge out = sum_s w_s acc_s / sum_s w_s l_s with
-    w_s = exp(m_s - max m).  A range past a row's visible keys has
-    (m, l, acc) = (-1e30, 0, 0) and adds nothing; a row that sees no key
-    takes -1e30 logits over all S keys in every range, so it averages V."""
+    w_s = exp(m_s - max m).  A range outside a row's visible keys (past
+    them, or wholly before its ``window``) has (m, l, acc) = (-1e30, 0, 0)
+    and adds nothing; a row that sees no key takes -1e30 logits over all S
+    keys in every range, so it averages V."""
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     L = -(-S // n_split)
     qg = q.reshape(B, T, Hkv, Hq // Hkv, D).float()
     logits = torch.einsum("btkgd,bskd->bkgts", qg, k.float()) * scale
     kpos = torch.arange(S, device=q.device)
+    qpos = q_start.to(torch.int64)[:, None] + torch.arange(T, device=q.device)
     end = kv_len.to(torch.int64).clamp(max=S)[:, None].expand(B, T)
     if causal:
-        qpos = q_start.to(torch.int64)[:, None] + torch.arange(
-            T, device=q.device)
         end = torch.minimum(end, qpos + 1)
-    idle = (end <= 0)[:, None, None, :, None]                  # [B,1,1,T,1]
-    seen = (kpos[None, None, :] < end[:, :, None])[:, None, None]
+    start = (qpos - window + 1).clamp(min=0) if window else torch.zeros_like(
+        end)
+    idle = (start >= end)[:, None, None, :, None]              # [B,1,1,T,1]
+    seen = ((kpos[None, None, :] >= start[:, :, None])
+            & (kpos[None, None, :] < end[:, :, None]))[:, None, None]
     logits = torch.where(idle, NEG_INF,
                          torch.where(seen, logits, -torch.inf))
     pad = n_split * L - S
@@ -220,13 +230,23 @@ def attend_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention_fwd.argtypes = (
-        [p] * 6 + [i] * 7 + [ll] * 12 + [ctypes.c_float, i, i, i, p, p, p])
+        [p] * 6 + [i] * 7 + [ll] * 12 + [ctypes.c_float, i, i, i, i, p, p, p])
     lib.flash_attention_fwd.restype = ctypes.c_int
     lib.flash_attention_bwd.argtypes = (
-        [p] * 12 + [i] * 7 + [ll] * 15 + [ctypes.c_float, i, p])
+        [p] * 12 + [i] * 7 + [ll] * 15 + [ctypes.c_float, i, i, p])
     lib.flash_attention_bwd.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
+
+
+def _check_window(window) -> int:
+    """The sliding window as the kernel takes it: a Python int >= 0 (0 is
+    global), static per call; never a tensor (reading one would wait for
+    the device)."""
+    if isinstance(window, torch.Tensor) or int(window) != window or window < 0:
+        raise ValueError(f"window must be a Python int >= 0 (0: global), got "
+                         f"{window!r}")
+    return int(window)
 
 
 def _check_shapes(q, k, v, q_start, kv_len):
@@ -277,21 +297,24 @@ def _check_cuda(q, k, v, q_start, kv_len):
 
 def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  scale: float, causal: bool, q_start: torch.Tensor,
-                 kv_len: torch.Tensor, return_lse: bool = False):
+                 kv_len: torch.Tensor, return_lse: bool = False,
+                 window: int = 0):
     """Attention of q [B,T,Hq,D] over k/v [B,S,Hkv,D] (GQA by head index)
-    with per-row ``q_start``/``kv_len`` [B] int32 on q's device.  Returns
-    [B,T,Hq,D] in q's dtype; with ``return_lse`` also the per-row
-    statistics f32 [B,Hq,T] (:func:`attend_lse_ref`) the backward needs,
-    and then the kernel takes the prefill route, the one that writes
-    them."""
+    with per-row ``q_start``/``kv_len`` [B] int32 on q's device and a
+    sliding ``window`` (a Python int; 0 is global).  Returns [B,T,Hq,D] in
+    q's dtype; with ``return_lse`` also the per-row statistics f32
+    [B,Hq,T] (:func:`attend_lse_ref`) the backward needs, and then the
+    kernel takes the prefill route, the one that writes them."""
     _check_shapes(q, k, v, q_start, kv_len)
+    window = _check_window(window)
     if q.device.type == "cpu":
         out = attend_ref(q, k, v, scale=scale, causal=causal,
-                         q_start=q_start, kv_len=kv_len)
+                         q_start=q_start, kv_len=kv_len, window=window)
         if not return_lse:
             return out
         return out, attend_lse_ref(q, k, scale=scale, causal=causal,
-                                   q_start=q_start, kv_len=kv_len)
+                                   q_start=q_start, kv_len=kv_len,
+                                   window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attend runs on cuda or cpu, not {q.device}")
     _check_cuda(q, k, v, q_start, kv_len)
@@ -314,7 +337,7 @@ def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q_start.data_ptr(), kv_len.data_ptr(),
             B, T, S, Hq, Hkv, D, _DTYPE_CODE[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], float(scale), int(bool(causal)),
+            *out.stride()[:3], float(scale), int(bool(causal)), window,
             n_split, split_len, None if work is None else work.data_ptr(),
             None if lse is None else lse.data_ptr(), stream)
     if rc != 0:
@@ -337,7 +360,8 @@ flash_attend.launches_bwd = 0
 def flash_attend_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      out: torch.Tensor, lse: torch.Tensor,
                      dout: torch.Tensor, *, scale: float, causal: bool,
-                     q_start: torch.Tensor, kv_len: torch.Tensor):
+                     q_start: torch.Tensor, kv_len: torch.Tensor,
+                     window: int = 0):
     """The gradient of :func:`flash_attend` with respect to q, k and v,
     from its output ``out`` and statistics ``lse`` (f32 [B,Hq,T], from
     ``return_lse=True``) and the output gradient ``dout`` [B,T,Hq,D].
@@ -346,6 +370,7 @@ def flash_attend_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attend.launches_bwd``); :func:`attend_bwd_ref` on a CPU
     tensor."""
     _check_shapes(q, k, v, q_start, kv_len)
+    window = _check_window(window)
     B, T, Hq, D = q.shape
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape:
@@ -356,7 +381,8 @@ def flash_attend_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{lse.dtype} {tuple(lse.shape)}")
     if q.device.type == "cpu":
         return attend_bwd_ref(q, k, v, out, lse, dout, scale=scale,
-                              causal=causal, q_start=q_start, kv_len=kv_len)
+                              causal=causal, q_start=q_start, kv_len=kv_len,
+                              window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attend_bwd runs on cuda or cpu, not "
                          f"{q.device}")
@@ -380,7 +406,7 @@ def flash_attend_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             B, T, S, Hq, Hkv, D, _DTYPE_CODE[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], *dout.stride()[:3], float(scale),
-            int(bool(causal)), stream)
+            int(bool(causal)), window, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd failed: CUDA error {rc} "
                            f"({lib.flash_attention_error_string(rc).decode()})")
@@ -391,16 +417,16 @@ def flash_attend_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class FlashAttention(torch.autograd.Function):
     """:func:`flash_attend` with a gradient: the forward saves the output
     and the per-row statistics, the backward is one :func:`flash_attend_bwd`
-    (q/k/v get gradients; the offsets do not)."""
+    (q/k/v get gradients; the offsets and the window do not)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float, causal: bool,
-                q_start: torch.Tensor, kv_len: torch.Tensor):
+                q_start: torch.Tensor, kv_len: torch.Tensor, window: int = 0):
         out, lse = flash_attend(q, k, v, scale=scale, causal=causal,
                                 q_start=q_start, kv_len=kv_len,
-                                return_lse=True)
+                                return_lse=True, window=window)
         ctx.save_for_backward(q, k, v, out, lse, q_start, kv_len)
-        ctx.scale, ctx.causal = scale, causal
+        ctx.scale, ctx.causal, ctx.window = scale, causal, window
         return out
 
     @staticmethod
@@ -409,8 +435,9 @@ class FlashAttention(torch.autograd.Function):
         # autograd may hand a strided or unaligned gradient
         dq, dk, dv = flash_attend_bwd(
             q, k, v, out, lse, dout.contiguous(), scale=ctx.scale,
-            causal=ctx.causal, q_start=q_start, kv_len=kv_len)
-        return dq, dk, dv, None, None, None, None
+            causal=ctx.causal, q_start=q_start, kv_len=kv_len,
+            window=ctx.window)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -8,10 +8,20 @@
         --arch mamba2-2.7b --stages 16 --microbatches 2 \\
         --batch 8 --prompt-len 512 --gen 32
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch gemma3-1b --tensor 1 --stages 2 --microbatches 2 \\
+        --batch 8 --prompt-len 1024 --gen 32
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen3-1.7b --tensor 1 --stages 4 --microbatches 2 \\
+        --batch 8 --prompt-len 512 --gen 32
+
 ``--device cpu`` runs the same path on the CPU with the kernels' plain
 versions (add ``--reduced`` for a small model).  A config whose tensor
-degree is above 1 (llama3.2-1b's is 2) is refused unless ``--tensor 1``
-is given, as in the training CLI.  For mamba2 the prompt
+degree is above 1 (llama3.2-1b's is 2, gemma3-1b's and qwen3-1.7b's 4) is
+refused unless ``--tensor 1`` is given, as in the training CLI.
+gemma3-1b's local layers attend over a sliding window of 512 keys and its
+every sixth layer globally, all through the same flash kernel.  For mamba2 the prompt
 length must be a multiple of the SSD chunk (256; 16 reduced) or shorter
 than it.
 

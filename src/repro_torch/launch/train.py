@@ -1,5 +1,6 @@
-"""Pipelined training entry point: llama-style models through the BaPipe
-stage plan and a compiled F/B(/W) schedule, on one card.
+"""Pipelined training entry point: dense GQA models (llama3.2-1b,
+gemma3-1b, qwen3-1.7b) through the BaPipe stage plan and a compiled
+F/B(/W) schedule, on one card.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --tensor 1 --stages 4 --schedule 1f1b --microbatches 4 --batch 8 \\
@@ -17,6 +18,14 @@ stage plan and a compiled F/B(/W) schedule, on one card.
         --tensor 1 --stages 4 --auto-plan --cluster h100,h100,h100,h100 \\
         --batch 8 --seq 1024 --steps 3
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
+        --tensor 1 --stages 4 --schedule 1f1b --microbatches 4 --batch 8 \\
+        --seq 1024 --steps 3
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+        --tensor 1 --stages 4 --schedule 1f1b --microbatches 4 --batch 8 \\
+        --seq 1024 --steps 3
+
 ``--schedule`` takes any of the eight builders of
 :data:`repro_torch.core.schedplan.BUILDER_NAMES` (``--virtual V`` chunks
 per stage for the interleaved two); ``--mem-limit`` caps ``zb-auto``'s
@@ -31,7 +40,8 @@ JAX CLI does; a plan that needs tensor or data parallelism is printed,
 then refused.  ``--device cpu`` runs the same path on the CPU with the
 kernels' plain versions.  As in the JAX CLI, ``--layers``/``--d-model``
 apply only under ``--reduced``, and a config whose tensor degree is above 1
-(llama3.2-1b's is 2) is refused unless ``--tensor 1`` is given.  Data
+(llama3.2-1b's is 2, gemma3-1b's and qwen3-1.7b's 4) is refused unless
+``--tensor 1`` is given.  Data
 come from :class:`repro_torch.data.synthetic.SyntheticLM`
 (the JAX package's generator, bit-identical tokens); the optimizer is
 AdamW with the reference settings (``warmup_cosine(lr, 20, steps)``,

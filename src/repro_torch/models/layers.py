@@ -74,24 +74,24 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            kv_len=None, window=None) -> torch.Tensor:
     """q: [B,T,Hq,D], k/v: [B,S,Hkv,D] (GQA by head index).
     ``q_start``: absolute position of q[0], a scalar or per-row [B];
-    ``kv_len``: valid prefix of k/v (scalar or per-row [B]) or None.
+    ``kv_len``: valid prefix of k/v (scalar or per-row [B]) or None;
+    ``window``: sliding window size, a Python int (0/None = global).
     On a CUDA tensor this is one launch of the flash kernel; on a CPU
     tensor its plain version.  Offsets stay on the device.  When autograd
     records and q/k/v require grad, a CUDA tensor goes through
     :class:`FlashAttention` (the forward with statistics, then one launch
     of the backward kernel) and a CPU tensor through the plain version
     under torch autograd."""
-    if window is not None:
-        raise NotImplementedError("sliding-window attention is not ported "
-                                  "yet")
     B, S = q.shape[0], k.shape[1]
     q_start = _per_row(q_start, B, q.device)
     kv_len = _per_row(S if kv_len is None else kv_len, B, q.device)
+    window = window or 0
     if (q.device.type == "cuda" and torch.is_grad_enabled()
             and (q.requires_grad or k.requires_grad or v.requires_grad)):
-        return FlashAttention.apply(q, k, v, scale, causal, q_start, kv_len)
+        return FlashAttention.apply(q, k, v, scale, causal, q_start, kv_len,
+                                    window)
     return flash_attend(q, k, v, scale=scale, causal=causal,
-                        q_start=q_start, kv_len=kv_len)
+                        q_start=q_start, kv_len=kv_len, window=window)
 
 
 def _cache_write(buf: torch.Tensor, new: torch.Tensor, idx) -> torch.Tensor:
@@ -133,13 +133,13 @@ def init_gqa(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> Params:
 
 def gqa_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                   pos: torch.Tensor, rope_theta: float,
-                  cache: Optional[dict] = None
+                  is_global: bool = True, cache: Optional[dict] = None
                   ) -> tuple[torch.Tensor, Optional[dict]]:
-    """One GQA self-attention.  With ``cache`` (k/v [B,S,Hkv,D] and
-    ``len`` [B]), the new keys/values are written into it in place at the
-    per-row offsets and the returned cache carries ``len + T``."""
-    if cfg.window:
-        raise NotImplementedError("sliding-window layers are not ported yet")
+    """One GQA self-attention.  ``is_global`` (a host bool from the layer's
+    metadata) picks global masking or the config's sliding window.  With
+    ``cache`` (k/v [B,S,Hkv,D] and ``len`` [B]), the new keys/values are
+    written into it in place at the per-row offsets and the returned cache
+    carries ``len + T``."""
     if cfg.mrope_sections is not None:
         raise NotImplementedError("M-RoPE is not ported yet")
     B, T, _ = x.shape
@@ -157,6 +157,7 @@ def gqa_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         k = apply_rope(k, pos, rope_theta)
     new_cache = None
     scale = 1.0 / math.sqrt(hd)
+    window = 0 if is_global else cfg.window
     if cache is not None:
         idx = _per_row(cache["len"], B, x.device)
         ck = _cache_write(cache["k"], k, idx)
@@ -164,9 +165,9 @@ def gqa_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         new_len = idx + T
         new_cache = dict(k=ck, v=cv, len=new_len)
         out = attend(q, ck, cv, scale=scale, causal=True, q_start=idx,
-                     kv_len=new_len)
+                     kv_len=new_len, window=window)
     else:
-        out = attend(q, k, v, scale=scale, causal=True)
+        out = attend(q, k, v, scale=scale, causal=True, window=window)
     return out.reshape(B, T, nh * hd) @ p["wo"], new_cache
 
 

@@ -60,7 +60,7 @@ def init_block(cfg: ArchConfig, gen: torch.Generator, dtype, device) -> Params:
 def block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, meta_l: dict, *,
                 pos: torch.Tensor, cache_l: Optional[dict] = None):
     """Apply one dense or SSM block.  ``meta_l`` holds this layer's
-    scalars (``rope_theta``).  Returns (x', cache_l', aux_loss); the
+    scalars (``rope_theta``, ``is_global``).  Returns (x', cache_l', aux_loss); the
     leaves of ``cache_l`` (k/v, or the SSM conv window and state) are
     updated in place.  Neither block has an auxiliary loss: aux is the
     Python float 0.0 (no device work, no host sync)."""
@@ -73,7 +73,7 @@ def block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, meta_l: dict, *,
     xin = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     h, new_kv = L.gqa_attention(
         p["attn"], xin, cfg, pos=pos, rope_theta=meta_l["rope_theta"],
-        cache=None if cache_l is None else cache_l["kv"])
+        is_global=meta_l["is_global"], cache=None if cache_l is None else cache_l["kv"])
     x = x + h
     x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act)
     new_cache = None if cache_l is None else dict(cache_l, kv=new_kv)
@@ -121,8 +121,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
 
 def embed_tokens(cfg: ArchConfig, table: torch.Tensor,
                  tokens: torch.Tensor) -> torch.Tensor:
-    """Token embedding (tensor parallel degree 1: a plain gather)."""
-    return table[tokens]
+    """Token embedding (tensor parallel degree 1: a plain gather), scaled
+    by sqrt(d_model) in the table's dtype for the gemma family, as the
+    JAX package does."""
+    x = table[tokens]
+    if cfg.arch_id.startswith("gemma"):
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -54,7 +54,7 @@ def _flash_inputs(g, B, T, S, Hq, Hkv, D, q_start, kv_len, dtype, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 def test_flash_routes_match_plain_on_card(dtype, D):
     """Both routes of the kernel against its plain version: GQA groups
     1/4/8, T on both sides of the decode rule (T * groups <= 16), a ragged
@@ -97,6 +97,67 @@ def test_flash_routes_match_plain_on_card(dtype, D):
             FA.flash_attend(q, k, v, **kw).float(),
             FA.attend_ref(q, k, v, **kw).float(), atol=TOL[dtype],
             rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [64, 256])
+def test_flash_window_matches_plain_on_card(dtype, D):
+    """A sliding window in both forward routes and the backward, against
+    the plain versions: windows 1, 8 and 40 over S = 160 (GQA groups 1 and
+    4, T on both sides of the decode rule, 100 and 130 rows, causal and
+    not), rows from 0, a 40-key prefix, an idle row (kv_len = 0), rows
+    whose first positions see no key (q_start < 0), rows past the window's
+    reach (q_start far beyond kv_len: a suffix that sees no key) and a
+    full cache; then the decode route over S = 4096 with window 512, where
+    most key splits lie wholly before the window."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(20 + D)
+    S, Hkv = 160, 1
+    for groups in (1, 4):
+        Hq = Hkv * groups
+        for T in sorted({1, FA.DECODE_MAX_ROWS // groups + 1, 100, 130}):
+            for causal in (True, False):
+                for window in (1, 8, 40):
+                    q_start = [0, max(0, 40 - T), 0, -5, 30, S - T]
+                    kv_len = [T, 40, 0, S, 24, S]
+                    q, k, v, do, qs, kl = _bwd_case(
+                        g, 6, T, S, Hq, Hkv, D, q_start, kv_len, dtype, dev)
+                    kw = dict(scale=D ** -0.5, causal=causal, q_start=qs,
+                              kv_len=kl, window=window)
+                    case = (groups, T, causal, window)
+                    torch.testing.assert_close(
+                        FA.flash_attend(q, k, v, **kw).float(),
+                        FA.attend_ref(q, k, v, **kw).float(),
+                        atol=TOL[dtype], rtol=TOL[dtype],
+                        msg=lambda m: f"{case}: {m}")
+                    out, lse = FA.flash_attend(q, k, v, return_lse=True,
+                                               **kw)
+                    got = FA.flash_attend_bwd(q, k, v, out, lse, do, **kw)
+                    want = FA.attend_bwd_ref(q, k, v, out, lse, do, **kw)
+                    for name, a, b in zip("qkv", got, want):
+                        # a row that sees one key has P = 1 and dS = 0, so
+                        # at window 1 dq and dk are zero up to rounding:
+                        # held to the bar against dv's scale
+                        ref = want[2] if name in "qk" and window == 1 else b
+                        err = ((a.float() - b.float()).abs().max()
+                               / ref.float().abs().max()).item()
+                        assert err < BWD_TOL[dtype], (name, case, err)
+    for B, q_start, kv_len in ((4, [4095, 4000, 700, 30], [4096, 4001, 701,
+                                                             31]),):
+        q, k, v, qs, kl = _flash_inputs(g, B, 1, 4096, 4, 1, D, q_start,
+                                        kv_len, dtype, dev)
+        assert FA.route(1, 4, 1) == "decode"
+        assert FA.decode_splits(B, 4096, 1)[0] > 4096 // 512
+        kw = dict(scale=D ** -0.5, causal=True, q_start=qs, kv_len=kl,
+                  window=512)
+        torch.testing.assert_close(
+            FA.flash_attend(q, k, v, **kw).float(),
+            FA.attend_ref(q, k, v, **kw).float(), atol=TOL[dtype],
+            rtol=TOL[dtype])
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -277,7 +338,7 @@ def _bwd_case(g, B, T, S, Hq, Hkv, D, q_start, kv_len, dtype, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 def test_flash_bwd_matches_plain_on_card(dtype, D):
     """The backward kernel against attend_bwd_ref (same output and
     statistics) and, in f32, against torch autograd of attend_ref: GQA

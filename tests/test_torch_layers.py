@@ -65,7 +65,11 @@ def _tiny_cfg(qk_norm=False):
     pytest.param("llama3.2-1b", False, id="False"),
     pytest.param("llama3.2-1b", True, id="True"),
     pytest.param("mamba2-2.7b", False, id="mamba2-False"),
-    pytest.param("mamba2-2.7b", True, id="mamba2-True")])
+    pytest.param("mamba2-2.7b", True, id="mamba2-True"),
+    pytest.param("gemma3-1b", False, id="gemma3-False"),
+    pytest.param("gemma3-1b", True, id="gemma3-True"),
+    pytest.param("qwen3-1.7b", False, id="qwen3-False"),
+    pytest.param("qwen3-1.7b", True, id="qwen3-True")])
 def test_config_matches_jax(arch, reduce):
     cfg, jcfg = get_config(arch), jax_get_config(arch)
     if reduce:

@@ -8,25 +8,28 @@ source, on one card, in one process.
     python3 tools/flash_ab.py --bwd --profile --baseline build/flash_baseline.cu
 
 The baseline is a ``flash_attention.cu`` with the two-route C interface
-without statistics (``flash_attention_fwd(..., scale, causal, n_split,
-split_len, workspace, stream)``, from the redesign of the kernel up to the
-version before the backward).  It is compiled with the same nvcc flags as the
-port's kernels into ``build/kernels/``; ``--baseline`` may be given more
-than once (the sources are compiled in parallel, and every version is
-timed in the same turns).  At the serving path's shapes
-(llama3.2-1b: 32 query heads, 8 kv heads, head_dim 64, S = 544, a
-micro-batch of 4 rows) each shape is timed in turns, baselines, current,
-current, baselines in reverse (device time of one call, CUDA-graph replay, as
-chip_smoke.py times it), after both outputs were checked against the
-plain version.  One JSON line per shape; the last line names the card.
+(from the redesign of the kernel on).  Its ``flash_attention_fwd`` and
+``flash_attention_bwd`` are called by the parameter names of their
+definitions in the baseline source, so a version with or without the
+statistics pointer (``lse``) or the ``window`` argument (passed 0) is
+taken as it is.  It is compiled with the same nvcc flags as the port's
+kernels into ``build/kernels/``; ``--baseline`` may be given more than
+once (the sources are compiled in parallel, and every version is timed in
+the same turns).  At the serving path's shapes (llama3.2-1b: 32 query
+heads, 8 kv heads, head_dim 64, S = 544, a micro-batch of 4 rows) and its
+training shape (batch 2, T = S = 1024, without and, when every baseline
+has the statistics pointer, with the statistics) each shape is timed in
+turns, baselines, current, current, baselines in reverse (device
+time of one call, CUDA-graph replay, as chip_smoke.py times it), after
+both outputs were checked against the plain version.  One JSON line per shape; the last line names the card.
 With ``--profile``, each shape's line also carries the current version's
 device time per CUDA kernel (``torch.profiler``, mean over 50 calls), so
 the decode route's split and combine kernels show apart.
 
 With ``--bwd`` the backward is compared instead, at the training path's
 shape (llama3.2-1b: batch 2, T = S = 1024, 32/8 heads, D 64, causal), the
-inputs' output and statistics from the current forward: a baseline must
-have the same ``flash_attention_bwd`` C interface.  Every version's dq,
+inputs' output and statistics from the current forward (a baseline needs a
+``flash_attention_bwd``).  Every version's dq,
 dk, dv are checked against the plain version (relative to max |ref|: f32
 1e-4, bf16 3e-2); with ``--profile`` the line carries every version's
 device time per CUDA kernel.
@@ -36,6 +39,7 @@ import concurrent.futures as cf
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -56,6 +60,41 @@ def build_baselines(paths: list, stem: str) -> list:
                              enumerate(paths)))
 
 
+def c_params(path: str, fn: str) -> list:
+    """(name, ctypes type) of each parameter of the C function ``fn`` as
+    the source at ``path`` defines it."""
+    with open(path) as f:
+        m = re.search(rf"\bint {fn}\(([^)]*)\)\s*{{", f.read())
+    if m is None:
+        sys.exit(f"{path}: no definition of {fn}")
+    out = []
+    for decl in m.group(1).split(","):
+        name = re.findall(r"\w+", decl)[-1]
+        out.append((name, ctypes.c_void_p if "*" in decl
+                    else ctypes.c_longlong if "long long" in decl
+                    else ctypes.c_float if "float" in decl else ctypes.c_int))
+    return out
+
+
+def bind(lib, path: str, fn: str):
+    """``lib.fn`` called with keyword arguments named as in the source."""
+    params = c_params(path, fn)
+    f = getattr(lib, fn)
+    f.argtypes = [t for _, t in params]
+    f.restype = ctypes.c_int
+
+    def call(**kw):
+        rc = f(*(kw[name] for name, _ in params))
+        if rc:
+            raise RuntimeError(f"baseline {fn}: CUDA error {rc}")
+    call.names = {name for name, _ in params}
+    return call
+
+
+def strides(prefix: str, t, dims: str) -> dict:
+    return {f"s{prefix}_{d}": s for d, s in zip(dims, t.stride()[:3])}
+
+
 def turns(fns: dict) -> dict:
     """Device ms of each named call, timed in turns: in order, then in
     reverse (so no version always runs first)."""
@@ -67,58 +106,60 @@ def turns(fns: dict) -> dict:
     return out
 
 
-def baseline_call(lib, q, k, v, q_start, kv_len, scale, causal):
+def baseline_call(fwd, q, k, v, q_start, kv_len, scale, causal,
+                  stats=False):
+    """One call of a baseline's forward (``bind``); ``stats``: fill the
+    statistics (the prefill route)."""
     from repro_torch.kernels import flash_attention as FA
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    decode = FA.route(T, Hq, Hkv) == "decode"
+    lse = (torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+           if stats else None)
+    decode = not stats and FA.route(T, Hq, Hkv) == "decode"
     n_split, split_len = FA.decode_splits(B, S, Hkv) if decode else (0, 0)
     work = (torch.empty(B * Hkv * n_split * T * (Hq // Hkv) * (D + 2),
                         dtype=torch.float32, device=q.device)
             if n_split > 1 else None)
-    rc = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        q_start.data_ptr(), kv_len.data_ptr(), B, T, S, Hq, Hkv, D,
-        {torch.float32: 0, torch.bfloat16: 1}[q.dtype],
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], float(scale), int(causal), n_split, split_len,
-        None if work is None else work.data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"baseline flash_attention_fwd: CUDA error {rc}")
+    fwd(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=out.data_ptr(),
+        q_start=q_start.data_ptr(), kv_len=kv_len.data_ptr(), B=B, T=T, S=S,
+        Hq=Hq, Hkv=Hkv, D=D,
+        dtype={torch.float32: 0, torch.bfloat16: 1}[q.dtype],
+        **strides("q", q, "bth"), **strides("k", k, "bsh"),
+        **strides("v", v, "bsh"), **strides("o", out, "bth"),
+        scale=float(scale), causal=int(causal), window=0, n_split=n_split,
+        split_len=split_len,
+        workspace=None if work is None else work.data_ptr(),
+        lse=None if lse is None else lse.data_ptr(),
+        stream=torch.cuda.current_stream().cuda_stream)
     return out
 
 
-def baseline_bwd_call(lib, q, k, v, out, lse, dout, q_start, kv_len, scale,
+def baseline_bwd_call(bwd, q, k, v, out, lse, dout, q_start, kv_len, scale,
                       causal):
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
-    rc = lib.flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), q_start.data_ptr(), kv_len.data_ptr(),
-        B, T, S, Hq, Hkv, D, {torch.float32: 0, torch.bfloat16: 1}[q.dtype],
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], *dout.stride()[:3], float(scale), int(causal),
-        torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"baseline flash_attention_bwd: CUDA error {rc}")
+    bwd(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=out.data_ptr(),
+        dout=dout.data_ptr(), lse=lse.data_ptr(), delta=delta.data_ptr(),
+        dq=dq.data_ptr(), dk=dk.data_ptr(), dv=dv.data_ptr(),
+        q_start=q_start.data_ptr(), kv_len=kv_len.data_ptr(), B=B, T=T, S=S,
+        Hq=Hq, Hkv=Hkv, D=D,
+        dtype={torch.float32: 0, torch.bfloat16: 1}[q.dtype],
+        **strides("q", q, "bth"), **strides("k", k, "bsh"),
+        **strides("v", v, "bsh"), **strides("o", out, "bth"),
+        **strides("d", dout, "bth"), scale=float(scale), causal=int(causal),
+        window=0, stream=torch.cuda.current_stream().cuda_stream)
     return dq, dk, dv
 
 
 def main_bwd(paths: list, profile: bool) -> None:
     from chip_smoke import kernel_us
     from repro_torch.kernels import flash_attention as FA
-    bases = build_baselines(paths, "flash_bwd_baseline")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for base in bases:
-        base.flash_attention_bwd.argtypes = (
-            [p] * 12 + [i] * 7 + [ll] * 15 + [ctypes.c_float, i, p])
-        base.flash_attention_bwd.restype = ctypes.c_int
+    bases = [bind(lib, path, "flash_attention_bwd") for lib, path in
+             zip(build_baselines(paths, "flash_bwd_baseline"), paths)]
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -170,35 +211,40 @@ def main() -> None:
         return
     from chip_smoke import kernel_us
     from repro_torch.kernels import flash_attention as FA
-    bases = build_baselines(args.baseline, "flash_baseline")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for base in bases:
-        base.flash_attention_fwd.argtypes = (
-            [p] * 6 + [i] * 7 + [ll] * 12 + [ctypes.c_float, i, i, i, p, p])
-        base.flash_attention_fwd.restype = ctypes.c_int
+    bases = [bind(lib, path, "flash_attention_fwd") for lib, path in
+             zip(build_baselines(args.baseline, "flash_baseline"),
+                 args.baseline)]
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
-    cases = (("main-path prefill B=4", 4, 512, [0] * 4, [512] * 4),
-             ("main-path decode B=4 per-row", 4, 1, [527, 520, 300, 543],
-              [528, 521, 301, 544]))
-    for label, B, T, q_start, kv_len in cases:
+    # (label, B, T, S, q_start, kv_len, with statistics)
+    cases = [("main-path prefill B=4", 4, 512, 544, [0] * 4, [512] * 4,
+              False),
+             ("main-path decode B=4 per-row", 4, 1, 544, [527, 520, 300, 543],
+              [528, 521, 301, 544], False),
+             ("train B=2", 2, 1024, 1024, [0, 0], [1024, 1024], False)]
+    if all("lse" in base.names for base in bases):
+        cases.append(("train B=2 with statistics", 2, 1024, 1024, [0, 0],
+                      [1024, 1024], True))
+    for label, B, T, S, q_start, kv_len, stats in cases:
         for dtype in (torch.float32, torch.bfloat16):
             rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dtype)
-            q, k, v = rnd(B, T, 32, 64), rnd(B, 544, 8, 64), rnd(B, 544, 8, 64)
+            q, k, v = rnd(B, T, 32, 64), rnd(B, S, 8, 64), rnd(B, S, 8, 64)
             qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
             kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
             kw = dict(scale=0.125, causal=True, q_start=qs, kv_len=kl)
             fns = {path: (lambda base=base: baseline_call(
-                       base, q, k, v, qs, kl, 0.125, True))
+                       base, q, k, v, qs, kl, 0.125, True, stats))
                    for path, base in zip(args.baseline, bases)}
-            fns["current"] = lambda: FA.flash_attend(q, k, v, **kw)
+            fns["current"] = ((lambda: FA.flash_attend(
+                q, k, v, return_lse=True, **kw)[0]) if stats
+                else (lambda: FA.flash_attend(q, k, v, **kw)))
             want = FA.attend_ref(q, k, v, **kw).float()
             errs = {name: (fn().float() - want).abs().max().item()
                     for name, fn in fns.items()}
             if max(errs.values()) > TOL[dtype]:
                 sys.exit(f"{label}: disagrees with the plain version: {errs}")
             print(json.dumps(dict(
-                label=f"{label} T={T} S=544 Hq=32 Hkv=8 D=64",
+                label=f"{label} T={T} S={S} Hq=32 Hkv=8 D=64",
                 dtype=str(dtype).replace("torch.", ""),
                 route=FA.route(T, 32, 8), ms=turns(fns), max_abs_err=errs,
                 **({"kernel_us": kernel_us(fns["current"])}

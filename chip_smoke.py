@@ -11,10 +11,13 @@ Phases, each reported on its own lines:
    then reading the libraries' machine code (``cuobjdump -sass``): every
    flash prefill-route kernel must issue tensor-core products (HMMA, from
    mma.sync) and both routes' kernels must load through cp.async
-   (LDGSTS); so must the prefill route's kernels at D = 256 and the
+   (LDGSTS); so must the prefill route's kernels at D = 256, the
    backward's dK/dV and dQ kernels of the f32 and bf16 builds at D = 64
-   and D = 256, and every SSD product kernel (scores, chunk states, chunk
-   outputs) of the f32 and bf16 builds at P = 64;
+   and D = 256's own kernel (``bwd256``, dK/dV and dQ in one launch:
+   mma.sync, cp.async and warpgroup products, HGMMA from wgmma), and
+   every SSD product kernel
+   (scores, chunk states, chunk outputs) of the f32 and bf16 builds at
+   P = 64;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the JAX kernel tests and at the serving path's shapes, with
    the kernel's device time (``ms``, CUDA-graph replay), its eager
@@ -63,13 +66,17 @@ Phases, each reported on its own lines:
    phase 3's shapes (through a head axis of one), the per-row cases with
    an idle row, and the training shapes (batch 2 and 1, T = S = 1024, 32/8
    heads, D 64, causal), gemma3-1b's global and local (window 512) and
-   qwen3-1.7b's training shapes and a windowed per-row case with idle
-   rows, in f32 and bf16 (relative to max |ref|: 1e-4, 3e-2); a second
-   call must give the same bits; the library time is the backward of
+   qwen3-1.7b's training shapes, a windowed per-row case with idle
+   rows, and the D = 256 kernels' edges (T = S = 1000, 4/2 heads, window
+   96, rows that see no key before, past and everywhere), in f32 and bf16
+   (relative to max |ref|: 1e-4, 3e-2); a second call must give the same
+   bits; the library time is the backward of
    ``scaled_dot_product_attention`` (eager, CUDA events; ``is_causal`` for
    the plain causal mask, else an explicit mask, a window's band
    included); the training shapes' rows add the device time of each of
-   the backward's three CUDA kernels (``kernel_us``, ``torch.profiler``);
+   the backward's CUDA kernels (``kernel_us``, ``torch.profiler``: the
+   pre-pass, dK/dV, dQ; at D = 256 the pre-pass, one kernel for dK/dV
+   and dQ, and the sum of the dK/dV parts);
 10. ``repro_torch.launch.train.main`` at the full width of llama3.2-1b
    (16 layers, 4 stages x 4 layers, 1f1b, 4 micro-batches, batch 8, seq
    1024, f32, 3 steps): finite losses, step 0's loss against a
@@ -364,7 +371,8 @@ def library_attention_bwd(q, k, v, dout, q_start, kv_len, causal, scale,
 
 
 def sass_counts(build, name: str, prefix: str, dim: str) -> dict:
-    """Counts of tensor-core products (HMMA) and cp.async loads (LDGSTS) in
+    """Counts of tensor-core products (HMMA from mma.sync, HGMMA from
+    wgmma) and cp.async loads (LDGSTS) in
     each kernel ``<prefix>_<kind>_kernel<dtype[, size]>`` of the built
     library ``name``, keyed ``kind dtype <dim>=size`` (``kind dtype`` for a
     kernel with no size); None when the toolkit has no cuobjdump."""
@@ -383,11 +391,11 @@ def sass_counts(build, name: str, prefix: str, dim: str) -> dict:
                 [fn[1]] + ([f"{'f32' if fn[2] == 'f' else 'bf16'}"]
                            if fn[2] else [])
                 + ([f"{dim}={fn[3]}"] if fn[3] else []))
-            counts[cur] = dict(HMMA=0, LDGSTS=0)
+            counts[cur] = dict(HMMA=0, HGMMA=0, LDGSTS=0)
         elif "Function : " in line:
             cur = None
         elif cur:
-            for op in ("HMMA", "LDGSTS"):
+            for op in ("HMMA", "HGMMA", "LDGSTS"):
                 counts[cur][op] += bool(re.search(rf"\b{op}\b", line))
     return counts
 
@@ -593,7 +601,14 @@ def phase_backward(FA, results: list) -> list:
               ("qwen3 train T=S=1024", 2, 1024, 1024, 16, 8, 128, True,
                [0, 0], [1024, 1024], 0),
               ("window=8 per-row with idle rows", 4, 40, 96, 4, 1, 256,
-               True, [0, 30, 0, 90], [40, 70, 0, 20], 8)]
+               True, [0, 30, 0, 90], [40, 70, 0, 20], 8),
+              # the D = 256 kernels' edges: T = S = 1000 cuts the 32-row
+              # tiles, G = 2 parts, a window of 96 (3 tiles), rows that
+              # see no key before (q_start < 0), past the window's reach
+              # (kv_len 801) and everywhere (kv_len 0)
+              ("D=256 edges T=S=1000 window=96 per-row with idle rows", 4,
+               1000, 1000, 4, 2, 256, True, [0, 37, 0, -50],
+               [1000, 801, 0, 1000], 96)]
     bad = []
     for label, B, T, S, Hq, Hkv, D, causal, q_start, kv_len, *w in cases:
         window = w[0] if w else 0
@@ -633,9 +648,12 @@ def phase_backward(FA, results: list) -> list:
             if "train" in label:
                 # device time of each of the backward's CUDA kernels
                 row["kernel_us"] = us = kernel_us(kern)
-                if sorted(k_.split("<")[0] for k_ in us) != [
-                        "flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-                        "flash_bwd_dq_kernel"]:
+                want_k = (["flash_bwd256_kernel", "flash_bwd_delta_kernel",
+                           "flash_bwd_sum_kernel"]
+                          if D == 256 else
+                          ["flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+                           "flash_bwd_dq_kernel"])
+                if sorted(k_.split("<")[0] for k_ in us) != want_k:
                     fail(f"flash backward at the training shape: profiler "
                          f"shows {us}")
             print("kernel " + json.dumps(row), flush=True)
@@ -1328,9 +1346,14 @@ def main() -> None:
             or (k.split()[0] in ("prefill", "decode") and v["LDGSTS"] == 0)
             for k, v in sass.items()) or any(
             k not in sass or sass[k]["HMMA"] == 0 or sass[k]["LDGSTS"] == 0
-            for k in [f"bwd_{kind} {d} D={D}" for kind in ("dkdv", "dq")
-                      for d in ("f32", "bf16") for D in (64, 256)]
-            + [f"prefill {d} D=256" for d in ("f32", "bf16")]):
+            for k in [f"bwd_{kind} {d} D=64" for kind in ("dkdv", "dq")
+                      for d in ("f32", "bf16")]
+            # the D = 256 backward's own kernel (dK/dV and dQ)
+            + [f"bwd256 {d}" for d in ("f32", "bf16")]
+            + [f"prefill {d} D=256" for d in ("f32", "bf16")]) or any(
+            k not in sass or sass[k]["HGMMA"] == 0
+            # its sums over a step's rows (phase B) on wgmma
+            for k in [f"bwd256 {d}" for d in ("f32", "bf16")]):
         fail(f"flash kernels lack tensor-core products or cp.async: {sass}")
     # every SSD product kernel of both dtypes at P = 64 (the main path's)
     ssd_sass = sass_counts(build, "ssd_scan", "ssd", "P")

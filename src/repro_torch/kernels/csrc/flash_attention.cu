@@ -90,7 +90,8 @@
 //     P.V), which is where the accumulator already holds them.
 // mma.sync with cp.async is the first Hopper design; wgmma with TMA (and
 // V transposed in shared memory for TF32's K-major operands) is the route
-// to the full tensor-core rate.
+// to the full tensor-core rate.  The D = 256 backward's sums already run
+// on wgmma, transposed so that no operand is stored transposed (Bwd256).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -890,7 +891,8 @@ flash_combine_kernel(const Params p) {
 // Bound: operations.  Per visible query-key pair the five products take
 // 10 D flops (the scores recomputed, dP, dV, dK, dQ); at the training shape
 // (batch 2, T = S = 1024, 32/8 heads, D 64, causal) that is 21.5 GFLOP
-// against ~84 MB moved.  Three CUDA kernels per call:
+// against ~84 MB moved.  Three CUDA kernels per call (four at D = 256,
+// whose kernels follow these):
 //   * a pre-pass D = rowsum(dO o O) (16-byte loads, a few lanes a row);
 //   * dK/dV: one block per (BS keys, kv head, batch row), walking the query
 //     tiles of all Hq/Hkv query heads of its group that see its keys (S^T =
@@ -962,9 +964,7 @@ flash_combine_kernel(const Params p) {
 //     rows, BT 32 keys, two slots, 8 warps, 210,432 bytes; one block an SM.
 //     D = 32: BS 64, BT 32, 8 warps, 109,824 and 93,440 bytes, two blocks an
 //     SM.  D = 128: BS 32, BT 16, 8 and 4 warps, 171,648 and 169,600 bytes,
-//     one block an SM.  D = 256 (D = 128's settings would need ~335 KB):
-//     BS 16, BT 16, two slots, 4 and 2 warps, 201,088 and 200,064 bytes,
-//     one block an SM; a warp's sums are 128 registers a thread.
+//     one block an SM.  D = 256 has kernels of its own (Bwd256 below).
 //   * The window.  A row sees [row_start, row_end), both non-decreasing in
 //     the row, so the rows that see a key tile are one range, and the rows
 //     that see none a prefix and/or a suffix: dK/dV walks the query tiles
@@ -995,6 +995,7 @@ struct BwdParams {
   float scale, scale_log2;
   int causal;
   int window;                           // sliding window; 0 = global
+  float* ws;                            // D = 256: dV, dK partials per part
 };
 
 // the first t in [0, n) with pred(t), n if none; pred is monotone (false
@@ -1049,10 +1050,12 @@ flash_bwd_delta_kernel(const BwdParams p) {
   if (ok && c == 0) p.delta[((long long)b * p.Hq + h) * p.T + i] = acc;
 }
 
+// D <= 128 (D = 256 has its own kernels, Bwd256 below)
 template <typename T, int D>
 struct BwdCfg {
+  static_assert(D <= 128, "D = 256 takes the Bwd256 kernels");
   static constexpr bool SPLIT = std::is_same<T, float>::value;  // small planes
-  static constexpr int BS = D == 256 ? 16 : D == 128 ? 32 : 64;  // stationary
+  static constexpr int BS = D == 128 ? 32 : 64;  // stationary
   static constexpr int MK = D >= 128 ? 1 : 2;    // m16 tiles a warp holds
   static constexpr int WK = BS / (16 * MK);      // warp groups along them
   static constexpr int WT = 2;                   // warps along streamed rows
@@ -1063,7 +1066,7 @@ struct BwdCfg {
   static constexpr int NTH = 2 * 32 * PAIRS;     // dK/dV
 
   static constexpr int MIN_BLOCKS = D == 32 ? 2 : 1;
-  static constexpr int STAGES = D == 256 ? 2 : 3;
+  static constexpr int STAGES = 3;
   static constexpr int LD = D + 4;               // plane pitch, words
   static constexpr int PS = BS * LD;             // words of a stationary plane
   static constexpr int PT = BT * LD;             // words of a streamed plane
@@ -1082,7 +1085,7 @@ struct BwdCfg {
   static constexpr int WT_Q = D == 64 ? 1 : 2;
   static constexpr int RT_Q = BT / WT_Q, NT_Q = RT_Q / 8;
   static constexpr int NTH_Q = 32 * BS_Q / 16 * WT_Q;
-  static constexpr int STAGES_Q = D == 64 || D == 256 ? 2 : 3;
+  static constexpr int STAGES_Q = D == 64 ? 2 : 3;
   static constexpr int SMEM_Q = (4 * BS_Q * LD + 2 * BS_Q + STAGES_Q * SLOT) * 4;
   static_assert(WT == 2, "the final sums pair two warps");
   static_assert(BS / 16 * 32 * D <= STAGES * SLOT,
@@ -1284,6 +1287,66 @@ __device__ __forceinline__ float bwd_p(const BwdParams& p, int q0, int kl,
   return (!WIN || j >= rs) && j < re ? exp2f(s * p.scale_log2 - ls) : 0.f;
 }
 
+// The query tiles (BT rows) that touch keys [j0, j0 + BS) of batch row b
+// (q0 = its q_start, kl its visible length), as up to three ranges
+// [0, n1), [b_lo, b_hi) and [c_lo, n_qt), walked in order.  The rows that
+// see no key (each adds 1/S of its dO to every dV row) are a prefix
+// [0, n_pre) (row_end <= 0) and a suffix [n_suf, T) (past the window's
+// reach; empty without one); between them the rows that see one of the
+// keys are [s_lo, s_hi) (a row's start and end never decrease with i).
+template <bool WIN, int BT, int BS>
+struct KeyTileSteps {
+  int n1 = 0, b_lo = 0, c_lo = 0, n12 = 0, n = 0;   // n: the tiles in all
+  KeyTileSteps() = default;
+  __device__ __forceinline__ KeyTileSteps(const BwdParams& p, int q0, int kl,
+                                          int j0) {
+    const int n_qt = (p.T + BT - 1) / BT;
+    const int n_pre = bwd_first(p.T, [&](int i) {
+      return row_end(p, q0, kl, i) > 0; });
+    const int n_suf = n_pre + bwd_first(p.T - n_pre, [&](int i) {
+      return row_idle<WIN>(p, q0, kl, n_pre + i); });
+    const int s_lo = max(n_pre, bwd_first(p.T, [&](int i) {
+      return row_end(p, q0, kl, i) > j0; }));
+    const int s_hi = min(n_suf, bwd_first(p.T, [&](int i) {
+      return row_start<WIN>(p, q0, i) >= j0 + BS; }));
+    const bool see = s_lo < s_hi;
+    n1 = (n_pre + BT - 1) / BT;
+    b_lo = see ? max(s_lo / BT, n1) : n1;
+    const int b_hi = see ? max((s_hi + BT - 1) / BT, b_lo) : n1;
+    c_lo = max(n_suf < p.T ? n_suf / BT : n_qt, b_hi);
+    n12 = n1 + b_hi - b_lo;
+    n = n12 + n_qt - c_lo;
+  }
+  // the first row of the a-th touching tile (without a window the third
+  // range is empty: a test per copy that the f32 D = 64 dK/dV kernel
+  // takes 2.5% longer for)
+  __device__ __forceinline__ int row(int a) const {
+    if constexpr (!WIN) return (a < n1 ? a : b_lo + a - n1) * BT;
+    return (a < n1 ? a : a < n12 ? b_lo + a - n1 : c_lo + a - n12) * BT;
+  }
+};
+
+// The keys [k_lo, k_hi) that query rows [i0, i1) see: rows that see no key
+// have dS = 0, so only keys some row sees add to dQ, from the first seeing
+// row's start to the last one's end
+template <bool WIN>
+__device__ __forceinline__ void dq_key_range(const BwdParams& p, int q0,
+                                             int kl, int i0, int i1,
+                                             int& k_lo, int& k_hi) {
+  k_lo = 0;
+  k_hi = max(0, row_end(p, q0, kl, i1 - 1));
+  if constexpr (WIN) {
+    k_lo = p.S;
+    k_hi = 0;
+    for (int i = i0; i < i1; ++i) {
+      if (!row_idle<WIN>(p, q0, kl, i)) {
+        k_lo = min(k_lo, row_start<WIN>(p, q0, i));
+        k_hi = max(k_hi, row_end(p, q0, kl, i));
+      }
+    }
+  }
+}
+
 // bar.sync on a named barrier for ``n`` threads (the two warps of a pair)
 __device__ __forceinline__ void bar_pair(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
@@ -1323,36 +1386,12 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
   const int q0 = p.q_start[b];
   const int kl = min(p.kv_len[b], p.S);
 
-  // the query tiles that touch these keys, as up to three ranges [0, n1),
-  // [b_lo, b_hi) and [c_lo, n_qt); steps walk them in order, each once,
-  // for each query head of the group.  The rows that see no key (each adds
-  // 1/S of its dO to every dV row) are a prefix [0, n_pre) (row_end <= 0)
-  // and a suffix [n_suf, T) (past the window's reach; empty without one);
-  // between them the rows that see one of keys [j0, j0 + BS) are
-  // [s_lo, s_hi) (a row's start and end never decrease with i)
-  const int n_qt = (p.T + BT - 1) / BT;
-  const int n_pre = bwd_first(p.T, [&](int i) {
-    return row_end(p, q0, kl, i) > 0; });
-  const int n_suf = n_pre + bwd_first(p.T - n_pre, [&](int i) {
-    return row_idle<WIN>(p, q0, kl, n_pre + i); });
-  const int s_lo = max(n_pre, bwd_first(p.T, [&](int i) {
-    return row_end(p, q0, kl, i) > j0; }));
-  const int s_hi = min(n_suf, bwd_first(p.T, [&](int i) {
-    return row_start<WIN>(p, q0, i) >= j0 + BS; }));
-  const bool see = s_lo < s_hi;
-  const int n1 = (n_pre + BT - 1) / BT;
-  const int b_lo = see ? max(s_lo / BT, n1) : n1;
-  const int b_hi = see ? max((s_hi + BT - 1) / BT, b_lo) : n1;
-  const int c_lo = max(n_suf < p.T ? n_suf / BT : n_qt, b_hi);
-  const int n12 = n1 + b_hi - b_lo;
-  const int n_act = n12 + n_qt - c_lo;
+  // the query tiles that touch these keys (KeyTileSteps), walked in order,
+  // each once, for each query head of the group
+  const KeyTileSteps<WIN, BT, BS> tiles(p, q0, kl, j0);
+  const int n_act = tiles.n;
   const int n_steps = G * n_act;
-  // the first row of the a-th touching tile (without a window the third
-  // range is empty: a test per copy that the f32 D = 64 dK/dV kernel
-  // takes 2.5% longer for)
-  auto tile_row = [&](int a) {
-    if constexpr (!WIN) return (a < n1 ? a : b_lo + a - n1) * BT;
-    return (a < n1 ? a : a < n12 ? b_lo + a - n1 : c_lo + a - n12) * BT; };
+  auto tile_row = [&](int a) { return tiles.row(a); };
   const T* qb = static_cast<const T*>(p.q) + b * p.sq_b + hk * G * p.sq_h;
   const T* db = static_cast<const T*>(p.dout) + b * p.sd_b + hk * G * p.sd_h;
   int c_a = 0, c_h = 0;                 // the next step to copy: tile, head
@@ -1625,19 +1664,8 @@ flash_bwd_dq_kernel(const BwdParams p) {
   const int kl = min(p.kv_len[b], p.S);
   const int i0 = qt * BS;
   const int iw = i0 + ws * 16;                        // this warp's rows
-  // rows that see no key have dS = 0: only keys some row sees add to dQ,
-  // from the first seeing row's start to the last one's end
-  int k_lo = 0, k_hi = max(0, row_end(p, q0, kl, min(i0 + BS, p.T) - 1));
-  if constexpr (WIN) {
-    k_lo = p.S;
-    k_hi = 0;
-    for (int i = i0; i < min(i0 + BS, p.T); ++i) {
-      if (!row_idle<WIN>(p, q0, kl, i)) {
-        k_lo = min(k_lo, row_start<WIN>(p, q0, i));
-        k_hi = max(k_hi, row_end(p, q0, kl, i));
-      }
-    }
-  }
+  int k_lo, k_hi;
+  dq_key_range<WIN>(p, q0, kl, i0, min(i0 + BS, p.T), k_lo, k_hi);
   const int t0 = k_lo < k_hi ? k_lo / BT : 0;
   const int n_steps = k_lo < k_hi ? (k_hi + BT - 1) / BT - t0 : 0;
   const int wl = min(iw + 15, p.T - 1);               // the warp's last row
@@ -1840,6 +1868,558 @@ flash_bwd_dq_kernel(const BwdParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward at head_dim 256
+// ---------------------------------------------------------------------------
+//
+// The same function and the same steps as above (pre-pass, dK/dV, dQ),
+// redesigned for D = 256, where the D <= 128 tiles do not fit: both TF32
+// planes of a row cost 2,080 bytes, and a warp's sums over a whole D = 256
+// row are 128 registers a thread.
+//   * Fill the card for one kv head.  dK/dV runs one block per (BS keys,
+//     query head, batch row): the G = Hq / Hkv heads of a group are G
+//     parts, each writing f32 partial sums of dV and dK into the workspace
+//     ws [2][G][B][S][Hkv][D] (dV, dK); a last kernel adds the parts in
+//     order 0 .. G - 1 and writes dK, dV in the inputs' dtype (no atomics:
+//     the same bits on every call).  At gemma3's training shape (B 2,
+//     T = S = 1024, 4/1 heads) dK/dV has 256 blocks where one block a key
+//     tile and kv head had 128, and the longest (key tile 0 under the
+//     causal mask) walks 32 query tiles, not 4 x 64.  dK/dV's and dQ's
+//     blocks share one launch (flash_bwd256_kernel), so that each fills
+//     the other's tail.
+//   * Tiles: BS = 32 stationary rows (keys in dK/dV, query rows in dQ) and
+//     BT = 32 streamed rows a step, 8 warps, one block an SM.  Rows stay
+//     raw, as f32 words (a bf16 value widened, exact in TF32), pitch D + 4
+//     words, and are split into TF32 big (rounded) and small parts in
+//     registers as the fragments load: half the shared memory of split
+//     planes, so that 32 stationary and 2 x 32 streamed rows of two
+//     matrices fit (216,832 bytes with the exchange).
+//   * A step has two phases.  A: S (or S^T) and dP over D, each warp a
+//     16 x 16 tile of one of them (mma.sync m16n8k8: 3xTF32 in f32, one
+//     TF32 product in bf16); the warp that formed P hands it to the warp
+//     of dP's same tile (a named barrier for the pair), which forms dS;
+//     both land in an exchange buffer, split into TF32 big and small
+//     planes.  B: the sums over the step's 32 rows (or keys) on wgmma, in
+//     the transposed orientation dV^T += dO^T P, dK^T += Q^T dS, dQ^T +=
+//     K^T dS^T, so that the 64-row side of m64n32k8 runs along D and the
+//     32 stationary rows are its N: warps 0-3 (a warpgroup) sum all of
+//     dV and 4-7 all of dK, or each group half of dQ's columns, 64 or 32
+//     sums a thread and no warp a whole D row.  A (D x k) is read down the
+//     streamed tile's columns into registers (mma.sync's A fragment,
+//     conflict-free at pitch D + 4) and split there; B (k x N, K-major,
+//     as TF32 wgmma needs) is P or dS as the exchange holds it, in 8 x 4
+//     core matrices without swizzle.  Each step's k-steps of an m-tile sum
+//     in a fresh accumulator that is added into f32 registers, as above.
+//   * Loads: 16-byte cp.async into a two-slot ring, a step ahead; four
+//     threads own a row (its chunks q, q + 4, ...).  bf16 lands raw in the
+//     upper half of its row's words and its owners widen it in place
+//     (read, __syncwarp, write).
+//   * dQ recomputes S and dP, as the D <= 128 kernel does, over the key
+//     tiles its 32 rows see, longest tiles first.
+
+struct Bwd256 {
+  static constexpr int D = 256;
+  static constexpr int BS = 32;             // stationary rows a block
+  static constexpr int BT = 32;             // streamed rows a step
+  static constexpr int NTH = 256;           // 8 warps
+  static constexpr int LD = D + 4;          // row pitch, words
+  // the stationary pair (and dQ's statistics), a ring slot (the streamed
+  // pair and dK/dV's statistics), the exchange (P big, small; dS big,
+  // small; each BS x BT, bwd256_xoff)
+  static constexpr int STAT = 2 * BS * LD + 2 * BS;
+  static constexpr int SLOT = 2 * BT * LD + 2 * BT;
+  static constexpr int PLANE = BS * BT;
+  static constexpr int XCH = 4 * PLANE;
+  static constexpr int SMEM = (STAT + 2 * SLOT + XCH) * 4;
+  static_assert(BS == 32 && BT == 32, "a pair of tiles is 64 rows, four "
+                "threads a row, and each phase's warps cover 32 x 32");
+};
+
+// The 64 rows of a pair of 32-row tiles (rows [0, 32) from a, [32, 64)
+// from b, each sa / sb elements apart; rows at or past n_ok read as zero)
+// into f32 words at dst, pitch LD, by 16-byte cp.async.  Thread t owns row
+// t / 4 and its chunks t % 4, t % 4 + 4, ...: f32 lands in place, bf16 in
+// the upper half of the row's words (bwd256_widen).
+template <typename T>
+__device__ __forceinline__ void bwd256_copy(uint32_t* dst, const T* a,
+                                            long long sa, const T* b,
+                                            long long sb, int n_ok) {
+  constexpr int VEC = 16 / (int)sizeof(T), CH = Bwd256::D / VEC;
+  const int r = threadIdx.x >> 2, q = threadIdx.x & 3, rr = r & 31;
+  const bool ok = rr < n_ok;
+  const T* src = r < 32 ? a + rr * sa : b + rr * sb;
+  uint32_t* row = dst + r * Bwd256::LD + (VEC == 8 ? Bwd256::D / 2 : 0);
+#pragma unroll
+  for (int k = 0; k < CH / 4; ++k) {
+    const int c = q + 4 * k;
+    cp_async16(row + 4 * c, ok ? src + c * VEC : a, ok);
+  }
+}
+
+// bf16: this thread's landed chunks widened in place into f32 words (a
+// bf16 is the top half of its f32); a row's four owners read before any
+// of them writes.  f32: nothing to do.
+template <typename T>
+__device__ __forceinline__ void bwd256_widen(uint32_t* dst) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    constexpr int CH = Bwd256::D / 8;
+    const int q = threadIdx.x & 3;
+    uint32_t* row = dst + (threadIdx.x >> 2) * Bwd256::LD;
+    uint4 x[CH / 4];
+#pragma unroll
+    for (int k = 0; k < CH / 4; ++k)
+      x[k] = *reinterpret_cast<const uint4*>(row + Bwd256::D / 2
+                                             + 4 * (q + 4 * k));
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < CH / 4; ++k) {
+      uint4* at = reinterpret_cast<uint4*>(row + 8 * (q + 4 * k));
+      at[0] = make_uint4(x[k].x << 16, x[k].x & 0xffff0000u, x[k].y << 16,
+                         x[k].y & 0xffff0000u);
+      at[1] = make_uint4(x[k].z << 16, x[k].z & 0xffff0000u, x[k].w << 16,
+                         x[k].w & 0xffff0000u);
+    }
+  }
+}
+
+// ldmatrix row addresses (words) of two B fragments of raw rows: n-tile 0
+// (rows 0-7) in registers 0, 1 and n-tile 1 (rows 8-15) in 2, 3
+__device__ __forceinline__ int lane_b2(int lane, int ld) {
+  return (lane & 7) * ld + ((lane >> 3) & 1) * 4 + (lane >> 4) * 8 * ld;
+}
+
+// The exchange's word of (stationary row n, streamed row k) in a plane:
+// K-major 8 x 4 core matrices (128 bytes), k's groups of 4 128 bytes apart
+// and n's groups of 8 1,024 bytes apart (bwd256_desc)
+__device__ __forceinline__ int bwd256_xoff(int n, int k) {
+  return (n >> 3) * 256 + (k >> 2) * 32 + (n & 7) * 4 + (k & 3);
+}
+
+// Phase A of a step for this warp: a 16 x 16 tile of S = X Y^T (prod 0:
+// the first matrices of the stationary and streamed pairs) or of dP (prod
+// 1: the second ones) over D; then P (prod 0) and dS (prod 1, from its
+// partner's P) into the exchange's planes, each split into big and small
+// (P = big + small exactly).  KEYS_M: the tile's M
+// index is the key (dK/dV: S^T = K Q^T), else the query row (dQ).  ``ls``
+// holds lse (base 2) and D of the BT query rows from i0; j0 is the first
+// key.
+template <typename T, bool WIN, bool KEYS_M>
+__device__ __forceinline__ void bwd256_scores(const BwdParams& p, int q0,
+                                              int kl, const uint32_t* stat,
+                                              const uint32_t* slot,
+                                              uint32_t* xch, const float* ls,
+                                              int i0, int j0) {
+  constexpr int LD = Bwd256::LD, BT = Bwd256::BT, PL = Bwd256::PLANE;
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int prod = warp >> 2, mt = (warp >> 1) & 1, nh = warp & 1;
+  // the warp's query rows [iw, iw + 16) and keys [jw, jw + 16)
+  const int iw = i0 + 16 * (KEYS_M ? nh : mt);
+  const int jw = j0 + 16 * (KEYS_M ? mt : nh);
+  const int il = min(iw + 15, p.T - 1);
+  float c[2][4] = {};
+  // no visible pair in the tile: the products are skipped (P and dS below
+  // do not read them)
+  const bool skip = iw >= p.T || jw >= p.S || row_end(p, q0, kl, il) <= jw
+      || (WIN && row_start<WIN>(p, q0, iw) >= jw + 16);
+  if (!skip) {
+    const uint32_t xa = smem_u32(stat)
+        + 4 * (lane_a(lane, LD) + (prod * Bwd256::BS + 16 * mt) * LD);
+    const uint32_t yb = smem_u32(slot)
+        + 4 * (lane_b2(lane, LD) + (prod * BT + 16 * nh) * LD);
+#pragma unroll
+    for (int kk = 0; kk < Bwd256::D / 8; ++kk) {
+      uint32_t a[4], b[4];
+      ldsm_x4(a, xa + 32 * kk);
+      ldsm_x4(b, yb + 32 * kk);
+      if constexpr (SPLIT) {
+        uint32_t ab[4], as[4], bb[4], bs[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          split_tf32(__uint_as_float(a[i]), ab[i], as[i]);
+          split_tf32(__uint_as_float(b[i]), bb[i], bs[i]);
+        }
+        const uint32_t b0[2] = {bb[0], bb[1]}, s0[2] = {bs[0], bs[1]};
+        const uint32_t b1[2] = {bb[2], bb[3]}, s1[2] = {bs[2], bs[3]};
+        mma_3xtf32(c[0], ab, as, b0, s0);
+        mma_3xtf32(c[1], ab, as, b1, s1);
+      } else {
+        const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+        mma_tf32(c[0], a, b0);
+        mma_tf32(c[1], a, b1);
+      }
+    }
+  }
+  // every row valid and seeing all 16 keys: no mask
+  const bool full = iw + 16 <= p.T && jw + 16 <= p.S
+      && row_end(p, q0, kl, iw) >= jw + 16
+      && (!WIN || row_start<WIN>(p, q0, il) <= jw);
+  // c[n][e] is (M index 16 mt + g + 8 (e >> 1), N index 16 nh + 8 n + 2t +
+  // (e & 1)): M the stationary row, N the streamed one
+  uint32_t* x = xch + bwd256_xoff(16 * mt + g, 16 * nh + 2 * t4);
+  auto at = [&](int n, int e) { return 256 * (e >> 1) + 64 * n + (e & 1); };
+  auto row = [&](int n, int e) {          // the query row, from i0
+    return KEYS_M ? 16 * nh + 8 * n + 2 * t4 + (e & 1)
+                  : 16 * mt + g + 8 * (e >> 1); };
+  auto key = [&](int n, int e) {
+    return KEYS_M ? jw + g + 8 * (e >> 1) : jw + 8 * n + 2 * t4 + (e & 1); };
+  if (prod == 0) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row(n, e);
+        const float pv = full ? exp2f(c[n][e] * p.scale_log2 - ls[r])
+            : bwd_p<WIN>(p, q0, kl, i0 + r, key(n, e), c[n][e], ls[r]);
+        split_tf32(pv, x[at(n, e)], x[PL + at(n, e)]);
+      }
+  }
+  bar_pair(1 + (warp & 3), 64);
+  if (prod == 1) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row(n, e);
+        // a row that sees no key has dS = 0 (its P is 1/S)
+        const bool idle = !full && row_idle<WIN>(p, q0, kl, i0 + r);
+        const float pv = __uint_as_float(x[at(n, e)])
+                         + __uint_as_float(x[PL + at(n, e)]);
+        split_tf32(idle ? 0.f : pv * (c[n][e] - ls[BT + r]),
+                   x[2 * PL + at(n, e)], x[3 * PL + at(n, e)]);
+      }
+  }
+  // the planes are read by wgmma (the async proxy) after the barrier
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma of the warpgroup: d (+)= a.b, m64n32k8, TF32 operands, f32 sums
+// (d is overwritten when ``add`` is 0).  A (64 x 8) from registers, warp w
+// of the group holding rows 16 w .. 16 w + 15 as mma.sync's m16n8k8 A
+// fragment; B (8 x 32) from shared memory at descriptor ``desc``.  d[4 n +
+// e] is row 16 w + g + 8 (e >> 1), column 8 n + 2t + (e & 1).
+__device__ __forceinline__ void wgmma_m64n32k8(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(add));
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait(float (&d)[16]) {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+// the descriptor of a K-major B tile at shared address ``addr`` laid out
+// as bwd256_xoff: no swizzle, core matrices 128 bytes apart along K (the
+// leading byte offset) and 1,024 along N (the stride byte offset)
+__device__ __forceinline__ uint64_t bwd256_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16)
+         | ((uint64_t)(1024 >> 4) << 32);
+}
+
+// Phase B for this warp's group: acc[m] += A B over a step's 32 k.  A (64
+// D columns x 32 k) is a streamed matrix transposed, read down its columns
+// from ``at`` (its row k, column 64 m + 16 w: w the warp of the group) and
+// split in f32; B (32 k x 32 stationary rows) is P or dS from the
+// exchange's plane pair ``xb`` (big, then small).  Each m-tile's k-steps
+// sum in a fresh accumulator (two, alternating, so that one m-tile's
+// products run while the last one's sums are added).
+template <bool SPLIT, int MT>
+__device__ __forceinline__ void bwd256_accumulate(float (&acc)[MT][16],
+                                                  const uint32_t* xb,
+                                                  const uint32_t* at) {
+  constexpr int LD = Bwd256::LD;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const uint32_t* ap = at + t4 * LD + 16 * ((threadIdx.x >> 5) & 3) + g;
+  const uint32_t xs = smem_u32(xb);
+  float tv[2][16] = {};
+  auto add = [&](int m) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[m][i] += tv[m & 1][i];
+  };
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    uint32_t ab[4][4], as[4][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t* q = ap + 8 * k * LD + 64 * m;
+      const uint32_t r[4] = {q[0], q[8], q[4 * LD], q[4 * LD + 8]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (SPLIT) split_tf32(__uint_as_float(r[i]), ab[k][i],
+                                        as[k][i]);
+        else ab[k][i] = r[i];
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint64_t big = bwd256_desc(xs + 256 * k);
+      if constexpr (SPLIT) {                // small terms first
+        wgmma_m64n32k8(tv[m & 1], as[k], big, k);
+        wgmma_m64n32k8(tv[m & 1], ab[k],
+                       bwd256_desc(xs + 4 * Bwd256::PLANE + 256 * k), 1);
+        wgmma_m64n32k8(tv[m & 1], ab[k], big, 1);
+      } else {
+        wgmma_m64n32k8(tv[m & 1], ab[k], big, k);
+      }
+    }
+    wgmma_commit();
+    if (m > 0) {
+      wgmma_wait<1>(tv[(m - 1) & 1]);
+      add(m - 1);
+    }
+  }
+  wgmma_wait<0>(tv[(MT - 1) & 1]);
+  add(MT - 1);
+}
+
+// dK/dV (DQ = false): the block of (query head h, batch row, key tile
+// ``tile``) walks the query tiles of head h that touch its keys
+// (KeyTileSteps: rows that see no key before them, the rows that see
+// these keys, rows past the window's reach); phase B's warps
+// 0-3 sum dV += P^T dO and 4-7 dK += dS^T Q, all 256 columns, and write
+// their f32 partials into part h % G of the workspace.  dQ (DQ = true):
+// the block of (query head, batch row, query tile n_qt - 1 - ``tile``)
+// walks the key tiles its rows see; phase B's warpgroups each sum 128
+// columns of dQ += dS K and write dQ.
+template <typename T, bool WIN, bool DQ>
+__device__ __forceinline__ void bwd256_body(const BwdParams& p, int tile) {
+  using C = Bwd256;
+  constexpr int LD = C::LD, BS = C::BS, BT = C::BT, NTH = C::NTH;
+  constexpr int MT = DQ ? 2 : 4;        // phase B's m-tiles (64 columns)
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the stationary pair (K, V or Q, dO) [BS][LD] and dQ's lse, D [BS];
+  // the ring of two slots: the streamed pair [BT][LD] and dK/dV's lse, D
+  // [BT]; the exchange: P, dS, each in two planes [BS x BT]
+  uint32_t* stat = reinterpret_cast<uint32_t*>(smem_raw);
+  uint32_t* ring = stat + C::STAT;
+  uint32_t* xch = ring + 2 * C::SLOT;
+  float* stat_ls = reinterpret_cast<float*>(stat + 2 * BS * LD);
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int G = p.Hq / p.Hkv, hk = h / G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = p.q_start[b];
+  const int kl = min(p.kv_len[b], p.S);
+  const T* qh = static_cast<const T*>(p.q) + b * p.sq_b + h * p.sq_h;
+  const T* dh = static_cast<const T*>(p.dout) + b * p.sd_b + h * p.sd_h;
+  const T* kh = static_cast<const T*>(p.k) + b * p.sk_b + hk * p.sk_h;
+  const T* vh = static_cast<const T*>(p.v) + b * p.sv_b + hk * p.sv_h;
+
+  // the stationary tile's first row (a query row in dQ, a key in dK/dV),
+  // and the steps: the key tiles [t0, t0 + n_steps) its rows see (dQ) or
+  // the query tiles touching its keys (dK/dV)
+  const int first = DQ ? ((p.T + BS - 1) / BS - 1 - tile) * BS : tile * BS;
+  int k_lo = 0, k_hi = 0;
+  if constexpr (DQ)
+    dq_key_range<WIN>(p, q0, kl, first, min(first + BS, p.T), k_lo, k_hi);
+  const int t0 = k_lo < k_hi ? k_lo / BT : 0;
+  KeyTileSteps<WIN, BT, BS> tiles;
+  if constexpr (!DQ) tiles = KeyTileSteps<WIN, BT, BS>(p, q0, kl, first);
+  const int n_steps = DQ ? (k_lo < k_hi ? (k_hi + BT - 1) / BT - t0 : 0)
+                         : tiles.n;
+  // step s's first streamed row: a key (dQ) or a query row (dK/dV)
+  auto step_row = [&](int s) { return DQ ? (t0 + s) * BT : tiles.row(s); };
+  auto copy = [&](int s) {                // step s into slot s % 2
+    if (s < n_steps) {
+      const int r0 = step_row(s);
+      uint32_t* sl = ring + (s & 1) * C::SLOT;
+      if constexpr (DQ) {
+        bwd256_copy<T>(sl, kh + r0 * p.sk_s, p.sk_s, vh + r0 * p.sv_s,
+                       p.sv_s, p.S - r0);
+      } else {
+        bwd256_copy<T>(sl, qh + r0 * p.sq_t, p.sq_t, dh + r0 * p.sd_t,
+                       p.sd_t, p.T - r0);
+        bwd_copy_stats<BT, NTH>(reinterpret_cast<float*>(sl + 2 * BT * LD),
+                                p, b, h, r0);
+      }
+    }
+    cp_async_commit();
+  };
+  auto land = [&](int s) {
+    if (s < n_steps) {
+      uint32_t* sl = ring + (s & 1) * C::SLOT;
+      bwd256_widen<T>(sl);
+      if constexpr (!DQ)
+        bwd_split_stats<BT, NTH>(reinterpret_cast<float*>(sl + 2 * BT * LD));
+    }
+  };
+
+  // the stationary pair (and dQ's statistics) go with step 0
+  if constexpr (DQ) {
+    bwd256_copy<T>(stat, qh + first * p.sq_t, p.sq_t, dh + first * p.sd_t,
+                   p.sd_t, p.T - first);
+    bwd_copy_stats<BS, NTH>(stat_ls, p, b, h, first);
+  } else {
+    bwd256_copy<T>(stat, kh + first * p.sk_s, p.sk_s, vh + first * p.sv_s,
+                   p.sv_s, p.S - first);
+  }
+  copy(0);
+  cp_async_wait<0>();
+  bwd256_widen<T>(stat);
+  if constexpr (DQ) bwd_split_stats<BS, NTH>(stat_ls);
+  land(0);
+
+  // phase B's sums: acc[m][4 n + e] is column cb + 64 m + 16 (warp % 4) +
+  // g + 8 (e >> 1) of row (key in dK/dV) first + 8 n + 2t + (e & 1); in
+  // dK/dV warps 0-3 hold dV, 4-7 dK
+  const int mat = DQ ? 1 : warp >> 2;
+  const int cb = DQ ? 128 * (warp >> 2) : 0;
+  float acc[MT][16];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[m][i] = 0.f;
+
+  for (int it = 0; it < n_steps; ++it) {
+    __syncthreads();                    // step it landed; slot it-1 is free
+    copy(it + 1);
+    const uint32_t* sl = ring + (it & 1) * C::SLOT;
+    const int r0 = step_row(it);
+    if constexpr (DQ)
+      bwd256_scores<T, WIN, false>(p, q0, kl, stat, sl, xch, stat_ls, first,
+                                   r0);
+    else
+      bwd256_scores<T, WIN, true>(
+          p, q0, kl, stat, sl, xch,
+          reinterpret_cast<const float*>(sl + 2 * BT * LD), r0, first);
+    __syncthreads();                    // P and dS are in the exchange
+    // dV += P^T dO, dK += dS^T Q, dQ += dS K: B is the streamed pair's
+    // second matrix for dV, its first otherwise
+    bwd256_accumulate<SPLIT, MT>(acc, xch + 2 * mat * C::PLANE,
+                                 sl + (DQ ? 0 : (1 - mat) * BT * LD) + cb);
+    cp_async_wait<0>();
+    land(it + 1);
+  }
+
+  const int col = cb + 16 * (warp & 3) + g;
+  if constexpr (DQ) {
+    T* dqp = static_cast<T*>(p.dq);
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int lo = 0; lo < 2; ++lo) {
+        const int i = first + 8 * n + 2 * t4 + lo;
+        if (i >= p.T) continue;
+        T* row = dqp + (((long long)b * p.T + i) * p.Hq + h) * C::D + col;
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi)
+            store(row + 64 * m + 8 * hi,
+                  acc[m][4 * n + 2 * hi + lo] * p.scale);
+      }
+  } else {
+    // the workspace [2][G][B][S][Hkv][D] as the wrapper allocates it
+    // (flash_attention.py's bwd_parts, the one statement of its shape)
+    float* part = p.ws + ((long long)(mat * G + h % G) * p.B + b) * p.S
+                  * p.Hkv * C::D;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int lo = 0; lo < 2; ++lo) {
+        const int j = first + 8 * n + 2 * t4 + lo;
+        if (j >= p.S) continue;
+        float* row = part + ((long long)j * p.Hkv + hk) * C::D + col;
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi)
+            row[64 * m + 8 * hi] = acc[m][4 * n + 2 * hi + lo];
+      }
+  }
+}
+
+// dK/dV and dQ in one launch, so that the blocks of each fill the other's
+// tail (at gemma3's local layers every block walks at most 17 tiles, and
+// 256 of them take two rounds of 132 SMs alone).  Along z, the slowest
+// index of the issue order, the two alternate, each longest first (key
+// tile 0 of dK/dV, the last query tile of dQ, under the causal mask); the
+// longer list's rest follows.
+template <typename T, bool WIN>
+__global__ void __launch_bounds__(Bwd256::NTH, 1)
+flash_bwd256_kernel(const BwdParams p) {
+  const int n_kt = (p.S + Bwd256::BS - 1) / Bwd256::BS;
+  const int n_qt = (p.T + Bwd256::BS - 1) / Bwd256::BS;
+  const int z = blockIdx.z, both = 2 * min(n_kt, n_qt);
+  const bool dq = z < both ? (z & 1) : n_qt > n_kt;
+  const int tile = z < both ? z >> 1 : z - both / 2;
+  if (dq) bwd256_body<T, WIN, true>(p, tile);
+  else bwd256_body<T, WIN, false>(p, tile);
+}
+
+// dV = the sum of the G parts (the workspace as bwd_parts shapes it), dK =
+// scale x theirs, added in part order
+// 0 .. G - 1, written in the inputs' dtype; four elements a thread
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_sum_kernel(const BwdParams p) {
+  const long long n4 = (long long)p.B * p.S * p.Hkv * Bwd256::D / 4;
+  const long long e = (long long)blockIdx.x * BWD_THREADS + threadIdx.x;
+  if (e >= 2 * n4) return;
+  const int G = p.Hq / p.Hkv, mat = e >= n4;
+  const long long i = e - mat * n4;
+  const float4* src = reinterpret_cast<const float4*>(p.ws) + mat * G * n4
+                      + i;
+  float4 s = src[0];
+  for (int q = 1; q < G; ++q) {
+    const float4 x = src[q * n4];
+    s.x += x.x; s.y += x.y; s.z += x.z; s.w += x.w;
+  }
+  const float sc = mat ? p.scale : 1.f;
+  T* out = static_cast<T*>(mat ? p.dk : p.dv) + 4 * i;
+  store2(out, s.x * sc, s.y * sc);
+  store2(out + 2, s.z * sc, s.w * sc);
+}
+
+template <typename T, bool WIN>
+cudaError_t launch_bwd256(const BwdParams& p, cudaStream_t stream) {
+  using C = Bwd256;
+  static bool attr_set = false;         // once per instantiation
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd256_kernel<T, WIN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const long long lanes = (long long)p.B * p.T * p.Hq
+                          * DeltaCfg<T, C::D>::LPR;
+  flash_bwd_delta_kernel<T, C::D><<<(unsigned)((lanes + BWD_THREADS - 1)
+                                               / BWD_THREADS),
+                                    BWD_THREADS, 0, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.Hq, p.B,
+                  (p.S + C::BS - 1) / C::BS + (p.T + C::BS - 1) / C::BS);
+  flash_bwd256_kernel<T, WIN><<<grid, C::NTH, C::SMEM, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long n = 2LL * p.B * p.S * p.Hkv * C::D / 4;
+  flash_bwd_sum_kernel<T><<<(unsigned)((n + BWD_THREADS - 1) / BWD_THREADS),
+                            BWD_THREADS, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, bool WIN>
 cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
   using C = BwdCfg<T, D>;
@@ -1873,8 +2453,12 @@ cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
 
 template <typename T, int D>
 cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
-  return p.window > 0 ? launch_bwd<T, D, true>(p, stream)
-                      : launch_bwd<T, D, false>(p, stream);
+  if constexpr (D == 256)
+    return p.window > 0 ? launch_bwd256<T, true>(p, stream)
+                        : launch_bwd256<T, false>(p, stream);
+  else
+    return p.window > 0 ? launch_bwd<T, D, true>(p, stream)
+                        : launch_bwd<T, D, false>(p, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1983,8 +2567,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 // The backward: dq [B,T,Hq,D], dk/dv [B,S,Hkv,D] (contiguous, in q's
 // dtype) from q/k/v, the forward's output o and the output gradient dout
 // (strided like q), the forward's ``lse`` (f32 [B,Hq,T] contiguous) and
-// ``delta``, an f32 [B,Hq,T] scratch.  Three CUDA kernels on ``stream``;
-// returns a cudaError_t (0 = success) and allocates nothing.
+// ``delta``, an f32 [B,Hq,T] scratch.  At D = 256 ``workspace`` holds the
+// dK/dV parts, 2 * Hq * B * S * D floats (null otherwise).  Three CUDA
+// kernels on ``stream`` (four at D = 256); returns a cudaError_t (0 =
+// success) and allocates nothing.
 
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const void* lse,
@@ -1996,9 +2582,10 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                         long long sv_b, long long sv_s, long long sv_h,
                         long long so_b, long long so_t, long long so_h,
                         long long sd_b, long long sd_t, long long sd_h,
-                        float scale, int causal, int window, void* stream) {
+                        float scale, int causal, int window,
+                        void* workspace, void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0
-      || window < 0)
+      || window < 0 || (D == 256 && workspace == nullptr))
     return (int)cudaErrorInvalidValue;
   BwdParams p{q, k, v, o, dout,
               static_cast<const float*>(lse), static_cast<float*>(delta),
@@ -2007,7 +2594,8 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
               B, T, S, Hq, Hkv,
               sq_b, sq_t, sq_h, sk_b, sk_s, sk_h, sv_b, sv_s, sv_h,
               so_b, so_t, so_h, sd_b, sd_t, sd_h,
-              scale, scale * LOG2E, causal, window};
+              scale, scale * LOG2E, causal, window,
+              static_cast<float*>(workspace)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 32) return (int)launch_bwd<float, 32>(p, st);
   if (dtype == 0 && D == 64) return (int)launch_bwd<float, 64>(p, st);

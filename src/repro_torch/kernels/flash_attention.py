@@ -56,6 +56,19 @@ DECODE_BLOCKS = 4 * 132
 DECODE_MAX_SPLITS = 64
 
 
+def bwd_parts(B: int, S: int, Hq: int, Hkv: int, D: int):
+    """The workspace shape of the backward's dK/dV split, or None for a
+    head_dim whose kernels take none (D < 256: one block sums a kv head's
+    whole group).  At D = 256 each of the G = Hq / Hkv query heads of a
+    group is one part: query head h is part h % G of kv head h // G, and
+    writes f32 partial sums of dV and dK into ``workspace[0, h % G]`` and
+    ``workspace[1, h % G]`` (shape [2, G, B, S, Hkv, D]); the last kernel
+    adds the parts in order 0 .. G - 1 (:func:`attend_bwd_parts_ref`)."""
+    if D != 256:
+        return None
+    return (2, Hq // Hkv, B, S, Hkv, D)
+
+
 def route(T: int, Hq: int, Hkv: int) -> str:
     """The kernel's route for these static shapes: ``"decode"`` when the
     T rows of all Hq / Hkv query heads of a kv head fit one block
@@ -179,6 +192,32 @@ def attend_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dv.to(v.dtype))
 
 
+def attend_bwd_parts_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         out: torch.Tensor, lse: torch.Tensor,
+                         dout: torch.Tensor, *, scale: float, causal: bool,
+                         q_start: torch.Tensor, kv_len: torch.Tensor,
+                         window: int = 0):
+    """:func:`attend_bwd_ref`'s function computed as the D = 256 kernels
+    split it (:func:`bwd_parts`): part g takes query heads g, G + g, ...
+    (one of each kv head's group) and forms f32 partial sums of dK and dV
+    alone; the parts are added in order 0 .. G - 1.  Returns (dq, dk, dv)
+    in the inputs' dtypes."""
+    G = q.shape[2] // k.shape[2]
+    kw = dict(scale=scale, causal=causal, q_start=q_start, kv_len=kv_len,
+              window=window)
+    f = lambda t: t.float()
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = dv = None
+    for g in range(G):
+        dq_g, dk_g, dv_g = attend_bwd_ref(
+            f(q[:, :, g::G]), f(k), f(v), f(out[:, :, g::G]),
+            lse[:, g::G], f(dout[:, :, g::G]), **kw)
+        dq[:, :, g::G] = dq_g
+        dk = dk_g if dk is None else dk + dk_g
+        dv = dv_g if dv is None else dv + dv_g
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def attend_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      scale: float, causal: bool, q_start: torch.Tensor,
                      kv_len: torch.Tensor, n_split: int,
@@ -233,7 +272,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         [p] * 6 + [i] * 7 + [ll] * 12 + [ctypes.c_float, i, i, i, i, p, p, p])
     lib.flash_attention_fwd.restype = ctypes.c_int
     lib.flash_attention_bwd.argtypes = (
-        [p] * 12 + [i] * 7 + [ll] * 15 + [ctypes.c_float, i, i, p])
+        [p] * 12 + [i] * 7 + [ll] * 15 + [ctypes.c_float, i, i, p, p])
     lib.flash_attention_bwd.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -367,8 +406,8 @@ def flash_attend_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``return_lse=True``) and the output gradient ``dout`` [B,T,Hq,D].
     Returns (dq, dk, dv) in the inputs' dtype, contiguous.  One launch of
     the backward kernel on a CUDA tensor (counted in
-    ``flash_attend.launches_bwd``); :func:`attend_bwd_ref` on a CPU
-    tensor."""
+    ``flash_attend.launches_bwd``; at D = 256 with a workspace of
+    :func:`bwd_parts`' shape); :func:`attend_bwd_ref` on a CPU tensor."""
     _check_shapes(q, k, v, q_start, kv_len)
     window = _check_window(window)
     B, T, Hq, D = q.shape
@@ -395,6 +434,9 @@ def flash_attend_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.empty((B, S, Hkv, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, S, Hkv, D), dtype=q.dtype, device=q.device)
     delta = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+    parts = bwd_parts(B, S, Hq, Hkv, D)
+    work = (torch.empty(parts, dtype=torch.float32, device=q.device)
+            if parts else None)
     lib = build.load("flash_attention", _declare)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -406,7 +448,8 @@ def flash_attend_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             B, T, S, Hq, Hkv, D, _DTYPE_CODE[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], *dout.stride()[:3], float(scale),
-            int(bool(causal)), window, stream)
+            int(bool(causal)), window,
+            None if work is None else work.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd failed: CUDA error {rc} "
                            f"({lib.flash_attention_error_string(rc).decode()})")

@@ -405,6 +405,50 @@ def test_flash_bwd_bitwise_reproducible_on_card(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd256_edges_and_bitwise_on_card(dtype):
+    """The D = 256 backward's own kernels (dK/dV split over a group's query
+    heads, parts summed in order) at their edges: T = S = 1000 (cuts the
+    32-row tiles), 4/2 heads (G = 2 parts), window 96, rows that see no
+    key before (q_start < 0), past the window's reach (kv_len 801) and
+    everywhere (kv_len 0); then gemma3-1b's training shape (B 2, T = S =
+    1024, 4/1 heads, G = 4), global and window 512.  Against
+    attend_bwd_ref, attend_bwd_parts_ref and, in f32, autograd of
+    attend_ref; two calls give the same bits (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(9)
+    for B, T, Hq, Hkv, q_start, kv_len, window in (
+            (4, 1000, 4, 2, [0, 37, 0, -50], [1000, 801, 0, 1000], 96),
+            (2, 1024, 4, 1, [0, 0], [1024, 1024], 0),
+            (2, 1024, 4, 1, [0, 0], [1024, 1024], 512)):
+        q, k, v, do, qs, kl = _bwd_case(g, B, T, T, Hq, Hkv, 256, q_start,
+                                        kv_len, dtype, dev)
+        kw = dict(scale=256 ** -0.5, causal=True, q_start=qs, kv_len=kl,
+                  window=window)
+        out, lse = FA.flash_attend(q, k, v, return_lse=True, **kw)
+        before = FA.flash_attend.launches_bwd
+        first = FA.flash_attend_bwd(q, k, v, out, lse, do, **kw)
+        second = FA.flash_attend_bwd(q, k, v, out, lse, do, **kw)
+        assert FA.flash_attend.launches_bwd == before + 2
+        case = (B, T, Hq, Hkv, window)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b), case
+        refs = [FA.attend_bwd_ref(q, k, v, out, lse, do, **kw),
+                FA.attend_bwd_parts_ref(q, k, v, out, lse, do, **kw)]
+        if dtype == "float32":
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            refs.append(torch.autograd.grad(FA.attend_ref(*leaves, **kw),
+                                            leaves, do))
+        for want in refs:
+            for name, a, b in zip("qkv", first, want):
+                assert a.dtype == b.dtype and a.shape == b.shape
+                assert _rel_err(a, b) < BWD_TOL[dtype], (name, case)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_attend_under_autograd_launches_both_kernels_on_card():
     """layers.attend with q/k/v that require grad goes through
     FlashAttention: one forward launch (prefill route, statistics written,

@@ -146,3 +146,44 @@ def test_bwd_refuses_mismatched_statistics():
                             **kw)
     with pytest.raises(ValueError, match="dout"):
         FA.flash_attend_bwd(t(q), t(k), t(v), out, lse, t(do)[:, :1], **kw)
+
+
+# The D = 256 kernels' split of dK/dV over the query heads of a group:
+# (B, T, S, Hq, Hkv, D, causal, q_start, kv_len, window), G = 1, 2, 4
+PART_CASES = [
+    (2, 6, 9, 2, 2, 8, True, [0, 3], [6, 9], 0),                # G = 1
+    (2, 7, 7, 4, 2, 8, True, [0, -2], [7, 7], 3),               # G = 2
+    (3, 5, 12, 4, 1, 8, True, [7, 0, 2], [12, 0, 9], 0),        # G = 4
+    (2, 9, 9, 4, 1, 8, True, [0, 0], [9, 4], 2),                # G = 4
+]
+
+
+@pytest.mark.parametrize("D", [128, 256])
+def test_bwd_parts_plan(D):
+    """The workspace of the dK/dV split: at D = 256 one f32 part per query
+    head of a group, [dV, dK] x G x B x S x Hkv x D; none below (those
+    kernels sum a group in one block)."""
+    B, S, Hkv, G = 2, 40, 3, 4
+    plan = FA.bwd_parts(B, S, G * Hkv, Hkv, D)
+    assert plan == ((2, G, B, S, Hkv, D) if D == 256 else None)
+
+
+@pytest.mark.parametrize("i", range(len(PART_CASES)))
+def test_bwd_parts_sum_in_order_matches_ref_and_autograd(i):
+    """dK/dV from G per-head parts added in order 0 .. G - 1
+    (attend_bwd_parts_ref, the D = 256 kernels' split) equals
+    attend_bwd_ref and torch autograd of attend_ref, window on and off,
+    with rows that see no key (attend_bwd_ref is held to jax.vjp above)."""
+    case = PART_CASES[i]
+    q, k, v, do, qs, kl = _inputs(case[:9], seed=7)
+    t = torch.from_numpy
+    kw = dict(scale=case[5] ** -0.5, causal=case[6], q_start=t(qs),
+              kv_len=t(kl), window=case[9])
+    out, lse = FA.flash_attend(t(q), t(k), t(v), return_lse=True, **kw)
+    got = FA.attend_bwd_parts_ref(t(q), t(k), t(v), out, lse, t(do), **kw)
+    want = FA.attend_bwd_ref(t(q), t(k), t(v), out, lse, t(do), **kw)
+    leaves = [t(a).requires_grad_() for a in (q, k, v)]
+    auto = torch.autograd.grad(FA.attend_ref(*leaves, **kw), leaves, t(do))
+    for name, a, b, c in zip("qkv", got, want, auto):
+        assert _rel(a, b) < 1e-6, (name, case)
+        assert _rel(a, c) < TOL, (name, case)

@@ -26,13 +26,19 @@ With ``--profile``, each shape's line also carries the current version's
 device time per CUDA kernel (``torch.profiler``, mean over 50 calls), so
 the decode route's split and combine kernels show apart.
 
-With ``--bwd`` the backward is compared instead, at the training path's
-shape (llama3.2-1b: batch 2, T = S = 1024, 32/8 heads, D 64, causal), the
-inputs' output and statistics from the current forward (a baseline needs a
-``flash_attention_bwd``).  Every version's dq,
-dk, dv are checked against the plain version (relative to max |ref|: f32
-1e-4, bf16 3e-2); with ``--profile`` the line carries every version's
-device time per CUDA kernel.
+With ``--bwd`` the backward is compared instead, at a training path's
+shape (``--shape``, repeatable; batch 2, T = S = 1024, causal): ``llama``
+(llama3.2-1b, 32/8 heads, D 64, the default), ``gemma3-global`` and
+``gemma3-local`` (gemma3-1b, 4/1 heads, D 256, global or window 512),
+``qwen3`` (qwen3-1.7b, 16/8 heads, D 128); the inputs' output and
+statistics come from the current forward (a baseline needs a
+``flash_attention_bwd``; its ``window`` and ``workspace`` are passed when
+it has them).  Every version's dq, dk, dv are checked against the plain
+version (relative to max |ref|: f32 1e-4, bf16 3e-2); with ``--profile``
+the line carries every version's device time per CUDA kernel.
+
+    python3 tools/flash_ab.py --bwd --shape gemma3-global \
+        --shape gemma3-local --profile --baseline build/flash_baseline.cu
 """
 import argparse
 import concurrent.futures as cf
@@ -50,6 +56,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+#: --bwd shapes: (Hq, Hkv, D, window), batch 2, T = S = 1024, causal
+BWD_SHAPES = {"llama": (32, 8, 64, 0), "gemma3-global": (4, 1, 256, 0),
+              "gemma3-local": (4, 1, 256, 512), "qwen3": (16, 8, 128, 0)}
 
 
 def build_baselines(paths: list, stem: str) -> list:
@@ -136,12 +145,16 @@ def baseline_call(fwd, q, k, v, q_start, kv_len, scale, causal,
 
 
 def baseline_bwd_call(bwd, q, k, v, out, lse, dout, q_start, kv_len, scale,
-                      causal):
+                      causal, window=0):
+    from repro_torch.kernels import flash_attention as FA
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+    parts = FA.bwd_parts(B, S, Hq, Hkv, D)
+    work = (torch.empty(parts, dtype=torch.float32, device=q.device)
+            if parts and "workspace" in bwd.names else None)
     bwd(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=out.data_ptr(),
         dout=dout.data_ptr(), lse=lse.data_ptr(), delta=delta.data_ptr(),
         dq=dq.data_ptr(), dk=dk.data_ptr(), dv=dv.data_ptr(),
@@ -151,11 +164,12 @@ def baseline_bwd_call(bwd, q, k, v, out, lse, dout, q_start, kv_len, scale,
         **strides("q", q, "bth"), **strides("k", k, "bsh"),
         **strides("v", v, "bsh"), **strides("o", out, "bth"),
         **strides("d", dout, "bth"), scale=float(scale), causal=int(causal),
-        window=0, stream=torch.cuda.current_stream().cuda_stream)
+        window=window, workspace=None if work is None else work.data_ptr(),
+        stream=torch.cuda.current_stream().cuda_stream)
     return dq, dk, dv
 
 
-def main_bwd(paths: list, profile: bool) -> None:
+def main_bwd(paths: list, profile: bool, shapes: list) -> None:
     from chip_smoke import kernel_us
     from repro_torch.kernels import flash_attention as FA
     bases = [bind(lib, path, "flash_attention_bwd") for lib, path in
@@ -165,17 +179,23 @@ def main_bwd(paths: list, profile: bool) -> None:
     tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
     rel = lambda a, b: ((a.float() - b.float()).abs().max()
                         / (b.float().abs().max() + 1e-12)).item()
-    B, T, Hq, Hkv, D = 2, 1024, 32, 8, 64
-    for dtype in (torch.float32, torch.bfloat16):
+    B, T = 2, 1024
+    for shape, dtype in [(s, d) for s in shapes
+                         for d in (torch.float32, torch.bfloat16)]:
+        Hq, Hkv, D, window = BWD_SHAPES[shape]
+        if window and not all("window" in base.names for base in bases):
+            sys.exit(f"--shape {shape}: a baseline has no window argument")
         rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dtype)
         q, do = rnd(B, T, Hq, D), rnd(B, T, Hq, D)
         k, v = rnd(B, T, Hkv, D), rnd(B, T, Hkv, D)
         qs = torch.zeros(B, dtype=torch.int32, device=dev)
         kl = torch.full((B,), T, dtype=torch.int32, device=dev)
-        kw = dict(scale=D ** -0.5, causal=True, q_start=qs, kv_len=kl)
+        kw = dict(scale=D ** -0.5, causal=True, q_start=qs, kv_len=kl,
+                  window=window)
         out, lse = FA.flash_attend(q, k, v, return_lse=True, **kw)
         fns = {path: (lambda base=base: baseline_bwd_call(
-                   base, q, k, v, out, lse, do, qs, kl, D ** -0.5, True))
+                   base, q, k, v, out, lse, do, qs, kl, D ** -0.5, True,
+                   window))
                for path, base in zip(paths, bases)}
         fns["current"] = lambda: FA.flash_attend_bwd(q, k, v, out, lse, do,
                                                      **kw)
@@ -185,7 +205,8 @@ def main_bwd(paths: list, profile: bool) -> None:
         if max(errs.values()) > tol[dtype]:
             sys.exit(f"backward disagrees with the plain version: {errs}")
         print(json.dumps(dict(
-            label=f"backward B={B} T=S={T} Hq={Hq} Hkv={Hkv} D={D} causal",
+            label=f"backward {shape} B={B} T=S={T} Hq={Hq} Hkv={Hkv} D={D} "
+                  f"causal window={window}",
             dtype=str(dtype).replace("torch.", ""), ms=turns(fns),
             rel_err=errs,
             **({"kernel_us": {name: kernel_us(fn) for name, fn in fns.items()}}
@@ -201,12 +222,16 @@ def main() -> None:
                     help="also print the current version's device time per "
                          "CUDA kernel")
     ap.add_argument("--bwd", action="store_true",
-                    help="compare the backward at the training shape")
+                    help="compare the backward at a training shape")
+    ap.add_argument("--shape", action="append", choices=sorted(BWD_SHAPES),
+                    help="the backward's shape (repeatable; default llama)")
     args = ap.parse_args()
+    if args.shape and not args.bwd:
+        ap.error("--shape applies to --bwd")
     if not torch.cuda.is_available():
         sys.exit("tools/flash_ab.py: needs a CUDA card")
     if args.bwd:
-        main_bwd(args.baseline, args.profile)
+        main_bwd(args.baseline, args.profile, args.shape or ["llama"])
         card_line()
         return
     from chip_smoke import kernel_us

@@ -16,8 +16,8 @@ Phases, each reported on its own lines:
    and D = 256's own kernel (``bwd256``, dK/dV and dQ in one launch:
    mma.sync, cp.async and warpgroup products, HGMMA from wgmma), and
    every SSD product kernel
-   (scores, chunk states, chunk outputs) of the f32 and bf16 builds at
-   P = 64;
+   (scores, chunk states, chunk outputs; the backward's dW, dx and dB/dC
+   kernels) of the f32 and bf16 builds at P = 64;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the JAX kernel tests and at the serving path's shapes, with
    the kernel's device time (``ms``, CUDA-graph replay), its eager
@@ -138,12 +138,32 @@ Phases, each reported on its own lines:
    224 + 112 flash launches a step;
 19. as phase 11 for gemma3-1b at full width and 3 layers (the last global,
    the others window 512), seq 1024, under 1f1b and zb-h1, against
-   autograd of the plain-attention model.
+   autograd of the plain-attention model;
+20. the SSD scan's backward kernel against its plain version
+   (``ssd_chunked_bwd_ref``) and against torch autograd of
+   ``ssd_chunked_ref``, from the forward kernel's scratch: phase 6's
+   shapes, an initial state with a nonzero final-state gradient, one
+   chunk, 8 chunks at P = 128, a chunk of 100 with N = 24, a chunk of 6
+   with N = 12 (plain loads), and the training path's call (mamba2-2.7b:
+   batch 2, T 1024, 80 heads of 64, N 128, chunk 256), in f32 and bf16
+   (every gradient relative to max |ref|: 1e-4, 3e-2); a second call must
+   give the same bits; no single PyTorch call computes it, so no library
+   time; the training shape's rows add the device time of each of the
+   backward's eight CUDA kernels;
+21. as phase 10 for mamba2-2.7b (64 layers on 4 stages of 16): exactly 512
+   forward and 256 backward SSD launches a step and no flash launch;
+22. as phase 19 for mamba2-2.7b at full width and 3 layers, seq 1024,
+   under 1f1b and zb-h1, against autograd of the model with the plain SSD
+   scan (``ssd_chunked_ref``) in float64; a layer leaf is held to 1e-4 or,
+   where the same model with the plain SSD in f32 (the JAX model's
+   arithmetic) itself misses 1e-4 (a_log, whose gradient cancels to ~1e-4
+   of its terms), to that model's own distance; both are printed.
 
 Every kernel's launch counters (``launches`` and, for flash attention,
-``launches_prefill`` / ``launches_decode`` / ``launches_bwd``) are set to
-0 just before each driven path (phases 4, 7, 10, 12, 13, 15, 17 and 18,
-and each run of phases 11, 14 and 19) and read just after it.
+``launches_prefill`` / ``launches_decode`` / ``launches_bwd``; for the
+SSD scan ``launches_bwd``) are set to 0 just before each driven path
+(phases 4, 7, 10, 12, 13, 15, 17, 18 and 21, and each run of phases 11,
+14, 19 and 22) and read just after it.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -739,6 +759,127 @@ def phase_ssd(SSD, results: list) -> list:
     return bad
 
 
+def ssd_bwd_bound(x, N: int, chunk: int, init_state: bool,
+                  dfinal: bool) -> dict:
+    """Least time (ms) for the SSD scan's backward of these inputs
+    (:func:`bounds`).  Bytes: x, dy, dt, Bm, Cm read and dx, ddt, dBm, dCm
+    written once; the initial state read and its gradient written (when
+    given), the final state's gradient read (when given).  Operations, 2
+    flops per multiply-add, counted as :func:`ssd_bound` counts the
+    forward's: per (row, chunk, head) dW = dy.x^T and W^T.dy over the
+    c(c+1)/2 causal pairs x P, and four c x P x N products (the gradient's
+    readout state, dS_own.B, dS_own^T.x, S_in^T.dy); per (row, chunk) the
+    scores C.B^T and the products of their gradient summed over heads
+    with C and with B, each over the causal pairs x N."""
+    B, T, H, P = x.shape
+    el, nc, c = x.element_size(), T // chunk, chunk
+    pairs = c * (c + 1) // 2
+    state = B * H * P * N * 4
+    nbytes = (3 * x.numel() * el + 2 * B * T * H * 4 + 4 * B * T * N * el
+              + state * (2 * init_state + dfinal))
+    ops = 2 * B * nc * (H * (2 * pairs * P + 4 * c * P * N) + 3 * pairs * N)
+    return bounds(nbytes, ops, x.dtype)
+
+
+#: the backward's CUDA kernels (the gradient's readout state is the
+#: forward's chunk-states kernel in its GRAD form)
+SSD_BWD_KERNELS = sorted(["ssd_states_kernel", "ssd_bwd_pass_kernel",
+                          "ssd_bwd_dw_kernel", "ssd_bwd_dx_kernel",
+                          "ssd_bwd_dbc_kernel", "ssd_bwd_dbc_kernel",
+                          "ssd_bwd_fin_kernel", "ssd_bwd_sum_kernel"])
+
+
+def phase_ssd_bwd(SSD, results: list) -> list:
+    """Phase 20: the SSD backward kernel against its plain version
+    (ssd_chunked_bwd_ref) and against torch autograd of ssd_chunked_ref,
+    from the forward kernel's scratch of the same inputs; a second call
+    must give the same bits.  Errors are max over the six gradients of
+    max |got - ref| / max |ref|."""
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=g)
+    rel = lambda a, b: ((a.float() - b.float()).abs().max()
+                        / (b.float().abs().max() + 1e-12)).item()
+    # (label, (B, T, H, P, N, chunk), initial state and final gradient)
+    cases = [(f"test_kernels {s}", s, False)
+             for s in ((2, 64, 8, 32, 16, 16), (1, 128, 4, 64, 32, 32),
+                       (2, 256, 8, 32, 128, 64), (2, 32, 6, 16, 8, 32))]
+    cases += [("init_state dfinal (2, 256, 8, 32, 128, 64)",
+               (2, 256, 8, 32, 128, 64), True),
+              # one chunk; many chunks at P 128; a chunk of 100 (ragged
+              # 64-row tiles) with N 24; chunk 6 and N 12 (plain loads)
+              ("one chunk (1, 256, 4, 64, 128, 256)",
+               (1, 256, 4, 64, 128, 256), True),
+              ("8 chunks P=128 (1, 512, 4, 128, 64, 64)",
+               (1, 512, 4, 128, 64, 64), True),
+              ("chunk=100 N=24 (2, 300, 3, 32, 24, 100)",
+               (2, 300, 3, 32, 24, 100), True),
+              ("chunk=6 N=12 (1, 24, 2, 16, 12, 6)", (1, 24, 2, 16, 12, 6),
+               True),
+              # the training path's call: mamba2-2.7b, a micro-batch of 2
+              # rows, seq 1024 (4 chunks), no state in or out
+              ("train B=2 T=1024 H=80 P=64 N=128 chunk=256",
+               (2, 1024, 80, 64, 128, 256), False)]
+    bad = []
+    for label, (B, T, H, P, N, chunk), seeded in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = rnd(B, T, H, P).to(dev, dtype)
+            dt = torch.nn.functional.softplus(rnd(B, T, H)).to(dev)
+            A = -torch.exp(rnd(H) * 0.5).to(dev)
+            Bm, Cm = rnd(B, T, N).to(dev, dtype), rnd(B, T, N).to(dev, dtype)
+            dy = rnd(B, T, H, P).to(dev, dtype)
+            init = rnd(B, H, P, N).to(dev) if seeded else None
+            dfinal = rnd(B, H, P, N).to(dev) if seeded else None
+            kw = dict(chunk=chunk, init_state=init)
+            saved = SSD.ssd_chunked_saved(x, dt, A, Bm, Cm, **kw)[2]
+            kern = lambda: SSD.ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, dfinal,
+                                               saved=saved, **kw)
+            plain = lambda: SSD.ssd_chunked_bwd_ref(x, dt, A, Bm, Cm, dy,
+                                                    dfinal, **kw)
+            got = kern()
+            again = kern()
+            torch.cuda.synchronize()
+            got = [t for t in got if t is not None]
+            bitwise = all(torch.equal(a, b) for a, b in
+                          zip(got, [t for t in again if t is not None]))
+            want = [t for t in plain() if t is not None]
+            leaves = [t.detach().requires_grad_()
+                      for t in (x, dt, A, Bm, Cm, init) if t is not None]
+            y, fin = SSD.ssd_chunked_ref(*leaves[:5], chunk=chunk,
+                                         init_state=leaves[5] if seeded
+                                         else None)
+            auto = torch.autograd.grad(
+                (y, fin), leaves,
+                (dy, dfinal if seeded else torch.zeros_like(fin)))
+            err = max(rel(a, b) for a, b in zip(got, want))
+            err_auto = max(rel(a, b) for a, b in zip(got, auto))
+            ok = (max(err, err_auto) <= BWD_TOL[dtype] and bitwise
+                  and all(bool(torch.isfinite(t.float()).all()) for t in got))
+            row = dict(label=label, dtype=str(dtype).replace("torch.", ""),
+                       max_abs_err=max((a.float() - b.float()).abs().max()
+                                       .item() for a, b in zip(got, want)),
+                       rel_err=err, rel_err_autograd=err_auto,
+                       rel_errs={n: rel(a, b) for n, a, b in zip(
+                           ("dx", "ddt", "dA", "dB", "dC", "dinit"), got,
+                           want)},
+                       tol=BWD_TOL[dtype], bitwise=bitwise,
+                       ms=time_ms(kern), call_ms=call_ms(kern),
+                       plain_ms=time_ms(plain), library_ms=None,
+                       **ssd_bwd_bound(x, N, chunk, seeded, seeded), ok=ok)
+            if label.startswith("train"):
+                # device time of each of the backward's CUDA kernels
+                row["kernel_us"] = us = kernel_us(kern)
+                if sorted(k.split("<")[0] for k in us) != SSD_BWD_KERNELS:
+                    fail(f"SSD backward at the training shape: profiler "
+                         f"shows {us}")
+            print("kernel " + json.dumps(row), flush=True)
+            results.append(row)
+            if not ok:
+                bad.append(f"{label} {row['dtype']}")
+            del x, Bm, Cm, dy, saved, got, again, want, auto, leaves, y, fin
+    return bad
+
+
 def launch_counters(counters: dict) -> dict:
     """Every launch counter of every kernel wrapper: ``name`` for its
     ``launches``, ``name.route`` for each ``launches_<route>``."""
@@ -859,18 +1000,21 @@ def _unstage(params: dict, plan, n_layers: int, ST) -> dict:
         lambda a: ST.unstack_chunks(a, plan)[:n_layers], params["layers"]))
 
 
-def train_launches(n_layers: int, M: int, has_w: bool, full: bool) -> dict:
+def train_launches(n_layers: int, M: int, has_w: bool, full: bool,
+                   ssm: bool = False) -> dict:
     """Each kernel's launches in one train step: an F tick runs each
-    layer's attention once without statistics; a B tick once with them
-    (twice under remat 'full': the layer's forward re-runs inside the
-    backward) and one backward; a W tick (zero-bubble plans) the same
-    again.  Every forward call takes the prefill route."""
-    fwd_stats = n_layers * M * (1 + has_w) * (1 + full)
-    fwd = n_layers * M + fwd_stats
-    return {"flash_attention": fwd, "flash_attention.prefill": fwd,
-            "flash_attention.decode": 0,
-            "flash_attention.bwd": n_layers * M * (1 + has_w),
-            "ssd_scan": 0}
+    layer's attention (or SSD scan) once, attention without statistics; a
+    B tick once more, attention with them (twice under remat 'full': the
+    layer's forward re-runs inside the backward), and one backward; a W
+    tick (zero-bubble plans) the same again.  Every attention forward
+    takes the prefill route.  ``ssm``: the layers are SSD scans, not
+    attention."""
+    fwd = n_layers * M * (1 + (1 + has_w) * (1 + full))
+    bwd = n_layers * M * (1 + has_w)
+    fa_f, fa_b = (0, 0) if ssm else (fwd, bwd)
+    return {"flash_attention": fa_f, "flash_attention.prefill": fa_f,
+            "flash_attention.decode": 0, "flash_attention.bwd": fa_b,
+            "ssd_scan": fwd - fa_f, "ssd_scan.bwd": bwd - fa_b}
 
 
 def phase_train(train, counters: dict, mods, *, schedule: str = "1f1b",
@@ -909,7 +1053,8 @@ def phase_train(train, counters: dict, mods, *, schedule: str = "1f1b",
     if adopted != (stages, virtual, lowering.schedule, M_):
         fail(f"{tag} ran stages/V/schedule/M {adopted}, want "
              f"{(stages, virtual, lowering.schedule, M_)}")
-    per_step = train_launches(L, M_, lowering.has_w, False)
+    per_step = train_launches(L, M_, lowering.has_w, False,
+                              get_config(arch).family == "ssm")
     want = {k: steps * v for k, v in per_step.items()}
     losses = out["losses"]
     n_x = lowering.n_x
@@ -971,6 +1116,15 @@ def _grad_errs(grads: dict, ref: dict) -> dict:
         final_norm=rel(grads["final_norm"], ref["final_norm"]))
 
 
+def _leaf_errs(grads: dict, ref: dict) -> list:
+    """Each layer leaf's max |a-b| / max |b|, in tree order."""
+    from repro_torch.pipeline.stage import tree_leaves
+    return [((a.float() - b.float()).abs().max()
+             / (b.float().abs().max() + 1e-9)).item()
+            for a, b in zip(tree_leaves(grads["layers"]),
+                            tree_leaves(ref["layers"]))]
+
+
 #: phase 11's runs: (label, schedule, V, M, mem_limit, remat)
 PARITY_RUNS = (
     ("gpipe", "gpipe", 1, 2, 0, "stage"),
@@ -1001,6 +1155,7 @@ def phase_train_parity(FA, counters: dict, mods, arch: str = "llama3.2-1b",
     reduced model on the card and on the CPU with the same weights, for
     the runs of ``card_vs_cpu`` (``CARD_VS_CPU``)."""
     get_config, RT, ST, M, SP, SyntheticLM = mods
+    from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.models import layers as LYR
     runs = PARITY_RUNS if runs is None else runs
     card_vs_cpu = CARD_VS_CPU if card_vs_cpu is None else card_vs_cpu
@@ -1028,7 +1183,7 @@ def phase_train_parity(FA, counters: dict, mods, arch: str = "llama3.2-1b",
         loss, grads = step(params, batch)
         launches = {k: getattr(fn, a) for k, (fn, a) in every.items()}
         want = train_launches(cfg.n_layers, M_, step.lowering.has_w,
-                              remat == "full")
+                              remat == "full", cfg.family == "ssm")
         if launches != want:
             fail(f"train parity {arch} {label}: launches {launches}, want "
                  f"{want}")
@@ -1039,14 +1194,23 @@ def phase_train_parity(FA, counters: dict, mods, arch: str = "llama3.2-1b",
         out[label] = (loss.item(), _unstage(grads, plan, cfg.n_layers, ST),
                       launches, max(step.stash_slots), step.lowering.n_x)
         del params, grads, full
-    # the reference: one autograd pass of the unstaged model, attention in
-    # its plain version (layers.attend swapped for attend_ref)
+    # the reference: one autograd pass of the unstaged model, attention and
+    # the SSD scan in their plain versions (layers.attend swapped for
+    # attend_ref, layers._ssd_chunked for ssd_chunked_ref).  The plain SSD
+    # runs in float64: in f32 its in-chunk sums of dt*A reach thousands at
+    # mamba2's magnitudes (A down to -16).  The same model with the plain
+    # SSD in f32 (as the JAX model computes it) is run too: a_log's
+    # gradient cancels to ~1e-4 of the size of its terms, and that f32
+    # model itself lands ~2e-4 from the float64 one there, so a layer leaf
+    # is held to 1e-4 or, where the plain f32 model misses 1e-4, to the
+    # plain f32 model's own distance.
     leaves = dict(embed=params1["embed"].detach().requires_grad_(),
                   final_norm=params1["final_norm"].detach().requires_grad_(),
                   layers=ST._map_layers(
                       lambda a: a.detach().requires_grad_(),
                       params1["layers"]))
-    kernel_attend = LYR.attend
+    kernel_attend, kernel_ssd = LYR.attend, LYR._ssd_chunked
+    ssd_dtype = torch.float64
 
     def plain_attend(q, k, v, *, scale, causal=True, q_start=0, kv_len=None,
                      window=None):
@@ -1056,17 +1220,30 @@ def phase_train_parity(FA, counters: dict, mods, arch: str = "llama3.2-1b",
                              kv_len=LYR._per_row(S if kv_len is None
                                                  else kv_len, B, q.device),
                              window=window or 0)
-    LYR.attend = plain_attend
-    try:
-        ref_loss = M.loss_fn(base_cfg, leaves, batch)
-        g = torch.autograd.grad(ref_loss, [leaves["embed"],
-                                           leaves["final_norm"]]
-                                + ST.tree_leaves(leaves["layers"]))
-    finally:
-        LYR.attend = kernel_attend
-    n_lay = len(ST.tree_leaves(leaves["layers"]))
-    ref = dict(embed=g[0], final_norm=g[1], layers=dict(
-        zip(range(n_lay), g[2:])))
+    def plain_ssd(xh, dt, A, Bm, Cm, chunk, init_state=None):
+        cast = lambda t: None if t is None else t.to(ssd_dtype)
+        y, fin = SSD.ssd_chunked_ref(cast(xh), cast(dt), cast(A), cast(Bm),
+                                     cast(Cm), chunk=chunk,
+                                     init_state=cast(init_state))
+        return y.to(xh.dtype), fin.float()
+
+    def reference():
+        LYR.attend, LYR._ssd_chunked = plain_attend, plain_ssd
+        try:
+            ref_loss = M.loss_fn(base_cfg, leaves, batch)
+            g = torch.autograd.grad(ref_loss, [leaves["embed"],
+                                               leaves["final_norm"]]
+                                    + ST.tree_leaves(leaves["layers"]))
+        finally:
+            LYR.attend, LYR._ssd_chunked = kernel_attend, kernel_ssd
+        n_lay = len(ST.tree_leaves(leaves["layers"]))
+        return ref_loss, dict(embed=g[0], final_norm=g[1], layers=dict(
+            zip(range(n_lay), g[2:])))
+    ref_loss, ref = reference()
+    ref32 = None
+    if base_cfg.family == "ssm":
+        ssd_dtype = torch.float32
+        ref32 = reference()[1]
     res = {}
     base_loss, base = out["1f1b"][:2]
     for label, (loss, unst, launches, slots, n_x) in out.items():
@@ -1075,11 +1252,23 @@ def phase_train_parity(FA, counters: dict, mods, arch: str = "llama3.2-1b",
         res[label] = dict(loss=loss, ref_loss=ref_loss.item(),
                           errs_vs_autograd=errs, errs_vs_1f1b=same,
                           launches=launches, stash_slots=slots, n_x=n_x)
+        layers_ok = errs["layers"] <= 1e-4
+        if ref32 is not None:
+            res[label]["errs_vs_autograd_f32_ssd"] = _grad_errs(unst, ref32)
+            mine, plain = _leaf_errs(unst, ref), _leaf_errs(ref32, ref)
+            res[label]["leaf_errs"] = mine
+            res[label]["leaf_errs_f32_plain_model"] = plain
+            layers_ok = all(m <= max(1e-4, q) for m, q in zip(mine, plain))
         print(f"train parity {arch} {label}: loss {loss:.6f} (autograd "
-              f"{ref_loss.item():.6f}), vs autograd {json.dumps(errs)}, vs "
-              f"1f1b {json.dumps(same)}, launches {json.dumps(launches)}, "
-              f"stash {slots} (n_x {n_x})", flush=True)
-        if (abs(loss - ref_loss.item()) > 1e-4 or max(errs.values()) > 1e-4
+              f"{ref_loss.item():.6f}), vs autograd {json.dumps(errs)}"
+              + (f" (f32 plain SSD: "
+                 f"{json.dumps(res[label]['errs_vs_autograd_f32_ssd'])})"
+                 if ref32 is not None else "")
+              + f", vs 1f1b {json.dumps(same)}, launches "
+              f"{json.dumps(launches)}, stash {slots} (n_x {n_x})",
+              flush=True)
+        if (abs(loss - ref_loss.item()) > 1e-4 or not layers_ok
+                or max(errs["embed"], errs["final_norm"]) > 1e-4
                 or abs(loss - base_loss) > 1e-5 * abs(base_loss)
                 or max(same.values()) > 1e-5 or slots != n_x):
             fail(f"train parity {arch} {label}: {res[label]}")
@@ -1091,7 +1280,7 @@ def phase_train_parity(FA, counters: dict, mods, arch: str = "llama3.2-1b",
         res["remat_full_bitwise_equal_stage"] = bitwise
         print(f"train parity: remat full vs stage (1f1b) bitwise equal: "
               f"{bitwise}", flush=True)
-    del out, params1, leaves, g, ref, base
+    del out, params1, leaves, ref, ref32, base
     torch.cuda.empty_cache()
     if not card_vs_cpu:
         return res
@@ -1359,8 +1548,10 @@ def main() -> None:
     ssd_sass = sass_counts(build, "ssd_scan", "ssd", "P")
     print(f"sass ssd_scan {json.dumps(ssd_sass)}", flush=True)
     if ssd_sass is not None:
-        want = [f"scores {d}" for d in ("f32", "bf16")] + [
-            f"{k} {d} P=64" for k in ("states", "out") for d in ("f32", "bf16")]
+        want = [f"{k} {d}" for k in ("scores", "bwd_dw", "bwd_dbc")
+                for d in ("f32", "bf16")] + [
+            f"{k} {d} P=64" for k in ("states", "out", "bwd_dx")
+            for d in ("f32", "bf16")]
         if any(k not in ssd_sass or ssd_sass[k]["HMMA"] == 0
                or ssd_sass[k]["LDGSTS"] == 0 for k in want):
             fail(f"SSD product kernels lack tensor-core products or "
@@ -1393,7 +1584,8 @@ def main() -> None:
         counters, {"flash_attention": 16 * 2 * (1 + 31),
                    "flash_attention.prefill": 16 * 2,
                    "flash_attention.decode": 16 * 2 * 31,
-                   "flash_attention.bwd": 0, "ssd_scan": 0},
+                   "flash_attention.bwd": 0, "ssd_scan": 0,
+                   "ssd_scan.bwd": 0},
         128256)
 
     # ---- 5. whole llama path, kernel vs plain -----------------------------
@@ -1413,7 +1605,7 @@ def main() -> None:
                 "--gen", "32", "--device", "cuda"],
         counters, {"flash_attention": 0, "flash_attention.prefill": 0,
                    "flash_attention.decode": 0, "flash_attention.bwd": 0,
-                   "ssd_scan": 64 * 2}, 50280)
+                   "ssd_scan": 64 * 2, "ssd_scan.bwd": 0}, 50280)
 
     # ---- 8. whole mamba2 path, kernel vs plain ----------------------------
     ssd_path_err = phase_parity(serve_mods, "mamba2-2.7b", 512)
@@ -1453,7 +1645,8 @@ def main() -> None:
         counters, {"flash_attention": 26 * 2 * 32,
                    "flash_attention.prefill": 26 * 2,
                    "flash_attention.decode": 26 * 2 * 31,
-                   "flash_attention.bwd": 0, "ssd_scan": 0}, 262144)
+                   "flash_attention.bwd": 0, "ssd_scan": 0,
+                   "ssd_scan.bwd": 0}, 262144)
 
     # ---- 16. whole gemma3 path, kernel vs plain ---------------------------
     # one local layer (window 512) and one global, a prompt past the window
@@ -1468,7 +1661,8 @@ def main() -> None:
         counters, {"flash_attention": 28 * 2 * 32,
                    "flash_attention.prefill": 28 * 2,
                    "flash_attention.decode": 28 * 2 * 31,
-                   "flash_attention.bwd": 0, "ssd_scan": 0}, 151936)
+                   "flash_attention.bwd": 0, "ssd_scan": 0,
+                   "ssd_scan.bwd": 0}, 151936)
 
     # whole qwen3 path, kernel vs plain: 2 layers, the served prompt length
     qwen_path_err = phase_parity(serve_mods, "qwen3-1.7b", 512)
@@ -1483,13 +1677,32 @@ def main() -> None:
         runs=[r for r in PARITY_RUNS if r[0] in ("1f1b", "zb-h1")],
         card_vs_cpu=(), seq=1024)
 
+    # ---- 20. the SSD backward against its plain version ------------------
+    ssd_bwd_rows: list = []
+    bad = phase_ssd_bwd(SSD, ssd_bwd_rows)
+    if bad:
+        fail(f"SSD backward disagrees with its plain version or is not "
+             f"bitwise reproducible: {bad}")
+
+    # ---- 21. mamba2-2.7b training at full width ---------------------------
+    mamba_trained = phase_train(train, counters, train_mods,
+                                arch="mamba2-2.7b")
+
+    # ---- 22. mamba2 training parity: 3 layers -----------------------------
+    mamba_parity = phase_train_parity(
+        FA, counters, train_mods, arch="mamba2-2.7b",
+        runs=[r for r in PARITY_RUNS if r[0] in ("1f1b", "zb-h1")],
+        card_vs_cpu=(), seq=1024)
+
     train_paths = {f"train {r['schedule']} V={r['virtual']} "
                    f"M={r['microbatches']}": r["launches"]
                    for r in (trained, interleaved, zb_h2)}
     train_paths.update({f"train {' '.join(r['flags'])}": r["launches"]
                         for r in planner["runs"]})
     train_paths.update({f"train {arch} 1f1b M=4": r["launches"]
-                        for arch, r in dense_trained.items()})
+                        for arch, r in dict(
+                            dense_trained,
+                            **{"mamba2-2.7b": mamba_trained}).items()})
 
     main_row = pick(rows, "main-path prefill")
     keys = ("label", "dtype", "ms", "call_ms", "plain_ms", "library_ms",
@@ -1542,6 +1755,7 @@ def main() -> None:
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:70",
         launches=mamba["launches"]["ssd_scan"],
+        launches_train=mamba_trained["launches"]["ssd_scan"],
         max_abs_err=ssd_row["max_abs_err"], rel_err=ssd_row["rel_err"],
         ms=ssd_row["ms"], call_ms=ssd_row["call_ms"],
         plain_ms=ssd_row["plain_ms"],
@@ -1577,6 +1791,24 @@ def main() -> None:
               if k in bwd_keys},
         dense_variant_rows=[{k: r[k] for k in bwd_keys} for r in bwd_rows
                             if r["label"].startswith(("gemma3", "qwen3"))])
+    sbwd_row = pick(ssd_bwd_rows, "train")
+    ssd_bwd = dict(
+        name="ssd_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="no Pallas counterpart: XLA's gradient of "
+                 "repro/models/layers.py::_ssd_chunked",
+        launches=mamba_trained["launches"]["ssd_scan.bwd"],
+        launches_by_path={k: v["ssd_scan.bwd"]
+                          for k, v in train_paths.items()},
+        max_abs_err=sbwd_row["max_abs_err"], rel_err=sbwd_row["rel_err"],
+        ms=sbwd_row["ms"], call_ms=sbwd_row["call_ms"],
+        plain_ms=sbwd_row["plain_ms"], bound_ms=sbwd_row["bound_ms"],
+        bound_by=sbwd_row["bound_by"], bound_tc_ms=sbwd_row["bound_tc_ms"],
+        library_ms=None, shape=sbwd_row["label"] + " f32",
+        kernel_us=sbwd_row["kernel_us"],
+        bitwise=all(r["bitwise"] for r in ssd_bwd_rows),
+        bf16={k: v for k, v in pick(ssd_bwd_rows, "train",
+                                    "bfloat16").items() if k in bwd_keys})
     print(json.dumps({"serve": {"llama3.2-1b": llama,
                                 "mamba2-2.7b": mamba, "gemma3-1b": gemma,
                                 "qwen3-1.7b": qwen}}), flush=True)
@@ -1584,9 +1816,12 @@ def main() -> None:
                                 "interleaved": interleaved, "zb-h2": zb_h2,
                                 "parity": train_parity,
                                 "planner": planner, **dense_trained,
-                                "gemma3-1b parity": gemma_parity}}),
+                                "gemma3-1b parity": gemma_parity,
+                                "mamba2-2.7b": mamba_trained,
+                                "mamba2-2.7b parity": mamba_parity}}),
           flush=True)
-    print(json.dumps({"kernels": [flash, ssd, flash_bwd]}), flush=True)
+    print(json.dumps({"kernels": [flash, ssd, flash_bwd, ssd_bwd]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -486,7 +486,10 @@ __device__ __forceinline__ void scan_cum(const float* dts, double* cum, int c,
 
 // S[b,k,h][p, n0+n] = sum_j x[j,p] wend_j B[j, n0+n], wend_j = exp(cum_last
 // - cum_j) dt_j.  Grid: (NB-column block of N, head, row * n_chunks).
-template <typename T, int P>
+// GRAD (the backward's first kernel, called with x = dy and Bm = Cm): the
+// gradient's own readout state sum_j dy[j,p] exp(cum_j) C[j, n0+n], from
+// the forward's cum, which it reads instead of scanning dt.
+template <typename T, int P, bool GRAD = false>
 __global__ void __launch_bounds__(THREADS)
 ssd_states_kernel(const Params p) {
   using C = StateCfg<T, P>;
@@ -519,18 +522,25 @@ ssd_states_kernel(const Params p) {
   };
   ring_start(load, n_k);                              // flies over the scan
 
-  const float* dtp = p.dt + b * p.sdt_b + h * p.sdt_h + (long long)t0 * p.sdt_t;
-  for (int e = tid; e < n_k * KT; e += THREADS)
-    w[e] = e < c ? dtp[e * p.sdt_t] : 0.f;
-  __syncthreads();
-  if (warp == 0) scan_cum(w, cum, c, p.A[h]);
-  __syncthreads();
-  const double cum_last = cum[c - 1];
-  for (int e = tid; e < c; e += THREADS)
-    w[e] = expf((float)(cum_last - cum[e])) * w[e];
-  if (nb == 0) {
-    double* out = p.cum + ((long long)bc * p.H + h) * c;
-    for (int e = tid; e < c; e += THREADS) out[e] = cum[e];
+  if constexpr (GRAD) {
+    const double* cg = p.cum + ((long long)bc * p.H + h) * c;
+    for (int e = tid; e < n_k * KT; e += THREADS)
+      w[e] = e < c ? expf((float)cg[e]) : 0.f;
+  } else {
+    const float* dtp = p.dt + b * p.sdt_b + h * p.sdt_h
+                       + (long long)t0 * p.sdt_t;
+    for (int e = tid; e < n_k * KT; e += THREADS)
+      w[e] = e < c ? dtp[e * p.sdt_t] : 0.f;
+    __syncthreads();
+    if (warp == 0) scan_cum(w, cum, c, p.A[h]);
+    __syncthreads();
+    const double cum_last = cum[c - 1];
+    for (int e = tid; e < c; e += THREADS)
+      w[e] = expf((float)(cum_last - cum[e])) * w[e];
+    if (nb == 0) {
+      double* out = p.cum + ((long long)bc * p.H + h) * c;
+      for (int e = tid; e < c; e += THREADS) out[e] = cum[e];
+    }
   }
 
   const int wm = warp % C::WM, wn = warp / C::WM;
@@ -923,6 +933,829 @@ ssd_out_kernel(const Params p) {
   }
 }
 
+// ===========================================================================
+// The backward
+// ===========================================================================
+//
+// The gradient of the scan (no Pallas counterpart: the JAX model lets XLA
+// differentiate repro/models/layers.py::_ssd_chunked), by the forward's
+// chunk-parallel split.  Per (row b, chunk k, head h), with cum, L[i,j] =
+// exp(cum_i - cum_j) (j <= i), G = C.B^T, W = G L dt_j, S_in the passed-in
+// state and dS_own the gradient of the chunk's own state:
+//   Z       = sum_i exp(cum_i) dy_i (x) C_i                 [P x N]
+//   g_nc    = dfinal;  dS_own[k] = g_{k+1};  g_k = e_k g_{k+1} + Z_k;
+//   dinit   = g_0                                   (e_k = exp(cum_end))
+//   dx_j    = sum_{i>=j} W[i,j] dy_i + exp(cum_end - cum_j) dt_j dS_own B_j
+//   dWL     = (dy_i . x_j) L[i,j]                   (dW o L, causal)
+//   dC_i    = sum_h [sum_j dWL dt_j B_j + exp(cum_i) S_in^T dy_i]
+//   dB_j    = sum_h [sum_i dWL dt_j C_i
+//                    + exp(cum_end - cum_j) dt_j dS_own^T x_j]
+//   dcum_i  = sum_j dWL G dt_j - dt_i sum_{i'} dWL[i',i] G[i',i]
+//             + dy_i . y_off_i - q_i  (+ sum_j q_j + e_k <g_{k+1}, S_in> at
+//             the end), q_j = dt_j r_j, r_j = exp(cum_end - cum_j) x_j .
+//             dS_own B_j
+//   R       = the in-chunk reverse cumsum of dcum
+//   ddt_j   = sum_i dWL[i,j] G[i,j] + r_j + A R_j;  dA = sum_{b,k,j} dt_j R_j
+// The forward's scratch (scores G, the passed-in states, the double cum)
+// comes in saved; masked pairs (j > i) are never exponentiated.  Eight
+// launches on the caller's stream:
+//   1. ssd_states_kernel<GRAD>: Z per (row, chunk, head), into dstates;
+//   2. ssd_bwd_pass_kernel: the reverse pass over chunks, dS_own over Z in
+//      place, dinit, and per block a part of e_k <g_{k+1}, S_in[k]>;
+//   3. ssd_bwd_dw_kernel: per causal 64x64 tile, dW = dy . x^T, dWL into a
+//      scratch [B, nc, H, c, c], and each tile's part of the row sums
+//      (sum_j dWL G dt_j) and column sums (sum_i dWL G);
+//   4. ssd_bwd_dx_kernel: per 64 positions j, dS_own B_j (then r_j, and the
+//      rows scaled to dx's state term), then W^T dy over i >= j;
+//   5./6. ssd_bwd_dbc_kernel: each head's dB_j and dC_i (64-column blocks
+//      of N) into f32 parts [B, nc, H, c, N], and for dC each block's part
+//      of dy_i . y_off_i = C_i . dC_off_i;
+//   7. ssd_bwd_fin_kernel: per (row, chunk, head) one warp gathers dcum,
+//      scans it backwards in double, writes ddt and a part of dA;
+//   8. ssd_bwd_sum_kernel: dB, dC = the heads' parts added in head order,
+//      dA = its parts added in (row, chunk) order.
+// No atomics: every sum across blocks goes through f32 (dA: f64) parts
+// added in a fixed order, so a second call gives the same bits.  Every
+// product runs on mma.sync m16n8k8 in 3xTF32 (the forward's split), for
+// bf16 inputs too: a bf16 value is exact in TF32, and its tiles are
+// widened on the fragment reads.  What bounds it (chip_smoke.py's
+// ssd_bwd_bound): about twice the forward's products.  This first version
+// does more than that: it forms the scores' gradient per head (the dB and
+// dC products once per head, not once on the heads' sum), runs bf16 in
+// three TF32 passes, and sends dWL and the per-head parts through device
+// memory.
+
+struct BwdParams {
+  const void* x;
+  const float* dt;
+  const float* A;
+  const void* Bm;
+  const void* Cm;
+  const void* dy;
+  const float* dfinal;                  // [B,H,P,N] contiguous; may be null
+  const float* scores;                  // the forward's G [B,nc,c,c]
+  const float* states;                  // the forward's S_in [B,nc,H,P,N]
+  const double* cum;                    // the forward's cum [B,nc,H,c]
+  float* dstates;                       // Z, then dS_own [B,nc,H,P,N]
+  float* dwl;                           // [B,nc,H,c,c]
+  float* rs;                            // row-sum parts [B,nc,H,nt,c]
+  float* cs;                            // column-sum parts [B,nc,H,nt,c]
+  float* yoff;                          // dy.y_off parts [B,nc,H,nnb,c]
+  float* r;                             // r_j [B,nc,H,c]
+  float* gpart;                         // [B,nc,H,npass]
+  float* dbh;                           // each head's dB [B,nc,H,c,N]
+  float* dch;                           // each head's dC [B,nc,H,c,N]
+  double* dapart;                       // [B,nc,H]
+  void* dx;                             // [B,T,H,P] contiguous, x's dtype
+  float* ddt;                           // [B,T,H] contiguous
+  float* dA;                            // [H]
+  void* dB;                             // [B,T,N] contiguous, x's dtype
+  void* dC;
+  float* dinit;                         // [B,H,P,N] contiguous; may be null
+  int B, T, H, P, N, chunk, nc;
+  int nt, nnb, npass;                   // 64-row tiles, 64-column blocks of
+                                        // N, blocks of the reverse pass
+  int vec;                              // 16-byte copies allowed
+  long long sx_b, sx_t, sx_h;           // strides in elements; unit on p/n
+  long long sdt_b, sdt_t, sdt_h;
+  long long sB_b, sB_t;
+  long long sC_b, sC_t;
+  long long sdy_b, sdy_t, sdy_h;
+};
+
+constexpr int BWD_NB = 64;              // columns of N a dB/dC block owns
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float v) {
+  return __float2bfloat16(v);
+}
+__device__ __forceinline__ float2 pair_f(const float* p) { return pair(p); }
+__device__ __forceinline__ float2 pair_f(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void split_a(const float (&v)[4], uint32_t (&ab)[4],
+                                        uint32_t (&as)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) split(v[q], ab[q], as[q]);
+}
+// A fragment values (rows r0 + g, r0 + g + 8; logical k t4, t4 + 4 =
+// physical k0 + 2 t4, k0 + 2 t4 + 1) of a [row][k] tile with pitch ld
+template <typename T>
+__device__ __forceinline__ void a_rowmajor(float (&v)[4], const T* s, int ld,
+                                           int r0, int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const float2 a = pair_f(s + (r0 + g) * ld + k0 + 2 * t4);
+  const float2 b = pair_f(s + (r0 + g + 8) * ld + k0 + 2 * t4);
+  v[0] = a.x;
+  v[1] = b.x;
+  v[2] = a.y;
+  v[3] = b.y;
+}
+// ... of a [k][row] tile (the operand transposed in memory)
+template <typename T>
+__device__ __forceinline__ void a_colmajor(float (&v)[4], const T* s, int ld,
+                                           int r0, int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const T* q = s + (k0 + 2 * t4) * ld + r0 + g;
+  v[0] = to_f(q[0]);
+  v[1] = to_f(q[8]);
+  v[2] = to_f(q[ld]);
+  v[3] = to_f(q[ld + 8]);
+}
+// split TF32 B fragments of NT n8 tiles (columns n0 + 8 n + g) of a
+// [k][n] tile with pitch ld
+template <int NT, typename T>
+__device__ __forceinline__ void b_kmajor(uint32_t (&bb)[NT][2],
+                                         uint32_t (&bs)[NT][2], const T* s,
+                                         int ld, int k0, int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const T* q = s + (k0 + 2 * t4) * ld + n0 + g;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    split(to_f(q[n * 8]), bb[n][0], bs[n][0]);
+    split(to_f(q[ld + n * 8]), bb[n][1], bs[n][1]);
+  }
+}
+// ... of an [n][k] tile
+template <int NT, typename T>
+__device__ __forceinline__ void b_nmajor(uint32_t (&bb)[NT][2],
+                                         uint32_t (&bs)[NT][2], const T* s,
+                                         int ld, int k0, int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const T* q = s + (n0 + g) * ld + k0 + 2 * t4;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const float2 y = pair_f(q + n * 8 * ld);
+    split(y.x, bb[n][0], bs[n][0]);
+    split(y.y, bb[n][1], bs[n][1]);
+  }
+}
+// the sum over the four lanes of a quad (the t4 lanes of one row), the
+// same bits on every lane
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
+}
+template <int NT>
+__device__ __forceinline__ void zero_acc(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+}
+template <int NT>
+__device__ __forceinline__ void scale_rows(float (&acc)[NT][4], float fa,
+                                           float fb) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    acc[n][0] *= fa;
+    acc[n][1] *= fa;
+    acc[n][2] *= fb;
+    acc[n][3] *= fb;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 2. The reverse pass over chunks
+// ---------------------------------------------------------------------------
+
+// a block's sum in a fixed order (a warp's butterfly, then the warps in
+// order); valid on thread 0
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t += red[w];
+  __syncthreads();
+  return t;
+}
+
+// per (row, head) and state entry e, from the last chunk back: g = dfinal
+// (or 0); per chunk k: this block's part of e_k <g, S_in[k]>, dstates[k]
+// <- g (it held Z_k), g = e_k g + Z_k; dinit <- g.  A thread owns four
+// neighbouring entries.  Grid: (npass, head, row).
+__global__ void __launch_bounds__(PASS_THREADS)
+ssd_bwd_pass_kernel(const BwdParams p) {
+  __shared__ float red[PASS_THREADS / 32];
+  const int PN = p.P * p.N;                           // a multiple of 16
+  const int e = 4 * (blockIdx.x * PASS_THREADS + threadIdx.x);
+  const int h = blockIdx.y, b = blockIdx.z, c = p.chunk;
+  const bool live = e < PN;
+  float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (live && p.dfinal)
+    g = *reinterpret_cast<const float4*>(
+        p.dfinal + ((long long)b * p.H + h) * PN + e);
+  for (int k = p.nc - 1; k >= 0; --k) {
+    const long long bkh = ((long long)b * p.nc + k) * p.H + h;
+    float4 z = make_float4(0.f, 0.f, 0.f, 0.f), s = z;
+    if (live) {
+      z = *reinterpret_cast<const float4*>(p.dstates + bkh * PN + e);
+      s = *reinterpret_cast<const float4*>(p.states + bkh * PN + e);
+    }
+    const float ek = expf((float)p.cum[bkh * c + c - 1]);
+    const float tot = block_sum(g.x * s.x + g.y * s.y + g.z * s.z
+                                + g.w * s.w, red);
+    if (threadIdx.x == 0) p.gpart[bkh * p.npass + blockIdx.x] = ek * tot;
+    if (live) {
+      *reinterpret_cast<float4*>(p.dstates + bkh * PN + e) = g;
+      g.x = g.x * ek + z.x;
+      g.y = g.y * ek + z.y;
+      g.z = g.z * ek + z.z;
+      g.w = g.w * ek + z.w;
+    }
+  }
+  if (live && p.dinit)
+    *reinterpret_cast<float4*>(p.dinit + ((long long)b * p.H + h) * PN + e)
+        = g;
+}
+
+// ---------------------------------------------------------------------------
+// 3. dW = dy . x^T per causal tile, dWL, its row and column sums
+// ---------------------------------------------------------------------------
+
+template <typename T>
+constexpr int dw_smem() {
+  return STAGES * 2 * TM * LDK * (int)sizeof(T)
+         + 2 * TM * (int)sizeof(double) + 5 * TM * (int)sizeof(float);
+}
+
+// Grid: (causal tile, head, row * n_chunks); warp w owns rows 16w..16w+15
+// of the tile (positions i) and all 64 columns (positions j).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ssd_bwd_dw_kernel(const BwdParams p) {
+  int ti = 0;
+  while ((ti + 1) * (ti + 2) / 2 <= (int)blockIdx.x) ++ti;
+  const int tj = blockIdx.x - ti * (ti + 1) / 2;
+  const int h = blockIdx.y, bc = blockIdx.z, b = bc / p.nc, ci = bc % p.nc;
+  const int c = p.chunk, i0 = ti * TM, j0 = tj * TM, t0 = ci * c;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ds = reinterpret_cast<T*>(smem_raw);             // [STAGES][TM][LDK]
+  T* xs = ds + STAGES * TM * LDK;                     // [STAGES][TM][LDK]
+  double* cum_i = reinterpret_cast<double*>(xs + STAGES * TM * LDK);
+  double* cum_j = cum_i + TM;
+  float* dtj = reinterpret_cast<float*>(cum_j + TM);  // [TM]
+  float* red = dtj + TM;                              // [4][TM]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long bkh = (long long)bc * p.H + h;
+  const T* dyp = static_cast<const T*>(p.dy) + b * p.sdy_b + h * p.sdy_h
+                 + (long long)(t0 + i0) * p.sdy_t;
+  const T* xp = static_cast<const T*>(p.x) + b * p.sx_b + h * p.sx_h
+                + (long long)(t0 + j0) * p.sx_t;
+  const int rows_i = min(TM, c - i0), rows_j = min(TM, c - j0);
+  const int n_k = (p.P + KT - 1) / KT;
+  auto load = [&](int k, int st) {
+    load_tile(ds + st * TM * LDK, LDK, dyp + k * KT, p.sdy_t, TM, KT, rows_i,
+              p.P - k * KT, p.vec);
+    load_tile(xs + st * TM * LDK, LDK, xp + k * KT, p.sx_t, TM, KT, rows_j,
+              p.P - k * KT, p.vec);
+    cp_async_commit();
+  };
+  ring_start(load, n_k);
+  const double* cg = p.cum + bkh * c;
+  const float* dtp = p.dt + b * p.sdt_b + h * p.sdt_h + (long long)t0 * p.sdt_t;
+  for (int e = tid; e < TM; e += THREADS) {
+    cum_i[e] = i0 + e < c ? cg[i0 + e] : 0.0;
+    cum_j[e] = j0 + e < c ? cg[j0 + e] : 0.0;
+    dtj[e] = j0 + e < c ? dtp[(long long)(j0 + e) * p.sdt_t] : 0.f;
+  }
+
+  float acc[8][4];
+  zero_acc(acc);
+  for (int k = 0; k < n_k; ++k) {
+    const int st = ring_next(load, k, n_k);
+    const T* da = ds + st * TM * LDK;
+    const T* xb = xs + st * TM * LDK;
+#pragma unroll
+    for (int kk = 0; kk < KT / 8; ++kk) {
+      float v[4];
+      a_rowmajor(v, da, LDK, warp * 16, kk * 8);
+      uint32_t ab[4], as[4];
+      split_a(v, ab, as);
+      uint32_t bb[8][2], bs[8][2];
+      b_nmajor<8>(bb, bs, xb, LDK, kk * 8, 0);
+      mma_3xtf32(acc, ab, as, bb, bs);
+    }
+  }
+
+  const float* G = p.scores + (long long)bc * c * c;
+  float* D = p.dwl + bkh * c * c;
+  float colv[8][2];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) colv[n][0] = colv[n][1] = 0.f;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int il = warp * 16 + g + 8 * h2, i = i0 + il;
+    const bool iv = i < c;
+    const double ci_ = cum_i[il];
+    float rsum = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int jl = n * 8 + 2 * t4 + e, j = j0 + jl;
+        float v = 0.f;
+        if (iv && j <= i) {                           // masked pairs: no exp
+          v = acc[n][2 * h2 + e] * expf((float)(ci_ - cum_j[jl]));
+          const float eg = v * G[(long long)i * c + j];
+          rsum += eg * dtj[jl];
+          colv[n][e] += eg;
+        }
+        if (iv && j < c) D[(long long)i * c + j] = v;
+      }
+    }
+    rsum = quad_sum(rsum);
+    if (iv && t4 == 0) p.rs[(bkh * p.nt + tj) * c + i] = rsum;
+  }
+  // column sums: over a warp's 16 rows (the lanes of one t4), then over
+  // the four warps in order
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = colv[n][e];
+      v += __shfl_xor_sync(FULL, v, 4);
+      v += __shfl_xor_sync(FULL, v, 8);
+      v += __shfl_xor_sync(FULL, v, 16);
+      if (g == 0) red[warp * TM + n * 8 + 2 * t4 + e] = v;
+    }
+  __syncthreads();
+  if (tid < TM && j0 + tid < c)
+    p.cs[(bkh * p.nt + ti) * c + j0 + tid] =
+        red[tid] + red[TM + tid] + red[2 * TM + tid] + red[3 * TM + tid];
+}
+
+// ---------------------------------------------------------------------------
+// 4. dx
+// ---------------------------------------------------------------------------
+
+template <typename T, int P>
+struct DxCfg {
+  // region A: a B tile [TM][LDK] (T) or a G tile [KT][LDG] (f32, read
+  // transposed); region B: dS_own [P][LDK] (f32, read transposed) or a dy
+  // tile [KT][LDX] (T)
+  static constexpr int LDX = P + (IS_F32<T> ? 4 : 8);
+  static constexpr int LDG = TM + 4;
+  static constexpr int A_T = TM * LDK * (int)sizeof(T);
+  static constexpr int A_G = KT * LDG * 4;
+  static constexpr int REG_A = A_T > A_G ? A_T : A_G;
+  static constexpr int B_S = P * LDK * 4;
+  static constexpr int B_X = KT * LDX * (int)sizeof(T);
+  static constexpr int REG_B = B_S > B_X ? B_S : B_X;
+  static constexpr int STAGE = REG_A + REG_B;
+  static int smem(int c) {
+    return STAGES * STAGE + c * (int)(sizeof(double) + sizeof(float));
+  }
+};
+
+// dx rows j0..j0+63 of one (row, chunk, head).  Grid: (head, row *
+// n_chunks, row tile); warp w owns rows 16w..16w+15 and every p.  First
+// U = B . dS_own^T over the state columns, whence r_j; then the rows are
+// scaled by exp(cum_end - cum_j) dt_j and W^T dy is added over the
+// 32-position sub-tiles i >= j0, the weight formed from G, cum and dt
+// straight into the A fragments.
+template <typename T, int P>
+__global__ void __launch_bounds__(THREADS)
+ssd_bwd_dx_kernel(const BwdParams p) {
+  using C = DxCfg<T, P>;
+  constexpr int NT = P / 8, LDX = C::LDX, LDG = C::LDG;
+  const int h = blockIdx.x, bc = blockIdx.y, tj = blockIdx.z;
+  const int b = bc / p.nc, ci = bc % p.nc, c = p.chunk, t0 = ci * c;
+  const int j0 = tj * TM, rows = min(TM, c - j0);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* cum = reinterpret_cast<double*>(smem_raw + STAGES * C::STAGE);
+  float* dts = reinterpret_cast<float*>(cum + c);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long bkh = (long long)bc * p.H + h;
+  const T* Bp = static_cast<const T*>(p.Bm) + b * p.sB_b
+                + (long long)(t0 + j0) * p.sB_t;
+  const float* dS = p.dstates + bkh * P * p.N;
+  const float* G = p.scores + (long long)bc * c * c;
+  const T* dyp = static_cast<const T*>(p.dy) + b * p.sdy_b + h * p.sdy_h
+                 + (long long)t0 * p.sdy_t;
+  const int n_state = (p.N + KT - 1) / KT;
+  const int n_tiles = n_state + (c - j0 + KT - 1) / KT;
+  auto stage_a = [&](int st) { return smem_raw + st * C::STAGE; };
+  auto stage_b = [&](int st) { return smem_raw + st * C::STAGE + C::REG_A; };
+  auto load = [&](int it, int st) {
+    if (it < n_state) {
+      const int n0 = it * KT;
+      load_tile(reinterpret_cast<T*>(stage_a(st)), LDK, Bp + n0, p.sB_t, TM,
+                KT, rows, p.N - n0, p.vec);
+      load_tile(reinterpret_cast<float*>(stage_b(st)), LDK, dS + n0,
+                (long long)p.N, P, KT, P, p.N - n0, p.vec);
+    } else {
+      const int i0 = j0 + (it - n_state) * KT;
+      load_tile(reinterpret_cast<float*>(stage_a(st)), LDG,
+                G + (long long)i0 * c + j0, (long long)c, KT, TM, c - i0,
+                c - j0, p.vec);
+      load_tile(reinterpret_cast<T*>(stage_b(st)), LDX,
+                dyp + (long long)i0 * p.sdy_t, p.sdy_t, KT, P, c - i0, P,
+                p.vec);
+    }
+    cp_async_commit();
+  };
+  ring_start(load, n_tiles);
+  const double* cg = p.cum + bkh * c;
+  const float* dtp = p.dt + b * p.sdt_b + h * p.sdt_h + (long long)t0 * p.sdt_t;
+  for (int e = tid; e < c; e += THREADS) {
+    cum[e] = cg[e];
+    dts[e] = dtp[(long long)e * p.sdt_t];
+  }
+  // this thread's rows; a row past the chunk computes as the last one and
+  // is not stored
+  const int ra = j0 + warp * 16 + g, rb = ra + 8;
+  const int ma = min(ra, c - 1), mb = min(rb, c - 1);
+
+  float acc[NT][4];
+  zero_acc(acc);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = ring_next(load, it, n_tiles);
+    if (it < n_state) {
+      // ---- U = B_tile . dS_own^T over state columns ---------------------
+      const T* As = reinterpret_cast<const T*>(stage_a(st));
+      const float* Bs = reinterpret_cast<const float*>(stage_b(st));
+#pragma unroll
+      for (int kk = 0; kk < KT / 8; ++kk) {
+        float v[4];
+        a_rowmajor(v, As, LDK, warp * 16, kk * 8);
+        uint32_t ab[4], as[4];
+        split_a(v, ab, as);
+        uint32_t bb[NT][2], bs[NT][2];
+        b_nmajor<NT>(bb, bs, Bs, LDK, kk * 8, 0);
+        mma_3xtf32(acc, ab, as, bb, bs);
+      }
+      continue;
+    }
+    if (it == n_state) {
+      // r_j = exp(cum_end - cum_j) x_j . U_j; then U_j -> dx's state term
+      const T* xa = static_cast<const T*>(p.x) + b * p.sx_b + h * p.sx_h
+                    + (long long)(t0 + ma) * p.sx_t;
+      const T* xb = static_cast<const T*>(p.x) + b * p.sx_b + h * p.sx_h
+                    + (long long)(t0 + mb) * p.sx_t;
+      float da = 0.f, db = 0.f;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int col = n * 8 + 2 * t4;
+        da += acc[n][0] * to_f(xa[col]) + acc[n][1] * to_f(xa[col + 1]);
+        db += acc[n][2] * to_f(xb[col]) + acc[n][3] * to_f(xb[col + 1]);
+      }
+      da = quad_sum(da);
+      db = quad_sum(db);
+      const double cend = cum[c - 1];
+      const float ea = expf((float)(cend - cum[ma]));
+      const float eb = expf((float)(cend - cum[mb]));
+      if (t4 == 0) {
+        if (ra < c) p.r[bkh * c + ra] = ea * da;
+        if (rb < c) p.r[bkh * c + rb] = eb * db;
+      }
+      scale_rows(acc, ea * dts[ma], eb * dts[mb]);
+    }
+    // ---- dx += W^T dy: A[j][i] = G[i][j] exp(cum_i - cum_j) dt_j, i >= j
+    const int i0 = j0 + (it - n_state) * KT;
+    const float* Gs = reinterpret_cast<const float*>(stage_a(st));
+    const T* dys = reinterpret_cast<const T*>(stage_b(st));
+    const double cja = cum[ma], cjb = cum[mb];
+    const float dta = dts[ma], dtb = dts[mb];
+#pragma unroll
+    for (int kk = 0; kk < KT / 8; ++kk) {
+      const int ia = i0 + kk * 8 + 2 * t4, ib = ia + 1;
+      float v[4];
+      a_colmajor(v, Gs, LDG, warp * 16, kk * 8);
+      const double cia = ia < c ? cum[ia] : 0.0;
+      const double cib = ib < c ? cum[ib] : 0.0;
+      v[0] = (ia < c && ia >= ra) ? v[0] * expf((float)(cia - cja)) * dta
+                                  : 0.f;
+      v[1] = (ia < c && ia >= rb) ? v[1] * expf((float)(cia - cjb)) * dtb
+                                  : 0.f;
+      v[2] = (ib < c && ib >= ra) ? v[2] * expf((float)(cib - cja)) * dta
+                                  : 0.f;
+      v[3] = (ib < c && ib >= rb) ? v[3] * expf((float)(cib - cjb)) * dtb
+                                  : 0.f;
+      uint32_t ab[4], as[4];
+      split_a(v, ab, as);
+      uint32_t bb[NT][2], bs[NT][2];
+      b_kmajor<NT>(bb, bs, dys, LDX, kk * 8, 0);
+      mma_3xtf32(acc, ab, as, bb, bs);
+    }
+  }
+
+  T* dxp = static_cast<T*>(p.dx) + (((long long)b * p.T + t0) * p.H + h) * P;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int j = h2 ? rb : ra;
+    if (j >= c) continue;
+    T* row = dxp + (long long)j * p.H * P;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      store2(row + n * 8 + 2 * t4, acc[n][2 * h2], acc[n][2 * h2 + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 5./6. Each head's dB and dC
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct BcCfg {
+  // region A: an x or dy tile [TM][LDK] (T), a dWL tile [TM][LDK] (f32,
+  // dC) or [KT][LDG] (f32, dB: read transposed); region B: a state tile
+  // [KT][LDN] (f32) or a B or C tile [KT][LDT] (T)
+  static constexpr int LDN = BWD_NB + 4;
+  static constexpr int LDT = BWD_NB + (IS_F32<T> ? 4 : 8);
+  static constexpr int LDG = TM + 4;
+  static constexpr int A_R = TM * LDK * 4;
+  static constexpr int A_G = KT * LDG * 4;
+  static constexpr int REG_A = A_R > A_G ? A_R : A_G;
+  static constexpr int B_S = KT * LDN * 4;
+  static constexpr int B_T = KT * LDT * (int)sizeof(T);
+  static constexpr int REG_B = B_S > B_T ? B_S : B_T;
+  static constexpr int STAGE = REG_A + REG_B;
+  static int smem(int c) {
+    return STAGES * STAGE + c * (int)(sizeof(double) + sizeof(float));
+  }
+};
+
+// One head's share of dC (DC) or dB for 64 positions and 64 columns of N.
+// Grid: (head, row * n_chunks, row tile * nnb + column block).
+//   DC: acc = dy . S_in over p, rows * exp(cum_i) (= dC_off: the block's
+//       part of dy_i . y_off_i is C_i . dC_off_i), then += sum_j dWL[i,j]
+//       dt_j B_j over j < the tile's end;
+//   dB: acc = x . dS_own over p, rows * exp(cum_end - cum_j) dt_j, then
+//       += sum_i dWL[i,j] dt_j C_i over i >= the tile's start.
+template <typename T, bool DC>
+__global__ void __launch_bounds__(THREADS)
+ssd_bwd_dbc_kernel(const BwdParams p) {
+  using C = BcCfg<T>;
+  constexpr int NT = BWD_NB / 8, LDN = C::LDN, LDT = C::LDT, LDG = C::LDG;
+  const int h = blockIdx.x, bc = blockIdx.y;
+  const int tile = blockIdx.z / p.nnb, nb = blockIdx.z % p.nnb;
+  const int b = bc / p.nc, ci = bc % p.nc, c = p.chunk, t0 = ci * c;
+  const int r0 = tile * TM, rows = min(TM, c - r0), n0 = nb * BWD_NB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* cum = reinterpret_cast<double*>(smem_raw + STAGES * C::STAGE);
+  float* dts = reinterpret_cast<float*>(cum + c);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long bkh = (long long)bc * p.H + h;
+  const T* a1 = DC ? static_cast<const T*>(p.dy) + b * p.sdy_b
+                         + h * p.sdy_h + (long long)(t0 + r0) * p.sdy_t
+                   : static_cast<const T*>(p.x) + b * p.sx_b + h * p.sx_h
+                         + (long long)(t0 + r0) * p.sx_t;
+  const long long sa1 = DC ? p.sdy_t : p.sx_t;
+  const float* b1 = (DC ? p.states : p.dstates) + bkh * p.P * p.N + n0;
+  const int n1 = (p.P + KT - 1) / KT;
+  const float* dw = p.dwl + bkh * c * c;
+  const int k2_0 = DC ? 0 : r0, k2_end = DC ? r0 + rows : c;
+  const int n2 = (k2_end - k2_0 + KT - 1) / KT;
+  const T* b2 = DC ? static_cast<const T*>(p.Bm) + b * p.sB_b
+                         + (long long)t0 * p.sB_t + n0
+                   : static_cast<const T*>(p.Cm) + b * p.sC_b
+                         + (long long)t0 * p.sC_t + n0;
+  const long long sb2 = DC ? p.sB_t : p.sC_t;
+  const int n_tiles = n1 + n2;
+  auto stage_a = [&](int st) { return smem_raw + st * C::STAGE; };
+  auto stage_b = [&](int st) { return smem_raw + st * C::STAGE + C::REG_A; };
+  auto load = [&](int it, int st) {
+    if (it < n1) {
+      const int k0 = it * KT;
+      load_tile(reinterpret_cast<T*>(stage_a(st)), LDK, a1 + k0, sa1, TM, KT,
+                rows, p.P - k0, p.vec);
+      load_tile(reinterpret_cast<float*>(stage_b(st)), LDN,
+                b1 + (long long)k0 * p.N, (long long)p.N, KT, BWD_NB,
+                p.P - k0, p.N - n0, p.vec);
+    } else {
+      const int k0 = k2_0 + (it - n1) * KT;
+      if (DC)
+        load_tile(reinterpret_cast<float*>(stage_a(st)), LDK,
+                  dw + (long long)r0 * c + k0, (long long)c, TM, KT, rows,
+                  c - k0, p.vec);
+      else
+        load_tile(reinterpret_cast<float*>(stage_a(st)), LDG,
+                  dw + (long long)k0 * c + r0, (long long)c, KT, TM, c - k0,
+                  c - r0, p.vec);
+      load_tile(reinterpret_cast<T*>(stage_b(st)), LDT, b2 + k0 * sb2, sb2,
+                KT, BWD_NB, c - k0, p.N - n0, p.vec);
+    }
+    cp_async_commit();
+  };
+  ring_start(load, n_tiles);
+  const double* cg = p.cum + bkh * c;
+  const float* dtp = p.dt + b * p.sdt_b + h * p.sdt_h + (long long)t0 * p.sdt_t;
+  for (int e = tid; e < c; e += THREADS) {
+    cum[e] = cg[e];
+    dts[e] = dtp[(long long)e * p.sdt_t];
+  }
+  const int ra = r0 + warp * 16 + g, rb = ra + 8;
+  const int ma = min(ra, c - 1), mb = min(rb, c - 1);
+
+  float acc[NT][4];
+  zero_acc(acc);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = ring_next(load, it, n_tiles);
+    if (it < n1) {
+      const T* As = reinterpret_cast<const T*>(stage_a(st));
+      const float* Bs = reinterpret_cast<const float*>(stage_b(st));
+#pragma unroll
+      for (int kk = 0; kk < KT / 8; ++kk) {
+        float v[4];
+        a_rowmajor(v, As, LDK, warp * 16, kk * 8);
+        uint32_t ab[4], as[4];
+        split_a(v, ab, as);
+        uint32_t bb[NT][2], bs[NT][2];
+        b_kmajor<NT>(bb, bs, Bs, LDN, kk * 8, 0);
+        mma_3xtf32(acc, ab, as, bb, bs);
+      }
+      continue;
+    }
+    if (it == n1) {
+      if (DC) {
+        scale_rows(acc, expf((float)cum[ma]), expf((float)cum[mb]));
+        // this block's part of dy_i . y_off_i = C_i . dC_off_i
+        const T* ca = static_cast<const T*>(p.Cm) + b * p.sC_b
+                      + (long long)(t0 + ma) * p.sC_t;
+        const T* cb = static_cast<const T*>(p.Cm) + b * p.sC_b
+                      + (long long)(t0 + mb) * p.sC_t;
+        float ya = 0.f, yb = 0.f;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = n0 + n * 8 + 2 * t4 + e;
+            if (col < p.N) {
+              ya += acc[n][e] * to_f(ca[col]);
+              yb += acc[n][2 + e] * to_f(cb[col]);
+            }
+          }
+        }
+        ya = quad_sum(ya);
+        yb = quad_sum(yb);
+        float* yo = p.yoff + (bkh * p.nnb + nb) * c;
+        if (t4 == 0) {
+          if (ra < c) yo[ra] = ya;
+          if (rb < c) yo[rb] = yb;
+        }
+      } else {
+        const double cend = cum[c - 1];
+        scale_rows(acc, expf((float)(cend - cum[ma])) * dts[ma],
+                   expf((float)(cend - cum[mb])) * dts[mb]);
+      }
+    }
+    const int k0 = k2_0 + (it - n1) * KT;
+    const float* As = reinterpret_cast<const float*>(stage_a(st));
+    const T* Bs = reinterpret_cast<const T*>(stage_b(st));
+    const float dta = dts[ma], dtb = dts[mb];
+#pragma unroll
+    for (int kk = 0; kk < KT / 8; ++kk) {
+      float v[4];
+      if (DC) {
+        // A[i][j] = dWL[i][j] dt_j (dWL is 0 past the diagonal and past c)
+        a_rowmajor(v, As, LDK, warp * 16, kk * 8);
+        const int j = k0 + kk * 8 + 2 * t4;
+        const float d0 = j < c ? dts[j] : 0.f;
+        const float d1 = j + 1 < c ? dts[j + 1] : 0.f;
+        v[0] *= d0;
+        v[1] *= d0;
+        v[2] *= d1;
+        v[3] *= d1;
+      } else {
+        // A[j][i] = dWL[i][j] dt_j
+        a_colmajor(v, As, LDG, warp * 16, kk * 8);
+        v[0] *= dta;
+        v[1] *= dtb;
+        v[2] *= dta;
+        v[3] *= dtb;
+      }
+      uint32_t ab[4], as[4];
+      split_a(v, ab, as);
+      uint32_t bb[NT][2], bs[NT][2];
+      b_kmajor<NT>(bb, bs, Bs, LDT, kk * 8, 0);
+      mma_3xtf32(acc, ab, as, bb, bs);
+    }
+  }
+
+  float* out = (DC ? p.dch : p.dbh) + bkh * c * p.N;
+  const bool even = (p.N & 1) == 0;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int r = h2 ? rb : ra;
+    if (r >= c) continue;
+    float* row = out + (long long)r * p.N;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      store_pair(row, n0 + n * 8 + 2 * t4, p.N, even, acc[n][2 * h2],
+                 acc[n][2 * h2 + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 7. dcum, its reverse scan, ddt and the parts of dA
+// ---------------------------------------------------------------------------
+
+// One warp per (head, row * n_chunks); lane l owns a run of positions.
+__global__ void __launch_bounds__(32)
+ssd_bwd_fin_kernel(const BwdParams p) {
+  __shared__ double dc[MAX_CHUNK];
+  __shared__ float dd[MAX_CHUNK];
+  const int h = blockIdx.x, bc = blockIdx.y, b = bc / p.nc, ci = bc % p.nc;
+  const int c = p.chunk, t0 = ci * c, lane = threadIdx.x;
+  const long long bkh = (long long)bc * p.H + h;
+  const int per = (c + 31) / 32;
+  const int beg = min(lane * per, c), end = min(beg + per, c);
+  const float* dtp = p.dt + b * p.sdt_b + h * p.sdt_h + (long long)t0 * p.sdt_t;
+  double qsum = 0.0;
+  for (int e = beg; e < end; ++e) {
+    const int te = e / TM;
+    float rs = 0.f, cs = 0.f, yo = 0.f;
+    for (int t = 0; t <= te; ++t) rs += p.rs[(bkh * p.nt + t) * c + e];
+    for (int t = te; t < p.nt; ++t) cs += p.cs[(bkh * p.nt + t) * c + e];
+    for (int t = 0; t < p.nnb; ++t) yo += p.yoff[(bkh * p.nnb + t) * c + e];
+    const float d = dtp[(long long)e * p.sdt_t], r = p.r[bkh * c + e];
+    const float q = d * r;
+    dc[e] = (double)rs - (double)d * cs + yo - q;
+    dd[e] = cs + r;
+    qsum += q;
+  }
+#pragma unroll
+  for (int off = 16; off; off >>= 1) qsum += __shfl_xor_sync(FULL, qsum, off);
+  if (beg <= c - 1 && c - 1 < end) {
+    double gp = 0.0;
+    for (int t = 0; t < p.npass; ++t) gp += p.gpart[bkh * p.npass + t];
+    dc[c - 1] += qsum + gp;
+  }
+  // R = the reverse cumsum of dc: each lane's run, then the runs after it
+  double s = 0.0;
+  for (int e = end - 1; e >= beg; --e) {
+    s += dc[e];
+    dc[e] = s;
+  }
+  double incl = s;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double v = __shfl_down_sync(FULL, incl, off);
+    if (lane + off < 32) incl += v;
+  }
+  const double after = incl - s;
+  const double A = p.A[h];
+  float* ddt = p.ddt + ((long long)b * p.T + t0) * p.H + h;
+  double da = 0.0;
+  for (int e = beg; e < end; ++e) {
+    const double R = dc[e] + after;
+    ddt[(long long)e * p.H] = dd[e] + (float)(A * R);
+    da += (double)dtp[(long long)e * p.sdt_t] * R;
+  }
+#pragma unroll
+  for (int off = 16; off; off >>= 1) da += __shfl_xor_sync(FULL, da, off);
+  if (lane == 0) p.dapart[bkh] = da;
+}
+
+// ---------------------------------------------------------------------------
+// 8. The heads' parts of dB and dC, and dA's parts, added in order
+// ---------------------------------------------------------------------------
+
+constexpr int SUM_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(SUM_THREADS)
+ssd_bwd_sum_kernel(const BwdParams p) {
+  const long long idx = (long long)blockIdx.x * SUM_THREADS + threadIdx.x;
+  if (idx < (long long)p.B * p.T * p.N) {
+    const int n = (int)(idx % p.N);
+    const long long bt = idx / p.N;
+    const int t = (int)(bt % p.T), b = (int)(bt / p.T);
+    const int ci = t / p.chunk, i = t % p.chunk;
+    const long long cN = (long long)p.chunk * p.N;
+    const long long base =
+        (((long long)b * p.nc + ci) * p.H * p.chunk + i) * p.N + n;
+    float sb = 0.f, sc = 0.f;
+    for (int h = 0; h < p.H; ++h) {
+      sb += p.dbh[base + h * cN];
+      sc += p.dch[base + h * cN];
+    }
+    static_cast<T*>(p.dB)[idx] = from_f<T>(sb);
+    static_cast<T*>(p.dC)[idx] = from_f<T>(sc);
+  }
+  if (idx < p.H) {
+    double s = 0.0;
+    for (int k = 0; k < p.B * p.nc; ++k)
+      s += p.dapart[(long long)k * p.H + idx];
+    p.dA[idx] = (float)s;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
@@ -979,6 +1812,75 @@ cudaError_t dispatch(const Params& p, cudaStream_t stream) {
   }
 }
 
+template <typename T, int P>
+cudaError_t launch_bwd(const BwdParams& bp, const Params& pz,
+                       cudaStream_t stream) {
+  using SC = StateCfg<T, P>;
+  using XC = DxCfg<T, P>;
+  using BC = BcCfg<T>;
+  static bool attr_set = false;         // once per instantiation
+  if (!attr_set) {
+    cudaError_t err = allow_smem(ssd_states_kernel<T, P, true>,
+                                 SC::smem(MAX_CHUNK));
+    if (err == cudaSuccess)
+      err = allow_smem(ssd_bwd_dw_kernel<T>, dw_smem<T>());
+    if (err == cudaSuccess)
+      err = allow_smem(ssd_bwd_dx_kernel<T, P>, XC::smem(MAX_CHUNK));
+    if (err == cudaSuccess)
+      err = allow_smem(ssd_bwd_dbc_kernel<T, false>, BC::smem(MAX_CHUNK));
+    if (err == cudaSuccess)
+      err = allow_smem(ssd_bwd_dbc_kernel<T, true>, BC::smem(MAX_CHUNK));
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const int c = bp.chunk, tiles = bp.nt, bnc = bp.B * bp.nc;
+  ssd_states_kernel<T, P, true><<<dim3((bp.N + SC::NB - 1) / SC::NB, bp.H,
+                                       bnc),
+                                  THREADS, SC::smem(c), stream>>>(pz);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_bwd_pass_kernel<<<dim3(bp.npass, bp.H, bp.B), PASS_THREADS, 0,
+                        stream>>>(bp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_bwd_dw_kernel<T><<<dim3(tiles * (tiles + 1) / 2, bp.H, bnc), THREADS,
+                         dw_smem<T>(), stream>>>(bp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_bwd_dx_kernel<T, P><<<dim3(bp.H, bnc, tiles), THREADS, XC::smem(c),
+                            stream>>>(bp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_bwd_dbc_kernel<T, false><<<dim3(bp.H, bnc, tiles * bp.nnb), THREADS,
+                                 BC::smem(c), stream>>>(bp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_bwd_dbc_kernel<T, true><<<dim3(bp.H, bnc, tiles * bp.nnb), THREADS,
+                                BC::smem(c), stream>>>(bp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_bwd_fin_kernel<<<dim3(bp.H, bnc), 32, 0, stream>>>(bp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  long long n_sum = (long long)bp.B * bp.T * bp.N;
+  if (n_sum < bp.H) n_sum = bp.H;
+  ssd_bwd_sum_kernel<T><<<(unsigned)((n_sum + SUM_THREADS - 1) / SUM_THREADS),
+                          SUM_THREADS, 0, stream>>>(bp);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_bwd(const BwdParams& bp, const Params& pz,
+                         cudaStream_t stream) {
+  switch (bp.P) {
+    case 16: return launch_bwd<T, 16>(bp, pz, stream);
+    case 32: return launch_bwd<T, 32>(bp, pz, stream);
+    case 64: return launch_bwd<T, 64>(bp, pz, stream);
+    case 128: return launch_bwd<T, 128>(bp, pz, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1014,6 +1916,119 @@ int ssd_scan_fwd(const void* x, const void* dt, const void* A, const void* Bm,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch<float>(p, st);
   if (dtype == 1) return (int)dispatch<__nv_bfloat16>(p, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The gradient of ssd_scan_fwd.  dtype, vec and the strides of x, dt, Bm,
+// Cm as there (dy's strides likewise, unit on p); dfinal [B,H,P,N]
+// contiguous or null (zero).  scores, states, cum: the forward's scratch
+// of the same inputs, as it left them.  Scratch the caller allocates (f32
+// unless named): dstates [B,nc,H,P,N], dwl [B,nc,H,c,c], rs and cs
+// [B,nc,H,nt,c], yoff [B,nc,H,nnb,c], r [B,nc,H,c], gpart [B,nc,H,npass],
+// dbh and dch [B,nc,H,c,N], dapart [B,nc,H] f64, where nt = ceil(c / 64),
+// nnb = ceil(N / 64), npass = ceil(P N / 1024).  Outputs, contiguous: dx
+// [B,T,H,P] and dB, dC [B,T,N] in x's dtype; ddt [B,T,H], dA [H] and
+// dinit [B,H,P,N] (null: not written) f32.  Returns a cudaError_t; the
+// eight launches are asynchronous on ``stream`` and allocate nothing.
+int ssd_scan_bwd(const void* x, const void* dt, const void* A, const void* Bm,
+                 const void* Cm, const void* dy, const void* dfinal,
+                 const void* scores, const void* states, const void* cum,
+                 void* dstates, void* dwl, void* rs, void* cs, void* yoff,
+                 void* r, void* gpart, void* dbh, void* dch, void* dapart,
+                 void* dx, void* ddt, void* dA, void* dB, void* dC,
+                 void* dinit,
+                 int B, int T, int H, int P, int N, int chunk, int dtype,
+                 int vec,
+                 long long sx_b, long long sx_t, long long sx_h,
+                 long long sdt_b, long long sdt_t, long long sdt_h,
+                 long long sB_b, long long sB_t,
+                 long long sC_b, long long sC_t,
+                 long long sdy_b, long long sdy_t, long long sdy_h,
+                 void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0 || N <= 0 || chunk <= 0 ||
+      chunk > MAX_CHUNK || T % chunk != 0 || (P * N) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  BwdParams bp{};
+  bp.x = x;
+  bp.dt = static_cast<const float*>(dt);
+  bp.A = static_cast<const float*>(A);
+  bp.Bm = Bm;
+  bp.Cm = Cm;
+  bp.dy = dy;
+  bp.dfinal = static_cast<const float*>(dfinal);
+  bp.scores = static_cast<const float*>(scores);
+  bp.states = static_cast<const float*>(states);
+  bp.cum = static_cast<const double*>(cum);
+  bp.dstates = static_cast<float*>(dstates);
+  bp.dwl = static_cast<float*>(dwl);
+  bp.rs = static_cast<float*>(rs);
+  bp.cs = static_cast<float*>(cs);
+  bp.yoff = static_cast<float*>(yoff);
+  bp.r = static_cast<float*>(r);
+  bp.gpart = static_cast<float*>(gpart);
+  bp.dbh = static_cast<float*>(dbh);
+  bp.dch = static_cast<float*>(dch);
+  bp.dapart = static_cast<double*>(dapart);
+  bp.dx = dx;
+  bp.ddt = static_cast<float*>(ddt);
+  bp.dA = static_cast<float*>(dA);
+  bp.dB = dB;
+  bp.dC = dC;
+  bp.dinit = static_cast<float*>(dinit);
+  bp.B = B;
+  bp.T = T;
+  bp.H = H;
+  bp.P = P;
+  bp.N = N;
+  bp.chunk = chunk;
+  bp.nc = T / chunk;
+  bp.nt = (chunk + TM - 1) / TM;
+  bp.nnb = (N + BWD_NB - 1) / BWD_NB;
+  bp.npass = (P * N / 4 + PASS_THREADS - 1) / PASS_THREADS;
+  bp.vec = vec != 0;
+  bp.sx_b = sx_b;
+  bp.sx_t = sx_t;
+  bp.sx_h = sx_h;
+  bp.sdt_b = sdt_b;
+  bp.sdt_t = sdt_t;
+  bp.sdt_h = sdt_h;
+  bp.sB_b = sB_b;
+  bp.sB_t = sB_t;
+  bp.sC_b = sC_b;
+  bp.sC_t = sC_t;
+  bp.sdy_b = sdy_b;
+  bp.sdy_t = sdy_t;
+  bp.sdy_h = sdy_h;
+  // the states kernel's parameters for Z: x = dy, Bm = Cm
+  Params pz{};
+  pz.x = dy;
+  pz.dt = bp.dt;
+  pz.A = bp.A;
+  pz.Bm = Cm;
+  pz.Cm = Cm;
+  pz.states = bp.dstates;
+  pz.cum = const_cast<double*>(bp.cum);
+  pz.B = B;
+  pz.T = T;
+  pz.H = H;
+  pz.P = P;
+  pz.N = N;
+  pz.chunk = chunk;
+  pz.nc = bp.nc;
+  pz.vec = bp.vec;
+  pz.sx_b = sdy_b;
+  pz.sx_t = sdy_t;
+  pz.sx_h = sdy_h;
+  pz.sdt_b = sdt_b;
+  pz.sdt_t = sdt_t;
+  pz.sdt_h = sdt_h;
+  pz.sB_b = sC_b;
+  pz.sB_t = sC_t;
+  pz.sC_b = sC_b;
+  pz.sC_t = sC_t;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)dispatch_bwd<float>(bp, pz, st);
+  if (dtype == 1) return (int)dispatch_bwd<__nv_bfloat16>(bp, pz, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attend
-from repro_torch.kernels.ssd_scan import ssd_chunked
+from repro_torch.kernels.ssd_scan import SSDChunked, ssd_chunked
 
 Params = dict
 
@@ -233,10 +233,17 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Chunked SSD scan (Mamba-2, arXiv:2405.21060 §6): one launch of the
     SSD kernel on a CUDA tensor, its plain version on a CPU tensor.
     xh [B,T,H,P], dt [B,T,H] f32, A [H] (negative), Bm/Cm [B,T,N].
-    Returns (y [B,T,H,P] in xh's dtype, final_state [B,H,P,N] f32)."""
-    return ssd_chunked(xh, dt, A, Bm, Cm, chunk=chunk,
-                       init_state=None if init_state is None
-                       else init_state.float())
+    Returns (y [B,T,H,P] in xh's dtype, final_state [B,H,P,N] f32).  When
+    autograd records and an input requires grad, a CUDA tensor goes
+    through :class:`SSDChunked` (the forward launch keeping its scratch,
+    then one launch of the backward kernel) and a CPU tensor through the
+    plain version under torch autograd."""
+    init = None if init_state is None else init_state.float()
+    if (xh.device.type == "cuda" and torch.is_grad_enabled()
+            and any(t is not None and t.requires_grad
+                    for t in (xh, dt, A, Bm, Cm, init))):
+        return SSDChunked.apply(xh, dt, A, Bm, Cm, chunk, init)
+    return ssd_chunked(xh, dt, A, Bm, Cm, chunk=chunk, init_state=init)
 
 
 def ssm_block(p: Params, x: torch.Tensor, cfg: ArchConfig,

@@ -192,13 +192,6 @@ def _check_train_config(cfg: ArchConfig, plan: ST.StagePlan,
                         pcfg: PipelineConfig) -> None:
     """Refuse what the port's train executor does not run yet, naming the
     ROADMAP item that ports it."""
-    if cfg.family == "ssm":
-        # the SSD kernel has no backward: its output would carry no
-        # gradient on the card
-        raise NotImplementedError(
-            f"{cfg.arch_id}: training the ssm family needs the SSD "
-            f"kernel's backward (ROADMAP 'Still to port': the SSD kernel's "
-            f"backward)")
     if plan.tensor != 1:
         raise NotImplementedError(
             f"tensor={plan.tensor}: tensor parallelism is not ported yet "

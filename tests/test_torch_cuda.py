@@ -512,3 +512,68 @@ def test_reduced_train_step_card_matches_cpu(schedule):
                       for x in (flat(v) if isinstance(v, dict) else [v])]
     for a, b in zip(flat(grads_c), flat(grads)):
         assert _rel_err(a.cpu(), b) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_bwd_matches_plain_on_card(dtype):
+    """The SSD backward kernel against ssd_chunked_bwd_ref at the forward's
+    edges (SSD_EDGES) on strided views, aligned and unaligned, with and
+    without an initial state and a final-state gradient; every gradient
+    relative to max |ref|; one backward launch counted per call; and
+    SSDChunked's gradients equal the wrapper's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import ssd_scan as SSD
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(6)
+    for B, T, H, P, N, chunk in SSD_EDGES:
+        for offset in (0, 1):
+            x, dt, A, Bm, Cm = _ssd_view_inputs(g, B, T, H, P, N, dtype, dev,
+                                                offset)
+            dy = torch.randn(B, T, H, P, generator=g).to(dev, TDT[dtype])
+            for seeded in (False, True):
+                init = (torch.randn(B, H, P, N, generator=g).to(dev)
+                        if seeded else None)
+                dfin = (torch.randn(B, H, P, N, generator=g).to(dev)
+                        if seeded else None)
+                before = SSD.ssd_chunked.launches_bwd
+                got = SSD.ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, dfin,
+                                          chunk=chunk, init_state=init)
+                assert SSD.ssd_chunked.launches_bwd == before + 1
+                want = SSD.ssd_chunked_bwd_ref(x, dt, A, Bm, Cm, dy, dfin,
+                                               chunk=chunk, init_state=init)
+                case = (B, T, H, P, N, chunk, offset, seeded)
+                assert (got[-1] is None) == (not seeded)
+                for a, b in zip(got, want):
+                    if b is not None:
+                        assert a.dtype == b.dtype, case
+                        assert _rel_err(a, b) < BWD_TOL[dtype], case
+            leaves = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+            y, _ = SSD.SSDChunked.apply(*leaves, chunk, None)
+            auto = torch.autograd.grad(y, leaves, dy)
+            got = SSD.ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, chunk=chunk)
+            for a, b in zip(auto, got):
+                torch.testing.assert_close(a, b, atol=0, rtol=0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_bwd_bitwise_reproducible_on_card(dtype):
+    """No atomics: two backward calls on the same inputs give the same
+    bits, at mamba2-2.7b's training shape (B 2, T 1024, 80 heads of 64,
+    N 128, chunk 256)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import ssd_scan as SSD
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(7)
+    x, dt, A, Bm, Cm = _ssd_view_inputs(g, 2, 1024, 80, 64, 128, dtype, dev)
+    dy = torch.randn(2, 1024, 80, 64, generator=g).to(dev, TDT[dtype])
+    saved = SSD.ssd_chunked_saved(x, dt, A, Bm, Cm, chunk=256)[2]
+    first = SSD.ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, chunk=256, saved=saved)
+    second = SSD.ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, chunk=256, saved=saved)
+    for a, b in zip(first[:5], second[:5]):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()

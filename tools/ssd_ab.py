@@ -20,6 +20,17 @@ against the plain version (y and the final state, max |err| / max |ref|:
 f32 2e-5, bf16 3e-2).  One JSON line per shape; the last line names the
 card.  With ``--profile``, each line also carries the current version's
 device time per CUDA kernel (``torch.profiler``, mean over 50 calls).
+
+    python3 tools/ssd_ab.py --bwd --baseline build/ssd_baseline.cu [--profile]
+
+``--bwd`` compares the backward instead, at the training path's call
+(mamba2-2.7b: a micro-batch of 2 rows, seq 1024, no state in or out) in
+f32 and bf16.  The baseline then needs this version's C interfaces
+(``ssd_scan_fwd`` with its three scratch buffers and ``ssd_scan_bwd`` with
+the scratch of ``ssd_scan.bwd_scratch``); each version's backward runs
+from its own forward's scratch and is checked against
+``ssd_chunked_bwd_ref`` (every gradient, max |err| / max |ref|: f32 1e-4,
+bf16 3e-2) before the turns.
 """
 import argparse
 import ctypes
@@ -35,8 +46,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 CASES = (("main-path prefill", 4, 512, 80, 64, 128, 256),
          ("four-chunk prefill", 4, 1024, 80, 64, 128, 256))
+BWD_CASES = (("train", 2, 1024, 80, 64, 128, 256),)
 
 
 def build_baseline(path: str) -> ctypes.CDLL:
@@ -68,6 +81,50 @@ def baseline_call(lib, x, dt, A, Bm, Cm, chunk, init_state):
     return y, final
 
 
+def ab_bwd(path: str, profile: bool) -> None:
+    """The backward of this source against the one at ``path``."""
+    from chip_smoke import kernel_us, time_ms
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ssd_scan as SSD
+    base = build.load_file(path, "ssd_baseline")
+    SSD._declare(base)
+    cur_lib = build.load("ssd_scan", SSD._declare)
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    rel = lambda a, b: ((a.float() - b.float()).abs().max()
+                        / (b.float().abs().max() + 1e-12)).item()
+    for label, B, T, H, P, N, chunk in BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            rnd = lambda *s: torch.randn(*s, generator=g)
+            x = rnd(B, T, H, P).to(dev, dtype)
+            dt = torch.nn.functional.softplus(rnd(B, T, H)).to(dev)
+            A = -torch.exp(rnd(H) * 0.5).to(dev)
+            Bm, Cm = rnd(B, T, N).to(dev, dtype), rnd(B, T, N).to(dev, dtype)
+            dy = rnd(B, T, H, P).to(dev, dtype)
+            args = (x, dt, A, Bm, Cm)
+            want = SSD.ssd_chunked_bwd_ref(*args, dy, chunk=chunk)[:5]
+            fns, errs = {}, {}
+            for name, lib in (("baseline", base), ("current", cur_lib)):
+                saved = SSD._launch_fwd(*args, chunk, None, lib=lib)[2]
+                fns[name] = (lambda lib=lib, saved=saved: SSD._launch_bwd(
+                    lib, *args, dy, None, chunk, None, saved))
+                got = fns[name]()[:5]
+                errs[name] = max(rel(a, b) for a, b in zip(got, want))
+            if max(errs.values()) >= BWD_TOL[dtype]:
+                sys.exit(f"{label}: disagrees with the plain version: {errs}")
+            old, cur = fns["baseline"], fns["current"]
+            t = [time_ms(fn) for fn in (old, cur, cur, old)]
+            print(json.dumps(dict(
+                label=f"backward {label} B={B} T={T} H={H} P={P} N={N} "
+                      f"chunk={chunk}",
+                dtype=str(dtype).replace("torch.", ""),
+                baseline_ms=[t[0], t[3]], current_ms=[t[1], t[2]],
+                rel_err=errs,
+                **({"kernel_us": kernel_us(cur)} if profile else {}))),
+                flush=True)
+            del x, Bm, Cm, dy, want, fns
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", required=True,
@@ -75,9 +132,15 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true",
                     help="also print the current version's device time per "
                          "CUDA kernel")
+    ap.add_argument("--bwd", action="store_true",
+                    help="compare the backward at the training shape")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("tools/ssd_ab.py: needs a CUDA card")
+    if args.bwd:
+        ab_bwd(args.baseline, args.profile)
+        print_card()
+        return
     from chip_smoke import kernel_us, time_ms
     from repro_torch.kernels import ssd_scan as SSD
     base = build_baseline(args.baseline)
@@ -113,6 +176,10 @@ def main() -> None:
                 **({"kernel_us": kernel_us(cur)} if args.profile else {}))),
                 flush=True)
             del x, Bm, Cm, yr, fr
+    print_card()
+
+
+def print_card() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)

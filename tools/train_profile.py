@@ -4,6 +4,7 @@
     python3 tools/train_profile.py            # llama3.2-1b, full width
     python3 tools/train_profile.py --schedule zb-h1
     python3 tools/train_profile.py --schedule 1f1b-interleaved --virtual 2
+    python3 tools/train_profile.py --arch mamba2-2.7b   # SSD fwd + bwd
 
 Builds the training path of ``repro_torch.launch.train`` (full published
 width unless ``--layers`` cuts the depth; random weights from seed 0;
@@ -20,8 +21,10 @@ three ways:
   embedding's) and the optimizer update.  A span is device time between
   its two events, idle gaps inside it included;
 * ``torch.profiler`` over a second step: device time per CUDA kernel,
-  summed into GEMMs (cuBLAS), the flash forward, the flash backward and
-  everything else, and the device's busy share of the step's wall time.
+  summed into GEMMs (cuBLAS), the flash forward and backward, the SSD
+  forward and backward and everything else, and the device's busy share
+  of the step's wall time;
+* the peak device memory over the measured step.
 
 It also times the loss head (final norm, logits over the whole vocab,
 cross-entropy, forward and backward) alone on one micro-batch.  One JSON
@@ -48,6 +51,13 @@ def kernel_category(name: str) -> str:
         return "flash backward"
     if re.match(r"flash_(prefill|decode|combine)", name):
         return "flash forward"
+    # the SSD backward's kernels, its readout state (the chunk-states
+    # kernel's GRAD form) included
+    if name.startswith("ssd_bwd") or re.match(r"ssd_states_kernel<.*true>",
+                                              name):
+        return "SSD backward"
+    if name.startswith("ssd_"):
+        return "SSD forward"
     if re.search(r"gemm|xmma|cutlass|sm90_|Kernel2", name, re.I):
         return "GEMM (cuBLAS)"
     return "other (elementwise, reductions, gathers, copies)"
@@ -140,6 +150,7 @@ def main() -> None:
     torch.cuda.synchronize()
 
     spans.on = True
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, state, m = step(params, state, data.batch(1))
     torch.cuda.synchronize()
@@ -152,6 +163,7 @@ def main() -> None:
         layers=cfg.n_layers, microbatches=args.microbatches,
         batch=args.batch, seq=args.seq, wall_ms=wall,
         tok_s=args.batch * args.seq / wall * 1e3, loss=float(m["loss"]),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
         spans=tot, spans_sum_ms=sum(v["ms"] for v in tot.values()))),
         flush=True)
 

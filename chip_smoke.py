@@ -16,7 +16,7 @@ Phases, each reported on its own lines:
    and D = 256's own kernel (``bwd256``, dK/dV and dQ in one launch:
    mma.sync, cp.async and warpgroup products, HGMMA from wgmma), and
    every SSD product kernel
-   (scores, chunk states, chunk outputs; the backward's dW, dx and dB/dC
+   (scores, chunk states, chunk outputs; the backward's dG, dx and dB/dC
    kernels) of the f32 and bf16 builds at P = 64;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the JAX kernel tests and at the serving path's shapes, with
@@ -144,12 +144,13 @@ Phases, each reported on its own lines:
    ``ssd_chunked_ref``, from the forward kernel's scratch: phase 6's
    shapes, an initial state with a nonzero final-state gradient, one
    chunk, 8 chunks at P = 128, a chunk of 100 with N = 24, a chunk of 6
-   with N = 12 (plain loads), and the training path's call (mamba2-2.7b:
-   batch 2, T 1024, 80 heads of 64, N 128, chunk 256), in f32 and bf16
-   (every gradient relative to max |ref|: 1e-4, 3e-2); a second call must
-   give the same bits; no single PyTorch call computes it, so no library
-   time; the training shape's rows add the device time of each of the
-   backward's eight CUDA kernels;
+   with N = 12 (plain loads), 13 heads (two head groups of the dG and
+   dB/dC kernels, the last ragged), and the training path's call
+   (mamba2-2.7b: batch 2, T 1024, 80 heads of 64, N 128, chunk 256), in
+   f32 and bf16 (every gradient relative to max |ref|: 1e-4, 3e-2); a
+   second call must give the same bits; no single PyTorch call computes
+   it, so no library time; the training shape's rows add the device time
+   of each of the backward's eight CUDA kernels;
 21. as phase 10 for mamba2-2.7b (64 layers on 4 stages of 16): exactly 512
    forward and 256 backward SSD launches a step and no flash launch;
 22. as phase 19 for mamba2-2.7b at full width and 3 layers, seq 1024,
@@ -784,8 +785,8 @@ def ssd_bwd_bound(x, N: int, chunk: int, init_state: bool,
 #: the backward's CUDA kernels (the gradient's readout state is the
 #: forward's chunk-states kernel in its GRAD form)
 SSD_BWD_KERNELS = sorted(["ssd_states_kernel", "ssd_bwd_pass_kernel",
-                          "ssd_bwd_dw_kernel", "ssd_bwd_dx_kernel",
-                          "ssd_bwd_dbc_kernel", "ssd_bwd_dbc_kernel",
+                          "ssd_bwd_dg_kernel", "ssd_bwd_dgsum_kernel",
+                          "ssd_bwd_dx_kernel", "ssd_bwd_dbc_kernel",
                           "ssd_bwd_fin_kernel", "ssd_bwd_sum_kernel"])
 
 
@@ -816,6 +817,10 @@ def phase_ssd_bwd(SSD, results: list) -> list:
                (2, 300, 3, 32, 24, 100), True),
               ("chunk=6 N=12 (1, 24, 2, 16, 12, 6)", (1, 24, 2, 16, 12, 6),
                True),
+              # 13 heads: two head groups of the dG and dB/dC kernels, the
+              # last of them ragged (3 of 10 heads)
+              ("ragged head group (1, 256, 13, 64, 128, 128)",
+               (1, 256, 13, 64, 128, 128), True),
               # the training path's call: mamba2-2.7b, a micro-batch of 2
               # rows, seq 1024 (4 chunks), no state in or out
               ("train B=2 T=1024 H=80 P=64 N=128 chunk=256",
@@ -1548,7 +1553,7 @@ def main() -> None:
     ssd_sass = sass_counts(build, "ssd_scan", "ssd", "P")
     print(f"sass ssd_scan {json.dumps(ssd_sass)}", flush=True)
     if ssd_sass is not None:
-        want = [f"{k} {d}" for k in ("scores", "bwd_dw", "bwd_dbc")
+        want = [f"{k} {d}" for k in ("scores", "bwd_dg", "bwd_dbc")
                 for d in ("f32", "bf16")] + [
             f"{k} {d} P=64" for k in ("states", "out", "bwd_dx")
             for d in ("f32", "bf16")]

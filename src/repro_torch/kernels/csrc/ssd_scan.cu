@@ -201,6 +201,31 @@ __device__ __forceinline__ void load_tile(T* dst, int pitch, const T* src,
   }
 }
 
+// load_tile by threads tid, tid + nthr, ... only (the warps of a block
+// that own a ring while the others do other work)
+template <typename T>
+__device__ __forceinline__ void load_tile_by(T* dst, int pitch, const T* src,
+                                             long long stride, int rows,
+                                             int cols, int rows_ok,
+                                             int cols_ok, bool vec, int tid,
+                                             int nthr) {
+  if (vec) {
+    constexpr int VEC = 16 / (int)sizeof(T);
+    const int ch = cols / VEC;
+    for (int e = tid; e < rows * ch; e += nthr) {
+      const int r = e / ch, c = (e % ch) * VEC;
+      const bool ok = r < rows_ok && c < cols_ok;
+      cp_async16(dst + r * pitch + c, ok ? src + r * stride + c : src, ok);
+    }
+  } else {
+    for (int e = tid; e < rows * cols; e += nthr) {
+      const int r = e / cols, c = e % cols;
+      dst[r * pitch + c] = (r < rows_ok && c < cols_ok)
+          ? src[r * stride + c] : zero<T>();
+    }
+  }
+}
+
 // The cp.async ring: ``load(tile, stage)`` issues one tile's copies and
 // commits them as one group.  ring_start issues the first STAGES - 1
 // tiles; ring_next, called before tile ``it`` is read, waits for it, lets
@@ -224,6 +249,35 @@ __device__ __forceinline__ int ring_next(L&& load, int it, int n) {
   if (next < n) load(next, next % STAGES);
   else cp_async_commit();
   return it % STAGES;
+}
+
+// named barrier ``id`` over ``n`` threads
+template <int ID, int N>
+__device__ __forceinline__ void bar_sync() {
+  asm volatile("bar.sync %0, %1;\n" :: "n"(ID), "n"(N) : "memory");
+}
+template <int ID, int N>
+__device__ __forceinline__ void bar_arrive() {
+  asm volatile("bar.arrive %0, %1;\n" :: "n"(ID), "n"(N) : "memory");
+}
+// The same ring with S stages, shared by the NB threads of named barrier
+// BAR (a block's warps that own it while the others do other work)
+template <int S, typename L>
+__device__ __forceinline__ void ring_start_s(L&& load, int n) {
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < n) load(s, s);
+    else cp_async_commit();
+  }
+}
+template <int S, int BAR, int NB, typename L>
+__device__ __forceinline__ int ring_next_s(L&& load, int it, int n) {
+  cp_async_wait<S - 2>();
+  bar_sync<BAR, NB>();
+  const int next = it + S - 1;
+  if (next < n) load(next, next % S);
+  else cp_async_commit();
+  return it % S;
 }
 
 // ---------------------------------------------------------------------------
@@ -957,33 +1011,49 @@ ssd_out_kernel(const Params p) {
 //   R       = the in-chunk reverse cumsum of dcum
 //   ddt_j   = sum_i dWL[i,j] G[i,j] + r_j + A R_j;  dA = sum_{b,k,j} dt_j R_j
 // The forward's scratch (scores G, the passed-in states, the double cum)
-// comes in saved; masked pairs (j > i) are never exponentiated.  Eight
-// launches on the caller's stream:
+// comes in saved; masked pairs (j > i) are never exponentiated.  Bm and Cm
+// are one group shared by every head, so the intra-chunk terms of dB and
+// dC need only the scores' gradient summed over heads, dG = sum_h dWL dt_j,
+// one [c x c] per (row, chunk): dC_i += sum_j dG[i,j] B_j, dB_j += sum_i
+// dG[i,j] C_i.  Eight launches on the caller's stream:
 //   1. ssd_states_kernel<GRAD>: Z per (row, chunk, head), into dstates;
 //   2. ssd_bwd_pass_kernel: the reverse pass over chunks, dS_own over Z in
 //      place, dinit, and per block a part of e_k <g_{k+1}, S_in[k]>;
-//   3. ssd_bwd_dw_kernel: per causal 64x64 tile, dW = dy . x^T, dWL into a
-//      scratch [B, nc, H, c, c], and each tile's part of the row sums
-//      (sum_j dWL G dt_j) and column sums (sum_i dWL G);
-//   4. ssd_bwd_dx_kernel: per 64 positions j, dS_own B_j (then r_j, and the
-//      rows scaled to dx's state term), then W^T dy over i >= j;
-//   5./6. ssd_bwd_dbc_kernel: each head's dB_j and dC_i (64-column blocks
-//      of N) into f32 parts [B, nc, H, c, N], and for dC each block's part
-//      of dy_i . y_off_i = C_i . dC_off_i;
-//   7. ssd_bwd_fin_kernel: per (row, chunk, head) one warp gathers dcum,
+//   3. ssd_bwd_dg_kernel: per causal 64x64 tile and group of HG heads, each
+//      head's dW = dy . x^T, dWL, its row sums (sum_j dWL G dt_j) and
+//      column sums (sum_i dWL G), and dWL dt_j summed over the group's
+//      heads in registers, in head order, into an f32 part [B, nc, ng, c,
+//      c] (ng = ceil(H / HG) groups: 640 blocks at mamba2's training shape,
+//      where one per tile would be 80);
+//   4. ssd_bwd_dgsum_kernel: dG = the groups' parts added in group order;
+//   5. ssd_bwd_dx_kernel: per 64 positions j, dS_own B_j (then r_j, and the
+//      rows scaled to dx's state term over dt_j), then u_j = sum_{i>=j} G
+//      L dy_i, and dx = dt_j times the sum;
+//   6. ssd_bwd_dbc_kernel: dB and dC in one launch, per 64 positions, 64
+//      columns of N and split: split s < ng sums the state terms of group
+//      s's heads along the reduction axis (K = heads x P: dC's exp(cum_i)
+//      dy_i . S_in, dB's exp(cum_end - cum_j) dt_j x_j . dS_own), reading
+//      each head's dy_i . y_off_i (= C_i . dC_off_i) off its partial
+//      product before it joins the sum; split ng takes the intra-chunk
+//      term from dG; each writes an f32 part [2, B, nc, ng + 1, c, N];
+//   7. ssd_bwd_fin_kernel: per (row, chunk, head) one block gathers dcum,
 //      scans it backwards in double, writes ddt and a part of dA;
-//   8. ssd_bwd_sum_kernel: dB, dC = the heads' parts added in head order,
-//      dA = its parts added in (row, chunk) order.
+//   8. ssd_bwd_sum_kernel: dB, dC = their ng + 1 parts added in split
+//      order, dA = its parts added in (row, chunk) order.
+// No per-head [c x c] or [c x N] buffer goes through device memory (the
+// first version wrote dWL per head and dB, dC per head, ~0.4 GB a call at
+// the training shape; the parts here are ~38 MB, which L2 mostly holds).
 // No atomics: every sum across blocks goes through f32 (dA: f64) parts
-// added in a fixed order, so a second call gives the same bits.  Every
-// product runs on mma.sync m16n8k8 in 3xTF32 (the forward's split), for
-// bf16 inputs too: a bf16 value is exact in TF32, and its tiles are
-// widened on the fragment reads.  What bounds it (chip_smoke.py's
-// ssd_bwd_bound): about twice the forward's products.  This first version
-// does more than that: it forms the scores' gradient per head (the dB and
-// dC products once per head, not once on the heads' sum), runs bf16 in
-// three TF32 passes, and sends dWL and the per-head parts through device
-// memory.
+// added in a fixed order, and every sum inside a block runs in a fixed
+// order, so a second call gives the same bits.  Every product runs on
+// mma.sync m16n8k8 in 3xTF32 (the forward's split, with the small term
+// rounded to TF32 too: split_rn), for bf16 inputs too: a bf16 value is
+// exact in TF32, and its tiles are widened on the fragment reads; each
+// head's product ends in its own accumulator, and heads are added by f32
+// adds.
+// What bounds it (chip_smoke.py's ssd_bwd_bound): six products of c x P x
+// N or the causal pairs x P per head, about twice the forward's; the
+// design now does those and, per (row, chunk), the two products of dG.
 
 struct BwdParams {
   const void* x;
@@ -997,14 +1067,14 @@ struct BwdParams {
   const float* states;                  // the forward's S_in [B,nc,H,P,N]
   const double* cum;                    // the forward's cum [B,nc,H,c]
   float* dstates;                       // Z, then dS_own [B,nc,H,P,N]
-  float* dwl;                           // [B,nc,H,c,c]
+  float* dgp;                           // dG's group parts [B,nc,ng,c,c]
+  float* dg;                            // dG [B,nc,c,c]
   float* rs;                            // row-sum parts [B,nc,H,nt,c]
   float* cs;                            // column-sum parts [B,nc,H,nt,c]
   float* yoff;                          // dy.y_off parts [B,nc,H,nnb,c]
   float* r;                             // r_j [B,nc,H,c]
   float* gpart;                         // [B,nc,H,npass]
-  float* dbh;                           // each head's dB [B,nc,H,c,N]
-  float* dch;                           // each head's dC [B,nc,H,c,N]
+  float* dbcp;                          // dB, dC parts [2,B,nc,ng+1,c,N]
   double* dapart;                       // [B,nc,H]
   void* dx;                             // [B,T,H,P] contiguous, x's dtype
   float* ddt;                           // [B,T,H] contiguous
@@ -1013,8 +1083,9 @@ struct BwdParams {
   void* dC;
   float* dinit;                         // [B,H,P,N] contiguous; may be null
   int B, T, H, P, N, chunk, nc;
-  int nt, nnb, npass;                   // 64-row tiles, 64-column blocks of
-                                        // N, blocks of the reverse pass
+  int nt, nnb, npass, ng;               // 64-row tiles, 64-column blocks of
+                                        // N, blocks of the reverse pass,
+                                        // head groups
   int vec;                              // 16-byte copies allowed
   long long sx_b, sx_t, sx_h;           // strides in elements; unit on p/n
   long long sdt_b, sdt_t, sdt_h;
@@ -1024,6 +1095,7 @@ struct BwdParams {
 };
 
 constexpr int BWD_NB = 64;              // columns of N a dB/dC block owns
+constexpr int HG = 10;                  // heads a dG or dB/dC block sums
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -1042,10 +1114,20 @@ __device__ __forceinline__ float2 pair_f(const float* p) { return pair(p); }
 __device__ __forceinline__ float2 pair_f(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
+// The backward's split: as split, with small rounded to TF32 as well (the
+// tensor core would truncate it), which halves the truncation's share of
+// a 3xTF32 product's error.  dA sums dt R over a chunk's positions with
+// heavy cancellation: at mamba2's full width a_log's gradient shows the
+// backward's rounding (chip_smoke.py phase 22).
+__device__ __forceinline__ void split_rn(float x, uint32_t& big,
+                                         uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = (__float_as_uint(x - __uint_as_float(big)) + 0x1000u) & 0xffffe000u;
+}
 __device__ __forceinline__ void split_a(const float (&v)[4], uint32_t (&ab)[4],
                                         uint32_t (&as)[4]) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) split(v[q], ab[q], as[q]);
+  for (int q = 0; q < 4; ++q) split_rn(v[q], ab[q], as[q]);
 }
 // A fragment values (rows r0 + g, r0 + g + 8; logical k t4, t4 + 4 =
 // physical k0 + 2 t4, k0 + 2 t4 + 1) of a [row][k] tile with pitch ld
@@ -1081,8 +1163,8 @@ __device__ __forceinline__ void b_kmajor(uint32_t (&bb)[NT][2],
   const T* q = s + (k0 + 2 * t4) * ld + n0 + g;
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
-    split(to_f(q[n * 8]), bb[n][0], bs[n][0]);
-    split(to_f(q[ld + n * 8]), bb[n][1], bs[n][1]);
+    split_rn(to_f(q[n * 8]), bb[n][0], bs[n][0]);
+    split_rn(to_f(q[ld + n * 8]), bb[n][1], bs[n][1]);
   }
 }
 // ... of an [n][k] tile
@@ -1095,8 +1177,8 @@ __device__ __forceinline__ void b_nmajor(uint32_t (&bb)[NT][2],
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     const float2 y = pair_f(q + n * 8 * ld);
-    split(y.x, bb[n][0], bs[n][0]);
-    split(y.y, bb[n][1], bs[n][1]);
+    split_rn(y.x, bb[n][0], bs[n][0]);
+    split_rn(y.y, bb[n][1], bs[n][1]);
   }
 }
 // the sum over the four lanes of a quad (the t4 lanes of one row), the
@@ -1110,6 +1192,19 @@ __device__ __forceinline__ void zero_acc(float (&acc)[NT][4]) {
 #pragma unroll
   for (int n = 0; n < NT; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+}
+// the dots of an accumulator's two rows (a, b) with v of the same layout,
+// summed over the quad: the same bits on every lane
+template <int NT>
+__device__ __forceinline__ float2 row_dots(const float (&acc)[NT][4],
+                                           const float (&v)[NT][4]) {
+  float a = 0.f, b = 0.f;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    a += acc[n][0] * v[n][0] + acc[n][1] * v[n][1];
+    b += acc[n][2] * v[n][2] + acc[n][3] * v[n][3];
+  }
+  return make_float2(quad_sum(a), quad_sum(b));
 }
 template <int NT>
 __device__ __forceinline__ void scale_rows(float (&acc)[NT][4], float fa,
@@ -1181,124 +1276,289 @@ ssd_bwd_pass_kernel(const BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// 3. dW = dy . x^T per causal tile, dWL, its row and column sums
+// 3./4. dG = sum_h dWL dt_j per causal tile and head group, each head's row
+//    sums; the groups' parts added
 // ---------------------------------------------------------------------------
 
+constexpr int LDGT = TM + 8;            // pitch of a [TM][TM] f32 tile read
+                                        // in pairs (8 mod 32 words)
+constexpr int DG_THREADS = 2 * THREADS; // four product warps, four epilogue
+constexpr int DG_STAGES = 3;            // tiles in the product warps' ring
+// named barriers: the product warps' ring; a dW tile handed over (FULL)
+// and its buffer handed back (FREE); the epilogue warps' set-up
+constexpr int BAR_RING = 1, BAR_FULL = 2, BAR_FREE = 3, BAR_EPI = 4;
+
 template <typename T>
-constexpr int dw_smem() {
-  return STAGES * 2 * TM * LDK * (int)sizeof(T)
-         + 2 * TM * (int)sizeof(double) + 5 * TM * (int)sizeof(float);
+struct DgCfg {
+  // the dy and x ring, the G tile, per head of the group: cum at the
+  // tile's positions (double; the diagonal tile's rows and columns are the
+  // same positions), dt_j, exp(cum_r - cum_j) (times dt_j off the
+  // diagonal), exp(cum_i - cum_r); a dW tile in the product warps'
+  // fragment order [4 warps][32 values][32 lanes]; and the column sums'
+  // exchange [2][4][TM]
+  static constexpr int RING = DG_STAGES * 2 * TM * LDK * (int)sizeof(T);
+  static constexpr int GT = TM * LDGT * 4;
+  static constexpr int HEAD = TM * (8 + 3 * 4);
+  static constexpr int XBUF = 4 * 32 * 32 * 4;
+  static constexpr int SMEM = RING + GT + HG * HEAD + XBUF + 2 * 4 * TM * 4;
+};
+
+// Sums of 16 column values a lane holds, v[n][e] for column 8 n + 2 t4 +
+// e, over the 8 lanes g of one t4, by recursive halving (14 shuffles, a
+// fixed order): lane g ends with columns 8 g + 2 t4 + e, written to out.
+__device__ __forceinline__ void column_sums(const float (&v)[8][2],
+                                            float* out) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  float a[4][2], q[2][2], w[2];
+  const bool b2 = g & 4, b1 = g & 2, b0 = g & 1;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {             // keep n + 4 b2
+      const float send = b2 ? v[n][e] : v[n + 4][e];
+      a[n][e] = (b2 ? v[n + 4][e] : v[n][e]) + __shfl_xor_sync(FULL, send, 16);
+    }
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {             // keep n + 2 b1 + 4 b2
+      const float send = b1 ? a[n][e] : a[n + 2][e];
+      q[n][e] = (b1 ? a[n + 2][e] : a[n][e]) + __shfl_xor_sync(FULL, send, 8);
+    }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {               // keep b0 + 2 b1 + 4 b2 = g
+    const float send = b0 ? q[0][e] : q[1][e];
+    w[e] = (b0 ? q[1][e] : q[0][e]) + __shfl_xor_sync(FULL, send, 4);
+  }
+  out[g * 8 + 2 * t4] = w[0];
+  out[g * 8 + 2 * t4 + 1] = w[1];
 }
 
-// Grid: (causal tile, head, row * n_chunks); warp w owns rows 16w..16w+15
-// of the tile (positions i) and all 64 columns (positions j).
+// Grid: (causal tile, head group, row * n_chunks); 8 warps.  Warps 0-3
+// (the product warps) walk the ring over (head, 32-wide slice of P) and
+// form each head's dW = dy . x^T tile, warp w rows 16w..16w+15 (positions
+// i) and all 64 columns (positions j); each finished tile goes to shared
+// memory (once the epilogue warps have read the last one) and they go on
+// to the next head.  Warps 4-7 (the epilogue warps) load the G tile and
+// the heads' decay factors, then take each tile over (warp 4 + w that of
+// warp w, in the same fragment order) and make it dWL: exp(cum_i - cum_j)
+// as exp(cum_i - cum_r) exp(cum_r - cum_j), both exponents <= 0 and
+// formed in double (the factors' exp too), with r the tile's
+// last column off the diagonal and, on it, the last column of each
+// 16-column block before the warp's rows, so those pairs take no exp of
+// their own; the pairs of a warp's own 16 x 16 diagonal block take one
+// each, masked pairs none.  They write the head's row sums (sum_j dWL G
+// dt_j) and column sums (sum_i dWL G) and add dWL dt_j to the group's dG
+// in registers.  The epilogue runs beside the next head's products
+// instead of after them.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-ssd_bwd_dw_kernel(const BwdParams p) {
+__global__ void __launch_bounds__(DG_THREADS, 2)
+ssd_bwd_dg_kernel(const BwdParams p) {
+  using C = DgCfg<T>;
   int ti = 0;
   while ((ti + 1) * (ti + 2) / 2 <= (int)blockIdx.x) ++ti;
   const int tj = blockIdx.x - ti * (ti + 1) / 2;
-  const int h = blockIdx.y, bc = blockIdx.z, b = bc / p.nc, ci = bc % p.nc;
+  const bool diag = ti == tj;
+  const int grp = blockIdx.y, h0 = grp * HG, nh = min(HG, p.H - h0);
+  const int bc = blockIdx.z, b = bc / p.nc, ci = bc % p.nc;
   const int c = p.chunk, i0 = ti * TM, j0 = tj * TM, t0 = ci * c;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ds = reinterpret_cast<T*>(smem_raw);             // [STAGES][TM][LDK]
-  T* xs = ds + STAGES * TM * LDK;                     // [STAGES][TM][LDK]
-  double* cum_i = reinterpret_cast<double*>(xs + STAGES * TM * LDK);
-  double* cum_j = cum_i + TM;
-  float* dtj = reinterpret_cast<float*>(cum_j + TM);  // [TM]
-  float* red = dtj + TM;                              // [4][TM]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  T* ds = reinterpret_cast<T*>(smem_raw);             // [DG_STAGES][TM][LDK]
+  T* xs = ds + DG_STAGES * TM * LDK;                  // [DG_STAGES][TM][LDK]
+  float* Gs = reinterpret_cast<float*>(smem_raw + C::RING);  // [TM][LDGT]
+  double* cumd = reinterpret_cast<double*>(Gs + TM * LDGT);  // [HG][TM]
+  float* dtj = reinterpret_cast<float*>(cumd + HG * TM);     // [HG][TM]
+  float* fj = dtj + HG * TM;                          // [HG][TM]
+  float* ea = fj + HG * TM;                           // [HG][TM]
+  float* xbuf = ea + HG * TM;                         // [4][32][32]
+  float* red = xbuf + 4 * 32 * 32;                    // [2][4][TM]
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const long long bkh = (long long)bc * p.H + h;
-  const T* dyp = static_cast<const T*>(p.dy) + b * p.sdy_b + h * p.sdy_h
-                 + (long long)(t0 + i0) * p.sdy_t;
-  const T* xp = static_cast<const T*>(p.x) + b * p.sx_b + h * p.sx_h
-                + (long long)(t0 + j0) * p.sx_t;
   const int rows_i = min(TM, c - i0), rows_j = min(TM, c - j0);
-  const int n_k = (p.P + KT - 1) / KT;
-  auto load = [&](int k, int st) {
-    load_tile(ds + st * TM * LDK, LDK, dyp + k * KT, p.sdy_t, TM, KT, rows_i,
-              p.P - k * KT, p.vec);
-    load_tile(xs + st * TM * LDK, LDK, xp + k * KT, p.sx_t, TM, KT, rows_j,
-              p.P - k * KT, p.vec);
-    cp_async_commit();
-  };
-  ring_start(load, n_k);
-  const double* cg = p.cum + bkh * c;
-  const float* dtp = p.dt + b * p.sdt_b + h * p.sdt_h + (long long)t0 * p.sdt_t;
-  for (int e = tid; e < TM; e += THREADS) {
-    cum_i[e] = i0 + e < c ? cg[i0 + e] : 0.0;
-    cum_j[e] = j0 + e < c ? cg[j0 + e] : 0.0;
-    dtj[e] = j0 + e < c ? dtp[(long long)(j0 + e) * p.sdt_t] : 0.f;
+  const int n_k = (p.P + KT - 1) / KT, n_tiles = nh * n_k;
+
+  if (tid < THREADS) {
+    // ---- the product warps --------------------------------------------------
+    auto load = [&](int it, int st) {
+      const int h = h0 + it / n_k, k0 = (it % n_k) * KT;
+      load_tile_by(ds + st * TM * LDK, LDK,
+                   static_cast<const T*>(p.dy) + b * p.sdy_b + h * p.sdy_h
+                       + (long long)(t0 + i0) * p.sdy_t + k0,
+                   p.sdy_t, TM, KT, rows_i, p.P - k0, p.vec, tid, THREADS);
+      load_tile_by(xs + st * TM * LDK, LDK,
+                   static_cast<const T*>(p.x) + b * p.sx_b + h * p.sx_h
+                       + (long long)(t0 + j0) * p.sx_t + k0,
+                   p.sx_t, TM, KT, rows_j, p.P - k0, p.vec, tid, THREADS);
+      cp_async_commit();
+    };
+    ring_start_s<DG_STAGES>(load, n_tiles);
+    float acc[8][4];
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = ring_next_s<DG_STAGES, BAR_RING, THREADS>(load, it,
+                                                             n_tiles);
+      const int hh = it / n_k, k = it % n_k;
+      if (k == 0) zero_acc(acc);
+      const T* da = ds + st * TM * LDK;
+      const T* xb = xs + st * TM * LDK;
+#pragma unroll
+      for (int kk = 0; kk < KT / 8; ++kk) {
+        float v[4];
+        a_rowmajor(v, da, LDK, warp * 16, kk * 8);
+        uint32_t ab[4], as[4];
+        split_a(v, ab, as);
+        uint32_t bb[8][2], bs[8][2];
+        b_nmajor<8>(bb, bs, xb, LDK, kk * 8, 0);
+        mma_3xtf32(acc, ab, as, bb, bs);
+      }
+      if (k != n_k - 1) continue;
+      // head hh's dW tile, once the epilogue warps have read head hh - 1's
+      float* xb_out = xbuf + warp * 32 * 32 + lane;
+      if (hh >= 1) bar_sync<BAR_FREE, DG_THREADS>();
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) xb_out[(n * 4 + q) * 32] = acc[n][q];
+      bar_arrive<BAR_FULL, DG_THREADS>();
+    }
+    return;
   }
 
-  float acc[8][4];
-  zero_acc(acc);
-  for (int k = 0; k < n_k; ++k) {
-    const int st = ring_next(load, k, n_k);
-    const T* da = ds + st * TM * LDK;
-    const T* xb = xs + st * TM * LDK;
-#pragma unroll
-    for (int kk = 0; kk < KT / 8; ++kk) {
-      float v[4];
-      a_rowmajor(v, da, LDK, warp * 16, kk * 8);
-      uint32_t ab[4], as[4];
-      split_a(v, ab, as);
-      uint32_t bb[8][2], bs[8][2];
-      b_nmajor<8>(bb, bs, xb, LDK, kk * 8, 0);
-      mma_3xtf32(acc, ab, as, bb, bs);
+  // ---- the epilogue warps ---------------------------------------------------
+  const int etid = tid - THREADS;
+  for (int e = etid; e < TM * TM; e += THREADS) {     // the G tile
+    const int r = e / TM, cl = e % TM;
+    Gs[r * LDGT + cl] = (r < rows_i && cl < rows_j)
+        ? p.scores[((long long)bc * c + i0 + r) * c + j0 + cl] : 0.f;
+  }
+  const int r_last = j0 + rows_j - 1;                 // the tile's last column
+  for (int e = etid; e < nh * TM; e += THREADS) {
+    const int hh = e / TM, l = e % TM, h = h0 + hh;
+    const double* cg = p.cum + ((long long)bc * p.H + h) * c;
+    const int i = i0 + l, j = j0 + l;
+    dtj[e] = j < c ? p.dt[b * p.sdt_b + h * p.sdt_h
+                          + (long long)(t0 + j) * p.sdt_t] : 0.f;
+    // the factors each stand for many pairs: exp in double, rounded once
+    if (diag) {                       // anchor: the 16-column block's last
+      cumd[e] = i < c ? cg[i] : 0.0;
+      fj[e] = j < c ? (float)exp(cg[j0 + min(l | 15, rows_j - 1)] - cg[j])
+                    : 0.f;
+    } else {                                          // every i > r >= j
+      const double cr = cg[r_last];
+      fj[e] = j < c ? (float)exp(cr - cg[j]) : 0.f;
+      ea[e] = i < c ? (float)exp(cg[i] - cr) : 0.f;
     }
   }
+  bar_sync<BAR_EPI, THREADS>();
 
-  const float* G = p.scores + (long long)bc * c * c;
-  float* D = p.dwl + bkh * c * c;
-  float colv[8][2];
+  float dg[8][4];
+  zero_acc(dg);
+  for (int hh = 0; hh < nh; ++hh) {
+    bar_sync<BAR_FULL, DG_THREADS>();
+    float acc[8][4];
+    const float* xb_in = xbuf + warp * 32 * 32 + lane;
 #pragma unroll
-  for (int n = 0; n < 8; ++n) colv[n][0] = colv[n][1] = 0.f;
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[n][q] = xb_in[(n * 4 + q) * 32];
+    // the product warps want the buffer back for the next head
+    if (hh + 1 < nh) bar_arrive<BAR_FREE, DG_THREADS>();
+    const long long bkh = (long long)bc * p.H + h0 + hh;
+    const double* cd = cumd + hh * TM;
+    const float* dth = dtj + hh * TM;
+    const float* fh = fj + hh * TM;
+    float colv[8][2];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) colv[n][0] = colv[n][1] = 0.f;
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int il = warp * 16 + g + 8 * h2, i = i0 + il;
+      const float* grow = Gs + il * LDGT;
+      const float e_i = diag ? 0.f : ea[hh * TM + il];
+      const double c_i = diag ? cd[il] : 0.0;
+      float rsum = 0.f, em = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int jl = n * 8 + 2 * t4, m = n >> 1;
+        const float2 gg = pair(grow + jl), dd = pair(dth + jl);
+        float v0 = 0.f, v1 = 0.f;
+        if (!diag) {
+          const float2 f = pair(fh + jl);
+          v0 = acc[n][2 * h2] * e_i * f.x;
+          v1 = acc[n][2 * h2 + 1] * e_i * f.y;
+        } else if (m < warp) {        // a 16-column block before the rows
+          if ((n & 1) == 0)
+            em = i < c ? expf((float)(c_i - cd[m * 16 + 15])) : 0.f;
+          const float2 f = pair(fh + jl);
+          v0 = acc[n][2 * h2] * em * f.x;
+          v1 = acc[n][2 * h2 + 1] * em * f.y;
+        } else if (m == warp) {       // the warp's own block
+          if (i < c && jl <= il)
+            v0 = acc[n][2 * h2] * expf((float)(c_i - cd[jl]));
+          if (i < c && jl + 1 <= il)
+            v1 = acc[n][2 * h2 + 1] * expf((float)(c_i - cd[jl + 1]));
+        }                             // later blocks: masked
+        const float e0 = v0 * gg.x, e1 = v1 * gg.y;
+        rsum += e0 * dd.x + e1 * dd.y;
+        colv[n][0] += e0;
+        colv[n][1] += e1;
+        dg[n][2 * h2] += v0 * dd.x;
+        dg[n][2 * h2 + 1] += v1 * dd.y;
+      }
+      rsum = quad_sum(rsum);
+      if (i < c && t4 == 0) p.rs[(bkh * p.nt + tj) * c + i] = rsum;
+    }
+    // the column sums: over the warp's rows, then over the four warps in
+    // order (red is two buffers: head hh + 2 writes this one after every
+    // epilogue warp has passed head hh + 1's barrier)
+    float* rd = red + (hh & 1) * 4 * TM;
+    column_sums(colv, rd + warp * TM);
+    bar_sync<BAR_EPI, THREADS>();
+    if (etid < TM && j0 + etid < c)
+      p.cs[(bkh * p.nt + ti) * c + j0 + etid] =
+          rd[etid] + rd[TM + etid] + rd[2 * TM + etid] + rd[3 * TM + etid];
+  }
+
+  float* D = p.dgp + ((long long)bc * p.ng + grp) * c * c;
+  const bool even = (c & 1) == 0;
 #pragma unroll
   for (int h2 = 0; h2 < 2; ++h2) {
-    const int il = warp * 16 + g + 8 * h2, i = i0 + il;
-    const bool iv = i < c;
-    const double ci_ = cum_i[il];
-    float rsum = 0.f;
+    const int i = i0 + warp * 16 + g + 8 * h2;
+    if (i >= c) continue;
+    float* row = D + (long long)i * c;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int jl = n * 8 + 2 * t4 + e, j = j0 + jl;
-        float v = 0.f;
-        if (iv && j <= i) {                           // masked pairs: no exp
-          v = acc[n][2 * h2 + e] * expf((float)(ci_ - cum_j[jl]));
-          const float eg = v * G[(long long)i * c + j];
-          rsum += eg * dtj[jl];
-          colv[n][e] += eg;
-        }
-        if (iv && j < c) D[(long long)i * c + j] = v;
-      }
-    }
-    rsum = quad_sum(rsum);
-    if (iv && t4 == 0) p.rs[(bkh * p.nt + tj) * c + i] = rsum;
+    for (int n = 0; n < 8; ++n)
+      store_pair(row, j0 + n * 8 + 2 * t4, c, even, dg[n][2 * h2],
+                 dg[n][2 * h2 + 1]);
   }
-  // column sums: over a warp's 16 rows (the lanes of one t4), then over
-  // the four warps in order
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float v = colv[n][e];
-      v += __shfl_xor_sync(FULL, v, 4);
-      v += __shfl_xor_sync(FULL, v, 8);
-      v += __shfl_xor_sync(FULL, v, 16);
-      if (g == 0) red[warp * TM + n * 8 + 2 * t4 + e] = v;
-    }
-  __syncthreads();
-  if (tid < TM && j0 + tid < c)
-    p.cs[(bkh * p.nt + ti) * c + j0 + tid] =
-        red[tid] + red[TM + tid] + red[2 * TM + tid] + red[3 * TM + tid];
+}
+
+// dG = the head groups' parts added in group order, over the causal tiles.
+// Grid: (causal tile, row * n_chunks, 16-row quarter of the tile).
+constexpr int DGS_THREADS = 256;
+constexpr int DGS_ROWS = 16;
+
+__global__ void __launch_bounds__(DGS_THREADS)
+ssd_bwd_dgsum_kernel(const BwdParams p) {
+  int ti = 0;
+  while ((ti + 1) * (ti + 2) / 2 <= (int)blockIdx.x) ++ti;
+  const int tj = blockIdx.x - ti * (ti + 1) / 2;
+  const int c = p.chunk, bc = blockIdx.y;
+  const int i0 = ti * TM + blockIdx.z * DGS_ROWS, j0 = tj * TM;
+  const long long cc = (long long)c * c;
+  const float* src = p.dgp + (long long)bc * p.ng * cc;
+  float* dst = p.dg + (long long)bc * cc;
+  for (int e = threadIdx.x; e < DGS_ROWS * TM; e += DGS_THREADS) {
+    const int i = i0 + e / TM, j = j0 + e % TM;
+    if (i >= c || j >= c) continue;
+    const long long o = (long long)i * c + j;
+    float s = 0.f;
+    for (int q = 0; q < p.ng; ++q) s += src[q * cc + o];
+    dst[o] = s;
+  }
 }
 
 // ---------------------------------------------------------------------------
-// 4. dx
+// 5. dx
 // ---------------------------------------------------------------------------
 
 template <typename T, int P>
@@ -1316,16 +1576,22 @@ struct DxCfg {
   static constexpr int REG_B = B_S > B_X ? B_S : B_X;
   static constexpr int STAGE = REG_A + REG_B;
   static int smem(int c) {
-    return STAGES * STAGE + c * (int)(sizeof(double) + sizeof(float));
+    // cum [c] doubles, then dt and exp(cum_i - cum_r(i)) [c] floats each
+    return STAGES * STAGE + c * (int)(sizeof(double) + 2 * sizeof(float));
   }
 };
 
 // dx rows j0..j0+63 of one (row, chunk, head).  Grid: (head, row *
 // n_chunks, row tile); warp w owns rows 16w..16w+15 and every p.  First
 // U = B . dS_own^T over the state columns, whence r_j; then the rows are
-// scaled by exp(cum_end - cum_j) dt_j and W^T dy is added over the
-// 32-position sub-tiles i >= j0, the weight formed from G, cum and dt
-// straight into the A fragments.
+// scaled by exp(cum_end - cum_j) and u = (G o L)^T dy is added over the
+// 32-position sub-tiles i >= j0, the weight formed from G and cum straight
+// into the A fragments; the sum is dx_j / dt_j.  As in the forward's
+// outputs, a sub-tile that starts at r past the block's rows takes
+// exp(cum_i - cum_j) as exp(cum_i - cum_r) (once per position) times
+// exp(cum_r - cum_j) (once per row and sub-tile), both exponents <= 0 and
+// formed in double; the two sub-tiles over the block's own rows take one
+// exp per pair.
 template <typename T, int P>
 __global__ void __launch_bounds__(THREADS)
 ssd_bwd_dx_kernel(const BwdParams p) {
@@ -1337,6 +1603,7 @@ ssd_bwd_dx_kernel(const BwdParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* cum = reinterpret_cast<double*>(smem_raw + STAGES * C::STAGE);
   float* dts = reinterpret_cast<float*>(cum + c);
+  float* fi = dts + c;                                // exp(cum_i - cum_r(i))
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const long long bkh = (long long)bc * p.H + h;
@@ -1372,8 +1639,10 @@ ssd_bwd_dx_kernel(const BwdParams p) {
   const double* cg = p.cum + bkh * c;
   const float* dtp = p.dt + b * p.sdt_b + h * p.sdt_h + (long long)t0 * p.sdt_t;
   for (int e = tid; e < c; e += THREADS) {
-    cum[e] = cg[e];
+    const double ce = cg[e];
+    cum[e] = ce;
     dts[e] = dtp[(long long)e * p.sdt_t];
+    fi[e] = expf((float)(ce - cg[e / KT * KT]));
   }
   // this thread's rows; a row past the chunk computes as the last one and
   // is not stored
@@ -1402,49 +1671,58 @@ ssd_bwd_dx_kernel(const BwdParams p) {
     }
     if (it == n_state) {
       // r_j = exp(cum_end - cum_j) x_j . U_j; then U_j -> dx's state term
+      // over dt_j
       const T* xa = static_cast<const T*>(p.x) + b * p.sx_b + h * p.sx_h
                     + (long long)(t0 + ma) * p.sx_t;
       const T* xb = static_cast<const T*>(p.x) + b * p.sx_b + h * p.sx_h
                     + (long long)(t0 + mb) * p.sx_t;
-      float da = 0.f, db = 0.f;
+      float xv[NT][4];
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const int col = n * 8 + 2 * t4;
-        da += acc[n][0] * to_f(xa[col]) + acc[n][1] * to_f(xa[col + 1]);
-        db += acc[n][2] * to_f(xb[col]) + acc[n][3] * to_f(xb[col + 1]);
+        xv[n][0] = to_f(xa[col]);
+        xv[n][1] = to_f(xa[col + 1]);
+        xv[n][2] = to_f(xb[col]);
+        xv[n][3] = to_f(xb[col + 1]);
       }
-      da = quad_sum(da);
-      db = quad_sum(db);
       const double cend = cum[c - 1];
       const float ea = expf((float)(cend - cum[ma]));
       const float eb = expf((float)(cend - cum[mb]));
+      const float2 d = row_dots(acc, xv);
       if (t4 == 0) {
-        if (ra < c) p.r[bkh * c + ra] = ea * da;
-        if (rb < c) p.r[bkh * c + rb] = eb * db;
+        if (ra < c) p.r[bkh * c + ra] = ea * d.x;
+        if (rb < c) p.r[bkh * c + rb] = eb * d.y;
       }
-      scale_rows(acc, ea * dts[ma], eb * dts[mb]);
+      scale_rows(acc, ea, eb);
     }
-    // ---- dx += W^T dy: A[j][i] = G[i][j] exp(cum_i - cum_j) dt_j, i >= j
+    // ---- u += (G o L)^T dy: A[j][i] = G[i][j] exp(cum_i - cum_j), i >= j
     const int i0 = j0 + (it - n_state) * KT;
     const float* Gs = reinterpret_cast<const float*>(stage_a(st));
     const T* dys = reinterpret_cast<const T*>(stage_b(st));
     const double cja = cum[ma], cjb = cum[mb];
-    const float dta = dts[ma], dtb = dts[mb];
+    // past the block's rows: the row factor exp(cum_r - cum_j)
+    const bool far = i0 >= j0 + TM;
+    const float fa = far ? expf((float)(cum[i0] - cja)) : 0.f;
+    const float fb = far ? expf((float)(cum[i0] - cjb)) : 0.f;
 #pragma unroll
     for (int kk = 0; kk < KT / 8; ++kk) {
       const int ia = i0 + kk * 8 + 2 * t4, ib = ia + 1;
       float v[4];
       a_colmajor(v, Gs, LDG, warp * 16, kk * 8);
-      const double cia = ia < c ? cum[ia] : 0.0;
-      const double cib = ib < c ? cum[ib] : 0.0;
-      v[0] = (ia < c && ia >= ra) ? v[0] * expf((float)(cia - cja)) * dta
-                                  : 0.f;
-      v[1] = (ia < c && ia >= rb) ? v[1] * expf((float)(cia - cjb)) * dtb
-                                  : 0.f;
-      v[2] = (ib < c && ib >= ra) ? v[2] * expf((float)(cib - cja)) * dta
-                                  : 0.f;
-      v[3] = (ib < c && ib >= rb) ? v[3] * expf((float)(cib - cjb)) * dtb
-                                  : 0.f;
+      if (far) {                        // G is 0 past c (the tile's fill)
+        const float f0 = ia < c ? fi[ia] : 0.f, f1 = ib < c ? fi[ib] : 0.f;
+        v[0] *= f0 * fa;
+        v[1] *= f0 * fb;
+        v[2] *= f1 * fa;
+        v[3] *= f1 * fb;
+      } else {
+        const double cia = ia < c ? cum[ia] : 0.0;
+        const double cib = ib < c ? cum[ib] : 0.0;
+        v[0] = (ia < c && ia >= ra) ? v[0] * expf((float)(cia - cja)) : 0.f;
+        v[1] = (ia < c && ia >= rb) ? v[1] * expf((float)(cia - cjb)) : 0.f;
+        v[2] = (ib < c && ib >= ra) ? v[2] * expf((float)(cib - cja)) : 0.f;
+        v[3] = (ib < c && ib >= rb) ? v[3] * expf((float)(cib - cjb)) : 0.f;
+      }
       uint32_t ab[4], as[4];
       split_a(v, ab, as);
       uint32_t bb[NT][2], bs[NT][2];
@@ -1453,27 +1731,32 @@ ssd_bwd_dx_kernel(const BwdParams p) {
     }
   }
 
+  const float dta = dts[ma], dtb = dts[mb];
   T* dxp = static_cast<T*>(p.dx) + (((long long)b * p.T + t0) * p.H + h) * P;
 #pragma unroll
   for (int h2 = 0; h2 < 2; ++h2) {
     const int j = h2 ? rb : ra;
     if (j >= c) continue;
+    const float dj = h2 ? dtb : dta;
     T* row = dxp + (long long)j * p.H * P;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
-      store2(row + n * 8 + 2 * t4, acc[n][2 * h2], acc[n][2 * h2 + 1]);
+      store2(row + n * 8 + 2 * t4, acc[n][2 * h2] * dj,
+             acc[n][2 * h2 + 1] * dj);
   }
 }
 
 // ---------------------------------------------------------------------------
-// 5./6. Each head's dB and dC
+// 6. dB and dC: the heads' state terms along the reduction axis, and the
+//    intra-chunk terms from dG, in f32 parts
 // ---------------------------------------------------------------------------
 
 template <typename T>
 struct BcCfg {
-  // region A: an x or dy tile [TM][LDK] (T), a dWL tile [TM][LDK] (f32,
-  // dC) or [KT][LDG] (f32, dB: read transposed); region B: a state tile
-  // [KT][LDN] (f32) or a B or C tile [KT][LDT] (T)
+  // region A: an x or dy tile [TM][LDK] (T), a dG tile [TM][LDK] (f32, dC)
+  // or [KT][LDG] (f32, dB: read transposed); region B: a state tile
+  // [KT][LDN] (f32) or a B or C tile [KT][LDT] (T); then each head's row
+  // factors [HG][TM]
   static constexpr int LDN = BWD_NB + 4;
   static constexpr int LDT = BWD_NB + (IS_F32<T> ? 4 : 8);
   static constexpr int LDG = TM + 4;
@@ -1484,170 +1767,185 @@ struct BcCfg {
   static constexpr int B_T = KT * LDT * (int)sizeof(T);
   static constexpr int REG_B = B_S > B_T ? B_S : B_T;
   static constexpr int STAGE = REG_A + REG_B;
-  static int smem(int c) {
-    return STAGES * STAGE + c * (int)(sizeof(double) + sizeof(float));
-  }
+  static constexpr int SMEM = STAGES * STAGE + HG * TM * 4;
 };
 
-// One head's share of dC (DC) or dB for 64 positions and 64 columns of N.
-// Grid: (head, row * n_chunks, row tile * nnb + column block).
-//   DC: acc = dy . S_in over p, rows * exp(cum_i) (= dC_off: the block's
-//       part of dy_i . y_off_i is C_i . dC_off_i), then += sum_j dWL[i,j]
-//       dt_j B_j over j < the tile's end;
-//   dB: acc = x . dS_own over p, rows * exp(cum_end - cum_j) dt_j, then
-//       += sum_i dWL[i,j] dt_j C_i over i >= the tile's start.
+// One split's part of dC (DC) or dB for 64 positions and 64 columns of N.
+//   split s < ng, the state terms of heads s HG .. s HG + HG - 1, in head
+//   order, K = heads x P:
+//     DC: sum_h exp(cum_i) dy_i . S_in over p; each head's product goes to
+//         its own accumulator first, whose rows times exp(cum_i) (dC_off)
+//         dotted with C_i are this block's part of that head's dy_i .
+//         y_off_i;
+//     dB: sum_h exp(cum_end - cum_j) dt_j x_j . dS_own over p;
+//   split ng, the intra-chunk term: DC sum_j dG[i,j] B_j over j < the
+//   tile's end, dB sum_i dG[i,j] C_i over i >= the tile's start.
+// dB's row factors scale the A fragments before their TF32 split.
 template <typename T, bool DC>
-__global__ void __launch_bounds__(THREADS)
-ssd_bwd_dbc_kernel(const BwdParams p) {
+__device__ __forceinline__ void dbc_part(const BwdParams& p, int tile,
+                                         int nb, int s, int bc) {
   using C = BcCfg<T>;
   constexpr int NT = BWD_NB / 8, LDN = C::LDN, LDT = C::LDT, LDG = C::LDG;
-  const int h = blockIdx.x, bc = blockIdx.y;
-  const int tile = blockIdx.z / p.nnb, nb = blockIdx.z % p.nnb;
   const int b = bc / p.nc, ci = bc % p.nc, c = p.chunk, t0 = ci * c;
   const int r0 = tile * TM, rows = min(TM, c - r0), n0 = nb * BWD_NB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* cum = reinterpret_cast<double*>(smem_raw + STAGES * C::STAGE);
-  float* dts = reinterpret_cast<float*>(cum + c);
+  float* fac = reinterpret_cast<float*>(smem_raw + STAGES * C::STAGE);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const long long bkh = (long long)bc * p.H + h;
-  const T* a1 = DC ? static_cast<const T*>(p.dy) + b * p.sdy_b
-                         + h * p.sdy_h + (long long)(t0 + r0) * p.sdy_t
-                   : static_cast<const T*>(p.x) + b * p.sx_b + h * p.sx_h
-                         + (long long)(t0 + r0) * p.sx_t;
-  const long long sa1 = DC ? p.sdy_t : p.sx_t;
-  const float* b1 = (DC ? p.states : p.dstates) + bkh * p.P * p.N + n0;
-  const int n1 = (p.P + KT - 1) / KT;
-  const float* dw = p.dwl + bkh * c * c;
-  const int k2_0 = DC ? 0 : r0, k2_end = DC ? r0 + rows : c;
-  const int n2 = (k2_end - k2_0 + KT - 1) / KT;
-  const T* b2 = DC ? static_cast<const T*>(p.Bm) + b * p.sB_b
-                         + (long long)t0 * p.sB_t + n0
-                   : static_cast<const T*>(p.Cm) + b * p.sC_b
-                         + (long long)t0 * p.sC_t + n0;
-  const long long sb2 = DC ? p.sB_t : p.sC_t;
-  const int n_tiles = n1 + n2;
+  const int ra = r0 + warp * 16 + g, rb = ra + 8;
   auto stage_a = [&](int st) { return smem_raw + st * C::STAGE; };
   auto stage_b = [&](int st) { return smem_raw + st * C::STAGE + C::REG_A; };
-  auto load = [&](int it, int st) {
-    if (it < n1) {
-      const int k0 = it * KT;
-      load_tile(reinterpret_cast<T*>(stage_a(st)), LDK, a1 + k0, sa1, TM, KT,
-                rows, p.P - k0, p.vec);
-      load_tile(reinterpret_cast<float*>(stage_b(st)), LDN,
-                b1 + (long long)k0 * p.N, (long long)p.N, KT, BWD_NB,
-                p.P - k0, p.N - n0, p.vec);
-    } else {
-      const int k0 = k2_0 + (it - n1) * KT;
-      if (DC)
-        load_tile(reinterpret_cast<float*>(stage_a(st)), LDK,
-                  dw + (long long)r0 * c + k0, (long long)c, TM, KT, rows,
-                  c - k0, p.vec);
-      else
-        load_tile(reinterpret_cast<float*>(stage_a(st)), LDG,
-                  dw + (long long)k0 * c + r0, (long long)c, KT, TM, c - k0,
-                  c - r0, p.vec);
-      load_tile(reinterpret_cast<T*>(stage_b(st)), LDT, b2 + k0 * sb2, sb2,
-                KT, BWD_NB, c - k0, p.N - n0, p.vec);
-    }
-    cp_async_commit();
-  };
-  ring_start(load, n_tiles);
-  const double* cg = p.cum + bkh * c;
-  const float* dtp = p.dt + b * p.sdt_b + h * p.sdt_h + (long long)t0 * p.sdt_t;
-  for (int e = tid; e < c; e += THREADS) {
-    cum[e] = cg[e];
-    dts[e] = dtp[(long long)e * p.sdt_t];
-  }
-  const int ra = r0 + warp * 16 + g, rb = ra + 8;
-  const int ma = min(ra, c - 1), mb = min(rb, c - 1);
 
   float acc[NT][4];
   zero_acc(acc);
-  for (int it = 0; it < n_tiles; ++it) {
-    const int st = ring_next(load, it, n_tiles);
-    if (it < n1) {
+  if (s < p.ng) {
+    // ---- the state terms of one head group ---------------------------------
+    const int h0 = s * HG, nh = min(HG, p.H - h0);
+    const int n_k = (p.P + KT - 1) / KT, n_tiles = nh * n_k;
+    const T* a1 = static_cast<const T*>(DC ? p.dy : p.x)
+                  + b * (DC ? p.sdy_b : p.sx_b)
+                  + (long long)(t0 + r0) * (DC ? p.sdy_t : p.sx_t);
+    const long long sa_t = DC ? p.sdy_t : p.sx_t, sa_h = DC ? p.sdy_h : p.sx_h;
+    const float* b1 = (DC ? p.states : p.dstates) + n0;
+    auto load = [&](int it, int st) {
+      const int h = h0 + it / n_k, k0 = (it % n_k) * KT;
+      load_tile(reinterpret_cast<T*>(stage_a(st)), LDK, a1 + h * sa_h + k0,
+                sa_t, TM, KT, rows, p.P - k0, p.vec);
+      load_tile(reinterpret_cast<float*>(stage_b(st)), LDN,
+                b1 + (((long long)bc * p.H + h) * p.P + k0) * p.N,
+                (long long)p.N, KT, BWD_NB, p.P - k0, p.N - n0, p.vec);
+      cp_async_commit();
+    };
+    ring_start(load, n_tiles);
+    // row factors: DC exp(cum_i), dB exp(cum_end - cum_j) dt_j (0 past c)
+    for (int e = tid; e < nh * TM; e += THREADS) {
+      const int h = h0 + e / TM, r = r0 + e % TM;
+      const double* cg = p.cum + ((long long)bc * p.H + h) * c;
+      float f = 0.f;
+      if (r < c) {
+        f = DC ? expf((float)cg[r])
+               : expf((float)(cg[c - 1] - cg[r]))
+                     * p.dt[b * p.sdt_b + h * p.sdt_h
+                            + (long long)(t0 + r) * p.sdt_t];
+      }
+      fac[e] = f;
+    }
+    // DC: C at this thread's rows and columns, for the y_off parts
+    float cv[2][NT][2];
+    if constexpr (DC) {
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const T* crow = static_cast<const T*>(p.Cm) + b * p.sC_b
+                        + (long long)(t0 + min(h2 ? rb : ra, c - 1)) * p.sC_t;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = n0 + n * 8 + 2 * t4 + e;
+            cv[h2][n][e] = col < p.N ? to_f(crow[col]) : 0.f;
+          }
+      }
+    }
+    float acc_h[NT][4];
+    zero_acc(acc_h);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = ring_next(load, it, n_tiles);
+      const int hh = it / n_k;
+      const float fa = fac[hh * TM + warp * 16 + g];
+      const float fb = fac[hh * TM + warp * 16 + g + 8];
       const T* As = reinterpret_cast<const T*>(stage_a(st));
       const float* Bs = reinterpret_cast<const float*>(stage_b(st));
 #pragma unroll
       for (int kk = 0; kk < KT / 8; ++kk) {
         float v[4];
         a_rowmajor(v, As, LDK, warp * 16, kk * 8);
+        if constexpr (!DC) {
+          v[0] *= fa;
+          v[1] *= fb;
+          v[2] *= fa;
+          v[3] *= fb;
+        }
         uint32_t ab[4], as[4];
         split_a(v, ab, as);
         uint32_t bb[NT][2], bs[NT][2];
         b_kmajor<NT>(bb, bs, Bs, LDN, kk * 8, 0);
-        mma_3xtf32(acc, ab, as, bb, bs);
+        mma_3xtf32(acc_h, ab, as, bb, bs);
       }
-      continue;
-    }
-    if (it == n1) {
-      if (DC) {
-        scale_rows(acc, expf((float)cum[ma]), expf((float)cum[mb]));
-        // this block's part of dy_i . y_off_i = C_i . dC_off_i
-        const T* ca = static_cast<const T*>(p.Cm) + b * p.sC_b
-                      + (long long)(t0 + ma) * p.sC_t;
-        const T* cb = static_cast<const T*>(p.Cm) + b * p.sC_b
-                      + (long long)(t0 + mb) * p.sC_t;
+      // each head's product is summed on the tensor core over its P only,
+      // then added to the sum over heads by f32 adds
+      if (it % n_k != n_k - 1) continue;
+      if constexpr (DC) {
+        // head h's dy . S_in rows are complete: times exp(cum_i) they are
+        // dC_off, whose dot with C_i is this block's part of dy_i .
+        // y_off_i
+        scale_rows(acc_h, fa, fb);
         float ya = 0.f, yb = 0.f;
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = n0 + n * 8 + 2 * t4 + e;
-            if (col < p.N) {
-              ya += acc[n][e] * to_f(ca[col]);
-              yb += acc[n][2 + e] * to_f(cb[col]);
-            }
-          }
+          ya += acc_h[n][0] * cv[0][n][0] + acc_h[n][1] * cv[0][n][1];
+          yb += acc_h[n][2] * cv[1][n][0] + acc_h[n][3] * cv[1][n][1];
         }
         ya = quad_sum(ya);
         yb = quad_sum(yb);
-        float* yo = p.yoff + (bkh * p.nnb + nb) * c;
+        float* yo = p.yoff + (((long long)bc * p.H + h0 + hh) * p.nnb + nb) * c;
         if (t4 == 0) {
           if (ra < c) yo[ra] = ya;
           if (rb < c) yo[rb] = yb;
         }
-      } else {
-        const double cend = cum[c - 1];
-        scale_rows(acc, expf((float)(cend - cum[ma])) * dts[ma],
-                   expf((float)(cend - cum[mb])) * dts[mb]);
       }
-    }
-    const int k0 = k2_0 + (it - n1) * KT;
-    const float* As = reinterpret_cast<const float*>(stage_a(st));
-    const T* Bs = reinterpret_cast<const T*>(stage_b(st));
-    const float dta = dts[ma], dtb = dts[mb];
 #pragma unroll
-    for (int kk = 0; kk < KT / 8; ++kk) {
-      float v[4];
-      if (DC) {
-        // A[i][j] = dWL[i][j] dt_j (dWL is 0 past the diagonal and past c)
-        a_rowmajor(v, As, LDK, warp * 16, kk * 8);
-        const int j = k0 + kk * 8 + 2 * t4;
-        const float d0 = j < c ? dts[j] : 0.f;
-        const float d1 = j + 1 < c ? dts[j + 1] : 0.f;
-        v[0] *= d0;
-        v[1] *= d0;
-        v[2] *= d1;
-        v[3] *= d1;
-      } else {
-        // A[j][i] = dWL[i][j] dt_j
-        a_colmajor(v, As, LDG, warp * 16, kk * 8);
-        v[0] *= dta;
-        v[1] *= dtb;
-        v[2] *= dta;
-        v[3] *= dtb;
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[n][q] += acc_h[n][q];
+          acc_h[n][q] = 0.f;
+        }
+    }
+  } else {
+    // ---- the intra-chunk term from dG ---------------------------------------
+    const float* dg = p.dg + (long long)bc * c * c;
+    const int k_beg = DC ? 0 : r0, k_end = DC ? r0 + rows : c;
+    const int n_tiles = (k_end - k_beg + KT - 1) / KT;
+    const T* b2 = DC ? static_cast<const T*>(p.Bm) + b * p.sB_b
+                           + (long long)t0 * p.sB_t + n0
+                     : static_cast<const T*>(p.Cm) + b * p.sC_b
+                           + (long long)t0 * p.sC_t + n0;
+    const long long sb2 = DC ? p.sB_t : p.sC_t;
+    auto load = [&](int it, int st) {
+      const int k0 = k_beg + it * KT;
+      if (DC)
+        load_tile(reinterpret_cast<float*>(stage_a(st)), LDK,
+                  dg + (long long)r0 * c + k0, (long long)c, TM, KT, rows,
+                  c - k0, p.vec);
+      else
+        load_tile(reinterpret_cast<float*>(stage_a(st)), LDG,
+                  dg + (long long)k0 * c + r0, (long long)c, KT, TM, c - k0,
+                  c - r0, p.vec);
+      load_tile(reinterpret_cast<T*>(stage_b(st)), LDT, b2 + k0 * sb2, sb2,
+                KT, BWD_NB, c - k0, p.N - n0, p.vec);
+      cp_async_commit();
+    };
+    ring_start(load, n_tiles);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = ring_next(load, it, n_tiles);
+      const float* As = reinterpret_cast<const float*>(stage_a(st));
+      const T* Bs = reinterpret_cast<const T*>(stage_b(st));
+#pragma unroll
+      for (int kk = 0; kk < KT / 8; ++kk) {
+        float v[4];
+        if (DC) a_rowmajor(v, As, LDK, warp * 16, kk * 8);  // A[i][j] = dG
+        else a_colmajor(v, As, LDG, warp * 16, kk * 8);     // A[j][i] = dG^T
+        uint32_t ab[4], as[4];
+        split_a(v, ab, as);
+        uint32_t bb[NT][2], bs[NT][2];
+        b_kmajor<NT>(bb, bs, Bs, LDT, kk * 8, 0);
+        mma_3xtf32(acc, ab, as, bb, bs);
       }
-      uint32_t ab[4], as[4];
-      split_a(v, ab, as);
-      uint32_t bb[NT][2], bs[NT][2];
-      b_kmajor<NT>(bb, bs, Bs, LDT, kk * 8, 0);
-      mma_3xtf32(acc, ab, as, bb, bs);
     }
   }
 
-  float* out = (DC ? p.dch : p.dbh) + bkh * c * p.N;
+  float* out = p.dbcp + ((((long long)DC * p.B * p.nc + bc) * (p.ng + 1) + s)
+                         * c) * p.N;
   const bool even = (p.N & 1) == 0;
 #pragma unroll
   for (int h2 = 0; h2 < 2; ++h2) {
@@ -1661,20 +1959,51 @@ ssd_bwd_dbc_kernel(const BwdParams p) {
   }
 }
 
+// Grid: (row tile * nnb + column block, split, (row * n_chunks) * 2 +
+// side): dB's blocks (side 0) and dC's (side 1) in one launch, the blocks
+// that share an x or dy tile side by side.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ssd_bwd_dbc_kernel(const BwdParams p) {
+  const int tile = blockIdx.x / p.nnb, nb = blockIdx.x % p.nnb;
+  const int s = blockIdx.y, bc = blockIdx.z >> 1;
+  if (blockIdx.z & 1) dbc_part<T, true>(p, tile, nb, s, bc);
+  else dbc_part<T, false>(p, tile, nb, s, bc);
+}
+
 // ---------------------------------------------------------------------------
 // 7. dcum, its reverse scan, ddt and the parts of dA
 // ---------------------------------------------------------------------------
 
-// One warp per (head, row * n_chunks); lane l owns a run of positions.
-__global__ void __launch_bounds__(32)
+constexpr int FIN_THREADS = 256;
+
+// the sum over a block of FIN_THREADS of one double per thread in a fixed
+// order (a warp's butterfly, then the warps in order), on every thread
+__device__ __forceinline__ double fin_sum(double v, double* red) {
+#pragma unroll
+  for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  __syncthreads();                      // red's last readers are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  double t = 0.0;
+#pragma unroll
+  for (int w = 0; w < FIN_THREADS / 32; ++w) t += red[w];
+  return t;
+}
+
+// One block per (head, row * n_chunks); thread t owns a run of positions
+// (one at chunk 256), so every part is read by consecutive threads at
+// consecutive positions.
+__global__ void __launch_bounds__(FIN_THREADS)
 ssd_bwd_fin_kernel(const BwdParams p) {
   __shared__ double dc[MAX_CHUNK];
   __shared__ float dd[MAX_CHUNK];
+  __shared__ double red[FIN_THREADS / 32];
   const int h = blockIdx.x, bc = blockIdx.y, b = bc / p.nc, ci = bc % p.nc;
-  const int c = p.chunk, t0 = ci * c, lane = threadIdx.x;
+  const int c = p.chunk, t0 = ci * c, tid = threadIdx.x, lane = tid & 31;
   const long long bkh = (long long)bc * p.H + h;
-  const int per = (c + 31) / 32;
-  const int beg = min(lane * per, c), end = min(beg + per, c);
+  const int per = (c + FIN_THREADS - 1) / FIN_THREADS;
+  const int beg = min(tid * per, c), end = min(beg + per, c);
   const float* dtp = p.dt + b * p.sdt_b + h * p.sdt_h + (long long)t0 * p.sdt_t;
   double qsum = 0.0;
   for (int e = beg; e < end; ++e) {
@@ -1689,14 +2018,14 @@ ssd_bwd_fin_kernel(const BwdParams p) {
     dd[e] = cs + r;
     qsum += q;
   }
-#pragma unroll
-  for (int off = 16; off; off >>= 1) qsum += __shfl_xor_sync(FULL, qsum, off);
+  qsum = fin_sum(qsum, red);
   if (beg <= c - 1 && c - 1 < end) {
     double gp = 0.0;
     for (int t = 0; t < p.npass; ++t) gp += p.gpart[bkh * p.npass + t];
     dc[c - 1] += qsum + gp;
   }
-  // R = the reverse cumsum of dc: each lane's run, then the runs after it
+  // R = the reverse cumsum of dc: each thread's run, then the runs after
+  // it (within the warp by shuffles, then the later warps' totals)
   double s = 0.0;
   for (int e = end - 1; e >= beg; --e) {
     s += dc[e];
@@ -1708,7 +2037,11 @@ ssd_bwd_fin_kernel(const BwdParams p) {
     const double v = __shfl_down_sync(FULL, incl, off);
     if (lane + off < 32) incl += v;
   }
-  const double after = incl - s;
+  __syncthreads();
+  if (lane == 0) red[tid >> 5] = incl;  // the warp's total
+  __syncthreads();
+  double after = incl - s;
+  for (int w = FIN_THREADS / 32 - 1; w > (tid >> 5); --w) after += red[w];
   const double A = p.A[h];
   float* ddt = p.ddt + ((long long)b * p.T + t0) * p.H + h;
   double da = 0.0;
@@ -1717,13 +2050,12 @@ ssd_bwd_fin_kernel(const BwdParams p) {
     ddt[(long long)e * p.H] = dd[e] + (float)(A * R);
     da += (double)dtp[(long long)e * p.sdt_t] * R;
   }
-#pragma unroll
-  for (int off = 16; off; off >>= 1) da += __shfl_xor_sync(FULL, da, off);
-  if (lane == 0) p.dapart[bkh] = da;
+  da = fin_sum(da, red);
+  if (tid == 0) p.dapart[bkh] = da;
 }
 
 // ---------------------------------------------------------------------------
-// 8. The heads' parts of dB and dC, and dA's parts, added in order
+// 8. dB's and dC's parts, and dA's parts, added in order
 // ---------------------------------------------------------------------------
 
 constexpr int SUM_THREADS = 256;
@@ -1737,13 +2069,15 @@ ssd_bwd_sum_kernel(const BwdParams p) {
     const long long bt = idx / p.N;
     const int t = (int)(bt % p.T), b = (int)(bt / p.T);
     const int ci = t / p.chunk, i = t % p.chunk;
+    const int ns = p.ng + 1;
     const long long cN = (long long)p.chunk * p.N;
-    const long long base =
-        (((long long)b * p.nc + ci) * p.H * p.chunk + i) * p.N + n;
+    const float* db = p.dbcp + (((long long)b * p.nc + ci) * ns * p.chunk + i)
+                               * p.N + n;
+    const float* dc = db + (long long)p.B * p.nc * ns * cN;
     float sb = 0.f, sc = 0.f;
-    for (int h = 0; h < p.H; ++h) {
-      sb += p.dbh[base + h * cN];
-      sc += p.dch[base + h * cN];
+    for (int s = 0; s < ns; ++s) {
+      sb += db[s * cN];
+      sc += dc[s * cN];
     }
     static_cast<T*>(p.dB)[idx] = from_f<T>(sb);
     static_cast<T*>(p.dC)[idx] = from_f<T>(sc);
@@ -1823,17 +2157,16 @@ cudaError_t launch_bwd(const BwdParams& bp, const Params& pz,
     cudaError_t err = allow_smem(ssd_states_kernel<T, P, true>,
                                  SC::smem(MAX_CHUNK));
     if (err == cudaSuccess)
-      err = allow_smem(ssd_bwd_dw_kernel<T>, dw_smem<T>());
+      err = allow_smem(ssd_bwd_dg_kernel<T>, DgCfg<T>::SMEM);
     if (err == cudaSuccess)
       err = allow_smem(ssd_bwd_dx_kernel<T, P>, XC::smem(MAX_CHUNK));
     if (err == cudaSuccess)
-      err = allow_smem(ssd_bwd_dbc_kernel<T, false>, BC::smem(MAX_CHUNK));
-    if (err == cudaSuccess)
-      err = allow_smem(ssd_bwd_dbc_kernel<T, true>, BC::smem(MAX_CHUNK));
+      err = allow_smem(ssd_bwd_dbc_kernel<T>, BC::SMEM);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
   const int c = bp.chunk, tiles = bp.nt, bnc = bp.B * bp.nc;
+  const int causal = tiles * (tiles + 1) / 2;
   ssd_states_kernel<T, P, true><<<dim3((bp.N + SC::NB - 1) / SC::NB, bp.H,
                                        bnc),
                                   THREADS, SC::smem(c), stream>>>(pz);
@@ -1843,23 +2176,23 @@ cudaError_t launch_bwd(const BwdParams& bp, const Params& pz,
                         stream>>>(bp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ssd_bwd_dw_kernel<T><<<dim3(tiles * (tiles + 1) / 2, bp.H, bnc), THREADS,
-                         dw_smem<T>(), stream>>>(bp);
+  ssd_bwd_dg_kernel<T><<<dim3(causal, bp.ng, bnc), DG_THREADS,
+                         DgCfg<T>::SMEM, stream>>>(bp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_bwd_dgsum_kernel<<<dim3(causal, bnc, TM / DGS_ROWS), DGS_THREADS, 0,
+                         stream>>>(bp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ssd_bwd_dx_kernel<T, P><<<dim3(bp.H, bnc, tiles), THREADS, XC::smem(c),
                             stream>>>(bp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ssd_bwd_dbc_kernel<T, false><<<dim3(bp.H, bnc, tiles * bp.nnb), THREADS,
-                                 BC::smem(c), stream>>>(bp);
+  ssd_bwd_dbc_kernel<T><<<dim3(tiles * bp.nnb, bp.ng + 1, bnc * 2), THREADS,
+                          BC::SMEM, stream>>>(bp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ssd_bwd_dbc_kernel<T, true><<<dim3(bp.H, bnc, tiles * bp.nnb), THREADS,
-                                BC::smem(c), stream>>>(bp);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ssd_bwd_fin_kernel<<<dim3(bp.H, bnc), 32, 0, stream>>>(bp);
+  ssd_bwd_fin_kernel<<<dim3(bp.H, bnc), FIN_THREADS, 0, stream>>>(bp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   long long n_sum = (long long)bp.B * bp.T * bp.N;
@@ -1923,18 +2256,19 @@ int ssd_scan_fwd(const void* x, const void* dt, const void* A, const void* Bm,
 // Cm as there (dy's strides likewise, unit on p); dfinal [B,H,P,N]
 // contiguous or null (zero).  scores, states, cum: the forward's scratch
 // of the same inputs, as it left them.  Scratch the caller allocates (f32
-// unless named): dstates [B,nc,H,P,N], dwl [B,nc,H,c,c], rs and cs
-// [B,nc,H,nt,c], yoff [B,nc,H,nnb,c], r [B,nc,H,c], gpart [B,nc,H,npass],
-// dbh and dch [B,nc,H,c,N], dapart [B,nc,H] f64, where nt = ceil(c / 64),
-// nnb = ceil(N / 64), npass = ceil(P N / 1024).  Outputs, contiguous: dx
+// unless named): dstates [B,nc,H,P,N], dgp [B,nc,ng,c,c], dg [B,nc,c,c],
+// rs and cs [B,nc,H,nt,c], yoff [B,nc,H,nnb,c], r [B,nc,H,c], gpart
+// [B,nc,H,npass], dbcp [2,B,nc,ng+1,c,N], dapart [B,nc,H] f64, where nt =
+// ceil(c / 64), nnb = ceil(N / 64), npass = ceil(P N / 1024), ng =
+// ceil(H / 10) (HG).  Outputs, contiguous: dx
 // [B,T,H,P] and dB, dC [B,T,N] in x's dtype; ddt [B,T,H], dA [H] and
 // dinit [B,H,P,N] (null: not written) f32.  Returns a cudaError_t; the
 // eight launches are asynchronous on ``stream`` and allocate nothing.
 int ssd_scan_bwd(const void* x, const void* dt, const void* A, const void* Bm,
                  const void* Cm, const void* dy, const void* dfinal,
                  const void* scores, const void* states, const void* cum,
-                 void* dstates, void* dwl, void* rs, void* cs, void* yoff,
-                 void* r, void* gpart, void* dbh, void* dch, void* dapart,
+                 void* dstates, void* dgp, void* dg, void* rs, void* cs,
+                 void* yoff, void* r, void* gpart, void* dbcp, void* dapart,
                  void* dx, void* ddt, void* dA, void* dB, void* dC,
                  void* dinit,
                  int B, int T, int H, int P, int N, int chunk, int dtype,
@@ -1960,14 +2294,14 @@ int ssd_scan_bwd(const void* x, const void* dt, const void* A, const void* Bm,
   bp.states = static_cast<const float*>(states);
   bp.cum = static_cast<const double*>(cum);
   bp.dstates = static_cast<float*>(dstates);
-  bp.dwl = static_cast<float*>(dwl);
+  bp.dgp = static_cast<float*>(dgp);
+  bp.dg = static_cast<float*>(dg);
   bp.rs = static_cast<float*>(rs);
   bp.cs = static_cast<float*>(cs);
   bp.yoff = static_cast<float*>(yoff);
   bp.r = static_cast<float*>(r);
   bp.gpart = static_cast<float*>(gpart);
-  bp.dbh = static_cast<float*>(dbh);
-  bp.dch = static_cast<float*>(dch);
+  bp.dbcp = static_cast<float*>(dbcp);
   bp.dapart = static_cast<double*>(dapart);
   bp.dx = dx;
   bp.ddt = static_cast<float*>(ddt);
@@ -1985,6 +2319,7 @@ int ssd_scan_bwd(const void* x, const void* dt, const void* A, const void* Bm,
   bp.nt = (chunk + TM - 1) / TM;
   bp.nnb = (N + BWD_NB - 1) / BWD_NB;
   bp.npass = (P * N / 4 + PASS_THREADS - 1) / PASS_THREADS;
+  bp.ng = (H + HG - 1) / HG;
   bp.vec = vec != 0;
   bp.sx_b = sx_b;
   bp.sx_t = sx_t;

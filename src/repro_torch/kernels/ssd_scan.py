@@ -29,7 +29,10 @@ CUDA tensor launches the kernel or raises.  ``ssd_chunked.launches``
 counts kernel launches, one per wrapper call (each launch issues the
 kernel's four CUDA kernels: scores, chunk states, state passing, chunk
 outputs); ``ssd_chunked.launches_bwd`` counts the backward's launches,
-one per :func:`ssd_chunked_bwd` call (eight CUDA kernels each).
+one per :func:`ssd_chunked_bwd` call (eight CUDA kernels each: the
+gradient's readout state, the reverse pass over chunks, the scores'
+gradient summed over head groups and then over the groups, dx, dB and dC
+along their reduction axis, dcum's reverse scan, the parts' sum).
 """
 from __future__ import annotations
 
@@ -418,19 +421,29 @@ ssd_chunked.launches = 0
 ssd_chunked.launches_bwd = 0
 
 
+#: heads a block of the backward's dG and dB/dC kernels sums (``HG`` in
+#: csrc/ssd_scan.cu)
+HEAD_GROUP = 10
+
+
 def bwd_scratch(B: int, T: int, H: int, P: int, N: int,
                 chunk: int) -> dict:
     """The shapes of the backward kernel's scratch (f32; ``dapart`` f64),
-    as ``ssd_scan_bwd`` in csrc/ssd_scan.cu documents them: nt 64-row
-    tiles of a chunk, nnb 64-column blocks of N, npass blocks of the
-    reverse pass."""
+    in the order of ``ssd_scan_bwd``'s parameters in csrc/ssd_scan.cu: nt
+    64-row tiles of a chunk, nnb 64-column blocks of N, npass blocks of
+    the reverse pass, ng groups of :data:`HEAD_GROUP` heads.  Only the
+    state gradients and small per-position sums are per head: the scores'
+    gradient is summed over each group's heads (``dgp``) and then over the
+    groups (``dg``), and dB, dC are summed along their reduction axis into
+    one part per group and one for the intra-chunk term (``dbcp``)."""
     nc, c = T // chunk, chunk
     nt, nnb, npass = -(-c // 64), -(-N // 64), -(-(P * N // 4) // 256)
-    return dict(dstates=(B, nc, H, P, N), dwl=(B, nc, H, c, c),
-                rs=(B, nc, H, nt, c), cs=(B, nc, H, nt, c),
-                yoff=(B, nc, H, nnb, c), r=(B, nc, H, c),
-                gpart=(B, nc, H, npass), dbh=(B, nc, H, c, N),
-                dch=(B, nc, H, c, N), dapart=(B, nc, H))
+    ng = -(-H // HEAD_GROUP)
+    return dict(dstates=(B, nc, H, P, N), dgp=(B, nc, ng, c, c),
+                dg=(B, nc, c, c), rs=(B, nc, H, nt, c),
+                cs=(B, nc, H, nt, c), yoff=(B, nc, H, nnb, c), r=(B, nc, H, c),
+                gpart=(B, nc, H, npass), dbcp=(2, B, nc, ng + 1, c, N),
+                dapart=(B, nc, H))
 
 
 def ssd_chunked_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -477,8 +490,11 @@ def ssd_chunked_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return out
 
 
-def _launch_bwd(lib, x, dt, A, Bm, Cm, dy, dfinal, chunk, init_state, saved):
-    """One backward launch of ``lib`` on checked CUDA inputs."""
+def _launch_bwd(lib, x, dt, A, Bm, Cm, dy, dfinal, chunk, init_state, saved,
+                scratch=bwd_scratch):
+    """One backward launch of ``lib`` on checked CUDA inputs, with the
+    scratch whose shapes ``scratch`` gives (``tools/ssd_ab.py`` passes an
+    earlier version's)."""
     B, T, H, P = x.shape
     N = Bm.shape[-1]
     scores, states, cum = saved
@@ -489,9 +505,9 @@ def _launch_bwd(lib, x, dt, A, Bm, Cm, dy, dfinal, chunk, init_state, saved):
         raise ValueError("saved is not the forward's scratch of these shapes")
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    work = {k: torch.empty(shape, **(dict(f32, dtype=torch.float64)
-                                     if k == "dapart" else f32))
-            for k, shape in bwd_scratch(B, T, H, P, N, chunk).items()}
+    work = [torch.empty(shape, **(dict(f32, dtype=torch.float64)
+                                  if k == "dapart" else f32))
+            for k, shape in scratch(B, T, H, P, N, chunk).items()]
     dx = torch.empty((B, T, H, P), dtype=x.dtype, device=dev)
     ddt = torch.empty((B, T, H), **f32)
     dA = torch.empty((H,), **f32)
@@ -506,9 +522,7 @@ def _launch_bwd(lib, x, dt, A, Bm, Cm, dy, dfinal, chunk, init_state, saved):
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), dy.data_ptr(), ptr(dfinal), scores.data_ptr(),
             states.data_ptr(), cum.data_ptr(),
-            *(work[k].data_ptr() for k in ("dstates", "dwl", "rs", "cs",
-                                           "yoff", "r", "gpart", "dbh",
-                                           "dch", "dapart")),
+            *(t.data_ptr() for t in work),
             dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
             dC.data_ptr(), ptr(dinit),
             B, T, H, P, N, chunk, _DTYPE_CODE[x.dtype],

@@ -514,20 +514,27 @@ def test_reduced_train_step_card_matches_cpu(schedule):
         assert _rel_err(a.cpu(), b) < 1e-4
 
 
+# the backward's head groups (ssd_scan.HEAD_GROUP = 10 heads): one ragged
+# group of 7, and two groups whose last holds 3 heads
+SSD_BWD_EDGES = SSD_EDGES + [(1, 256, 7, 64, 128, 128),
+                             (1, 128, 13, 32, 24, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_bwd_matches_plain_on_card(dtype):
     """The SSD backward kernel against ssd_chunked_bwd_ref at the forward's
-    edges (SSD_EDGES) on strided views, aligned and unaligned, with and
-    without an initial state and a final-state gradient; every gradient
-    relative to max |ref|; one backward launch counted per call; and
-    SSDChunked's gradients equal the wrapper's."""
+    edges and at ragged head groups (SSD_BWD_EDGES) on strided views,
+    aligned and unaligned, with and without an initial state and a
+    final-state gradient; every gradient relative to max |ref|; one
+    backward launch counted per call; and SSDChunked's gradients equal the
+    wrapper's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from repro_torch.kernels import ssd_scan as SSD
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(6)
-    for B, T, H, P, N, chunk in SSD_EDGES:
+    for B, T, H, P, N, chunk in SSD_BWD_EDGES:
         for offset in (0, 1):
             x, dt, A, Bm, Cm = _ssd_view_inputs(g, B, T, H, P, N, dtype, dev,
                                                 offset)
@@ -563,17 +570,27 @@ def test_ssd_bwd_matches_plain_on_card(dtype):
 def test_ssd_bwd_bitwise_reproducible_on_card(dtype):
     """No atomics: two backward calls on the same inputs give the same
     bits, at mamba2-2.7b's training shape (B 2, T 1024, 80 heads of 64,
-    N 128, chunk 256)."""
+    N 128, chunk 256: eight full head groups) and with 13 heads (a ragged
+    last group), the latter seeded with a state and a final-state
+    gradient."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from repro_torch.kernels import ssd_scan as SSD
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(7)
-    x, dt, A, Bm, Cm = _ssd_view_inputs(g, 2, 1024, 80, 64, 128, dtype, dev)
-    dy = torch.randn(2, 1024, 80, 64, generator=g).to(dev, TDT[dtype])
-    saved = SSD.ssd_chunked_saved(x, dt, A, Bm, Cm, chunk=256)[2]
-    first = SSD.ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, chunk=256, saved=saved)
-    second = SSD.ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, chunk=256, saved=saved)
-    for a, b in zip(first[:5], second[:5]):
-        assert torch.equal(a, b)
+    for B, T, H, P, N, chunk, seeded in ((2, 1024, 80, 64, 128, 256, False),
+                                         (1, 256, 13, 64, 128, 128, True)):
+        x, dt, A, Bm, Cm = _ssd_view_inputs(g, B, T, H, P, N, dtype, dev)
+        dy = torch.randn(B, T, H, P, generator=g).to(dev, TDT[dtype])
+        init = (torch.randn(B, H, P, N, generator=g).to(dev) if seeded
+                else None)
+        dfin = torch.randn(B, H, P, N, generator=g).to(dev) if seeded \
+            else None
+        saved = SSD.ssd_chunked_saved(x, dt, A, Bm, Cm, chunk=chunk,
+                                      init_state=init)[2]
+        first, second = (SSD.ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, dfin,
+                                             chunk=chunk, init_state=init,
+                                             saved=saved) for _ in range(2))
+        for a, b in zip(first, second):
+            assert (a is None and b is None) or torch.equal(a, b)
     torch.cuda.synchronize()

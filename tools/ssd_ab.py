@@ -25,12 +25,22 @@ device time per CUDA kernel (``torch.profiler``, mean over 50 calls).
 
 ``--bwd`` compares the backward instead, at the training path's call
 (mamba2-2.7b: a micro-batch of 2 rows, seq 1024, no state in or out) in
-f32 and bf16.  The baseline then needs this version's C interfaces
-(``ssd_scan_fwd`` with its three scratch buffers and ``ssd_scan_bwd`` with
-the scratch of ``ssd_scan.bwd_scratch``); each version's backward runs
-from its own forward's scratch and is checked against
-``ssd_chunked_bwd_ref`` (every gradient, max |err| / max |ref|: f32 1e-4,
-bf16 3e-2) before the turns.
+f32 and bf16.  The baseline then needs the C interfaces of this version's
+``ssd_scan_fwd`` (three scratch buffers) and of an ``ssd_scan_bwd`` with
+ten scratch buffers, either this version's (``ssd_scan.bwd_scratch``) or
+the first backward's (commit 1723ab5: :func:`first_bwd_scratch`, taken
+when the baseline source declares ``void* dwl``):
+
+    git show 1723ab5:src/repro_torch/kernels/csrc/ssd_scan.cu \
+        > build/ssd_baseline.cu
+    python3 tools/ssd_ab.py --bwd --baseline build/ssd_baseline.cu --profile
+
+Each version's backward runs from its own forward's scratch and is checked
+against ``ssd_chunked_bwd_ref`` (every gradient, max |err| / max |ref|: f32
+1e-4, bf16 3e-2) before the turns; with ``--profile`` the line carries
+both versions' device time per CUDA kernel.  ``--baseline`` repeats
+(every version timed in the same turns: the others in order, the current
+twice, the others in reverse).
 """
 import argparse
 import ctypes
@@ -81,13 +91,35 @@ def baseline_call(lib, x, dt, A, Bm, Cm, chunk, init_state):
     return y, final
 
 
-def ab_bwd(path: str, profile: bool) -> None:
-    """The backward of this source against the one at ``path``."""
+def first_bwd_scratch(B: int, T: int, H: int, P: int, N: int,
+                      chunk: int) -> dict:
+    """The first backward's scratch (commit 1723ab5), in its C order:
+    dWL and dB, dC per head ([B,nc,H,c,c], [B,nc,H,c,N])."""
+    nc, c = T // chunk, chunk
+    nt, nnb, npass = -(-c // 64), -(-N // 64), -(-(P * N // 4) // 256)
+    return dict(dstates=(B, nc, H, P, N), dwl=(B, nc, H, c, c),
+                rs=(B, nc, H, nt, c), cs=(B, nc, H, nt, c),
+                yoff=(B, nc, H, nnb, c), r=(B, nc, H, c),
+                gpart=(B, nc, H, npass), dbh=(B, nc, H, c, N),
+                dch=(B, nc, H, c, N), dapart=(B, nc, H))
+
+
+def ab_bwd(paths: list, profile: bool) -> None:
+    """The backward of this source against the ones at ``paths``, each
+    checked against the plain version first.  Every version is timed in
+    the same turns: the others in order, the current twice, the others in
+    reverse order."""
     from chip_smoke import kernel_us, time_ms
     from repro_torch.kernels import build
     from repro_torch.kernels import ssd_scan as SSD
-    base = build.load_file(path, "ssd_baseline")
-    SSD._declare(base)
+    versions = []                       # (name, lib, scratch)
+    for i, path in enumerate(paths):
+        lib = build.load_file(path, f"ssd_baseline{i}")
+        SSD._declare(lib)
+        with open(path) as f:
+            scratch = (first_bwd_scratch if "void* dwl" in f.read()
+                       else SSD.bwd_scratch)
+        versions.append((path, lib, scratch))
     cur_lib = build.load("ssd_scan", SSD._declare)
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
@@ -104,31 +136,41 @@ def ab_bwd(path: str, profile: bool) -> None:
             args = (x, dt, A, Bm, Cm)
             want = SSD.ssd_chunked_bwd_ref(*args, dy, chunk=chunk)[:5]
             fns, errs = {}, {}
-            for name, lib in (("baseline", base), ("current", cur_lib)):
+            for name, lib, scratch in versions + [
+                    ("current", cur_lib, SSD.bwd_scratch)]:
                 saved = SSD._launch_fwd(*args, chunk, None, lib=lib)[2]
-                fns[name] = (lambda lib=lib, saved=saved: SSD._launch_bwd(
-                    lib, *args, dy, None, chunk, None, saved))
+                fns[name] = (
+                    lambda lib=lib, saved=saved, scratch=scratch:
+                    SSD._launch_bwd(lib, *args, dy, None, chunk, None, saved,
+                                    scratch))
                 got = fns[name]()[:5]
                 errs[name] = max(rel(a, b) for a, b in zip(got, want))
-            if max(errs.values()) >= BWD_TOL[dtype]:
-                sys.exit(f"{label}: disagrees with the plain version: {errs}")
-            old, cur = fns["baseline"], fns["current"]
-            t = [time_ms(fn) for fn in (old, cur, cur, old)]
+                if errs[name] >= BWD_TOL[dtype]:
+                    sys.exit(f"{label}: {name} disagrees with the plain "
+                             f"version: {errs}")
+            names = [v[0] for v in versions]
+            order = names + ["current", "current"] + names[::-1]
+            t = [time_ms(fns[n]) for n in order]
+            ms = {n: [t[order.index(n)], t[len(order) - 1 - order.index(n)]]
+                  for n in names + ["current"]}
             print(json.dumps(dict(
                 label=f"backward {label} B={B} T={T} H={H} P={P} N={N} "
                       f"chunk={chunk}",
                 dtype=str(dtype).replace("torch.", ""),
-                baseline_ms=[t[0], t[3]], current_ms=[t[1], t[2]],
-                rel_err=errs,
-                **({"kernel_us": kernel_us(cur)} if profile else {}))),
+                baseline_ms=ms[names[0]], current_ms=ms["current"],
+                ms=ms, rel_err=errs,
+                **({"kernel_us": {n: kernel_us(fns[n])
+                                  for n in ["current"] + names}}
+                   if profile else {}))),
                 flush=True)
             del x, Bm, Cm, dy, want, fns
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--baseline", required=True,
-                    help="ssd_scan.cu of the version to compare with")
+    ap.add_argument("--baseline", required=True, action="append",
+                    help="ssd_scan.cu of a version to compare with "
+                         "(--bwd: repeatable)")
     ap.add_argument("--profile", action="store_true",
                     help="also print the current version's device time per "
                          "CUDA kernel")
@@ -141,9 +183,11 @@ def main() -> None:
         ab_bwd(args.baseline, args.profile)
         print_card()
         return
+    if len(args.baseline) > 1:
+        sys.exit("tools/ssd_ab.py: the forward takes one --baseline")
     from chip_smoke import kernel_us, time_ms
     from repro_torch.kernels import ssd_scan as SSD
-    base = build_baseline(args.baseline)
+    base = build_baseline(args.baseline[0])
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     rel = lambda a, b: ((a.float() - b.float()).abs().max()

@@ -13,9 +13,9 @@ Phases, each reported on its own lines:
    mma.sync) and both routes' kernels must load through cp.async
    (LDGSTS); so must the prefill route's kernels at D = 256, the
    backward's dK/dV and dQ kernels of the f32 and bf16 builds at D = 64
-   and D = 256's own kernel (``bwd256``, dK/dV and dQ in one launch:
-   mma.sync, cp.async and warpgroup products, HGMMA from wgmma), and
-   every SSD product kernel
+   and D = 128's and 256's own kernel (``bwd_wg``, dK/dV and dQ in one
+   launch: mma.sync, cp.async and warpgroup products, HGMMA from wgmma),
+   and every SSD product kernel
    (scores, chunk states, chunk outputs; the backward's dG, dx and dB/dC
    kernels) of the f32 and bf16 builds at P = 64;
 3. each kernel against its plain PyTorch version on the card, at the
@@ -67,16 +67,19 @@ Phases, each reported on its own lines:
    an idle row, and the training shapes (batch 2 and 1, T = S = 1024, 32/8
    heads, D 64, causal), gemma3-1b's global and local (window 512) and
    qwen3-1.7b's training shapes, a windowed per-row case with idle
-   rows, and the D = 256 kernels' edges (T = S = 1000, 4/2 heads, window
-   96, rows that see no key before, past and everywhere), in f32 and bf16
+   rows, and the D = 256 and D = 128 kernels' edges (T = S = 1000, 4/2
+   heads, window 96, rows that see no key before, past and everywhere), in
+   f32 and bf16
    (relative to max |ref|: 1e-4, 3e-2); a second call must give the same
    bits; the library time is the backward of
    ``scaled_dot_product_attention`` (eager, CUDA events; ``is_causal`` for
    the plain causal mask, else an explicit mask, a window's band
    included); the training shapes' rows add the device time of each of
    the backward's CUDA kernels (``kernel_us``, ``torch.profiler``: the
-   pre-pass, dK/dV, dQ; at D = 256 the pre-pass, one kernel for dK/dV
-   and dQ, and the sum of the dK/dV parts);
+   pre-pass, dK/dV, dQ; at D = 128 the pre-pass and one kernel for dK/dV
+   and dQ; at D = 256 those and the sum of the dK/dV parts); then the
+   D = 128 kernels' registers and spills (``-Xptxas -v``) and their
+   tensor-core and cp.async instruction counts (``sass_counts``);
 10. ``repro_torch.launch.train.main`` at the full width of llama3.2-1b
    (16 layers, 4 stages x 4 layers, 1f1b, 4 micro-batches, batch 8, seq
    1024, f32, 3 steps): finite losses, step 0's loss against a
@@ -137,8 +140,9 @@ Phases, each reported on its own lines:
    2 padded) and qwen3-1.7b (28 layers, 4 x 7): exactly 208 + 104 and
    224 + 112 flash launches a step;
 19. as phase 11 for gemma3-1b at full width and 3 layers (the last global,
-   the others window 512), seq 1024, under 1f1b and zb-h1, against
-   autograd of the plain-attention model;
+   the others window 512) and qwen3-1.7b at full width and 3 layers, seq
+   1024, under 1f1b and zb-h1, against autograd of the plain-attention
+   model;
 20. the SSD scan's backward kernel against its plain version
    (``ssd_chunked_bwd_ref``) and against torch autograd of
    ``ssd_chunked_ref``, from the forward kernel's scratch: phase 6's
@@ -194,6 +198,8 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # the JAX kernel tests'
 # the backward, relative to max |ref|: f32 at the JAX harness's gradient
 # bar; bf16 as the forward
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# the D = 128 and 256 backward kernels in sass_counts' keys
+BWD_WG_KEYS = [f"bwd_wg {d} D={D}" for D in (128, 256) for d in ("f32", "bf16")]
 # whole-path parity, card vs CPU, f32: cuBLAS and the CPU sum the d_ff=8192
 # and vocab-wide products in another order; the error stays ~1e-6 relative
 # per layer, so 2e-4 (the port-vs-JAX CPU tolerance) leaves a wide margin
@@ -421,6 +427,26 @@ def sass_counts(build, name: str, prefix: str, dim: str) -> dict:
     return counts
 
 
+def ptxas_kernels(log: str, pattern: str) -> dict:
+    """Registers and spill bytes (stores + loads) of each kernel whose
+    mangled name matches ``pattern`` in nvcc's ``-Xptxas -v`` output,
+    keyed ``dtype WIN=0|1`` (its template arguments)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        fn = re.search(r"Compiling entry function '(\S+)'", line)
+        if fn:
+            args = re.search(r"I(f|13__nv_bfloat16)Li\d+ELb([01])E", fn[1])
+            cur = (f"{'f32' if args[1] == 'f' else 'bf16'} WIN={args[2]}"
+                   if args and re.search(pattern, fn[1]) else None)
+        elif cur and "spill stores" in line:
+            out.setdefault(cur, {})["spill_bytes"] = sum(
+                int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif cur and "registers" in line:
+            out.setdefault(cur, {})["registers"] = int(
+                re.search(r"Used (\d+) registers", line)[1])
+    return out
+
+
 def kernel_us(fn, calls: int = 50) -> dict:
     """Mean device time (us) per call of each CUDA kernel that ``fn``
     launches (``torch.profiler``), keyed by the kernel's name with its
@@ -629,6 +655,11 @@ def phase_backward(FA, results: list) -> list:
               # (kv_len 801) and everywhere (kv_len 0)
               ("D=256 edges T=S=1000 window=96 per-row with idle rows", 4,
                1000, 1000, 4, 2, 256, True, [0, 37, 0, -50],
+               [1000, 801, 0, 1000], 96),
+              # the D = 128 kernels' edges: the same rows and window over
+              # 64-row tiles, G = 2 query heads a kv head's block walks
+              ("D=128 edges T=S=1000 window=96 per-row with idle rows", 4,
+               1000, 1000, 4, 2, 128, True, [0, 37, 0, -50],
                [1000, 801, 0, 1000], 96)]
     bad = []
     for label, B, T, S, Hq, Hkv, D, causal, q_start, kv_len, *w in cases:
@@ -669,12 +700,11 @@ def phase_backward(FA, results: list) -> list:
             if "train" in label:
                 # device time of each of the backward's CUDA kernels
                 row["kernel_us"] = us = kernel_us(kern)
-                want_k = (["flash_bwd256_kernel", "flash_bwd_delta_kernel",
-                           "flash_bwd_sum_kernel"]
-                          if D == 256 else
-                          ["flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-                           "flash_bwd_dq_kernel"])
-                if sorted(k_.split("<")[0] for k_ in us) != want_k:
+                want_k = (["flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+                           "flash_bwd_dq_kernel"] if D <= 64 else
+                          ["flash_bwd_delta_kernel", "flash_bwd_wg_kernel"]
+                          + (["flash_bwd_sum_kernel"] if D == 256 else []))
+                if sorted(k_.split("<")[0] for k_ in us) != sorted(want_k):
                     fail(f"flash backward at the training shape: profiler "
                          f"shows {us}")
             print("kernel " + json.dumps(row), flush=True)
@@ -1542,12 +1572,12 @@ def main() -> None:
             k not in sass or sass[k]["HMMA"] == 0 or sass[k]["LDGSTS"] == 0
             for k in [f"bwd_{kind} {d} D=64" for kind in ("dkdv", "dq")
                       for d in ("f32", "bf16")]
-            # the D = 256 backward's own kernel (dK/dV and dQ)
-            + [f"bwd256 {d}" for d in ("f32", "bf16")]
+            # the D = 128 and 256 backward's own kernel (dK/dV and dQ)
+            + BWD_WG_KEYS
             + [f"prefill {d} D=256" for d in ("f32", "bf16")]) or any(
             k not in sass or sass[k]["HGMMA"] == 0
             # its sums over a step's rows (phase B) on wgmma
-            for k in [f"bwd256 {d}" for d in ("f32", "bf16")]):
+            for k in BWD_WG_KEYS):
         fail(f"flash kernels lack tensor-core products or cp.async: {sass}")
     # every SSD product kernel of both dtypes at P = 64 (the main path's)
     ssd_sass = sass_counts(build, "ssd_scan", "ssd", "P")
@@ -1621,6 +1651,14 @@ def main() -> None:
     if bad:
         fail(f"flash backward disagrees with its plain version or is not "
              f"bitwise reproducible: {bad}")
+    # the D = 128 kernels: registers and spills of each instantiation, and
+    # their tensor-core and cp.async instructions
+    bwd128 = dict(
+        ptxas=ptxas_kernels(build.BUILD_LOGS.get("flash_attention", ""),
+                            r"flash_bwd_wg_kernelI\w+Li128E"),
+        sass=None if sass is None else {
+            k: sass[k] for k in BWD_WG_KEYS if k.endswith("D=128")})
+    print(f"bwd D=128 kernels: {json.dumps(bwd128)}", flush=True)
 
     # ---- 10. llama3.2-1b training at full width ---------------------------
     train_mods = (get_config, RT, ST, M, SP, SyntheticLM)
@@ -1676,9 +1714,13 @@ def main() -> None:
     dense_trained = {arch: phase_train(train, counters, train_mods, arch=arch)
                      for arch in ("gemma3-1b", "qwen3-1.7b")}
 
-    # ---- 19. gemma3 training parity: 3 layers, local + global -------------
+    # ---- 19. gemma3 and qwen3 training parity: 3 layers -------------------
     gemma_parity = phase_train_parity(
         FA, counters, train_mods, arch="gemma3-1b", over=dict(global_every=3),
+        runs=[r for r in PARITY_RUNS if r[0] in ("1f1b", "zb-h1")],
+        card_vs_cpu=(), seq=1024)
+    qwen_parity = phase_train_parity(
+        FA, counters, train_mods, arch="qwen3-1.7b",
         runs=[r for r in PARITY_RUNS if r[0] in ("1f1b", "zb-h1")],
         card_vs_cpu=(), seq=1024)
 
@@ -1795,7 +1837,8 @@ def main() -> None:
         bf16={k: v for k, v in pick(bwd_rows, "train", "bfloat16").items()
               if k in bwd_keys},
         dense_variant_rows=[{k: r[k] for k in bwd_keys} for r in bwd_rows
-                            if r["label"].startswith(("gemma3", "qwen3"))])
+                            if r["label"].startswith(("gemma3", "qwen3"))],
+        d128_kernels=bwd128)
     sbwd_row = pick(ssd_bwd_rows, "train")
     ssd_bwd = dict(
         name="ssd_scan_bwd", route="cuda",
@@ -1822,6 +1865,7 @@ def main() -> None:
                                 "parity": train_parity,
                                 "planner": planner, **dense_trained,
                                 "gemma3-1b parity": gemma_parity,
+                                "qwen3-1.7b parity": qwen_parity,
                                 "mamba2-2.7b": mamba_trained,
                                 "mamba2-2.7b parity": mamba_parity}}),
           flush=True)

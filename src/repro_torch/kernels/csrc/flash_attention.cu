@@ -90,8 +90,9 @@
 //     P.V), which is where the accumulator already holds them.
 // mma.sync with cp.async is the first Hopper design; wgmma with TMA (and
 // V transposed in shared memory for TF32's K-major operands) is the route
-// to the full tensor-core rate.  The D = 256 backward's sums already run
-// on wgmma, transposed so that no operand is stored transposed (Bwd256).
+// to the full tensor-core rate.  The D = 128 and 256 backward's sums
+// already run on wgmma, transposed so that no operand is stored
+// transposed (BwdWg).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -891,8 +892,8 @@ flash_combine_kernel(const Params p) {
 // Bound: operations.  Per visible query-key pair the five products take
 // 10 D flops (the scores recomputed, dP, dV, dK, dQ); at the training shape
 // (batch 2, T = S = 1024, 32/8 heads, D 64, causal) that is 21.5 GFLOP
-// against ~84 MB moved.  Three CUDA kernels per call (four at D = 256,
-// whose kernels follow these):
+// against ~84 MB moved.  Three CUDA kernels per call up to D = 64 (D = 128
+// and 256 have kernels of their own, which follow these):
 //   * a pre-pass D = rowsum(dO o O) (16-byte loads, a few lanes a row);
 //   * dK/dV: one block per (BS keys, kv head, batch row), walking the query
 //     tiles of all Hq/Hkv query heads of its group that see its keys (S^T =
@@ -944,9 +945,9 @@ flash_combine_kernel(const Params p) {
 //     (the same bits whichever adds).  dQ: a warp takes 16 rows and forms
 //     S, dP, dS and dQ += dS K itself; at D = 64 a block takes 128 rows and
 //     a warp all 32 keys of a step (each K/V tile then serves 128 rows),
-//     elsewhere two warps split a row group's keys as in dK/dV; up to
-//     D = 64 the big planes of a warp's Q and dO fragments stay in
-//     registers for the whole loop.
+//     at D = 32 two warps split a row group's keys as in dK/dV; the big
+//     planes of a warp's Q and dO fragments stay in registers for the
+//     whole loop.
 //   * A step whose rows are all valid and see all the warp's keys takes a
 //     branch-free path (no mask, no check for rows that see no key); on an
 //     H100 the per-element mask branch had cost ~11% of the dQ kernel.
@@ -963,8 +964,7 @@ flash_combine_kernel(const Params p) {
 //     BS 64 keys, BT 32 rows, three slots, 8 warps, 191,744 bytes; dQ 128
 //     rows, BT 32 keys, two slots, 8 warps, 210,432 bytes; one block an SM.
 //     D = 32: BS 64, BT 32, 8 warps, 109,824 and 93,440 bytes, two blocks an
-//     SM.  D = 128: BS 32, BT 16, 8 and 4 warps, 171,648 and 169,600 bytes,
-//     one block an SM.  D = 256 has kernels of its own (Bwd256 below).
+//     SM.  D = 128 and 256 have kernels of their own (BwdWg below).
 //   * The window.  A row sees [row_start, row_end), both non-decreasing in
 //     the row, so the rows that see a key tile are one range, and the rows
 //     that see none a prefix and/or a suffix: dK/dV walks the query tiles
@@ -1050,16 +1050,16 @@ flash_bwd_delta_kernel(const BwdParams p) {
   if (ok && c == 0) p.delta[((long long)b * p.Hq + h) * p.T + i] = acc;
 }
 
-// D <= 128 (D = 256 has its own kernels, Bwd256 below)
+// D <= 64 (D = 128 and 256 have their own kernels, BwdWg below)
 template <typename T, int D>
 struct BwdCfg {
-  static_assert(D <= 128, "D = 256 takes the Bwd256 kernels");
+  static_assert(D <= 64, "D = 128 and 256 take the BwdWg kernels");
   static constexpr bool SPLIT = std::is_same<T, float>::value;  // small planes
-  static constexpr int BS = D == 128 ? 32 : 64;  // stationary
-  static constexpr int MK = D >= 128 ? 1 : 2;    // m16 tiles a warp holds
+  static constexpr int BS = 64;                  // stationary
+  static constexpr int MK = 2;                   // m16 tiles a warp holds
   static constexpr int WK = BS / (16 * MK);      // warp groups along them
   static constexpr int WT = 2;                   // warps along streamed rows
-  static constexpr int RT = D >= 128 ? 8 : 16;   // streamed rows a warp, a step
+  static constexpr int RT = 16;                  // streamed rows a warp, a step
   static constexpr int NT = RT / 8;
   static constexpr int BT = RT * WT;             // streamed rows a step
   static constexpr int PAIRS = WK * WT;          // two warps (roles) a pair
@@ -1079,8 +1079,8 @@ struct BwdCfg {
   static constexpr int SMEM = (RING + STAGES * SLOT + XB) * 4;
   // dQ: 16 rows a warp; at D = 64 a block takes 128 rows (each K/V tile
   // then serves twice the rows) and a warp all of a step's keys, in two
-  // ring slots (its planes fill 210 KB); elsewhere BS rows and two warps a
-  // row group (D = 32 keeps two blocks an SM within 128 registers)
+  // ring slots (its planes fill 210 KB); at D = 32 BS rows and two warps a
+  // row group (two blocks an SM within 128 registers)
   static constexpr int BS_Q = D == 64 ? 128 : BS;
   static constexpr int WT_Q = D == 64 ? 1 : 2;
   static constexpr int RT_Q = BT / WT_Q, NT_Q = RT_Q / 8;
@@ -1714,17 +1714,14 @@ flash_bwd_dq_kernel(const BwdParams p) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) dq[d][c] = 0.f;
   const uint32_t qa = smem_u32(qd) + 4 * (lane_a(lane, LD) + ws * 16 * LD);
-  // up to D = 64 the big planes of the warp's Q and dO A fragments stay in
-  // registers for the whole loop (at D = 128 they would cost 128)
-  constexpr bool HOLD = D <= 64;
-  uint32_t qreg[HOLD ? DT : 1][4], dreg[HOLD ? DT : 1][4];
-  if constexpr (HOLD) {
-    __syncthreads();                    // every thread's Q, dO chunks split
+  // the big planes of the warp's Q and dO A fragments stay in registers
+  // for the whole loop
+  uint32_t qreg[DT][4], dreg[DT][4];
+  __syncthreads();                      // every thread's Q, dO chunks split
 #pragma unroll
-    for (int kk = 0; kk < DT; ++kk) {
-      ldsm_x4(qreg[kk], qa + 32 * kk);
-      ldsm_x4(dreg[kk], qa + 4 * 2 * PS + 32 * kk);
-    }
+  for (int kk = 0; kk < DT; ++kk) {
+    ldsm_x4(qreg[kk], qa + 32 * kk);
+    ldsm_x4(dreg[kk], qa + 4 * 2 * PS + 32 * kk);
   }
   const int lb = lane_b(lane, LD, PT);
 
@@ -1753,15 +1750,10 @@ flash_bwd_dq_kernel(const BwdParams p) {
 #pragma unroll
       for (int kk = 0; kk < DT; ++kk) {
         uint32_t qb[4], qsm[4] = {}, db[4], dsm[4] = {};
-        if constexpr (HOLD) {
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            qb[c] = qreg[kk][c];
-            db[c] = dreg[kk][c];
-          }
-        } else {
-          ldsm_x4(qb, qa + 32 * kk);
-          ldsm_x4(db, qa + 4 * 2 * PS + 32 * kk);
+        for (int c = 0; c < 4; ++c) {
+          qb[c] = qreg[kk][c];
+          db[c] = dreg[kk][c];
         }
         if constexpr (SPLIT) {
           ldsm_x4(qsm, qa + 4 * PS + 32 * kk);
@@ -1869,111 +1861,143 @@ flash_bwd_dq_kernel(const BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// Backward at head_dim 256
+// Backward at head_dim 128 and 256 (the sums on wgmma)
 // ---------------------------------------------------------------------------
 //
 // The same function and the same steps as above (pre-pass, dK/dV, dQ),
-// redesigned for D = 256, where the D <= 128 tiles do not fit: both TF32
-// planes of a row cost 2,080 bytes, and a warp's sums over a whole D = 256
-// row are 128 registers a thread.
-//   * Fill the card for one kv head.  dK/dV runs one block per (BS keys,
-//     query head, batch row): the G = Hq / Hkv heads of a group are G
-//     parts, each writing f32 partial sums of dV and dK into the workspace
-//     ws [2][G][B][S][Hkv][D] (dV, dK); a last kernel adds the parts in
-//     order 0 .. G - 1 and writes dK, dV in the inputs' dtype (no atomics:
-//     the same bits on every call).  At gemma3's training shape (B 2,
-//     T = S = 1024, 4/1 heads) dK/dV has 256 blocks where one block a key
-//     tile and kv head had 128, and the longest (key tile 0 under the
-//     causal mask) walks 32 query tiles, not 4 x 64.  dK/dV's and dQ's
-//     blocks share one launch (flash_bwd256_kernel), so that each fills
-//     the other's tail.
-//   * Tiles: BS = 32 stationary rows (keys in dK/dV, query rows in dQ) and
-//     BT = 32 streamed rows a step, 8 warps, one block an SM.  Rows stay
-//     raw, as f32 words (a bf16 value widened, exact in TF32), pitch D + 4
-//     words, and are split into TF32 big (rounded) and small parts in
+// redesigned for D = 128 and 256, where the D <= 64 tiles do not fit or
+// starve: split TF32 planes of a row cost 16 (D + 4) bytes a matrix, and a
+// warp's sums over a whole D row are D / 2 registers a thread.  At D = 128
+// PR 16's tiles had to shrink to 32 stationary keys and 16 streamed rows a
+// step (one m16n8 accumulator a warp: a chain of 48 dependent mma.sync),
+// with 4 warps an SM in dQ.
+//   * One launch (flash_bwd_wg_kernel) holds dK/dV's blocks and dQ's, so
+//     that each fills the other's tail.  Along z, the slowest index of the
+//     issue order, they alternate, each longest first (key tile 0 of
+//     dK/dV, the last query tile of dQ, under the causal mask); the longer
+//     list's rest follows.
+//   * D = 128: one dK/dV block per (BS = 64 keys, kv head, batch row)
+//     walks the query tiles of all G = Hq / Hkv query heads of its group
+//     that touch its keys, and writes dK and dV; one dQ block per (64 query
+//     rows, query head, batch row).  64 stationary rows halve the streamed
+//     bytes of 32 (at qwen3-1.7b's training shape, B 2, T = S = 1024, 16/8
+//     heads: ~285 MB of Q/dO through L2 in dK/dV where PR 16's tiles
+//     streamed ~553 MB, and the same for K/V in dQ).
+//   * D = 256: BS = 32.  To fill the card for a single kv head (gemma3-1b,
+//     4/1 heads), dK/dV runs one block per (BS keys, query head, batch
+//     row): the G heads of a group are G parts, each writing f32 partial
+//     sums of dV and dK into the workspace ws [2][G][B][S][Hkv][D] (dV,
+//     dK); a last kernel adds the parts in order 0 .. G - 1 and writes dK,
+//     dV in the inputs' dtype (no atomics: the same bits on every call).
+//   * Tiles: BT = 32 streamed rows a step, 8 warps, one block an SM.  Rows
+//     stay raw, as f32 words (a bf16 value widened, exact in TF32), pitch
+//     D + 4 words, and are split into TF32 big (rounded) and small parts in
 //     registers as the fragments load: half the shared memory of split
-//     planes, so that 32 stationary and 2 x 32 streamed rows of two
-//     matrices fit (216,832 bytes with the exchange).
-//   * A step has two phases.  A: S (or S^T) and dP over D, each warp a
-//     16 x 16 tile of one of them (mma.sync m16n8k8: 3xTF32 in f32, one
-//     TF32 product in bf16); the warp that formed P hands it to the warp
-//     of dP's same tile (a named barrier for the pair), which forms dS;
-//     both land in an exchange buffer, split into TF32 big and small
-//     planes.  B: the sums over the step's 32 rows (or keys) on wgmma, in
-//     the transposed orientation dV^T += dO^T P, dK^T += Q^T dS, dQ^T +=
-//     K^T dS^T, so that the 64-row side of m64n32k8 runs along D and the
-//     32 stationary rows are its N: warps 0-3 (a warpgroup) sum all of
-//     dV and 4-7 all of dK, or each group half of dQ's columns, 64 or 32
-//     sums a thread and no warp a whole D row.  A (D x k) is read down the
-//     streamed tile's columns into registers (mma.sync's A fragment,
-//     conflict-free at pitch D + 4) and split there; B (k x N, K-major,
-//     as TF32 wgmma needs) is P or dS as the exchange holds it, in 8 x 4
-//     core matrices without swizzle.  Each step's k-steps of an m-tile sum
-//     in a fresh accumulator that is added into f32 registers, as above.
-//   * Loads: 16-byte cp.async into a two-slot ring, a step ahead; four
-//     threads own a row (its chunks q, q + 4, ...).  bf16 lands raw in the
-//     upper half of its row's words and its owners widen it in place
-//     (read, __syncwarp, write).
-//   * dQ recomputes S and dP, as the D <= 128 kernel does, over the key
-//     tiles its 32 rows see, longest tiles first.
+//     planes (D = 128: 203,008 bytes with a three-slot ring and the
+//     exchange; D = 256: 216,832 with two slots).
+//   * A step has two phases.  A: S (or S^T) and dP over D on mma.sync
+//     m16n8k8 (3xTF32 in f32, one TF32 product in bf16): each warp forms
+//     both for one tile of 16 stationary by 8 NN streamed rows (2 NN
+//     accumulators: 4 at D = 128, 2 at D = 256), the three TF32 passes
+//     each over all of them, then P and dS of the tile in its registers,
+//     written with 8-byte stores into an exchange buffer, split into TF32
+//     big and small planes (dQ writes dS alone).  On an H100 a first
+//     version whose warps formed S or dP and handed P over in shared memory
+//     spent more of each step on the elementwise P and dS, serialised
+//     across the two warp sets, than on the products.
+//     B: the sums over the step's 32 rows (or keys) on wgmma, in the
+//     transposed orientation dV^T += dO^T P, dK^T += Q^T dS, dQ^T += K^T
+//     dS^T, so that the 64-row side of m64nNk8 runs along D and the BS
+//     stationary rows are its N: warps 0-3 (a warpgroup) sum all of dV and
+//     4-7 all of dK, or each group half of dQ's columns: 64 (dK/dV) or 32
+//     (dQ) sums a thread, and no warp a whole D row.  A (D x k) is read
+//     down the streamed tile's columns into registers (mma.sync's A
+//     fragment) and split there; B (k x N, K-major, as TF32 wgmma needs) is
+//     P or dS as the exchange holds it, in 8 x 4 core matrices without
+//     swizzle.  Each step's k-steps of an m-tile sum in a fresh accumulator
+//     that is added into f32 registers, as above.
+//   * Loads: 16-byte cp.async; NTH / R threads own each of a copy's R rows
+//     (its chunks q, q + NTH / R, ...).  D = 128 has a three-slot ring, and
+//     a step's copies (two steps ahead) go out while its phase B products
+//     run on the tensor cores: issued at the step's start they held up
+//     every warp for a large share of the step
+//     (tools/flash_bwd_cycles.py times a step's parts).  D = 256 has two
+//     slots, a step ahead, copied at the step's start.  bf16 lands raw in the upper half of its row's
+//     words and its owners widen it in place (read, __syncwarp, write).
+//   * dQ recomputes S and dP, as the D <= 64 kernel does, over the key
+//     tiles its rows see, longest tiles first.
 
-struct Bwd256 {
-  static constexpr int D = 256;
-  static constexpr int BS = 32;             // stationary rows a block
-  static constexpr int BT = 32;             // streamed rows a step
-  static constexpr int NTH = 256;           // 8 warps
-  static constexpr int LD = D + 4;          // row pitch, words
+template <int D_>
+struct BwdWg {
+  static constexpr int D = D_;
+  static_assert(D == 128 || D == 256, "D <= 64 takes BwdCfg's kernels");
+  static constexpr int BS = D == 256 ? 32 : 64;  // stationary rows a block
+  static constexpr int BT = 32;                  // streamed rows a step
+  static constexpr int NTH = 256;                // 8 warps
+  static constexpr int LD = D + 4;               // row pitch, words
+  // ring slots; with three (D = 128) a step's copies go out during its
+  // phase B, else at its start
+  static constexpr int STAGES = D == 128 ? 3 : 2;
+  static constexpr bool COPY_IN_B = STAGES > 2;
+  // D = 256 splits dK/dV over a group's query heads (f32 parts)
+  static constexpr bool PARTS = D == 256;
+  // phase A: the BS x BT tile of S and dP over the eight warps, MW along
+  // the stationary rows (16 each) and NW along the streamed ones (NN m16n8
+  // accumulators a product each)
+  static constexpr int MW = BS / 16, NW = 8 / MW, NN = BT / (8 * NW);
+  // phase B: a warpgroup's m-tiles (64 columns of D) in dK/dV and in dQ
+  static constexpr int MT_KV = D / 64, MT_Q = D / 128;
   // the stationary pair (and dQ's statistics), a ring slot (the streamed
   // pair and dK/dV's statistics), the exchange (P big, small; dS big,
-  // small; each BS x BT, bwd256_xoff)
+  // small; each BS x BT, bwdwg_xoff)
   static constexpr int STAT = 2 * BS * LD + 2 * BS;
   static constexpr int SLOT = 2 * BT * LD + 2 * BT;
   static constexpr int PLANE = BS * BT;
   static constexpr int XCH = 4 * PLANE;
-  static constexpr int SMEM = (STAT + 2 * SLOT + XCH) * 4;
-  static_assert(BS == 32 && BT == 32, "a pair of tiles is 64 rows, four "
-                "threads a row, and each phase's warps cover 32 x 32");
+  static constexpr int SMEM = (STAT + STAGES * SLOT + XCH) * 4;
+  static_assert(BT == 32 && MW * NW == 8 && (NN == 1 || NN == 2),
+                "phase A's warps cover BS x 32, one or two n8-tiles each");
 };
 
-// The 64 rows of a pair of 32-row tiles (rows [0, 32) from a, [32, 64)
+// The 2 NR rows of a pair of NR-row tiles (rows [0, NR) from a, [NR, 2 NR)
 // from b, each sa / sb elements apart; rows at or past n_ok read as zero)
-// into f32 words at dst, pitch LD, by 16-byte cp.async.  Thread t owns row
-// t / 4 and its chunks t % 4, t % 4 + 4, ...: f32 lands in place, bf16 in
-// the upper half of the row's words (bwd256_widen).
-template <typename T>
-__device__ __forceinline__ void bwd256_copy(uint32_t* dst, const T* a,
-                                            long long sa, const T* b,
-                                            long long sb, int n_ok) {
-  constexpr int VEC = 16 / (int)sizeof(T), CH = Bwd256::D / VEC;
-  const int r = threadIdx.x >> 2, q = threadIdx.x & 3, rr = r & 31;
+// into f32 words at dst, pitch D + 4, by 16-byte cp.async.  TPR = 256 /
+// (2 NR) threads own a row: thread t owns row t / TPR and its chunks
+// t % TPR, t % TPR + TPR, ...: f32 lands in place, bf16 in the upper half
+// of the row's words (bwdwg_widen).
+template <typename T, int D, int NR>
+__device__ __forceinline__ void bwdwg_copy(uint32_t* dst, const T* a,
+                                           long long sa, const T* b,
+                                           long long sb, int n_ok) {
+  constexpr int VEC = 16 / (int)sizeof(T), CH = D / VEC, TPR = 128 / NR;
+  const int r = threadIdx.x / TPR, q = threadIdx.x % TPR, rr = r % NR;
   const bool ok = rr < n_ok;
-  const T* src = r < 32 ? a + rr * sa : b + rr * sb;
-  uint32_t* row = dst + r * Bwd256::LD + (VEC == 8 ? Bwd256::D / 2 : 0);
+  const T* src = r < NR ? a + rr * sa : b + rr * sb;
+  uint32_t* row = dst + r * (D + 4) + (VEC == 8 ? D / 2 : 0);
 #pragma unroll
-  for (int k = 0; k < CH / 4; ++k) {
-    const int c = q + 4 * k;
+  for (int k = 0; k < CH / TPR; ++k) {
+    const int c = q + TPR * k;
     cp_async16(row + 4 * c, ok ? src + c * VEC : a, ok);
   }
 }
 
-// bf16: this thread's landed chunks widened in place into f32 words (a
-// bf16 is the top half of its f32); a row's four owners read before any
-// of them writes.  f32: nothing to do.
-template <typename T>
-__device__ __forceinline__ void bwd256_widen(uint32_t* dst) {
+// bf16: this thread's landed chunks (bwdwg_copy's) widened in place into
+// f32 words (a bf16 is the top half of its f32); a row's owners, all in
+// one warp, read before any of them writes.  f32: nothing to do.
+template <typename T, int D, int NR>
+__device__ __forceinline__ void bwdwg_widen(uint32_t* dst) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    constexpr int CH = Bwd256::D / 8;
-    const int q = threadIdx.x & 3;
-    uint32_t* row = dst + (threadIdx.x >> 2) * Bwd256::LD;
-    uint4 x[CH / 4];
+    constexpr int CH = D / 8, TPR = 128 / NR;
+    const int q = threadIdx.x % TPR;
+    uint32_t* row = dst + (threadIdx.x / TPR) * (D + 4);
+    uint4 x[CH / TPR];
 #pragma unroll
-    for (int k = 0; k < CH / 4; ++k)
-      x[k] = *reinterpret_cast<const uint4*>(row + Bwd256::D / 2
-                                             + 4 * (q + 4 * k));
+    for (int k = 0; k < CH / TPR; ++k)
+      x[k] = *reinterpret_cast<const uint4*>(row + D / 2 + 4 * (q + TPR * k));
     __syncwarp();
 #pragma unroll
-    for (int k = 0; k < CH / 4; ++k) {
-      uint4* at = reinterpret_cast<uint4*>(row + 8 * (q + 4 * k));
+    for (int k = 0; k < CH / TPR; ++k) {
+      uint4* at = reinterpret_cast<uint4*>(row + 8 * (q + TPR * k));
       at[0] = make_uint4(x[k].x << 16, x[k].x & 0xffff0000u, x[k].y << 16,
                          x[k].y & 0xffff0000u);
       at[1] = make_uint4(x[k].z << 16, x[k].z & 0xffff0000u, x[k].w << 16,
@@ -1982,136 +2006,202 @@ __device__ __forceinline__ void bwd256_widen(uint32_t* dst) {
   }
 }
 
-// ldmatrix row addresses (words) of two B fragments of raw rows: n-tile 0
-// (rows 0-7) in registers 0, 1 and n-tile 1 (rows 8-15) in 2, 3
-__device__ __forceinline__ int lane_b2(int lane, int ld) {
-  return (lane & 7) * ld + ((lane >> 3) & 1) * 4 + (lane >> 4) * 8 * ld;
+// ldmatrix row addresses (words) of two B fragments of raw rows, ``r``
+// rows apart: the first (rows 0-7) in registers 0, 1 and the second (rows
+// r .. r + 7) in 2, 3
+__device__ __forceinline__ int lane_b2(int lane, int ld, int r) {
+  return (lane & 7) * ld + ((lane >> 3) & 1) * 4 + (lane >> 4) * r * ld;
 }
 
 // The exchange's word of (stationary row n, streamed row k) in a plane:
 // K-major 8 x 4 core matrices (128 bytes), k's groups of 4 128 bytes apart
-// and n's groups of 8 1,024 bytes apart (bwd256_desc)
-__device__ __forceinline__ int bwd256_xoff(int n, int k) {
+// and n's groups of 8 1,024 bytes apart (the BT = 32 streamed rows;
+// bwdwg_desc)
+__device__ __forceinline__ int bwdwg_xoff(int n, int k) {
   return (n >> 3) * 256 + (k >> 2) * 32 + (n & 7) * 4 + (k & 3);
 }
 
-// Phase A of a step for this warp: a 16 x 16 tile of S = X Y^T (prod 0:
-// the first matrices of the stationary and streamed pairs) or of dP (prod
-// 1: the second ones) over D; then P (prod 0) and dS (prod 1, from its
-// partner's P) into the exchange's planes, each split into big and small
-// (P = big + small exactly).  KEYS_M: the tile's M
-// index is the key (dK/dV: S^T = K Q^T), else the query row (dQ).  ``ls``
-// holds lse (base 2) and D of the BT query rows from i0; j0 is the first
-// key.
-template <typename T, bool WIN, bool KEYS_M>
-__device__ __forceinline__ void bwd256_scores(const BwdParams& p, int q0,
-                                              int kl, const uint32_t* stat,
-                                              const uint32_t* slot,
-                                              uint32_t* xch, const float* ls,
-                                              int i0, int j0) {
-  constexpr int LD = Bwd256::LD, BT = Bwd256::BT, PL = Bwd256::PLANE;
+// 2^x by the SFU's approximation (relative error ~2^-22; exp2f adds a
+// denormal path the probabilities do not need)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Phase A of a step for this warp: one 16 x 8 NN tile of both S = X Y^T
+// and dP = X' Y'^T over D (X, X' the stationary pair, Y, Y' the streamed
+// pair: 2 NN m16n8 accumulators, the three TF32 passes each over all of
+// them); then P and dS of the tile in registers, written into the
+// exchange's planes, each split into big and small (bf16 writes only the
+// big ones, dQ only dS).  KEYS_M: the tile's M index is the key (dK/dV: S^T = K Q^T),
+// else the query row (dQ).  ``ls`` holds lse (base 2) and then D of the
+// query rows from i0 (the BT streamed rows in dK/dV, the BS stationary
+// ones in dQ); j0 is the first key.
+template <class C, typename T, bool WIN, bool KEYS_M>
+__device__ __forceinline__ void bwdwg_scores(const BwdParams& p, int q0,
+                                             int kl, const uint32_t* stat,
+                                             const uint32_t* slot,
+                                             uint32_t* xch, const float* ls,
+                                             int i0, int j0) {
+  constexpr int LD = C::LD, BT = C::BT, PL = C::PLANE, NN = C::NN;
+  constexpr int NL = KEYS_M ? C::BT : C::BS;
   constexpr bool SPLIT = std::is_same<T, float>::value;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int prod = warp >> 2, mt = (warp >> 1) & 1, nh = warp & 1;
-  // the warp's query rows [iw, iw + 16) and keys [jw, jw + 16)
-  const int iw = i0 + 16 * (KEYS_M ? nh : mt);
-  const int jw = j0 + 16 * (KEYS_M ? mt : nh);
-  const int il = min(iw + 15, p.T - 1);
-  float c[2][4] = {};
+  // the warp's stationary rows [sw, sw + 16) and streamed rows [tw, tw +
+  // 8 NN); its query rows [iw, iw + ni) and keys [jw, jw + nj)
+  const int sw = 16 * (warp % C::MW), tw = 8 * NN * (warp / C::MW);
+  const int iw = i0 + (KEYS_M ? tw : sw), ni = KEYS_M ? 8 * NN : 16;
+  const int jw = j0 + (KEYS_M ? sw : tw), nj = KEYS_M ? 16 : 8 * NN;
+  const int il = min(iw + ni - 1, p.T - 1);
+  float s[NN][4] = {}, dp[NN][4] = {};
   // no visible pair in the tile: the products are skipped (P and dS below
   // do not read them)
   const bool skip = iw >= p.T || jw >= p.S || row_end(p, q0, kl, il) <= jw
-      || (WIN && row_start<WIN>(p, q0, iw) >= jw + 16);
+      || (WIN && row_start<WIN>(p, q0, iw) >= jw + nj);
   if (!skip) {
-    const uint32_t xa = smem_u32(stat)
-        + 4 * (lane_a(lane, LD) + (prod * Bwd256::BS + 16 * mt) * LD);
+    const uint32_t xa = smem_u32(stat) + 4 * (lane_a(lane, LD) + sw * LD);
+    // NN = 2: a load takes both n-tiles of one streamed matrix; NN = 1:
+    // the n-tile of both
     const uint32_t yb = smem_u32(slot)
-        + 4 * (lane_b2(lane, LD) + (prod * BT + 16 * nh) * LD);
+        + 4 * (lane_b2(lane, LD, NN == 2 ? 8 : BT) + tw * LD);
 #pragma unroll
-    for (int kk = 0; kk < Bwd256::D / 8; ++kk) {
-      uint32_t a[4], b[4];
-      ldsm_x4(a, xa + 32 * kk);
-      ldsm_x4(b, yb + 32 * kk);
+    for (int kk = 0; kk < C::D / 8; ++kk) {
+      uint32_t a[2][4], b[NN == 2 ? 2 : 1][4];
+      ldsm_x4(a[0], xa + 32 * kk);
+      ldsm_x4(a[1], xa + 4 * C::BS * LD + 32 * kk);
+      ldsm_x4(b[0], yb + 32 * kk);
+      if constexpr (NN == 2) ldsm_x4(b[1], yb + 4 * BT * LD + 32 * kk);
+      // product q (S, dP), n-tile n: B registers of load q (NN = 2) or 0,
+      // at 2 n (NN = 2) or 2 q (NN = 1)
+      auto breg = [&](int q, int n, int i) -> uint32_t {
+        return NN == 2 ? b[q][2 * n + i] : b[0][2 * q + i]; };
       if constexpr (SPLIT) {
-        uint32_t ab[4], as[4], bb[4], bs[4];
+        uint32_t ab[2][4], as[2][4], bb[2][NN][2], bs[2][NN][2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          split_tf32(__uint_as_float(a[i]), ab[i], as[i]);
-          split_tf32(__uint_as_float(b[i]), bb[i], bs[i]);
+        for (int q = 0; q < 2; ++q) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            split_tf32(__uint_as_float(a[q][i]), ab[q][i], as[q][i]);
+#pragma unroll
+          for (int n = 0; n < NN; ++n)
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              split_tf32(__uint_as_float(breg(q, n, i)), bb[q][n][i],
+                         bs[q][n][i]);
         }
-        const uint32_t b0[2] = {bb[0], bb[1]}, s0[2] = {bs[0], bs[1]};
-        const uint32_t b1[2] = {bb[2], bb[3]}, s1[2] = {bs[2], bs[3]};
-        mma_3xtf32(c[0], ab, as, b0, s0);
-        mma_3xtf32(c[1], ab, as, b1, s1);
+        // 3xTF32, small terms first, each pass over every accumulator
+#pragma unroll
+        for (int n = 0; n < NN; ++n) {
+          mma_tf32(s[n], as[0], bb[0][n]);
+          mma_tf32(dp[n], as[1], bb[1][n]);
+        }
+#pragma unroll
+        for (int n = 0; n < NN; ++n) {
+          mma_tf32(s[n], ab[0], bs[0][n]);
+          mma_tf32(dp[n], ab[1], bs[1][n]);
+        }
+#pragma unroll
+        for (int n = 0; n < NN; ++n) {
+          mma_tf32(s[n], ab[0], bb[0][n]);
+          mma_tf32(dp[n], ab[1], bb[1][n]);
+        }
       } else {
-        const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-        mma_tf32(c[0], a, b0);
-        mma_tf32(c[1], a, b1);
+#pragma unroll
+        for (int n = 0; n < NN; ++n) {
+          const uint32_t b0[2] = {breg(0, n, 0), breg(0, n, 1)};
+          const uint32_t b1[2] = {breg(1, n, 0), breg(1, n, 1)};
+          mma_tf32(s[n], a[0], b0);
+          mma_tf32(dp[n], a[1], b1);
+        }
       }
     }
   }
-  // every row valid and seeing all 16 keys: no mask
-  const bool full = iw + 16 <= p.T && jw + 16 <= p.S
-      && row_end(p, q0, kl, iw) >= jw + 16
+  // every row valid and seeing all of the tile's keys: no mask
+  const bool full = iw + ni <= p.T && jw + nj <= p.S
+      && row_end(p, q0, kl, iw) >= jw + nj
       && (!WIN || row_start<WIN>(p, q0, il) <= jw);
-  // c[n][e] is (M index 16 mt + g + 8 (e >> 1), N index 16 nh + 8 n + 2t +
-  // (e & 1)): M the stationary row, N the streamed one
-  uint32_t* x = xch + bwd256_xoff(16 * mt + g, 16 * nh + 2 * t4);
-  auto at = [&](int n, int e) { return 256 * (e >> 1) + 64 * n + (e & 1); };
-  auto row = [&](int n, int e) {          // the query row, from i0
-    return KEYS_M ? 16 * nh + 8 * n + 2 * t4 + (e & 1)
-                  : 16 * mt + g + 8 * (e >> 1); };
-  auto key = [&](int n, int e) {
-    return KEYS_M ? jw + g + 8 * (e >> 1) : jw + 8 * n + 2 * t4 + (e & 1); };
-  if (prod == 0) {
+  // s[n][e], dp[n][e] are (M index sw + g + 8 (e >> 1), N index tw + 8 n +
+  // 2t + (e & 1)): M the stationary row, N the streamed one; e and e + 1
+  // are neighbouring words of a plane
+  uint32_t* x = xch + bwdwg_xoff(sw + g, tw + 2 * t4);
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
+  for (int n = 0; n < NN; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row(n, e);
-        const float pv = full ? exp2f(c[n][e] * p.scale_log2 - ls[r])
-            : bwd_p<WIN>(p, q0, kl, i0 + r, key(n, e), c[n][e], ls[r]);
-        split_tf32(pv, x[at(n, e)], x[PL + at(n, e)]);
+    for (int h = 0; h < 2; ++h) {
+      float pv[2], dv[2];
+#pragma unroll
+      for (int o = 0; o < 2; ++o) {
+        const int e = 2 * h + o;
+        const int r = KEYS_M ? tw + 8 * n + 2 * t4 + o : sw + g + 8 * h;
+        const int j = KEYS_M ? jw + g + 8 * h : jw + 8 * n + 2 * t4 + o;
+        pv[o] = s[n][e];
+        dv[o] = dp[n][e];
+        if (full) {
+          pv[o] = ex2(pv[o] * p.scale_log2 - ls[r]);
+          dv[o] = pv[o] * (dv[o] - ls[NL + r]);
+        } else {
+          bwd_p_ds<WIN>(p, q0, kl, i0 + r, j, ls[r], ls[NL + r], pv[o],
+                        dv[o]);
+        }
       }
-  }
-  bar_pair(1 + (warp & 3), 64);
-  if (prod == 1) {
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row(n, e);
-        // a row that sees no key has dS = 0 (its P is 1/S)
-        const bool idle = !full && row_idle<WIN>(p, q0, kl, i0 + r);
-        const float pv = __uint_as_float(x[at(n, e)])
-                         + __uint_as_float(x[PL + at(n, e)]);
-        split_tf32(idle ? 0.f : pv * (c[n][e] - ls[BT + r]),
-                   x[2 * PL + at(n, e)], x[3 * PL + at(n, e)]);
+      uint2 pb, ps, db, ds;
+      split_tf32(pv[0], pb.x, ps.x);
+      split_tf32(pv[1], pb.y, ps.y);
+      split_tf32(dv[0], db.x, ds.x);
+      split_tf32(dv[1], db.y, ds.y);
+      // dQ's products read dS alone
+      const int o = 256 * h + 64 * n;
+      if constexpr (KEYS_M) *reinterpret_cast<uint2*>(x + o) = pb;
+      *reinterpret_cast<uint2*>(x + 2 * PL + o) = db;
+      if constexpr (SPLIT) {
+        if constexpr (KEYS_M) *reinterpret_cast<uint2*>(x + PL + o) = ps;
+        *reinterpret_cast<uint2*>(x + 3 * PL + o) = ds;
       }
-  }
+    }
   // the planes are read by wgmma (the async proxy) after the barrier
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// wgmma of the warpgroup: d (+)= a.b, m64n32k8, TF32 operands, f32 sums
-// (d is overwritten when ``add`` is 0).  A (64 x 8) from registers, warp w
-// of the group holding rows 16 w .. 16 w + 15 as mma.sync's m16n8k8 A
-// fragment; B (8 x 32) from shared memory at descriptor ``desc``.  d[4 n +
-// e] is row 16 w + g + 8 (e >> 1), column 8 n + 2t + (e & 1).
-__device__ __forceinline__ void wgmma_m64n32k8(float (&d)[16],
-                                               const uint32_t (&a)[4],
-                                               uint64_t desc, int add) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(add));
+// wgmma of the warpgroup: d (+)= a.b, m64nNk8 (N = 32 or 64), TF32
+// operands, f32 sums (d is overwritten when ``add`` is 0).  A (64 x 8) from
+// registers, warp w of the group holding rows 16 w .. 16 w + 15 as
+// mma.sync's m16n8k8 A fragment; B (8 x N) from shared memory at
+// descriptor ``desc``.  d[4 n + e] is row 16 w + g + 8 (e >> 1), column
+// 8 n + 2t + (e & 1).
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int add) {
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(add));
+  } else {
+    static_assert(N == 64, "m64n32k8 or m64n64k8");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(add));
+  }
 }
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -2119,16 +2209,16 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-template <int N>
-__device__ __forceinline__ void wgmma_wait(float (&d)[16]) {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+template <int W, int L>
+__device__ __forceinline__ void wgmma_wait(float (&d)[L]) {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(W) : "memory");
 #pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < L; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 // the descriptor of a K-major B tile at shared address ``addr`` laid out
-// as bwd256_xoff: no swizzle, core matrices 128 bytes apart along K (the
+// as bwdwg_xoff: no swizzle, core matrices 128 bytes apart along K (the
 // leading byte offset) and 1,024 along N (the stride byte offset)
-__device__ __forceinline__ uint64_t bwd256_desc(uint32_t addr) {
+__device__ __forceinline__ uint64_t bwdwg_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16)
          | ((uint64_t)(1024 >> 4) << 32);
 }
@@ -2136,98 +2226,119 @@ __device__ __forceinline__ uint64_t bwd256_desc(uint32_t addr) {
 // Phase B for this warp's group: acc[m] += A B over a step's 32 k.  A (64
 // D columns x 32 k) is a streamed matrix transposed, read down its columns
 // from ``at`` (its row k, column 64 m + 16 w: w the warp of the group) and
-// split in f32; B (32 k x 32 stationary rows) is P or dS from the
-// exchange's plane pair ``xb`` (big, then small).  Each m-tile's k-steps
-// sum in a fresh accumulator (two, alternating, so that one m-tile's
-// products run while the last one's sums are added).
-template <bool SPLIT, int MT>
-__device__ __forceinline__ void bwd256_accumulate(float (&acc)[MT][16],
-                                                  const uint32_t* xb,
-                                                  const uint32_t* at) {
-  constexpr int LD = Bwd256::LD;
+// split in f32; B (32 k x N stationary rows) is P or dS from the
+// exchange's plane pair ``xb`` (big, then small; PL words apart).  The
+// m-tiles go to the tensor cores in groups of QM: at N = 64 all of them
+// at once (their A fragments are loaded first, so every product is
+// queued before the first wait), at N = 32 (D = 256, four m-tiles in
+// dK/dV) one at a time, each group's A loaded while the last one's
+// products run.  ``during`` runs while the first group's products do.
+// Each m-tile's k-steps sum in a fresh accumulator that is then added
+// into acc.
+template <int N, int LD, int PL, bool SPLIT, int MT, class F>
+__device__ __forceinline__ void bwdwg_accumulate(float (&acc)[MT][N / 2],
+                                                 const uint32_t* xb,
+                                                 const uint32_t* at,
+                                                 F&& during) {
+  constexpr int QM = N == 64 ? MT : 1;
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
   const uint32_t* ap = at + t4 * LD + 16 * ((threadIdx.x >> 5) & 3) + g;
   const uint32_t xs = smem_u32(xb);
-  float tv[2][16] = {};
-  auto add = [&](int m) {
+  float tv[MT][N / 2];
+  auto add = [&](int m0) {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) acc[m][i] += tv[m & 1][i];
+    for (int m = m0; m < m0 + QM; ++m)
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) acc[m][i] += tv[m][i];
   };
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    uint32_t ab[4][4], as[4][4];
+  for (int m0 = 0; m0 < MT; m0 += QM) {
+    uint32_t ab[QM][4][4], as[QM][4][4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const uint32_t* q = ap + 8 * k * LD + 64 * m;
-      const uint32_t r[4] = {q[0], q[8], q[4 * LD], q[4 * LD + 8]};
+    for (int u = 0; u < QM; ++u)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if constexpr (SPLIT) split_tf32(__uint_as_float(r[i]), ab[k][i],
-                                        as[k][i]);
-        else ab[k][i] = r[i];
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t* q = ap + 8 * k * LD + 64 * (m0 + u);
+        const uint32_t r[4] = {q[0], q[8], q[4 * LD], q[4 * LD + 8]};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (SPLIT) split_tf32(__uint_as_float(r[i]), ab[u][k][i],
+                                          as[u][k][i]);
+          else ab[u][k][i] = r[i];
+        }
       }
-    }
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const uint64_t big = bwd256_desc(xs + 256 * k);
-      if constexpr (SPLIT) {                // small terms first
-        wgmma_m64n32k8(tv[m & 1], as[k], big, k);
-        wgmma_m64n32k8(tv[m & 1], ab[k],
-                       bwd256_desc(xs + 4 * Bwd256::PLANE + 256 * k), 1);
-        wgmma_m64n32k8(tv[m & 1], ab[k], big, 1);
-      } else {
-        wgmma_m64n32k8(tv[m & 1], ab[k], big, k);
+    for (int u = 0; u < QM; ++u)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float (&d)[N / 2] = tv[m0 + u];
+        const uint64_t big = bwdwg_desc(xs + 256 * k);
+        if constexpr (SPLIT) {              // small terms first
+          wgmma_tf32<N>(d, as[u][k], big, k);
+          wgmma_tf32<N>(d, ab[u][k], bwdwg_desc(xs + 4 * PL + 256 * k), 1);
+          wgmma_tf32<N>(d, ab[u][k], big, 1);
+        } else {
+          wgmma_tf32<N>(d, ab[u][k], big, k);
+        }
       }
-    }
     wgmma_commit();
-    if (m > 0) {
-      wgmma_wait<1>(tv[(m - 1) & 1]);
-      add(m - 1);
+    if (m0 == 0) during();
+    if (m0 > 0) {
+#pragma unroll
+      for (int u = 0; u < QM; ++u) wgmma_wait<1>(tv[m0 - QM + u]);
+      add(m0 - QM);
     }
   }
-  wgmma_wait<0>(tv[(MT - 1) & 1]);
-  add(MT - 1);
+#pragma unroll
+  for (int u = 0; u < QM; ++u) wgmma_wait<0>(tv[MT - QM + u]);
+  add(MT - QM);
 }
 
-// dK/dV (DQ = false): the block of (query head h, batch row, key tile
-// ``tile``) walks the query tiles of head h that touch its keys
-// (KeyTileSteps: rows that see no key before them, the rows that see
-// these keys, rows past the window's reach); phase B's warps
-// 0-3 sum dV += P^T dO and 4-7 dK += dS^T Q, all 256 columns, and write
-// their f32 partials into part h % G of the workspace.  dQ (DQ = true):
-// the block of (query head, batch row, query tile n_qt - 1 - ``tile``)
-// walks the key tiles its rows see; phase B's warpgroups each sum 128
-// columns of dQ += dS K and write dQ.
-template <typename T, bool WIN, bool DQ>
-__device__ __forceinline__ void bwd256_body(const BwdParams& p, int tile) {
-  using C = Bwd256;
+// dK/dV (DQ = false) of the block (``h``, batch row, key tile ``tile``):
+// with parts (D = 256) h is a query head, and the block walks that head's
+// query tiles that touch its keys (KeyTileSteps: rows that see no key
+// before them, the rows that see these keys, rows past the window's
+// reach) and writes f32 partials into part h % G of the workspace;
+// without (D = 128) h is a kv head, the block walks those tiles for each
+// of the group's G query heads in turn and writes dK and dV.  Phase B's
+// warps 0-3 sum dV += P^T dO and 4-7 dK += dS^T Q, all D columns.  dQ
+// (DQ = true): the block of (query head h, batch row, query tile n_qt - 1
+// - ``tile``) walks the key tiles its rows see; phase B's warpgroups each
+// sum D / 2 columns of dQ += dS K and write dQ.
+template <typename T, int D, bool WIN, bool DQ>
+__device__ __forceinline__ void bwdwg_body(const BwdParams& p, int tile,
+                                           int h) {
+  using C = BwdWg<D>;
   constexpr int LD = C::LD, BS = C::BS, BT = C::BT, NTH = C::NTH;
-  constexpr int MT = DQ ? 2 : 4;        // phase B's m-tiles (64 columns)
+  constexpr int MT = DQ ? C::MT_Q : C::MT_KV, ST = C::STAGES;
   constexpr bool SPLIT = std::is_same<T, float>::value;
+  // one query head a block (dQ, and dK/dV's parts), else the group's G
+  constexpr bool ONE = DQ || C::PARTS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the stationary pair (K, V or Q, dO) [BS][LD] and dQ's lse, D [BS];
-  // the ring of two slots: the streamed pair [BT][LD] and dK/dV's lse, D
+  // the ring of ST slots: the streamed pair [BT][LD] and dK/dV's lse, D
   // [BT]; the exchange: P, dS, each in two planes [BS x BT]
   uint32_t* stat = reinterpret_cast<uint32_t*>(smem_raw);
   uint32_t* ring = stat + C::STAT;
-  uint32_t* xch = ring + 2 * C::SLOT;
+  uint32_t* xch = ring + ST * C::SLOT;
   float* stat_ls = reinterpret_cast<float*>(stat + 2 * BS * LD);
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int G = p.Hq / p.Hkv, hk = h / G;
+  const int b = blockIdx.y;
+  const int G = p.Hq / p.Hkv, hk = ONE ? h / G : h;
+  const int h0 = ONE ? h : h * G;       // the block's first query head
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int q0 = p.q_start[b];
   const int kl = min(p.kv_len[b], p.S);
-  const T* qh = static_cast<const T*>(p.q) + b * p.sq_b + h * p.sq_h;
-  const T* dh = static_cast<const T*>(p.dout) + b * p.sd_b + h * p.sd_h;
+  const T* qh = static_cast<const T*>(p.q) + b * p.sq_b + h0 * p.sq_h;
+  const T* dh = static_cast<const T*>(p.dout) + b * p.sd_b + h0 * p.sd_h;
   const T* kh = static_cast<const T*>(p.k) + b * p.sk_b + hk * p.sk_h;
   const T* vh = static_cast<const T*>(p.v) + b * p.sv_b + hk * p.sv_h;
 
   // the stationary tile's first row (a query row in dQ, a key in dK/dV),
-  // and the steps: the key tiles [t0, t0 + n_steps) its rows see (dQ) or
-  // the query tiles touching its keys (dK/dV)
+  // and the steps: the key tiles [t0, t0 + n_act) its rows see (dQ) or
+  // the query tiles touching its keys (dK/dV), for each query head
   const int first = DQ ? ((p.T + BS - 1) / BS - 1 - tile) * BS : tile * BS;
   int k_lo = 0, k_hi = 0;
   if constexpr (DQ)
@@ -2235,47 +2346,55 @@ __device__ __forceinline__ void bwd256_body(const BwdParams& p, int tile) {
   const int t0 = k_lo < k_hi ? k_lo / BT : 0;
   KeyTileSteps<WIN, BT, BS> tiles;
   if constexpr (!DQ) tiles = KeyTileSteps<WIN, BT, BS>(p, q0, kl, first);
-  const int n_steps = DQ ? (k_lo < k_hi ? (k_hi + BT - 1) / BT - t0 : 0)
-                         : tiles.n;
-  // step s's first streamed row: a key (dQ) or a query row (dK/dV)
-  auto step_row = [&](int s) { return DQ ? (t0 + s) * BT : tiles.row(s); };
-  auto copy = [&](int s) {                // step s into slot s % 2
+  const int n_act = DQ ? (k_lo < k_hi ? (k_hi + BT - 1) / BT - t0 : 0)
+                       : tiles.n;
+  const int n_steps = ONE ? n_act : G * n_act;
+  // step s's first streamed row (a key in dQ, a query row in dK/dV) and,
+  // in dK/dV without parts, its query head h0 + hs
+  auto step_row = [&](int s, int& hs) {
+    hs = ONE ? 0 : s / n_act;
+    return DQ ? (t0 + s) * BT : tiles.row(s - hs * n_act);
+  };
+  auto copy = [&](int s) {                // step s into slot s % ST
     if (s < n_steps) {
-      const int r0 = step_row(s);
-      uint32_t* sl = ring + (s & 1) * C::SLOT;
+      int hs;
+      const int r0 = step_row(s, hs);
+      uint32_t* sl = ring + (s % ST) * C::SLOT;
       if constexpr (DQ) {
-        bwd256_copy<T>(sl, kh + r0 * p.sk_s, p.sk_s, vh + r0 * p.sv_s,
-                       p.sv_s, p.S - r0);
+        bwdwg_copy<T, D, BT>(sl, kh + r0 * p.sk_s, p.sk_s, vh + r0 * p.sv_s,
+                             p.sv_s, p.S - r0);
       } else {
-        bwd256_copy<T>(sl, qh + r0 * p.sq_t, p.sq_t, dh + r0 * p.sd_t,
-                       p.sd_t, p.T - r0);
+        bwdwg_copy<T, D, BT>(sl, qh + hs * p.sq_h + r0 * p.sq_t, p.sq_t,
+                             dh + hs * p.sd_h + r0 * p.sd_t, p.sd_t,
+                             p.T - r0);
         bwd_copy_stats<BT, NTH>(reinterpret_cast<float*>(sl + 2 * BT * LD),
-                                p, b, h, r0);
+                                p, b, h0 + hs, r0);
       }
     }
     cp_async_commit();
   };
   auto land = [&](int s) {
     if (s < n_steps) {
-      uint32_t* sl = ring + (s & 1) * C::SLOT;
-      bwd256_widen<T>(sl);
+      uint32_t* sl = ring + (s % ST) * C::SLOT;
+      bwdwg_widen<T, D, BT>(sl);
       if constexpr (!DQ)
         bwd_split_stats<BT, NTH>(reinterpret_cast<float*>(sl + 2 * BT * LD));
     }
   };
 
-  // the stationary pair (and dQ's statistics) go with step 0
+  // the stationary pair (and dQ's statistics) go with step 0, then steps
+  // 1 .. ST - 2
   if constexpr (DQ) {
-    bwd256_copy<T>(stat, qh + first * p.sq_t, p.sq_t, dh + first * p.sd_t,
-                   p.sd_t, p.T - first);
+    bwdwg_copy<T, D, BS>(stat, qh + first * p.sq_t, p.sq_t,
+                         dh + first * p.sd_t, p.sd_t, p.T - first);
     bwd_copy_stats<BS, NTH>(stat_ls, p, b, h, first);
   } else {
-    bwd256_copy<T>(stat, kh + first * p.sk_s, p.sk_s, vh + first * p.sv_s,
-                   p.sv_s, p.S - first);
+    bwdwg_copy<T, D, BS>(stat, kh + first * p.sk_s, p.sk_s,
+                         vh + first * p.sv_s, p.sv_s, p.S - first);
   }
-  copy(0);
-  cp_async_wait<0>();
-  bwd256_widen<T>(stat);
+  for (int s = 0; s < ST - 1; ++s) copy(s);
+  cp_async_wait<ST - 2>();
+  bwdwg_widen<T, D, BS>(stat);
   if constexpr (DQ) bwd_split_stats<BS, NTH>(stat_ls);
   land(0);
 
@@ -2283,31 +2402,34 @@ __device__ __forceinline__ void bwd256_body(const BwdParams& p, int tile) {
   // g + 8 (e >> 1) of row (key in dK/dV) first + 8 n + 2t + (e & 1); in
   // dK/dV warps 0-3 hold dV, 4-7 dK
   const int mat = DQ ? 1 : warp >> 2;
-  const int cb = DQ ? 128 * (warp >> 2) : 0;
-  float acc[MT][16];
+  const int cb = DQ ? D / 2 * (warp >> 2) : 0;
+  float acc[MT][BS / 2];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int i = 0; i < 16; ++i) acc[m][i] = 0.f;
+    for (int i = 0; i < BS / 2; ++i) acc[m][i] = 0.f;
 
   for (int it = 0; it < n_steps; ++it) {
     __syncthreads();                    // step it landed; slot it-1 is free
-    copy(it + 1);
-    const uint32_t* sl = ring + (it & 1) * C::SLOT;
-    const int r0 = step_row(it);
+    if constexpr (!C::COPY_IN_B) copy(it + ST - 1);
+    const uint32_t* sl = ring + (it % ST) * C::SLOT;
+    int hs;
+    const int r0 = step_row(it, hs);
     if constexpr (DQ)
-      bwd256_scores<T, WIN, false>(p, q0, kl, stat, sl, xch, stat_ls, first,
-                                   r0);
+      bwdwg_scores<C, T, WIN, false>(p, q0, kl, stat, sl, xch, stat_ls,
+                                     first, r0);
     else
-      bwd256_scores<T, WIN, true>(
+      bwdwg_scores<C, T, WIN, true>(
           p, q0, kl, stat, sl, xch,
           reinterpret_cast<const float*>(sl + 2 * BT * LD), r0, first);
     __syncthreads();                    // P and dS are in the exchange
     // dV += P^T dO, dK += dS^T Q, dQ += dS K: B is the streamed pair's
     // second matrix for dV, its first otherwise
-    bwd256_accumulate<SPLIT, MT>(acc, xch + 2 * mat * C::PLANE,
-                                 sl + (DQ ? 0 : (1 - mat) * BT * LD) + cb);
-    cp_async_wait<0>();
+    bwdwg_accumulate<BS, LD, C::PLANE, SPLIT, MT>(
+        acc, xch + 2 * mat * C::PLANE,
+        sl + (DQ ? 0 : (1 - mat) * BT * LD) + cb, [&] {
+          if constexpr (C::COPY_IN_B) copy(it + ST - 1); });
+    cp_async_wait<ST - 2>();
     land(it + 1);
   }
 
@@ -2315,12 +2437,12 @@ __device__ __forceinline__ void bwd256_body(const BwdParams& p, int tile) {
   if constexpr (DQ) {
     T* dqp = static_cast<T*>(p.dq);
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < BS / 8; ++n)
 #pragma unroll
       for (int lo = 0; lo < 2; ++lo) {
         const int i = first + 8 * n + 2 * t4 + lo;
         if (i >= p.T) continue;
-        T* row = dqp + (((long long)b * p.T + i) * p.Hq + h) * C::D + col;
+        T* row = dqp + (((long long)b * p.T + i) * p.Hq + h) * D + col;
 #pragma unroll
         for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -2328,23 +2450,39 @@ __device__ __forceinline__ void bwd256_body(const BwdParams& p, int tile) {
             store(row + 64 * m + 8 * hi,
                   acc[m][4 * n + 2 * hi + lo] * p.scale);
       }
-  } else {
+  } else if constexpr (C::PARTS) {
     // the workspace [2][G][B][S][Hkv][D] as the wrapper allocates it
     // (flash_attention.py's bwd_parts, the one statement of its shape)
     float* part = p.ws + ((long long)(mat * G + h % G) * p.B + b) * p.S
-                  * p.Hkv * C::D;
+                  * p.Hkv * D;
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < BS / 8; ++n)
 #pragma unroll
       for (int lo = 0; lo < 2; ++lo) {
         const int j = first + 8 * n + 2 * t4 + lo;
         if (j >= p.S) continue;
-        float* row = part + ((long long)j * p.Hkv + hk) * C::D + col;
+        float* row = part + ((long long)j * p.Hkv + hk) * D + col;
 #pragma unroll
         for (int m = 0; m < MT; ++m)
 #pragma unroll
           for (int hi = 0; hi < 2; ++hi)
             row[64 * m + 8 * hi] = acc[m][4 * n + 2 * hi + lo];
+      }
+  } else {
+    T* out = static_cast<T*>(mat ? p.dk : p.dv);
+    const float sc = mat ? p.scale : 1.f;
+#pragma unroll
+    for (int n = 0; n < BS / 8; ++n)
+#pragma unroll
+      for (int lo = 0; lo < 2; ++lo) {
+        const int j = first + 8 * n + 2 * t4 + lo;
+        if (j >= p.S) continue;
+        T* row = out + (((long long)b * p.S + j) * p.Hkv + hk) * D + col;
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi)
+            store(row + 64 * m + 8 * hi, acc[m][4 * n + 2 * hi + lo] * sc);
       }
   }
 }
@@ -2352,19 +2490,35 @@ __device__ __forceinline__ void bwd256_body(const BwdParams& p, int tile) {
 // dK/dV and dQ in one launch, so that the blocks of each fill the other's
 // tail (at gemma3's local layers every block walks at most 17 tiles, and
 // 256 of them take two rounds of 132 SMs alone).  Along z, the slowest
-// index of the issue order, the two alternate, each longest first (key
-// tile 0 of dK/dV, the last query tile of dQ, under the causal mask); the
-// longer list's rest follows.
-template <typename T, bool WIN>
-__global__ void __launch_bounds__(Bwd256::NTH, 1)
-flash_bwd256_kernel(const BwdParams p) {
-  const int n_kt = (p.S + Bwd256::BS - 1) / Bwd256::BS;
-  const int n_qt = (p.T + Bwd256::BS - 1) / Bwd256::BS;
-  const int z = blockIdx.z, both = 2 * min(n_kt, n_qt);
-  const bool dq = z < both ? (z & 1) : n_qt > n_kt;
-  const int tile = z < both ? z >> 1 : z - both / 2;
-  if (dq) bwd256_body<T, WIN, true>(p, tile);
-  else bwd256_body<T, WIN, false>(p, tile);
+// index of the issue order, a slice of dK/dV blocks (one key tile) and QG
+// slices of dQ blocks (one query tile, QG = G query heads of each kv head
+// on x without parts, one with) alternate, each longest first (key tile 0
+// of dK/dV, the last query tile of dQ, under the causal mask); the longer
+// list's rest follows.
+template <typename T, int D, bool WIN>
+__global__ void __launch_bounds__(BwdWg<D>::NTH, 1)
+flash_bwd_wg_kernel(const BwdParams p) {
+  using C = BwdWg<D>;
+  const int n_kt = (p.S + C::BS - 1) / C::BS;
+  const int n_qt = (p.T + C::BS - 1) / C::BS;
+  const int QG = C::PARTS ? 1 : p.Hq / p.Hkv, per = 1 + QG;
+  const int z = blockIdx.z, both = per * min(n_kt, n_qt);
+  bool dq;
+  int tile, r = 0;
+  if (z < both) {
+    tile = z / per;
+    r = z % per - 1;
+    dq = r >= 0;
+  } else if (n_kt > n_qt) {
+    dq = false;
+    tile = n_qt + z - both;
+  } else {
+    dq = true;
+    tile = n_kt + (z - both) / QG;
+    r = (z - both) % QG;
+  }
+  if (dq) bwdwg_body<T, D, WIN, true>(p, tile, blockIdx.x * QG + r);
+  else bwdwg_body<T, D, WIN, false>(p, tile, blockIdx.x);
 }
 
 // dV = the sum of the G parts (the workspace as bwd_parts shapes it), dK =
@@ -2373,7 +2527,7 @@ flash_bwd256_kernel(const BwdParams p) {
 template <typename T>
 __global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_sum_kernel(const BwdParams p) {
-  const long long n4 = (long long)p.B * p.S * p.Hkv * Bwd256::D / 4;
+  const long long n4 = (long long)p.B * p.S * p.Hkv * BwdWg<256>::D / 4;
   const long long e = (long long)blockIdx.x * BWD_THREADS + threadIdx.x;
   if (e >= 2 * n4) return;
   const int G = p.Hq / p.Hkv, mat = e >= n4;
@@ -2391,30 +2545,31 @@ flash_bwd_sum_kernel(const BwdParams p) {
   store2(out + 2, s.z * sc, s.w * sc);
 }
 
-template <typename T, bool WIN>
-cudaError_t launch_bwd256(const BwdParams& p, cudaStream_t stream) {
-  using C = Bwd256;
+template <typename T, int D, bool WIN>
+cudaError_t launch_bwdwg(const BwdParams& p, cudaStream_t stream) {
+  using C = BwdWg<D>;
   static bool attr_set = false;         // once per instantiation
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd256_kernel<T, WIN>,
+        flash_bwd_wg_kernel<T, D, WIN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
   const long long lanes = (long long)p.B * p.T * p.Hq
-                          * DeltaCfg<T, C::D>::LPR;
-  flash_bwd_delta_kernel<T, C::D><<<(unsigned)((lanes + BWD_THREADS - 1)
-                                               / BWD_THREADS),
-                                    BWD_THREADS, 0, stream>>>(p);
+                          * DeltaCfg<T, D>::LPR;
+  flash_bwd_delta_kernel<T, D><<<(unsigned)((lanes + BWD_THREADS - 1)
+                                            / BWD_THREADS),
+                                 BWD_THREADS, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.Hq, p.B,
-                  (p.S + C::BS - 1) / C::BS + (p.T + C::BS - 1) / C::BS);
-  flash_bwd256_kernel<T, WIN><<<grid, C::NTH, C::SMEM, stream>>>(p);
+  const int QG = C::PARTS ? 1 : p.Hq / p.Hkv;
+  const dim3 grid(C::PARTS ? p.Hq : p.Hkv, p.B,
+                  (p.S + C::BS - 1) / C::BS + QG * ((p.T + C::BS - 1) / C::BS));
+  flash_bwd_wg_kernel<T, D, WIN><<<grid, C::NTH, C::SMEM, stream>>>(p);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long long n = 2LL * p.B * p.S * p.Hkv * C::D / 4;
+  if (err != cudaSuccess || !C::PARTS) return err;
+  const long long n = 2LL * p.B * p.S * p.Hkv * D / 4;
   flash_bwd_sum_kernel<T><<<(unsigned)((n + BWD_THREADS - 1) / BWD_THREADS),
                             BWD_THREADS, 0, stream>>>(p);
   return cudaGetLastError();
@@ -2453,9 +2608,9 @@ cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
 
 template <typename T, int D>
 cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
-  if constexpr (D == 256)
-    return p.window > 0 ? launch_bwd256<T, true>(p, stream)
-                        : launch_bwd256<T, false>(p, stream);
+  if constexpr (D >= 128)
+    return p.window > 0 ? launch_bwdwg<T, D, true>(p, stream)
+                        : launch_bwdwg<T, D, false>(p, stream);
   else
     return p.window > 0 ? launch_bwd<T, D, true>(p, stream)
                         : launch_bwd<T, D, false>(p, stream);
@@ -2569,8 +2724,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 // (strided like q), the forward's ``lse`` (f32 [B,Hq,T] contiguous) and
 // ``delta``, an f32 [B,Hq,T] scratch.  At D = 256 ``workspace`` holds the
 // dK/dV parts, 2 * Hq * B * S * D floats (null otherwise).  Three CUDA
-// kernels on ``stream`` (four at D = 256); returns a cudaError_t (0 =
-// success) and allocates nothing.
+// kernels on ``stream`` up to D = 64 (two at D = 128, three at D = 256);
+// returns a cudaError_t (0 = success) and allocates nothing.
 
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const void* lse,

@@ -382,16 +382,18 @@ def test_flash_bwd_matches_plain_on_card(dtype, D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_bwd_bitwise_reproducible_on_card(dtype):
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 8, 64), (16, 8, 128)])
+def test_flash_bwd_bitwise_reproducible_on_card(dtype, Hq, Hkv, D):
     """No atomics: two calls on the same inputs give the same bits, at the
-    training shape (B 2, T = S 1024, 32/8 heads, D 64, causal)."""
+    training shapes (B 2, T = S 1024, causal) of llama3.2-1b (32/8 heads,
+    D 64) and qwen3-1.7b (16/8 heads, D 128)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(5)
-    q, k, v, do, qs, kl = _bwd_case(g, 2, 1024, 1024, 32, 8, 64, [0, 0],
+    q, k, v, do, qs, kl = _bwd_case(g, 2, 1024, 1024, Hq, Hkv, D, [0, 0],
                                     [1024, 1024], dtype, dev)
-    kw = dict(scale=0.125, causal=True, q_start=qs, kv_len=kl)
+    kw = dict(scale=D ** -0.5, causal=True, q_start=qs, kv_len=kl)
     out, lse = FA.flash_attend(q, k, v, return_lse=True, **kw)
     before = FA.flash_attend.launches_bwd
     first = FA.flash_attend_bwd(q, k, v, out, lse, do, **kw)
@@ -402,6 +404,41 @@ def test_flash_bwd_bitwise_reproducible_on_card(dtype):
     want = FA.attend_bwd_ref(q, k, v, out, lse, do, **kw)
     for a, b in zip(first, want):
         assert _rel_err(a, b) < BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd128_window_on_card(dtype):
+    """The D = 128 backward kernel with a sliding window (its WIN = true
+    instantiation, which qwen3 does not take): T = S = 1000 (cuts the
+    64-row tiles), 4/2 heads, window 96, rows that see no key before
+    (q_start < 0), past the window's reach (kv_len 801) and everywhere
+    (kv_len 0).  Against attend_bwd_ref and, in f32, autograd of
+    attend_ref; two calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(11)
+    q, k, v, do, qs, kl = _bwd_case(g, 4, 1000, 1000, 4, 2, 128,
+                                    [0, 37, 0, -50], [1000, 801, 0, 1000],
+                                    dtype, dev)
+    kw = dict(scale=128 ** -0.5, causal=True, q_start=qs, kv_len=kl,
+              window=96)
+    out, lse = FA.flash_attend(q, k, v, return_lse=True, **kw)
+    first = FA.flash_attend_bwd(q, k, v, out, lse, do, **kw)
+    second = FA.flash_attend_bwd(q, k, v, out, lse, do, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    refs = [FA.attend_bwd_ref(q, k, v, out, lse, do, **kw)]
+    if dtype == "float32":
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        refs.append(torch.autograd.grad(FA.attend_ref(*leaves, **kw), leaves,
+                                        do))
+    for want in refs:
+        for name, a, b in zip("qkv", first, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert _rel_err(a, b) < BWD_TOL[dtype], name
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

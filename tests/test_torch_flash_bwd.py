@@ -10,6 +10,8 @@ q_start + i < 0 under the causal mask), whose output is the mean of V
 over all S keys.  Inputs are made with numpy; f32, relative to max |ref|:
 1e-5.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,10 @@ CASES = [
     (3, 4, 12, 4, 1, 8, True, [8, 2, 0], [12, 6, 0]),     # idle row
     (3, 5, 9, 6, 2, 8, False, [0, 0, 0], [9, 3, 0]),      # kv_len = 0
     (2, 6, 6, 2, 2, 8, True, [-3, 0], [6, 6]),            # q_start + i < 0
+    # the D = 128 kernels' head dim with qwen3-1.7b's grouping (16/8 heads
+    # cut to 4/2)
+    (2, 40, 40, 4, 2, 128, True, [-3, 0], [40, 40]),      # q_start + i < 0
+    (2, 24, 40, 4, 2, 128, False, [0, 0], [40, 0]),       # kv_len = 0
 ]
 
 
@@ -62,18 +68,24 @@ def _port_bwd(case, q, k, v, do, qs, kl):
     return out, lse, grads, kw
 
 
+@functools.partial(jax.jit, static_argnames=("scale", "causal"))
+def _jax_vjp(q, k, v, do, qs, kl, *, scale, causal):
+    """repro.models.layers.attend and its jax.vjp at the cotangent ``do``,
+    jitted: one XLA compile a shape instead of one per primitive."""
+    y, vjp = jax.vjp(lambda a, b, c: JL.attend(
+        a, b, c, scale=scale, causal=causal, q_start=qs, kv_len=kl), q, k, v)
+    return y, vjp(do)
+
+
 @pytest.fixture(scope="module")
 def jax_grads():
     """jax.vjp of repro.models.layers.attend for every case."""
     out = []
     for case in CASES:
         q, k, v, do, qs, kl = _inputs(case)
-        fn = lambda q_, k_, v_: JL.attend(
-            q_, k_, v_, scale=case[5] ** -0.5, causal=case[6],
-            q_start=jnp.asarray(qs), kv_len=jnp.asarray(kl))
-        y, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-        out.append((np.asarray(y), [np.asarray(g) for g in
-                                    vjp(jnp.asarray(do))]))
+        y, grads = _jax_vjp(*map(jnp.asarray, (q, k, v, do, qs, kl)),
+                            scale=case[5] ** -0.5, causal=case[6])
+        out.append((np.asarray(y), [np.asarray(g) for g in grads]))
     return out
 
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Where the D = 256 flash backward's time goes, on one card: the kernel
-timed with parts of its work cut out.
+"""Where the D = 128 and 256 flash backward's time goes, on one card: the
+kernel timed with parts of its work cut out.
 
-    python3 tools/flash_bwd256_ablate.py
-    python3 tools/flash_bwd256_ablate.py --source build/flash_bwd256_mma.cu
+    python3 tools/flash_bwd_ablate.py
+    python3 tools/flash_bwd_ablate.py --shape qwen3 --source build/variant.cu
 
 Each source (default: the port's ``flash_attention.cu``) is compiled four
 ways: as it is; without phase B (the sums over a step's rows: dV, dK,
@@ -12,9 +12,11 @@ formed from zeros and handed over); without both.  What is left in the
 last is the skeleton: the tiles' loads, the exchange, the barriers, the
 stores, the pre-pass and the parts' sum.  The cut versions compute wrong
 gradients by design, so nothing is checked: every version is timed in
-turns (``tools/flash_ab.py``'s), at gemma3-1b's training shapes (batch
-2, T = S = 1024, 4/1 heads, global and window 512), f32 and bf16.  One
-JSON line per shape and dtype; the last line names the card.
+turns (``tools/flash_ab.py``'s), at training shapes (``--shape``,
+repeatable: ``tools/flash_ab.py``'s D = 128 and 256 ones, batch 2, T = S
+= 1024; default qwen3-1.7b's and gemma3-1b's global and window 512), f32
+and bf16.  One JSON line per shape and dtype; the last line names the
+card.
 """
 import argparse
 import json
@@ -33,7 +35,7 @@ import flash_ab as AB  # noqa: E402
 
 #: the call of phase B in the body, and phase A's test for a tile with no
 #: visible pair (true: the products are skipped)
-PHASE_B = re.compile(r"\n\s*bwd256_accumulate<[^;]*;")
+PHASE_B = re.compile(r"\n\s*bwdwg_accumulate<[^;]*;")
 SKIP_A = "const bool skip = iw >= p.T"
 
 
@@ -52,9 +54,12 @@ def main() -> None:
     ap.add_argument("--source", action="append",
                     help="flash_attention.cu to cut (repeatable; default "
                          "the port's)")
+    ap.add_argument("--shape", action="append",
+                    choices=["qwen3", "gemma3-global", "gemma3-local"],
+                    help="the backward's shape (repeatable; default all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
-        sys.exit("tools/flash_bwd256_ablate.py: needs a CUDA card")
+        sys.exit("tools/flash_bwd_ablate.py: needs a CUDA card")
     from repro_torch.kernels import flash_attention as FA
     sources = args.source or [os.path.join(
         ROOT, "src/repro_torch/kernels/csrc/flash_attention.cu")]
@@ -77,7 +82,7 @@ def main() -> None:
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     B, T = 2, 1024
-    for shape in ("gemma3-global", "gemma3-local"):
+    for shape in args.shape or ("qwen3", "gemma3-global", "gemma3-local"):
         Hq, Hkv, D, window = AB.BWD_SHAPES[shape]
         for dtype in (torch.float32, torch.bfloat16):
             rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dtype)

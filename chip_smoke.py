@@ -162,18 +162,46 @@ Phases, each reported on its own lines:
    scan (``ssd_chunked_ref``) in float64; a layer leaf is held to 1e-4 or,
    where the same model with the plain SSD in f32 (the JAX model's
    arithmetic) itself misses 1e-4 (a_log, whose gradient cancels to ~1e-4
-   of its terms), to that model's own distance; both are printed.
+   of its terms), to that model's own distance; both are printed;
+23. ``repro_torch.launch.serve.main`` for llama3.2-1b at full width (4
+   stages, 4 micro-batches, batch 8, prompt 512, 32 tokens) with
+   ``--virtual 2`` (interleaved prefill, the restack handoff, V = 1
+   decode) and without: tokens identical, prefill logits within 1e-6 of
+   max |logit|, exactly 2048 flash launches each (64 prefill, 1984
+   decode), the handoff's time and its peak memory, which must stay at or
+   below what was resident before it plus its largest leaf; then
+   mamba2-2.7b at full width and 8 layers (2 stages x 2 chunks x 2
+   layers, M 2, prompt 512) at V = 2 and 1: tokens identical, exactly 16
+   SSD launches;
+24. continuous batching: llama3.2-1b at full width, 4 stages, 8 slots,
+   M 2, chunk 64, ``max_len`` 640; 16 requests (prompts of 16-512 tokens
+   from ``numpy.random.default_rng(7)``, 16 new tokens, one arrival every
+   2 steps) through ``ContinuousEngine`` over the pipelined step, then
+   under the sequential policy (one request at a time, the same step):
+   each request's tokens bit-identical, some step mixing prefill and
+   decode, exactly 16 x 2 flash launches a step; generated tok/s and
+   p50/p99 latency in steps and ms printed for both;
+25. as phase 24 at chunk 4 (the decode route; 8 requests, prompts of
+   8-40 tokens, ``max_len`` 64) and at 4 stages x 2 chunks with 4
+   micro-batches (chunk 64, 8 requests);
+26. the first-layer attention of a mixed step of phases 24 and 25 (a
+   first micro-batch holding prefill and decode slots), captured from
+   the engine's run, against ``attend_ref`` (phase 3's tolerance) with
+   the kernel's, the plain version's and SDPA's times and the bound;
+   then a gemma3-1b mixed step (full width, 2 layers: window 512 and
+   global; slots at offsets past the window) card vs CPU within 2e-4.
 
 Every kernel's launch counters (``launches`` and, for flash attention,
 ``launches_prefill`` / ``launches_decode`` / ``launches_bwd``; for the
 SSD scan ``launches_bwd``) are set to 0 just before each driven path
 (phases 4, 7, 10, 12, 13, 15, 17, 18 and 21, and each run of phases 11,
-14, 19 and 22) and read just after it.
+14, 19, 22, 23, 24 and 25) and read just after it.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Exits non-zero without a CUDA card or outside a checkout.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -469,6 +497,32 @@ def kernel_us(fn, calls: int = 50) -> dict:
     return out
 
 
+def attention_row(FA, label, q, k, v, q_start, kv_len, causal, kern, plain,
+                  dtype, window=0) -> dict:
+    """One flash call against its plain version on the same inputs: the
+    largest difference, the kernel's, the plain version's and one library
+    call's device times and the bound, printed as a ``kernel`` line."""
+    scale = q.shape[-1] ** -0.5
+    out = kern()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = (out.float() - ref.float()).abs().max().item()
+    ok = err <= TOL[dtype] and bool(torch.isfinite(out).all())
+    q4 = q if q.dim() == 4 else q.unsqueeze(2)
+    k4 = k if k.dim() == 4 else k.unsqueeze(2)
+    v4 = v if v.dim() == 4 else v.unsqueeze(2)
+    row = dict(label=label, dtype=str(dtype).replace("torch.", ""),
+               route=FA.route(q4.shape[1], q4.shape[2], k4.shape[2]),
+               max_abs_err=err, tol=TOL[dtype], ms=time_ms(kern),
+               call_ms=call_ms(kern), plain_ms=time_ms(plain),
+               library_ms=time_ms(library_attention(
+                   q4, k4, v4, q_start, kv_len, causal, scale, window)),
+               **attention_bound(q4, k4, q_start, kv_len, causal, window),
+               ok=ok)
+    print("kernel " + json.dumps(row), flush=True)
+    return row
+
+
 def phase_kernels(FA, results: list) -> list:
     """Phase 3: the flash kernel against its plain version."""
     dev = torch.device("cuda")
@@ -476,29 +530,10 @@ def phase_kernels(FA, results: list) -> list:
     rnd = lambda *s, dt: torch.randn(*s, generator=g).to(dev, dt)
     bad = []
 
-    def run(label, q, k, v, q_start, kv_len, causal, kern, plain, dtype,
-            window=0):
-        scale = q.shape[-1] ** -0.5
-        out = kern()
-        torch.cuda.synchronize()
-        ref = plain()
-        err = (out.float() - ref.float()).abs().max().item()
-        ok = err <= TOL[dtype] and bool(torch.isfinite(out).all())
-        q4 = q if q.dim() == 4 else q.unsqueeze(2)
-        k4 = k if k.dim() == 4 else k.unsqueeze(2)
-        v4 = v if v.dim() == 4 else v.unsqueeze(2)
-        row = dict(label=label, dtype=str(dtype).replace("torch.", ""),
-                   route=FA.route(q4.shape[1], q4.shape[2], k4.shape[2]),
-                   max_abs_err=err, tol=TOL[dtype], ms=time_ms(kern),
-                   call_ms=call_ms(kern), plain_ms=time_ms(plain),
-                   library_ms=time_ms(library_attention(
-                       q4, k4, v4, q_start, kv_len, causal, scale, window)),
-                   **attention_bound(q4, k4, q_start, kv_len, causal,
-                                     window),
-                   ok=ok)
-        print("kernel " + json.dumps(row), flush=True)
+    def run(label, *args, **kw):
+        row = attention_row(FA, label, *args, **kw)
         results.append(row)
-        if not ok:
+        if not row["ok"]:
             bad.append(label)
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -924,19 +959,26 @@ def launch_counters(counters: dict) -> dict:
             if a == "launches" or a.startswith("launches_")}
 
 
+def counted(counters: dict, fn):
+    """``fn()`` with every kernel's launch counters set to 0 just before it
+    and read just after: (its result, the counts)."""
+    every = launch_counters(counters)
+    for f, attr in every.values():
+        setattr(f, attr, 0)
+    out = fn()
+    return out, {key: getattr(f, attr) for key, (f, attr) in every.items()}
+
+
 def serve_main_path(serve, argv: list, counters: dict, want: dict,
-                    vocab: int) -> dict:
+                    vocab: int, keep: bool = False):
     """Drive ``serve.main(argv)`` once with every kernel's launch counters
     set to 0 just before and read just after; fail unless each count is
-    the one wanted and the tokens and logits are sane."""
+    the one wanted and the tokens and logits are sane.  Returns the
+    figures, and with ``keep`` also what ``serve.main`` returned."""
     print(f"serve: python -m repro_torch.launch.serve {' '.join(argv)}",
           flush=True)
     torch.cuda.reset_peak_memory_stats()
-    every = launch_counters(counters)
-    for fn, attr in every.values():
-        setattr(fn, attr, 0)
-    out = serve.main(argv)
-    launches = {key: getattr(fn, attr) for key, (fn, attr) in every.items()}
+    out, launches = counted(counters, lambda: serve.main(argv))
     batch, gen = int(argv[argv.index("--batch") + 1]), \
         int(argv[argv.index("--gen") + 1])
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -954,6 +996,8 @@ def serve_main_path(serve, argv: list, counters: dict, want: dict,
     res = dict(launches=launches, peak_gib=peak,
                **{k: out[k] for k in ("prefill_tok_s", "decode_tok_s",
                                       "warmup_s")})
+    if keep:
+        return res, out
     del out
     torch.cuda.empty_cache()
     return res
@@ -1480,6 +1524,319 @@ def phase_planner(train, counters: dict, mods) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 23-26: interleaved serving, continuous batching, the mixed step.
+# ---------------------------------------------------------------------------
+
+#: V = 2 against V = 1 prefill logits, relative to max |logit|: the same
+#: layer calls run at the same shapes, so any gap is a finding
+V2_PREFILL_REL = 1e-6
+#: what the handoff's gather allocates beside the new leaf: its index
+#: vector, and each block rounded up to 512 bytes by the allocator
+HANDOFF_SLACK = 4096
+
+
+def same_generation(label: str, a: dict, b: dict, bar=None) -> dict:
+    """Tokens of two serve runs, and their prefill logits relative to
+    max |logit| (failing above ``bar`` where one is given)."""
+    la, lb = a["prefill_logits"].float(), b["prefill_logits"].float()
+    gap = ((la - lb).abs().max() / la.abs().max()).item()
+    res = dict(tokens_identical=torch.equal(a["tokens"], b["tokens"]),
+               prefill_rel_gap=gap, prefill_bitwise=torch.equal(la, lb))
+    print(f"{label}: V=2 against V=1: {json.dumps(res)} (prefill bar "
+          f"{bar})", flush=True)
+    if not res["tokens_identical"]:
+        fail(f"{label}: V = 2 tokens differ from V = 1's")
+    if bar is not None and gap > bar:
+        fail(f"{label}: V = 2 prefill logits {gap:.3e} of max |logit| from "
+             f"V = 1's (bar {bar})")
+    return res
+
+
+def handoff_memory(label: str, h: dict) -> dict:
+    """The handoff's figures; fail if its peak passed what was resident
+    before it plus its largest leaf."""
+    bar = h["allocated_before"] + h["largest_leaf_bytes"] + HANDOFF_SLACK
+    gib = {k: h[k] / 2**30 for k in ("peak_before", "allocated_before",
+                                      "peak_during", "allocated_after",
+                                      "bytes_before", "largest_leaf_bytes")}
+    res = dict(handoff_ms=1e3 * h["seconds"], bar_gib=bar / 2**30,
+               **{k + "_gib": v for k, v in gib.items()})
+    print(f"{label}: handoff {json.dumps(res)}", flush=True)
+    if h["peak_during"] > bar:
+        fail(f"{label}: the handoff's peak {h['peak_during']} B passed "
+             f"what was resident before it plus its largest leaf ({bar} B)")
+    return res
+
+
+def phase_interleaved(serve, counters: dict, get_config) -> dict:
+    """Phase 23: llama3.2-1b through ``serve.main`` at V = 2 and V = 1
+    (4 stages, M 4), then mamba2-2.7b at 8 layers through ``serve.serve``
+    at V = 2 and V = 1 (2 stages, M 2)."""
+    argv = ["--arch", "llama3.2-1b", "--tensor", "1", "--stages", "4",
+            "--microbatches", "4", "--batch", "8", "--prompt-len", "512",
+            "--gen", "32", "--device", "cuda"]
+    want = {"flash_attention": 16 * 4 * 32,
+            "flash_attention.prefill": 16 * 4,
+            "flash_attention.decode": 16 * 4 * 31,
+            "flash_attention.bwd": 0, "ssd_scan": 0, "ssd_scan.bwd": 0}
+    # each run starts with the allocator's cache empty, as every serve run
+    # of this script does
+    torch.cuda.empty_cache()
+    v2, o2 = serve_main_path(serve, argv + ["--virtual", "2"], counters,
+                             want, 128256, keep=True)
+    torch.cuda.empty_cache()
+    v1, o1 = serve_main_path(serve, argv, counters, want, 128256, keep=True)
+    res = dict(llama_v2=v2, llama_v1=v1,
+               llama=same_generation("llama3.2-1b", o2, o1, V2_PREFILL_REL),
+               llama_handoff=handoff_memory("llama3.2-1b", o2["handoff"]))
+    del o1, o2
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"), n_layers=8,
+                              stages=2, tensor=1)
+    want = {"flash_attention": 0, "flash_attention.prefill": 0,
+            "flash_attention.decode": 0, "flash_attention.bwd": 0,
+            "ssd_scan": 8 * 2, "ssd_scan.bwd": 0}
+    outs = {}
+    for V in (2, 1):
+        torch.cuda.empty_cache()
+        print(f"serve: mamba2-2.7b at full width, 8 layers, 2 stages, "
+              f"V={V}, M 2, batch 8, prompt 512, 32 tokens", flush=True)
+        out, launches = counted(counters, lambda: serve.serve(
+            dataclasses.replace(cfg, virtual=V), microbatches=2,
+            schedule="auto", batch=8, prompt_len=512, gen=32, seed=0,
+            device=torch.device("cuda")))
+        print(f"serve: prefill {out['prefill_tok_s']:.1f} tok/s, decode "
+              f"{out['decode_tok_s']:.1f} tok/s, launches "
+              f"{json.dumps(launches)} (want {json.dumps(want)})",
+              flush=True)
+        if launches != want:
+            fail(f"mamba2 V={V}: kernel launches {launches}, want {want}")
+        outs[V] = out
+        res[f"mamba_v{V}"] = dict(launches=launches, **{
+            k: out[k] for k in ("prefill_tok_s", "decode_tok_s")})
+    res["mamba"] = same_generation("mamba2-2.7b 8 layers", outs[2], outs[1])
+    res["mamba_handoff"] = handoff_memory("mamba2-2.7b 8 layers",
+                                          outs[2]["handoff"])
+    del outs
+    torch.cuda.empty_cache()
+    return res
+
+
+class AttentionCapture:
+    """While entered, records clones of the inputs of the first
+    ``flash_attend`` call ``models/layers.attend`` makes (it looks the
+    wrapper up at call time); the call itself runs, and counts, as ever."""
+
+    def __init__(self, LYR):
+        self.LYR, self.orig, self.args = LYR, LYR.flash_attend, None
+
+    def __enter__(self):
+        def rec(q, k, v, **kw):
+            if self.args is None:
+                self.args = (q.clone(), k.clone(), v.clone(), {
+                    n: a.clone() if isinstance(a, torch.Tensor) else a
+                    for n, a in kw.items()})
+            return self.orig(q, k, v, **kw)
+        self.LYR.flash_attend = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.LYR.flash_attend = self.orig
+
+
+def engine_requests(SS, vocab: int, n: int, lo: int, hi: int,
+                    max_new: int = 16, gap: int = 2) -> list:
+    """``n`` requests, prompt lengths in [lo, hi] and tokens from
+    ``numpy.random.default_rng(7)``, one arrival every ``gap`` steps."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    lens = rng.integers(lo, hi + 1, n)
+    return [SS.Request(rid=i, prompt=rng.integers(0, vocab, int(m)).tolist(),
+                       max_new=max_new, arrival=gap * i)
+            for i, m in enumerate(lens)]
+
+
+def percentile(xs, q: float) -> float:
+    import numpy as np
+    return float(np.percentile(np.asarray(xs, dtype=float), q))
+
+
+def phase_engine(mods, counters: dict, label: str, reqs: list, *,
+                 chunk: int, max_len: int, virtual: int = 1, M_: int = 2,
+                 capture=None) -> dict:
+    """Phases 24 and 25: ``reqs`` through ``ContinuousEngine`` over the
+    pipelined step of llama3.2-1b at full width (4 stages, 8 slots), then
+    under the sequential policy (one request in flight at a time, over the
+    same step, as ``benchmarks/serve_bench.py`` runs it).  Each request's
+    tokens must be bit-identical between the two, some continuous step
+    must mix prefill and decode, and each run must launch the flash kernel
+    exactly 16 x M a step.  With ``capture`` (an
+    :class:`AttentionCapture`), the continuous run's first step whose
+    first micro-batch mixes prefill and decode records its first
+    attention call's inputs."""
+    import copy
+    get_config, RT, ST, SS, FA = mods
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), stages=4, tensor=1,
+                              virtual=virtual)
+    plan = ST.plan_stages(cfg)
+    n_slots = 8
+    mb = n_slots // M_
+    params = ST.init_stacked_params(cfg, 0, plan, device="cuda")
+    step = RT.make_serve_step(cfg, plan, RT.PipelineConfig(n_microbatches=M_),
+                              q_len=chunk)
+    route = FA.route(chunk, cfg.n_heads, cfg.n_kv_heads)
+    arrival = {r.rid: r.arrival for r in reqs}
+    # one step on a throwaway cache first, so that both policies start with
+    # the allocator and cuBLAS warm (its launches are not counted)
+    step(params, RT.init_pipeline_cache(cfg, plan, n_slots, max_len,
+                                        device="cuda"),
+         dict(tokens=torch.zeros(n_slots, chunk, dtype=torch.long,
+                                 device="cuda"),
+              n_valid=torch.ones(n_slots, dtype=torch.int32, device="cuda")))
+    res, tokens = {}, {}
+    for policy in ("continuous", "sequential"):
+        stamps = []
+
+        def fenced(p, c, b):
+            arm = (capture is not None and capture.args is None
+                   and policy == "continuous")
+            if arm:
+                nv = b["n_valid"][:mb].cpu()
+                arm = bool((nv > 1).any() and (nv == 1).any())
+            with capture if arm else contextlib.nullcontext():
+                lg, c = step(p, c, b)
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            return lg, c
+
+        cache = RT.init_pipeline_cache(cfg, plan, n_slots, max_len,
+                                       device="cuda")
+        eng = SS.ContinuousEngine(cfg, fenced, params, cache, n_slots, chunk)
+        rs = copy.deepcopy(reqs)
+
+        def run():
+            if policy == "continuous":
+                return eng.run(rs)
+            done = []
+            for r in sorted(rs, key=lambda q: q.arrival):
+                r.arrival = eng.steps_run    # admit after the previous one
+                done += eng.run([r])
+            return done
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done, launches = counted(counters, run)
+        wall = time.perf_counter() - t0
+        n = 16 * M_ * eng.steps_run
+        want = {"flash_attention": n,
+                "flash_attention.prefill": n if route == "prefill" else 0,
+                "flash_attention.decode": n if route == "decode" else 0,
+                "flash_attention.bwd": 0, "ssd_scan": 0, "ssd_scan.bwd": 0}
+        if launches != want:
+            fail(f"{label} {policy}: kernel launches {launches}, want "
+                 f"{want} (16 layers x M {M_} x {eng.steps_run} steps)")
+        at = lambda i: stamps[min(i, len(stamps) - 1)] - t0
+        lat_steps = [r.t_done - arrival[r.rid] + 1 for r in done]
+        lat_ms = [1e3 * (at(r.t_done) - (at(arrival[r.rid] - 1)
+                                         if arrival[r.rid] > 0 else 0.0))
+                  for r in done]
+        gen = sum(len(r.generated) for r in done)
+        mixed = sum(1 for sp in eng.step_log
+                    if {"prefill", "decode"} <= {w.kind for w in sp.work})
+        res[policy] = dict(
+            steps=eng.steps_run, wall_s=wall, generated=gen,
+            tok_s=gen / wall, mixed_steps=mixed, launches=launches,
+            latency_steps_p50=percentile(lat_steps, 50),
+            latency_steps_p99=percentile(lat_steps, 99),
+            latency_ms_p50=percentile(lat_ms, 50),
+            latency_ms_p99=percentile(lat_ms, 99))
+        print(f"{label} {policy}: {json.dumps(res[policy])}", flush=True)
+        if len(done) != len(reqs):
+            fail(f"{label} {policy}: {len(done)} of {len(reqs)} retired")
+        tokens[policy] = {r.rid: r.generated for r in done}
+        del eng, cache
+    if tokens["continuous"] != tokens["sequential"]:
+        bad = [i for i in tokens["sequential"]
+               if tokens["continuous"][i] != tokens["sequential"][i]]
+        fail(f"{label}: continuous tokens differ from the sequential "
+             f"policy's for requests {bad}")
+    if not res["continuous"]["mixed_steps"]:
+        fail(f"{label}: no continuous step mixed prefill and decode")
+    print(f"{label}: tokens bit-identical between the policies over "
+          f"{len(reqs)} requests", flush=True)
+    del params, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_mixed_attention(FA, captures: dict, launches: dict) -> list:
+    """Phase 26: the captured first-layer attention of a mixed step against
+    ``attend_ref`` (f32, phase 3's tolerance), with the kernel's, the plain
+    version's and SDPA's device times, the bound, and the launches of the
+    engine run it came from."""
+    rows = []
+    for label, (q, k, v, kw) in captures.items():
+        row = attention_row(
+            FA, f"mixed step {label} B={q.shape[0]} T={q.shape[1]} "
+            f"S={k.shape[1]} Hq={q.shape[2]} Hkv={k.shape[2]} "
+            f"D={q.shape[3]} q_start={kw['q_start'].tolist()}",
+            q, k, v, kw["q_start"], kw["kv_len"], kw["causal"],
+            lambda: FA.flash_attend(q, k, v, **kw),
+            lambda: FA.attend_ref(q, k, v, **kw), q.dtype, kw["window"])
+        row["launches"] = launches[label]
+        rows.append(row)
+        if not row["ok"]:
+            fail(f"mixed step {label}: the kernel is {row['max_abs_err']:.3e} "
+                 f"from its plain version (bar {row['tol']})")
+    return rows
+
+
+def phase_gemma_mixed(serve_mods) -> float:
+    """Phase 26, then: gemma3-1b at full width and 2 layers (the first
+    local, window 512; the second global), a prefill step of 544 columns
+    with per-slot ``n_valid`` (544, 544, 520, idle), then a mixed step of
+    64 columns (a prefill chunk, two decodes past the window, an idle
+    slot), on the card and on the CPU with the same weights; busy slots'
+    logits compared as in phase 5.  Returns the largest difference."""
+    get_config, RT, ST = serve_mods
+    cfg = dataclasses.replace(get_config("gemma3-1b"), n_layers=2, stages=2,
+                              tensor=1, global_every=2)
+    plan = ST.plan_stages(cfg)
+    B, P, C, max_len = 4, 544, 64, 640
+    pcfg = RT.PipelineConfig(n_microbatches=2)
+    steps = [(RT.make_serve_step(cfg, plan, pcfg, q_len=P), [P, P, 520, 0]),
+             (RT.make_serve_step(cfg, plan, pcfg, q_len=C), [C, 1, 1, 0])]
+    params = ST.init_stacked_params(cfg, 0, plan, device="cuda")
+    g = torch.Generator().manual_seed(2)
+    toks = [torch.randint(0, cfg.vocab, (B, q), generator=g) for q in (P, C)]
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        p = _to(params, dev)
+        cache = RT.init_pipeline_cache(cfg, plan, B, max_len, device=dev)
+        out = []
+        for (step, nv), tk in zip(steps, toks):
+            lg, cache = step(p, cache, dict(
+                tokens=tk.to(dev),
+                n_valid=torch.tensor(nv, dtype=torch.int32, device=dev)))
+            out.append(lg[:3, 0])             # the busy slots
+        logits[dev] = torch.stack(out).cpu()
+        del p, cache
+    a, b = logits["cuda"], logits["cpu"]
+    err = (a - b).abs().max().item()
+    rel = ((a - b).abs() / (PATH_TOL + PATH_TOL * b.abs())).max().item()
+    print(f"parity gemma3-1b mixed step: 2 layers (window 512, global), "
+          f"slots at offsets 544 / 544 / 520 / idle past the window, card "
+          f"vs CPU: max |diff| {err:.3e} (|a-b| <= {PATH_TOL} + "
+          f"{PATH_TOL}|b|: worst ratio {rel:.3f})", flush=True)
+    if rel > 1.0 or not torch.isfinite(a).all():
+        fail(f"gemma3-1b mixed step: card and CPU logits differ by {err:.3e}")
+    del params
+    torch.cuda.empty_cache()
+    return err
+
+
 #: the f32 GEMMs of one llama3.2-1b layer's forward at a micro-batch of
 #: 2048 tokens (batch 8 x seq 1024 in 4 micro-batches): (m, k, n, count)
 #: for q and o, k and v, the gate and up projections, the down projection
@@ -1534,8 +1891,10 @@ def main() -> None:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.core import schedplan as SP
+    from repro_torch.core import serve_sched as SS
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.launch import serve, train
+    from repro_torch.models import layers as LYR
     from repro_torch.models import model as M
     from repro_torch.pipeline import runtime as RT
     from repro_torch.pipeline import stage as ST
@@ -1741,6 +2100,40 @@ def main() -> None:
         runs=[r for r in PARITY_RUNS if r[0] in ("1f1b", "zb-h1")],
         card_vs_cpu=(), seq=1024)
 
+    # ---- 23. interleaved serving: V = 2 prefill, the handoff, V = 1 -------
+    interleaved_serve = phase_interleaved(serve, counters, get_config)
+
+    # ---- 24. continuous batching at chunk 64 ------------------------------
+    engine_mods = (get_config, RT, ST, SS, FA)
+    vocab = get_config("llama3.2-1b").vocab
+    captures, cap = {}, AttentionCapture(LYR)
+    engine = {"chunk 64": phase_engine(
+        engine_mods, counters, "engine chunk 64",
+        engine_requests(SS, vocab, 16, 16, 512), chunk=64, max_len=640,
+        capture=cap)}
+    captures["chunk 64"] = cap.args
+
+    # ---- 25. the same engine on other shapes ------------------------------
+    cap = AttentionCapture(LYR)
+    engine["chunk 4"] = phase_engine(
+        engine_mods, counters, "engine chunk 4",
+        engine_requests(SS, vocab, 8, 8, 40), chunk=4, max_len=64,
+        capture=cap)
+    captures["chunk 4"] = cap.args
+    engine["chunk 64 V=2 M=4"] = phase_engine(
+        engine_mods, counters, "engine chunk 64 V=2 M=4",
+        engine_requests(SS, vocab, 8, 16, 512), chunk=64, max_len=640,
+        virtual=2, M_=4)
+    if None in captures.values():
+        fail(f"no mixed first micro-batch to capture: "
+             f"{[k for k, v in captures.items() if v is None]}")
+
+    # ---- 26. the mixed step's attention against its plain version --------
+    mixed_rows = phase_mixed_attention(
+        FA, captures, {k: engine[k]["continuous"]["launches"][
+            "flash_attention"] for k in captures})
+    gemma_mixed_err = phase_gemma_mixed(serve_mods)
+
     train_paths = {f"train {r['schedule']} V={r['virtual']} "
                    f"M={r['microbatches']}": r["launches"]
                    for r in (trained, interleaved, zb_h2)}
@@ -1764,7 +2157,13 @@ def main() -> None:
             f"serve {name}": r["launches"]["flash_attention"]
             for name, r in (("llama3.2-1b", llama), ("gemma3-1b", gemma),
                             ("qwen3-1.7b", qwen))},
-            **{k: v["flash_attention"] for k, v in train_paths.items()}),
+            **{k: v["flash_attention"] for k, v in train_paths.items()},
+            **{f"serve llama3.2-1b 4 stages M 4 V={V}":
+               interleaved_serve[f"llama_v{V}"]["launches"]["flash_attention"]
+               for V in (2, 1)},
+            **{f"engine {k} {policy}": r[policy]["launches"]["flash_attention"]
+               for k, r in engine.items()
+               for policy in ("continuous", "sequential")}),
         max_abs_err=main_row["max_abs_err"],
         ms=main_row["ms"], call_ms=main_row["call_ms"],
         plain_ms=main_row["plain_ms"],
@@ -1791,6 +2190,10 @@ def main() -> None:
                             if r["label"].startswith(("gemma3", "qwen3",
                                                       "long prefill"))],
         window_prefill_ratio=window_ratio,
+        # the continuous-batching step's first-layer attention (phase 26)
+        mixed_rows=[{k: r[k] for k in keys + ("route", "launches")}
+                    for r in mixed_rows],
+        gemma3_mixed_parity_max_abs_err=gemma_mixed_err,
         sass=sass, path_parity_max_abs_err=path_err,
         gemma3_path_parity_max_abs_err=gemma_path_err,
         qwen3_path_parity_max_abs_err=qwen_path_err)
@@ -1803,6 +2206,9 @@ def main() -> None:
         replaces="src/repro/kernels/ssd_scan.py:70",
         launches=mamba["launches"]["ssd_scan"],
         launches_train=mamba_trained["launches"]["ssd_scan"],
+        launches_by_path={f"serve mamba2-2.7b 8 layers V={V}":
+                          interleaved_serve[f"mamba_v{V}"]["launches"][
+                              "ssd_scan"] for V in (2, 1)},
         max_abs_err=ssd_row["max_abs_err"], rel_err=ssd_row["rel_err"],
         ms=ssd_row["ms"], call_ms=ssd_row["call_ms"],
         plain_ms=ssd_row["plain_ms"],
@@ -1859,7 +2265,9 @@ def main() -> None:
                                     "bfloat16").items() if k in bwd_keys})
     print(json.dumps({"serve": {"llama3.2-1b": llama,
                                 "mamba2-2.7b": mamba, "gemma3-1b": gemma,
-                                "qwen3-1.7b": qwen}}), flush=True)
+                                "qwen3-1.7b": qwen,
+                                "interleaved": interleaved_serve,
+                                "engine": engine}}), flush=True)
     print(json.dumps({"train": {"llama3.2-1b": trained,
                                 "interleaved": interleaved, "zb-h2": zb_h2,
                                 "parity": train_parity,

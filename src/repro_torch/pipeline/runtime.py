@@ -1,6 +1,5 @@
 """BaPipe pipelined serving and training on one device (the port's share
-of ``repro/pipeline/runtime.py``: tensor = 1, data = 1; V > 1 chunks per
-stage in training only).
+of ``repro/pipeline/runtime.py``: tensor = 1, data = 1).
 
 The JAX runtime runs every stage on its own device inside ``shard_map``
 and shifts activations around ``ppermute`` rings, one tick at a time.
@@ -9,9 +8,12 @@ in-process executors of the same schedule-plan tables:
 
 * :func:`make_serve_step` replays :func:`repro_torch.core.schedplan.
   lower_to_ring`: at tick t, stage s runs element ``e = t - s`` on the
-  activation stage s-1 produced at tick t-1.  (stage, tick) pairs with no
-  element (pipeline fill and drain) are skipped, not computed and masked,
-  which gives what the JAX runtime gives with ``gate_ticks``.
+  activation stage s-1 produced at tick t-1; stage 0 takes a fresh
+  micro-batch, the ring return of the last stage (``direct``) or one
+  parked in a per-micro-batch return slot (``park``).  (stage, tick)
+  pairs with no element (pipeline fill and drain) are skipped, not
+  computed and masked, which gives what the JAX runtime gives with
+  ``gate_ticks``.
 * :func:`make_train_step` replays :func:`repro_torch.core.schedplan.
   lower_to_ticks`: every F, B and W op of the schedule is a tick of its
   stage, and the forward and backward rings are lists of the previous
@@ -86,16 +88,47 @@ def apply_stage(cfg: ArchConfig, layer_params: list, stage_meta: list, x, *,
 def init_pipeline_cache(cfg: ArchConfig, plan: ST.StagePlan, batch: int,
                         max_len: int, *, dtype=torch.float32,
                         device="cuda") -> dict:
-    """Cache [S, Lps, B, ...]: k/v [S, Lps, B, max_len, Hkv, D] and
-    per-slot ``len`` offsets [S, Lps, B]; or, for the SSM family, the conv
-    window [S, Lps, B, d_conv-1, conv_ch] and state [S, Lps, B, H, P, N]
+    """Cache [S, Lps, B, ...] (or [S, V, Lc, B, ...] for an interleaved
+    plan, as :func:`stage._stack_chunks` lays out parameters): k/v
+    [S, Lps, B, max_len, Hkv, D] and per-slot ``len`` offsets
+    [S, Lps, B]; or, for the SSM family, the conv window
+    [S, Lps, B, d_conv-1, conv_ch] and state [S, Lps, B, H, P, N]
     (``max_len`` unused)."""
-    if plan.tensor != 1 or plan.virtual != 1:
-        raise NotImplementedError("the port's pipeline cache is V = 1, "
-                                  "tensor = 1 so far")
+    if plan.tensor != 1:
+        raise NotImplementedError("the port's pipeline cache is tensor = 1 "
+                                  "so far")
     pad_cfg = dataclasses.replace(cfg, n_layers=plan.n_layers_padded)
     c = M.init_cache(pad_cfg, batch, max_len, dtype=dtype, device=device)
-    return ST._map_layers(lambda a: ST._stack_chunks(a, plan), c)
+    return ST._map_layers_(lambda a: ST._stack_chunks(a, plan), c)
+
+
+def _kv_len_leaves(cache: dict, kv: bool = False) -> list:
+    """The ``kv`` subtree's ``len`` offset leaves, and nothing else (the
+    JAX package's ``_is_kv_len`` scope): a field named ``len`` outside a
+    ``kv`` subtree is never bumped."""
+    out = []
+    for k, a in cache.items():
+        if isinstance(a, dict):
+            out += _kv_len_leaves(a, kv or k == "kv")
+        elif kv and k == "len":
+            out.append(a)
+    return out
+
+
+def _advance_len(cache: dict, adv) -> dict:
+    """Advance the kv ``len`` offsets IN PLACE by ``adv``: a scalar
+    (uniform step) or a per-slot [B] tensor (continuous batching: each
+    slot by its own valid count), broadcast over the trailing slot axis of
+    the [.., B] leaves."""
+    for a in _kv_len_leaves(cache):
+        a += adv
+    return cache
+
+
+def _chunk_index(V: int):
+    """``(s, v) ->`` the index of chunk v of stage s in a stacked
+    [S, Lps, ...] (V = 1) or [S, V, Lc, ...] leaf."""
+    return (lambda s, v: (s,)) if V == 1 else (lambda s, v: (s, v))
 
 
 def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
@@ -106,27 +139,43 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
 
     ``q_len=1`` is one-token decode; ``q_len=seq`` is prefill (KV cache
     populated, logits returned for the last position).  Micro-batches
-    split the batch dimension; each (stage, element) pair runs the
-    stage's layers on its micro-batch's rows of the stage's cache.  KV
-    cache ``len`` offsets are per-slot [B] vectors, frozen during the
-    ticks (each row is processed exactly once per step) and advanced once
-    at the end, only where the cache has a ``kv`` subtree.  The cache (k/v
-    or SSM conv/state) is updated IN PLACE (the JAX step donates it and
-    returns a new one); the returned cache is the argument.
+    split the batch dimension; each (stage, element) pair runs chunk
+    ``lowering.v_of_e[e]`` of the stage (its ``[Lc]`` parameters and
+    cache rows) on its micro-batch's rows.  KV cache ``len`` offsets are
+    per-slot [B] vectors, frozen during the ticks (each row is processed
+    exactly once per step) and advanced once at the end, only where the
+    cache has a ``kv`` subtree.  The cache (k/v or SSM conv/state) is
+    updated IN PLACE (the JAX step donates it and returns a new one); the
+    returned cache is the argument.
 
-    Returns f32 logits ``[B, 1, padded_vocab]``.  Continuous batching
-    (``n_valid``) is not ported yet, and the SSM family refuses it."""
-    if plan.virtual != 1:
-        raise NotImplementedError("virtual > 1 serving is not ported yet")
+    Continuous batching: the batch may carry ``n_valid`` [B] int32 — slot
+    b's first ``n_valid[b]`` columns are real tokens (0 = idle, 1 =
+    decode, up to ``q_len`` = a prefill chunk); each slot starts at its
+    own offset and advances it by exactly that count, and the logits are
+    gathered at its last valid column (column 0 for an idle slot, whose
+    logits mean nothing).  Padding columns write keys past the slot's
+    offset, which valid queries never see (causal mask) and the next step
+    overwrites.  Attention families only: the SSM family's recurrent state
+    has no per-token offsets to mask padding with.
+
+    Interleaved plans (``plan.virtual`` = V > 1) replay the same ring
+    table for prefill and for one-token decode; the cache and parameter
+    leaves are [S, V, Lc, ...] and each tick indexes its chunk.
+
+    Returns f32 logits ``[B, 1, padded_vocab]``.  ``serve_step.lowering``
+    is the replayed ring table."""
     if plan.tensor != 1 or data != 1:
         raise NotImplementedError(
             f"tensor={plan.tensor}, data={data}: the port serves on one "
             f"card with tensor = data = 1 so far")
-    S, M_ = plan.n_stages, pcfg.n_microbatches
-    sched = SP.resolve_ring_schedule(pcfg.schedule, plan.virtual)
-    lowering = SP.lower_to_ring(SP.build_schedule(sched, M_, S))
+    S, V, M_ = plan.n_stages, plan.virtual, pcfg.n_microbatches
+    sched = SP.resolve_ring_schedule(pcfg.schedule, V)
+    ml = (pcfg.mem_limit or None) if sched == "zb-auto" else None
+    lowering = SP.lower_to_ring(SP.build_schedule(sched, M_, S, V,
+                                                  mem_limit=ml))
     smeta = ST.stacked_meta(cfg, plan)
     MV = lowering.M * lowering.V
+    chunk = _chunk_index(V)
 
     def serve_step(params: dict, cache: dict, batch: dict):
         if "n_valid" in batch and cfg.family in ("ssm", "hybrid", "audio"):
@@ -136,10 +185,10 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
                 f"family carries recurrent ssm/conv (or cross-attention) "
                 f"state that padding tokens would pollute — serve it "
                 f"with uniform steps instead")
-        if set(batch) != {"tokens"}:
+        if not set(batch) <= {"tokens", "n_valid"}:
             raise NotImplementedError(
-                f"serve batch keys {sorted(batch)}: only 'tokens' is "
-                f"ported (n_valid / pos3 come later)")
+                f"serve batch keys {sorted(batch)}: only 'tokens' and "
+                f"'n_valid' are ported (pos3 comes with M-RoPE)")
         tokens = batch["tokens"]
         B, T = tokens.shape
         if T != q_len:
@@ -152,35 +201,56 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
         pos_all = M._default_pos(tokens, cache)
 
         carry = [None] * S              # stage s's output at the last tick
+        retbuf = [None] * M_            # stage 0's parked ring returns
         outbuf = [None] * M_
         for t in range(lowering.n_ticks):
+            # the ring return reaching stage 0 now is element t - S's
+            e_arr = t - S
+            if 0 <= e_arr < MV and lowering.park[e_arr]:
+                retbuf[lowering.m_of_e[e_arr]] = carry[S - 1]
             nxt = [None] * S
             for s in range(S):
                 e = t - s
                 if not 0 <= e < MV:
                     continue            # fill/drain: no element here
-                mc = lowering.m_of_e[e]
+                mc, v = lowering.m_of_e[e], lowering.v_of_e[e]
                 rows = slice(mc * mb, (mc + 1) * mb)
-                x_in = x_all[rows] if s == 0 else carry[s - 1]
-                # this micro-batch's rows of the stage's cache; the views
+                if s > 0:
+                    x_in = carry[s - 1]
+                elif lowering.fresh[e]:
+                    x_in = x_all[rows]
+                else:
+                    x_in = carry[S - 1] if lowering.direct[e] else retbuf[mc]
+                # this micro-batch's rows of the chunk's cache; the views
                 # are written in place, 'len' stays frozen
-                c_mb = ST._map_layers(lambda a: a[s, :, rows], cache)
-                layers = [M.layer_slice(params["layers"], (s, j))
+                c_mb = ST._map_layers(
+                    lambda a: a[chunk(s, v) + (slice(None), rows)], cache)
+                layers = [M.layer_slice(params["layers"], chunk(s, v) + (j,))
                           for j in range(plan.layers_per_stage)]
-                y, _, _ = apply_stage(cfg, layers, smeta[s], x_in,
-                                      pos=pos_all[rows], cache=c_mb)
+                y, _, _ = apply_stage(cfg, layers,
+                                      smeta[s] if V == 1 else smeta[s][v],
+                                      x_in, pos=pos_all[rows], cache=c_mb)
                 nxt[s] = y
                 if s == S - 1 and lowering.collect[e]:
                     outbuf[mc] = y
             carry = nxt
-        if "kv" in cache:
-            cache["kv"]["len"] += q_len     # advance every offset once
 
-        hidden = torch.cat(outbuf, dim=0)[:, -1:]             # [B,1,d]
+        hidden = torch.cat(outbuf, dim=0)                     # [B,q,d]
+        nv = batch.get("n_valid")
+        if nv is None:
+            _advance_len(cache, q_len)      # advance every offset once
+            hidden = hidden[:, -1:]
+        else:
+            nv = torch.as_tensor(nv, dtype=torch.int32, device=tokens.device)
+            _advance_len(cache, nv)
+            # each slot's last valid column (an idle slot's column 0)
+            col = nv.long().clamp(1, q_len) - 1
+            hidden = hidden[torch.arange(B, device=tokens.device), col][:, None]
         h = LYR.rms_norm(hidden, params["final_norm"], cfg.norm_eps)
         table = params.get("head", params["embed"])
         return (h @ table.T).float(), cache
 
+    serve_step.lowering = lowering
     return serve_step
 
 
@@ -262,9 +332,7 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
     remat = "full" if pcfg.remat == "full" else "none"
     ct_scale = 1.0 / M_
     Lc = plan.layers_per_stage
-    # the index of chunk v of stage s in a stacked [S, Lps, ...] or
-    # [S, V, Lc, ...] leaf
-    chunk = (lambda s, v: (s,)) if V == 1 else (lambda s, v: (s, v))
+    chunk = _chunk_index(V)
     # the ticks that write a chunk's weight gradients first (B/B_SEED, or
     # W in zero-bubble plans): they store it, the later ones add to it
     grad_kinds = ((SP.TICK_W,) if lo.has_w

@@ -60,9 +60,68 @@ def unstack_chunks(a, plan: StagePlan):
     return a.swapaxes(0, 1).reshape((-1,) + tuple(a.shape[3:]))
 
 
+def _slot_of_layer(plan: StagePlan) -> list:
+    """``out[i]``: the global layer held by flat slot i of a leaf whose
+    stacked leading axes ([S, Lps] or [S, V, Lc]) are merged into one."""
+    S, V, Lc = plan.n_stages, plan.virtual, plan.layers_per_stage
+    return [(v * S + s) * Lc + j
+            for s in range(S) for v in range(V) for j in range(Lc)]
+
+
+def restack_layers(a, plan_from: StagePlan, plan_to: StagePlan,
+                   n_layers: int):
+    """Re-fold a layer-stacked leaf from one plan's chunk layout to
+    another's (e.g. the interleaved-prefill [S, V, Lc, ...] cache into the
+    contiguous [S, Lps, ...] decode layout): the global layer order is
+    kept, trimmed to the ``n_layers`` real layers and re-padded by
+    repeating the last real layer (padded slots are inactive), as the JAX
+    package's unstack / trim / pad / restack does.  One gather: the result
+    is the one new array the call allocates.  Works on tensors and numpy
+    arrays."""
+    lead = 2 if plan_from.virtual == 1 else 3
+    held = {g: f for f, g in enumerate(_slot_of_layer(plan_from))}
+    idx = [held[min(g, n_layers - 1)] for g in _slot_of_layer(plan_to)]
+    flat = a.reshape((-1,) + tuple(a.shape[lead:]))
+    if isinstance(a, torch.Tensor):
+        out = flat[torch.tensor(idx, device=a.device)]
+    else:
+        out = flat[idx]
+    S, V, Lc = plan_to.n_stages, plan_to.virtual, plan_to.layers_per_stage
+    return out.reshape(((S, Lc) if V == 1 else (S, V, Lc))
+                       + tuple(a.shape[lead:]))
+
+
+def restack_params(params: dict, plan_from: StagePlan, plan_to: StagePlan,
+                   n_layers: int) -> dict:
+    """Re-stack the ``layers`` subtree of a stacked parameter tree from
+    one stage plan to another (embed/head/final_norm pass through)."""
+    return dict(params, layers=_map_layers(
+        lambda a: restack_layers(a, plan_from, plan_to, n_layers),
+        params["layers"]))
+
+
+def restack_tree_(tree: dict, plan_from: StagePlan, plan_to: StagePlan,
+                  n_layers: int) -> dict:
+    """:func:`restack_layers` on every leaf of ``tree`` (a ``layers``
+    subtree or a pipeline cache), in place and leaf by leaf
+    (:func:`_map_layers_`): the handoff never holds more than one leaf
+    twice (the JAX serve CLI donates its buffers instead)."""
+    return _map_layers_(
+        lambda a: restack_layers(a, plan_from, plan_to, n_layers), tree)
+
+
 def _map_layers(fn, tree: dict) -> dict:
     return {k: _map_layers(fn, v) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
+
+
+def _map_layers_(fn, tree: dict) -> dict:
+    """``fn`` on every leaf of ``tree``, IN PLACE: each old leaf is
+    dropped as its new one is made, so no more than one leaf is ever held
+    twice.  The caller must hold no other reference to the leaves."""
+    for k, a in tree.items():
+        tree[k] = _map_layers_(fn, a) if isinstance(a, dict) else fn(a)
+    return tree
 
 
 def tree_leaves(tree) -> list:
@@ -87,9 +146,11 @@ def init_stacked_params(cfg: ArchConfig, seed: int, plan: StagePlan, *,
                         device=device) / math.sqrt(cfg.d_model)
     blocks = [M.init_block(cfg, gen, dtype, device)
               for _ in range(plan.n_layers_padded)]
+    layers = M.stack_layers(blocks)
+    del blocks
+    # at V > 1 each leaf is re-laid out by a copy: one leaf at a time
     p = dict(embed=embed,
-             layers=_map_layers(lambda a: _stack_chunks(a, plan),
-                                M.stack_layers(blocks)),
+             layers=_map_layers_(lambda a: _stack_chunks(a, plan), layers),
              final_norm=torch.zeros((cfg.d_model,), dtype=dtype,
                                     device=device))
     if not cfg.tie_embeddings:

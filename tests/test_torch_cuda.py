@@ -631,3 +631,94 @@ def test_ssd_bwd_bitwise_reproducible_on_card(dtype):
         for a, b in zip(first, second):
             assert (a is None and b is None) or torch.equal(a, b)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_interleaved_serve_on_card_matches_v1_and_cpu():
+    """The serve CLI on the card with ``--virtual 2`` (interleaved prefill,
+    the restack handoff) gives the tokens of the V = 1 run, and prefill
+    logits within 1e-6 of max |logit| of its (the same layer calls at
+    the same shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.launch import serve
+    argv = ["--arch", "llama3.2-1b", "--reduced", "--stages", "2",
+            "--batch", "4", "--prompt-len", "64", "--gen", "4",
+            "--device", "cuda"]
+    v2 = serve.main(argv + ["--virtual", "2"])
+    v1 = serve.main(argv)
+    assert torch.equal(v2["tokens"], v1["tokens"])
+    a, b = v2["prefill_logits"], v1["prefill_logits"]
+    assert (a - b).abs().max() <= 1e-6 * b.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [4, 16])
+def test_continuous_engine_on_card_matches_sequential_and_cpu(chunk):
+    """A reduced llama (2 stages, 8 slots) under ``ContinuousEngine`` on
+    the card (chunk 4: the decode route; 16: the prefill route): each
+    request's tokens bit-identical to the sequential policy's over the
+    same step, and each continuous step's logits within 2e-4 of max
+    |logit| of the same step plans replayed on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import copy
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import serve_sched as SS
+    from repro_torch.pipeline import runtime as RT
+    from repro_torch.pipeline import stage as ST
+    cfg = dataclasses.replace(
+        get_config("llama3.2-1b").reduced(n_layers=4, d_model=256),
+        stages=2)
+    plan = ST.plan_stages(cfg)
+    step = RT.make_serve_step(cfg, plan, RT.PipelineConfig(n_microbatches=2),
+                              q_len=chunk)
+    params = ST.init_stacked_params(cfg, 0, plan, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    reqs = [SS.Request(rid=i, prompt=torch.randint(
+        0, cfg.vocab, (n,), generator=g).tolist(), max_new=4, arrival=2 * i)
+        for i, n in enumerate((9, 30, 5, 17, 12, 3))]
+    to = lambda tree: {k: to(v) if isinstance(v, dict) else v.cuda()
+                       for k, v in tree.items()}
+
+    class Logged(SS.ContinuousEngine):
+        """Records each step's admissions, inputs and logits."""
+
+        def __init__(self, *a):
+            super().__init__(*a)
+            self.trace, self.admitted = [], []
+            inner = self.step
+
+            def rec(p, c, b):
+                lg, c = inner(p, c, b)
+                self.trace.append((self.admitted, b["tokens"].cpu(),
+                                   b["n_valid"].cpu(), lg[:, 0].cpu()))
+                self.admitted = []
+                return lg, c
+            self.step = rec
+
+        def _reset_slots(self, slot_ids):
+            self.admitted = list(slot_ids)
+            super()._reset_slots(slot_ids)
+
+    cuda_params = to(params)
+    eng = Logged(cfg, step, cuda_params, RT.init_pipeline_cache(
+        cfg, plan, 8, 64, device="cuda"), 8, chunk)
+    cont = {r.rid: r.generated for r in eng.run(copy.deepcopy(reqs))}
+    seq = SS.ContinuousEngine(cfg, step, cuda_params, RT.init_pipeline_cache(
+        cfg, plan, 8, 64, device="cuda"), 8, chunk)
+    for r in copy.deepcopy(reqs):
+        r.arrival = seq.steps_run
+        seq.run([r])
+    assert cont == {r.rid: r.generated for r in seq.sched.retired}
+    cache = RT.init_pipeline_cache(cfg, plan, 8, 64, device="cpu")
+    for admitted, toks, nv, lg in eng.trace:
+        if admitted:
+            mask = np.zeros(8, bool)
+            mask[admitted] = True
+            SS.reset_slot_offsets(cache, mask)
+        want, cache = step(params, cache, dict(tokens=toks, n_valid=nv))
+        busy = nv > 0
+        a, b = lg[busy], want[busy, 0]
+        assert (a - b).abs().max() <= 2e-4 * b.abs().max()

@@ -159,18 +159,23 @@ def test_schedules_and_depths_agree():
 def test_serve_cli_counts_attention_calls():
     """The CLI on the CPU: tokens of the right shape, and the attention
     wrapper's kernel counter untouched (a CPU tensor takes the plain
-    version, never the kernel)."""
+    version, never the kernel).  ``--virtual 2`` (interleaved prefill,
+    then the restack handoff) gives the V = 1 run's tokens."""
     before = FA.flash_attend.launches
-    out = tserve.main(["--arch", "llama3.2-1b", "--reduced", "--stages", "2",
-                       "--batch", "4", "--prompt-len", "8", "--gen", "3",
-                       "--device", "cpu"])
+    argv = ["--arch", "llama3.2-1b", "--reduced", "--stages", "2",
+            "--batch", "4", "--prompt-len", "8", "--gen", "3",
+            "--device", "cpu"]
+    out = tserve.main(argv)
     assert out["tokens"].shape == (4, 3)
     assert ((out["tokens"] >= 0) & (out["tokens"] < 1024)).all()
     assert torch.isfinite(out["last_logits"]).all()
+    assert out["handoff"] is None
+    out2 = tserve.main(argv + ["--virtual", "2"])
+    assert torch.equal(out2["tokens"], out["tokens"])
+    assert out2["lowerings"]["prefill"].V == 2
+    assert out2["lowerings"]["decode"] == out["lowerings"]["decode"]
+    assert out2["handoff"]["seconds"] >= 0
     assert FA.flash_attend.launches == before
-    with pytest.raises(NotImplementedError):
-        tserve.main(["--arch", "llama3.2-1b", "--reduced", "--virtual", "2",
-                     "--device", "cpu"])
     with pytest.raises(NotImplementedError):
         tserve.main(["--arch", "llama3.2-1b", "--reduced", "--tensor", "2",
                      "--device", "cpu"])

@@ -189,18 +189,42 @@ Phases, each reported on its own lines:
    the engine's run, against ``attend_ref`` (phase 3's tolerance) with
    the kernel's, the plain version's and SDPA's times and the bound;
    then a gemma3-1b mixed step (full width, 2 layers: window 512 and
-   global; slots at offsets past the window) card vs CPU within 2e-4.
+   global; slots at offsets past the window) card vs CPU within 2e-4;
+27. stages on separate ranks (``repro_torch.launch.mesh.spawn_ranks``:
+   gloo ranks sharing the one card, each message staged device -> pinned
+   host -> device; NCCL cannot put two ranks on one device): at full
+   width, batch 4, seq 512, llama3.2-1b (3 layers) over 2 ranks under
+   1f1b, zb-h1 and 1f1b-interleaved (V 2, M 4), over 3 ranks under 1f1b
+   (4 layers: 6 slots, 2 padded), and mamba2-2.7b (3 layers) over 2 ranks
+   under 1f1b, each rank's loss and gradient share against the
+   in-process executor run in that rank's process with the same weights
+   (the seed) and batch: bit for bit, the ranks' launches summing to the
+   in-process run's exactly, each rank's stash its stage's;
+28. ``repro_torch.launch.train.main`` as 4 gloo ranks on the one card
+   (phase 10's run: llama3.2-1b at full width, 4 stages x 4 layers, 1f1b,
+   M 4, batch 8, seq 1024, f32, 3 steps, ``--dist-backend gloo``): the
+   three losses equal phase 10's bit for bit, exactly 128 forward and 64
+   backward flash launches a step summed over ranks, each rank's stash
+   its stage's peak-live count; it prints each rank's peak memory, the
+   step ms (the slowest rank's) beside phase 10's and the transport's
+   bytes and ms a step, activation hops apart from the tied embedding's
+   all-reduce (128256 x 2048 f32 each way).  No step time of this phase
+   is a pipeline's: the ranks time-slice one card.
 
 Every kernel's launch counters (``launches`` and, for flash attention,
 ``launches_prefill`` / ``launches_decode`` / ``launches_bwd``; for the
 SSD scan ``launches_bwd``) are set to 0 just before each driven path
 (phases 4, 7, 10, 12, 13, 15, 17, 18 and 21, and each run of phases 11,
-14, 19, 22, 23, 24 and 25) and read just after it.
+14, 19, 22, 23, 24 and 25; in phases 27 and 28 in each rank's process,
+the rank executor's and the in-process runs apart) and read just after
+it.  Every process runs with TF32 off and one cuBLAS workspace setting
+(``card_flags``).  The whole script takes about 7-8 minutes on one H100.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Exits non-zero without a CUDA card or outside a checkout.
 """
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -1837,6 +1861,229 @@ def phase_gemma_mixed(serve_mods) -> float:
     return err
 
 
+# ---------------------------------------------------------------------------
+# Phases 27-28: stages on separate ranks (gloo on the one card).
+# ---------------------------------------------------------------------------
+
+#: phase 27's runs: (label, arch, ranks, layers, schedule, V, M); batch 4,
+#: seq 512, full width; 3 layers pad to 4 slots on 2 ranks, 4 layers to
+#: 6 on 3 ranks
+RANK_RUNS = (
+    ("llama3.2-1b 2 ranks 1f1b", "llama3.2-1b", 2, 3, "1f1b", 1, 2),
+    ("llama3.2-1b 2 ranks zb-h1", "llama3.2-1b", 2, 3, "zb-h1", 1, 2),
+    ("llama3.2-1b 2 ranks 1f1b-interleaved V=2 M=4", "llama3.2-1b", 2, 3,
+     "1f1b-interleaved", 2, 4),
+    ("llama3.2-1b 3 ranks 1f1b", "llama3.2-1b", 3, 4, "1f1b", 1, 2),
+    ("mamba2-2.7b 2 ranks 1f1b", "mamba2-2.7b", 2, 3, "1f1b", 1, 2),
+)
+RANK_BATCH, RANK_SEQ = 4, 512
+
+
+def card_flags() -> None:
+    """The numerics every process of this script runs with: f32 products
+    in f32 (no TF32) and one cuBLAS workspace configuration (its
+    algorithm choice, hence its bits, may depend on the workspace), set
+    before the first cuBLAS call; spawned ranks inherit the variable and
+    call this too."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def rank_parity(mesh, runs) -> list:
+    """Phase 27 on one rank (a spawned process): each run of ``runs`` for
+    this world size through the rank executor, then on the in-process
+    executor in this process with the same weights (the seed) and batch;
+    this rank's loss and gradient share against the in-process run's,
+    both runs' launch counts (set to 0 just before each, read just after)
+    and stash counts."""
+    card_flags()
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.pipeline import runtime as RT
+    from repro_torch.pipeline import stage as ST
+    counters = dict(flash_attention=FA.flash_attend, ssd_scan=SSD.ssd_chunked)
+    out = []
+    for label, arch, S, L, schedule, V, M_ in runs:
+        if S != mesh.world:
+            continue
+        cfg = dataclasses.replace(get_config(arch), n_layers=L, stages=S,
+                                  tensor=1, virtual=V)
+        plan = ST.plan_stages(cfg)
+        pcfg = RT.PipelineConfig(n_microbatches=M_, schedule=schedule)
+        batch = SyntheticLM(cfg.vocab, RANK_SEQ, RANK_BATCH, seed=0,
+                            device=str(mesh.device)).batch(0)
+        step = RT.make_train_step(cfg, plan, pcfg, group=mesh.group)
+        params = ST.init_stage_params(cfg, 0, plan, mesh.rank,
+                                      device=mesh.device)
+        (loss, grads), launches = counted(counters,
+                                          lambda: step(params, batch))
+        torch.cuda.synchronize()
+        transport = {k: list(v) for k, v in step.transport.stats.items()}
+        del params
+        ref_step = RT.make_train_step(cfg, plan, pcfg)
+        full = ST.init_stacked_params(cfg, 0, plan, device=mesh.device)
+        (ref_loss, ref_grads), ref_launches = counted(
+            counters, lambda: ref_step(full, batch))
+        want = ST.stage_share(ref_grads, plan, mesh.rank)
+        leaves = []
+        for (path, a), b in zip(_named_leaves(grads), ST.tree_leaves(want)):
+            leaves.append(dict(
+                leaf=path, bitwise=bool(torch.equal(a, b)),
+                max_abs_diff=(a.float() - b.float()).abs().max().item(),
+                max_abs_ref=b.float().abs().max().item()))
+        out.append(dict(
+            label=label, rank=mesh.rank,
+            keys=sorted(grads) == sorted(want),
+            loss=loss.item(), ref_loss=ref_loss.item(),
+            loss_bitwise=bool(torch.equal(loss, ref_loss)), leaves=leaves,
+            launches=launches, ref_launches=ref_launches,
+            stash=step.stash_slots, ref_stash=ref_step.stash_slots,
+            transport=transport))
+        del grads, full, ref_grads, want, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def _named_leaves(tree: dict, prefix: str = "") -> list:
+    """(path, leaf) in ``tree_leaves`` order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        path = f"{prefix}{k}"
+        out += (_named_leaves(v, path + "/") if isinstance(v, dict)
+                else [(path, v)])
+    return out
+
+
+def phase_rank_parity(mesh_mod) -> dict:
+    """Phase 27: :data:`RANK_RUNS` on gloo ranks sharing the one card
+    (one spawn per world size) against the in-process executor on the
+    card; bit for bit, and each rank's launches summing to the in-process
+    run's exactly."""
+    res, t0 = {}, time.perf_counter()
+    worlds = sorted({r[2] for r in RANK_RUNS})
+    # the world sizes' spawns at once (nothing here is timed): each
+    # thread waits on its processes
+    with concurrent.futures.ThreadPoolExecutor(len(worlds)) as pool:
+        spawned = {w: pool.submit(mesh_mod.spawn_ranks, rank_parity, w,
+                                  "gloo", RANK_RUNS, device="cuda")
+                   for w in worlds}
+        done = {w: f.result() for w, f in spawned.items()}
+    print(f"ranks: {' and '.join(map(str, worlds))} gloo ranks on one card, "
+          f"spawned at once and run in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    for world, per_rank in done.items():
+        for i, run in enumerate(per_rank[0]):
+            rows = [pr[i] for pr in per_rank]
+            label = run["label"]
+            summed = {k: sum(r["launches"][k] for r in rows)
+                      for k in run["launches"]}
+            ref = run["ref_launches"]
+            gaps = [dict(rank=r["rank"], **lf) for r in rows
+                    for lf in r["leaves"] if not lf["bitwise"]]
+            bitwise = (all(r["loss_bitwise"] and r["keys"] for r in rows)
+                       and not gaps)
+            stash_ok = all(r["stash"] == r["ref_stash"][r["rank"]]
+                           for r in rows)
+            res[label] = dict(
+                ranks=world, loss=run["loss"], ref_loss=run["ref_loss"],
+                bitwise=bitwise, n_leaves=sum(len(r["leaves"]) for r in rows),
+                launches_summed=summed, ref_launches=ref,
+                stash=[r["stash"] for r in rows],
+                ref_stash=run["ref_stash"],
+                transport=[r["transport"] for r in rows])
+            print(f"ranks {label}: loss {run['loss']!r} (in-process "
+                  f"{run['ref_loss']!r}), loss and {res[label]['n_leaves']} "
+                  f"gradient leaves bit for bit: {bitwise}; launches summed "
+                  f"over ranks {json.dumps(summed)} (in-process "
+                  f"{json.dumps(ref)}); stash per rank {res[label]['stash']} "
+                  f"(in-process {run['ref_stash']}); transport "
+                  f"{json.dumps(res[label]['transport'])}", flush=True)
+            if not bitwise:
+                worst = sorted(gaps, key=lambda g: -g["max_abs_diff"]
+                               / (g["max_abs_ref"] + 1e-30))[:8]
+                fail(f"ranks {label}: not bit for bit against the "
+                     f"in-process executor; losses "
+                     f"{[r['loss'] for r in rows]} vs {run['ref_loss']}; "
+                     f"{len(gaps)} leaves differ, worst {json.dumps(worst)}")
+            if summed != ref or any(r["ref_launches"] != ref for r in rows):
+                fail(f"ranks {label}: launches summed over ranks {summed}, "
+                     f"in-process {ref}")
+            if not stash_ok:
+                fail(f"ranks {label}: stash per rank {res[label]['stash']}, "
+                     f"in-process {run['ref_stash']}")
+    return res
+
+
+def rank_train(mesh, argv: list) -> dict:
+    """Phase 28 on one rank: ``launch.train.main`` as this rank's stage;
+    what it returned, without the parameters."""
+    card_flags()
+    from repro_torch.launch import train
+    out = train.main(argv, mesh=mesh)
+    return {k: v for k, v in out.items()
+            if k not in ("params", "opt_state", "plan")}
+
+
+def phase_rank_train(mesh_mod, SP, trained: dict) -> dict:
+    """Phase 28: llama3.2-1b at full width as 4 gloo ranks on the one card
+    through ``launch.train.main`` (phase 10's run: 4 stages x 4 layers,
+    1f1b, M 4, batch 8, seq 1024, f32, 3 steps): the losses equal phase
+    10's to the bit, the launches summed over ranks are phase 10's a
+    step, each rank's stash is its stage's peak-live count."""
+    steps, M_, S = 3, 4, 4
+    argv = ["--arch", "llama3.2-1b", "--tensor", "1", "--stages", str(S),
+            "--schedule", "1f1b", "--microbatches", str(M_), "--batch", "8",
+            "--seq", "1024", "--steps", str(steps), "--log-every", "1",
+            "--device", "cuda", "--dist-backend", "gloo"]
+    tag = "ranks train llama3.2-1b 4 ranks 1f1b M=4"
+    print(f"{tag}: spawn_ranks(train.main, 4, 'gloo') of python -m "
+          f"repro_torch.launch.train {' '.join(argv)}", flush=True)
+    t0 = time.perf_counter()
+    outs = mesh_mod.spawn_ranks(rank_train, S, "gloo", argv, device="cuda")
+    wall = time.perf_counter() - t0
+    out = outs[0]
+    lo = SP.lower_to_ticks(SP.build_schedule("1f1b", M_, S))
+    per_step = train_launches(16, M_, False, False)
+    want_stash = [max(row) + 1 for row in lo.xw]
+    after_first = sum(out["step_s"][1:]) / (steps - 1)
+    res = dict(losses=out["losses"], phase10_losses=trained["losses"],
+               step_s=out["step_s"], step_ms_after_first=1e3 * after_first,
+               phase10_step_ms_after_first=trained["step_ms_after_first"],
+               launches_per_step=out["launches"], stash=out["stash_slots"],
+               peak_gib_by_rank=out["peak_gib_by_rank"],
+               transport_last_step=out["transport"][-1], wall_s=wall)
+    by_kind = {k: dict(
+        bytes=sum(st[k][1] for st in out["transport"][-1]),
+        max_rank_ms=max(st[k][2] for st in out["transport"][-1]) * 1e3,
+        max_rank_copy_ms=max(st[k][3] for st in out["transport"][-1]) * 1e3)
+        for k in ("hop", "embed_allreduce", "scalars")}
+    res["transport_by_kind_last_step"] = by_kind
+    print(f"{tag}: losses {out['losses']} (phase 10 {trained['losses']}), "
+          f"step {res['step_ms_after_first']:.1f} ms after the first, the "
+          f"slowest rank's (phase 10, one process: "
+          f"{trained['step_ms_after_first']:.1f} ms), peak memory per rank "
+          f"{[round(p, 2) for p in out['peak_gib_by_rank']]} GiB, stash per "
+          f"rank {out['stash_slots']} (want {want_stash}, n_x {lo.n_x}), "
+          f"launches per step summed over ranks {json.dumps(out['launches'])} "
+          f"(want {json.dumps(per_step)}), transport last step (bytes sent "
+          f"over all ranks; ms of the slowest rank, waits included, and its "
+          f"staging copies' ms) {json.dumps(by_kind)}; "
+          f"spawn to exit {wall:.1f}s", flush=True)
+    if out["losses"] != trained["losses"]:
+        fail(f"{tag}: losses {out['losses']} != phase 10's "
+             f"{trained['losses']}")
+    if any(d != per_step for d in out["launches"]):
+        fail(f"{tag}: launches per step {out['launches']}, want {per_step}")
+    if out["stash_slots"] != want_stash or max(want_stash) != lo.n_x:
+        fail(f"{tag}: stash per rank {out['stash_slots']}, want "
+             f"{want_stash} (n_x {lo.n_x})")
+    return res
+
+
 #: the f32 GEMMs of one llama3.2-1b layer's forward at a micro-batch of
 #: 2048 tokens (batch 8 x seq 1024 in 4 micro-batches): (m, k, n, count)
 #: for q and o, k and v, the gate and up projections, the down projection
@@ -1884,8 +2131,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: the port's kernels need a "
              "CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    card_flags()
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
@@ -1893,6 +2139,7 @@ def main() -> None:
     from repro_torch.core import schedplan as SP
     from repro_torch.core import serve_sched as SS
     from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch import mesh as MESH
     from repro_torch.launch import serve, train
     from repro_torch.models import layers as LYR
     from repro_torch.models import model as M
@@ -2134,6 +2381,12 @@ def main() -> None:
             "flash_attention"] for k in captures})
     gemma_mixed_err = phase_gemma_mixed(serve_mods)
 
+    # ---- 27. stages on separate ranks: parity at full width, 3 layers ----
+    rank_parity_res = phase_rank_parity(MESH)
+
+    # ---- 28. llama3.2-1b at full width as 4 ranks on the one card --------
+    rank_trained = phase_rank_train(MESH, SP, trained)
+
     train_paths = {f"train {r['schedule']} V={r['virtual']} "
                    f"M={r['microbatches']}": r["launches"]
                    for r in (trained, interleaved, zb_h2)}
@@ -2143,6 +2396,13 @@ def main() -> None:
                         for arch, r in dict(
                             dense_trained,
                             **{"mamba2-2.7b": mamba_trained}).items()})
+
+    # the rank runs: each kernel's launches summed over the ranks
+    train_paths.update({f"ranks {k}": r["launches_summed"]
+                        for k, r in rank_parity_res.items()})
+    train_paths["ranks train llama3.2-1b 4 ranks 1f1b M=4"] = {
+        k: sum(d[k] for d in rank_trained["launches_per_step"])
+        for k in rank_trained["launches_per_step"][0]}
 
     main_row = pick(rows, "main-path prefill")
     keys = ("label", "dtype", "ms", "call_ms", "plain_ms", "library_ms",
@@ -2206,9 +2466,12 @@ def main() -> None:
         replaces="src/repro/kernels/ssd_scan.py:70",
         launches=mamba["launches"]["ssd_scan"],
         launches_train=mamba_trained["launches"]["ssd_scan"],
-        launches_by_path={f"serve mamba2-2.7b 8 layers V={V}":
-                          interleaved_serve[f"mamba_v{V}"]["launches"][
-                              "ssd_scan"] for V in (2, 1)},
+        launches_by_path=dict({
+            f"serve mamba2-2.7b 8 layers V={V}":
+            interleaved_serve[f"mamba_v{V}"]["launches"]["ssd_scan"]
+            for V in (2, 1)}, **{
+            k: v["ssd_scan"] for k, v in train_paths.items()
+            if k.startswith("ranks mamba2")}),
         max_abs_err=ssd_row["max_abs_err"], rel_err=ssd_row["rel_err"],
         ms=ssd_row["ms"], call_ms=ssd_row["call_ms"],
         plain_ms=ssd_row["plain_ms"],
@@ -2275,7 +2538,9 @@ def main() -> None:
                                 "gemma3-1b parity": gemma_parity,
                                 "qwen3-1.7b parity": qwen_parity,
                                 "mamba2-2.7b": mamba_trained,
-                                "mamba2-2.7b parity": mamba_parity}}),
+                                "mamba2-2.7b parity": mamba_parity,
+                                "ranks parity": rank_parity_res,
+                                "ranks llama3.2-1b": rank_trained}}),
           flush=True)
     print(json.dumps({"kernels": [flash, ssd, flash_bwd, ssd_bwd]}),
           flush=True)

@@ -1,4 +1,7 @@
-"""Command-line entry points (python -m repro_torch.launch.serve)."""
+"""Command-line entry points (python -m repro_torch.launch.serve,
+python -m repro_torch.launch.train) and the stage process group
+(:mod:`repro_torch.launch.mesh`): every stage in one process on one
+card, or, for training under ``torchrun``, one process per stage."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,5 +19,5 @@ def one_card(cfg, tensor: int):
     if degree != 1:
         raise NotImplementedError(
             f"tensor={degree}: not ported yet ({PAR_ITEM}); the port runs "
-            f"tensor = 1 on one card (pass --tensor 1)")
+            f"tensor = 1 (pass --tensor 1)")
     return dataclasses.replace(cfg, tensor=1)

@@ -1,6 +1,7 @@
 """Pipelined training entry point: dense GQA models (llama3.2-1b,
-gemma3-1b, qwen3-1.7b) through the BaPipe stage plan and a compiled
-F/B(/W) schedule, on one card.
+gemma3-1b, qwen3-1.7b) and mamba2-2.7b through the BaPipe stage plan and
+a compiled F/B(/W) schedule: every stage in one process on one card, or,
+under ``torchrun``, one process per stage.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --tensor 1 --stages 4 --schedule 1f1b --microbatches 4 --batch 8 \\
@@ -25,6 +26,26 @@ F/B(/W) schedule, on one card.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --tensor 1 --stages 4 --schedule 1f1b --microbatches 4 --batch 8 \\
         --seq 1024 --steps 3
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \\
+        -m repro_torch.launch.train --arch llama3.2-1b --reduced \\
+        --layers 2 --d-model 64 --stages 2 --microbatches 2 --batch 4 \\
+        --seq 32 --steps 3 --device cpu
+
+With ``WORLD_SIZE`` above 1 (``torchrun``) each process is one stage of
+the plan (:mod:`repro_torch.launch.mesh`; ``--stages``, or the planner's
+stage count, must equal the world size): it draws only its share of the
+weights (:func:`repro_torch.pipeline.stage.init_stage_params`) and runs
+its row of the same table (``make_train_step(..., group=...)``), the
+rings as ``torch.distributed`` messages.  ``--dist-backend`` is ``nccl``
+(one card per rank; more ranks than cards raise) by default on
+``--device cuda`` and ``gloo`` on ``--device cpu``; ``--dist-backend
+gloo`` runs every rank on one card, each message staged through pinned
+host memory.  Every rank makes the same batches; rank 0 alone prints
+the losses, the step time (the slowest rank's), the launches summed over
+ranks, each rank's stash slots and peak memory, and the transport's
+messages, bytes and ms a step (activation hops apart from the tied
+embedding's all-reduce).
 
 ``--schedule`` takes any of the eight builders of
 :data:`repro_torch.core.schedplan.BUILDER_NAMES` (``--virtual V`` chunks
@@ -56,9 +77,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.core import schedplan as SP
@@ -69,6 +92,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attend
 from repro_torch.kernels.ssd_scan import ssd_chunked
 from repro_torch.launch import PAR_ITEM as _PAR_ITEM, one_card
+from repro_torch.launch import mesh as MESH
 from repro_torch.optim.adamw import AdamW, warmup_cosine
 from repro_torch.pipeline import runtime as RT
 from repro_torch.pipeline import stage as ST
@@ -116,6 +140,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--losses-out", default="",
                     help="write {start, losses} JSON here")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dist-backend", default="", choices=("", *MESH.BACKENDS),
+                    help="under torchrun: nccl (the default on cuda; one "
+                         "card per rank) or gloo (the default on cpu; on "
+                         "cuda every rank may share one card)")
     ap.add_argument("--virtual", type=int, default=0,
                     help="chunks per stage (V) for the interleaved "
                          "schedules")
@@ -244,13 +272,17 @@ def build_config(args: argparse.Namespace):
         raise NotImplementedError(
             f"the plan needs tensor={plan_.tensor} x data="
             f"{plan_.data_axis}: not ported yet ({_PAR_ITEM}); the port "
-            f"runs one card")
+            f"runs tensor = data = 1")
     args.microbatches = plan_.n_microbatches
     args.plan = plan_
     return plan_.apply(cfg)
 
 
-def main(argv=None) -> dict:
+def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
+    """Train as ``argv`` says, in one process, or as this process's stage
+    of ``mesh`` (a group already set up, e.g. by
+    :func:`repro_torch.launch.mesh.spawn_ranks`) or of the group that
+    ``torchrun``'s environment describes (``WORLD_SIZE`` above 1)."""
     args = _parser().parse_args(argv)
 
     device = torch.device(args.device)
@@ -260,6 +292,19 @@ def main(argv=None) -> dict:
     pcfg = RT.PipelineConfig(n_microbatches=args.microbatches,
                              schedule=cfg.schedule, mem_limit=cfg.mem_limit,
                              remat=args.remat)
+    own_group = False
+    if mesh is None and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        _check_world(plan, int(os.environ["WORLD_SIZE"]))
+        mesh = MESH.init_stage_group(
+            args.dist_backend or ("nccl" if device.type == "cuda"
+                                  else "gloo"), device.type)
+        own_group = True
+    if mesh is not None:
+        try:
+            return _main_ranks(args, cfg, plan, opt, pcfg, mesh)
+        finally:
+            if own_group:
+                dist.destroy_process_group()
     step_fn = RT.make_train_step(cfg, plan, pcfg, optimizer=opt)
     params = ST.init_stacked_params(cfg, args.seed, plan, device=device)
     opt_state = opt.init(params)
@@ -317,6 +362,113 @@ def main(argv=None) -> dict:
                 tok_per_step=args.batch * args.seq, launches=launches,
                 stash_slots=step_fn.stash_slots, n_x=step_fn.lowering.n_x,
                 peak_gib=peak, params=params, opt_state=opt_state)
+
+
+def _check_world(plan: ST.StagePlan, world: int) -> None:
+    if plan.n_stages != world:
+        raise ValueError(
+            f"{plan.n_stages} stages on {world} ranks: one process runs one "
+            f"stage, so --stages (or the planner's stage count) must equal "
+            f"the world size")
+
+
+def _main_ranks(args, cfg, plan: ST.StagePlan, opt: AdamW,
+                pcfg: RT.PipelineConfig, mesh: MESH.StageMesh) -> dict:
+    """:func:`main` as stage ``mesh.rank`` of the rank executor."""
+    _check_world(plan, mesh.world)
+    device, rank, group = mesh.device, mesh.rank, mesh.group
+    lead = rank == 0
+    gather = lambda obj: _gather(obj, mesh)
+    step_fn = RT.make_train_step(cfg, plan, pcfg, optimizer=opt, group=group)
+    params = ST.init_stage_params(cfg, args.seed, plan, rank, device=device)
+    opt_state = opt.init(params)
+    n_params = gather(sum(x.numel() for x in ST.tree_leaves(params)))
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    if lead:
+        print(f"arch={cfg.arch_id} layers={cfg.n_layers} d={cfg.d_model} "
+              f"stages={plan.n_stages}x{plan.layers_per_stage} "
+              f"V={plan.virtual} schedule={step_fn.lowering.schedule} "
+              f"M={args.microbatches} ranks={mesh.world} "
+              f"backend={mesh.backend} params per rank "
+              f"{[round(n / 1e6, 1) for n in n_params]}M device={device} "
+              f"({name})", flush=True)
+    if device.type == "cuda":
+        if lead:
+            build.build_all()   # kernel builds before the first step
+        dist.barrier(group)     # the other ranks load what rank 0 built
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq,
+                       global_batch=args.batch, seed=args.seed,
+                       device=str(device))
+    counters = _counters()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    losses, step_s, launches, transport = [], [], [], []
+    t_start = time.perf_counter()
+    for step in range(args.steps):
+        batch = data.batch(step)
+        before = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dist.barrier(group)     # every rank starts the step together
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))       # syncs the device
+        mine = (time.perf_counter() - t0,
+                {k: getattr(fn, a) - before[k]
+                 for k, (fn, a) in counters.items()},
+                {k: list(v) for k, v in step_fn.transport.stats.items()})
+        per = gather(mine)
+        step_s.append(max(p[0] for p in per))
+        launches.append({k: sum(p[1][k] for p in per) for k in counters})
+        transport.append([p[2] for p in per])
+        if lead and (step % args.log_every == 0 or step == args.steps - 1):
+            print(f"step {step:5d} loss {losses[-1]:.4f} "
+                  f"({args.batch * args.seq / step_s[-1]:.0f} tok/s, "
+                  f"{step_s[-1] * 1e3:.1f} ms, the slowest rank's)",
+                  flush=True)
+    wall = time.perf_counter() - t_start
+    peak = gather(torch.cuda.max_memory_allocated(device) / 2**30
+                  if device.type == "cuda" else None)
+    stash = gather(step_fn.stash_slots)
+    if lead:
+        n = min(10, max(1, len(losses)))
+        print(f"first-{n} mean loss {sum(losses[:n]) / n:.4f} -> "
+              f"last-{n} mean loss {sum(losses[-n:]) / n:.4f}")
+        print(f"stash slots per rank {stash} "
+              f"(lower_to_ticks n_x = {step_fn.lowering.n_x})")
+        print(f"kernel launches per step, summed over ranks "
+              f"{json.dumps(launches[-1])}")
+        print("peak device memory per rank " + (
+            ", ".join(f"{p:.2f} GiB" for p in peak) if device.type == "cuda"
+            else "not measured (cpu)"))
+        how = mesh.backend + (", host-staged" if mesh.backend == "gloo"
+                              and device.type == "cuda" else "")
+        for r, st in enumerate(transport[-1]):
+            print(f"transport rank {r} ({how}) last step: " + ", ".join(
+                      f"{k} {c} msgs {b} B {sec * 1e3:.1f} ms (copies "
+                      f"{cp * 1e3:.1f} ms)"
+                      for k, (c, b, sec, cp) in st.items()), flush=True)
+        if args.losses_out:
+            with open(args.losses_out, "w") as f:
+                json.dump(dict(start=0, losses=losses), f)
+    return dict(plan=args.plan, schedule=step_fn.lowering.schedule,
+                stages=plan.n_stages, virtual=plan.virtual,
+                microbatches=args.microbatches, rank=rank, world=mesh.world,
+                backend=mesh.backend, losses=losses, step_s=step_s,
+                wall_s=wall, tok_per_step=args.batch * args.seq,
+                launches=launches, stash_slots=stash,
+                n_x=step_fn.lowering.n_x,
+                peak_gib=None if peak[0] is None else max(peak),
+                peak_gib_by_rank=peak, transport=transport,
+                params=params, opt_state=opt_state)
+
+
+def _gather(obj, mesh: MESH.StageMesh) -> list:
+    """Every rank's ``obj``, in rank order (a small Python object)."""
+    out = [None] * mesh.world
+    dist.all_gather_object(out, obj, group=mesh.group)
+    return out
 
 
 if __name__ == "__main__":

@@ -43,14 +43,51 @@ def warmup_cosine(peak_lr: float, warmup: int, total: int,
     return lr
 
 
+def sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of squares of one leaf (or one stage's row of one)."""
+    return torch.sum(torch.square(x.float()))
+
+
+def norm_terms(tree) -> list:
+    """Each leaf's terms of the squared global norm, in ``tree_leaves``
+    order: a leaf of the top-level ``layers`` subtree is stacked by stage
+    (``[S, ...]``) and gives one term a stage, its rows' sums of squares;
+    any other leaf gives one.  A pipeline rank holds one row of each
+    stacked leaf, so the ranks' gathered terms are these very tensors'
+    values (:func:`repro_torch.pipeline.runtime.make_train_step`)."""
+    if not isinstance(tree, dict):
+        return [[sum_squares(tree)]]
+    out = []
+    for k in sorted(tree):
+        if k == "layers":
+            out += [[sum_squares(row) for row in x.unbind(0)]
+                    for x in _leaves(tree[k])]
+        else:
+            out += [[sum_squares(x)] for x in _leaves(tree[k])]
+    return out
+
+
+def add_terms(terms: list) -> torch.Tensor:
+    """The squared norm from :func:`norm_terms`: each leaf's terms added
+    in stage order, then the leaves in tree order (one f32 addition
+    order, whichever process holds the terms)."""
+    total = None
+    for parts in terms:
+        term = parts[0]
+        for p in parts[1:]:
+            term = term + p
+        total = term if total is None else total + term
+    return total
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of the f32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in _leaves(tree)))
+    """sqrt of the sum over leaves of the f32 sum of squares (a stacked
+    ``layers`` leaf's as the sum of its stages', :func:`norm_terms`)."""
+    return torch.sqrt(add_terms(norm_terms(tree)))
 
 
-def _clip_scale(grads, max_norm: float):
-    n = global_norm(grads)
+def _clip_scale(grads, max_norm: float, norm=None):
+    n = global_norm(grads) if norm is None else norm
     return torch.clamp(max_norm / (n + 1e-9), max=1.0), n
 
 
@@ -97,15 +134,17 @@ class AdamW:
                     step=torch.zeros((), dtype=torch.int32, device=dev))
 
     @torch.no_grad()
-    def update(self, params, grads, state):
+    def update(self, params, grads, state, *, norm=None):
         """One step: clip, then decoupled-decay Adam on every leaf.  Writes
         ``params``, ``state["m"]`` and ``state["v"]`` in place and returns
         (params, new state).  The clipped gradient is formed one leaf at a
         time (as :func:`clip_by_global_norm` forms it), not as a second
-        tree."""
+        tree.  ``norm`` is the gradients' global norm where ``grads`` is
+        one pipeline rank's share of them (the ranks form it together);
+        by default it is ``global_norm(grads)``."""
         step = state["step"] + 1
-        scale = (_clip_scale(grads, self.clip_norm)[0] if self.clip_norm
-                 else None)
+        scale = (_clip_scale(grads, self.clip_norm, norm)[0]
+                 if self.clip_norm else None)
         lr = self.lr(step) if callable(self.lr) else self.lr
         b1, b2 = self.b1, self.b2
         stepf = step.to(torch.float32)

@@ -1,10 +1,13 @@
-"""BaPipe pipelined serving and training on one device (the port's share
-of ``repro/pipeline/runtime.py``: tensor = 1, data = 1).
+"""BaPipe pipelined serving and training (the port's share of
+``repro/pipeline/runtime.py``: tensor = 1, data = 1).
 
 The JAX runtime runs every stage on its own device inside ``shard_map``
 and shifts activations around ``ppermute`` rings, one tick at a time.
-Here every stage lives on the one card, and the two step factories are
-in-process executors of the same schedule-plan tables:
+Here the two step factories are in-process executors of the same
+schedule-plan tables, every stage in one process on one card; the train
+step also runs as one process per stage (``make_train_step(...,
+group=...)``: each rank replays its own row of the table, the rings are
+``torch.distributed`` messages, :mod:`repro_torch.pipeline.comm`):
 
 * :func:`make_serve_step` replays :func:`repro_torch.core.schedplan.
   lower_to_ring`: at tick t, stage s runs element ``e = t - s`` on the
@@ -25,12 +28,15 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import schedplan as SP
 from repro_torch.models import layers as LYR
 from repro_torch.models import model as M
+from repro_torch.optim import adamw as OPT
+from repro_torch.pipeline import comm as C
 from repro_torch.pipeline import stage as ST
 
 
@@ -277,8 +283,225 @@ def _check_train_config(cfg: ArchConfig, plan: ST.StagePlan,
             f"port': tensor and data parallel over NCCL)")
 
 
+@dataclasses.dataclass(frozen=True)
+class _Tables:
+    """What a train step fixes once: the model, the replayed table, the
+    per-slot layer metadata and the ticks that store a chunk's gradients
+    first (the later ones add to them)."""
+    cfg: ArchConfig
+    lo: SP.TickLowering
+    smeta: list
+    remat: str
+    lc: int                         # layers a chunk
+    first_write: frozenset
+
+
+@dataclasses.dataclass
+class _Call:
+    """One call's inputs: positions and per-micro-batch labels; on the
+    first stage the injections under autograd (``emb`` the embedding
+    leaf they hang from); on the last the loss head's parameters."""
+    dev: torch.device
+    pos: torch.Tensor
+    labels_mb: torch.Tensor
+    emb: torch.Tensor = None
+    inj: torch.Tensor = None
+    fn_p: torch.Tensor = None
+    head_p: torch.Tensor = None
+    head_key: str = ""
+
+
+def _call_inputs(cfg, M_: int, params: dict, batch: dict, *, first: bool,
+                 last: bool) -> _Call:
+    tokens, labels = batch["tokens"], batch["labels"]
+    B, T = tokens.shape
+    if B % M_:
+        raise ValueError(f"batch {B} not divisible by M={M_}")
+    mb = B // M_
+    dev = tokens.device
+    call = _Call(dev=dev, pos=torch.arange(T, device=dev)[None].expand(mb, T),
+                 labels_mb=labels.reshape(M_, mb, T))
+    if first:
+        # the injections under autograd: the stage-0 B ticks' input
+        # cotangents are back-propagated through this gather at the end
+        with torch.enable_grad():
+            call.emb = params["embed"].detach().requires_grad_()
+            call.inj = M.embed_tokens(cfg, call.emb, tokens).reshape(
+                M_, mb, T, -1)
+    if last:
+        call.head_key = "head" if "head" in params else "embed"
+        call.fn_p, call.head_p = params["final_norm"], params[call.head_key]
+    return call
+
+
+class _StageRun:
+    """Stage ``s``'s share of one replay of a ``lower_to_ticks`` table:
+    its residual stash, parked arrivals and zero-bubble cotangents, its
+    gradient sums, and the body of its ticks.  The in-process executor
+    runs every stage's in one loop; a rank runs its own.  ``layers`` and
+    ``dlp`` are the stage's ``[Lps, ...]`` or ``[V, Lc, ...]`` parameter
+    and gradient trees (row s of a stacked tree, or a rank's own)."""
+
+    def __init__(self, tb: _Tables, s: int, layers: dict, dlp: dict,
+                 call: _Call):
+        lo = tb.lo
+        self.tb, self.s, self.layers, self.call = tb, s, layers, call
+        self.dlp_flat = ST.tree_leaves(dlp)
+        self.xs = [None] * lo.n_x           # residual stash
+        self.fin = [None] * lo.n_f          # parked forward arrivals
+        self.bin = [None] * lo.n_b          # parked backward arrivals
+        self.cts = [None] * lo.n_c          # zero-bubble cotangent stash
+        self.written = set()
+        self.dfn = self.dhd = None
+        self.ce = torch.zeros((), dtype=torch.float32, device=call.dev)
+        self.dinj = [None] * lo.M
+
+    def _chunk(self, v: int) -> tuple:
+        return () if self.tb.lo.V == 1 else (v,)
+
+    def _apply(self, v, lp, x, remat="none"):
+        meta = self.tb.smeta[self.s]
+        y, _, _ = apply_stage(self.tb.cfg, lp,
+                              meta if self.tb.lo.V == 1 else meta[v], x,
+                              pos=self.call.pos, remat=remat)
+        return y
+
+    def _head_loss(self, fnp, hdp, y, m):
+        h = LYR.rms_norm(y, fnp, self.tb.cfg.norm_eps)
+        return M.logits_and_xent(self.tb.cfg,
+                                 {self.call.head_key: hdp, "embed": hdp}, h,
+                                 self.call.labels_mb[m])
+
+    def _layers(self, v) -> list:
+        """Chunk v's per-layer parameter dicts (views)."""
+        return [M.layer_slice(self.layers, self._chunk(v) + (j,))
+                for j in range(self.tb.lc)]
+
+    def _leaves(self, v, grad: bool):
+        """Chunk v's per-layer weights as fresh autograd leaves (or plain
+        views), and the flat list of them, layer by layer."""
+        lps = [ST._map_layers(lambda a: a.detach().requires_grad_(grad), lp)
+               for lp in self._layers(v)]
+        return lps, [x for lp in lps for x in ST.tree_leaves(lp)]
+
+    def _add_dlp(self, t, v, grads):
+        """Store (at the chunk's first writing tick) or add chunk v's
+        layer gradients; a padded layer has none and is stored as
+        zeros."""
+        first = (self.s, t) in self.tb.first_write
+        n_leaf = len(self.dlp_flat)
+        for k, g in enumerate(grads):
+            j, i = divmod(k, n_leaf)
+            slot = self.dlp_flat[i][self._chunk(v) + (j,)]
+            if g is None:
+                if first:
+                    slot.zero_()
+            elif first:
+                slot.copy_(g)
+            else:
+                slot.add_(g)
+
+    def tick(self, t: int, f_arr, b_arr):
+        """Run tick t on what arrived on the forward and backward rings
+        (None where nothing did); returns the tick's (forward, backward)
+        outputs, None where it makes none."""
+        lo, s, call, remat = self.tb.lo, self.s, self.call, self.tb.remat
+        if lo.fpark[s][t] >= 0:
+            self.fin[lo.fpark[s][t]] = f_arr
+        if lo.bpark[s][t] >= 0:
+            self.bin[lo.bpark[s][t]] = b_arr
+        kind, m, v = lo.kind[s][t], lo.m[s][t], lo.v[s][t]
+        if kind == SP.TICK_IDLE:
+            return None, None
+        if kind == SP.TICK_F:
+            src = lo.fsrc[s][t]
+            x_in = (call.inj[m].detach() if src == 0 else
+                    f_arr if src == 1 else self.fin[lo.fr[s][t]])
+            with torch.no_grad():
+                y = self._apply(v, self._layers(v), x_in)
+            self.xs[lo.xw[s][t]] = x_in
+            self.written.add(lo.xw[s][t])
+            return y, None
+        x_res = self.xs[lo.xr[s][t]]
+        if kind == SP.TICK_W:
+            ctan = self.cts[lo.cr[s][t]]
+            with torch.enable_grad():
+                lp, flat = self._leaves(v, True)
+                y = self._apply(v, lp, x_res, remat)
+                # no graph when every slot of the chunk is padding
+                self._add_dlp(t, v, torch.autograd.grad(
+                    y, flat, ctan, allow_unused=True)
+                    if y.requires_grad else [None] * len(flat))
+            return None, None
+        with torch.enable_grad():
+            x = x_res.detach().requires_grad_()
+            lp, flat = self._leaves(v, not lo.has_w)
+            if kind == SP.TICK_B:
+                ctan = b_arr if lo.bsrc[s][t] == 1 else self.bin[lo.br[s][t]]
+                y = self._apply(v, lp, x, remat)
+                if lo.has_w:        # zb: input gradient only
+                    (dx,) = torch.autograd.grad(y, [x], ctan)
+                    self.cts[lo.cw[s][t]] = ctan
+                else:
+                    dx, *gs = torch.autograd.grad(y, [x] + flat, ctan,
+                                                  allow_unused=True)
+                    self._add_dlp(t, v, gs)
+            else:                   # TICK_B_SEED: the loss head
+                fnp = call.fn_p.detach().requires_grad_()
+                hdp = call.head_p.detach().requires_grad_()
+                seed = torch.full((), 1.0 / lo.M, device=call.dev)
+                if lo.has_w:
+                    # zb: the head's y-cotangent is stashed for W
+                    y = self._apply(v, lp, x, remat)
+                    yd = y.detach().requires_grad_()
+                    ce_m = self._head_loss(fnp, hdp, yd, m)
+                    dfn_d, dhd_d, dy = torch.autograd.grad(
+                        ce_m, [fnp, hdp, yd], seed)
+                    (dx,) = torch.autograd.grad(y, [x], dy)
+                    self.cts[lo.cw[s][t]] = dy
+                else:
+                    ce_m = self._head_loss(fnp, hdp,
+                                           self._apply(v, lp, x, remat), m)
+                    dx, dfn_d, dhd_d, *gs = torch.autograd.grad(
+                        ce_m, [x, fnp, hdp] + flat, seed, allow_unused=True)
+                    self._add_dlp(t, v, gs)
+                self.dfn = dfn_d if self.dfn is None else self.dfn.add_(dfn_d)
+                self.dhd = dhd_d if self.dhd is None else self.dhd.add_(dhd_d)
+                self.ce += ce_m.detach()
+        if lo.dinj[s][t]:
+            self.dinj[m] = dx
+        return None, dx
+
+    def embed_grad(self) -> torch.Tensor:
+        """The first stage's input cotangents back-propagated through the
+        embedding gather."""
+        (d_embed,) = torch.autograd.grad(self.call.inj, self.call.emb,
+                                         torch.stack(self.dinj))
+        return d_embed
+
+
+def _rank_norm(tp: C.Transport, grads: dict, S: int, rank: int,
+               untied: bool) -> torch.Tensor:
+    """The global gradient norm from one rank's share: each rank's terms
+    (:func:`repro_torch.optim.adamw.norm_terms` of the whole tree: the
+    embedding on rank 0, the final norm and the untied head on the last,
+    its row of every layer leaf everywhere) are all-gathered and added in
+    the in-process order, so every rank gets the in-process norm's
+    bits."""
+    sq = OPT.sum_squares
+    layer = [sq(x) for x in ST.tree_leaves(grads["layers"])]
+    zero = torch.zeros((), dtype=torch.float32, device=layer[0].device)
+    own = [sq(grads["embed"]) if rank == 0 else zero,
+           sq(grads["final_norm"]) if rank == S - 1 else zero,
+           sq(grads["head"]) if rank == S - 1 and untied else zero]
+    g = tp.all_gather(torch.stack(own + layer))          # [S, 3 + leaves]
+    terms = [[g[0, 0]], [g[S - 1, 1]]] + ([[g[S - 1, 2]]] if untied else [])
+    terms += [[g[r, 3 + i] for r in range(S)] for i in range(len(layer))]
+    return torch.sqrt(OPT.add_terms(terms))
+
+
 def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
-                    pcfg: PipelineConfig, *, optimizer=None):
+                    pcfg: PipelineConfig, *, optimizer=None, group=None):
     """Build the pipelined train step.
 
     Without an optimizer ``step(params, batch) -> (loss, grads)``; with one
@@ -315,7 +538,23 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
     end, and a tied head's gradient is added to ``embed``.
     ``step.lowering`` is the replayed table; after a call,
     ``step.stash_slots[s]`` is the number of residual slots stage s wrote
-    (its peak-live count; their maximum is ``lowering.n_x``)."""
+    (its peak-live count; their maximum is ``lowering.n_x``).
+
+    With ``group`` (a ``torch.distributed`` process group of
+    ``plan.n_stages`` ranks, every rank calling this factory) the step is
+    the rank executor: this rank runs stage ``group.rank()`` of the same
+    table on its share of the parameters (``stage.init_stage_params`` /
+    ``stage.stage_share``) and returns its share of the gradients.  The
+    rings become messages (``comm.ring_hops``: an output hops only where
+    the neighbour's row reads it at the next tick), one
+    ``batch_isend_irecv`` a tick; the last rank broadcasts the loss, so
+    every rank returns the same 0-dim loss; a tied embedding's gradient
+    is one all-reduce between the first and the last rank (``d_embed +
+    dhd``, the in-process sum's bits); the optimizer's clip takes the
+    global norm formed from every rank's terms in the in-process order.
+    ``step.stash_slots`` is then this rank's count and ``step.transport``
+    (a :class:`repro_torch.pipeline.comm.Transport`) holds the last
+    call's message counts, bytes and times."""
     M.check_ported(cfg)
     _check_train_config(cfg, plan, pcfg)
     if pcfg.remat not in ("none", "stage", "stage_save_moe", "full"):
@@ -328,11 +567,6 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
     sched = SP.resolve_ring_schedule(pcfg.schedule, V)
     ml = (pcfg.mem_limit or None) if sched == "zb-auto" else None
     lo = SP.lower_to_ticks(SP.build_schedule(sched, M_, S, V, mem_limit=ml))
-    smeta = ST.stacked_meta(cfg, plan)
-    remat = "full" if pcfg.remat == "full" else "none"
-    ct_scale = 1.0 / M_
-    Lc = plan.layers_per_stage
-    chunk = _chunk_index(V)
     # the ticks that write a chunk's weight gradients first (B/B_SEED, or
     # W in zero-bubble plans): they store it, the later ones add to it
     grad_kinds = ((SP.TICK_W,) if lo.has_w
@@ -344,171 +578,120 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
             if lo.kind[s][t] in grad_kinds and lo.v[s][t] not in seen:
                 seen.add(lo.v[s][t])
                 first_write.add((s, t))
+    tb = _Tables(cfg=cfg, lo=lo, smeta=ST.stacked_meta(cfg, plan),
+                 remat="full" if pcfg.remat == "full" else "none",
+                 lc=plan.layers_per_stage, first_write=frozenset(first_write))
+    row = lambda tree, s: ST._map_layers(lambda a: a[s], tree)
 
     def loss_and_grads(params: dict, batch: dict):
-        tokens, labels = batch["tokens"], batch["labels"]
-        B, T = tokens.shape
-        if B % M_:
-            raise ValueError(f"batch {B} not divisible by M={M_}")
-        mb = B // M_
-        dev = tokens.device
-        pos = torch.arange(T, device=dev)[None].expand(mb, T)
-        labels_mb = labels.reshape(M_, mb, T)
-        fn_p = params["final_norm"]
-        head_key = "head" if "head" in params else "embed"
-        head_p = params[head_key]
-        # the injections under autograd: the stage-0 B ticks' input
-        # cotangents are back-propagated through this gather at the end
-        with torch.enable_grad():
-            emb = params["embed"].detach().requires_grad_()
-            inj = M.embed_tokens(cfg, emb, tokens).reshape(M_, mb, T, -1)
-
-        def stage_fn(s, v, lp, x, remat="none"):
-            y, _, _ = apply_stage(cfg, lp, smeta[s] if V == 1 else smeta[s][v],
-                                  x, pos=pos, remat=remat)
-            return y
-
-        def head_loss(fnp, hdp, y, m):
-            h = LYR.rms_norm(y, fnp, cfg.norm_eps)
-            return M.logits_and_xent(cfg, {head_key: hdp, "embed": hdp}, h,
-                                     labels_mb[m])
-
-        def layers_of(s, v) -> list:
-            """Chunk (s, v)'s per-layer parameter dicts (views)."""
-            return [M.layer_slice(params["layers"], chunk(s, v) + (j,))
-                    for j in range(Lc)]
-
-        def leaves_of(s, v, grad: bool):
-            """Chunk (s, v)'s per-layer weights as fresh autograd leaves
-            (or plain views), and the flat list of them, layer by
-            layer."""
-            lps = [ST._map_layers(lambda a: a.detach().requires_grad_(grad),
-                                  lp) for lp in layers_of(s, v)]
-            return lps, [x for lp in lps for x in ST.tree_leaves(lp)]
-
+        call = _call_inputs(cfg, M_, params, batch, first=True, last=True)
         dlp = ST._map_layers(torch.empty_like, params["layers"])
-        dlp_flat = ST.tree_leaves(dlp)
-        n_leaf = len(dlp_flat)
-        dfn = dhd = None
-        ce = torch.zeros((), dtype=torch.float32, device=dev)
-        dinj = [None] * M_
-        xs = [[None] * lo.n_x for _ in range(S)]      # residual stash
-        fin = [[None] * lo.n_f for _ in range(S)]     # parked fwd arrivals
-        bin_ = [[None] * lo.n_b for _ in range(S)]    # parked bwd arrivals
-        cts = [[None] * lo.n_c for _ in range(S)]     # zb cotangent stash
-        written = [set() for _ in range(S)]
-        f_arr = [None] * S      # forward ring: what stage s-1 sent last tick
-        b_arr = [None] * S      # backward ring: what stage s+1 sent
-
-        def add_dlp(s, t, v, grads):
-            """Store (at the chunk's first writing tick) or add chunk
-            (s, v)'s layer gradients; a padded layer has none and is
-            stored as zeros."""
-            first = (s, t) in first_write
-            for k, g in enumerate(grads):
-                j, i = divmod(k, n_leaf)
-                slot = dlp_flat[i][chunk(s, v) + (j,)]
-                if g is None:
-                    if first:
-                        slot.zero_()
-                elif first:
-                    slot.copy_(g)
-                else:
-                    slot.add_(g)
-
+        runs = [_StageRun(tb, s, row(params["layers"], s), row(dlp, s), call)
+                for s in range(S)]
+        f_arr = b_arr = [None] * S
         for t in range(lo.n_ticks):
-            f_out = [None] * S
-            b_out = [None] * S
-            for s in range(S):
-                if lo.fpark[s][t] >= 0:
-                    fin[s][lo.fpark[s][t]] = f_arr[s]
-                if lo.bpark[s][t] >= 0:
-                    bin_[s][lo.bpark[s][t]] = b_arr[s]
-                kind, m, v = lo.kind[s][t], lo.m[s][t], lo.v[s][t]
-                if kind == SP.TICK_IDLE:
-                    continue
-                if kind == SP.TICK_F:
-                    src = lo.fsrc[s][t]
-                    x_in = (inj[m].detach() if src == 0 else
-                            f_arr[s] if src == 1 else fin[s][lo.fr[s][t]])
-                    with torch.no_grad():
-                        f_out[s] = stage_fn(s, v, layers_of(s, v), x_in)
-                    xs[s][lo.xw[s][t]] = x_in
-                    written[s].add(lo.xw[s][t])
-                    continue
-                x_res = xs[s][lo.xr[s][t]]
-                if kind == SP.TICK_W:
-                    ctan = cts[s][lo.cr[s][t]]
-                    with torch.enable_grad():
-                        lp, flat = leaves_of(s, v, True)
-                        y = stage_fn(s, v, lp, x_res, remat)
-                        # no graph when every slot of the chunk is padding
-                        add_dlp(s, t, v, torch.autograd.grad(
-                            y, flat, ctan, allow_unused=True)
-                            if y.requires_grad else [None] * len(flat))
-                    continue
-                with torch.enable_grad():
-                    x = x_res.detach().requires_grad_()
-                    lp, flat = leaves_of(s, v, not lo.has_w)
-                    if kind == SP.TICK_B:
-                        ctan = (b_arr[s] if lo.bsrc[s][t] == 1
-                                else bin_[s][lo.br[s][t]])
-                        y = stage_fn(s, v, lp, x, remat)
-                        if lo.has_w:        # zb: input gradient only
-                            (dx,) = torch.autograd.grad(y, [x], ctan)
-                            cts[s][lo.cw[s][t]] = ctan
-                        else:
-                            dx, *gs = torch.autograd.grad(
-                                y, [x] + flat, ctan, allow_unused=True)
-                            add_dlp(s, t, v, gs)
-                    else:                   # TICK_B_SEED: the loss head
-                        fnp = fn_p.detach().requires_grad_()
-                        hdp = head_p.detach().requires_grad_()
-                        seed = torch.full((), ct_scale, device=dev)
-                        if lo.has_w:
-                            # zb: the head's y-cotangent is stashed for W
-                            y = stage_fn(s, v, lp, x, remat)
-                            yd = y.detach().requires_grad_()
-                            ce_m = head_loss(fnp, hdp, yd, m)
-                            dfn_d, dhd_d, dy = torch.autograd.grad(
-                                ce_m, [fnp, hdp, yd], seed)
-                            (dx,) = torch.autograd.grad(y, [x], dy)
-                            cts[s][lo.cw[s][t]] = dy
-                        else:
-                            ce_m = head_loss(fnp, hdp,
-                                             stage_fn(s, v, lp, x, remat), m)
-                            dx, dfn_d, dhd_d, *gs = torch.autograd.grad(
-                                ce_m, [x, fnp, hdp] + flat, seed,
-                                allow_unused=True)
-                            add_dlp(s, t, v, gs)
-                        dfn = dfn_d if dfn is None else dfn.add_(dfn_d)
-                        dhd = dhd_d if dhd is None else dhd.add_(dhd_d)
-                        ce += ce_m.detach()
-                b_out[s] = dx
-                if lo.dinj[s][t]:
-                    dinj[m] = dx
+            outs = [r.tick(t, f_arr[s], b_arr[s]) for s, r in enumerate(runs)]
+            f_out, b_out = [o[0] for o in outs], [o[1] for o in outs]
             # one-tick neighbour hops on cyclic rings: s receives from s-1
             # (forward) and from s+1 (backward); the wrapped values carry
             # chunk passes v -> v+1 (forward) and v+1 -> v (backward)
             f_arr = f_out[-1:] + f_out[:-1]
             b_arr = b_out[1:] + b_out[:1]
-
-        (d_embed,) = torch.autograd.grad(inj, emb, torch.stack(dinj))
-        grads = dict(embed=d_embed, layers=dlp, final_norm=dfn)
-        if head_key == "head":
-            grads["head"] = dhd
+        d_embed, last = runs[0].embed_grad(), runs[-1]
+        grads = dict(embed=d_embed, layers=dlp, final_norm=last.dfn)
+        if call.head_key == "head":
+            grads["head"] = last.dhd
         else:
-            grads["embed"] = d_embed + dhd
-        step.stash_slots = [len(w) for w in written]
-        return ce / M_, grads
+            grads["embed"] = d_embed + last.dhd
+        step.stash_slots = [len(r.written) for r in runs]
+        return last.ce / M_, grads
+
+    if group is None:
+        if optimizer is None:
+            step = loss_and_grads
+        else:
+            def step(params: dict, opt_state: dict, batch: dict):
+                loss, grads = loss_and_grads(params, batch)
+                params, opt_state = optimizer.update(params, grads, opt_state)
+                return params, opt_state, dict(loss=loss)
+        step.lowering = lo
+        step.stash_slots = None
+        return step
+
+    # ---- the rank executor: this process runs stage `rank` --------------
+    tp = C.Transport(group)
+    rank = tp.rank
+    if tp.size != S:
+        raise ValueError(f"a {S}-stage plan needs a group of {S} ranks, "
+                         f"got {tp.size}")
+    first, last, tied = rank == 0, rank == S - 1, cfg.tie_embeddings
+    # the tied embedding's gradient: one all-reduce between the first and
+    # the last rank (every rank of the default group makes the group)
+    tie_group = None
+    if tied and S > 2:
+        tie_group = dist.new_group([dist.get_global_rank(group, 0),
+                                    dist.get_global_rank(group, S - 1)],
+                                   timeout=C.GROUP_TIMEOUT)
+    elif tied and S == 2:
+        tie_group = group
+    hops = C.ring_hops(lo)
+    msgs = [([(ring, dst) for ring, src, dst in h if src == rank],
+             [(ring, src) for ring, src, dst in h if dst == rank])
+            for h in hops]
+
+    def rank_loss_and_grads(params: dict, batch: dict):
+        if last and ("head" in params) == tied:
+            raise ValueError(f"{cfg.arch_id}: tie_embeddings={tied} but the "
+                             f"last rank's parameters "
+                             f"{'have' if tied else 'lack'} a head")
+        call = _call_inputs(cfg, M_, params, batch, first=first, last=last)
+        dlp = ST._map_layers(torch.empty_like, params["layers"])
+        run = _StageRun(tb, rank, params["layers"], dlp, call)
+        mb, T = call.labels_mb.shape[1:]
+        like = torch.empty((mb, T, cfg.d_model), device=call.dev,
+                           dtype=params["layers"]["ln1"].dtype)
+        f_arr = b_arr = None
+        for t in range(lo.n_ticks):
+            f_out, b_out = run.tick(t, f_arr, b_arr)
+            f_arr = b_arr = None
+            if t + 1 < lo.n_ticks:
+                sends, recvs = msgs[t + 1]
+                got = tp.exchange(
+                    [(ring, dst, f_out if ring == C.FWD else b_out)
+                     for ring, dst in sends], recvs, like)
+                f_arr, b_arr = got.get(C.FWD), got.get(C.BWD)
+        grads = dict(layers=dlp)
+        if first:
+            grads["embed"] = run.embed_grad()
+        if last:
+            grads["final_norm"] = run.dfn
+            if not tied:
+                grads["head"] = run.dhd
+            elif first:
+                grads["embed"] = grads["embed"] + run.dhd
+        if tied and S > 1 and (first or last):
+            # d_embed + dhd on both ranks (two operands: the sum commutes)
+            grads["embed"] = tp.all_reduce_sum(
+                grads["embed"] if first else run.dhd, tie_group)
+        ce = (run.ce / M_ if last
+              else torch.zeros((), dtype=torch.float32, device=call.dev))
+        step.stash_slots = len(run.written)
+        return tp.broadcast(ce, S - 1), grads
 
     if optimizer is None:
-        step = loss_and_grads
+        def step(params: dict, batch: dict):
+            tp.reset()
+            return rank_loss_and_grads(params, batch)
     else:
         def step(params: dict, opt_state: dict, batch: dict):
-            loss, grads = loss_and_grads(params, batch)
-            params, opt_state = optimizer.update(params, grads, opt_state)
+            tp.reset()
+            loss, grads = rank_loss_and_grads(params, batch)
+            norm = (_rank_norm(tp, grads, S, rank, not tied)
+                    if getattr(optimizer, "clip_norm", None) else None)
+            params, opt_state = optimizer.update(params, grads, opt_state,
+                                                 norm=norm)
             return params, opt_state, dict(loss=loss)
     step.lowering = lo
     step.stash_slots = None
+    step.transport = tp
     return step

@@ -159,6 +159,80 @@ def init_stacked_params(cfg: ArchConfig, seed: int, plan: StagePlan, *,
     return p
 
 
+def _stage_rows(a, plan: StagePlan):
+    """[V * Lc, ...] -> [Lps, ...] (V == 1) or [V, Lc, ...]."""
+    if plan.virtual == 1:
+        return a
+    return a.reshape((plan.virtual, plan.layers_per_stage)
+                     + tuple(a.shape[1:]))
+
+
+def init_stage_params(cfg: ArchConfig, seed: int, plan: StagePlan,
+                      stage: int, *, dtype=torch.float32,
+                      device="cuda") -> dict:
+    """Stage ``stage``'s share of :func:`init_stacked_params`, drawn in
+    the same order from one generator (the embedding, the padded layers
+    one block at a time, the untied head), so every leaf equals row
+    ``stage`` of the stacked tree bit for bit.  Only this stage's blocks
+    are kept: layers ``[Lps, ...]`` or ``[V, Lc, ...]`` with no stage
+    axis.  Stage 0 keeps ``embed``; the last stage keeps ``final_norm``
+    and ``head`` or, with tied embeddings, its own copy of ``embed``.  A
+    stage that keeps no table still draws the embedding (the draw
+    advances the generator) and drops it, so its peak is the larger of
+    that table and one block, not the model."""
+    M.check_ported(cfg)
+    S = plan.n_stages
+    if not 0 <= stage < S:
+        raise ValueError(f"stage {stage} of a {S}-stage plan")
+    first, last = stage == 0, stage == S - 1
+    vocab = cfg.padded_vocab(plan.tensor)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    embed = torch.randn((vocab, cfg.d_model), generator=gen, dtype=dtype,
+                        device=device) / math.sqrt(cfg.d_model)
+    keep_embed = first or (last and cfg.tie_embeddings)
+    if not keep_embed:
+        del embed
+    n = plan.virtual * plan.layers_per_stage
+    mine = _slot_of_layer(plan)[stage * n:(stage + 1) * n]  # in row order
+    blocks = {}
+    for i in range(plan.n_layers_padded):   # every block, in order
+        b = M.init_block(cfg, gen, dtype, device)
+        if i in mine:
+            blocks[i] = b
+    layers = M.stack_layers([blocks[i] for i in mine])
+    del blocks, b
+    p = dict(layers=_map_layers_(lambda a: _stage_rows(a, plan), layers))
+    if keep_embed:
+        p["embed"] = embed
+    if last:
+        p["final_norm"] = torch.zeros((cfg.d_model,), dtype=dtype,
+                                      device=device)
+    if not cfg.tie_embeddings:
+        head = torch.randn((vocab, cfg.d_model), generator=gen, dtype=dtype,
+                           device=device) / math.sqrt(cfg.d_model)
+        if last:
+            p["head"] = head
+    return p
+
+
+def stage_share(tree: dict, plan: StagePlan, stage: int) -> dict:
+    """Stage ``stage``'s share of a stacked tree (parameters, gradients,
+    optimizer moments): row ``stage`` of every ``layers`` leaf (a view),
+    ``embed`` on the first stage and, tied, on the last, ``final_norm``
+    and ``head`` on the last; the shares :func:`init_stage_params`
+    makes."""
+    S = plan.n_stages
+    first, last = stage == 0, stage == S - 1
+    out = dict(layers=_map_layers(lambda a: a[stage], tree["layers"]))
+    if first or (last and "head" not in tree):
+        out["embed"] = tree["embed"]
+    if last:
+        out["final_norm"] = tree["final_norm"]
+        if "head" in tree:
+            out["head"] = tree["head"]
+    return out
+
+
 def stacked_meta(cfg: ArchConfig, plan: StagePlan) -> list:
     """Per-slot layer metadata: ``meta[s][j]`` (V == 1) or
     ``meta[s][v][j]`` (V > 1) is the dict of layer scalars

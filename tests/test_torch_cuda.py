@@ -551,6 +551,69 @@ def test_reduced_train_step_card_matches_cpu(schedule):
         assert _rel_err(a.cpu(), b) < 1e-4
 
 
+def _reduced_llama(stages: int):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(
+        get_config("llama3.2-1b").reduced(n_layers=2, d_model=128),
+        n_kv_heads=2, stages=stages)
+
+
+def _two_ranks_on_card(mesh):
+    """The rank side of test_two_ranks_match_in_process_on_card: the
+    1f1b step on this rank's share, with its flash launches."""
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.pipeline import runtime as RT
+    from repro_torch.pipeline import stage as ST
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _reduced_llama(mesh.world)
+    plan = ST.plan_stages(cfg)
+    step = RT.make_train_step(cfg, plan, RT.PipelineConfig(
+        n_microbatches=2, schedule="1f1b"), group=mesh.group)
+    params = ST.init_stage_params(cfg, 0, plan, mesh.rank, device=mesh.device)
+    batch = SyntheticLM(cfg.vocab, 64, 4, device=str(mesh.device)).batch(0)
+    fa = FA.flash_attend
+    before = (fa.launches, fa.launches_bwd)
+    loss, grads = step(params, batch)
+    torch.cuda.synchronize()
+    return dict(loss=loss, grads=grads,
+                launches=(fa.launches - before[0],
+                          fa.launches_bwd - before[1]))
+
+
+@pytest.mark.cuda
+def test_two_ranks_match_in_process_on_card():
+    """The reduced llama of the test above under 1f1b as 2 gloo ranks on
+    one card (messages staged through pinned host memory) against the
+    in-process executor on the card: the loss and each rank's gradient
+    share bit for bit, and the ranks' flash launches summing to the
+    in-process step's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.pipeline import runtime as RT
+    from repro_torch.pipeline import stage as ST
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ranks = MESH.spawn_ranks(_two_ranks_on_card, 2, "gloo", device="cuda")
+    cfg = _reduced_llama(2)
+    plan = ST.plan_stages(cfg)
+    step = RT.make_train_step(cfg, plan, RT.PipelineConfig(
+        n_microbatches=2, schedule="1f1b"))
+    params = ST.init_stacked_params(cfg, 0, plan, device="cuda")
+    batch = SyntheticLM(cfg.vocab, 64, 4, device="cuda").batch(0)
+    fa = FA.flash_attend
+    before = (fa.launches, fa.launches_bwd)
+    loss, grads = step(params, batch)
+    launches = (fa.launches - before[0], fa.launches_bwd - before[1])
+    assert tuple(map(sum, zip(*(r["launches"] for r in ranks)))) == launches
+    for r, got in enumerate(ranks):
+        assert torch.equal(got["loss"], loss.cpu())
+        want = ST.stage_share(grads, plan, r)
+        assert sorted(got["grads"]) == sorted(want)
+        for a, b in zip(ST.tree_leaves(got["grads"]), ST.tree_leaves(want)):
+            assert torch.equal(a, b.cpu())
+
+
 # the backward's head groups (ssd_scan.HEAD_GROUP = 10 heads): one ragged
 # group of 7, and two groups whose last holds 3 heads
 SSD_BWD_EDGES = SSD_EDGES + [(1, 256, 7, 64, 128, 128),

@@ -209,16 +209,37 @@ Phases, each reported on its own lines:
    step ms (the slowest rank's) beside phase 10's and the transport's
    bytes and ms a step, activation hops apart from the tied embedding's
    all-reduce (128256 x 2048 f32 each way).  No step time of this phase
-   is a pipeline's: the ranks time-slice one card.
+   is a pipeline's: the ranks time-slice one card;
+29. serving on separate ranks (2 gloo ranks sharing the card; full
+   width, batch 8, prompt 512, 8 tokens): llama3.2-1b at 4 layers, V 1
+   M 2 and V 2 M 4 prefill (ring returns parked) with the handoff across
+   ranks (``stage.restack_share_``), then V 1 decode; mamba2-2.7b at 3
+   layers; each rank's logits of every step, its cache share and, after
+   the handoff, its layers and cache against the in-process serve step
+   in that rank's process, bit for bit, the ranks' launches summing to
+   the in-process run's exactly; then one ``ContinuousEngine`` run
+   (llama3.2-1b, 4 layers, 4 slots, chunk 32, 6 requests) on each rank
+   over the rank step: the step plans, the retired requests and the
+   cache shares of the in-process engine;
+30. ``repro_torch.launch.serve.main`` as 4 gloo ranks on the one card
+   with phase 23's flags (llama3.2-1b at full width, 16 layers on 4
+   stages, ``--virtual 2``, M 4, batch 8, prompt 512, 32 tokens, f32,
+   ``--dist-backend gloo``): the tokens equal phase 23's in-process V 2
+   run bit for bit, exactly phase 23's 2048 flash launches summed over
+   ranks, each rank's handoff peak at most what it held before plus its
+   largest leaf; it prints prefill and decode tok/s (the slowest rank's
+   times), the handoff's ms and bytes, each rank's peak memory and the
+   transport by kind (ring hops, the logits broadcast from the last
+   rank, the handoff's layers).  No time of this phase is a pipeline's.
 
 Every kernel's launch counters (``launches`` and, for flash attention,
 ``launches_prefill`` / ``launches_decode`` / ``launches_bwd``; for the
 SSD scan ``launches_bwd``) are set to 0 just before each driven path
 (phases 4, 7, 10, 12, 13, 15, 17, 18 and 21, and each run of phases 11,
-14, 19, 22, 23, 24 and 25; in phases 27 and 28 in each rank's process,
+14, 19, 22, 23, 24 and 25; in phases 27-30 in each rank's process,
 the rank executor's and the in-process runs apart) and read just after
 it.  Every process runs with TF32 off and one cuBLAS workspace setting
-(``card_flags``).  The whole script takes about 7-8 minutes on one H100.
+(``card_flags``).  The whole script takes about 8 minutes on one H100.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -1005,7 +1026,9 @@ def serve_main_path(serve, argv: list, counters: dict, want: dict,
     out, launches = counted(counters, lambda: serve.main(argv))
     batch, gen = int(argv[argv.index("--batch") + 1]), \
         int(argv[argv.index("--gen") + 1])
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    # a V > 1 run's handoff restarts the count: its figure before it too
+    peak = max(torch.cuda.max_memory_allocated(),
+               (out["handoff"] or {}).get("peak_before", 0)) / 2**30
     print(f"serve: prefill {out['prefill_tok_s']:.1f} tok/s, decode "
           f"{out['decode_tok_s']:.1f} tok/s, warm-up {out['warmup_s']:.3f}s, "
           f"peak memory {peak:.2f} GiB, launches {json.dumps(launches)} "
@@ -1613,7 +1636,8 @@ def phase_interleaved(serve, counters: dict, get_config) -> dict:
     v1, o1 = serve_main_path(serve, argv, counters, want, 128256, keep=True)
     res = dict(llama_v2=v2, llama_v1=v1,
                llama=same_generation("llama3.2-1b", o2, o1, V2_PREFILL_REL),
-               llama_handoff=handoff_memory("llama3.2-1b", o2["handoff"]))
+               llama_handoff=handoff_memory("llama3.2-1b", o2["handoff"]),
+               llama_v2_tokens=o2["tokens"].tolist())
     del o1, o2
     torch.cuda.empty_cache()
 
@@ -2084,6 +2108,286 @@ def phase_rank_train(mesh_mod, SP, trained: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 29-30: serving on separate ranks (gloo on the one card).
+# ---------------------------------------------------------------------------
+
+#: phase 29's runs: (label, arch, layers, V of the prefill, M); 2 ranks,
+#: batch 8, prompt 512, 8 tokens, full width; at V 2 M 4 stage 0 parks
+#: each ring return for its next pass, then the handoff moves layers 1
+#: and 2 between the ranks
+SERVE_RANK_RUNS = (
+    ("llama3.2-1b 2 ranks V=1 M=2", "llama3.2-1b", 4, 1, 2),
+    ("llama3.2-1b 2 ranks V=2 M=4 + handoff", "llama3.2-1b", 4, 2, 4),
+    ("mamba2-2.7b 2 ranks V=1 M=2", "mamba2-2.7b", 3, 1, 2),
+)
+SERVE_RANK_BATCH, SERVE_RANK_PROMPT, SERVE_RANK_GEN = 8, 512, 8
+#: phase 29's engine: llama3.2-1b, 4 layers, 2 ranks, M 2, 4 slots,
+#: chunk 32; 6 requests (prompts of 16-128 tokens, 8 new tokens, one
+#: arrival every 2 steps)
+SERVE_RANK_ENGINE = dict(n_slots=4, chunk=32, max_len=128 + 8 + 32)
+
+
+def _bitwise_tree(got: dict, want: dict) -> bool:
+    a, b = _named_leaves(got), _named_leaves(want)
+    return ([k for k, _ in a] == [k for k, _ in b]
+            and all(torch.equal(x, y) for (_, x), (_, y) in zip(a, b)))
+
+
+def rank_serve_parity(mesh) -> list:
+    """Phase 29 on one rank (a spawned process): each run of
+    :data:`SERVE_RANK_RUNS` through the rank serve step, then on the
+    in-process serve step in this process with the same weights (the
+    seed) and prompt; every step's logits, the tokens, this rank's cache
+    share and (V > 1) its layers and cache after the handoff against the
+    in-process run's, both runs' launch counts (set to 0 just before
+    each, read just after); then the engine run both ways."""
+    card_flags()
+    from repro_torch.configs import get_config
+    from repro_torch.core import serve_sched as SS
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.pipeline import comm as C
+    from repro_torch.pipeline import runtime as RT
+    from repro_torch.pipeline import stage as ST
+    counters = dict(flash_attention=FA.flash_attend, ssd_scan=SSD.ssd_chunked)
+    dev, rank, group = mesh.device, mesh.rank, mesh.group
+    row = lambda tree: ST._map_layers(lambda a: a[rank], tree)
+    B, P, G = SERVE_RANK_BATCH, SERVE_RANK_PROMPT, SERVE_RANK_GEN
+    out = []
+    for label, arch, L, V, M_ in SERVE_RANK_RUNS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=L,
+                                  stages=mesh.world, tensor=1, virtual=V)
+        plan_p, plan = ST.plan_stages(cfg), ST.plan_stages(cfg, virtual=1)
+        g = torch.Generator().manual_seed(1)
+        prompt = torch.randint(0, cfg.vocab, (B, P), generator=g).to(dev)
+
+        def serve(grp):
+            """Prefill, the handoff at V > 1, G - 1 greedy decode steps."""
+            steps = [RT.make_serve_step(cfg, pl, RT.PipelineConfig(
+                n_microbatches=M_), q_len=q, group=grp)
+                for pl, q in ((plan_p, P), (plan, 1))]
+            if grp is None:
+                params = ST.init_stacked_params(cfg, 0, plan_p, device=dev)
+                cache = RT.init_pipeline_cache(cfg, plan_p, B, P + G,
+                                               device=dev)
+            else:
+                params = ST.init_stage_params(cfg, 0, plan_p, rank,
+                                              device=dev)
+                cache = RT.init_stage_cache(cfg, plan_p, rank, B, P + G,
+                                            device=dev)
+            logits, tok, res = [], prompt, {}
+            for i in range(G):
+                lg, cache = steps[min(i, 1)](params, cache,
+                                             dict(tokens=tok))
+                logits.append(lg)
+                tok = torch.argmax(lg[:, 0, :cfg.vocab], dim=-1)[:, None]
+                if i == 0 and V > 1:
+                    if grp is None:
+                        ST.restack_tree_(params["layers"], plan_p, plan, L)
+                        ST.restack_tree_(cache, plan_p, plan, L)
+                    else:
+                        tp = C.Transport(grp)
+                        ST.restack_share_(params["layers"], plan_p, plan, L,
+                                          rank, tp)
+                        ST.restack_share_(cache, plan_p, plan, L, rank, tp)
+                        res["handoff_transport"] = tp.stats
+                    res["handoff"] = dict(
+                        layers=params["layers"],
+                        cache=ST._map_layers(torch.clone, cache))
+            torch.cuda.synchronize()
+            if grp is not None:
+                res["transport"] = steps[1].transport.stats
+            return dict(res, logits=logits, cache=cache)
+
+        mine, launches = counted(counters, lambda: serve(group))
+        ref, ref_launches = counted(counters, lambda: serve(None))
+        ok = dict(
+            logits=all(torch.equal(a, b) for a, b in zip(mine["logits"],
+                                                          ref["logits"])),
+            cache=_bitwise_tree(mine["cache"], row(ref["cache"])))
+        if V > 1:
+            ok["handoff_layers"] = _bitwise_tree(
+                mine["handoff"]["layers"], row(ref["handoff"]["layers"]))
+            ok["handoff_cache"] = _bitwise_tree(
+                mine["handoff"]["cache"], row(ref["handoff"]["cache"]))
+        gap = max((a - b).abs().max().item()
+                  for a, b in zip(mine["logits"], ref["logits"]))
+        out.append(dict(
+            label=label, rank=rank, ok=ok, max_abs_logit_gap=gap,
+            launches=launches, ref_launches=ref_launches,
+            **{k: {kind: list(v) for kind, v in mine[k].items()}
+               for k in ("transport", "handoff_transport") if k in mine}))
+        del mine, ref
+        torch.cuda.empty_cache()
+
+    # the engine: every rank runs its own scheduler over the rank step
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=4,
+                              stages=mesh.world, tensor=1)
+    plan = ST.plan_stages(cfg)
+    e = SERVE_RANK_ENGINE
+    runs = {}
+    for grp in (group, None):
+        step = RT.make_serve_step(cfg, plan, RT.PipelineConfig(
+            n_microbatches=2), q_len=e["chunk"], group=grp)
+        if grp is None:
+            params = ST.init_stacked_params(cfg, 0, plan, device=dev)
+            cache = RT.init_pipeline_cache(cfg, plan, e["n_slots"],
+                                           e["max_len"], device=dev)
+        else:
+            params = ST.init_stage_params(cfg, 0, plan, rank, device=dev)
+            cache = RT.init_stage_cache(cfg, plan, rank, e["n_slots"],
+                                        e["max_len"], device=dev)
+        eng = SS.ContinuousEngine(cfg, step, params, cache, e["n_slots"],
+                                  e["chunk"])
+        reqs = engine_requests(SS, cfg.vocab, 6, 16, 128, max_new=8)
+        done, n = counted(counters, lambda: eng.run(reqs))
+        torch.cuda.synchronize()
+        runs[grp is None] = dict(
+            launches=n, steps=eng.steps_run, cache=eng.cache,
+            plans=[(sp.tokens.tolist(), sp.n_valid.tolist(),
+                    [(w.kind, w.n_valid, w.rid) for w in sp.work])
+                   for sp in eng.step_log],
+            retired=[(r.rid, r.generated, r.t_first, r.t_done)
+                     for r in done])
+        del eng, params, cache, step
+    mine, ref = runs[False], runs[True]
+    out.append(dict(
+        label="llama3.2-1b 2 ranks engine chunk 32", rank=rank,
+        ok=dict(plans=mine["plans"] == ref["plans"],
+                retired=mine["retired"] == ref["retired"],
+                cache=_bitwise_tree(mine["cache"], row(ref["cache"]))),
+        steps=mine["steps"], retired=len(mine["retired"]),
+        mixed_steps=sum(1 for p in mine["plans"]
+                        if {"prefill", "decode"} <= {w[0] for w in p[2]}),
+        launches=mine["launches"], ref_launches=ref["launches"]))
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_rank_serve_parity(mesh_mod) -> dict:
+    """Phase 29: :data:`SERVE_RANK_RUNS` and the engine on 2 gloo ranks
+    sharing the one card against the in-process serve step on the card;
+    bit for bit, and the ranks' launches summing to the in-process run's
+    exactly."""
+    t0 = time.perf_counter()
+    per_rank = mesh_mod.spawn_ranks(rank_serve_parity, 2, "gloo",
+                                    device="cuda")
+    print(f"ranks serve: 2 gloo ranks on one card, run in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    res = {}
+    for i, run in enumerate(per_rank[0]):
+        rows = [pr[i] for pr in per_rank]
+        label = run["label"]
+        summed = {k: sum(r["launches"][k] for r in rows)
+                  for k in run["launches"]}
+        ref = run["ref_launches"]
+        bitwise = all(all(r["ok"].values()) for r in rows)
+        res[label] = dict(bitwise=bitwise, checks=[r["ok"] for r in rows],
+                          launches_summed=summed, ref_launches=ref,
+                          **{k: run[k] for k in ("steps", "retired",
+                                                 "mixed_steps",
+                                                 "max_abs_logit_gap")
+                             if k in run},
+                          **{k: [r[k] for r in rows]
+                             for k in ("transport", "handoff_transport")
+                             if k in run})
+        print(f"ranks serve {label}: bit for bit against the in-process "
+              f"step: {bitwise} {json.dumps([r['ok'] for r in rows])}; "
+              f"launches summed over ranks {json.dumps(summed)} "
+              f"(in-process {json.dumps(ref)}); "
+              + json.dumps({k: v for k, v in res[label].items()
+                            if k not in ("bitwise", "checks",
+                                         "launches_summed",
+                                         "ref_launches")}), flush=True)
+        if not bitwise:
+            fail(f"ranks serve {label}: not bit for bit against the "
+                 f"in-process serve step: {[r['ok'] for r in rows]}")
+        if summed != ref or any(r["ref_launches"] != ref for r in rows) \
+                or not any(summed.values()):
+            fail(f"ranks serve {label}: launches summed over ranks "
+                 f"{summed}, in-process {ref}")
+        if "mixed_steps" in run and not run["mixed_steps"]:
+            fail(f"ranks serve {label}: no step mixed prefill and decode")
+    return res
+
+
+def rank_serve(mesh, argv: list) -> dict:
+    """Phase 30 on one rank: ``launch.serve.main`` as this rank's stage,
+    every kernel's launch counters set to 0 just before it and read just
+    after; what it returned, without the logits."""
+    card_flags()
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.launch import serve
+    out, launches = counted(
+        dict(flash_attention=FA.flash_attend, ssd_scan=SSD.ssd_chunked),
+        lambda: serve.main(argv, mesh=mesh))
+    keep = {k: v for k, v in out.items()
+            if k not in ("last_logits", "prefill_logits", "lowerings")}
+    return dict(keep, own_launches=launches)
+
+
+def phase_rank_serve(mesh_mod, interleaved: dict) -> dict:
+    """Phase 30: llama3.2-1b at full width as 4 gloo ranks on the one card
+    through ``launch.serve.main`` with phase 23's flags (16 layers on 4
+    stages, ``--virtual 2``, M 4, batch 8, prompt 512, 32 tokens, f32):
+    the tokens equal phase 23's in-process V = 2 run bit for bit, the
+    flash launches summed over ranks are phase 23's, each rank's
+    handoff peak stays at or below what it held before plus its largest
+    leaf."""
+    argv = ["--arch", "llama3.2-1b", "--tensor", "1", "--stages", "4",
+            "--microbatches", "4", "--batch", "8", "--prompt-len", "512",
+            "--gen", "32", "--device", "cuda", "--virtual", "2",
+            "--dist-backend", "gloo"]
+    tag = "ranks serve llama3.2-1b 4 ranks V=2 M=4"
+    print(f"{tag}: spawn_ranks(serve.main, 4, 'gloo') of python -m "
+          f"repro_torch.launch.serve {' '.join(argv)}", flush=True)
+    t0 = time.perf_counter()
+    outs = mesh_mod.spawn_ranks(rank_serve, 4, "gloo", argv, device="cuda")
+    wall = time.perf_counter() - t0
+    out = outs[0]
+    want = interleaved["llama_v2"]["launches"]
+    summed = {k: sum(o["own_launches"][k] for o in outs) for k in want}
+    h = out["handoff"]
+    handoff = [handoff_memory(f"{tag} rank {r}", hr)
+               for r, hr in enumerate(h["by_rank"])]
+    by_kind = {}
+    for phase in ("prefill", "handoff", "decode"):
+        by_kind[phase] = {k: dict(
+            messages=sum(t[phase][k][0] for t in out["transport"]),
+            bytes=sum(t[phase][k][1] for t in out["transport"]),
+            max_rank_ms=max(t[phase][k][2] for t in out["transport"]) * 1e3,
+            max_rank_copy_ms=max(t[phase][k][3]
+                                 for t in out["transport"]) * 1e3)
+            for k in out["transport"][0][phase]
+            if any(t[phase][k][0] for t in out["transport"])}
+    res = dict(tokens_equal_phase23=out["tokens"].tolist()
+               == interleaved["llama_v2_tokens"],
+               prefill_tok_s=out["prefill_tok_s"],
+               decode_tok_s=out["decode_tok_s"],
+               phase23_prefill_tok_s=interleaved["llama_v2"]["prefill_tok_s"],
+               phase23_decode_tok_s=interleaved["llama_v2"]["decode_tok_s"],
+               handoff_ms=1e3 * h["seconds"],
+               handoff_bytes_moved=by_kind["handoff"].get(
+                   "handoff", {}).get("bytes", 0),
+               handoff_by_rank=handoff,
+               peak_gib_by_rank=out["peak_gib_by_rank"],
+               launches_summed=summed, launches_by_serve=out["launches"],
+               transport_by_kind=by_kind, wall_s=wall)
+    print(f"{tag}: {json.dumps(res)} (phase 23 launches "
+          f"{json.dumps(want)})", flush=True)
+    if not res["tokens_equal_phase23"]:
+        fail(f"{tag}: tokens differ from phase 23's in-process V = 2 run")
+    if summed != want or out["launches"] != want:
+        fail(f"{tag}: launches summed over ranks {summed} (serve.main "
+             f"{out['launches']}), want phase 23's {want}")
+    if any(o["tokens"].tolist() != out["tokens"].tolist() for o in outs):
+        fail(f"{tag}: the ranks' tokens differ")
+    return res
+
+
 #: the f32 GEMMs of one llama3.2-1b layer's forward at a micro-batch of
 #: 2048 tokens (batch 8 x seq 1024 in 4 micro-batches): (m, k, n, count)
 #: for q and o, k and v, the gate and up projections, the down projection
@@ -2387,6 +2691,12 @@ def main() -> None:
     # ---- 28. llama3.2-1b at full width as 4 ranks on the one card --------
     rank_trained = phase_rank_train(MESH, SP, trained)
 
+    # ---- 29. serving on separate ranks: parity at full width, few layers -
+    rank_serve_res = phase_rank_serve_parity(MESH)
+
+    # ---- 30. llama3.2-1b served at full width as 4 ranks ------------------
+    rank_served = phase_rank_serve(MESH, interleaved_serve)
+
     train_paths = {f"train {r['schedule']} V={r['virtual']} "
                    f"M={r['microbatches']}": r["launches"]
                    for r in (trained, interleaved, zb_h2)}
@@ -2423,7 +2733,12 @@ def main() -> None:
                for V in (2, 1)},
             **{f"engine {k} {policy}": r[policy]["launches"]["flash_attention"]
                for k, r in engine.items()
-               for policy in ("continuous", "sequential")}),
+               for policy in ("continuous", "sequential")},
+            **{f"ranks serve {k}": r["launches_summed"]["flash_attention"]
+               for k, r in rank_serve_res.items()
+               if k.startswith("llama")},
+            **{"ranks serve llama3.2-1b 4 ranks V=2 M=4":
+               rank_served["launches_summed"]["flash_attention"]}),
         max_abs_err=main_row["max_abs_err"],
         ms=main_row["ms"], call_ms=main_row["call_ms"],
         plain_ms=main_row["plain_ms"],
@@ -2471,7 +2786,9 @@ def main() -> None:
             interleaved_serve[f"mamba_v{V}"]["launches"]["ssd_scan"]
             for V in (2, 1)}, **{
             k: v["ssd_scan"] for k, v in train_paths.items()
-            if k.startswith("ranks mamba2")}),
+            if k.startswith("ranks mamba2")}, **{
+            f"ranks serve {k}": r["launches_summed"]["ssd_scan"]
+            for k, r in rank_serve_res.items() if k.startswith("mamba2")}),
         max_abs_err=ssd_row["max_abs_err"], rel_err=ssd_row["rel_err"],
         ms=ssd_row["ms"], call_ms=ssd_row["call_ms"],
         plain_ms=ssd_row["plain_ms"],
@@ -2530,7 +2847,10 @@ def main() -> None:
                                 "mamba2-2.7b": mamba, "gemma3-1b": gemma,
                                 "qwen3-1.7b": qwen,
                                 "interleaved": interleaved_serve,
-                                "engine": engine}}), flush=True)
+                                "engine": engine,
+                                "ranks parity": rank_serve_res,
+                                "ranks llama3.2-1b": rank_served}}),
+          flush=True)
     print(json.dumps({"train": {"llama3.2-1b": trained,
                                 "interleaved": interleaved, "zb-h2": zb_h2,
                                 "parity": train_parity,

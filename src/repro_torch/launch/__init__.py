@@ -1,7 +1,8 @@
 """Command-line entry points (python -m repro_torch.launch.serve,
 python -m repro_torch.launch.train) and the stage process group
 (:mod:`repro_torch.launch.mesh`): every stage in one process on one
-card, or, for training under ``torchrun``, one process per stage."""
+card, or, under ``torchrun``, one process per stage, for serving and
+for training alike."""
 from __future__ import annotations
 
 import dataclasses

@@ -73,6 +73,16 @@ def check_backend(backend: str, device_type: str, local_world: int) -> None:
                 f"memory), or one card per rank")
 
 
+def check_world(n_stages: int, world: int) -> None:
+    """Refuse a plan whose stage count is not the world size (one process
+    runs one stage), before any group is set up."""
+    if n_stages != world:
+        raise ValueError(
+            f"{n_stages} stages on {world} ranks: one process runs one "
+            f"stage, so --stages (or the planner's stage count) must equal "
+            f"the world size")
+
+
 def init_stage_group(backend: str, device_type: str = "cuda", *,
                      rank: int | None = None, world: int | None = None,
                      init_method: str | None = None,
@@ -102,6 +112,13 @@ def init_stage_group(backend: str, device_type: str = "cuda", *,
                             timeout=GROUP_TIMEOUT, **kw)
     return StageMesh(group=dist.group.WORLD, rank=rank, world=world,
                      backend=backend, device=device)
+
+
+def gather(obj, mesh: StageMesh) -> list:
+    """Every rank's ``obj`` (a small Python object), in rank order."""
+    out = [None] * mesh.world
+    dist.all_gather_object(out, obj, group=mesh.group)
+    return out
 
 
 def _rank_main(rank: int, fn, world: int, backend: str, device_type: str,

@@ -88,9 +88,7 @@ from repro_torch.core import schedplan as SP
 from repro_torch.core.autoplan import auto_plan, auto_plan3d
 from repro_torch.core.hardware import CATALOGUE, H100
 from repro_torch.data.synthetic import SyntheticLM
-from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import flash_attend
-from repro_torch.kernels.ssd_scan import ssd_chunked
+from repro_torch.kernels import build, launch_counters
 from repro_torch.launch import PAR_ITEM as _PAR_ITEM, one_card
 from repro_torch.launch import mesh as MESH
 from repro_torch.optim.adamw import AdamW, warmup_cosine
@@ -179,19 +177,6 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--replan-budget", type=float, default=None)
     ap.set_defaults(plan=None)          # the adopted AutoPlan, if any
     return ap
-
-
-def _counters() -> dict:
-    """Every kernel launch counter: ``name`` or ``name.route``."""
-    out = {}
-    for name, fn in (("flash_attention", flash_attend),
-                     ("ssd_scan", ssd_chunked)):
-        for attr in sorted(vars(fn)):
-            if attr == "launches":
-                out[name] = (fn, attr)
-            elif attr.startswith("launches_"):
-                out[f"{name}.{attr[len('launches_'):]}"] = (fn, attr)
-    return out
 
 
 def build_config(args: argparse.Namespace):
@@ -294,7 +279,7 @@ def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
                              remat=args.remat)
     own_group = False
     if mesh is None and int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        _check_world(plan, int(os.environ["WORLD_SIZE"]))
+        MESH.check_world(plan.n_stages, int(os.environ["WORLD_SIZE"]))
         mesh = MESH.init_stage_group(
             args.dist_backend or ("nccl" if device.type == "cuda"
                                   else "gloo"), device.type)
@@ -321,7 +306,7 @@ def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq,
                        global_batch=args.batch, seed=args.seed,
                        device=str(device))
-    counters = _counters()
+    counters = launch_counters()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     losses, step_s, launches = [], [], []
@@ -364,21 +349,13 @@ def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
                 peak_gib=peak, params=params, opt_state=opt_state)
 
 
-def _check_world(plan: ST.StagePlan, world: int) -> None:
-    if plan.n_stages != world:
-        raise ValueError(
-            f"{plan.n_stages} stages on {world} ranks: one process runs one "
-            f"stage, so --stages (or the planner's stage count) must equal "
-            f"the world size")
-
-
 def _main_ranks(args, cfg, plan: ST.StagePlan, opt: AdamW,
                 pcfg: RT.PipelineConfig, mesh: MESH.StageMesh) -> dict:
     """:func:`main` as stage ``mesh.rank`` of the rank executor."""
-    _check_world(plan, mesh.world)
+    MESH.check_world(plan.n_stages, mesh.world)
     device, rank, group = mesh.device, mesh.rank, mesh.group
     lead = rank == 0
-    gather = lambda obj: _gather(obj, mesh)
+    gather = lambda obj: MESH.gather(obj, mesh)
     step_fn = RT.make_train_step(cfg, plan, pcfg, optimizer=opt, group=group)
     params = ST.init_stage_params(cfg, args.seed, plan, rank, device=device)
     opt_state = opt.init(params)
@@ -400,7 +377,7 @@ def _main_ranks(args, cfg, plan: ST.StagePlan, opt: AdamW,
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq,
                        global_batch=args.batch, seed=args.seed,
                        device=str(device))
-    counters = _counters()
+    counters = launch_counters()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     losses, step_s, launches, transport = [], [], [], []
@@ -462,13 +439,6 @@ def _main_ranks(args, cfg, plan: ST.StagePlan, opt: AdamW,
                 peak_gib=None if peak[0] is None else max(peak),
                 peak_gib_by_rank=peak, transport=transport,
                 params=params, opt_state=opt_state)
-
-
-def _gather(obj, mesh: MESH.StageMesh) -> list:
-    """Every rank's ``obj``, in rank order (a small Python object)."""
-    out = [None] * mesh.world
-    dist.all_gather_object(out, obj, group=mesh.group)
-    return out
 
 
 if __name__ == "__main__":

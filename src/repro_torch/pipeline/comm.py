@@ -4,13 +4,16 @@ axis (``repro/pipeline/runtime.py``), as ``torch.distributed`` messages.
 
 :func:`ring_hops` derives, from a ``lower_to_ticks`` table alone, which
 stage sends which ring's output to which neighbour between two ticks;
-every rank derives the same list, so the sends and receives pair up.  A
-:class:`Transport` moves them, one ``batch_isend_irecv`` a tick, and
-carries the step's few collectives (the loss, the gradient-norm
-partials, the tied embedding's gradient).  Under gloo on a CUDA device
-every message goes device -> pinned host -> device in plain sight (gloo's
-send and recv take CPU tensors only); under NCCL the device tensors go as
-they are.  Each message's bytes and host time are counted by kind.
+:func:`serve_hops` does the same for the serve step's ``lower_to_ring``
+table (a forward ring only).  Every rank derives the same list, so the
+sends and receives pair up.  A :class:`Transport` moves them, one
+``batch_isend_irecv`` a tick, and carries the step's few collectives
+(the loss, the gradient-norm partials, the tied embedding's gradient,
+the serve step's logits) and the V > 1 serving handoff's layers.  Under
+gloo on a CUDA device every message goes device -> pinned host -> device
+in plain sight (gloo's send and recv take CPU tensors only); under NCCL
+the device tensors go as they are.  Each message's bytes and host time
+are counted by kind.
 """
 from __future__ import annotations
 
@@ -51,18 +54,41 @@ def ring_hops(lo: SP.TickLowering) -> tuple:
     return tuple(out)
 
 
+def serve_hops(lo: SP.RingLowering) -> tuple:
+    """``hops[t]``: the (src, dst) forward messages that arrive at tick t
+    of the serve ring, sent by ``src`` after its tick t-1 (stage s runs
+    element ``t - s`` at tick t).  Stage s hops to s+1 wherever s+1 has
+    an element at tick t (it reads that element's output of stage s);
+    stage S-1 hops to stage 0 only where stage 0 reads the ring return:
+    element ``t - S``'s output is parked (``park``) or is the input of
+    stage 0's element t (``direct``).  A collected final output stays on
+    the last stage.  At V = 1 nothing wraps."""
+    S, MV = lo.N, lo.M * lo.V
+    out = []
+    for t in range(lo.n_ticks):
+        hops = [(s, s + 1) for s in range(S - 1) if 0 <= t - s - 1 < MV]
+        back = ((0 <= t - S < MV and lo.park[t - S])
+                or (t < MV and not lo.fresh[t] and lo.direct[t]))
+        if back:
+            hops.append((S - 1, 0))
+        out.append(tuple(hops))
+    return tuple(out)
+
+
 class Transport:
     """One rank's messages over ``group``: the ring hops and the step's
     collectives.  ``stats[kind] = [messages, bytes, seconds, copy
     seconds]`` for the kinds ``hop`` (activations and cotangents),
-    ``embed_allreduce`` (the tied embedding's gradient) and ``scalars``
-    (the loss and the norm partials); bytes count what this rank sends;
-    seconds are the host's wall time of the calls, waiting for the peers
-    included (under NCCL, where nothing waits, the enqueue); copy
+    ``embed_allreduce`` (the tied embedding's gradient), ``scalars``
+    (the loss and the norm partials), ``logits`` (the serve step's
+    broadcast from the last rank) and ``handoff`` (the layers the V > 1
+    serving handoff moves between ranks); bytes count what this rank
+    sends; seconds are the host's wall time of the calls, waiting for the
+    peers included (under NCCL, where nothing waits, the enqueue); copy
     seconds the staging copies' share of it (device -> pinned host ->
     device, each ending in a sync).  :meth:`reset` zeroes them."""
 
-    KINDS = ("hop", "embed_allreduce", "scalars")
+    KINDS = ("hop", "embed_allreduce", "scalars", "logits", "handoff")
 
     def __init__(self, group):
         self.group = group
@@ -112,18 +138,30 @@ class Transport:
         as ``like`` on its device.  A message to this rank itself is
         handed over as it is."""
         out = {tag: x for tag, dst, x in sends if dst == self.rank}
-        sends = [m for m in sends if m[1] != self.rank]
-        recvs = [m for m in recvs if m[1] != self.rank]
+        recvs = [(tag, src, torch.empty_like(like))
+                 for tag, src in recvs if src != self.rank]
+        self.exchange_into(
+            [m for m in sends if m[1] != self.rank], recvs, "hop",
+            like.device)
+        out.update({tag: buf for tag, _, buf in recvs})
+        return out
+
+    def exchange_into(self, sends: list, recvs: list, kind: str,
+                      device: torch.device) -> None:
+        """Post every (tag, dst, tensor) of ``sends`` and every (tag, src,
+        buffer) of ``recvs`` (tensors on ``device``; a peer other than
+        this rank) in one ``batch_isend_irecv``, wait for them and leave
+        each message in its buffer; counted under ``kind``."""
         if not sends and not recvs:
-            return out
-        staged = self._staged(like.device)
-        if staged:      # the tick's queued work is compute, not transport
-            torch.cuda.synchronize(like.device)
+            return
+        staged = self._staged(device)
+        if staged:      # the queued work is compute, not transport
+            torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        ops, bufs, nbytes, copy_s = [], {}, 0, 0.0
+        ops, landed, nbytes, copy_s = [], [], 0, 0.0
         for tag, dst, x in sends:
             if x is None:
-                raise RuntimeError(f"ring {tag}: rank {self.rank} has no "
+                raise RuntimeError(f"message {tag}: rank {self.rank} has no "
                                    f"output to send to rank {dst}")
             if staged:
                 x, c = self._to_host(x)
@@ -131,38 +169,42 @@ class Transport:
             ops.append(dist.P2POp(dist.isend, x.contiguous(),
                                   self._peer(dst), self.group, tag))
             nbytes += x.numel() * x.element_size()
-        for tag, src in recvs:
-            buf = (torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
-                   if staged else torch.empty_like(like))
-            bufs[tag] = buf
-            ops.append(dist.P2POp(dist.irecv, buf, self._peer(src),
+        for tag, src, buf in recvs:
+            land = (torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+                    if staged else buf)
+            landed.append((land, buf))
+            ops.append(dist.P2POp(dist.irecv, land, self._peer(src),
                                   self.group, tag))
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-        for tag, buf in bufs.items():
-            if staged:
-                out[tag] = torch.empty_like(like)
-                copy_s += self._to_device(buf, out[tag])
-            else:
-                out[tag] = buf
-        self._count("hop", nbytes, t0, copy_s)
-        return out
+        if staged:
+            for land, buf in landed:
+                copy_s += self._to_device(land, buf)
+        self._count(kind, nbytes, t0, copy_s)
 
-    def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
+    def broadcast(self, x: torch.Tensor, src: int,
+                  kind: str = "scalars") -> torch.Tensor:
         """``x`` from rank ``src`` on every rank (a new tensor on ``x``'s
-        device; ``x`` is only read on ``src``)."""
+        device; ``x`` is only read on ``src``, elsewhere it gives the
+        shape and type); counted under ``kind``."""
         if self.size == 1:
             return x
         t0 = time.perf_counter()
-        buf, copy_s = x.detach().clone(), 0.0
+        mine = self.rank == src
+        buf = x.detach().clone() if mine else torch.empty_like(x)
+        copy_s = 0.0
         if self._staged(x.device):
-            host, copy_s = self._to_host(buf)
+            if mine:
+                host, copy_s = self._to_host(buf)
+            else:
+                host = torch.empty(buf.shape, dtype=buf.dtype,
+                                   pin_memory=True)
             dist.broadcast(host, self._peer(src), group=self.group)
             copy_s += self._to_device(host, buf)
         else:
             dist.broadcast(buf, self._peer(src), group=self.group)
-        self._count("scalars", buf.numel() * buf.element_size()
-                    if self.rank == src else 0, t0, copy_s)
+        self._count(kind, buf.numel() * buf.element_size() if mine else 0,
+                    t0, copy_s)
         return buf
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:

@@ -3,11 +3,12 @@
 
 The JAX runtime runs every stage on its own device inside ``shard_map``
 and shifts activations around ``ppermute`` rings, one tick at a time.
-Here the two step factories are in-process executors of the same
-schedule-plan tables, every stage in one process on one card; the train
-step also runs as one process per stage (``make_train_step(...,
-group=...)``: each rank replays its own row of the table, the rings are
-``torch.distributed`` messages, :mod:`repro_torch.pipeline.comm`):
+Here the two step factories are executors of the same schedule-plan
+tables, either every stage in one process on one card or, with
+``group=...``, one process per stage: each rank replays its own row of
+the table and the rings are ``torch.distributed`` messages
+(:mod:`repro_torch.pipeline.comm`).  One body of per-stage tick code
+(:class:`_ServeRun`, :class:`_StageRun`) serves both.
 
 * :func:`make_serve_step` replays :func:`repro_torch.core.schedplan.
   lower_to_ring`: at tick t, stage s runs element ``e = t - s`` on the
@@ -16,7 +17,8 @@ group=...)``: each rank replays its own row of the table, the rings are
   parked in a per-micro-batch return slot (``park``).  (stage, tick)
   pairs with no element (pipeline fill and drain) are skipped, not
   computed and masked, which gives what the JAX runtime gives with
-  ``gate_ticks``.
+  ``gate_ticks``.  On ranks the last rank broadcasts the logits, as the
+  JAX runtime's ``psum`` over the stage axis does.
 * :func:`make_train_step` replays :func:`repro_torch.core.schedplan.
   lower_to_ticks`: every F, B and W op of the schedule is a tick of its
   stage, and the forward and backward rings are lists of the previous
@@ -33,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import schedplan as SP
+from repro_torch.launch import PAR_ITEM
 from repro_torch.models import layers as LYR
 from repro_torch.models import model as M
 from repro_torch.optim import adamw as OPT
@@ -91,6 +94,13 @@ def apply_stage(cfg: ArchConfig, layer_params: list, stage_meta: list, x, *,
     return x, aux, cache
 
 
+def _check_cache_plan(plan: ST.StagePlan) -> None:
+    if plan.tensor != 1:
+        raise NotImplementedError(
+            f"tensor={plan.tensor}: the port's pipeline cache is tensor = 1; "
+            f"a sharded cache is not ported yet ({PAR_ITEM})")
+
+
 def init_pipeline_cache(cfg: ArchConfig, plan: ST.StagePlan, batch: int,
                         max_len: int, *, dtype=torch.float32,
                         device="cuda") -> dict:
@@ -100,12 +110,26 @@ def init_pipeline_cache(cfg: ArchConfig, plan: ST.StagePlan, batch: int,
     [S, Lps, B]; or, for the SSM family, the conv window
     [S, Lps, B, d_conv-1, conv_ch] and state [S, Lps, B, H, P, N]
     (``max_len`` unused)."""
-    if plan.tensor != 1:
-        raise NotImplementedError("the port's pipeline cache is tensor = 1 "
-                                  "so far")
+    _check_cache_plan(plan)
     pad_cfg = dataclasses.replace(cfg, n_layers=plan.n_layers_padded)
     c = M.init_cache(pad_cfg, batch, max_len, dtype=dtype, device=device)
     return ST._map_layers_(lambda a: ST._stack_chunks(a, plan), c)
+
+
+def init_stage_cache(cfg: ArchConfig, plan: ST.StagePlan, stage: int,
+                     batch: int, max_len: int, *, dtype=torch.float32,
+                     device="cuda") -> dict:
+    """Stage ``stage``'s share of :func:`init_pipeline_cache` (one rank's
+    cache): ``[Lps, B, ...]`` or ``[V, Lc, B, ...]`` leaves with no stage
+    axis, equal to row ``stage`` of the stacked cache bit for bit (every
+    layer's cache starts as zeros)."""
+    _check_cache_plan(plan)
+    if not 0 <= stage < plan.n_stages:
+        raise ValueError(f"stage {stage} of a {plan.n_stages}-stage plan")
+    n_cfg = dataclasses.replace(
+        cfg, n_layers=plan.virtual * plan.layers_per_stage)
+    c = M.init_cache(n_cfg, batch, max_len, dtype=dtype, device=device)
+    return ST._map_layers_(lambda a: ST._stage_rows(a, plan), c)
 
 
 def _kv_len_leaves(cache: dict, kv: bool = False) -> list:
@@ -131,15 +155,79 @@ def _advance_len(cache: dict, adv) -> dict:
     return cache
 
 
-def _chunk_index(V: int):
-    """``(s, v) ->`` the index of chunk v of stage s in a stacked
-    [S, Lps, ...] (V = 1) or [S, V, Lc, ...] leaf."""
-    return (lambda s, v: (s,)) if V == 1 else (lambda s, v: (s, v))
+class _ServeRun:
+    """Stage ``s``'s share of one replay of a ``lower_to_ring`` table: its
+    parked ring returns (stage 0), its collected outputs (the last stage)
+    and the body of its ticks.  The in-process executor runs every
+    stage's in one loop; a rank runs its own.  ``layers`` and ``cache``
+    are the stage's ``[Lps, ...]`` or ``[V, Lc, ...]`` trees (row s of a
+    stacked tree, or a rank's own); ``pos`` the batch's positions and
+    ``x_all`` its embedded tokens (stage 0 only)."""
+
+    def __init__(self, cfg: ArchConfig, lo: SP.RingLowering, meta: list,
+                 s: int, layers: dict, cache: dict, pos: torch.Tensor,
+                 x_all, mb: int):
+        self.cfg, self.lo, self.meta, self.s = cfg, lo, meta, s
+        self.layers, self.cache = layers, cache
+        self.pos, self.x_all, self.mb = pos, x_all, mb
+        self.lc = len(meta if lo.V == 1 else meta[0])
+        self.retbuf = [None] * lo.M         # stage 0's parked returns
+        self.outbuf = [None] * lo.M         # the last stage's outputs
+
+    def tick(self, t: int, arr):
+        """Run tick t on what arrived from the previous stage (stage 0:
+        from the last, the ring return; None where nothing did); returns
+        the tick's output, None where the stage has no element."""
+        lo, s, S = self.lo, self.s, self.lo.N
+        MV = lo.M * lo.V
+        # the ring return reaching stage 0 now is element t - S's
+        if s == 0 and 0 <= t - S < MV and lo.park[t - S]:
+            self.retbuf[lo.m_of_e[t - S]] = arr
+        e = t - s
+        if not 0 <= e < MV:
+            return None                 # fill/drain: no element here
+        mc, v = lo.m_of_e[e], lo.v_of_e[e]
+        rows = slice(mc * self.mb, (mc + 1) * self.mb)
+        if s > 0:
+            x_in = arr
+        elif lo.fresh[e]:
+            x_in = self.x_all[rows]
+        else:
+            x_in = arr if lo.direct[e] else self.retbuf[mc]
+        ch = () if lo.V == 1 else (v,)
+        # this micro-batch's rows of the chunk's cache; the views are
+        # written in place, 'len' stays frozen
+        c_mb = ST._map_layers(lambda a: a[ch + (slice(None), rows)],
+                              self.cache)
+        layers = [M.layer_slice(self.layers, ch + (j,))
+                  for j in range(self.lc)]
+        y, _, _ = apply_stage(self.cfg, layers,
+                              self.meta if lo.V == 1 else self.meta[v],
+                              x_in, pos=self.pos[rows], cache=c_mb)
+        if s == S - 1 and lo.collect[e]:
+            self.outbuf[mc] = y
+        return y
+
+
+def _serve_head(cfg: ArchConfig, params: dict, outbuf: list, nv,
+                q_len: int) -> torch.Tensor:
+    """The collected hidden states' logits: at the last column, or at
+    each slot's last valid one (``nv``; an idle slot's column 0)."""
+    hidden = torch.cat(outbuf, dim=0)                     # [B,q,d]
+    if nv is None:
+        hidden = hidden[:, -1:]
+    else:
+        col = nv.long().clamp(1, q_len) - 1
+        hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device),
+                        col][:, None]
+    h = LYR.rms_norm(hidden, params["final_norm"], cfg.norm_eps)
+    table = params.get("head", params["embed"])
+    return (h @ table.T).float()
 
 
 def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
                     pcfg: PipelineConfig, *, q_len: int = 1,
-                    data: int = 1):
+                    data: int = 1, group=None):
     """Build the pipelined decode/prefill step
     ``serve_step(params, cache, batch) -> (last_logits, cache)``.
 
@@ -168,22 +256,35 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
     table for prefill and for one-token decode; the cache and parameter
     leaves are [S, V, Lc, ...] and each tick indexes its chunk.
 
+    With ``group`` (a ``torch.distributed`` process group of
+    ``plan.n_stages`` ranks, every rank calling this factory) the step is
+    the rank executor: this rank runs stage ``group.rank()`` of the same
+    table on its share of the parameters (``stage.init_stage_params``)
+    and its own cache (:func:`init_stage_cache`); every rank takes the
+    same ``batch``, derives the positions from its own cache's offsets
+    and advances them.  Rank 0 embeds the tokens; the ring's hops
+    (``comm.serve_hops``) go as one ``batch_isend_irecv`` a tick; the
+    last rank applies the final norm and the head and broadcasts the
+    logits, so every rank returns the same logits.
+    ``serve_step.transport`` (a :class:`repro_torch.pipeline.comm.
+    Transport`) then holds the last call's message counts.
+
     Returns f32 logits ``[B, 1, padded_vocab]``.  ``serve_step.lowering``
     is the replayed ring table."""
     if plan.tensor != 1 or data != 1:
         raise NotImplementedError(
-            f"tensor={plan.tensor}, data={data}: the port serves on one "
-            f"card with tensor = data = 1 so far")
+            f"tensor={plan.tensor}, data={data}: not ported yet "
+            f"({PAR_ITEM}); the port serves with tensor = data = 1")
     S, V, M_ = plan.n_stages, plan.virtual, pcfg.n_microbatches
     sched = SP.resolve_ring_schedule(pcfg.schedule, V)
     ml = (pcfg.mem_limit or None) if sched == "zb-auto" else None
     lowering = SP.lower_to_ring(SP.build_schedule(sched, M_, S, V,
                                                   mem_limit=ml))
     smeta = ST.stacked_meta(cfg, plan)
-    MV = lowering.M * lowering.V
-    chunk = _chunk_index(V)
 
-    def serve_step(params: dict, cache: dict, batch: dict):
+    def check(batch: dict):
+        """The batch's tokens, micro-batch rows and ``n_valid`` (or
+        None), once the batch is one this step serves."""
         if "n_valid" in batch and cfg.family in ("ssm", "hybrid", "audio"):
             raise ValueError(
                 f"continuous batching (n_valid) needs per-token cache "
@@ -201,63 +302,75 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
             raise ValueError(f"step built for q_len={q_len}, got {T}")
         if B % M_:
             raise ValueError(f"batch {B} not divisible by M={M_}")
-        mb = B // M_
-        x_all = M.embed_tokens(cfg, params["embed"], tokens)   # [B,q,d]
-        # per-slot cache offsets -> per-row positions
-        pos_all = M._default_pos(tokens, cache)
-
-        carry = [None] * S              # stage s's output at the last tick
-        retbuf = [None] * M_            # stage 0's parked ring returns
-        outbuf = [None] * M_
-        for t in range(lowering.n_ticks):
-            # the ring return reaching stage 0 now is element t - S's
-            e_arr = t - S
-            if 0 <= e_arr < MV and lowering.park[e_arr]:
-                retbuf[lowering.m_of_e[e_arr]] = carry[S - 1]
-            nxt = [None] * S
-            for s in range(S):
-                e = t - s
-                if not 0 <= e < MV:
-                    continue            # fill/drain: no element here
-                mc, v = lowering.m_of_e[e], lowering.v_of_e[e]
-                rows = slice(mc * mb, (mc + 1) * mb)
-                if s > 0:
-                    x_in = carry[s - 1]
-                elif lowering.fresh[e]:
-                    x_in = x_all[rows]
-                else:
-                    x_in = carry[S - 1] if lowering.direct[e] else retbuf[mc]
-                # this micro-batch's rows of the chunk's cache; the views
-                # are written in place, 'len' stays frozen
-                c_mb = ST._map_layers(
-                    lambda a: a[chunk(s, v) + (slice(None), rows)], cache)
-                layers = [M.layer_slice(params["layers"], chunk(s, v) + (j,))
-                          for j in range(plan.layers_per_stage)]
-                y, _, _ = apply_stage(cfg, layers,
-                                      smeta[s] if V == 1 else smeta[s][v],
-                                      x_in, pos=pos_all[rows], cache=c_mb)
-                nxt[s] = y
-                if s == S - 1 and lowering.collect[e]:
-                    outbuf[mc] = y
-            carry = nxt
-
-        hidden = torch.cat(outbuf, dim=0)                     # [B,q,d]
         nv = batch.get("n_valid")
-        if nv is None:
-            _advance_len(cache, q_len)      # advance every offset once
-            hidden = hidden[:, -1:]
-        else:
+        if nv is not None:
             nv = torch.as_tensor(nv, dtype=torch.int32, device=tokens.device)
-            _advance_len(cache, nv)
-            # each slot's last valid column (an idle slot's column 0)
-            col = nv.long().clamp(1, q_len) - 1
-            hidden = hidden[torch.arange(B, device=tokens.device), col][:, None]
-        h = LYR.rms_norm(hidden, params["final_norm"], cfg.norm_eps)
-        table = params.get("head", params["embed"])
-        return (h @ table.T).float(), cache
+        return tokens, B // M_, nv
 
-    serve_step.lowering = lowering
-    return serve_step
+    if group is None:
+        row = lambda tree, s: ST._map_layers(lambda a: a[s], tree)
+
+        def serve_step(params: dict, cache: dict, batch: dict):
+            tokens, mb, nv = check(batch)
+            x_all = M.embed_tokens(cfg, params["embed"], tokens)   # [B,q,d]
+            # per-slot cache offsets -> per-row positions
+            pos_all = M._default_pos(tokens, cache)
+            runs = [_ServeRun(cfg, lowering, smeta[s], s,
+                              row(params["layers"], s), row(cache, s),
+                              pos_all, x_all if s == 0 else None, mb)
+                    for s in range(S)]
+            carry = [None] * S          # stage s's output at the last tick
+            for t in range(lowering.n_ticks):
+                # s receives from s-1; stage 0 the ring return of S-1
+                arr = carry[-1:] + carry[:-1]
+                carry = [r.tick(t, arr[s]) for s, r in enumerate(runs)]
+            _advance_len(cache, q_len if nv is None else nv)
+            return _serve_head(cfg, params, runs[-1].outbuf, nv,
+                               q_len), cache
+
+        serve_step.lowering = lowering
+        return serve_step
+
+    # ---- the rank executor: this process runs stage `rank` --------------
+    tp = C.Transport(group)
+    rank = tp.rank
+    if tp.size != S:
+        raise ValueError(f"a {S}-stage plan needs a group of {S} ranks, "
+                         f"got {tp.size}")
+    hops = C.serve_hops(lowering)
+    msgs = [([dst for src, dst in h if src == rank],
+             [src for src, dst in h if dst == rank]) for h in hops]
+    vocab = cfg.padded_vocab(plan.tensor)
+
+    def rank_serve_step(params: dict, cache: dict, batch: dict):
+        tp.reset()
+        tokens, mb, nv = check(batch)
+        dev = tokens.device
+        x_all = (M.embed_tokens(cfg, params["embed"], tokens) if rank == 0
+                 else None)
+        run = _ServeRun(cfg, lowering, smeta[rank], rank, params["layers"],
+                        cache, M._default_pos(tokens, cache), x_all, mb)
+        like = torch.empty((mb, q_len, cfg.d_model), device=dev,
+                           dtype=params["layers"]["ln1"].dtype)
+        arr = None
+        for t in range(lowering.n_ticks):
+            y = run.tick(t, arr)
+            arr = None
+            if t + 1 < lowering.n_ticks:
+                sends, recvs = msgs[t + 1]
+                arr = tp.exchange([(C.FWD, dst, y) for dst in sends],
+                                  [(C.FWD, src) for src in recvs],
+                                  like).get(C.FWD)
+        _advance_len(cache, q_len if nv is None else nv)
+        logits = (_serve_head(cfg, params, run.outbuf, nv, q_len)
+                  if rank == S - 1 else
+                  torch.empty((tokens.shape[0], 1, vocab),
+                              dtype=torch.float32, device=dev))
+        return tp.broadcast(logits, S - 1, kind="logits"), cache
+
+    rank_serve_step.lowering = lowering
+    rank_serve_step.transport = tp
+    return rank_serve_step
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +384,7 @@ def _check_train_config(cfg: ArchConfig, plan: ST.StagePlan,
     if plan.tensor != 1:
         raise NotImplementedError(
             f"tensor={plan.tensor}: tensor parallelism is not ported yet "
-            f"(ROADMAP 'Still to port': tensor and data parallel over NCCL)")
+            f"({PAR_ITEM})")
     if pcfg.runtime != "ticks":
         raise NotImplementedError(
             f"runtime={pcfg.runtime!r}: the stream runtime is not ported yet "
@@ -279,8 +392,7 @@ def _check_train_config(cfg: ArchConfig, plan: ST.StagePlan,
     if pcfg.grad_sync not in ("auto", "end") or pcfg.ar_groups != 1:
         raise NotImplementedError(
             f"grad_sync={pcfg.grad_sync!r}, ar_groups={pcfg.ar_groups}: "
-            f"scheduled gradient sync is not ported yet (ROADMAP 'Still to "
-            f"port': tensor and data parallel over NCCL)")
+            f"scheduled gradient sync is not ported yet ({PAR_ITEM})")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -110,6 +110,63 @@ def restack_tree_(tree: dict, plan_from: StagePlan, plan_to: StagePlan,
         lambda a: restack_layers(a, plan_from, plan_to, n_layers), tree)
 
 
+def handoff_routes(plan_from: StagePlan, plan_to: StagePlan,
+                   n_layers: int) -> list:
+    """Where :func:`restack_layers` takes each slot of the new layout
+    from, by rank: ``(layer, src, src_row, dst, dst_row)`` for every
+    slot of ``plan_to`` (``dst`` its stage, ``dst_row`` its index in the
+    stage's flattened ``[V * Lc]`` rows), ``layer`` the global layer it
+    holds (a padded slot repeats layer ``n_layers - 1``), ``src`` and
+    ``src_row`` the stage and row of ``plan_from`` that hold that
+    layer."""
+    held = {g: f for f, g in enumerate(_slot_of_layer(plan_from))}
+    n_from = plan_from.virtual * plan_from.layers_per_stage
+    n_to = plan_to.virtual * plan_to.layers_per_stage
+    out = []
+    for f, g in enumerate(_slot_of_layer(plan_to)):
+        g = min(g, n_layers - 1)
+        src, src_row = divmod(held[g], n_from)
+        out.append((g, src, src_row, *divmod(f, n_to)))
+    return out
+
+
+def restack_share_(share: dict, plan_from: StagePlan, plan_to: StagePlan,
+                   n_layers: int, stage: int, transport) -> dict:
+    """:func:`restack_tree_` on one rank's share (a ``layers`` subtree or
+    a stage cache, ``[Lps, ...]`` or ``[V, Lc, ...]`` leaves): stage
+    ``stage`` of ``plan_from`` becomes stage ``stage`` of ``plan_to``,
+    in place and leaf by leaf.  The layers another rank holds in the new
+    layout are sent to it and the ones this rank lacks received, one
+    ``batch_isend_irecv`` a leaf over ``transport`` (a
+    :class:`repro_torch.pipeline.comm.Transport` of the stage group,
+    counted as ``handoff``); the trim and the re-pad are
+    :func:`handoff_routes`'.  Each old leaf is dropped as its new one is
+    made, so a rank never holds more than its share and one leaf's new
+    share.  Afterwards the share equals row ``stage`` of the stacked
+    tree's re-fold bit for bit."""
+    routes = handoff_routes(plan_from, plan_to, n_layers)
+    n_from = plan_from.virtual * plan_from.layers_per_stage
+    n_to = plan_to.virtual * plan_to.layers_per_stage
+    lead = 1 if plan_from.virtual == 1 else 2
+
+    def fold(a):
+        tail = tuple(a.shape[lead:])
+        old = a.reshape((n_from,) + tail)
+        new = old.new_empty((n_to,) + tail)
+        sends, recvs = [], []
+        for _, src, src_row, dst, dst_row in routes:
+            if src == stage and dst == stage:
+                new[dst_row].copy_(old[src_row])
+            elif src == stage:      # the tag: the receiver's row
+                sends.append((dst_row, dst, old[src_row]))
+            elif dst == stage:
+                recvs.append((dst_row, src, new[dst_row]))
+        transport.exchange_into(sends, recvs, "handoff", a.device)
+        return _stage_rows(new, plan_to)
+
+    return _map_layers_(fold, share)
+
+
 def _map_layers(fn, tree: dict) -> dict:
     return {k: _map_layers(fn, v) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}

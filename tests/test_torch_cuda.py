@@ -614,6 +614,61 @@ def test_two_ranks_match_in_process_on_card():
             assert torch.equal(a, b.cpu())
 
 
+def _serve_on_card(cfg, rank=None, group=None, device="cuda") -> dict:
+    """Prefill (8 tokens, batch 4, M 2) and 3 greedy decode steps of the
+    reduced llama on the card: in process (``rank`` None) or as rank
+    ``rank`` of ``group``; every step's logits and the flash launches."""
+    from repro_torch.pipeline import runtime as RT
+    from repro_torch.pipeline import stage as ST
+    plan = ST.plan_stages(cfg)
+    steps = [RT.make_serve_step(cfg, plan, RT.PipelineConfig(
+        n_microbatches=2), q_len=q, group=group) for q in (8, 1)]
+    if rank is None:
+        params = ST.init_stacked_params(cfg, 0, plan, device=device)
+        cache = RT.init_pipeline_cache(cfg, plan, 4, 12, device=device)
+    else:
+        params = ST.init_stage_params(cfg, 0, plan, rank, device=device)
+        cache = RT.init_stage_cache(cfg, plan, rank, 4, 12, device=device)
+    tok = torch.arange(32, device=device).reshape(4, 8) * 7 % cfg.vocab
+    before, logits = FA.flash_attend.launches, []
+    for i in range(4):
+        lg, cache = steps[min(i, 1)](params, cache, dict(tokens=tok))
+        logits.append(lg.cpu())
+        tok = torch.argmax(lg[:, 0, :cfg.vocab], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    return dict(logits=logits, launches=FA.flash_attend.launches - before)
+
+
+def _two_ranks_serve_on_card(mesh):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return _serve_on_card(_reduced_llama(mesh.world), mesh.rank, mesh.group,
+                          mesh.device)
+
+
+@pytest.mark.cuda
+def test_two_ranks_serve_matches_in_process_on_card():
+    """The reduced llama's serve step (prefill and greedy decode) as 2
+    gloo ranks on one card (messages and the logits broadcast staged
+    through pinned host memory) against the in-process serve step on the
+    card: every step's logits on both ranks bit for bit, and the ranks'
+    flash launches summing to the in-process run's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as MESH
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # built here first: a rank that built them itself would keep its peer
+    # waiting past the group's timeout
+    build.build_all()
+    ranks = MESH.spawn_ranks(_two_ranks_serve_on_card, 2, "gloo",
+                             device="cuda")
+    want = _serve_on_card(_reduced_llama(2))
+    assert sum(r["launches"] for r in ranks) == want["launches"] > 0
+    for got in ranks:
+        for a, b in zip(got["logits"], want["logits"]):
+            assert torch.equal(a, b)
+
+
 # the backward's head groups (ssd_scan.HEAD_GROUP = 10 heads): one ragged
 # group of 7, and two groups whose last holds 3 heads
 SSD_BWD_EDGES = SSD_EDGES + [(1, 256, 7, 64, 128, 128),

@@ -1069,8 +1069,9 @@ def phase_parity(serve_mods, arch: str, prompt_len: int, **over) -> float:
     forced = torch.randint(0, cfg.vocab, (B, gen - 1), generator=g)
     to = lambda tree, dev: {k: to(v, dev) if isinstance(v, dict)
                             else v.to(dev) for k, v in tree.items()}
-    logits = {}
-    for dev in ("cuda", "cpu"):
+
+    def served(dev: str) -> torch.Tensor:
+        """The prefill's and every decode step's logits on ``dev``."""
         p = to(params, dev)
         cache = RT.init_pipeline_cache(cfg, plan, B, prompt_len + gen,
                                        device=dev)
@@ -1089,8 +1090,9 @@ def phase_parity(serve_mods, arch: str, prompt_len: int, **over) -> float:
         finally:
             if guard:
                 torch.cuda.set_sync_debug_mode("default")
-        logits[dev] = torch.stack(steps).cpu()
-        del p, cache
+        return torch.stack(steps).cpu()
+
+    logits = {dev: served(dev) for dev in ("cuda", "cpu")}
     a, b = logits["cuda"], logits["cpu"]
     if a.shape != (gen, B, cfg.padded_vocab(1)) or not torch.isfinite(a).all():
         fail(f"parity {arch}: logits {tuple(a.shape)} "
@@ -1104,6 +1106,14 @@ def phase_parity(serve_mods, arch: str, prompt_len: int, **over) -> float:
           f"(|a-b| <= {PATH_TOL} + {PATH_TOL}|b|: worst ratio {rel:.3f})",
           flush=True)
     if rel > 1.0:
+        # which side moved: each served once more, against its first run
+        again = {dev: served(dev) for dev in ("cuda", "cpu")}
+        print(f"parity {arch}: over the bar; served again, bit for bit "
+              f"equal to the first run: card "
+              f"{bool(torch.equal(again['cuda'], a))}, CPU "
+              f"{bool(torch.equal(again['cpu'], b))}; the repeats' max "
+              f"|diff| {(again['cuda'] - again['cpu']).abs().max().item():.3e}",
+              flush=True)
         ratio = (a - b).abs() / (PATH_TOL + PATH_TOL * b.abs())
         at = [int(i) for i in torch.unravel_index(ratio.argmax(), ratio.shape)]
         fail(f"parity {arch}: card and CPU logits differ by {err:.3e}; "
@@ -1916,11 +1926,12 @@ def card_flags() -> None:
 
 def rank_parity(mesh, runs) -> list:
     """Phase 27 on one rank (a spawned process): each run of ``runs`` for
-    this world size through the rank executor, then on the in-process
-    executor in this process with the same weights (the seed) and batch;
-    this rank's loss and gradient share against the in-process run's,
-    both runs' launch counts (set to 0 just before each, read just after)
-    and stash counts."""
+    this world size through the rank executor under ``runtime='ticks'``
+    and ``'stream'``, then on the in-process (ticks) executor in this
+    process with the same weights (the seed) and batch; this rank's loss
+    and gradient share of each rank run against the in-process run's,
+    every run's launch counts (set to 0 just before each, read just
+    after), stash counts, most registers held live and transport."""
     card_flags()
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import SyntheticLM
@@ -1936,37 +1947,49 @@ def rank_parity(mesh, runs) -> list:
         cfg = dataclasses.replace(get_config(arch), n_layers=L, stages=S,
                                   tensor=1, virtual=V)
         plan = ST.plan_stages(cfg)
-        pcfg = RT.PipelineConfig(n_microbatches=M_, schedule=schedule)
         batch = SyntheticLM(cfg.vocab, RANK_SEQ, RANK_BATCH, seed=0,
                             device=str(mesh.device)).batch(0)
-        step = RT.make_train_step(cfg, plan, pcfg, group=mesh.group)
-        params = ST.init_stage_params(cfg, 0, plan, mesh.rank,
-                                      device=mesh.device)
-        (loss, grads), launches = counted(counters,
-                                          lambda: step(params, batch))
-        torch.cuda.synchronize()
-        transport = {k: list(v) for k, v in step.transport.stats.items()}
-        del params
-        ref_step = RT.make_train_step(cfg, plan, pcfg)
+        got = {}
+        for runtime in ("ticks", "stream"):
+            step = RT.make_train_step(cfg, plan, RT.PipelineConfig(
+                n_microbatches=M_, schedule=schedule, runtime=runtime),
+                group=mesh.group)
+            params = ST.init_stage_params(cfg, 0, plan, mesh.rank,
+                                          device=mesh.device)
+            (loss, grads), launches = counted(counters,
+                                              lambda: step(params, batch))
+            torch.cuda.synchronize()
+            got[runtime] = dict(
+                loss=loss, grads=grads, launches=launches,
+                stash=step.stash_slots, live=step.live_registers,
+                transport={k: list(v)
+                           for k, v in step.transport.stats.items()})
+            del params, step
+        ref_step = RT.make_train_step(cfg, plan, RT.PipelineConfig(
+            n_microbatches=M_, schedule=schedule))
         full = ST.init_stacked_params(cfg, 0, plan, device=mesh.device)
         (ref_loss, ref_grads), ref_launches = counted(
             counters, lambda: ref_step(full, batch))
         want = ST.stage_share(ref_grads, plan, mesh.rank)
-        leaves = []
-        for (path, a), b in zip(_named_leaves(grads), ST.tree_leaves(want)):
-            leaves.append(dict(
-                leaf=path, bitwise=bool(torch.equal(a, b)),
-                max_abs_diff=(a.float() - b.float()).abs().max().item(),
-                max_abs_ref=b.float().abs().max().item()))
-        out.append(dict(
-            label=label, rank=mesh.rank,
-            keys=sorted(grads) == sorted(want),
-            loss=loss.item(), ref_loss=ref_loss.item(),
-            loss_bitwise=bool(torch.equal(loss, ref_loss)), leaves=leaves,
-            launches=launches, ref_launches=ref_launches,
-            stash=step.stash_slots, ref_stash=ref_step.stash_slots,
-            transport=transport))
-        del grads, full, ref_grads, want, batch
+        row = dict(label=label, rank=mesh.rank, ref_loss=ref_loss.item(),
+                   ref_launches=ref_launches,
+                   ref_stash=ref_step.stash_slots)
+        for runtime, g in got.items():
+            leaves = []
+            for (path, a), b in zip(_named_leaves(g["grads"]),
+                                    ST.tree_leaves(want)):
+                leaves.append(dict(
+                    leaf=path, bitwise=bool(torch.equal(a, b)),
+                    max_abs_diff=(a.float() - b.float()).abs().max().item(),
+                    max_abs_ref=b.float().abs().max().item()))
+            row[runtime] = dict(
+                keys=sorted(g["grads"]) == sorted(want),
+                loss=g["loss"].item(),
+                loss_bitwise=bool(torch.equal(g["loss"], ref_loss)),
+                leaves=leaves, launches=g["launches"], stash=g["stash"],
+                live=g["live"], transport=g["transport"])
+        out.append(row)
+        del got, full, ref_grads, want, batch
         torch.cuda.empty_cache()
     return out
 
@@ -1984,9 +2007,11 @@ def _named_leaves(tree: dict, prefix: str = "") -> list:
 
 def phase_rank_parity(mesh_mod) -> dict:
     """Phase 27: :data:`RANK_RUNS` on gloo ranks sharing the one card
-    (one spawn per world size) against the in-process executor on the
-    card; bit for bit, and each rank's launches summing to the in-process
-    run's exactly."""
+    (one spawn per world size), each under the tick and the stream
+    runtime, against the in-process executor on the card; bit for bit,
+    each rank's launches summing to the in-process run's exactly, and
+    the stream run's hop messages and bytes on every rank equal to the
+    tick run's."""
     res, t0 = {}, time.perf_counter()
     worlds = sorted({r[2] for r in RANK_RUNS})
     # the world sizes' spawns at once (nothing here is timed): each
@@ -1997,48 +2022,78 @@ def phase_rank_parity(mesh_mod) -> dict:
                    for w in worlds}
         done = {w: f.result() for w, f in spawned.items()}
     print(f"ranks: {' and '.join(map(str, worlds))} gloo ranks on one card, "
-          f"spawned at once and run in {time.perf_counter() - t0:.1f}s",
-          flush=True)
+          f"ticks and stream, spawned at once and run in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
     for world, per_rank in done.items():
         for i, run in enumerate(per_rank[0]):
-            rows = [pr[i] for pr in per_rank]
-            label = run["label"]
-            summed = {k: sum(r["launches"][k] for r in rows)
-                      for k in run["launches"]}
             ref = run["ref_launches"]
-            gaps = [dict(rank=r["rank"], **lf) for r in rows
-                    for lf in r["leaves"] if not lf["bitwise"]]
-            bitwise = (all(r["loss_bitwise"] and r["keys"] for r in rows)
-                       and not gaps)
-            stash_ok = all(r["stash"] == r["ref_stash"][r["rank"]]
-                           for r in rows)
-            res[label] = dict(
-                ranks=world, loss=run["loss"], ref_loss=run["ref_loss"],
-                bitwise=bitwise, n_leaves=sum(len(r["leaves"]) for r in rows),
-                launches_summed=summed, ref_launches=ref,
-                stash=[r["stash"] for r in rows],
-                ref_stash=run["ref_stash"],
-                transport=[r["transport"] for r in rows])
-            print(f"ranks {label}: loss {run['loss']!r} (in-process "
-                  f"{run['ref_loss']!r}), loss and {res[label]['n_leaves']} "
-                  f"gradient leaves bit for bit: {bitwise}; launches summed "
-                  f"over ranks {json.dumps(summed)} (in-process "
-                  f"{json.dumps(ref)}); stash per rank {res[label]['stash']} "
-                  f"(in-process {run['ref_stash']}); transport "
-                  f"{json.dumps(res[label]['transport'])}", flush=True)
-            if not bitwise:
-                worst = sorted(gaps, key=lambda g: -g["max_abs_diff"]
-                               / (g["max_abs_ref"] + 1e-30))[:8]
-                fail(f"ranks {label}: not bit for bit against the "
-                     f"in-process executor; losses "
-                     f"{[r['loss'] for r in rows]} vs {run['ref_loss']}; "
-                     f"{len(gaps)} leaves differ, worst {json.dumps(worst)}")
-            if summed != ref or any(r["ref_launches"] != ref for r in rows):
-                fail(f"ranks {label}: launches summed over ranks {summed}, "
-                     f"in-process {ref}")
-            if not stash_ok:
-                fail(f"ranks {label}: stash per rank {res[label]['stash']}, "
-                     f"in-process {run['ref_stash']}")
+            for runtime in ("ticks", "stream"):
+                rows = [pr[i][runtime] | dict(rank=pr[i]["rank"],
+                                              ref_stash=pr[i]["ref_stash"],
+                                              ref_launches=pr[i][
+                                                  "ref_launches"])
+                        for pr in per_rank]
+                label = run["label"] + (" stream" if runtime == "stream"
+                                        else "")
+                summed = {k: sum(r["launches"][k] for r in rows)
+                          for k in ref}
+                gaps = [dict(rank=r["rank"], **lf) for r in rows
+                        for lf in r["leaves"] if not lf["bitwise"]]
+                bitwise = (all(r["loss_bitwise"] and r["keys"]
+                               for r in rows) and not gaps)
+                stash_ok = all(r["stash"] == r["ref_stash"][r["rank"]]
+                               for r in rows)
+                hop = [r["transport"]["hop"] for r in rows]
+                res[label] = dict(
+                    ranks=world, runtime=runtime, loss=rows[0]["loss"],
+                    ref_loss=run["ref_loss"], bitwise=bitwise,
+                    n_leaves=sum(len(r["leaves"]) for r in rows),
+                    launches_summed=summed, ref_launches=ref,
+                    stash=[r["stash"] for r in rows],
+                    ref_stash=run["ref_stash"],
+                    live_registers=[r["live"] for r in rows],
+                    hop_messages=[h[0] for h in hop],
+                    hop_bytes=[h[1] for h in hop],
+                    hop_recv_wait_ms=[h[5] * 1e3 for h in hop],
+                    hop_post_ms=[h[4] * 1e3 for h in hop],
+                    transport=[r["transport"] for r in rows])
+                print(f"ranks {label}: loss {rows[0]['loss']!r} (in-process "
+                      f"{run['ref_loss']!r}), loss and "
+                      f"{res[label]['n_leaves']} gradient leaves bit for "
+                      f"bit: {bitwise}; launches summed over ranks "
+                      f"{json.dumps(summed)} (in-process {json.dumps(ref)}); "
+                      f"stash per rank {res[label]['stash']} (in-process "
+                      f"{run['ref_stash']}); registers live at most per rank "
+                      f"{res[label]['live_registers']}; hop messages / bytes "
+                      f"/ receive-wait ms per rank "
+                      f"{res[label]['hop_messages']} / "
+                      f"{res[label]['hop_bytes']} / "
+                      f"{[round(x, 1) for x in res[label]['hop_recv_wait_ms']]}"
+                      f"; transport {json.dumps(res[label]['transport'])}",
+                      flush=True)
+                if not bitwise:
+                    worst = sorted(gaps, key=lambda g: -g["max_abs_diff"]
+                                   / (g["max_abs_ref"] + 1e-30))[:8]
+                    fail(f"ranks {label}: not bit for bit against the "
+                         f"in-process executor; losses "
+                         f"{[r['loss'] for r in rows]} vs {run['ref_loss']}; "
+                         f"{len(gaps)} leaves differ, worst "
+                         f"{json.dumps(worst)}")
+                if summed != ref or any(r["ref_launches"] != ref
+                                        for r in rows):
+                    fail(f"ranks {label}: launches summed over ranks "
+                         f"{summed}, in-process {ref}")
+                if not stash_ok:
+                    fail(f"ranks {label}: stash per rank "
+                         f"{res[label]['stash']}, in-process "
+                         f"{run['ref_stash']}")
+            ticks, stream = res[run["label"]], res[run["label"] + " stream"]
+            if (stream["hop_messages"], stream["hop_bytes"]) != (
+                    ticks["hop_messages"], ticks["hop_bytes"]):
+                fail(f"ranks {run['label']}: stream hop messages / bytes "
+                     f"{stream['hop_messages']} / {stream['hop_bytes']}, "
+                     f"ticks {ticks['hop_messages']} / "
+                     f"{ticks['hop_bytes']}")
     return res
 
 
@@ -2052,18 +2107,23 @@ def rank_train(mesh, argv: list) -> dict:
             if k not in ("params", "opt_state", "plan")}
 
 
-def phase_rank_train(mesh_mod, SP, trained: dict) -> dict:
-    """Phase 28: llama3.2-1b at full width as 4 gloo ranks on the one card
-    through ``launch.train.main`` (phase 10's run: 4 stages x 4 layers,
-    1f1b, M 4, batch 8, seq 1024, f32, 3 steps): the losses equal phase
-    10's to the bit, the launches summed over ranks are phase 10's a
-    step, each rank's stash is its stage's peak-live count."""
+def phase_rank_train(mesh_mod, SP, trained: dict, runtime: str = "ticks",
+                     ticks_run: dict = None) -> dict:
+    """Phase 28 (``runtime='ticks'``) and 31 (``'stream'``, beside phase
+    28's ``ticks_run``): llama3.2-1b at full width as 4 gloo ranks on the
+    one card through ``launch.train.main`` (phase 10's run: 4 stages x 4
+    layers, 1f1b, M 4, batch 8, seq 1024, f32, 3 steps): the losses equal
+    phase 10's to the bit, the launches summed over ranks are phase 10's
+    a step, each rank's stash is its stage's peak-live count; under
+    stream the hop messages and bytes a step equal phase 28's."""
+    from repro_torch.pipeline import comm as C
     steps, M_, S = 3, 4, 4
     argv = ["--arch", "llama3.2-1b", "--tensor", "1", "--stages", str(S),
             "--schedule", "1f1b", "--microbatches", str(M_), "--batch", "8",
             "--seq", "1024", "--steps", str(steps), "--log-every", "1",
-            "--device", "cuda", "--dist-backend", "gloo"]
-    tag = "ranks train llama3.2-1b 4 ranks 1f1b M=4"
+            "--device", "cuda", "--dist-backend", "gloo",
+            "--runtime", runtime]
+    tag = f"ranks train llama3.2-1b 4 ranks 1f1b M=4 {runtime}"
     print(f"{tag}: spawn_ranks(train.main, 4, 'gloo') of python -m "
           f"repro_torch.launch.train {' '.join(argv)}", flush=True)
     t0 = time.perf_counter()
@@ -2074,29 +2134,58 @@ def phase_rank_train(mesh_mod, SP, trained: dict) -> dict:
     per_step = train_launches(16, M_, False, False)
     want_stash = [max(row) + 1 for row in lo.xw]
     after_first = sum(out["step_s"][1:]) / (steps - 1)
-    res = dict(losses=out["losses"], phase10_losses=trained["losses"],
+    last = out["transport"][-1]
+    res = dict(runtime=runtime, losses=out["losses"],
+               phase10_losses=trained["losses"],
                step_s=out["step_s"], step_ms_after_first=1e3 * after_first,
                phase10_step_ms_after_first=trained["step_ms_after_first"],
                launches_per_step=out["launches"], stash=out["stash_slots"],
+               live_registers=out["live_registers"],
                peak_gib_by_rank=out["peak_gib_by_rank"],
-               transport_last_step=out["transport"][-1], wall_s=wall)
+               hop_messages_per_step=[sum(st["hop"][0] for st in tr)
+                                      for tr in out["transport"]],
+               hop_bytes_per_step=[sum(st["hop"][1] for st in tr)
+                                   for tr in out["transport"]],
+               # the slowest rank's, each step after the first
+               max_rank_recv_wait_ms=[max(st["hop"][5] for st in tr) * 1e3
+                                      for tr in out["transport"][1:]],
+               max_rank_post_ms=[max(st["hop"][4] for st in tr) * 1e3
+                                 for tr in out["transport"][1:]],
+               transport_last_step=last, wall_s=wall)
     by_kind = {k: dict(
-        bytes=sum(st[k][1] for st in out["transport"][-1]),
-        max_rank_ms=max(st[k][2] for st in out["transport"][-1]) * 1e3,
-        max_rank_copy_ms=max(st[k][3] for st in out["transport"][-1]) * 1e3)
+        messages=sum(st[k][0] for st in last),
+        bytes=sum(st[k][1] for st in last),
+        max_rank_ms=max(st[k][2] for st in last) * 1e3,
+        max_rank_copy_ms=max(st[k][3] for st in last) * 1e3,
+        max_rank_post_ms=max(st[k][4] for st in last) * 1e3,
+        max_rank_recv_wait_ms=max(st[k][5] for st in last) * 1e3,
+        max_rank_send_wait_ms=max(st[k][6] for st in last) * 1e3)
         for k in ("hop", "embed_allreduce", "scalars")}
     res["transport_by_kind_last_step"] = by_kind
+    beside = ("" if ticks_run is None else
+              f" (phase 28, ticks, in this run: "
+              f"{ticks_run['step_ms_after_first']:.1f} ms, peak "
+              f"{[round(p, 2) for p in ticks_run['peak_gib_by_rank']]} GiB, "
+              f"slowest rank's receive waits "
+              f"{[round(x, 1) for x in ticks_run['max_rank_recv_wait_ms']]} "
+              f"ms and posts "
+              f"{[round(x, 1) for x in ticks_run['max_rank_post_ms']]} ms)")
     print(f"{tag}: losses {out['losses']} (phase 10 {trained['losses']}), "
           f"step {res['step_ms_after_first']:.1f} ms after the first, the "
           f"slowest rank's (phase 10, one process: "
           f"{trained['step_ms_after_first']:.1f} ms), peak memory per rank "
-          f"{[round(p, 2) for p in out['peak_gib_by_rank']]} GiB, stash per "
-          f"rank {out['stash_slots']} (want {want_stash}, n_x {lo.n_x}), "
+          f"{[round(p, 2) for p in out['peak_gib_by_rank']]} GiB, slowest "
+          f"rank's receive waits "
+          f"{[round(x, 1) for x in res['max_rank_recv_wait_ms']]} ms and "
+          f"posts {[round(x, 1) for x in res['max_rank_post_ms']]} ms a "
+          f"step after the first{beside}; stash per rank "
+          f"{out['stash_slots']} (want {want_stash}, n_x {lo.n_x}), "
+          f"registers live at most per rank {out['live_registers']}, "
           f"launches per step summed over ranks {json.dumps(out['launches'])} "
-          f"(want {json.dumps(per_step)}), transport last step (bytes sent "
-          f"over all ranks; ms of the slowest rank, waits included, and its "
-          f"staging copies' ms) {json.dumps(by_kind)}; "
-          f"spawn to exit {wall:.1f}s", flush=True)
+          f"(want {json.dumps(per_step)}), hop messages per step "
+          f"{res['hop_messages_per_step']} (each counted at both ends), "
+          f"transport last step (over all ranks; ms of the slowest rank) "
+          f"{json.dumps(by_kind)}; spawn to exit {wall:.1f}s", flush=True)
     if out["losses"] != trained["losses"]:
         fail(f"{tag}: losses {out['losses']} != phase 10's "
              f"{trained['losses']}")
@@ -2105,6 +2194,19 @@ def phase_rank_train(mesh_mod, SP, trained: dict) -> dict:
     if out["stash_slots"] != want_stash or max(want_stash) != lo.n_x:
         fail(f"{tag}: stash per rank {out['stash_slots']}, want "
              f"{want_stash} (n_x {lo.n_x})")
+    # every ring hop of the table, counted at its sender and its receiver
+    n_hops = sum(len(h) for h in C.ring_hops(lo))
+    if any(n != 2 * n_hops for n in res["hop_messages_per_step"]):
+        fail(f"{tag}: hop messages per step {res['hop_messages_per_step']}, "
+             f"want {2 * n_hops} ({n_hops} ring hops at both ends)")
+    if ticks_run is not None and (
+            res["hop_messages_per_step"], res["hop_bytes_per_step"]) != (
+            ticks_run["hop_messages_per_step"],
+            ticks_run["hop_bytes_per_step"]):
+        fail(f"{tag}: hop messages / bytes per step "
+             f"{res['hop_messages_per_step']} / {res['hop_bytes_per_step']}, "
+             f"phase 28's {ticks_run['hop_messages_per_step']} / "
+             f"{ticks_run['hop_bytes_per_step']}")
     return res
 
 
@@ -2697,6 +2799,10 @@ def main() -> None:
     # ---- 30. llama3.2-1b served at full width as 4 ranks ------------------
     rank_served = phase_rank_serve(MESH, interleaved_serve)
 
+    # ---- 31. phase 28's run under the stream runtime ----------------------
+    rank_streamed = phase_rank_train(MESH, SP, trained, runtime="stream",
+                                     ticks_run=rank_trained)
+
     train_paths = {f"train {r['schedule']} V={r['virtual']} "
                    f"M={r['microbatches']}": r["launches"]
                    for r in (trained, interleaved, zb_h2)}
@@ -2710,9 +2816,10 @@ def main() -> None:
     # the rank runs: each kernel's launches summed over the ranks
     train_paths.update({f"ranks {k}": r["launches_summed"]
                         for k, r in rank_parity_res.items()})
-    train_paths["ranks train llama3.2-1b 4 ranks 1f1b M=4"] = {
-        k: sum(d[k] for d in rank_trained["launches_per_step"])
-        for k in rank_trained["launches_per_step"][0]}
+    for suffix, r in (("", rank_trained), (" stream", rank_streamed)):
+        train_paths[f"ranks train llama3.2-1b 4 ranks 1f1b M=4{suffix}"] = {
+            k: sum(d[k] for d in r["launches_per_step"])
+            for k in r["launches_per_step"][0]}
 
     main_row = pick(rows, "main-path prefill")
     keys = ("label", "dtype", "ms", "call_ms", "plain_ms", "library_ms",
@@ -2860,7 +2967,8 @@ def main() -> None:
                                 "mamba2-2.7b": mamba_trained,
                                 "mamba2-2.7b parity": mamba_parity,
                                 "ranks parity": rank_parity_res,
-                                "ranks llama3.2-1b": rank_trained}}),
+                                "ranks llama3.2-1b": rank_trained,
+                                "ranks llama3.2-1b stream": rank_streamed}}),
           flush=True)
     print(json.dumps({"kernels": [flash, ssd, flash_bwd, ssd_bwd]}),
           flush=True)

@@ -1,16 +1,19 @@
 """Schedule-plan IR (the port's copy of ``repro/core/schedplan.py``
-without the gradient-sync AR ops and the instruction lowering).
+without the gradient-sync AR ops).
 
 A :class:`SchedPlan` holds, per physical device, the exact sequence of
 ``F``/``B`` (and, for zero-bubble plans, ``W``) ops tagged with
-micro-batch ``m`` and virtual chunk ``v``.  Two lowerings compile it:
+micro-batch ``m`` and virtual chunk ``v``.  Three lowerings compile it:
 
 * :func:`lower_to_ring` — the forward order as the per-element lookup
   tables the pipelined serve step executes (``e = tick - stage``);
 * :func:`lower_to_ticks` — the full mixed F/B(/W) table as the per-device
   per-tick lookup tables the training executor replays, with the residual
   stash, the inbox slots and the zero-bubble cotangent stash allocated
-  statically from the table.
+  statically from the table;
+* :func:`lower_to_instructions` — the same table as one RUN / SEND /
+  RECV / FREE instruction stream a device, which the stream runtime
+  (``runtime='stream'``) walks, one rank a stream.
 
 Builders (:data:`BUILDER_NAMES`): ``gpipe``, ``1f1b`` (``1f1b-2x`` with
 the doubled warm-up), ``dapple``, ``zb-h1``, ``zb-h2``, ``zb-auto`` (the
@@ -19,9 +22,10 @@ its portfolio steps replayed by :mod:`repro_torch.core.simulator`),
 ``1f1b-interleaved`` and ``1f1b-interleaved-memlean`` (V chunks per
 device).  :meth:`SchedPlan.peak_live` and :func:`live_activation_counts`
 give each device's resident-activation row.  The gradient-sync AR ops
-(``grad_sync``) and the instruction lowering stay in the JAX package
-until they are ported (ROADMAP "Still to port");
-:func:`build_schedule` names them and raises.
+(``grad_sync``) stay in the JAX package until they are ported (ROADMAP
+"tensor and data parallel over NCCL"): :func:`build_schedule` names
+them and raises, so the instruction lowering's ARSYNC branch, ported
+with it, emits nothing yet.
 """
 from __future__ import annotations
 
@@ -1116,3 +1120,186 @@ def lower_to_ticks(plan: SchedPlan) -> TickLowering:
         bsrc=frz(bsrc), br=frz(br), bpark=frz(bpark),
         cw=frz(cw), cr=frz(cr), dinj=frz(dinj),
         n_x=n_x, n_f=n_f, n_b=n_b, n_c=n_c)
+
+
+# ---------------------------------------------------------------------------
+# Instruction lowering: compile the op tables into decentralized
+# per-device instruction streams (RUN / SEND / RECV / FREE).
+# ---------------------------------------------------------------------------
+
+# instruction opcodes (the Alpa-style decentralized runtime vocabulary);
+# ARSYNC is the bucketed data-parallel gradient reduce-scatter/all-gather
+INSTR_RUN, INSTR_SEND, INSTR_RECV, INSTR_FREE, INSTR_AR = range(5)
+
+_INSTR_NAMES = ("RUN", "SEND", "RECV", "FREE", "ARSYNC")
+
+
+@dataclasses.dataclass(frozen=True)
+class Instr:
+    """One instruction of a device's stream.
+
+    * ``RUN``  — execute op ``kind`` (TICK_F/TICK_B/TICK_B_SEED/TICK_W)
+      on micro-batch ``m``, chunk ``v``.
+    * ``SEND`` — put the op's output on ``ring`` ("fwd"/"bwd"): posted,
+      never waited on before the step's end; the neighbour's RECV of it
+      sits at the next slot.
+    * ``RECV`` — take an arriving value off ``ring``: into inbox slot
+      ``idx`` (parked, consumed by a later RUN) or straight into the
+      consuming RUN (``idx == -1``, the value is used the slot it lands).
+    * ``FREE`` — release register ``idx`` of buffer ``buf`` ("x" residual
+      stash, "f"/"b" forward/backward inbox, "c" zero-bubble cotangent):
+      the allocator may now reuse it.
+    * ``ARSYNC`` — reduce-scatter + all-gather chunk ``v``'s gradient
+      bucket over the data axis (grad-sync plans only, which
+      :func:`build_schedule` does not build yet).
+
+    ``slot`` is the global program-counter value the instruction executes
+    at — devices with shorter streams simply have no instructions at
+    some slots (they neither compute nor touch a ring there).
+    """
+    op: int
+    slot: int
+    kind: int = TICK_IDLE
+    m: int = -1
+    v: int = -1
+    ring: str = ""
+    buf: str = ""
+    idx: int = -1
+
+    def __repr__(self):
+        core = f"{_INSTR_NAMES[self.op]}@{self.slot}"
+        if self.op == INSTR_RUN:
+            k = ("IDLE", "F", "B", "Bseed", "W", "AR")[self.kind]
+            return f"{core} {k}(m={self.m}, v={self.v})"
+        if self.op == INSTR_AR:
+            return f"{core} bucket(v={self.v})"
+        if self.op in (INSTR_SEND, INSTR_RECV):
+            tgt = "direct" if self.idx < 0 else f"inbox[{self.idx}]"
+            return (f"{core} {self.ring}" +
+                    (f" -> {tgt}" if self.op == INSTR_RECV else ""))
+        return f"{core} {self.buf}[{self.idx}]"
+
+
+@dataclasses.dataclass(frozen=True)
+class InstrLowering:
+    """Decentralized per-device instruction streams.
+
+    ``streams[n]`` is device n's own program: RUN ops back to back with
+    explicit SEND/RECV ring touches and FREE register releases — no
+    global tick grid.  ``ticks`` is the tick lowering the streams were
+    compiled from: slot ``j`` of a stream is tick ``j`` of its tables,
+    and the rings carry a value only at slots where some device SENDs
+    (``fsend``/``bsend``).  The rank executor
+    (:func:`repro_torch.pipeline.runtime.make_train_step` with
+    ``runtime='stream'``) walks one stream a rank, blocking only where a
+    RUN reads an arrival.  Buffers are inherited from the tick lowering's
+    register allocation, i.e. still sized by ``peak_live()``.
+
+    ``slot_of`` maps ``(kind, m, vstage)`` (kind "F"/"B"/"W"/"AR") to
+    the op's slot — the execution order the differential tests compare
+    against the discrete-event simulator's event order.
+
+    ``arsync[j]`` is True when ANY device runs an ARSYNC at slot j (at
+    most one does — the shared-fabric rule); all False until the
+    gradient-sync plans are ported.
+    """
+    ticks: TickLowering
+    streams: tuple[tuple[Instr, ...], ...]
+    fsend: tuple[bool, ...]
+    bsend: tuple[bool, ...]
+    slot_of: dict
+    arsync: tuple[bool, ...] = ()
+
+    @property
+    def schedule(self) -> str:
+        return self.ticks.schedule
+
+    @property
+    def n_slots(self) -> int:
+        return self.ticks.n_ticks
+
+    @property
+    def has_w(self) -> bool:
+        return self.ticks.has_w
+
+    @property
+    def n_shifts(self) -> int:
+        """Ring shifts actually scheduled (the tick runtime pays
+        ``2 * n_ticks``)."""
+        return sum(self.fsend) + sum(self.bsend)
+
+
+def lower_to_instructions(plan: SchedPlan) -> InstrLowering:
+    """Compile the per-device F/B(/W) op tables into per-device
+    instruction streams (see :class:`InstrLowering`).
+
+    The placement reuses the tick lowering's greedy in-order assignment
+    (one-hop ring transfers, register-allocated stash/inbox slots), so
+    an op's slot equals its start time in the unit-duration
+    discrete-event replay; what changes is the executable: SENDs are
+    explicit per-slot events, and slots with no SEND anywhere run
+    communication-free.
+    """
+    ticks = lower_to_ticks(plan)
+    N, V, nT = ticks.N, ticks.V, ticks.n_ticks
+    NS = N * V
+    has_w = ticks.has_w
+    fsend = [False] * nT
+    bsend = [False] * nT
+    arsync = [False] * nT
+    slot_of: dict = {}
+    streams = []
+    for n in range(N):
+        instrs: list[Instr] = []
+        for t in range(nT):
+            k = ticks.kind[n][t]
+            if ticks.fpark[n][t] >= 0:
+                instrs.append(Instr(INSTR_RECV, t, ring="fwd",
+                                    idx=ticks.fpark[n][t]))
+            if ticks.bpark[n][t] >= 0:
+                instrs.append(Instr(INSTR_RECV, t, ring="bwd",
+                                    idx=ticks.bpark[n][t]))
+            if k == TICK_IDLE:
+                continue
+            v = ticks.v[n][t]
+            vs = v * N + n
+            m = ticks.m[n][t]
+            if k == TICK_AR:
+                slot_of[("AR", m, vs)] = t
+                instrs.append(Instr(INSTR_AR, t, kind=k, m=m, v=v))
+                arsync[t] = True
+                continue
+            if k == TICK_F:
+                slot_of[("F", m, vs)] = t
+                if ticks.fsrc[n][t] == 1:
+                    instrs.append(Instr(INSTR_RECV, t, ring="fwd"))
+            elif k in (TICK_B, TICK_B_SEED):
+                slot_of[("B", m, vs)] = t
+                if k == TICK_B and ticks.bsrc[n][t] == 1:
+                    instrs.append(Instr(INSTR_RECV, t, ring="bwd"))
+            else:
+                slot_of[("W", m, vs)] = t
+            instrs.append(Instr(INSTR_RUN, t, kind=k, m=m, v=v))
+            if k == TICK_F and vs < NS - 1:
+                instrs.append(Instr(INSTR_SEND, t, ring="fwd"))
+                fsend[t] = True
+            elif k in (TICK_B, TICK_B_SEED) and vs > 0:
+                instrs.append(Instr(INSTR_SEND, t, ring="bwd"))
+                bsend[t] = True
+            # register releases: the last reader frees its inputs
+            if k == TICK_F and ticks.fsrc[n][t] == 2:
+                instrs.append(Instr(INSTR_FREE, t, buf="f",
+                                    idx=ticks.fr[n][t]))
+            elif k == TICK_B and ticks.bsrc[n][t] == 2:
+                instrs.append(Instr(INSTR_FREE, t, buf="b",
+                                    idx=ticks.br[n][t]))
+            if (k in (TICK_B, TICK_B_SEED) and not has_w) or k == TICK_W:
+                instrs.append(Instr(INSTR_FREE, t, buf="x",
+                                    idx=ticks.xr[n][t]))
+            if k == TICK_W:
+                instrs.append(Instr(INSTR_FREE, t, buf="c",
+                                    idx=ticks.cr[n][t]))
+        streams.append(tuple(instrs))
+    return InstrLowering(ticks=ticks, streams=tuple(streams),
+                         fsend=tuple(fsend), bsend=tuple(bsend),
+                         slot_of=slot_of, arsync=tuple(arsync))

@@ -357,7 +357,8 @@ def serve(cfg, *, microbatches: int, schedule: str, batch: int,
                     print(f"transport rank {r} ({how}) {phase}: " + (
                         ", ".join(f"{k} {c} msgs {b} B {sec * 1e3:.1f} ms "
                                   f"(copies {cp * 1e3:.1f} ms)"
-                                  for k, (c, b, sec, cp) in stats.items()
+                                  for k, (c, b, sec, cp, *_) in
+                                  stats.items()
                                   if c) or "no messages"))
         print("sample generations (first 3 rows):")
         for row in toks[:3]:

@@ -43,9 +43,14 @@ rings as ``torch.distributed`` messages.  ``--dist-backend`` is ``nccl``
 gloo`` runs every rank on one card, each message staged through pinned
 host memory.  Every rank makes the same batches; rank 0 alone prints
 the losses, the step time (the slowest rank's), the launches summed over
-ranks, each rank's stash slots and peak memory, and the transport's
-messages, bytes and ms a step (activation hops apart from the tied
-embedding's all-reduce).
+ranks, each rank's stash slots, most registers held live at once and
+peak memory, and the transport's messages, bytes and ms a step
+(activation hops apart from the tied embedding's all-reduce; the ms
+split into posting, receive waits, send waits and staging copies).
+``--runtime stream`` (in one process or as ranks) runs each stage's own
+RUN/SEND/RECV/FREE instruction stream instead of the lockstep tick
+replay: a rank waits only where a tick reads an arrival; the losses are
+the tick runtime's, bit for bit.
 
 ``--schedule`` takes any of the eight builders of
 :data:`repro_torch.core.schedplan.BUILDER_NAMES` (``--virtual V`` chunks
@@ -96,14 +101,12 @@ from repro_torch.pipeline import runtime as RT
 from repro_torch.pipeline import stage as ST
 
 _CKPT_ITEM = "ROADMAP 'Still to port': checkpoints, reshard and elastic"
-_STREAM_ITEM = "ROADMAP 'Still to port': the stream runtime"
 
 #: flags of the JAX CLI the port does not run yet: (flag, accepted
 #: values, ROADMAP item); any other value raises NotImplementedError
 #: (``--tensor`` is held by :func:`repro_torch.launch.one_card`)
 _REFUSED = (
     ("data", (1,), _PAR_ITEM),
-    ("runtime", ("", "ticks"), _STREAM_ITEM),
     ("grad_sync", ("", "auto", "end"), _PAR_ITEM),
     ("ar_groups", (1,), _PAR_ITEM),
     ("ckpt", ("",), _CKPT_ITEM),
@@ -149,6 +152,11 @@ def _parser() -> argparse.ArgumentParser:
                     help="zb-auto peak-live cap per stage (0 = unbounded)")
     ap.add_argument("--remat", default="stage",
                     help="none | stage | stage_save_moe | full")
+    ap.add_argument("--runtime", default="", choices=("", "ticks", "stream"),
+                    help="training executor: ticks (every stage in lockstep "
+                         "over the tick table; the config's default) or "
+                         "stream (each stage walks its own RUN/SEND/RECV/"
+                         "FREE instruction stream)")
     ap.add_argument("--auto-plan", action="store_true",
                     help="let the BaPipe explorer pick stages/tensor/M")
     ap.add_argument("--auto-plan3d", action="store_true",
@@ -164,7 +172,6 @@ def _parser() -> argparse.ArgumentParser:
     # the JAX CLI's other flags: accepted, refused unless at their default
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--tensor", type=int, default=0)
-    ap.add_argument("--runtime", default="")
     ap.add_argument("--grad-sync", default="")
     ap.add_argument("--ar-groups", type=int, default=1)
     ap.add_argument("--ckpt", default="")
@@ -203,7 +210,8 @@ def build_config(args: argparse.Namespace):
     cfg = one_card(cfg, args.tensor)
     cfg = dataclasses.replace(cfg, virtual=args.virtual or cfg.virtual,
                               stages=args.stages or cfg.stages,
-                              schedule=args.schedule or cfg.schedule)
+                              schedule=args.schedule or cfg.schedule,
+                              runtime=args.runtime or cfg.runtime)
     if args.mem_limit:
         sched = cfg.schedule if cfg.schedule not in ("auto", "") else "1f1b"
         if not args.auto_plan and SP.canonical_name(sched) != "zb-auto":
@@ -276,7 +284,7 @@ def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
     opt = AdamW(lr=warmup_cosine(args.lr, 20, args.steps), weight_decay=0.01)
     pcfg = RT.PipelineConfig(n_microbatches=args.microbatches,
                              schedule=cfg.schedule, mem_limit=cfg.mem_limit,
-                             remat=args.remat)
+                             remat=args.remat, runtime=cfg.runtime)
     own_group = False
     if mesh is None and int(os.environ.get("WORLD_SIZE", "1")) > 1:
         MESH.check_world(plan.n_stages, int(os.environ["WORLD_SIZE"]))
@@ -333,7 +341,9 @@ def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
     print(f"first-{n} mean loss {sum(losses[:n]) / n:.4f} -> "
           f"last-{n} mean loss {sum(losses[-n:]) / n:.4f}")
     print(f"stash slots per stage {step_fn.stash_slots} "
-          f"(lower_to_ticks n_x = {step_fn.lowering.n_x})")
+          f"(lower_to_ticks n_x = {step_fn.lowering.n_x}); registers live "
+          f"at most per stage {step_fn.live_registers} (runtime "
+          f"{pcfg.runtime})")
     print(f"kernel launches per step {json.dumps(launches[-1])}")
     print("peak device memory " + (f"{peak:.2f} GiB" if peak is not None
                                    else "not measured (cpu)"))
@@ -346,6 +356,7 @@ def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
                 losses=losses, step_s=step_s, wall_s=wall,
                 tok_per_step=args.batch * args.seq, launches=launches,
                 stash_slots=step_fn.stash_slots, n_x=step_fn.lowering.n_x,
+                live_registers=step_fn.live_registers, runtime=pcfg.runtime,
                 peak_gib=peak, params=params, opt_state=opt_state)
 
 
@@ -408,12 +419,14 @@ def _main_ranks(args, cfg, plan: ST.StagePlan, opt: AdamW,
     peak = gather(torch.cuda.max_memory_allocated(device) / 2**30
                   if device.type == "cuda" else None)
     stash = gather(step_fn.stash_slots)
+    live = gather(step_fn.live_registers)
     if lead:
         n = min(10, max(1, len(losses)))
         print(f"first-{n} mean loss {sum(losses[:n]) / n:.4f} -> "
               f"last-{n} mean loss {sum(losses[-n:]) / n:.4f}")
         print(f"stash slots per rank {stash} "
-              f"(lower_to_ticks n_x = {step_fn.lowering.n_x})")
+              f"(lower_to_ticks n_x = {step_fn.lowering.n_x}); registers "
+              f"live at most per rank {live} (runtime {pcfg.runtime})")
         print(f"kernel launches per step, summed over ranks "
               f"{json.dumps(launches[-1])}")
         print("peak device memory per rank " + (
@@ -423,9 +436,11 @@ def _main_ranks(args, cfg, plan: ST.StagePlan, opt: AdamW,
                               and device.type == "cuda" else "")
         for r, st in enumerate(transport[-1]):
             print(f"transport rank {r} ({how}) last step: " + ", ".join(
-                      f"{k} {c} msgs {b} B {sec * 1e3:.1f} ms (copies "
-                      f"{cp * 1e3:.1f} ms)"
-                      for k, (c, b, sec, cp) in st.items()), flush=True)
+                      f"{k} {c} msgs {b} B {sec * 1e3:.1f} ms (post "
+                      f"{post * 1e3:.1f}, receive waits {rw * 1e3:.1f}, send "
+                      f"waits {sw * 1e3:.1f}, copies {cp * 1e3:.1f} ms)"
+                      for k, (c, b, sec, cp, post, rw, sw) in st.items()
+                      if c), flush=True)
         if args.losses_out:
             with open(args.losses_out, "w") as f:
                 json.dump(dict(start=0, losses=losses), f)
@@ -435,7 +450,8 @@ def _main_ranks(args, cfg, plan: ST.StagePlan, opt: AdamW,
                 backend=mesh.backend, losses=losses, step_s=step_s,
                 wall_s=wall, tok_per_step=args.batch * args.seq,
                 launches=launches, stash_slots=stash,
-                n_x=step_fn.lowering.n_x,
+                n_x=step_fn.lowering.n_x, live_registers=live,
+                runtime=pcfg.runtime,
                 peak_gib=None if peak[0] is None else max(peak),
                 peak_gib_by_rank=peak, transport=transport,
                 params=params, opt_state=opt_state)

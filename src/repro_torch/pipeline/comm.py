@@ -6,14 +6,20 @@ axis (``repro/pipeline/runtime.py``), as ``torch.distributed`` messages.
 stage sends which ring's output to which neighbour between two ticks;
 :func:`serve_hops` does the same for the serve step's ``lower_to_ring``
 table (a forward ring only).  Every rank derives the same list, so the
-sends and receives pair up.  A :class:`Transport` moves them, one
-``batch_isend_irecv`` a tick, and carries the step's few collectives
-(the loss, the gradient-norm partials, the tied embedding's gradient,
-the serve step's logits) and the V > 1 serving handoff's layers.  Under
-gloo on a CUDA device every message goes device -> pinned host -> device
-in plain sight (gloo's send and recv take CPU tensors only); under NCCL
-the device tensors go as they are.  Each message's bytes and host time
-are counted by kind.
+sends and receives pair up.  A :class:`Transport` moves them: for the
+tick executors one ``batch_isend_irecv`` a tick, waited for at once
+(:meth:`Transport.exchange`); for the stream runtime posted without
+waiting (:meth:`Transport.post`, a :class:`Posted` handle a message),
+each receive waited for by the tick that reads it and the sends at the
+step's end (:meth:`Transport.drain`).  Both sides post a (peer, ring)
+pair's messages in slot order, so gloo and NCCL pair them by tag and
+order.  It also carries the step's few collectives (the loss, the
+gradient-norm partials, the tied embedding's gradient, the serve step's
+logits) and the V > 1 serving handoff's layers.  Under gloo on a CUDA
+device every message goes device -> pinned host -> device in plain
+sight (gloo's send and recv take CPU tensors only); under NCCL the
+device tensors go as they are.  Each message's bytes and host time are
+counted by kind, the time split into posting, waits and staging copies.
 """
 from __future__ import annotations
 
@@ -75,18 +81,43 @@ def serve_hops(lo: SP.RingLowering) -> tuple:
     return tuple(out)
 
 
+class Posted:
+    """One message :meth:`Transport.post` put in flight, a send or a
+    receive.  :meth:`wait` blocks until it is done and returns what
+    arrived (a receive's tensor, on the device it was posted for) or None
+    (a send).  Under gloo on a CUDA device a send holds its pinned host
+    copy and a receive its pinned landing buffer until waited."""
+
+    __slots__ = ("tp", "kind", "recv", "buf", "works", "device", "out")
+
+    def __init__(self, tp, kind: str, recv: bool, buf=None, device=None,
+                 out=None):
+        self.tp, self.kind, self.recv, self.buf = tp, kind, recv, buf
+        self.device, self.works, self.out = device, (), out
+
+    def wait(self):
+        if self.buf is not None:
+            self.tp._settle(self)
+        return self.out
+
+
 class Transport:
     """One rank's messages over ``group``: the ring hops and the step's
     collectives.  ``stats[kind] = [messages, bytes, seconds, copy
-    seconds]`` for the kinds ``hop`` (activations and cotangents),
-    ``embed_allreduce`` (the tied embedding's gradient), ``scalars``
-    (the loss and the norm partials), ``logits`` (the serve step's
-    broadcast from the last rank) and ``handoff`` (the layers the V > 1
-    serving handoff moves between ranks); bytes count what this rank
-    sends; seconds are the host's wall time of the calls, waiting for the
-    peers included (under NCCL, where nothing waits, the enqueue); copy
-    seconds the staging copies' share of it (device -> pinned host ->
-    device, each ending in a sync).  :meth:`reset` zeroes them."""
+    seconds, post seconds, receive-wait seconds, send-wait seconds]`` for
+    the kinds ``hop`` (activations and cotangents), ``embed_allreduce``
+    (the tied embedding's gradient), ``scalars`` (the loss and the norm
+    partials), ``logits`` (the serve step's broadcast from the last
+    rank) and ``handoff`` (the layers the V > 1 serving handoff moves
+    between ranks).  A message between two ranks counts at both its
+    ends, a collective once a call; bytes count what this rank sends;
+    seconds are the host's wall time of the calls, waiting for the peers
+    included (under NCCL, where nothing waits, the enqueue); of them,
+    copy seconds are the staging copies (device -> pinned host ->
+    device, each ending in a sync), post seconds the posting of messages,
+    and the two waits the time blocked on receives and on sends (a
+    collective's time is in none of the three).  :meth:`reset` zeroes
+    them."""
 
     KINDS = ("hop", "embed_allreduce", "scalars", "logits", "handoff")
 
@@ -95,21 +126,27 @@ class Transport:
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
         self.backend = dist.get_backend(group)
+        self._loop: dict = {}       # tag -> messages to this rank itself
+        self._sends: list = []      # posted sends not waited yet
         self.reset()
 
     def reset(self) -> None:
-        self.stats = {k: [0, 0, 0.0, 0.0] for k in self.KINDS}
+        self.stats = {k: [0, 0] + [0.0] * 5 for k in self.KINDS}
 
     def _staged(self, device: torch.device) -> bool:
         return self.backend == "gloo" and device.type == "cuda"
 
-    def _count(self, kind: str, nbytes: int, t0: float,
-               copy_s: float = 0.0) -> None:
+    def _count(self, kind: str, nbytes: int, t0: float, copy_s: float = 0.0,
+               msgs: int = 1, post_s: float = 0.0, recv_wait_s: float = 0.0,
+               send_wait_s: float = 0.0) -> None:
         st = self.stats[kind]
-        st[0] += 1
+        st[0] += msgs
         st[1] += nbytes
         st[2] += time.perf_counter() - t0
         st[3] += copy_s
+        st[4] += post_s
+        st[5] += recv_wait_s
+        st[6] += send_wait_s
 
     def _to_host(self, x: torch.Tensor) -> tuple:
         """``x`` in pinned host memory, and the copy's seconds (the work
@@ -150,8 +187,9 @@ class Transport:
                       device: torch.device) -> None:
         """Post every (tag, dst, tensor) of ``sends`` and every (tag, src,
         buffer) of ``recvs`` (tensors on ``device``; a peer other than
-        this rank) in one ``batch_isend_irecv``, wait for them and leave
-        each message in its buffer; counted under ``kind``."""
+        this rank) in one ``batch_isend_irecv``, wait for them (the
+        receives first) and leave each message in its buffer; counted
+        under ``kind``."""
         if not sends and not recvs:
             return
         staged = self._staged(device)
@@ -175,12 +213,117 @@ class Transport:
             landed.append((land, buf))
             ops.append(dist.P2POp(dist.irecv, land, self._peer(src),
                                   self.group, tag))
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        send_copy_s = copy_s
+        works = dist.batch_isend_irecv(ops)
+        t1 = time.perf_counter()
+        # one work an op (gloo), or one for the batch (NCCL's coalescing)
+        split = len(works) == len(ops)
+        rworks = works[len(sends):] if split else works
+        for w in rworks:
+            w.wait()
+        t2 = time.perf_counter()
+        for w in works[:len(sends)] if split else ():
+            w.wait()
+        t3 = time.perf_counter()
         if staged:
             for land, buf in landed:
                 copy_s += self._to_device(land, buf)
-        self._count(kind, nbytes, t0, copy_s)
+        self._count(kind, nbytes, t0, copy_s, msgs=len(ops),
+                    post_s=t1 - t0 - send_copy_s, recv_wait_s=t2 - t1,
+                    send_wait_s=t3 - t2)
+
+    # ---- the stream runtime: posted messages, waited where read --------
+
+    def post(self, sends: list, recvs: list, like: torch.Tensor,
+             kind: str = "hop") -> list:
+        """Post every (tag, dst, tensor) of ``sends`` and a receive for
+        every (tag, src) of ``recvs`` (each shaped and typed as ``like``,
+        on its device) in one ``batch_isend_irecv``, waiting for none of
+        them; returns the receives' :class:`Posted` handles, in order.
+        The sends are kept until :meth:`drain`.  Under gloo on a CUDA
+        device each send is staged into pinned host memory here and each
+        receive lands there, copied to the device when waited.  A
+        message to this rank itself is handed over as it is (a rank's
+        receives from itself follow its sends to itself, tag by tag).
+        Counted under ``kind``: the post's seconds here, the waits' and
+        copies' when waited."""
+        if not sends and not recvs:
+            return []
+        dev = like.device
+        staged = self._staged(dev)
+        if staged and sends:    # the queued work is compute, not transport
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        ops, posted, nbytes, copy_s = [], [], 0, 0.0
+        for tag, dst, x in sends:
+            if x is None:
+                raise RuntimeError(f"message {tag}: rank {self.rank} has no "
+                                   f"output to send to rank {dst}")
+            if dst == self.rank:
+                self._loop.setdefault(tag, []).append(x)
+                continue
+            if staged:
+                x, c = self._to_host(x)
+                copy_s += c
+            else:
+                x = x.contiguous()
+            ops.append(dist.P2POp(dist.isend, x, self._peer(dst),
+                                  self.group, tag))
+            posted.append(Posted(self, kind, False, x, dev))
+            nbytes += x.numel() * x.element_size()
+        self._sends += posted
+        out = []
+        for tag, src in recvs:
+            if src == self.rank:
+                out.append(Posted(self, kind, True,
+                                  out=self._loop[tag].pop(0)))
+                continue
+            land = (torch.empty(like.shape, dtype=like.dtype,
+                                pin_memory=True) if staged
+                    else torch.empty_like(like))
+            ops.append(dist.P2POp(dist.irecv, land, self._peer(src),
+                                  self.group, tag))
+            h = Posted(self, kind, True, land, dev)
+            posted.append(h)
+            out.append(h)
+        if ops:
+            works = dist.batch_isend_irecv(ops)
+            # one work an op (gloo), or one for the batch (NCCL's
+            # coalescing): a handle then waits for its whole batch
+            for i, h in enumerate(posted):
+                h.works = (works[i],) if len(works) == len(ops) else works
+        self._count(kind, nbytes, t0, copy_s, msgs=len(ops),
+                    post_s=time.perf_counter() - t0 - copy_s)
+        return out
+
+    def _settle(self, h: Posted) -> None:
+        """Wait for a posted message; a receive's tensor lands in
+        ``h.out`` (copied to its device when staged)."""
+        staged = h.device is not None and self._staged(h.device)
+        if staged:      # the queued work is compute, not transport
+            torch.cuda.synchronize(h.device)
+        t0 = time.perf_counter()
+        for w in h.works:
+            w.wait()
+        waited = time.perf_counter() - t0
+        copy_s = 0.0
+        if h.recv:
+            if staged:
+                h.out = torch.empty(h.buf.shape, dtype=h.buf.dtype,
+                                    device=h.device)
+                copy_s = self._to_device(h.buf, h.out)
+            else:
+                h.out = h.buf
+        h.buf, h.works = None, ()
+        self._count(h.kind, 0, t0, copy_s, msgs=0,
+                    recv_wait_s=waited if h.recv else 0.0,
+                    send_wait_s=0.0 if h.recv else waited)
+
+    def drain(self) -> None:
+        """Wait for every send :meth:`post` put in flight."""
+        sends, self._sends = self._sends, []
+        for h in sends:
+            h.wait()
 
     def broadcast(self, x: torch.Tensor, src: int,
                   kind: str = "scalars") -> torch.Tensor:

@@ -8,7 +8,7 @@ tables, either every stage in one process on one card or, with
 ``group=...``, one process per stage: each rank replays its own row of
 the table and the rings are ``torch.distributed`` messages
 (:mod:`repro_torch.pipeline.comm`).  One body of per-stage tick code
-(:class:`_ServeRun`, :class:`_StageRun`) serves both.
+(:class:`_ServeRun`, :class:`_StageRun`) serves every executor.
 
 * :func:`make_serve_step` replays :func:`repro_torch.core.schedplan.
   lower_to_ring`: at tick t, stage s runs element ``e = t - s`` on the
@@ -24,10 +24,17 @@ the table and the rings are ``torch.distributed`` messages
   stage, and the forward and backward rings are lists of the previous
   tick's outputs, cyclic as the JAX package's ``ppermute`` rings (at
   V > 1 stage S-1's chunk-v output is stage 0's chunk-(v+1) input).
+  Under ``runtime='ticks'`` a rank runs in lockstep with its neighbours:
+  after each tick it exchanges that tick's hops and waits for all of
+  them.  Under ``runtime='stream'`` it walks its own
+  :func:`repro_torch.core.schedplan.lower_to_instructions` stream
+  instead: it blocks only where a RUN reads an arrival, never waits for
+  a send before the step's end, and each FREE empties its register.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import torch
 import torch.distributed as dist
@@ -58,10 +65,12 @@ class PipelineConfig:
                                     # its stashed input, so the first three
                                     # are the same; 'full' also recomputes
                                     # each layer inside that backward
-    # training knobs of the JAX PipelineConfig; the port runs the
-    # synchronous tick replay with no data-parallel sync, so only these
-    # values are taken (the rest raise, naming their ROADMAP item)
-    runtime: str = "ticks"          # ticks (stream: not ported)
+    # training knobs of the JAX PipelineConfig; the port has no
+    # data-parallel sync, so only these values are taken (the rest raise,
+    # naming their ROADMAP item)
+    runtime: str = "ticks"          # ticks | stream: the lockstep tick
+                                    # replay, or each stage walking its own
+                                    # lower_to_instructions stream
     grad_sync: str = "auto"         # auto | end (overlap / 2bw: not ported)
     ar_groups: int = 1
 
@@ -385,10 +394,9 @@ def _check_train_config(cfg: ArchConfig, plan: ST.StagePlan,
         raise NotImplementedError(
             f"tensor={plan.tensor}: tensor parallelism is not ported yet "
             f"({PAR_ITEM})")
-    if pcfg.runtime != "ticks":
-        raise NotImplementedError(
-            f"runtime={pcfg.runtime!r}: the stream runtime is not ported yet "
-            f"(ROADMAP 'Still to port': the stream runtime)")
+    if pcfg.runtime not in ("ticks", "stream"):
+        raise ValueError(f"unknown runtime {pcfg.runtime!r}: "
+                         f"expected ticks | stream")
     if pcfg.grad_sync not in ("auto", "end") or pcfg.ar_groups != 1:
         raise NotImplementedError(
             f"grad_sync={pcfg.grad_sync!r}, ar_groups={pcfg.ar_groups}: "
@@ -448,11 +456,16 @@ def _call_inputs(cfg, M_: int, params: dict, batch: dict, *, first: bool,
 
 class _StageRun:
     """Stage ``s``'s share of one replay of a ``lower_to_ticks`` table:
-    its residual stash, parked arrivals and zero-bubble cotangents, its
-    gradient sums, and the body of its ticks.  The in-process executor
-    runs every stage's in one loop; a rank runs its own.  ``layers`` and
-    ``dlp`` are the stage's ``[Lps, ...]`` or ``[V, Lc, ...]`` parameter
-    and gradient trees (row s of a stacked tree, or a rank's own)."""
+    its residual stash, parked arrivals and zero-bubble cotangents (the
+    registers), its gradient sums, and the body of its ticks.  The
+    in-process executors run every stage's in one loop; a rank runs its
+    own; under ``runtime='stream'`` the same ticks run at the slots of
+    the stage's instruction stream, an arrival may still be in flight
+    (a :class:`repro_torch.pipeline.comm.Posted`, waited by the tick that
+    reads it) and FREE instructions empty registers (:meth:`free`).
+    ``layers`` and ``dlp`` are the stage's ``[Lps, ...]`` or ``[V, Lc,
+    ...]`` parameter and gradient trees (row s of a stacked tree, or a
+    rank's own)."""
 
     def __init__(self, tb: _Tables, s: int, layers: dict, dlp: dict,
                  call: _Call):
@@ -464,6 +477,7 @@ class _StageRun:
         self.bin = [None] * lo.n_b          # parked backward arrivals
         self.cts = [None] * lo.n_c          # zero-bubble cotangent stash
         self.written = set()
+        self.peak_live = 0                  # most registers held at once
         self.dfn = self.dhd = None
         self.ce = torch.zeros((), dtype=torch.float32, device=call.dev)
         self.dinj = [None] * lo.M
@@ -513,10 +527,22 @@ class _StageRun:
             else:
                 slot.add_(g)
 
+    _REGS = dict(x="xs", f="fin", b="bin", c="cts")
+
+    def free(self, buf: str, idx: int) -> None:
+        """Empty register ``idx`` of ``buf`` (a FREE instruction)."""
+        getattr(self, self._REGS[buf])[idx] = None
+
     def tick(self, t: int, f_arr, b_arr):
         """Run tick t on what arrived on the forward and backward rings
         (None where nothing did); returns the tick's (forward, backward)
         outputs, None where it makes none."""
+        out = self._tick(t, f_arr, b_arr)
+        self.peak_live = max(self.peak_live, sum(
+            x is not None for x in self.xs + self.fin + self.bin + self.cts))
+        return out
+
+    def _tick(self, t: int, f_arr, b_arr):
         lo, s, call, remat = self.tb.lo, self.s, self.call, self.tb.remat
         if lo.fpark[s][t] >= 0:
             self.fin[lo.fpark[s][t]] = f_arr
@@ -528,7 +554,7 @@ class _StageRun:
         if kind == SP.TICK_F:
             src = lo.fsrc[s][t]
             x_in = (call.inj[m].detach() if src == 0 else
-                    f_arr if src == 1 else self.fin[lo.fr[s][t]])
+                    _arrived(f_arr if src == 1 else self.fin[lo.fr[s][t]]))
             with torch.no_grad():
                 y = self._apply(v, self._layers(v), x_in)
             self.xs[lo.xw[s][t]] = x_in
@@ -549,7 +575,8 @@ class _StageRun:
             x = x_res.detach().requires_grad_()
             lp, flat = self._leaves(v, not lo.has_w)
             if kind == SP.TICK_B:
-                ctan = b_arr if lo.bsrc[s][t] == 1 else self.bin[lo.br[s][t]]
+                ctan = _arrived(b_arr if lo.bsrc[s][t] == 1
+                                else self.bin[lo.br[s][t]])
                 y = self._apply(v, lp, x, remat)
                 if lo.has_w:        # zb: input gradient only
                     (dx,) = torch.autograd.grad(y, [x], ctan)
@@ -590,6 +617,76 @@ class _StageRun:
         (d_embed,) = torch.autograd.grad(self.call.inj, self.call.emb,
                                          torch.stack(self.dinj))
         return d_embed
+
+
+#: the instruction streams' rings: their message tags
+_RING = {"fwd": C.FWD, "bwd": C.BWD}
+
+
+def _ring_peers(ring: str, s: int, S: int) -> tuple:
+    """(source, destination) of stage s's messages on ``ring``: the
+    forward ring runs s-1 -> s -> s+1, the backward one s+1 -> s -> s-1
+    (both cyclic)."""
+    step = 1 if ring == "fwd" else -1
+    return (s - step) % S, (s + step) % S
+
+
+def _slot_groups(stream) -> list:
+    """A stream's instructions grouped by slot: [(slot, instrs)]."""
+    return [(t, list(ins))
+            for t, ins in itertools.groupby(stream, lambda i: i.slot)]
+
+
+def _run_slot(run: "_StageRun", t: int, ins, got: dict) -> list:
+    """Slot t of a stage's instruction stream: what each RECV took off
+    its ring (``got[instr]``: a tensor, or a posted receive that the tick
+    reading it waits for) goes to the tick, which parks it or runs on it;
+    the SENDs' (ring, value) pairs are returned; the FREEs empty their
+    registers."""
+    arr = {"fwd": None, "bwd": None}
+    for i in ins:
+        if i.op == SP.INSTR_RECV:
+            arr[i.ring] = got[i]
+    out = dict(zip(("fwd", "bwd"), run.tick(t, arr["fwd"], arr["bwd"])))
+    sends = []
+    for i in ins:
+        if i.op == SP.INSTR_SEND:
+            sends.append((i.ring, out[i.ring]))
+        elif i.op == SP.INSTR_FREE:
+            run.free(i.buf, i.idx)
+    return sends
+
+
+def _walk_stream(tp: C.Transport, run: "_StageRun", stream,
+                 like: torch.Tensor) -> None:
+    """One rank's walk of its instruction stream.  The RECVs of a slot
+    are posted once the slot before it in the stream has run, in one
+    ``batch_isend_irecv`` with that slot's SENDs; a RUN waits only for
+    the arrivals it reads (a parked one stays in flight in its inbox
+    register until then); no send is waited for before the stream's
+    end, where all are; slots with no instruction cost nothing."""
+    S, rank = tp.size, tp.rank
+    groups = _slot_groups(stream)
+
+    def post(sends, ins) -> dict:
+        recvs = [i for i in ins if i.op == SP.INSTR_RECV]
+        handles = tp.post(
+            [(_RING[ring], _ring_peers(ring, rank, S)[1], y)
+             for ring, y in sends],
+            [(_RING[i.ring], _ring_peers(i.ring, rank, S)[0])
+             for i in recvs], like)
+        return dict(zip(recvs, handles))
+
+    got = post((), groups[0][1] if groups else ())
+    for k, (t, ins) in enumerate(groups):
+        sends = _run_slot(run, t, ins, got)
+        got = post(sends, groups[k + 1][1] if k + 1 < len(groups) else ())
+    tp.drain()
+
+
+def _arrived(x):
+    """An arrival: a tensor, or a posted receive waited for here."""
+    return x.wait() if isinstance(x, C.Posted) else x
 
 
 def _rank_norm(tp: C.Transport, grads: dict, S: int, rank: int,
@@ -652,21 +749,35 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
     ``step.stash_slots[s]`` is the number of residual slots stage s wrote
     (its peak-live count; their maximum is ``lowering.n_x``).
 
+    ``pcfg.runtime == 'stream'`` runs the same ticks at the slots of
+    :func:`repro_torch.core.schedplan.lower_to_instructions`' streams
+    (``step.instructions``; None under ``'ticks'``): in process, every
+    stage's stream replayed slot by slot, a SEND at slot t handed to the
+    neighbour's RECV at t + 1, each FREE emptying its register; the bits
+    are the tick replay's.  ``step.live_registers[s]`` is the most
+    registers (stash, inboxes, cotangents) stage s held at once.
+
     With ``group`` (a ``torch.distributed`` process group of
     ``plan.n_stages`` ranks, every rank calling this factory) the step is
     the rank executor: this rank runs stage ``group.rank()`` of the same
     table on its share of the parameters (``stage.init_stage_params`` /
     ``stage.stage_share``) and returns its share of the gradients.  The
     rings become messages (``comm.ring_hops``: an output hops only where
-    the neighbour's row reads it at the next tick), one
-    ``batch_isend_irecv`` a tick; the last rank broadcasts the loss, so
-    every rank returns the same 0-dim loss; a tied embedding's gradient
-    is one all-reduce between the first and the last rank (``d_embed +
-    dhd``, the in-process sum's bits); the optimizer's clip takes the
-    global norm formed from every rank's terms in the in-process order.
-    ``step.stash_slots`` is then this rank's count and ``step.transport``
-    (a :class:`repro_torch.pipeline.comm.Transport`) holds the last
-    call's message counts, bytes and times."""
+    the neighbour's row reads it at the next tick).  Under ``'ticks'``
+    they go as one ``batch_isend_irecv`` a tick, all waited for before
+    the next tick.  Under ``'stream'`` the rank walks its own stream: a
+    slot's RECVs are posted once the slot before it has run, with that
+    slot's SENDs, in one ``batch_isend_irecv``; a RUN waits only for the
+    arrival it reads (a parked one stays in flight until then); the
+    sends are waited for only after the stream's last slot.  Then the
+    last rank broadcasts the loss, so every rank returns the same 0-dim
+    loss; a tied embedding's gradient is one all-reduce between the
+    first and the last rank (``d_embed + dhd``, the in-process sum's
+    bits); the optimizer's clip takes the global norm formed from every
+    rank's terms in the in-process order.  ``step.stash_slots`` and
+    ``step.live_registers`` are then this rank's counts and
+    ``step.transport`` (a :class:`repro_torch.pipeline.comm.Transport`)
+    holds the last call's message counts, bytes and times."""
     M.check_ported(cfg)
     _check_train_config(cfg, plan, pcfg)
     if pcfg.remat not in ("none", "stage", "stage_save_moe", "full"):
@@ -678,7 +789,10 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
     S, V, M_ = plan.n_stages, plan.virtual, pcfg.n_microbatches
     sched = SP.resolve_ring_schedule(pcfg.schedule, V)
     ml = (pcfg.mem_limit or None) if sched == "zb-auto" else None
-    lo = SP.lower_to_ticks(SP.build_schedule(sched, M_, S, V, mem_limit=ml))
+    plan_ir = SP.build_schedule(sched, M_, S, V, mem_limit=ml)
+    instr = (SP.lower_to_instructions(plan_ir) if pcfg.runtime == "stream"
+             else None)
+    lo = instr.ticks if instr is not None else SP.lower_to_ticks(plan_ir)
     # the ticks that write a chunk's weight gradients first (B/B_SEED, or
     # W in zero-bubble plans): they store it, the later ones add to it
     grad_kinds = ((SP.TICK_W,) if lo.has_w
@@ -700,15 +814,32 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
         dlp = ST._map_layers(torch.empty_like, params["layers"])
         runs = [_StageRun(tb, s, row(params["layers"], s), row(dlp, s), call)
                 for s in range(S)]
-        f_arr = b_arr = [None] * S
-        for t in range(lo.n_ticks):
-            outs = [r.tick(t, f_arr[s], b_arr[s]) for s, r in enumerate(runs)]
-            f_out, b_out = [o[0] for o in outs], [o[1] for o in outs]
-            # one-tick neighbour hops on cyclic rings: s receives from s-1
-            # (forward) and from s+1 (backward); the wrapped values carry
-            # chunk passes v -> v+1 (forward) and v+1 -> v (backward)
-            f_arr = f_out[-1:] + f_out[:-1]
-            b_arr = b_out[1:] + b_out[:1]
+        if instr is None:
+            f_arr = b_arr = [None] * S
+            for t in range(lo.n_ticks):
+                outs = [r.tick(t, f_arr[s], b_arr[s])
+                        for s, r in enumerate(runs)]
+                f_out, b_out = [o[0] for o in outs], [o[1] for o in outs]
+                # one-tick neighbour hops on cyclic rings: s receives from
+                # s-1 (forward) and from s+1 (backward); the wrapped values
+                # carry chunk passes v -> v+1 (forward) and v+1 -> v
+                # (backward)
+                f_arr = f_out[-1:] + f_out[:-1]
+                b_arr = b_out[1:] + b_out[:1]
+        else:
+            # every stage's stream, slot by slot: a SEND at slot t is its
+            # neighbour's RECV at t + 1 (one queue a ring and receiver)
+            box = {(ring, s): [] for ring in _RING for s in range(S)}
+            slots = [dict(_slot_groups(st)) for st in instr.streams]
+            for t in range(lo.n_ticks):
+                for s, r in enumerate(runs):
+                    ins = slots[s].get(t)
+                    if ins is None:
+                        continue
+                    got = {i: box[i.ring, s].pop(0) for i in ins
+                           if i.op == SP.INSTR_RECV}
+                    for ring, y in _run_slot(r, t, ins, got):
+                        box[ring, _ring_peers(ring, s, S)[1]].append(y)
         d_embed, last = runs[0].embed_grad(), runs[-1]
         grads = dict(embed=d_embed, layers=dlp, final_norm=last.dfn)
         if call.head_key == "head":
@@ -716,6 +847,7 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
         else:
             grads["embed"] = d_embed + last.dhd
         step.stash_slots = [len(r.written) for r in runs]
+        step.live_registers = [r.peak_live for r in runs]
         return last.ce / M_, grads
 
     if group is None:
@@ -726,8 +858,8 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
                 loss, grads = loss_and_grads(params, batch)
                 params, opt_state = optimizer.update(params, grads, opt_state)
                 return params, opt_state, dict(loss=loss)
-        step.lowering = lo
-        step.stash_slots = None
+        step.lowering, step.instructions = lo, instr
+        step.stash_slots = step.live_registers = None
         return step
 
     # ---- the rank executor: this process runs stage `rank` --------------
@@ -762,16 +894,19 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
         mb, T = call.labels_mb.shape[1:]
         like = torch.empty((mb, T, cfg.d_model), device=call.dev,
                            dtype=params["layers"]["ln1"].dtype)
-        f_arr = b_arr = None
-        for t in range(lo.n_ticks):
-            f_out, b_out = run.tick(t, f_arr, b_arr)
+        if instr is None:
             f_arr = b_arr = None
-            if t + 1 < lo.n_ticks:
-                sends, recvs = msgs[t + 1]
-                got = tp.exchange(
-                    [(ring, dst, f_out if ring == C.FWD else b_out)
-                     for ring, dst in sends], recvs, like)
-                f_arr, b_arr = got.get(C.FWD), got.get(C.BWD)
+            for t in range(lo.n_ticks):
+                f_out, b_out = run.tick(t, f_arr, b_arr)
+                f_arr = b_arr = None
+                if t + 1 < lo.n_ticks:
+                    sends, recvs = msgs[t + 1]
+                    got = tp.exchange(
+                        [(ring, dst, f_out if ring == C.FWD else b_out)
+                         for ring, dst in sends], recvs, like)
+                    f_arr, b_arr = got.get(C.FWD), got.get(C.BWD)
+        else:
+            _walk_stream(tp, run, instr.streams[rank], like)
         grads = dict(layers=dlp)
         if first:
             grads["embed"] = run.embed_grad()
@@ -788,6 +923,7 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
         ce = (run.ce / M_ if last
               else torch.zeros((), dtype=torch.float32, device=call.dev))
         step.stash_slots = len(run.written)
+        step.live_registers = run.peak_live
         return tp.broadcast(ce, S - 1), grads
 
     if optimizer is None:
@@ -803,7 +939,7 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
             params, opt_state = optimizer.update(params, grads, opt_state,
                                                  norm=norm)
             return params, opt_state, dict(loss=loss)
-    step.lowering = lo
-    step.stash_slots = None
+    step.lowering, step.instructions = lo, instr
+    step.stash_slots = step.live_registers = None
     step.transport = tp
     return step

@@ -558,9 +558,10 @@ def _reduced_llama(stages: int):
         n_kv_heads=2, stages=stages)
 
 
-def _two_ranks_on_card(mesh):
-    """The rank side of test_two_ranks_match_in_process_on_card: the
-    1f1b step on this rank's share, with its flash launches."""
+def _two_ranks_on_card(mesh, schedule="1f1b", runtime="ticks"):
+    """The rank side of test_two_ranks_match_in_process_on_card and
+    test_two_stream_ranks_match_in_process_on_card: the step on this
+    rank's share, with its flash launches."""
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.pipeline import runtime as RT
     from repro_torch.pipeline import stage as ST
@@ -568,7 +569,8 @@ def _two_ranks_on_card(mesh):
     cfg = _reduced_llama(mesh.world)
     plan = ST.plan_stages(cfg)
     step = RT.make_train_step(cfg, plan, RT.PipelineConfig(
-        n_microbatches=2, schedule="1f1b"), group=mesh.group)
+        n_microbatches=2, schedule=schedule, runtime=runtime),
+        group=mesh.group)
     params = ST.init_stage_params(cfg, 0, plan, mesh.rank, device=mesh.device)
     batch = SyntheticLM(cfg.vocab, 64, 4, device=str(mesh.device)).batch(0)
     fa = FA.flash_attend
@@ -599,6 +601,46 @@ def test_two_ranks_match_in_process_on_card():
     plan = ST.plan_stages(cfg)
     step = RT.make_train_step(cfg, plan, RT.PipelineConfig(
         n_microbatches=2, schedule="1f1b"))
+    params = ST.init_stacked_params(cfg, 0, plan, device="cuda")
+    batch = SyntheticLM(cfg.vocab, 64, 4, device="cuda").batch(0)
+    fa = FA.flash_attend
+    before = (fa.launches, fa.launches_bwd)
+    loss, grads = step(params, batch)
+    launches = (fa.launches - before[0], fa.launches_bwd - before[1])
+    assert tuple(map(sum, zip(*(r["launches"] for r in ranks)))) == launches
+    for r, got in enumerate(ranks):
+        assert torch.equal(got["loss"], loss.cpu())
+        want = ST.stage_share(grads, plan, r)
+        assert sorted(got["grads"]) == sorted(want)
+        for a, b in zip(ST.tree_leaves(got["grads"]), ST.tree_leaves(want)):
+            assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+def test_two_stream_ranks_match_in_process_on_card():
+    """zb-h1 under the stream runtime as 2 gloo ranks on one card (each
+    send staged into pinned host memory when posted, each receive copied
+    to the card when the tick reading it waits for it) against the
+    in-process tick executor on the card: the loss and each rank's
+    gradient share bit for bit, the ranks' flash launches summing to the
+    in-process step's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.pipeline import runtime as RT
+    from repro_torch.pipeline import stage as ST
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # built here first: a rank that built them itself would keep its peer
+    # waiting past the group's timeout
+    build.build_all()
+    ranks = MESH.spawn_ranks(_two_ranks_on_card, 2, "gloo", "zb-h1",
+                             "stream", device="cuda")
+    cfg = _reduced_llama(2)
+    plan = ST.plan_stages(cfg)
+    step = RT.make_train_step(cfg, plan, RT.PipelineConfig(
+        n_microbatches=2, schedule="zb-h1"))
     params = ST.init_stacked_params(cfg, 0, plan, device="cuda")
     batch = SyntheticLM(cfg.vocab, 64, 4, device="cuda").batch(0)
     fa = FA.flash_attend

@@ -1,5 +1,6 @@
-"""The rank executor (one process per pipeline stage, gloo on the CPU)
-against the port's in-process executor and the JAX package.
+"""The rank executor (one process per pipeline stage, gloo on the CPU),
+under the tick and the stream runtime, against the port's in-process
+executor and the JAX package.
 
 Each world size is spawned once (:func:`repro_torch.launch.mesh.
 spawn_ranks`, a ``FileStore`` in a temporary directory): one module
@@ -12,10 +13,17 @@ after three AdamW steps the losses, parameters and moments.  The 2-rank
 1f1b run is held to ``loss_fn`` / ``jax.grad`` at
 the harness's bar (loss 1e-4, layer gradients 1e-4;
 ``tests/harness_pipe.py:96-109``), numpy weights going to both packages
-through ``repro_torch.convert``.  Without spawning: the hop list
-against the table's consumed arrivals, ``init_stage_params`` against the
-stacked tree's rows, and the refusals.  One CLI run under ``torchrun``
-(2 ranks) gives the single-process CLI's losses bit for bit.
+through ``repro_torch.convert``.  Under ``runtime='stream'`` (each rank
+walking its ``lower_to_instructions`` stream) every ``SCHEDULES`` entry
+at 2 ranks, three at 3, mamba2, three AdamW steps and the numpy-weights
+case are held to the same in-process tick results, their hop messages
+and bytes to the tick runs'; a traced zb-h2 run with rank 1 held back
+shows where a stream rank waits; ``launch.train.main(["--runtime",
+"stream", ...])`` on the 2 ranks gives the single-process CLI's losses.
+Without spawning: the hop list against the table's consumed arrivals,
+``init_stage_params`` against the stacked tree's rows, and the
+refusals.  One CLI run under ``torchrun`` (2 ranks) gives the
+single-process CLI's losses bit for bit.
 """
 import concurrent.futures
 import dataclasses
@@ -37,7 +45,6 @@ from repro_torch.core import schedplan as SP
 from repro_torch.launch import mesh as MESH
 from repro_torch.launch import train as ttrain
 from repro_torch.pipeline import comm as C
-from repro_torch.pipeline import runtime as RT
 from repro_torch.pipeline import stage as ST
 
 import _torch_ranks_worker as W
@@ -54,6 +61,14 @@ def _spec(name, schedule, S, *, arch="llama3.2-1b", tied=True, steps=0,
     return dict(name=name, arch=arch, tied=tied, V=V, pcfg=pcfg, rows=rows,
                 seq=32 if arch == "mamba2-2.7b" else SEQ, steps=steps,
                 weights=weights)
+
+
+def _stream(case: dict, **kw) -> dict:
+    """``case`` under the stream runtime, held to ``case``'s in-process
+    (tick) result."""
+    return {**case, "name": case["name"] + " stream", "ref": case["name"],
+            "pcfg": dataclasses.replace(case["pcfg"], runtime="stream"),
+            **kw}
 
 
 def _jax_cfg():
@@ -82,6 +97,14 @@ def _jax_loss_and_grads(weights: dict) -> dict:
     return dict(loss=float(loss), grads=jax.tree.map(np.asarray, grads))
 
 
+#: the CLI run on 2 ranks under stream against the single-process CLI
+CLI = ["--arch", "llama3.2-1b", "--reduced", "--layers", "4", "--d-model",
+       "64", "--stages", "2", "--microbatches", "2", "--batch", "4", "--seq",
+       "16", "--steps", "3", "--device", "cpu"]
+#: the traced stream run: rank 1 held back this many seconds
+HOLD = 0.5
+
+
 def _cases2(weights: dict):
     cases = [_spec(s, s, 2) for s in SCHEDULES]
     cases += [_spec("mamba2 1f1b", "1f1b", 2, arch="mamba2-2.7b"),
@@ -89,12 +112,21 @@ def _cases2(weights: dict):
               _spec("adamw 1f1b", "1f1b", 2, steps=3),
               _spec("jax 1f1b", "1f1b", 2, weights=convert.to_jax(
                   _stacked(weights, 2)))]
+    cases += [_stream(c) for c in cases if c["name"] in STREAM2]
+    held = _spec("zb-h2 held", "zb-h2", 2)
+    cases += [dict(held, ref="zb-h2", hold=HOLD),
+              _stream(held, ref="zb-h2", hold=HOLD),
+              dict(name="cli", cli=CLI, arch="llama3.2-1b", tied=True, V=1)]
     return cases
 
 
 CASES3 = ("1f1b", "zb-h1", "1f1b-interleaved")
 CASES1 = ("1f1b", "1f1b-interleaved")
 NAMES2 = SCHEDULES + ("mamba2 1f1b", "untied 1f1b")
+#: the cases that also run under the stream runtime
+STREAM2 = SCHEDULES + ("mamba2 1f1b", "adamw 1f1b", "jax 1f1b")
+STREAM_NAMES2 = tuple(f"{n} stream" for n in SCHEDULES + ("mamba2 1f1b",))
+STREAM_NAMES3 = tuple(f"{n} stream" for n in CASES3)
 
 
 @pytest.fixture(scope="module")
@@ -107,20 +139,23 @@ def runs():
     "jax": the JAX loss and gradients}``.  No torch run shares this
     process's state (JAX runs here)."""
     weights = _weights()
-    cases = {2: _cases2(weights), 3: [_spec(s, s, 3) for s in CASES3]}
+    cases3 = [_spec(s, s, 3) for s in CASES3]
+    cases = {2: _cases2(weights), 3: cases3 + [_stream(c) for c in cases3]}
     with concurrent.futures.ThreadPoolExecutor(3) as pool:
         spawned = {S: pool.submit(MESH.spawn_ranks, W.run_cases, S, "gloo",
                                   cs) for S, cs in cases.items()}
+        one = [_spec(s, s, 1) for s in CASES1]
         ref = pool.submit(MESH.spawn_ranks, W.in_process_cases, 1, "gloo",
-                          cases, [_spec(s, s, 1) for s in CASES1])
+                          cases, one + [_stream(one[-1])])
         out = {"jax": _jax_loss_and_grads(weights)}
         ranks = {S: f.result() for S, f in spawned.items()}
         ref = ref.result()[0]
     out["one rank"] = ref["one rank"]
-    out.update({S: {c["name"]: ([r[c["name"]] for r in ranks[S]], want,
+    out.update({S: {c["name"]: ([r[c["name"]] for r in ranks[S]],
+                                ref[S][c.get("ref", c["name"])],
                                 ST.plan_stages(W.config(c["arch"], S, c["V"],
                                                         c["tied"])))
-                    for c, want in zip(cs, ref[S])}
+                    for c in cs}
                 for S, cs in cases.items()})
     return out
 
@@ -150,22 +185,23 @@ def _check_case(res, name):
         assert got["stash"] == ref["stash"][r], (name, r)
 
 
-@pytest.mark.parametrize("name", NAMES2)
+@pytest.mark.parametrize("name", NAMES2 + STREAM_NAMES2)
 def test_two_ranks_bitwise(world2, name):
     _check_case(world2, name)
 
 
-@pytest.mark.parametrize("name", CASES3)
+@pytest.mark.parametrize("name", CASES3 + STREAM_NAMES3)
 def test_three_ranks_bitwise(world3, name):
     """3 ranks pad the 4 layers to 6 slots (the interleave: 6 chunks of
     one layer)."""
     _check_case(world3, name)
 
 
-@pytest.mark.parametrize("name", CASES1)
+@pytest.mark.parametrize("name", CASES1 + ("1f1b-interleaved stream",))
 def test_one_rank_group_bitwise(runs, name):
     """A group of one rank: the whole model on the rank executor (at
-    V = 2 the chunk pass wraps to the rank itself) gives the in-process
+    V = 2 the chunk pass wraps to the rank itself; under stream each
+    message to itself is handed over as it is) gives the in-process
     step's bits."""
     got, want = runs["one rank"][name]
     V = 2 if "interleaved" in name else 1
@@ -175,10 +211,10 @@ def test_one_rank_group_bitwise(runs, name):
                     name)
 
 
-def test_adamw_steps_bitwise(world2):
+def test_adamw_steps_bitwise(world2, name="adamw 1f1b"):
     """Three AdamW steps (1f1b, clip active): the global norm formed from
     the ranks' gathered terms gives the in-process update's bits."""
-    ranks, ref, plan = world2["adamw 1f1b"]
+    ranks, ref, plan = world2[name]
     for r, got in enumerate(ranks):
         assert all(torch.equal(a, b) for a, b in zip(got["losses"],
                                                      ref["losses"]))
@@ -187,11 +223,11 @@ def test_adamw_steps_bitwise(world2):
                             f"{key} rank {r}")
 
 
-def test_two_ranks_match_jax(runs):
+def test_two_ranks_match_jax(runs, name="jax 1f1b"):
     """The slice as a whole: the 2-rank 1f1b step on numpy weights
     (through ``convert``) against the JAX package's non-pipelined
     loss_fn and jax.grad on the same weights."""
-    jax_ref, ranks = runs["jax"], runs[2]["jax 1f1b"][0]
+    jax_ref, ranks = runs["jax"], runs[2][name][0]
     assert abs(float(ranks[0]["loss"]) - jax_ref["loss"]) < 1e-4
     stacked = _stack_rows([r["grads"]["layers"] for r in ranks])
     got = _unstacked(convert.to_jax(stacked), 2)
@@ -204,6 +240,99 @@ def test_two_ranks_match_jax(runs):
         assert emb < 1e-4 * (np.abs(want[key]).max() + 1)
     assert _rel(ranks[1]["grads"]["final_norm"].numpy(),
                 want["final_norm"]) < 1e-4
+
+
+def test_adamw_steps_bitwise_stream(world2):
+    test_adamw_steps_bitwise(world2, "adamw 1f1b stream")
+
+
+def test_two_ranks_match_jax_stream(runs):
+    """The numpy-weights case under stream: at the harness's bar against
+    JAX, and bit for bit against the in-process tick step."""
+    test_two_ranks_match_jax(runs, "jax 1f1b stream")
+    ranks, ref, plan = runs[2]["jax 1f1b stream"]
+    for r, got in enumerate(ranks):
+        assert torch.equal(got["loss"], ref["loss"])
+        _assert_bitwise(got["grads"], ST.stage_share(ref["grads"], plan, r),
+                        f"rank {r}")
+
+
+@pytest.mark.parametrize("name", STREAM_NAMES2 + STREAM_NAMES3)
+def test_stream_hops_are_the_tick_runs(runs, name):
+    """Each rank's hop messages and bytes under stream equal the tick
+    run's on the same ranks, and ``comm.ring_hops``' count (a message at
+    both its ends); no rank holds more registers at once than under
+    ticks."""
+    S = 3 if name in STREAM_NAMES3 else 2
+    stream, _, plan = runs[S][name]
+    ticks = runs[S][name[:-len(" stream")]][0]
+    pcfg, V, _ = _case(name.split()[-2], S)
+    lo = SP.lower_to_ticks(SP.build_schedule(
+        SP.resolve_ring_schedule(pcfg.schedule, V), pcfg.n_microbatches, S,
+        V, mem_limit=pcfg.mem_limit or None))
+    ends = [sum((src == r) + (dst == r) for h in C.ring_hops(lo)
+                for _, src, dst in h) for r in range(S)]
+    assert [g["hop"] for g in stream] == [g["hop"] for g in ticks], name
+    assert [g["hop"][0] for g in stream] == ends
+    assert all(a["live"] <= b["live"] for a, b in zip(stream, ticks))
+
+
+def _reader_slots(lo, s: int) -> list:
+    """The slot of the tick reading each of stage s's arrivals: a direct
+    one at its own slot, a parked one where its inbox register is read."""
+    out = []
+    for t in range(lo.n_ticks):
+        k = lo.kind[s][t]
+        if k == SP.TICK_F and lo.fsrc[s][t] in (1, 2):
+            out.append(t)
+        if k == SP.TICK_B and lo.bsrc[s][t] in (1, 2):
+            out.append(t)
+    return out
+
+
+def test_stream_rank_waits_only_where_read(world2):
+    """zb-h2, rank 1 held back ``HOLD`` s after a barrier.  Under stream
+    every wait on an arrival falls inside the tick that reads it (a
+    parked one: where its inbox register is read, not where it landed),
+    every send is waited after the last tick, and rank 0 runs its
+    warm-up forwards while rank 1 is held; under ticks rank 0 stops at
+    its first exchange until rank 1 comes.  Both runs give the
+    in-process bits."""
+    _check_case(world2, "zb-h2 held")
+    _check_case(world2, "zb-h2 held stream")
+    pcfg, V, _ = _case("zb-h2", 2)
+    lo = SP.lower_to_ticks(SP.build_schedule("zb-h2", pcfg.n_microbatches,
+                                             2))
+    assert any(p >= 0 for row in lo.fpark + lo.bpark for p in row)
+    ranks = world2["zb-h2 held stream"][0]
+    for s, got in enumerate(ranks):
+        ev = got["events"]
+        recv = [t for what, t, _ in ev if what == "recv"]
+        assert sorted(recv) == _reader_slots(lo, s), s
+        last = max(i for i, e in enumerate(ev) if e[0] == "ticked")
+        sends = [i for i, e in enumerate(ev) if e[0] == "send"]
+        assert sends and all(ev[i][1] == -1 and i > last for i in sends), s
+    started = min(t for what, _, t in ranks[1]["events"] if what == "tick")
+    ahead = [t for what, t, at in ranks[0]["events"]
+             if what == "ticked" and at < started]
+    warmup = min(_reader_slots(lo, 0))      # rank 0's first arrival read
+    assert ahead[:warmup] == list(range(warmup)) and warmup >= 2, ahead
+    ticks = world2["zb-h2 held"][0]
+    started = min(t for what, _, t in ticks[1]["events"] if what == "tick")
+    assert [t for what, t, at in ticks[0]["events"]
+            if what == "ticked" and at < started] == [0]
+
+
+def test_rank_cli_stream_matches_single_process(world2):
+    """``train.main([... "--runtime", "stream"], mesh=...)`` on the 2
+    ranks: the single-process (tick) CLI's losses bit for bit, its stash
+    counts, the runtime reported and registers live at most per rank."""
+    ranks, ref, _ = world2["cli"]
+    assert ranks[0]["runtime"] == "stream" and ref["runtime"] == "ticks"
+    assert ranks[0]["losses"] == ref["losses"] and len(ref["losses"]) == 3
+    assert ranks[0]["stash"] == ref["stash"] == [2, 1]
+    assert ranks[0]["live"] == ranks[1]["live"] and \
+        len(ranks[0]["live"]) == 2
 
 
 def _stack_rows(trees: list) -> dict:
@@ -280,8 +409,7 @@ def test_nccl_with_more_ranks_than_cards_raises():
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--data", "2"], "tensor and data parallel over NCCL"),
-    (["--runtime", "stream"], "the stream runtime")])
+    (["--data", "2"], "tensor and data parallel over NCCL")])
 def test_rank_cli_still_refuses_by_item(monkeypatch, flag, item):
     """Under torchrun's environment the refused flags raise by their
     ROADMAP item before any group is set up."""
@@ -294,11 +422,8 @@ def test_rank_cli_still_refuses_by_item(monkeypatch, flag, item):
 
 
 def test_rank_step_refuses_stream_and_stage_count(monkeypatch):
-    cfg = W.config("llama3.2-1b", 2)
-    plan = ST.plan_stages(cfg)
-    with pytest.raises(NotImplementedError, match="the stream runtime"):
-        RT.make_train_step(cfg, plan, RT.PipelineConfig(runtime="stream"),
-                           group=object())
+    """A world size other than the stage count raises before any group
+    is set up (the stream runtime, once refused here, runs: above)."""
     for k, v in (("WORLD_SIZE", "3"), ("RANK", "0")):
         monkeypatch.setenv(k, v)
     with pytest.raises(ValueError, match="must equal the world size"):

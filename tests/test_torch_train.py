@@ -388,7 +388,7 @@ def test_remat_full_attention_calls(monkeypatch, schedule, per_layer_mb):
 
 @pytest.mark.parametrize("flag", [
     ["--data", "2"], ["--tensor", "2"],
-    ["--runtime", "stream"], ["--grad-sync", "overlap"],
+    ["--grad-sync", "overlap"],
     ["--grad-sync", "2bw"], ["--ar-groups", "2"],
     ["--ckpt", "x"], ["--ckpt-every", "2"],
     ["--resume", "x"], ["--die-at", "3"], ["--drift-every", "2"],
@@ -407,8 +407,7 @@ def test_train_cli_refuses_unported_flags(flag):
 def test_train_step_refuses_unported_configs():
     cfg = dataclasses.replace(_cfgs()[0], stages=2)
     plan = ST.plan_stages(cfg)
-    for kw in (dict(runtime="stream"), dict(grad_sync="overlap"),
-               dict(ar_groups=2)):
+    for kw in (dict(grad_sync="overlap"), dict(ar_groups=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             RT.make_train_step(cfg, plan, RT.PipelineConfig(**kw))
     # the SSD kernel has its backward: mamba2's step builds (and trains:

@@ -115,8 +115,10 @@ Phases, each reported on its own lines:
    width and data under ``--stages 4 --auto-plan --cluster
    h100,h100,h100,h100`` and ``--stages 4 --auto-plan3d --pool 4``: each
    plan first computed by the port's planner on the same inputs, a plan
-   that needs tensor or data parallelism (the homogeneous ``--auto-plan``
-   too) printed and refused before anything is allocated, and, where
+   that needs tensor parallelism (the homogeneous ``--auto-plan``)
+   printed and refused by its item, one that needs data parallelism
+   (pool 4: data 4) printed and refused in this one process with the
+   ranks it needs, both before anything is allocated, and, where
    pool 4's plan is refused, the largest smaller pool whose plan runs on
    one card trained instead; each trained plan gets phase 10's checks
    (launches exactly :func:`train_launches` of its table, stash
@@ -230,16 +232,40 @@ Phases, each reported on its own lines:
    largest leaf; it prints prefill and decode tok/s (the slowest rank's
    times), the handoff's ms and bytes, each rank's peak memory and the
    transport by kind (ring hops, the logits broadcast from the last
-   rank, the handoff's layers).  No time of this phase is a pipeline's.
+   rank, the handoff's layers).  No time of this phase is a pipeline's;
+31. phase 28's run under ``--runtime stream`` (each rank walks its own
+   instruction stream): the losses equal phase 10's bit for bit, the hop
+   messages and bytes a step equal phase 28's;
+32. the data axis: ``repro_torch.launch.train.main`` as 4 gloo ranks on
+   the card on a data 2 x stages 2 grid (llama3.2-1b at full width, 16
+   layers on 2 stages, 1f1b, M 2 a replica, batch 8, seq 1024, f32,
+   ``--runtime stream``, 2 steps) under ``--grad-sync end`` and then
+   ``overlap`` (each gradient bucket posted at its ARSYNC slot): the two
+   runs' losses bitwise equal, step 0's within 1e-5 relative of phase
+   10's (the same weights and batch), exactly phase 10's 128 + 64 flash
+   launches a step summed over ranks; it prints the step ms (the slowest
+   rank's), each rank's peak memory and its ``grad_sync`` messages,
+   bytes and ms; then 2bw through the rank step for 2 steps (at full
+   depth if the card has room for one more gradient copy a rank, else
+   at 8 layers, which it prints), step 0's loss equal to end's;
+33. ``repro_torch.launch.serve.main`` as 4 gloo ranks at data 2 x stages
+   2 (llama3.2-1b at full width, V 1, M 2 a replica, batch 8, prompt
+   512, 32 tokens, f32) against the in-process serve of the same weights
+   and prompts at data 1 (M 4, the same micro-batch rows): the tokens
+   equal, every step's logits within 2e-4, the flash launches summed
+   over ranks the in-process run's; it prints prefill and decode tok/s
+   (the slowest rank's), the transport by kind and each rank's peak.
+   No time of phases 32-33 is a data-parallel one: the ranks
+   time-slice one card and every gradient byte crosses host memory.
 
 Every kernel's launch counters (``launches`` and, for flash attention,
 ``launches_prefill`` / ``launches_decode`` / ``launches_bwd``; for the
 SSD scan ``launches_bwd``) are set to 0 just before each driven path
 (phases 4, 7, 10, 12, 13, 15, 17, 18 and 21, and each run of phases 11,
-14, 19, 22, 23, 24 and 25; in phases 27-30 in each rank's process,
+14, 19, 22, 23, 24 and 25; in phases 27-33 in each rank's process,
 the rank executor's and the in-process runs apart) and read just after
 it.  Every process runs with TF32 off and one cuBLAS workspace setting
-(``card_flags``).  The whole script takes about 8 minutes on one H100.
+(``card_flags``).  The whole script takes about 12 minutes on one H100.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -1449,21 +1475,27 @@ def phase_train_parity(FA, counters: dict, mods, arch: str = "llama3.2-1b",
     return res
 
 
-def _refused(train, argv: list, tag: str) -> None:
-    """``train.main(argv)`` must print its plan and refuse it by the
-    tensor-and-data-parallel item before allocating anything."""
+def _refused(train, argv: list, tag: str, plan) -> None:
+    """``train.main(argv)`` must print its plan and refuse it before
+    allocating anything: a plan with tensor above 1 by the
+    tensor-and-data-parallel item, one with data above 1 (tensor 1) in
+    this one process with the ranks it needs (it trains as ranks:
+    phase 32 runs the data axis)."""
+    tensor = plan.tensor > 1
+    err, why = ((NotImplementedError, "tensor and data parallel over NCCL")
+                if tensor else (ValueError, "the data axis runs only as "
+                                            "ranks"))
     before = torch.cuda.memory_allocated()
     try:
         train.main(argv)
-    except NotImplementedError as e:
-        if "tensor and data parallel over NCCL" not in str(e):
-            fail(f"{tag}: refused by another item: {e}")
+    except err as e:
+        if why not in str(e):
+            fail(f"{tag}: refused for another reason: {e}")
     else:
         fail(f"{tag}: a plan that needs more than one card was run")
     if torch.cuda.memory_allocated() != before:
         fail(f"{tag}: the CLI allocated before refusing")
-    print(f"{tag}: refused before allocating (tensor and data parallel "
-          f"over NCCL)", flush=True)
+    print(f"{tag}: refused before allocating ({why})", flush=True)
 
 
 def phase_planner(train, counters: dict, mods) -> dict:
@@ -1530,7 +1562,7 @@ def phase_planner(train, counters: dict, mods) -> dict:
     homog = AP.auto_plan(cfg, model_axis=4, data_axis=1, device=H, **kw)
     print(f"planner: homogeneous auto_plan {homog}", flush=True)
     if homog.tensor > 1 or homog.data_axis > 1:
-        _refused(train, base + ["--auto-plan"], "train --auto-plan")
+        _refused(train, base + ["--auto-plan"], "train --auto-plan", homog)
     runs = []
     t0 = time.perf_counter()
     cluster = AP.auto_plan(cfg, model_axis=4, data_axis=1, device=H,
@@ -1547,7 +1579,7 @@ def phase_planner(train, counters: dict, mods) -> dict:
             runs.append((["--auto-plan3d", "--pool", str(pool)], p3))
             break
         _refused(train, base + ["--auto-plan3d", "--pool", str(pool)],
-                 f"train --auto-plan3d --pool {pool}")
+                 f"train --auto-plan3d --pool {pool}", p3)
     print(f"planner: host seconds to plan {json.dumps(res['plan_s'])}",
           flush=True)
     # the model's memory (bf16 weights, grads and boundary activations)
@@ -2490,6 +2522,252 @@ def phase_rank_serve(mesh_mod, interleaved: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 32-33: the data axis (data 2 x stages 2 as 4 gloo ranks).
+# ---------------------------------------------------------------------------
+
+#: phase 32's run: llama3.2-1b at full width, data 2 x stages 2 (16 layers
+#: on 2 stages), 1f1b, M 2 a replica (2-row micro-batches, phase 10's),
+#: batch 8, seq 1024, f32, 2 steps, the stream runtime
+DATA_TRAIN = ["--arch", "llama3.2-1b", "--tensor", "1", "--stages", "2",
+              "--data", "2", "--schedule", "1f1b", "--microbatches", "2",
+              "--batch", "8", "--seq", "1024", "--steps", "2",
+              "--log-every", "1", "--device", "cuda", "--dist-backend",
+              "gloo", "--runtime", "stream"]
+#: 2bw's depth when the card has no room for it at full depth
+TWO_BW_LAYERS = 8
+
+
+def _tree_bytes(tree: dict, ST) -> int:
+    return sum(x.numel() * x.element_size() for x in ST.tree_leaves(tree))
+
+
+def rank_data_train(mesh) -> dict:
+    """Phase 32 on one rank: ``train.main`` with phase 32's flags under
+    ``--grad-sync end``, then ``overlap``; then 2bw through the rank step
+    for 2 steps, at full depth if the card has room for one more
+    gradient copy on every rank after the first two (else at
+    ``TWO_BW_LAYERS`` layers, with an end step at that depth to hold step
+    0's loss to)."""
+    card_flags()
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.pipeline import runtime as RT
+    from repro_torch.pipeline import stage as ST
+    out, share = {}, 0
+    for gs in ("end", "overlap"):
+        r = train.main(DATA_TRAIN + ["--grad-sync", gs], mesh=mesh)
+        share = _tree_bytes(r["params"], ST)
+        out[gs] = {k: v for k, v in r.items()
+                   if k not in ("params", "opt_state", "plan")}
+        del r
+        torch.cuda.empty_cache()
+    # room for 2bw: every rank's peak so far plus one more gradient copy
+    # (its parameters' bytes), against the card's free memory now
+    dist.barrier()
+    free = torch.cuda.mem_get_info(mesh.device)[0]
+    peak = torch.cuda.max_memory_allocated(mesh.device)
+    per = MESH.gather((free, peak + share), mesh)
+    need, have = sum(p[1] for p in per), min(p[0] for p in per)
+    L = (get_config("llama3.2-1b").n_layers if need + 4 * 2**30 < have
+         else TWO_BW_LAYERS)
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), tensor=1, stages=2,
+                              n_layers=L)
+    plan = ST.plan_stages(cfg)
+    data = SyntheticLM(cfg.vocab, 1024, 8, seed=0, device=str(mesh.device))
+    params = ST.init_stage_params(cfg, 0, plan, mesh.stage,
+                                  device=mesh.device)
+    kw = dict(n_microbatches=2, schedule="1f1b", runtime="stream")
+    if L == get_config("llama3.2-1b").n_layers:
+        end_loss0 = out["end"]["losses"][0]
+    else:
+        step = RT.make_train_step(cfg, plan, RT.PipelineConfig(
+            grad_sync="end", **kw), group=mesh)
+        end_loss0 = float(step(params, data.batch(0))[0])
+        del step
+    opt = AdamW(lr=warmup_cosine(3e-3, 20, 2), weight_decay=0.01)
+    step = RT.make_train_step(cfg, plan, RT.PipelineConfig(
+        grad_sync="2bw", **kw), optimizer=opt, group=mesh)
+    state = RT.init_2bw_state(opt.init(params), params)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    losses, step_s = [], []
+    for k in range(2):
+        torch.cuda.synchronize(mesh.device)
+        dist.barrier()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, data.batch(k))
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    out["2bw"] = dict(
+        layers=L, free_gib=have / 2**30, need_gib=need / 2**30,
+        losses=losses, end_loss0=end_loss0, step_s=step_s,
+        peak_gib=torch.cuda.max_memory_allocated(mesh.device) / 2**30,
+        grad_sync=list(step.transport.stats["grad_sync"]))
+    del params, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_data_train(mesh_mod, trained: dict) -> dict:
+    """Phase 32: llama3.2-1b at full width as data 2 x stages 2 (4 gloo
+    ranks on the one card) through ``launch.train.main``: the end and
+    overlap losses bitwise equal, step 0's within 1e-5 relative of phase
+    10's (the same weights and batch), the flash launches summed over
+    ranks phase 10's a step; 2bw's step 0 loss equal to end's."""
+    tag = "ranks train llama3.2-1b data 2 x stages 2 1f1b M=2"
+    print(f"{tag}: spawn_ranks(train.main, 4, 'gloo', data=2) of python -m "
+          f"repro_torch.launch.train {' '.join(DATA_TRAIN)} --grad-sync "
+          f"end | overlap, then 2bw", flush=True)
+    t0 = time.perf_counter()
+    outs = mesh_mod.spawn_ranks(rank_data_train, 4, "gloo", device="cuda",
+                                data=2)
+    wall = time.perf_counter() - t0
+    per_step = train_launches(16, 4, False, False)   # phase 10's a step
+    res = dict(wall_s=wall)
+    for gs in ("end", "overlap"):
+        o = outs[0][gs]
+        last = o["transport"][-1]
+        res[gs] = dict(
+            losses=o["losses"], step_ms=[1e3 * s for s in o["step_s"]],
+            launches_per_step=o["launches"],
+            peak_gib_by_rank=o["peak_gib_by_rank"],
+            # each rank's last step: messages, bytes, ms (of them copies,
+            # posts, waits)
+            grad_sync_by_rank=[dict(
+                messages=st["grad_sync"][0], bytes=st["grad_sync"][1],
+                ms=1e3 * st["grad_sync"][2], copy_ms=1e3 * st["grad_sync"][3],
+                post_ms=1e3 * st["grad_sync"][4],
+                wait_ms=1e3 * st["grad_sync"][5]) for st in last],
+            transport_ms_by_rank={k: [round(1e3 * st[k][2], 1) for st in last]
+                                  for k in last[0] if any(st[k][0]
+                                                          for st in last)})
+        print(f"{tag} {gs}: losses {o['losses']} (phase 10 step 0 "
+              f"{trained['losses'][0]}), step ms {res[gs]['step_ms']} (the "
+              f"slowest rank's), peak per rank "
+              f"{[round(p, 2) for p in o['peak_gib_by_rank']]} GiB, flash "
+              f"launches per step summed over ranks "
+              f"{json.dumps(o['launches'])} (want {json.dumps(per_step)}), "
+              f"grad_sync by rank {json.dumps(res[gs]['grad_sync_by_rank'])},"
+              f" transport ms by kind and rank "
+              f"{json.dumps(res[gs]['transport_ms_by_rank'])}", flush=True)
+        if any(d != per_step for d in o["launches"]):
+            fail(f"{tag} {gs}: launches per step {o['launches']}, want "
+                 f"{per_step}")
+        ref0 = trained["losses"][0]
+        if abs(o["losses"][0] - ref0) > 1e-5 * abs(ref0):
+            fail(f"{tag} {gs}: step 0 loss {o['losses'][0]} not within 1e-5 "
+                 f"of phase 10's {ref0}")
+        if not all(math.isfinite(x) for x in o["losses"]):
+            fail(f"{tag} {gs}: losses not finite {o['losses']}")
+    if res["end"]["losses"] != res["overlap"]["losses"]:
+        fail(f"{tag}: overlap losses {res['overlap']['losses']} != end's "
+             f"{res['end']['losses']}")
+    tb = [o["2bw"] for o in outs]
+    res["2bw"] = dict(layers=tb[0]["layers"], losses=tb[0]["losses"],
+                      end_loss0=tb[0]["end_loss0"],
+                      step_ms=[1e3 * max(t["step_s"][k] for t in tb)
+                               for k in range(2)],
+                      peak_gib_by_rank=[t["peak_gib"] for t in tb],
+                      free_gib=tb[0]["free_gib"], need_gib=tb[0]["need_gib"],
+                      grad_sync_bytes_by_rank=[t["grad_sync"][1] for t in tb])
+    print(f"{tag} 2bw: {tb[0]['layers']} layers ("
+          f"{'full depth' if tb[0]['layers'] == 16 else 'reduced depth'}: "
+          f"{tb[0]['need_gib']:.1f} GiB wanted of {tb[0]['free_gib']:.1f} "
+          f"free), {json.dumps(res['2bw'])}", flush=True)
+    if any(t["losses"] != tb[0]["losses"] for t in tb):
+        fail(f"{tag} 2bw: the ranks' losses differ")
+    if tb[0]["losses"][0] != tb[0]["end_loss0"]:
+        fail(f"{tag} 2bw: step 0 loss {tb[0]['losses'][0]} != end's "
+             f"{tb[0]['end_loss0']}")
+    print(f"{tag}: spawn to exit {wall:.1f}s", flush=True)
+    return res
+
+
+#: phase 33's flags: llama3.2-1b at full width on 2 stages, V 1, batch 8,
+#: prompt 512, 32 tokens, f32 (the ranks add --data 2 and M 2 a replica;
+#: the in-process run M 4: the same 2-row micro-batches)
+DATA_SERVE = ["--arch", "llama3.2-1b", "--tensor", "1", "--stages", "2",
+              "--batch", "8", "--prompt-len", "512", "--gen", "32",
+              "--device", "cuda", "--dist-backend", "gloo"]
+
+
+def rank_data_serve(mesh) -> dict:
+    """Phase 33 on one rank: ``launch.serve.main`` at data 2, every
+    kernel's launch counters set to 0 just before and read just after;
+    rank 0 keeps every step's logits."""
+    card_flags()
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.launch import serve
+    out, launches = counted(
+        dict(flash_attention=FA.flash_attend, ssd_scan=SSD.ssd_chunked),
+        lambda: serve.main(DATA_SERVE + ["--data", "2", "--microbatches",
+                                         "2"], mesh=mesh,
+                           keep_logits=mesh.rank == 0))
+    keep = {k: v for k, v in out.items()
+            if k not in ("last_logits", "prefill_logits", "lowerings")}
+    return dict(keep, own_launches=launches)
+
+
+def phase_data_serve(mesh_mod, serve, counters: dict) -> dict:
+    """Phase 33: ``serve.main`` at data 2 x stages 2 (4 gloo ranks on the
+    one card) against the in-process serve of the same weights and
+    prompts at data 1 (M 4): the greedy tokens equal, every step's logits
+    within 2e-4, the flash launches summed over ranks the in-process
+    run's."""
+    tag = "ranks serve llama3.2-1b data 2 x stages 2 M=2"
+    ref, ref_launches = counted(counters, lambda: serve.main(
+        DATA_SERVE + ["--microbatches", "4"], keep_logits=True))
+    torch.cuda.empty_cache()
+    print(f"{tag}: spawn_ranks(serve.main, 4, 'gloo', data=2) of python -m "
+          f"repro_torch.launch.serve {' '.join(DATA_SERVE)} --data 2 "
+          f"--microbatches 2", flush=True)
+    t0 = time.perf_counter()
+    outs = mesh_mod.spawn_ranks(rank_data_serve, 4, "gloo", device="cuda",
+                                data=2)
+    wall = time.perf_counter() - t0
+    out = outs[0]
+    summed = {k: sum(o["own_launches"][k] for o in outs) for k in ref_launches}
+    errs = [float((a - b).abs().max()) for a, b in zip(out["step_logits"],
+                                                        ref["step_logits"])]
+    ok = all(torch.allclose(a, b, atol=PATH_TOL, rtol=PATH_TOL)
+             for a, b in zip(out["step_logits"], ref["step_logits"]))
+    by_kind = {phase: {k: dict(
+        messages=sum(t[phase][k][0] for t in out["transport"]),
+        bytes=sum(t[phase][k][1] for t in out["transport"]),
+        max_rank_ms=max(t[phase][k][2] for t in out["transport"]) * 1e3,
+        max_rank_copy_ms=max(t[phase][k][3] for t in out["transport"]) * 1e3)
+        for k in out["transport"][0][phase]
+        if any(t[phase][k][0] for t in out["transport"])}
+        for phase in ("prefill", "decode")}
+    res = dict(tokens_equal_data1=out["tokens"].tolist()
+               == ref["tokens"].tolist(),
+               logits_max_abs_err=max(errs), steps=len(errs),
+               prefill_tok_s=out["prefill_tok_s"],
+               decode_tok_s=out["decode_tok_s"],
+               data1_prefill_tok_s=ref["prefill_tok_s"],
+               data1_decode_tok_s=ref["decode_tok_s"],
+               peak_gib_by_rank=out["peak_gib_by_rank"],
+               launches_summed=summed, launches_data1=ref_launches,
+               transport_by_kind=by_kind, wall_s=wall)
+    print(f"{tag}: {json.dumps(res)}", flush=True)
+    if not res["tokens_equal_data1"]:
+        fail(f"{tag}: tokens differ from the in-process data-1 serve")
+    if not ok or len(errs) != 32:
+        fail(f"{tag}: logits differ from the in-process data-1 serve by "
+             f"{max(errs)} (bar {PATH_TOL}) over {len(errs)} steps")
+    if summed != ref_launches or out["launches"] != ref_launches:
+        fail(f"{tag}: launches summed over ranks {summed} (serve.main "
+             f"{out['launches']}), want the in-process run's {ref_launches}")
+    if any(o["tokens"].tolist() != out["tokens"].tolist() for o in outs):
+        fail(f"{tag}: the ranks' tokens differ")
+    return res
+
+
 #: the f32 GEMMs of one llama3.2-1b layer's forward at a micro-batch of
 #: 2048 tokens (batch 8 x seq 1024 in 4 micro-batches): (m, k, n, count)
 #: for q and o, k and v, the gate and up projections, the down projection
@@ -2803,6 +3081,12 @@ def main() -> None:
     rank_streamed = phase_rank_train(MESH, SP, trained, runtime="stream",
                                      ticks_run=rank_trained)
 
+    # ---- 32. the data axis: data 2 x stages 2, end / overlap / 2bw -------
+    data_trained = phase_data_train(MESH, trained)
+
+    # ---- 33. serving at data 2 x stages 2 ---------------------------------
+    data_served = phase_data_serve(MESH, serve, counters)
+
     train_paths = {f"train {r['schedule']} V={r['virtual']} "
                    f"M={r['microbatches']}": r["launches"]
                    for r in (trained, interleaved, zb_h2)}
@@ -2820,6 +3104,10 @@ def main() -> None:
         train_paths[f"ranks train llama3.2-1b 4 ranks 1f1b M=4{suffix}"] = {
             k: sum(d[k] for d in r["launches_per_step"])
             for k in r["launches_per_step"][0]}
+    for gs in ("end", "overlap"):
+        steps = data_trained[gs]["launches_per_step"]
+        train_paths[f"ranks train llama3.2-1b data 2 x stages 2 1f1b M=2 "
+                    f"{gs}"] = {k: sum(d[k] for d in steps) for k in steps[0]}
 
     main_row = pick(rows, "main-path prefill")
     keys = ("label", "dtype", "ms", "call_ms", "plain_ms", "library_ms",
@@ -2845,7 +3133,9 @@ def main() -> None:
                for k, r in rank_serve_res.items()
                if k.startswith("llama")},
             **{"ranks serve llama3.2-1b 4 ranks V=2 M=4":
-               rank_served["launches_summed"]["flash_attention"]}),
+               rank_served["launches_summed"]["flash_attention"],
+               "ranks serve llama3.2-1b data 2 x stages 2 M=2":
+               data_served["launches_summed"]["flash_attention"]}),
         max_abs_err=main_row["max_abs_err"],
         ms=main_row["ms"], call_ms=main_row["call_ms"],
         plain_ms=main_row["plain_ms"],
@@ -2956,7 +3246,8 @@ def main() -> None:
                                 "interleaved": interleaved_serve,
                                 "engine": engine,
                                 "ranks parity": rank_serve_res,
-                                "ranks llama3.2-1b": rank_served}}),
+                                "ranks llama3.2-1b": rank_served,
+                                "ranks data 2 x stages 2": data_served}}),
           flush=True)
     print(json.dumps({"train": {"llama3.2-1b": trained,
                                 "interleaved": interleaved, "zb-h2": zb_h2,
@@ -2968,7 +3259,8 @@ def main() -> None:
                                 "mamba2-2.7b parity": mamba_parity,
                                 "ranks parity": rank_parity_res,
                                 "ranks llama3.2-1b": rank_trained,
-                                "ranks llama3.2-1b stream": rank_streamed}}),
+                                "ranks llama3.2-1b stream": rank_streamed,
+                                "ranks data 2 x stages 2": data_trained}}),
           flush=True)
     print(json.dumps({"kernels": [flash, ssd, flash_bwd, ssd_bwd]}),
           flush=True)

@@ -1,9 +1,10 @@
-"""Schedule-plan IR (the port's copy of ``repro/core/schedplan.py``
-without the gradient-sync AR ops).
+"""Schedule-plan IR (the port's copy of ``repro/core/schedplan.py``).
 
 A :class:`SchedPlan` holds, per physical device, the exact sequence of
 ``F``/``B`` (and, for zero-bubble plans, ``W``) ops tagged with
-micro-batch ``m`` and virtual chunk ``v``.  Three lowerings compile it:
+micro-batch ``m`` and virtual chunk ``v``, and, for a data-parallel plan,
+the ``AR`` ops of the gradient sync (:func:`add_grad_sync`).  Three
+lowerings compile it:
 
 * :func:`lower_to_ring` — the forward order as the per-element lookup
   tables the pipelined serve step executes (``e = tick - stage``);
@@ -21,11 +22,12 @@ greedy zero-bubble scheduler under a peak-live ``mem_limit`` cap, with
 its portfolio steps replayed by :mod:`repro_torch.core.simulator`),
 ``1f1b-interleaved`` and ``1f1b-interleaved-memlean`` (V chunks per
 device).  :meth:`SchedPlan.peak_live` and :func:`live_activation_counts`
-give each device's resident-activation row.  The gradient-sync AR ops
-(``grad_sync``) stay in the JAX package until they are ported (ROADMAP
-"tensor and data parallel over NCCL"): :func:`build_schedule` names
-them and raises, so the instruction lowering's ARSYNC branch, ported
-with it, emits nothing yet.
+give each device's resident-activation row.  ``build_schedule(...,
+grad_sync=G)`` appends G gradient-sync AR buckets per (device, chunk),
+each after the bucket's last B/W; the tick lowering packs them into the
+drain (one bucket in flight a tick across all devices) and the
+instruction lowering gives each an ARSYNC slot, where the rank executor
+posts that bucket's reduction over the data axis.
 """
 from __future__ import annotations
 
@@ -191,8 +193,15 @@ class Op:
     """One unit of pipeline work: the F, B (input-gradient) or W
     (weight-gradient, zero-bubble split) of micro-batch ``m`` on chunk
     ``v`` of physical device ``device``.  ``vstage`` is the global
-    virtual-stage index."""
-    kind: str                       # "F" | "B" | "W"
+    virtual-stage index.
+
+    ``AR`` is the data-parallel gradient synchronisation of one
+    parameter bucket (chunk ``v``'s stage-layer group): a bucketed
+    reduce-scatter/all-gather over the data axis, ready as soon as the
+    device's last B/W for the bucket has retired (``m`` is the layer
+    group's index, 0 for a one-bucket chunk).  AR never touches the
+    stage-boundary rings."""
+    kind: str                       # "F" | "B" | "W" | "AR"
     m: int                          # micro-batch index
     v: int                          # chunk index on this device (0..V-1)
     device: int                     # physical device n (0..N-1)
@@ -220,27 +229,70 @@ class SchedPlan:
         input-gradient (B) and weight-gradient (W) ops."""
         return any(op.kind == "W" for op in self.device_ops[0])
 
+    @property
+    def has_grad_sync(self) -> bool:
+        """True when the plan schedules the data-parallel gradient sync
+        as explicit AR ops (see :func:`add_grad_sync`)."""
+        return any(op.kind == "AR"
+                   for ops in self.device_ops for op in ops)
+
+    @property
+    def grad_sync_groups(self) -> int:
+        """Number of per-layer-group AR buckets per (device, chunk)
+        (see :func:`add_grad_sync`); 1 for single-bucket plans, 0 when
+        the plan has no grad sync."""
+        ars = [op.m for ops in self.device_ops for op in ops
+               if op.kind == "AR"]
+        return (max(ars) + 1) if ars else 0
+
     def validate(self) -> "SchedPlan":
         """Every (m, chunk) F and B — and W, for zero-bubble plans —
         appears exactly once per device, and the per-(m, v) order is F
-        before B before W."""
+        before B before W.  AR ops (grad-sync plans) are G per (device,
+        chunk) — ``m`` carries the layer-group index, groups ascending
+        within a chunk — each after the bucket's last B/W."""
         has_w = self.has_w
         per_mv = 3 if has_w else 2
+        release = "W" if has_w else "B"
+        groups = self.grad_sync_groups
         for n, ops in enumerate(self.device_ops):
             seen: dict[tuple[str, int, int], int] = {}
             for i, op in enumerate(ops):
                 key = (op.kind, op.m, op.v)
-                if op.kind not in ("F", "B", "W"):
-                    raise ValueError(f"{self.name}: op kind {op.kind!r} is "
-                                     f"not ported (device {n})")
+                if op.kind not in ("F", "B", "W", "AR"):
+                    raise ValueError(f"{self.name}: unknown op kind "
+                                     f"{op.kind!r} (device {n})")
                 if key in seen:
                     raise ValueError(f"{self.name}: duplicate {key} on "
                                      f"device {n}")
                 seen[key] = i
-            if len(ops) != per_mv * self.M * self.V:
+            n_ar = sum(1 for op in ops if op.kind == "AR")
+            if n_ar not in (0, self.V * groups):
                 raise ValueError(
-                    f"{self.name}: device {n} has {len(ops)} compute ops, "
-                    f"expected {per_mv * self.M * self.V}")
+                    f"{self.name}: device {n} has {n_ar} AR ops, expected "
+                    f"0 or {groups} per chunk ({self.V * groups})")
+            if n_ar:
+                by_chunk: dict[int, list[int]] = {}
+                for op in ops:
+                    if op.kind == "AR":
+                        by_chunk.setdefault(op.v, []).append(op.m)
+                for v, ms in by_chunk.items():
+                    if ms != list(range(groups)):
+                        raise ValueError(
+                            f"{self.name}: AR(v={v}) on device {n} has "
+                            f"group indices {ms}, expected "
+                            f"{list(range(groups))} ascending")
+                last_release = {op.v: i for i, op in enumerate(ops)
+                                if op.kind == release}
+                for i, op in enumerate(ops):
+                    if op.kind == "AR" and i < last_release.get(op.v, -1):
+                        raise ValueError(
+                            f"{self.name}: AR(v={op.v}) on device {n} "
+                            f"before the bucket's last {release}")
+            if len(ops) - n_ar != per_mv * self.M * self.V:
+                raise ValueError(
+                    f"{self.name}: device {n} has {len(ops) - n_ar} "
+                    f"compute ops, expected {per_mv * self.M * self.V}")
             for (kind, m, v), i in seen.items():
                 if kind == "B" and seen[("F", m, v)] > i:
                     raise ValueError(f"{self.name}: B({m},{v}) before its F "
@@ -691,6 +743,42 @@ def canonical_name(name: str) -> str:
     return _ALIASES[name][0]
 
 
+def add_grad_sync(plan: SchedPlan, groups: int = 1) -> SchedPlan:
+    """Append the data-parallel gradient-sync AR ops to a compute plan:
+    ``groups`` AR buckets per (device, chunk) parameter bucket, issued
+    after the device's compute drains, earliest-retired bucket first.
+    The bucket for chunk v is ready the moment its last B/W retires, so
+    stage N-1 (whose backward chain finishes first) syncs earliest and
+    stage 0 last; the tick assignment packs the AR slots into the
+    remaining drain ticks, one bucket in flight at a time on the shared
+    data-axis fabric (see ``_assign_ticks``).
+
+    ``groups > 1`` splits each chunk bucket into per-layer-group
+    sub-buckets (``op.m`` carries the group index); at the tick level
+    they still issue after the chunk's last B/W."""
+    if plan.has_grad_sync:
+        if plan.grad_sync_groups != groups:
+            raise ValueError(
+                f"{plan.name} already carries {plan.grad_sync_groups} "
+                f"grad-sync groups; asked for {groups}")
+        return plan
+    if groups < 1:
+        raise ValueError(f"groups must be >= 1, got {groups}")
+    release = "W" if plan.has_w else "B"
+    device_ops = []
+    for n, ops in enumerate(plan.device_ops):
+        last_release = {}
+        for i, op in enumerate(ops):
+            if op.kind == release:
+                last_release[op.v] = i
+        order = sorted(last_release, key=last_release.get)
+        ars = tuple(Op("AR", g, v, n, plan.N, plan.V)
+                    for v in order for g in range(groups))
+        device_ops.append(tuple(ops) + ars)
+    return dataclasses.replace(
+        plan, device_ops=tuple(device_ops)).validate()
+
+
 def build_schedule(name: str, M: int, N: int, V: int = 1,
                    mem_limit=None,
                    grad_sync: Union[bool, int] = False) -> SchedPlan:
@@ -698,8 +786,11 @@ def build_schedule(name: str, M: int, N: int, V: int = 1,
     ``mem_limit`` is the automatic zero-bubble scheduler's peak-live cap
     (``zb-auto`` only: None = unbounded, int = uniform, sequence =
     per-device); other schedules' memory behaviour is fixed by their
-    table and the knob is rejected.  ``grad_sync`` (the data-parallel
-    gradient-sync AR ops) is not ported and raises."""
+    table and the knob is rejected.  ``grad_sync=True`` appends the
+    data-parallel gradient-sync AR ops (:func:`add_grad_sync`) so the
+    sync is scheduled into the drain instead of paid after it; an
+    integer > 1 splits each bucket into that many per-layer-group
+    sub-buckets."""
     builder, kw = _ALIASES.get(name, (None, None))
     if builder is None:
         raise ValueError(name)
@@ -711,12 +802,11 @@ def build_schedule(name: str, M: int, N: int, V: int = 1,
             raise ValueError(f"mem_limit only applies to zb-auto "
                              f"(got {name})")
         kw = dict(kw, mem_limit=mem_limit)
+    plan = _BUILDERS[builder](M, N, V, **kw)
     if grad_sync:
-        raise NotImplementedError(
-            f"grad_sync={grad_sync!r}: the gradient-sync AR ops are not "
-            f"ported yet (ROADMAP 'Still to port': tensor and data "
-            f"parallel over NCCL)")
-    return _BUILDERS[builder](M, N, V, **kw)
+        return add_grad_sync(plan, groups=grad_sync if grad_sync is not True
+                             else 1)
+    return plan
 
 
 def resolve_ring_schedule(schedule: str, V: int) -> str:
@@ -864,8 +954,8 @@ def lower_to_ring(plan: SchedPlan) -> RingLowering:
 # runtime's per-device per-tick lookup arrays.
 # ---------------------------------------------------------------------------
 
-# op-kind codes of the tick tables (the executor's branch; TICK_AR, the
-# data-parallel gradient sync, keeps its code but no port plan emits it)
+# op-kind codes of the tick tables (the executor's branch; TICK_AR marks
+# the tick a device's gradient bucket crosses the data axis: no compute)
 TICK_IDLE, TICK_F, TICK_B, TICK_B_SEED, TICK_W, TICK_AR = range(6)
 
 
@@ -885,9 +975,12 @@ class TickLowering:
 
     Tables (each ``[N][n_ticks]``; -1 = not applicable this tick):
 
-    * ``kind``  — TICK_IDLE / TICK_F / TICK_B / TICK_B_SEED / TICK_W.
-      TICK_B_SEED sits on the last virtual stage: its cotangent is
-      seeded by the per-micro-batch loss head, not the ring.
+    * ``kind``  — TICK_IDLE / TICK_F / TICK_B / TICK_B_SEED / TICK_W /
+      TICK_AR.  TICK_B_SEED sits on the last virtual stage: its
+      cotangent is seeded by the per-micro-batch loss head, not the
+      ring.  TICK_AR (grad-sync plans only) marks the tick a device's
+      chunk-``v`` gradient bucket (layer group ``m``) crosses the data
+      axis; it is not a compute tick.
     * ``m`` / ``v`` — micro-batch and chunk of the tick's op.
     * ``xw`` — residual-stash slot an F writes its stage input to.
     * ``xr`` — residual-stash slot a B/W reads (released by the last
@@ -937,20 +1030,27 @@ def _assign_ticks(plan: SchedPlan):
     """Greedy in-order synchronous scheduling: at each tick every device
     runs its next op if the op's inputs were produced at a strictly
     earlier tick (one-tick neighbour hops), else stalls.  Returns
-    (f_tick, b_tick, w_tick, n_ticks) keyed by (m, vstage).  Devices are
-    scanned highest-first, as in the JAX package; the scan order cannot
-    change placement because an op placed at tick t never enables
+    (f_tick, b_tick, w_tick, ar_tick, n_ticks) keyed by (m, vstage).
+
+    AR (gradient-sync) ops ride the shared data-axis fabric: at most one
+    bucket is in flight per tick across ALL devices, so a ready AR stalls
+    while another device's bucket occupies the fabric.  Devices are
+    scanned highest-first, as in the JAX package, so stage N-1 — whose
+    backward chain drains first — wins fabric ties; the scan order cannot
+    change F/B/W placement because an op placed at tick t never enables
     another op at the same tick."""
     M, N, NS = plan.M, plan.N, plan.N * plan.V
     f_tick: dict = {}
     b_tick: dict = {}
     w_tick: dict = {}
+    ar_tick: dict = {}
     ptr = [0] * N
     total = sum(len(ops) for ops in plan.device_ops)
     placed = 0
     t = 0
     while placed < total:
         progressed = False
+        fabric_used = False
         for n in reversed(range(N)):
             if ptr[n] >= len(plan.device_ops[n]):
                 continue
@@ -967,11 +1067,16 @@ def _assign_ticks(plan: SchedPlan):
                     ok = (key in f_tick
                           and (op.m, op.vstage + 1) in b_tick
                           and b_tick[(op.m, op.vstage + 1)] + 1 <= t)
-            else:                       # W: any time after its own B
+            elif op.kind == "W":        # W: any time after its own B
                 ok = key in b_tick and b_tick[key] + 1 <= t
+            else:                       # AR: bucket retired (in-order
+                ok = not fabric_used    # ptr) + data fabric free
             if ok:
-                tick_of = {"F": f_tick, "B": b_tick, "W": w_tick}[op.kind]
+                tick_of = {"F": f_tick, "B": b_tick,
+                           "W": w_tick, "AR": ar_tick}[op.kind]
                 tick_of[key] = t
+                if op.kind == "AR":
+                    fabric_used = True
                 ptr[n] += 1
                 placed += 1
                 progressed = True
@@ -981,7 +1086,7 @@ def _assign_ticks(plan: SchedPlan):
                 f"{total - placed} ops unplaced (pointers {ptr}) — the op "
                 f"table has a cyclic cross-device dependency")
         t += 1
-    return f_tick, b_tick, w_tick, t
+    return f_tick, b_tick, w_tick, ar_tick, t
 
 
 def _alloc_slots(intervals):
@@ -1009,7 +1114,7 @@ def lower_to_ticks(plan: SchedPlan) -> TickLowering:
     M, N, V = plan.M, plan.N, plan.V
     NS = N * V
     has_w = plan.has_w
-    f_tick, b_tick, w_tick, n_ticks = _assign_ticks(plan)
+    f_tick, b_tick, w_tick, ar_tick, n_ticks = _assign_ticks(plan)
     release = w_tick if has_w else b_tick
 
     def dev_of(vs: int) -> int:
@@ -1112,6 +1217,11 @@ def lower_to_ticks(plan: SchedPlan) -> TickLowering:
         v_t[n][t] = vs // N
         xr[n][t] = xslot[(m, vs)]
         cr[n][t] = cslot[(m, vs)]
+    for (m, vs), t in ar_tick.items():
+        n = dev_of(vs)
+        kind[n][t] = TICK_AR
+        m_t[n][t] = m
+        v_t[n][t] = vs // N
     frz = lambda rows: tuple(tuple(r) for r in rows)
     return TickLowering(
         schedule=plan.name, M=M, N=N, V=V, n_ticks=n_ticks, has_w=has_w,
@@ -1150,8 +1260,8 @@ class Instr:
       stash, "f"/"b" forward/backward inbox, "c" zero-bubble cotangent):
       the allocator may now reuse it.
     * ``ARSYNC`` — reduce-scatter + all-gather chunk ``v``'s gradient
-      bucket over the data axis (grad-sync plans only, which
-      :func:`build_schedule` does not build yet).
+      bucket (layer group ``m``) over the data axis (grad-sync plans
+      only); one bucket in flight per slot across all devices.
 
     ``slot`` is the global program-counter value the instruction executes
     at — devices with shorter streams simply have no instructions at
@@ -1200,8 +1310,7 @@ class InstrLowering:
     against the discrete-event simulator's event order.
 
     ``arsync[j]`` is True when ANY device runs an ARSYNC at slot j (at
-    most one does — the shared-fabric rule); all False until the
-    gradient-sync plans are ported.
+    most one does — the shared-fabric rule).
     """
     ticks: TickLowering
     streams: tuple[tuple[Instr, ...], ...]

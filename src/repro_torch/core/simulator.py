@@ -1,5 +1,5 @@
 """Discrete-event simulator for intra-batch pipeline schedules (the port's
-copy of ``repro/core/simulator.py`` without the gradient-sync AR ops).
+copy of ``repro/core/simulator.py``).
 
 Every FP/BP of every micro-batch on every stage is a task; stage-boundary
 transfers are tasks too.  Three communication models:
@@ -31,8 +31,12 @@ each device's active window (``t_start``/``t_end``/``busy``), whose
 ``internal_idle`` is the schedule bubble with the fill/drain ramp
 excluded (zero everywhere == bubble-free).
 
-The data-parallel gradient sync (``grad_sync``, ``ar``) is not ported:
-it raises by its ROADMAP item.
+The gradient sync is replayable too: ``grad_sync=True`` appends the
+schedule-plan AR ops (one bucketed data-parallel reduce-scatter/
+all-gather per device chunk, ready when the bucket's last B/W retires)
+and ``ar`` gives the per-device bucket duration.  AR ops serialize on a
+single shared data-axis fabric, so the overlapped makespan is never
+worse than the sync-at-end baseline ``makespan + sum(ar)``.
 """
 from __future__ import annotations
 
@@ -40,8 +44,6 @@ import dataclasses
 from typing import Sequence
 
 from repro_torch.core import schedplan as SP
-
-_NCCL_ITEM = "ROADMAP 'Still to port': tensor and data parallel over NCCL"
 
 
 @dataclasses.dataclass
@@ -110,17 +112,26 @@ _DEFAULT_COMM = {
 
 
 def op_durations(N: int, V: int, Fs: Sequence[float], Bs: Sequence[float],
-                 wfs: Sequence[float], has_w: bool) -> dict:
+                 wfs: Sequence[float], has_w: bool,
+                 ars: Sequence[float] | None = None,
+                 ar_groups: int = 1) -> dict:
     """Per-virtual-stage op durations.  For W-bearing plans the full
     backward ``Bs`` splits into an input-gradient ``B`` op
     (``1 - w_frac``) and a weight-gradient ``W`` op (``w_frac``); V > 1
-    divides device time evenly across the device's chunks."""
+    divides device time evenly across the device's chunks.  ``ars`` is
+    the per-device gradient-sync time (the device's whole stage bucket
+    crossing the data axis); each of the V chunk buckets costs an even
+    1/V share, and each of a chunk's ``ar_groups`` layer-group
+    sub-buckets an even share of that."""
     NS = N * V
-    return {"F": [Fs[vs % N] / V for vs in range(NS)],
-            "B": [Bs[vs % N] / V
-                  * ((1.0 - wfs[vs % N]) if has_w else 1.0)
-                  for vs in range(NS)],
-            "W": [Bs[vs % N] / V * wfs[vs % N] for vs in range(NS)]}
+    dur = {"F": [Fs[vs % N] / V for vs in range(NS)],
+           "B": [Bs[vs % N] / V
+                 * ((1.0 - wfs[vs % N]) if has_w else 1.0)
+                 for vs in range(NS)],
+           "W": [Bs[vs % N] / V * wfs[vs % N] for vs in range(NS)]}
+    if ars is not None:
+        dur["AR"] = [ars[vs % N] / V / ar_groups for vs in range(NS)]
+    return dur
 
 
 def simulate(schedule: str | SP.SchedPlan, M: int, N: int,
@@ -145,12 +156,14 @@ def simulate(schedule: str | SP.SchedPlan, M: int, N: int,
     backward time of a device; ``w_frac`` is the fraction of it spent in
     the weight-gradient ``W`` op, the rest in the input-gradient ``B`` op.
 
-    ``grad_sync`` and ``ar`` (the data-parallel gradient sync) are not
-    ported and raise NotImplementedError."""
-    if grad_sync or ar is not None:
-        raise NotImplementedError(
-            f"grad_sync={grad_sync!r}, ar={ar!r}: the gradient-sync AR ops "
-            f"are not ported yet ({_NCCL_ITEM})")
+    ``grad_sync=True`` appends the data-parallel gradient-sync AR ops
+    (:func:`repro_torch.core.schedplan.add_grad_sync`) before replay;
+    ``ar`` is the per-device sync duration (scalar or length-N, default
+    0).  AR ops serialize on one fabric resource (at most one bucket in
+    flight, ready buckets granted highest-device-first) and are
+    unaffected by the stage-boundary ``comm`` model.  An integer
+    ``grad_sync=G`` emits G per-layer-group sub-buckets per (device,
+    chunk), each costing an even ``ar/V/G`` share."""
     Fs = list(F) if not isinstance(F, (int, float)) else [float(F)] * N
     Bs = list(B) if not isinstance(B, (int, float)) else [float(B)] * N
     if not len(Fs) == len(Bs) == N:
@@ -171,6 +184,15 @@ def simulate(schedule: str | SP.SchedPlan, M: int, N: int,
                          f"({n_hops}), got {len(SRs)}")
     if any(s < 0 for s in SRs):
         raise ValueError(f"SR must be >= 0, got {SR}")
+    ars = None
+    if ar is not None:
+        ars = (list(ar) if not isinstance(ar, (int, float))
+               else [float(ar)] * N)
+        if len(ars) != N:
+            raise ValueError(f"ar needs one entry per device ({N}), "
+                             f"got {len(ars)}")
+        if any(a < 0 for a in ars):
+            raise ValueError(f"ar must be >= 0, got {ar}")
 
     if isinstance(schedule, SP.SchedPlan):
         plan = schedule
@@ -178,12 +200,17 @@ def simulate(schedule: str | SP.SchedPlan, M: int, N: int,
             raise ValueError(
                 f"plan {plan.name!r} is (M={plan.M}, N={plan.N}, "
                 f"V={plan.V}); simulate() was asked for ({M}, {N}, {V})")
+        if grad_sync:
+            plan = SP.add_grad_sync(
+                plan, groups=1 if grad_sync is True else int(grad_sync))
         default_comm = _DEFAULT_COMM.get(plan.name, "free")
     else:
         default_comm = _DEFAULT_COMM.get(schedule)
         if default_comm is None:
             raise ValueError(schedule)
-        plan = SP.build_schedule(schedule, M, N, V)
+        plan = SP.build_schedule(schedule, M, N, V, grad_sync=grad_sync)
+    if plan.has_grad_sync and ars is None:
+        ars = [0.0] * N
     has_w = plan.has_w
     orders = [[(op.kind, op.m, op.vstage) for op in ops]
               for ops in plan.device_ops]
@@ -192,7 +219,8 @@ def simulate(schedule: str | SP.SchedPlan, M: int, N: int,
         raise ValueError(comm)
 
     NS = N * V                                 # virtual stages
-    dur = op_durations(N, V, Fs, Bs, wfs, has_w)
+    dur = op_durations(N, V, Fs, Bs, wfs, has_w, ars,
+                       ar_groups=plan.grad_sync_groups or 1)
 
     # --- task state ------------------------------------------------------
     f_done = [[-1.0] * NS for _ in range(M)]   # completion time of F[m][vs]
@@ -213,8 +241,8 @@ def simulate(schedule: str | SP.SchedPlan, M: int, N: int,
 
     def deliver(kind: str, m: int, vs_from: int, t_prod: float):
         """The (m, vstage, kind) an op's output is transferred to, or
-        None (W ops and the chain ends transfer nothing)."""
-        if kind == "W":
+        None (W and AR ops and the chain ends transfer nothing)."""
+        if kind in ("W", "AR"):
             return None
         if kind == "F":
             if vs_from == NS - 1:
@@ -250,9 +278,15 @@ def simulate(schedule: str | SP.SchedPlan, M: int, N: int,
         pending_xfer = []
 
     # --- main loop: repeatedly start the globally-earliest runnable op ----
+    # AR ops share one data-axis fabric: at most one gradient bucket in
+    # flight at a time; among equally-ready buckets the highest device
+    # (deepest stage, first to drain) goes first, as the tick lowering
+    # grants them
+    fabric_free = 0.0
+    ar_end = 0.0
     while n_done < total_ops:
         try_transfers()
-        best = None                            # (start, n, kind, m, vs)
+        best = None                            # (key, n, kind, m, vs)
         for n in range(N):
             if ptr[n] >= len(orders[n]):
                 continue
@@ -263,14 +297,17 @@ def simulate(schedule: str | SP.SchedPlan, M: int, N: int,
                 s = max(dev_free[n], b_ready[m][vs], f_done[m][vs])
             elif kind == "W" and b_done[m][vs] >= 0:
                 s = max(dev_free[n], b_done[m][vs])
+            elif kind == "AR":
+                s = max(dev_free[n], fabric_free)
             else:
                 continue
-            if best is None or s < best[0]:
-                best = (s, n, kind, m, vs)
+            key = (s, -n if kind == "AR" else 0)
+            if best is None or key < best[0]:
+                best = (key, n, kind, m, vs)
         if best is None:
             raise ValueError(f"{plan.name}: pipeline deadlock (bad op "
                              f"order)")
-        s, n, kind, m, vs = best
+        (s, _), n, kind, m, vs = best
         d = dur[kind][vs]
         end = s + d
         event_log.append((s, end, kind, m, vs))
@@ -283,8 +320,11 @@ def simulate(schedule: str | SP.SchedPlan, M: int, N: int,
             f_done[m][vs] = end
         elif kind == "B":
             b_done[m][vs] = end
-        else:
+        elif kind == "W":
             w_done[m][vs] = end
+        else:
+            fabric_free = end
+            ar_end = max(ar_end, end)
         ptr[n] += 1
         tgt = deliver(kind, m, vs, end)
         if tgt is not None:
@@ -294,7 +334,7 @@ def simulate(schedule: str | SP.SchedPlan, M: int, N: int,
 
     try_transfers()
     done_rows = w_done if has_w else b_done
-    makespan = max(max(r) for r in done_rows)
+    makespan = max(ar_end, max(max(r) for r in done_rows))
 
     # peak live activations per device.  W-bearing plans take the row
     # straight from the IR's symbolic replay — the schedule-plan table is

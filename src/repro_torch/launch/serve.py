@@ -59,7 +59,15 @@ summed over ranks, each rank's peak memory and its transport by kind:
         -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
         --stages 2 --batch 4 --prompt-len 8 --gen 4 --device cpu
 
-``--data`` above 1 is refused by the ROADMAP item that ports it.
+``--data D`` (D > 1, ranks only: data x stages processes) serves each
+replica's ``batch / D`` rows on its own stage ring, with its own cache
+rows; the replicas' logits are gathered in row order, so every rank
+greedy-decodes the same tokens as one replica serving the whole batch:
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+        -m repro_torch.launch.serve --arch llama3.2-1b --tensor 1 \\
+        --stages 2 --data 2 --microbatches 2 --batch 8 --prompt-len 512 \\
+        --gen 32 --dist-backend gloo
 
 Timing discipline: every phase ends in ``torch.cuda.synchronize()``.
 Warm-up (building the CUDA kernels, first cuBLAS use) is reported apart
@@ -83,7 +91,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import build, launch_counters
-from repro_torch.launch import PAR_ITEM, one_card
+from repro_torch.launch import one_card
 from repro_torch.launch import mesh as MESH
 from repro_torch.pipeline import comm as C
 from repro_torch.pipeline import runtime as RT
@@ -129,18 +137,17 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
+def main(argv=None, mesh: MESH.StageMesh = None, *,
+         keep_logits: bool = False) -> dict:
     """Serve as ``argv`` says, in one process, or as this process's stage
     of ``mesh`` (a group already set up, e.g. by
     :func:`repro_torch.launch.mesh.spawn_ranks`) or of the group that
-    ``torchrun``'s environment describes (``WORLD_SIZE`` above 1)."""
+    ``torchrun``'s environment describes (``WORLD_SIZE`` above 1).  With
+    ``keep_logits`` the result also holds every step's logits
+    (``step_logits``, on the host)."""
     args = _parser().parse_args(argv)
     if args.gen < 1:
         raise ValueError("--gen must be >= 1")
-    if args.data != 1:
-        raise NotImplementedError(
-            f"--data {args.data}: not ported yet ({PAR_ITEM}); the port "
-            f"serves with data = 1")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -156,13 +163,15 @@ def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
               seed=args.seed)
     own_group = False
     if mesh is None and int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        MESH.check_world(cfg.stages, int(os.environ["WORLD_SIZE"]))
+        MESH.check_world(cfg.stages, int(os.environ["WORLD_SIZE"]),
+                         args.data)
         mesh = MESH.init_stage_group(
             args.dist_backend or ("nccl" if device.type == "cuda"
-                                  else "gloo"), device.type)
+                                  else "gloo"), device.type, data=args.data)
         own_group = True
     try:
-        out = serve(cfg, device=device, mesh=mesh, **kw)
+        out = serve(cfg, device=device, mesh=mesh, data=args.data,
+                    keep_logits=keep_logits, **kw)
     finally:
         if own_group:
             dist.destroy_process_group()
@@ -179,7 +188,8 @@ def _add_stats(total: dict, stats: dict) -> None:
 
 def serve(cfg, *, microbatches: int, schedule: str, batch: int,
           prompt_len: int, gen: int, seed: int, device: torch.device = None,
-          mesh: MESH.StageMesh = None) -> dict:
+          mesh: MESH.StageMesh = None, data: int = 1,
+          keep_logits: bool = False) -> dict:
     """Prefill on ``plan_stages(cfg)`` (interleaved when ``cfg.virtual``
     > 1, under ``schedule``), the restack handoff to the contiguous V = 1
     layout where the prefill interleaved, then greedy decode on the V = 1
@@ -188,11 +198,15 @@ def serve(cfg, *, microbatches: int, schedule: str, batch: int,
     stage ``mesh.rank`` of the rank executor (its share of the weights
     and the cache, the same prompt on every rank, the handoff across
     ranks, the same logits and tokens on every rank; rank 0 alone
-    prints, the times the slowest rank's)."""
-    group = rank = None
+    prints, the times the slowest rank's).  On a mesh of D > 1 replicas
+    each serves its rows of the batch (``data`` must be the mesh's)."""
+    rank = stage = None
     if mesh is not None:
-        MESH.check_world(cfg.stages, mesh.world)
-        device, rank, group = mesh.device, mesh.rank, mesh.group
+        MESH.check_world(cfg.stages, mesh.world, mesh.data)
+        if data != mesh.data:
+            raise ValueError(f"--data {data} on a grid of {mesh.data} "
+                             f"replicas")
+        device, rank, stage = mesh.device, mesh.rank, mesh.stage
     lead = not rank
     # decode always runs the contiguous plan; prefill may interleave
     plan = ST.plan_stages(cfg, virtual=1)
@@ -201,18 +215,19 @@ def serve(cfg, *, microbatches: int, schedule: str, batch: int,
     prefill = RT.make_serve_step(
         cfg, plan_p, RT.PipelineConfig(n_microbatches=microbatches,
                                        schedule=schedule),
-        q_len=prompt_len, group=group)
+        q_len=prompt_len, group=mesh, data=data)
     decode = RT.make_serve_step(
         cfg, plan, RT.PipelineConfig(n_microbatches=microbatches), q_len=1,
-        group=group)
+        group=mesh, data=data)
     if mesh is None:
         params = ST.init_stacked_params(cfg, seed, plan_p, device=device)
         cache = RT.init_pipeline_cache(cfg, plan_p, batch, max_len,
                                        device=device)
     else:
-        params = ST.init_stage_params(cfg, seed, plan_p, rank, device=device)
-        cache = RT.init_stage_cache(cfg, plan_p, rank, batch, max_len,
-                                    device=device)
+        params = ST.init_stage_params(cfg, seed, plan_p, stage,
+                                      device=device)
+        cache = RT.init_stage_cache(cfg, plan_p, stage, batch, max_len,
+                                    data=mesh.data, device=device)
     g = torch.Generator().manual_seed(seed + 1)
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len),
                            generator=g).to(device)
@@ -220,13 +235,14 @@ def serve(cfg, *, microbatches: int, schedule: str, batch: int,
         print((f"device: {device} ({torch.cuda.get_device_name(device)})"
                if device.type == "cuda" else f"device: {device}")
               + ("" if mesh is None else
-                 f" ranks={mesh.world} backend={mesh.backend}"), flush=True)
+                 f" ranks={mesh.world} backend={mesh.backend} (data "
+                 f"{mesh.data} x stages {mesh.stages})"), flush=True)
 
     def start() -> float:
         """The phase starts with the queued work done (on every rank)."""
         _fence(device)
         if mesh is not None:
-            dist.barrier(group)
+            dist.barrier()
         return time.perf_counter()
 
     # ---- warm-up: build every kernel (rank 0; the other ranks load what
@@ -237,7 +253,7 @@ def serve(cfg, *, microbatches: int, schedule: str, batch: int,
         if lead:
             build.build_all()
         if mesh is not None:
-            dist.barrier(group)
+            dist.barrier()
         w = torch.ones((8, cfg.d_model), device=device)
         torch.matmul(w, w.T)
     _fence(device)
@@ -257,6 +273,7 @@ def serve(cfg, *, microbatches: int, schedule: str, batch: int,
     prefill_logits = logits
     next_tok = torch.argmax(logits[:, 0, :cfg.vocab], dim=-1)
     generated = [next_tok]
+    kept = [logits.clone()] if keep_logits else None
 
     # ---- prefill -> decode handoff: re-fold the V-chunk parameters and the
     # [V, Lc, ...] prefill cache to the contiguous [Lps, ...] layout, leaf
@@ -276,9 +293,10 @@ def serve(cfg, *, microbatches: int, schedule: str, batch: int,
             ST.restack_tree_(params["layers"], plan_p, plan, cfg.n_layers)
             ST.restack_tree_(cache, plan_p, plan, cfg.n_layers)
         else:
-            tp = C.Transport(group)
+            tp = C.Transport(mesh.group)
             for tree in (params["layers"], cache):
-                ST.restack_share_(tree, plan_p, plan, cfg.n_layers, rank, tp)
+                ST.restack_share_(tree, plan_p, plan, cfg.n_layers, stage,
+                                  tp)
             transport["handoff"] = {k: list(v) for k, v in tp.stats.items()}
         _fence(device)
         t_handoff = time.perf_counter() - t0
@@ -303,6 +321,8 @@ def serve(cfg, *, microbatches: int, schedule: str, batch: int,
             _add_stats(dec, decode.transport.stats)
         next_tok = torch.argmax(logits[:, 0, :cfg.vocab], dim=-1)
         generated.append(next_tok)
+        if keep_logits:
+            kept.append(logits.clone())
     _fence(device)
     t_decode = time.perf_counter() - t0
     launches = {k: getattr(fn, a) - before[k]
@@ -324,7 +344,8 @@ def serve(cfg, *, microbatches: int, schedule: str, batch: int,
         if handoff is not None:
             handoff = dict(handoff, by_rank=[p["handoff"] for p in per],
                            seconds=max(p["handoff"]["seconds"] for p in per))
-        ranks = dict(rank=rank, world=mesh.world, backend=mesh.backend,
+        ranks = dict(rank=rank, world=mesh.world, data=mesh.data,
+                     backend=mesh.backend,
                      peak_gib_by_rank=[p["peak_gib"] for p in per],
                      transport=[p["transport"] for p in per])
     toks = torch.stack(generated, 1).cpu()
@@ -363,6 +384,7 @@ def serve(cfg, *, microbatches: int, schedule: str, batch: int,
         print("sample generations (first 3 rows):")
         for row in toks[:3]:
             print("  ", row.tolist(), flush=True)
+    kept = dict(step_logits=[x.cpu() for x in kept]) if keep_logits else {}
     return dict(tokens=toks, last_logits=logits,
                 prefill_logits=prefill_logits, warmup_s=t_warm,
                 prefill_s=t_prefill, decode_s=t_decode, handoff=handoff,
@@ -370,7 +392,7 @@ def serve(cfg, *, microbatches: int, schedule: str, batch: int,
                                decode=decode.lowering),
                 prefill_tok_s=pre_toks / max(t_prefill, 1e-9),
                 decode_tok_s=dec_toks / max(t_decode, 1e-9),
-                launches=launches, **ranks)
+                launches=launches, **ranks, **kept)
 
 if __name__ == "__main__":
     main()

@@ -32,12 +32,24 @@ under ``torchrun``, one process per stage.
         --layers 2 --d-model 64 --stages 2 --microbatches 2 --batch 4 \\
         --seq 32 --steps 3 --device cpu
 
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+        -m repro_torch.launch.train --arch llama3.2-1b --tensor 1 \\
+        --stages 2 --data 2 --dist-backend gloo --runtime stream \\
+        --grad-sync overlap --schedule 1f1b --microbatches 2 --batch 8 \\
+        --seq 1024 --steps 2
+
 With ``WORLD_SIZE`` above 1 (``torchrun``) each process is one stage of
-the plan (:mod:`repro_torch.launch.mesh`; ``--stages``, or the planner's
-stage count, must equal the world size): it draws only its share of the
-weights (:func:`repro_torch.pipeline.stage.init_stage_params`) and runs
-its row of the same table (``make_train_step(..., group=...)``), the
-rings as ``torch.distributed`` messages.  ``--dist-backend`` is ``nccl``
+one replica on a ``--data`` x ``--stages`` grid
+(:mod:`repro_torch.launch.mesh`; data x stages, or the planner's, must
+equal the world size): it draws only its stage's share of the weights
+(:func:`repro_torch.pipeline.stage.init_stage_params`), runs its row of
+the same table on its replica's rows of the batch (``make_train_step(...,
+group=mesh)``), the rings as ``torch.distributed`` messages, and the
+gradients are summed over the replicas as ``--grad-sync`` says (``end``
+after the walk; ``overlap``, the default under ``--runtime stream``, at
+the ARSYNC slots of each rank's stream, ``--ar-groups`` buckets a chunk;
+``2bw``, PipeDream-2BW: each step applies the previous step's
+gradients).  ``--data`` above 1 needs ranks.  ``--dist-backend`` is ``nccl``
 (one card per rank; more ranks than cards raise) by default on
 ``--device cuda`` and ``gloo`` on ``--device cpu``; ``--dist-backend
 gloo`` runs every rank on one card, each message staged through pinned
@@ -61,13 +73,14 @@ schedule; ``--remat full`` recomputes each layer inside the backward.
 and ``--mem-limit``) and ``--auto-plan3d`` (over ``--pool`` devices, the
 cards present by default) let BaPipe's planner
 (:mod:`repro_torch.core.autoplan`, planning for the port's ``H100``)
-pick the stages, tensor degree, micro-batches, schedule and V, as the
-JAX CLI does; a plan that needs tensor or data parallelism is printed,
-then refused.  ``--device cpu`` runs the same path on the CPU with the
-kernels' plain versions.  As in the JAX CLI, ``--layers``/``--d-model``
-apply only under ``--reduced``, and a config whose tensor degree is above 1
-(llama3.2-1b's is 2, gemma3-1b's and qwen3-1.7b's 4) is refused unless
-``--tensor 1`` is given.  Data
+pick the stages, tensor degree, micro-batches, schedule and V (and, for
+``--auto-plan3d``, the data degree), as the JAX CLI does; a plan that
+needs tensor parallelism is printed, then refused.  ``--device cpu``
+runs the same path on the CPU with the kernels' plain versions.  As in
+the JAX CLI, ``--layers``/``--d-model`` apply only under ``--reduced``,
+and a config whose tensor degree is above 1 (llama3.2-1b's is 2,
+gemma3-1b's and qwen3-1.7b's 4) is refused unless ``--tensor 1`` is
+given.  Data
 come from :class:`repro_torch.data.synthetic.SyntheticLM`
 (the JAX package's generator, bit-identical tokens); the optimizer is
 AdamW with the reference settings (``warmup_cosine(lr, 20, steps)``,
@@ -106,9 +119,6 @@ _CKPT_ITEM = "ROADMAP 'Still to port': checkpoints, reshard and elastic"
 #: values, ROADMAP item); any other value raises NotImplementedError
 #: (``--tensor`` is held by :func:`repro_torch.launch.one_card`)
 _REFUSED = (
-    ("data", (1,), _PAR_ITEM),
-    ("grad_sync", ("", "auto", "end"), _PAR_ITEM),
-    ("ar_groups", (1,), _PAR_ITEM),
     ("ckpt", ("",), _CKPT_ITEM),
     ("ckpt_every", (0,), _CKPT_ITEM),
     ("resume", ("",), _CKPT_ITEM),
@@ -169,11 +179,21 @@ def _parser() -> argparse.ArgumentParser:
                     help="comma-separated per-stage device names for "
                          "--auto-plan (" + "|".join(CATALOGUE) + "); "
                          "fixes the stage count to the list length")
+    ap.add_argument("--data", type=int, default=1,
+                    help="data-parallel replicas (ranks: data x stages "
+                         "processes under torchrun)")
+    ap.add_argument("--grad-sync", default="",
+                    choices=("", "auto", "end", "overlap", "2bw"),
+                    help="where the replicas' gradients are summed: end "
+                         "(after the walk) | overlap (at the ARSYNC slots "
+                         "of each rank's stream; needs --runtime stream) | "
+                         "2bw (PipeDream-2BW: step k applies step k-1's "
+                         "gradients) | auto (overlap iff --runtime stream)")
+    ap.add_argument("--ar-groups", type=int, default=1,
+                    help="with overlapped sync: AR buckets a chunk, one "
+                         "per layer group (must divide its layers)")
     # the JAX CLI's other flags: accepted, refused unless at their default
-    ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--tensor", type=int, default=0)
-    ap.add_argument("--grad-sync", default="")
-    ap.add_argument("--ar-groups", type=int, default=1)
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", default="")
@@ -195,9 +215,9 @@ def build_config(args: argparse.Namespace):
     ``--cluster`` without ``--auto-plan``, and ``--auto-plan`` with
     ``--auto-plan3d`` are usage errors (SystemExit 2), as in the JAX CLI.
     Under a planner flag the plan is printed and applied
-    (``args.microbatches`` takes its M), or refused when it needs tensor
-    or data parallelism.  Refused flags raise NotImplementedError by
-    their ROADMAP item."""
+    (``args.microbatches`` takes its M, ``args.data`` its data degree),
+    or refused when it needs tensor parallelism.  Refused flags raise
+    NotImplementedError by their ROADMAP item."""
     for flag, ok, item in _REFUSED:
         val = getattr(args, flag)
         if val not in ok:
@@ -261,12 +281,12 @@ def build_config(args: argparse.Namespace):
               flush=True)
     else:
         return cfg
-    if plan_.tensor != 1 or plan_.data_axis != 1:
+    if plan_.tensor != 1:
         raise NotImplementedError(
-            f"the plan needs tensor={plan_.tensor} x data="
-            f"{plan_.data_axis}: not ported yet ({_PAR_ITEM}); the port "
-            f"runs tensor = data = 1")
+            f"the plan needs tensor={plan_.tensor}: not ported yet "
+            f"({_PAR_ITEM}); the port runs tensor = 1")
     args.microbatches = plan_.n_microbatches
+    args.data = plan_.data_axis
     args.plan = plan_
     return plan_.apply(cfg)
 
@@ -280,17 +300,24 @@ def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
 
     device = torch.device(args.device)
     cfg = build_config(args)
+    under_ranks = mesh is not None or int(os.environ.get("WORLD_SIZE",
+                                                         "1")) > 1
+    if args.data > 1 and not under_ranks:
+        raise ValueError(RT.data_needs_ranks(args.data, cfg.stages))
     plan = ST.plan_stages(cfg)
     opt = AdamW(lr=warmup_cosine(args.lr, 20, args.steps), weight_decay=0.01)
     pcfg = RT.PipelineConfig(n_microbatches=args.microbatches,
                              schedule=cfg.schedule, mem_limit=cfg.mem_limit,
-                             remat=args.remat, runtime=cfg.runtime)
+                             remat=args.remat, runtime=cfg.runtime,
+                             grad_sync=args.grad_sync or "auto",
+                             ar_groups=args.ar_groups)
     own_group = False
     if mesh is None and int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        MESH.check_world(plan.n_stages, int(os.environ["WORLD_SIZE"]))
+        MESH.check_world(plan.n_stages, int(os.environ["WORLD_SIZE"]),
+                         args.data)
         mesh = MESH.init_stage_group(
             args.dist_backend or ("nccl" if device.type == "cuda"
-                                  else "gloo"), device.type)
+                                  else "gloo"), device.type, data=args.data)
         own_group = True
     if mesh is not None:
         try:
@@ -301,6 +328,8 @@ def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
     step_fn = RT.make_train_step(cfg, plan, pcfg, optimizer=opt)
     params = ST.init_stacked_params(cfg, args.seed, plan, device=device)
     opt_state = opt.init(params)
+    if pcfg.grad_sync == "2bw":
+        opt_state = RT.init_2bw_state(opt_state, params)
     n_params = sum(x.numel() for x in ST.tree_leaves(params))
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
@@ -362,14 +391,21 @@ def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
 
 def _main_ranks(args, cfg, plan: ST.StagePlan, opt: AdamW,
                 pcfg: RT.PipelineConfig, mesh: MESH.StageMesh) -> dict:
-    """:func:`main` as stage ``mesh.rank`` of the rank executor."""
-    MESH.check_world(plan.n_stages, mesh.world)
-    device, rank, group = mesh.device, mesh.rank, mesh.group
+    """:func:`main` as stage ``mesh.stage`` of replica ``mesh.data_rank``
+    of the rank executor."""
+    MESH.check_world(plan.n_stages, mesh.world, mesh.data)
+    if args.data != mesh.data:
+        raise ValueError(f"--data {args.data} on a grid of {mesh.data} "
+                         f"replicas")
+    device, rank = mesh.device, mesh.rank
     lead = rank == 0
     gather = lambda obj: MESH.gather(obj, mesh)
-    step_fn = RT.make_train_step(cfg, plan, pcfg, optimizer=opt, group=group)
-    params = ST.init_stage_params(cfg, args.seed, plan, rank, device=device)
+    step_fn = RT.make_train_step(cfg, plan, pcfg, optimizer=opt, group=mesh)
+    params = ST.init_stage_params(cfg, args.seed, plan, mesh.stage,
+                                  device=device)
     opt_state = opt.init(params)
+    if pcfg.grad_sync == "2bw":
+        opt_state = RT.init_2bw_state(opt_state, params)
     n_params = gather(sum(x.numel() for x in ST.tree_leaves(params)))
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
@@ -378,13 +414,14 @@ def _main_ranks(args, cfg, plan: ST.StagePlan, opt: AdamW,
               f"stages={plan.n_stages}x{plan.layers_per_stage} "
               f"V={plan.virtual} schedule={step_fn.lowering.schedule} "
               f"M={args.microbatches} ranks={mesh.world} "
-              f"backend={mesh.backend} params per rank "
+              f"backend={mesh.backend} (data {mesh.data} x stages "
+              f"{plan.n_stages}, grad_sync {pcfg.grad_sync}) params per rank "
               f"{[round(n / 1e6, 1) for n in n_params]}M device={device} "
               f"({name})", flush=True)
     if device.type == "cuda":
         if lead:
             build.build_all()   # kernel builds before the first step
-        dist.barrier(group)     # the other ranks load what rank 0 built
+        dist.barrier()          # the other ranks load what rank 0 built
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq,
                        global_batch=args.batch, seed=args.seed,
                        device=str(device))
@@ -398,7 +435,7 @@ def _main_ranks(args, cfg, plan: ST.StagePlan, opt: AdamW,
         before = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        dist.barrier(group)     # every rank starts the step together
+        dist.barrier()          # every rank starts the step together
         t0 = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         losses.append(float(metrics["loss"]))       # syncs the device
@@ -447,6 +484,7 @@ def _main_ranks(args, cfg, plan: ST.StagePlan, opt: AdamW,
     return dict(plan=args.plan, schedule=step_fn.lowering.schedule,
                 stages=plan.n_stages, virtual=plan.virtual,
                 microbatches=args.microbatches, rank=rank, world=mesh.world,
+                data=mesh.data, grad_sync=pcfg.grad_sync,
                 backend=mesh.backend, losses=losses, step_s=step_s,
                 wall_s=wall, tok_per_step=args.batch * args.seq,
                 launches=launches, stash_slots=stash,

@@ -1,6 +1,7 @@
 """What the ranks of a pipeline send each other: the port's counterpart
 of the JAX runtime's ``ppermute`` rings and ``psum``s over the ``stage``
-axis (``repro/pipeline/runtime.py``), as ``torch.distributed`` messages.
+and ``data`` axes (``repro/pipeline/runtime.py``), as
+``torch.distributed`` messages.
 
 :func:`ring_hops` derives, from a ``lower_to_ticks`` table alone, which
 stage sends which ring's output to which neighbour between two ticks;
@@ -13,9 +14,14 @@ waiting (:meth:`Transport.post`, a :class:`Posted` handle a message),
 each receive waited for by the tick that reads it and the sends at the
 step's end (:meth:`Transport.drain`).  Both sides post a (peer, ring)
 pair's messages in slot order, so gloo and NCCL pair them by tag and
-order.  It also carries the step's few collectives (the loss, the
+order.  A rank's peers are addressed by their rank in its stage group
+(their stage), mapped to global ranks where torch.distributed wants
+them.  It also carries the step's few collectives (the loss, the
 gradient-norm partials, the tied embedding's gradient, the serve step's
-logits) and the V > 1 serving handoff's layers.  Under gloo on a CUDA
+logits), the V > 1 serving handoff's layers and, over the data group,
+the gradient sync (:meth:`Transport.reduce_bucket`: one bucket
+flattened per dtype, reduce-scattered and all-gathered, posted without
+waiting) and the replicas' logits.  Under gloo on a CUDA
 device every message goes device -> pinned host -> device in plain
 sight (gloo's send and recv take CPU tensors only); under NCCL the
 device tensors go as they are.  Each message's bytes and host time are
@@ -102,27 +108,33 @@ class Posted:
 
 
 class Transport:
-    """One rank's messages over ``group``: the ring hops and the step's
-    collectives.  ``stats[kind] = [messages, bytes, seconds, copy
-    seconds, post seconds, receive-wait seconds, send-wait seconds]`` for
-    the kinds ``hop`` (activations and cotangents), ``embed_allreduce``
-    (the tied embedding's gradient), ``scalars`` (the loss and the norm
-    partials), ``logits`` (the serve step's broadcast from the last
-    rank) and ``handoff`` (the layers the V > 1 serving handoff moves
-    between ranks).  A message between two ranks counts at both its
-    ends, a collective once a call; bytes count what this rank sends;
-    seconds are the host's wall time of the calls, waiting for the peers
+    """One rank's messages over ``group`` (its stage group; ``rank`` is
+    its stage) and ``data_group`` (its stage's replicas, or None): the
+    ring hops and the step's collectives.  ``stats[kind] = [messages,
+    bytes, seconds, copy seconds, post seconds, receive-wait seconds,
+    send-wait seconds]`` for the kinds ``hop`` (activations and
+    cotangents), ``embed_allreduce`` (the tied embedding's gradient),
+    ``scalars`` (the loss and the norm partials), ``logits`` (the serve
+    step's broadcast from the last rank, and its gather over the
+    replicas), ``handoff`` (the layers the V > 1 serving handoff moves
+    between ranks) and ``grad_sync`` (the gradient buckets summed over
+    the replicas: a reduce-scatter and an all-gather per bucket and
+    dtype, each a message; bytes the bucket's; the wait under receive
+    waits).  A message between two ranks counts at both its ends, a
+    collective once a call; bytes count what this rank sends; seconds
+    are the host's wall time of the calls, waiting for the peers
     included (under NCCL, where nothing waits, the enqueue); of them,
     copy seconds are the staging copies (device -> pinned host ->
     device, each ending in a sync), post seconds the posting of messages,
     and the two waits the time blocked on receives and on sends (a
-    collective's time is in none of the three).  :meth:`reset` zeroes
-    them."""
+    collective's time is in none of the three, but for the gradient
+    buckets').  :meth:`reset` zeroes them."""
 
-    KINDS = ("hop", "embed_allreduce", "scalars", "logits", "handoff")
+    KINDS = ("hop", "embed_allreduce", "scalars", "logits", "handoff",
+             "grad_sync")
 
-    def __init__(self, group):
-        self.group = group
+    def __init__(self, group, data_group=None):
+        self.group, self.data_group = group, data_group
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
         self.backend = dist.get_backend(group)
@@ -350,27 +362,100 @@ class Transport:
                     t0, copy_s)
         return buf
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """``[size, *x.shape]``: every rank's ``x``, in rank order."""
+    def all_gather(self, x: torch.Tensor, group=None,
+                   kind: str = "scalars") -> torch.Tensor:
+        """``[n, *x.shape]``: every rank's ``x`` over ``group`` (this
+        rank's stage group by default), in group rank order."""
+        group = self.group if group is None else group
         t0 = time.perf_counter()
         staged, copy_s = self._staged(x.device), 0.0
         if staged:
             src, copy_s = self._to_host(x.detach())
         else:
             src = x.detach().contiguous()
-        parts = [torch.empty_like(src) for _ in range(self.size)]
-        dist.all_gather(parts, src, group=self.group)
+        parts = [torch.empty_like(src)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, src, group=group)
         out = torch.stack(parts)
         if staged:
             dev = torch.empty(out.shape, dtype=out.dtype, device=x.device)
             copy_s += self._to_device(out, dev)
             out = dev
-        self._count("scalars", src.numel() * src.element_size(), t0, copy_s)
+        self._count(kind, src.numel() * src.element_size(), t0, copy_s)
         return out
 
-    def all_reduce_sum(self, x: torch.Tensor, group) -> torch.Tensor:
+    def reduce_bucket(self, leaves: list) -> "Reduction":
+        """Post the sum of ``leaves`` (tensors of any shapes, each
+        written back IN PLACE when the returned handle is waited) over
+        the data group, as the JAX runtime's gradient sync does
+        (``runtime.py`` ``ar_fn``): the leaves are flattened into one
+        buffer per dtype, padded to a multiple of the replicas, reduced
+        with ``reduce_scatter_tensor`` posted without waiting
+        (``async_op=True``); :meth:`Reduction.wait` waits for it,
+        all-gathers the reduced shards with ``all_gather_into_tensor``
+        and copies the result back into the leaves.  Under gloo on a
+        CUDA device the buffers live in pinned host memory.  Every
+        replica must post the same buckets in the same order."""
+        group, D = self.data_group, dist.get_world_size(self.data_group)
+        dev = leaves[0].device
+        staged = self._staged(dev)
+        if staged:      # the queued work is compute, not transport
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        by_dt: dict = {}
+        for x in leaves:
+            by_dt.setdefault(x.dtype, []).append(x)
+        parts, nbytes, copy_s = [], 0, 0.0
+        for dt, xs in by_dt.items():
+            n = sum(x.numel() for x in xs)
+            total = n + (-n) % D
+            t1 = time.perf_counter()
+            if staged:
+                flat = torch.empty((total,), dtype=dt, pin_memory=True)
+                off = 0
+                for x in xs:
+                    flat[off:off + x.numel()].copy_(x.reshape(-1))
+                    off += x.numel()
+                flat[n:].zero_()
+                copy_s += time.perf_counter() - t1
+            else:
+                flat = torch.cat([x.reshape(-1) for x in xs] + [
+                    torch.zeros((total - n,), dtype=dt, device=dev)])
+            shard = flat.new_empty((total // D,))
+            work = dist.reduce_scatter_tensor(shard, flat, group=group,
+                                              async_op=True)
+            parts.append((xs, flat, shard, work))
+            nbytes += n * flat.element_size()
+        self._count("grad_sync", nbytes, t0, copy_s, msgs=len(parts),
+                    post_s=time.perf_counter() - t0 - copy_s)
+        return Reduction(self, parts, staged)
+
+    def _finish(self, r: "Reduction") -> None:
+        """Wait for a posted reduction, all-gather its shards and copy
+        the sums back into its leaves."""
+        t0 = time.perf_counter()
+        copy_s = 0.0
+        for xs, flat, shard, work in r.parts:
+            work.wait()
+            dist.all_gather_into_tensor(flat, shard, group=self.data_group)
+            t1 = time.perf_counter()
+            off = 0
+            for x in xs:
+                x.copy_(flat[off:off + x.numel()].view(x.shape))
+                off += x.numel()
+            if r.staged:
+                torch.cuda.synchronize(xs[0].device)
+            copy_s += time.perf_counter() - t1
+        waited = time.perf_counter() - t0 - copy_s
+        self._count("grad_sync", 0, t0, copy_s, msgs=len(r.parts),
+                    recv_wait_s=waited)
+        r.parts = ()
+
+    def all_reduce_sum(self, x: torch.Tensor, group,
+                       kind: str = "embed_allreduce") -> torch.Tensor:
         """``x`` summed IN PLACE over ``group`` (the tied embedding's two
-        ranks); returns ``x``."""
+        ranks, or a replica's loss over the data group); returns
+        ``x``."""
         if self._staged(x.device):
             torch.cuda.synchronize(x.device)
         t0 = time.perf_counter()
@@ -381,6 +466,20 @@ class Transport:
             copy_s += self._to_device(host, x)
         else:
             dist.all_reduce(x, group=group)
-        self._count("embed_allreduce", x.numel() * x.element_size(), t0,
-                    copy_s)
+        self._count(kind, x.numel() * x.element_size(), t0, copy_s)
         return x
+
+
+class Reduction:
+    """A gradient bucket :meth:`Transport.reduce_bucket` posted.
+    :meth:`wait` finishes it: the leaves then hold their sums over the
+    replicas."""
+
+    __slots__ = ("tp", "parts", "staged")
+
+    def __init__(self, tp: Transport, parts: list, staged: bool):
+        self.tp, self.parts, self.staged = tp, parts, staged
+
+    def wait(self) -> None:
+        if self.parts:
+            self.tp._finish(self)

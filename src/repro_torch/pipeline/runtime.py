@@ -1,5 +1,5 @@
 """BaPipe pipelined serving and training (the port's share of
-``repro/pipeline/runtime.py``: tensor = 1, data = 1).
+``repro/pipeline/runtime.py``: tensor = 1).
 
 The JAX runtime runs every stage on its own device inside ``shard_map``
 and shifts activations around ``ppermute`` rings, one tick at a time.
@@ -30,6 +30,14 @@ the table and the rings are ``torch.distributed`` messages
   :func:`repro_torch.core.schedplan.lower_to_instructions` stream
   instead: it blocks only where a RUN reads an arrival, never waits for
   a send before the step's end, and each FREE empties its register.
+
+The data axis runs as ranks only: on a (data, stage) grid
+(:mod:`repro_torch.launch.mesh`) each replica takes its rows of the
+batch on its own stage ring.  Training sums the gradients over the
+replicas (``PipelineConfig.grad_sync``): after the walk (``end``), at
+the ARSYNC slots of each rank's stream (``overlap``: the JAX runtime's
+AR ops), or after the walk with the update one step behind (``2bw``,
+PipeDream-2BW); serving gathers the replicas' logits in row order.
 """
 from __future__ import annotations
 
@@ -65,14 +73,21 @@ class PipelineConfig:
                                     # its stashed input, so the first three
                                     # are the same; 'full' also recomputes
                                     # each layer inside that backward
-    # training knobs of the JAX PipelineConfig; the port has no
-    # data-parallel sync, so only these values are taken (the rest raise,
-    # naming their ROADMAP item)
     runtime: str = "ticks"          # ticks | stream: the lockstep tick
                                     # replay, or each stage walking its own
                                     # lower_to_instructions stream
-    grad_sync: str = "auto"         # auto | end (overlap / 2bw: not ported)
-    ar_groups: int = 1
+    grad_sync: str = "auto"         # auto | end | overlap | 2bw: where
+                                    # the data-axis gradient sum runs —
+                                    # after the walk (end), at the ARSYNC
+                                    # slots of the stream (overlap; needs
+                                    # runtime='stream'), or after the walk
+                                    # with step k applying step k-1's
+                                    # gradients (2bw: needs an optimizer
+                                    # and init_2bw_state); auto overlaps
+                                    # iff runtime='stream'
+    ar_groups: int = 1              # overlap: AR sub-buckets a chunk (one
+                                    # per layer group; must divide the
+                                    # layers a chunk)
 
 
 def apply_stage(cfg: ArchConfig, layer_params: list, stage_meta: list, x, *,
@@ -126,18 +141,28 @@ def init_pipeline_cache(cfg: ArchConfig, plan: ST.StagePlan, batch: int,
 
 
 def init_stage_cache(cfg: ArchConfig, plan: ST.StagePlan, stage: int,
-                     batch: int, max_len: int, *, dtype=torch.float32,
-                     device="cuda") -> dict:
+                     batch: int, max_len: int, *, data: int = 1,
+                     dtype=torch.float32, device="cuda") -> dict:
     """Stage ``stage``'s share of :func:`init_pipeline_cache` (one rank's
     cache): ``[Lps, B, ...]`` or ``[V, Lc, B, ...]`` leaves with no stage
     axis, equal to row ``stage`` of the stacked cache bit for bit (every
-    layer's cache starts as zeros)."""
+    layer's cache starts as zeros).  With ``data`` = D replicas a rank
+    holds its replica's ``B / D`` rows of k/v (or of the SSM state) and
+    every slot's ``len`` offsets (``[.., B]``), so the offsets are
+    advanced, and reset by a continuous-batching engine, for the whole
+    batch on every rank."""
     _check_cache_plan(plan)
     if not 0 <= stage < plan.n_stages:
         raise ValueError(f"stage {stage} of a {plan.n_stages}-stage plan")
+    if data < 1 or batch % data:
+        raise ValueError(f"batch {batch} does not split over data {data}")
     n_cfg = dataclasses.replace(
         cfg, n_layers=plan.virtual * plan.layers_per_stage)
-    c = M.init_cache(n_cfg, batch, max_len, dtype=dtype, device=device)
+    c = M.init_cache(n_cfg, batch // data, max_len, dtype=dtype,
+                     device=device)
+    if data > 1 and "kv" in c:
+        n = c["kv"]["len"]
+        c["kv"]["len"] = n.new_zeros(n.shape[:-1] + (batch,))
     return ST._map_layers_(lambda a: ST._stage_rows(a, plan), c)
 
 
@@ -175,10 +200,11 @@ class _ServeRun:
 
     def __init__(self, cfg: ArchConfig, lo: SP.RingLowering, meta: list,
                  s: int, layers: dict, cache: dict, pos: torch.Tensor,
-                 x_all, mb: int):
+                 x_all, mb: int, len_off: int = 0):
         self.cfg, self.lo, self.meta, self.s = cfg, lo, meta, s
         self.layers, self.cache = layers, cache
         self.pos, self.x_all, self.mb = pos, x_all, mb
+        self.len_off = len_off          # a replica's first row in ``len``
         self.lc = len(meta if lo.V == 1 else meta[0])
         self.retbuf = [None] * lo.M         # stage 0's parked returns
         self.outbuf = [None] * lo.M         # the last stage's outputs
@@ -206,8 +232,7 @@ class _ServeRun:
         ch = () if lo.V == 1 else (v,)
         # this micro-batch's rows of the chunk's cache; the views are
         # written in place, 'len' stays frozen
-        c_mb = ST._map_layers(lambda a: a[ch + (slice(None), rows)],
-                              self.cache)
+        c_mb = _cache_rows(self.cache, ch, rows, self.len_off)
         layers = [M.layer_slice(self.layers, ch + (j,))
                   for j in range(self.lc)]
         y, _, _ = apply_stage(self.cfg, layers,
@@ -216,6 +241,57 @@ class _ServeRun:
         if s == S - 1 and lo.collect[e]:
             self.outbuf[mc] = y
         return y
+
+
+def _cache_rows(cache: dict, ch: tuple, rows: slice, len_off: int,
+                kv: bool = False) -> dict:
+    """Views of ``rows`` of a stage cache's chunk ``ch``; the ``kv``
+    subtree's ``len`` offsets are read ``len_off`` rows further on (a
+    replica's cache holds its own rows of k/v but every slot's offsets:
+    :func:`init_stage_cache`)."""
+    out = {}
+    for k, a in cache.items():
+        if isinstance(a, dict):
+            out[k] = _cache_rows(a, ch, rows, len_off, kv or k == "kv")
+        else:
+            r = (slice(rows.start + len_off, rows.stop + len_off)
+                 if kv and k == "len" else rows)
+            out[k] = a[ch + (slice(None), r)]
+    return out
+
+
+def data_needs_ranks(D: int, S: int) -> str:
+    """Why a data axis of D replicas of S stages cannot run in one
+    process, and what it needs."""
+    return (f"data {D} x {S} stages: the data axis runs only as ranks, "
+            f"{D * S} processes on a (data, stage) grid "
+            f"(launch.mesh.init_stage_group(..., data={D}), or torchrun "
+            f"--nproc-per-node {D * S} with --data {D}); the in-process "
+            f"executor runs one replica")
+
+
+#: a bare process group's tied-embedding group: made by the train step
+_MAKE_TIE = object()
+
+
+def _grid(group, data: int, S: int) -> tuple:
+    """(stage group, data, replica index, data group, tied-embedding
+    group) of ``group``: a :class:`repro_torch.launch.mesh.StageMesh`
+    (its grid), a bare process group of one replica's stages (data 1;
+    the tied group :data:`_MAKE_TIE`), or None (in process: ``data``
+    must be 1)."""
+    if group is None:
+        if data != 1:
+            raise ValueError(data_needs_ranks(data, S))
+        return None, 1, 0, None, None
+    if hasattr(group, "data_group"):
+        return (group.group, group.data, group.data_rank, group.data_group,
+                group.tie_group)
+    if data != 1:
+        raise ValueError(f"data={data} with a bare process group: pass "
+                         f"the rank's launch.mesh.StageMesh, which holds "
+                         f"the (data, stage) grid")
+    return group, 1, 0, None, _MAKE_TIE
 
 
 def _serve_head(cfg: ArchConfig, params: dict, outbuf: list, nv,
@@ -278,13 +354,23 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
     ``serve_step.transport`` (a :class:`repro_torch.pipeline.comm.
     Transport`) then holds the last call's message counts.
 
+    With ``group`` a :class:`repro_torch.launch.mesh.StageMesh` of D > 1
+    replicas (the data axis, ranks only; ``data`` > 1 in process raises
+    a ValueError naming the ranks it needs) replica d serves rows
+    ``[d B/D, (d+1) B/D)`` of the batch on its stage ring with its own
+    cache rows (:func:`init_stage_cache` with ``data=D``: its k/v rows,
+    every slot's offsets); its last stage broadcasts its rows' logits in
+    the stage group and an all-gather over the data group puts the
+    replicas' rows in order, so every rank returns the whole batch's.
+
     Returns f32 logits ``[B, 1, padded_vocab]``.  ``serve_step.lowering``
     is the replayed ring table."""
-    if plan.tensor != 1 or data != 1:
+    if plan.tensor != 1 or cfg.fsdp:
         raise NotImplementedError(
-            f"tensor={plan.tensor}, data={data}: not ported yet "
-            f"({PAR_ITEM}); the port serves with tensor = data = 1")
+            f"tensor={plan.tensor}, fsdp={cfg.fsdp}: not ported yet "
+            f"({PAR_ITEM}); the port serves with tensor = 1, no fsdp")
     S, V, M_ = plan.n_stages, plan.virtual, pcfg.n_microbatches
+    group, D, d_rank, data_group, _ = _grid(group, data, S)
     sched = SP.resolve_ring_schedule(pcfg.schedule, V)
     ml = (pcfg.mem_limit or None) if sched == "zb-auto" else None
     lowering = SP.lower_to_ring(SP.build_schedule(sched, M_, S, V,
@@ -309,12 +395,13 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
         B, T = tokens.shape
         if T != q_len:
             raise ValueError(f"step built for q_len={q_len}, got {T}")
-        if B % M_:
-            raise ValueError(f"batch {B} not divisible by M={M_}")
+        if B % (M_ * D):
+            raise ValueError(f"batch {B} not divisible by M={M_}"
+                             + (f" x data {D}" if D > 1 else ""))
         nv = batch.get("n_valid")
         if nv is not None:
             nv = torch.as_tensor(nv, dtype=torch.int32, device=tokens.device)
-        return tokens, B // M_, nv
+        return tokens, B // (M_ * D), nv
 
     if group is None:
         row = lambda tree, s: ST._map_layers(lambda a: a[s], tree)
@@ -340,8 +427,9 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
         serve_step.lowering = lowering
         return serve_step
 
-    # ---- the rank executor: this process runs stage `rank` --------------
-    tp = C.Transport(group)
+    # ---- the rank executor: this process runs stage `rank` of replica
+    # d_rank ---------------------------------------------------------------
+    tp = C.Transport(group, data_group)
     rank = tp.rank
     if tp.size != S:
         raise ValueError(f"a {S}-stage plan needs a group of {S} ranks, "
@@ -355,10 +443,14 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
         tp.reset()
         tokens, mb, nv = check(batch)
         dev = tokens.device
-        x_all = (M.embed_tokens(cfg, params["embed"], tokens) if rank == 0
-                 else None)
+        B = tokens.shape[0]
+        r0 = d_rank * (B // D)                  # this replica's first row
+        mine = slice(r0, r0 + B // D)
+        x_all = (M.embed_tokens(cfg, params["embed"], tokens[mine])
+                 if rank == 0 else None)
         run = _ServeRun(cfg, lowering, smeta[rank], rank, params["layers"],
-                        cache, M._default_pos(tokens, cache), x_all, mb)
+                        cache, M._default_pos(tokens, cache)[mine], x_all,
+                        mb, len_off=r0)
         like = torch.empty((mb, q_len, cfg.d_model), device=dev,
                            dtype=params["layers"]["ln1"].dtype)
         arr = None
@@ -371,11 +463,16 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
                                   [(C.FWD, src) for src in recvs],
                                   like).get(C.FWD)
         _advance_len(cache, q_len if nv is None else nv)
-        logits = (_serve_head(cfg, params, run.outbuf, nv, q_len)
+        logits = (_serve_head(cfg, params, run.outbuf,
+                              None if nv is None else nv[mine], q_len)
                   if rank == S - 1 else
-                  torch.empty((tokens.shape[0], 1, vocab),
-                              dtype=torch.float32, device=dev))
-        return tp.broadcast(logits, S - 1, kind="logits"), cache
+                  torch.empty((B // D, 1, vocab), dtype=torch.float32,
+                              device=dev))
+        logits = tp.broadcast(logits, S - 1, kind="logits")
+        if D > 1:           # the replicas' rows, in row order
+            logits = tp.all_gather(logits, data_group, kind="logits"
+                                   ).reshape(B, 1, vocab)
+        return logits, cache
 
     rank_serve_step.lowering = lowering
     rank_serve_step.transport = tp
@@ -387,20 +484,38 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
 # ---------------------------------------------------------------------------
 
 def _check_train_config(cfg: ArchConfig, plan: ST.StagePlan,
-                        pcfg: PipelineConfig) -> None:
+                        pcfg: PipelineConfig, optimizer) -> None:
     """Refuse what the port's train executor does not run yet, naming the
-    ROADMAP item that ports it."""
+    ROADMAP item that ports it, and the knobs the JAX runtime rejects,
+    with its ValueErrors."""
     if plan.tensor != 1:
         raise NotImplementedError(
             f"tensor={plan.tensor}: tensor parallelism is not ported yet "
             f"({PAR_ITEM})")
+    if cfg.fsdp:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: fsdp (stage weights sharded over the data "
+            f"axis) is not ported yet ({PAR_ITEM})")
     if pcfg.runtime not in ("ticks", "stream"):
         raise ValueError(f"unknown runtime {pcfg.runtime!r}: "
                          f"expected ticks | stream")
-    if pcfg.grad_sync not in ("auto", "end") or pcfg.ar_groups != 1:
-        raise NotImplementedError(
-            f"grad_sync={pcfg.grad_sync!r}, ar_groups={pcfg.ar_groups}: "
-            f"scheduled gradient sync is not ported yet ({PAR_ITEM})")
+    if pcfg.grad_sync not in ("auto", "end", "overlap", "2bw"):
+        raise ValueError(f"unknown grad_sync {pcfg.grad_sync!r}: "
+                         f"expected auto | end | overlap | 2bw")
+    if pcfg.grad_sync == "overlap" and pcfg.runtime != "stream":
+        raise ValueError("grad_sync='overlap' requires runtime='stream' "
+                         "(the tick replay has no AR slots)")
+    if pcfg.grad_sync == "2bw" and optimizer is None:
+        raise ValueError("grad_sync='2bw' double-buffers the weight "
+                         "update and needs an optimizer")
+    if pcfg.ar_groups < 1:
+        raise ValueError(f"ar_groups must be >= 1, got {pcfg.ar_groups}")
+    if pcfg.ar_groups > 1 and not (
+            pcfg.runtime == "stream"
+            and pcfg.grad_sync in ("auto", "overlap")):
+        raise ValueError("ar_groups > 1 splits the OVERLAPPED AR buckets; "
+                         "it requires runtime='stream' with "
+                         "grad_sync='overlap' (or 'auto')")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -414,6 +529,7 @@ class _Tables:
     remat: str
     lc: int                         # layers a chunk
     first_write: frozenset
+    data: int = 1                   # replicas: the loss seed is 1/(M D)
 
 
 @dataclasses.dataclass
@@ -549,7 +665,7 @@ class _StageRun:
         if lo.bpark[s][t] >= 0:
             self.bin[lo.bpark[s][t]] = b_arr
         kind, m, v = lo.kind[s][t], lo.m[s][t], lo.v[s][t]
-        if kind == SP.TICK_IDLE:
+        if kind in (SP.TICK_IDLE, SP.TICK_AR):  # AR: no compute here
             return None, None
         if kind == SP.TICK_F:
             src = lo.fsrc[s][t]
@@ -588,7 +704,8 @@ class _StageRun:
             else:                   # TICK_B_SEED: the loss head
                 fnp = call.fn_p.detach().requires_grad_()
                 hdp = call.head_p.detach().requires_grad_()
-                seed = torch.full((), 1.0 / lo.M, device=call.dev)
+                seed = torch.full((), 1.0 / (lo.M * self.tb.data),
+                                  device=call.dev)
                 if lo.has_w:
                     # zb: the head's y-cotangent is stashed for W
                     y = self._apply(v, lp, x, remat)
@@ -637,12 +754,13 @@ def _slot_groups(stream) -> list:
             for t, ins in itertools.groupby(stream, lambda i: i.slot)]
 
 
-def _run_slot(run: "_StageRun", t: int, ins, got: dict) -> list:
+def _run_slot(run: "_StageRun", t: int, ins, got: dict,
+              on_ar=None) -> list:
     """Slot t of a stage's instruction stream: what each RECV took off
     its ring (``got[instr]``: a tensor, or a posted receive that the tick
     reading it waits for) goes to the tick, which parks it or runs on it;
     the SENDs' (ring, value) pairs are returned; the FREEs empty their
-    registers."""
+    registers; an ARSYNC hands its instruction to ``on_ar``."""
     arr = {"fwd": None, "bwd": None}
     for i in ins:
         if i.op == SP.INSTR_RECV:
@@ -654,17 +772,20 @@ def _run_slot(run: "_StageRun", t: int, ins, got: dict) -> list:
             sends.append((i.ring, out[i.ring]))
         elif i.op == SP.INSTR_FREE:
             run.free(i.buf, i.idx)
+        elif i.op == SP.INSTR_AR:
+            on_ar(i)
     return sends
 
 
 def _walk_stream(tp: C.Transport, run: "_StageRun", stream,
-                 like: torch.Tensor) -> None:
+                 like: torch.Tensor, on_ar=None) -> None:
     """One rank's walk of its instruction stream.  The RECVs of a slot
     are posted once the slot before it in the stream has run, in one
     ``batch_isend_irecv`` with that slot's SENDs; a RUN waits only for
     the arrivals it reads (a parked one stays in flight in its inbox
     register until then); no send is waited for before the stream's
-    end, where all are; slots with no instruction cost nothing."""
+    end, where all are; slots with no instruction cost nothing; each
+    ARSYNC goes to ``on_ar``, which posts its bucket's reduction."""
     S, rank = tp.size, tp.rank
     groups = _slot_groups(stream)
 
@@ -679,7 +800,7 @@ def _walk_stream(tp: C.Transport, run: "_StageRun", stream,
 
     got = post((), groups[0][1] if groups else ())
     for k, (t, ins) in enumerate(groups):
-        sends = _run_slot(run, t, ins, got)
+        sends = _run_slot(run, t, ins, got, on_ar)
         got = post(sends, groups[k + 1][1] if k + 1 < len(groups) else ())
     tp.drain()
 
@@ -694,9 +815,10 @@ def _rank_norm(tp: C.Transport, grads: dict, S: int, rank: int,
     """The global gradient norm from one rank's share: each rank's terms
     (:func:`repro_torch.optim.adamw.norm_terms` of the whole tree: the
     embedding on rank 0, the final norm and the untied head on the last,
-    its row of every layer leaf everywhere) are all-gathered and added in
-    the in-process order, so every rank gets the in-process norm's
-    bits."""
+    its row of every layer leaf everywhere) are all-gathered over the
+    stage group and added in the in-process order, so every rank gets
+    the in-process norm's bits.  On a data axis the replicas' gradients
+    are summed first, so each replica forms the same norm alone."""
     sq = OPT.sum_squares
     layer = [sq(x) for x in ST.tree_leaves(grads["layers"])]
     zero = torch.zeros((), dtype=torch.float32, device=layer[0].device)
@@ -709,8 +831,63 @@ def _rank_norm(tp: C.Transport, grads: dict, S: int, rank: int,
     return torch.sqrt(OPT.add_terms(terms))
 
 
+def _bucket(dlp: dict, v: int, g: int, groups: int, V: int) -> list:
+    """Layer group ``g`` of ``groups`` of chunk ``v``'s gradients: each
+    layer leaf's rows ``[g Lc/G, (g+1) Lc/G)`` of the chunk (views), in
+    tree order; the JAX runtime's AR bucket."""
+    out = []
+    for a in ST.tree_leaves(dlp):
+        ch = a[v] if V > 1 else a
+        rg = ch.shape[0] // groups
+        out.append(ch[g * rg:(g + 1) * rg])
+    return out
+
+
+def init_2bw_state(opt_state: dict, params: dict) -> dict:
+    """Wrap an optimizer state for ``grad_sync='2bw'`` (PipeDream-2BW
+    double-buffered weights, the JAX package's ``init_2bw_state``):
+    ``pending`` holds the previous step's gradients (zeros until the
+    first step), ``primed`` (a host bool tensor) turns True after step 0,
+    so that step applies its own gradients instead of the zero
+    buffer."""
+    return dict(inner=opt_state,
+                pending=ST._map_layers(torch.zeros_like, params),
+                primed=torch.zeros((), dtype=torch.bool))
+
+
+def _with_update(loss_and_grads, optimizer, two_bw: bool, norm_of=None):
+    """``step(params, opt_state, batch)`` over ``loss_and_grads``: the
+    optimizer's update on this step's gradients or, under 2bw, on the
+    previous step's (``pending``; step 0 applies its own), the clip
+    norm taken from the gradients applied (``norm_of(grads)`` on ranks,
+    where a rank holds a share)."""
+    def norm(grads):
+        if norm_of is None or not getattr(optimizer, "clip_norm", None):
+            return None
+        return norm_of(grads)
+
+    if not two_bw:
+        def step(params: dict, opt_state: dict, batch: dict):
+            loss, grads = loss_and_grads(params, batch)
+            params, opt_state = optimizer.update(params, grads, opt_state,
+                                                 norm=norm(grads))
+            return params, opt_state, dict(loss=loss)
+        return step
+
+    def step(params: dict, opt_state: dict, batch: dict):
+        loss, grads = loss_and_grads(params, batch)
+        apply = opt_state["pending"] if bool(opt_state["primed"]) else grads
+        params, inner = optimizer.update(params, apply, opt_state["inner"],
+                                         norm=norm(apply))
+        return params, dict(inner=inner, pending=grads,
+                            primed=torch.ones((), dtype=torch.bool)), \
+            dict(loss=loss)
+    return step
+
+
 def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
-                    pcfg: PipelineConfig, *, optimizer=None, group=None):
+                    pcfg: PipelineConfig, *, optimizer=None, group=None,
+                    data: int = 1):
     """Build the pipelined train step.
 
     Without an optimizer ``step(params, batch) -> (loss, grads)``; with one
@@ -731,7 +908,8 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
       zero-bubble plans with respect to the input only, stashing the
       cotangent in slot ``cw`` for its W);
     * B_SEED, on the last virtual stage, also runs the loss head (final
-      norm, logits, cross-entropy) and seeds it with ``1/M``;
+      norm, logits, cross-entropy) and seeds it with ``1/(M D)`` (D the
+      replicas, 1 in process);
     * W (zero-bubble plans) re-runs the chunk and takes the weight
       gradient from the stashed cotangent.
 
@@ -757,29 +935,54 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
     are the tick replay's.  ``step.live_registers[s]`` is the most
     registers (stash, inboxes, cotangents) stage s held at once.
 
+    ``pcfg.grad_sync == '2bw'`` (with an optimizer; the state wrapped by
+    :func:`init_2bw_state`) applies the previous step's gradients
+    (``pending``; step 0 its own) and keeps this step's as the next
+    ``pending``: PipeDream-2BW's one-step staleness, in process and on
+    ranks.
+
     With ``group`` (a ``torch.distributed`` process group of
-    ``plan.n_stages`` ranks, every rank calling this factory) the step is
-    the rank executor: this rank runs stage ``group.rank()`` of the same
-    table on its share of the parameters (``stage.init_stage_params`` /
+    ``plan.n_stages`` ranks, or a :class:`repro_torch.launch.mesh.
+    StageMesh`, every rank calling this factory) the step is the rank
+    executor: this rank runs stage ``group.rank()`` of the same table on
+    its share of the parameters (``stage.init_stage_params`` /
     ``stage.stage_share``) and returns its share of the gradients.  The
     rings become messages (``comm.ring_hops``: an output hops only where
-    the neighbour's row reads it at the next tick).  Under ``'ticks'``
-    they go as one ``batch_isend_irecv`` a tick, all waited for before
-    the next tick.  Under ``'stream'`` the rank walks its own stream: a
-    slot's RECVs are posted once the slot before it has run, with that
-    slot's SENDs, in one ``batch_isend_irecv``; a RUN waits only for the
-    arrival it reads (a parked one stays in flight until then); the
-    sends are waited for only after the stream's last slot.  Then the
-    last rank broadcasts the loss, so every rank returns the same 0-dim
-    loss; a tied embedding's gradient is one all-reduce between the
-    first and the last rank (``d_embed + dhd``, the in-process sum's
-    bits); the optimizer's clip takes the global norm formed from every
-    rank's terms in the in-process order.  ``step.stash_slots`` and
+    the neighbour's row reads it at the next tick) between the ranks of
+    the stage group, addressed by stage.  Under ``'ticks'`` they go as
+    one ``batch_isend_irecv`` a tick, all waited for before the next
+    tick.  Under ``'stream'`` the rank walks its own stream: a slot's
+    RECVs are posted once the slot before it has run, with that slot's
+    SENDs, in one ``batch_isend_irecv``; a RUN waits only for the arrival
+    it reads (a parked one stays in flight until then); the sends are
+    waited for only after the stream's last slot.  Then the last rank
+    broadcasts the loss, so every rank returns the same 0-dim loss; a
+    tied embedding's gradient is one all-reduce between the first and
+    the last rank (``d_embed + dhd``, the in-process sum's bits); the
+    optimizer's clip takes the global norm formed from every rank's
+    terms in the in-process order.  ``step.stash_slots`` and
     ``step.live_registers`` are then this rank's counts and
     ``step.transport`` (a :class:`repro_torch.pipeline.comm.Transport`)
-    holds the last call's message counts, bytes and times."""
+    holds the last call's message counts, bytes and times.
+
+    On a mesh of D > 1 replicas (``data`` > 1 in process raises a
+    ValueError naming the ranks it needs) replica d takes rows ``[d B/D,
+    (d+1) B/D)`` of the batch (every rank is handed the whole batch), the
+    last stages' losses are summed over the data group, so every rank
+    returns the whole batch's mean, and the gradients are summed over
+    the replicas (:func:`repro_torch.pipeline.stage.grad_sync_axes`),
+    each bucket through ``Transport.reduce_bucket``: the layer
+    gradients one bucket a chunk after the walk under ``'end'`` (and
+    ``'2bw'``), or at the stream's ARSYNC slots under ``'overlap'``
+    (``'auto'`` with ``runtime='stream'``; ``ar_groups`` buckets a
+    chunk, one per layer group), all waited for at the step's end; then
+    ``embed``, ``final_norm`` and ``head`` as one bucket, then the tied
+    embedding over its two stages.  The same buckets go through the same
+    collective in both modes, so ``'overlap'`` gives ``'end'``'s bits.
+    The clip norm's terms are gathered over the stage group only (the
+    replicas' gradients are equal by then)."""
     M.check_ported(cfg)
-    _check_train_config(cfg, plan, pcfg)
+    _check_train_config(cfg, plan, pcfg, optimizer)
     if pcfg.remat not in ("none", "stage", "stage_save_moe", "full"):
         raise ValueError(
             f"unknown remat {pcfg.remat!r}: expected none | stage | "
@@ -787,9 +990,17 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
             f"first-class backward ticks — B recomputes the stage from "
             f"its stashed input)")
     S, V, M_ = plan.n_stages, plan.virtual, pcfg.n_microbatches
+    group, D, d_rank, data_group, tie_group = _grid(group, data, S)
+    overlap = D > 1 and (pcfg.grad_sync == "overlap" or (
+        pcfg.grad_sync == "auto" and pcfg.runtime == "stream"))
+    n_groups = pcfg.ar_groups if overlap else 1
+    if plan.layers_per_stage % n_groups:
+        raise ValueError(f"ar_groups={n_groups} must divide the "
+                         f"{plan.layers_per_stage} layers per chunk")
     sched = SP.resolve_ring_schedule(pcfg.schedule, V)
     ml = (pcfg.mem_limit or None) if sched == "zb-auto" else None
-    plan_ir = SP.build_schedule(sched, M_, S, V, mem_limit=ml)
+    plan_ir = SP.build_schedule(sched, M_, S, V, mem_limit=ml,
+                                grad_sync=n_groups if overlap else False)
     instr = (SP.lower_to_instructions(plan_ir) if pcfg.runtime == "stream"
              else None)
     lo = instr.ticks if instr is not None else SP.lower_to_ticks(plan_ir)
@@ -806,8 +1017,10 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
                 first_write.add((s, t))
     tb = _Tables(cfg=cfg, lo=lo, smeta=ST.stacked_meta(cfg, plan),
                  remat="full" if pcfg.remat == "full" else "none",
-                 lc=plan.layers_per_stage, first_write=frozenset(first_write))
+                 lc=plan.layers_per_stage, first_write=frozenset(first_write),
+                 data=D)
     row = lambda tree, s: ST._map_layers(lambda a: a[s], tree)
+    two_bw = pcfg.grad_sync == "2bw"
 
     def loss_and_grads(params: dict, batch: dict):
         call = _call_inputs(cfg, M_, params, batch, first=True, last=True)
@@ -851,33 +1064,31 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
         return last.ce / M_, grads
 
     if group is None:
-        if optimizer is None:
-            step = loss_and_grads
-        else:
-            def step(params: dict, opt_state: dict, batch: dict):
-                loss, grads = loss_and_grads(params, batch)
-                params, opt_state = optimizer.update(params, grads, opt_state)
-                return params, opt_state, dict(loss=loss)
+        step = (loss_and_grads if optimizer is None
+                else _with_update(loss_and_grads, optimizer, two_bw))
         step.lowering, step.instructions = lo, instr
         step.stash_slots = step.live_registers = None
         return step
 
-    # ---- the rank executor: this process runs stage `rank` --------------
-    tp = C.Transport(group)
+    # ---- the rank executor: this process runs stage `rank` of replica
+    # d_rank ---------------------------------------------------------------
+    tp = C.Transport(group, data_group)
     rank = tp.rank
     if tp.size != S:
         raise ValueError(f"a {S}-stage plan needs a group of {S} ranks, "
                          f"got {tp.size}")
     first, last, tied = rank == 0, rank == S - 1, cfg.tie_embeddings
     # the tied embedding's gradient: one all-reduce between the first and
-    # the last rank (every rank of the default group makes the group)
-    tie_group = None
-    if tied and S > 2:
+    # the last rank of the replica (a mesh brings its group; for a bare
+    # group every rank of the default group makes it here)
+    if not tied or S == 1:
+        tie_group = None
+    elif S == 2:
+        tie_group = group
+    elif tie_group is _MAKE_TIE:
         tie_group = dist.new_group([dist.get_global_rank(group, 0),
                                     dist.get_global_rank(group, S - 1)],
                                    timeout=C.GROUP_TIMEOUT)
-    elif tied and S == 2:
-        tie_group = group
     hops = C.ring_hops(lo)
     msgs = [([(ring, dst) for ring, src, dst in h if src == rank],
              [(ring, src) for ring, src, dst in h if dst == rank])
@@ -888,12 +1099,19 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
             raise ValueError(f"{cfg.arch_id}: tie_embeddings={tied} but the "
                              f"last rank's parameters "
                              f"{'have' if tied else 'lack'} a head")
+        if D > 1:           # this replica's rows of the batch
+            B = batch["tokens"].shape[0]
+            if B % D:
+                raise ValueError(f"batch {B} does not split over data {D}")
+            mine = slice(d_rank * (B // D), (d_rank + 1) * (B // D))
+            batch = {k: batch[k][mine] for k in ("tokens", "labels")}
         call = _call_inputs(cfg, M_, params, batch, first=first, last=last)
         dlp = ST._map_layers(torch.empty_like, params["layers"])
         run = _StageRun(tb, rank, params["layers"], dlp, call)
         mb, T = call.labels_mb.shape[1:]
         like = torch.empty((mb, T, cfg.d_model), device=call.dev,
                            dtype=params["layers"]["ln1"].dtype)
+        posted = []         # the gradient buckets in flight, post order
         if instr is None:
             f_arr = b_arr = None
             for t in range(lo.n_ticks):
@@ -906,7 +1124,13 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
                          for ring, dst in sends], recvs, like)
                     f_arr, b_arr = got.get(C.FWD), got.get(C.BWD)
         else:
-            _walk_stream(tp, run, instr.streams[rank], like)
+            # overlap: each ARSYNC slot posts its chunk's layer group
+            on_ar = (lambda i: posted.append(tp.reduce_bucket(
+                _bucket(dlp, i.v, i.m, n_groups, V)))) if overlap else None
+            _walk_stream(tp, run, instr.streams[rank], like, on_ar)
+        if D > 1 and not overlap:       # end (and 2bw): after the walk
+            posted += [tp.reduce_bucket(_bucket(dlp, v, 0, 1, V))
+                       for v in range(V)]
         grads = dict(layers=dlp)
         if first:
             grads["embed"] = run.embed_grad()
@@ -916,12 +1140,25 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
                 grads["head"] = run.dhd
             elif first:
                 grads["embed"] = grads["embed"] + run.dhd
-        if tied and S > 1 and (first or last):
+        # this rank's leaves outside the layers; a tied embedding's share
+        # on the last rank is its head gradient
+        rest = {k: g for k, g in grads.items() if k != "layers"}
+        if tied and last and not first:
+            rest["embed"] = run.dhd
+        if D > 1:           # every leaf sums over data, the rest last
+            leaves = [rest[k] for k in sorted(rest)
+                      if "data" in ST.grad_sync_axes(k)]
+            if leaves:
+                posted.append(tp.reduce_bucket(leaves))
+            for r in posted:
+                r.wait()
+        if tie_group is not None and (first or last):
             # d_embed + dhd on both ranks (two operands: the sum commutes)
-            grads["embed"] = tp.all_reduce_sum(
-                grads["embed"] if first else run.dhd, tie_group)
-        ce = (run.ce / M_ if last
+            grads["embed"] = tp.all_reduce_sum(rest["embed"], tie_group)
+        ce = (run.ce / (M_ * D) if last
               else torch.zeros((), dtype=torch.float32, device=call.dev))
+        if D > 1 and last:      # the replicas' terms of the batch mean
+            ce = tp.all_reduce_sum(ce, data_group, kind="scalars")
         step.stash_slots = len(run.written)
         step.live_registers = run.peak_live
         return tp.broadcast(ce, S - 1), grads
@@ -931,14 +1168,12 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
             tp.reset()
             return rank_loss_and_grads(params, batch)
     else:
+        inner = _with_update(rank_loss_and_grads, optimizer, two_bw,
+                             lambda g: _rank_norm(tp, g, S, rank, not tied))
+
         def step(params: dict, opt_state: dict, batch: dict):
             tp.reset()
-            loss, grads = rank_loss_and_grads(params, batch)
-            norm = (_rank_norm(tp, grads, S, rank, not tied)
-                    if getattr(optimizer, "clip_norm", None) else None)
-            params, opt_state = optimizer.update(params, grads, opt_state,
-                                                 norm=norm)
-            return params, opt_state, dict(loss=loss)
+            return inner(params, opt_state, batch)
     step.lowering, step.instructions = lo, instr
     step.stash_slots = step.live_registers = None
     step.transport = tp

@@ -290,6 +290,20 @@ def stage_share(tree: dict, plan: StagePlan, stage: int) -> dict:
     return out
 
 
+def grad_sync_axes(key: str) -> tuple:
+    """The grid axes a gradient leaf under top-level ``key`` is summed
+    over (the JAX package's ``grad_sync_axes``: the axes the leaf is
+    replicated on, at tensor 1 without fsdp).  A ``layers`` leaf is held
+    by one stage of every replica: it sums over ``data``.  ``embed``,
+    ``head`` and ``final_norm`` sum over ``data`` and ``stage``; over the
+    stage axis the sum runs over the stages that hold the leaf, which is
+    two only for a tied embedding (the first stage's and the last's).
+    The data sum comes first, as in the JAX runtime; once it is done the
+    replicas hold the same gradients, so the clip norm's terms are
+    gathered over one replica's stages only."""
+    return ("data",) if key == "layers" else ("data", "stage")
+
+
 def stacked_meta(cfg: ArchConfig, plan: StagePlan) -> list:
     """Per-slot layer metadata: ``meta[s][j]`` (V == 1) or
     ``meta[s][v][j]`` (V > 1) is the dict of layer scalars

@@ -227,15 +227,23 @@ def test_homogeneous_auto_plan_with_tensor_parallel_is_printed_then_refused(
 def test_auto_plan3d_trains_its_plan_or_refuses_it(pool, request, capsys):
     """The pool's plan, read from the JAX planner: a one-card plan trains
     with the losses of the same flags given explicitly; a plan with
-    tensor or data above 1 is printed, then refused before anything is
-    allocated (at the port's H100, pools 2 and 4 buy data parallelism,
-    pools 1 and 3 a pipeline)."""
+    tensor above 1 is printed, then refused by the item's name, and one
+    with data above 1 printed, then refused in one process with the
+    ranks it needs (it trains as ranks: tests/test_torch_data.py), both
+    before anything is allocated (at the port's H100, pools 2 and 4 buy
+    data parallelism, pools 1 and 3 a pipeline)."""
     want = JA.auto_plan3d(_jax_cfg(), global_batch=8, seq_len=32,
                           n_devices=pool, device=_JH100)
     argv = _RED + ["--auto-plan3d", "--pool", str(pool)]
     if want.tensor > 1 or want.data_axis > 1:
         request.getfixturevalue("no_allocation")
-        with pytest.raises(NotImplementedError, match=_NCCL):
+        if want.tensor > 1:
+            err, match = NotImplementedError, _NCCL
+        else:
+            err, match = ValueError, (f"data {want.data_axis} x "
+                                      f"{want.stages} stages: the data axis "
+                                      f"runs only as ranks")
+        with pytest.raises(err, match=match):
             ttrain.main(argv)
         assert (f"auto-plan3d: stages={want.stages} data={want.data_axis} "
                 f"tensor={want.tensor}" in capsys.readouterr().out)

@@ -409,10 +409,11 @@ def test_nccl_with_more_ranks_than_cards_raises():
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--data", "2"], "tensor and data parallel over NCCL")])
+    (["--tensor", "2"], "tensor and data parallel over NCCL")])
 def test_rank_cli_still_refuses_by_item(monkeypatch, flag, item):
     """Under torchrun's environment the refused flags raise by their
-    ROADMAP item before any group is set up."""
+    ROADMAP item before any group is set up (``--data``, once refused
+    here, runs: tests/test_torch_data.py)."""
     for k, v in (("WORLD_SIZE", "2"), ("RANK", "0"), ("LOCAL_RANK", "0")):
         monkeypatch.setenv(k, v)
     with pytest.raises(NotImplementedError, match=item):

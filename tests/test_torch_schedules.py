@@ -31,7 +31,6 @@ from repro_torch.core import schedplan as SP
 from repro_torch.core import simulator as SIM
 from repro_torch.pipeline import stage as ST
 
-_NCCL = "tensor and data parallel over NCCL"
 
 # the JAX package's random grid (tests/test_schedplan.py): M a multiple of
 # N, so every builder (memlean's M % N == 0 included) takes every point
@@ -233,12 +232,27 @@ def test_simulate_prebuilt_zb_auto_plans_match_jax():
 
 
 def test_unported_grad_sync_raises_by_name():
-    with pytest.raises(NotImplementedError, match=_NCCL):
-        SP.build_schedule("1f1b", 4, 2, grad_sync=True)
-    with pytest.raises(NotImplementedError, match=_NCCL):
-        SIM.simulate("1f1b", 4, 2, 1.0, 2.0, grad_sync=True)
-    with pytest.raises(NotImplementedError, match=_NCCL):
-        SIM.simulate("1f1b", 4, 2, 1.0, 2.0, ar=0.5)
+    """The gradient-sync AR ops, once refused by the "tensor and data
+    parallel over NCCL" item, are ported: the plan and its replay are the
+    JAX package's (every builder: tests/test_torch_data.py), and what the
+    reference rejects, the port rejects."""
+    plan = SP.build_schedule("1f1b", 4, 2, grad_sync=True)
+    assert plan.has_grad_sync and plan.grad_sync_groups == 1
+    assert [[(o.kind, o.m, o.v) for o in ops] for ops in plan.device_ops] \
+        == [[(o.kind, o.m, o.v) for o in ops] for ops in JSP.build_schedule(
+            "1f1b", 4, 2, grad_sync=True).device_ops]
+    for kw in (dict(grad_sync=True), dict(ar=0.5, grad_sync=2)):
+        assert dataclasses.asdict(SIM.simulate("1f1b", 4, 2, 1.0, 2.0,
+                                               **kw)) == \
+            dataclasses.asdict(JSIM.simulate("1f1b", 4, 2, 1.0, 2.0, **kw))
+    for mod, sim in ((SP, SIM), (JSP, JSIM)):
+        with pytest.raises(ValueError, match="groups must be >= 1"):
+            mod.add_grad_sync(mod.build_schedule("1f1b", 4, 2), 0)
+        with pytest.raises(ValueError, match="ar must be >= 0"):
+            sim.simulate("1f1b", 4, 2, 1.0, 2.0, ar=-1.0, grad_sync=True)
+        with pytest.raises(ValueError, match="already carries"):
+            mod.add_grad_sync(plan if mod is SP else mod.build_schedule(
+                "1f1b", 4, 2, grad_sync=True), 2)
     # what the reference rejects, the port rejects
     for mod in (SP, JSP):
         with pytest.raises(ValueError, match="mem_limit"):

@@ -272,8 +272,10 @@ def test_serve_refusals_name_the_item():
     plan = ST.plan_stages(cfg)
     plan2 = dataclasses.replace(plan, tensor=2)
     pcfg = RT.PipelineConfig()
-    for call in (lambda: RT.make_serve_step(cfg, plan, pcfg, data=2),
-                 lambda: RT.make_serve_step(cfg, plan2, pcfg),
+    # the data axis is ported, as ranks only: in process it names them
+    with pytest.raises(ValueError, match="runs only as ranks"):
+        RT.make_serve_step(cfg, plan, pcfg, data=2)
+    for call in (lambda: RT.make_serve_step(cfg, plan2, pcfg),
                  lambda: RT.init_pipeline_cache(cfg, plan2, 2, 4,
                                                 device="cpu"),
                  lambda: RT.init_stage_cache(cfg, plan2, 0, 2, 4,
@@ -287,7 +289,7 @@ _CLI = ["--arch", "llama3.2-1b", "--reduced", "--batch", "4",
 
 
 @pytest.mark.parametrize("flags,err,match", [
-    (["--stages", "2", "--data", "2", "--device", "cpu"],
+    (["--stages", "2", "--tensor", "2", "--device", "cpu"],
      NotImplementedError, ITEM),
     (["--stages", "3", "--device", "cpu"], ValueError,
      "must equal the world size"),
@@ -297,10 +299,10 @@ _CLI = ["--arch", "llama3.2-1b", "--reduced", "--batch", "4",
     (["--stages", "2", "--device", "cuda"], ValueError,
      "cannot put two ranks on one device")])
 def test_rank_cli_refuses_before_any_group(monkeypatch, flags, err, match):
-    """Under torchrun's environment (2 ranks) the serve CLI refuses the
-    data axis by its ROADMAP item, a stage count that is not the world
+    """Under torchrun's environment (2 ranks) the serve CLI refuses
+    tensor parallelism by its ROADMAP item, a grid that is not the world
     size, and nccl with more ranks than cards, before any group is set
-    up."""
+    up (``--data`` runs: tests/test_torch_data.py)."""
     if torch.cuda.device_count() >= 2 and "cuda" in flags:
         pytest.skip("two cards: nccl could run both ranks")
     for k, v in (("WORLD_SIZE", "2"), ("RANK", "0"), ("LOCAL_RANK", "0")):

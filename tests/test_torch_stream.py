@@ -179,17 +179,25 @@ def test_unknown_runtime_raises():
     plan = ST.plan_stages(cfg)
     with pytest.raises(ValueError, match="expected ticks | stream"):
         RT.make_train_step(cfg, plan, RT.PipelineConfig(runtime="lockstep"))
-    for kw in (dict(grad_sync="overlap"), dict(grad_sync="2bw"),
-               dict(ar_groups=2)):
-        with pytest.raises(NotImplementedError,
-                           match="tensor and data parallel over NCCL"):
-            RT.make_train_step(cfg, plan,
-                               RT.PipelineConfig(runtime="stream", **kw))
+    # the scheduled gradient sync, once refused here, is ported: at data 1
+    # overlap schedules no AR op (the stream of 'end'), 2bw needs an
+    # optimizer, and ar_groups splits only overlapped buckets
+    for kw in (dict(grad_sync="overlap"), dict(ar_groups=2)):
+        step = RT.make_train_step(cfg, plan,
+                                  RT.PipelineConfig(runtime="stream", **kw))
+        assert not any(step.instructions.arsync)
+    with pytest.raises(ValueError, match="needs an optimizer"):
+        RT.make_train_step(cfg, plan, RT.PipelineConfig(runtime="stream",
+                                                        grad_sync="2bw"))
+    with pytest.raises(ValueError, match="requires runtime='stream'"):
+        RT.make_train_step(cfg, plan, RT.PipelineConfig(grad_sync="overlap"))
 
 
 def test_cli_runs_stream_in_one_process():
     """``--runtime stream`` in one process: the tick run's losses bit for
-    bit; the scheduled gradient sync stays refused by its item."""
+    bit; at data 1 ``--grad-sync overlap`` and ``--ar-groups 2`` are that
+    run, and ``--grad-sync 2bw`` (step 0 applies its own gradients) its
+    first two losses."""
     from repro_torch.launch import train as ttrain
     argv = ["--arch", "llama3.2-1b", "--reduced", "--layers", "4",
             "--d-model", "64", "--stages", "2", "--microbatches", "2",
@@ -201,8 +209,7 @@ def test_cli_runs_stream_in_one_process():
     assert stream["stash_slots"] == ticks["stash_slots"] == [2, 1]
     for flag in (["--grad-sync", "overlap"], ["--grad-sync", "2bw"],
                  ["--ar-groups", "2"]):
-        with pytest.raises(NotImplementedError,
-                           match="tensor and data parallel over NCCL"):
-            ttrain.main(argv + ["--runtime", "stream"] + flag)
+        assert ttrain.main(argv + ["--runtime", "stream"] + flag)[
+            "losses"] == stream["losses"], flag
     with pytest.raises(SystemExit):
         ttrain.main(argv + ["--runtime", "lockstep"])

@@ -115,10 +115,11 @@ Phases, each reported on its own lines:
    width and data under ``--stages 4 --auto-plan --cluster
    h100,h100,h100,h100`` and ``--stages 4 --auto-plan3d --pool 4``: each
    plan first computed by the port's planner on the same inputs, a plan
-   that needs tensor parallelism (the homogeneous ``--auto-plan``)
-   printed and refused by its item, one that needs data parallelism
-   (pool 4: data 4) printed and refused in this one process with the
-   ranks it needs, both before anything is allocated, and, where
+   that needs tensor parallelism (the homogeneous ``--auto-plan``:
+   stages 1 x tensor 4, trained as ranks in phase 35) or data
+   parallelism (pool 4: data 4, phase 32 runs the data axis) printed and
+   refused in this one process with the ranks it needs, before anything
+   is allocated, and, where
    pool 4's plan is refused, the largest smaller pool whose plan runs on
    one card trained instead; each trained plan gets phase 10's checks
    (launches exactly :func:`train_launches` of its table, stash
@@ -256,16 +257,46 @@ Phases, each reported on its own lines:
    over ranks the in-process run's; it prints prefill and decode tok/s
    (the slowest rank's), the transport by kind and each rank's peak.
    No time of phases 32-33 is a data-parallel one: the ranks
-   time-slice one card and every gradient byte crosses host memory.
+   time-slice one card and every gradient byte crosses host memory;
+34. the tensor axis (Megatron tensor parallelism, one spawn of 4 gloo
+   ranks on the card for phases 34-36): llama3.2-1b at full width and 3
+   layers as stages 2 x tensor 2 (1f1b and zb-h1, ticks and stream) and
+   gemma3-1b at 2 layers (one local, one global; its one kv head
+   replicated over the shards and sliced) as stages 1 x tensor 4,
+   against the in-process tensor-1 executor on the same weights and
+   batch: the loss within 1e-5 relative, every gradient leaf (its shards
+   gathered back) within 1e-4, the flash launches summed over ranks T
+   times the in-process run's; the kernel rows of phases 3 and 9 hold
+   the flash kernel at each shard's heads (llama 16/4, qwen3 4/2 at
+   D 128, gemma3 1/1 at D 256, window 512 and global) against its plain
+   version;
+35. ``repro_torch.launch.train.main`` as stages 2 x tensor 2 (llama3.2-1b
+   at full width and depth, 1f1b, M 4, batch 8, seq 1024, f32, 2 steps):
+   step 0's loss within 1e-5 of phase 10's, the launches summed over
+   ranks twice phase 28's a step; it prints each rank's ``tensor``
+   messages, bytes and ms a step, the slowest rank's step and each
+   rank's peak; then phase 14's homogeneous ``--auto-plan`` at
+   ``--stages 4`` trains its stages 1 x tensor 4 plan one step (under
+   ``--remat full``), its loss within 1e-5 of phase 10's step 0;
+36. serving at stages 2 x tensor 2 (llama3.2-1b at full width, batch 8,
+   prompt 512, 32 tokens) and, at 2 layers, gemma3-1b at stages 1 x
+   tensor 4 (one kv slot a shard), teacher-forced on the in-process
+   tensor-1 serve's tokens: every step's logits within 2e-4 of its, the
+   greedy tokens that agree, prefill and decode tok/s of the slowest
+   rank, each rank's peak and kv heads; then a ``ContinuousEngine`` run
+   at stages 2 x tensor 2 (2 layers) retiring the in-process engine's
+   tokens.  No time of phases 34-36 is a tensor-parallel one: the ranks
+   time-slice one card and every collective crosses host memory.
 
 Every kernel's launch counters (``launches`` and, for flash attention,
 ``launches_prefill`` / ``launches_decode`` / ``launches_bwd``; for the
 SSD scan ``launches_bwd``) are set to 0 just before each driven path
 (phases 4, 7, 10, 12, 13, 15, 17, 18 and 21, and each run of phases 11,
 14, 19, 22, 23, 24 and 25; in phases 27-33 in each rank's process,
-the rank executor's and the in-process runs apart) and read just after
-it.  Every process runs with TF32 off and one cuBLAS workspace setting
-(``card_flags``).  The whole script takes about 12 minutes on one H100.
+the rank executor's and the in-process runs apart; in phases 34-36 in
+each rank's process for each run) and read just after it.  Every process
+runs with TF32 off and one cuBLAS workspace setting (``card_flags``).
+Each phase prints the second it starts at (``mark``).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -311,6 +342,17 @@ def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     print(f"chip_smoke.py FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+#: the script's start, for :func:`mark`
+T_START = time.perf_counter()
+
+
+def mark(phase: str) -> None:
+    """Print the seconds since the script started as phase ``phase``
+    starts (the phases' costs against the run's time limit)."""
+    print(f"phase {phase} starts at {time.perf_counter() - T_START:.1f} s",
+          flush=True)
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -698,8 +740,35 @@ def phase_kernels(FA, results: list) -> list:
             ("long prefill global", 1, 4096, 4096, 4, 1, 256, ([0], [4096]),
              0),
             ("long prefill local", 1, 4096, 4096, 4, 1, 256, ([0], [4096]),
-             512)):
+             512),
+            # one tensor shard's heads (phases 34-36, f32): llama3.2-1b at
+            # tensor 2 (16/8 -> 16/4 heads a shard), qwen3-1.7b at tensor
+            # 4 (4/2, D 128), gemma3-1b at tensor 4 (its one kv head
+            # replicated and sliced: 1/1, G = 1, D 256), each trained
+            # (with the statistics), its prompt prefilled and decoded
+            ("llama tensor 2 train with statistics", 2, 1024, 1024, 16, 4,
+             64, tr, 0),
+            ("llama tensor 2 serve prefill", 4, 512, 544, 16, 4, 64, qp, 0),
+            ("llama tensor 2 decode per-row", 4, 1, 544, 16, 4, 64, qd, 0),
+            ("qwen3 tensor 4 train with statistics", 2, 1024, 1024, 4, 2,
+             128, tr, 0),
+            ("qwen3 tensor 4 serve prefill", 4, 512, 544, 4, 2, 128, qp, 0),
+            ("qwen3 tensor 4 decode per-row", 4, 1, 544, 4, 2, 128, qd, 0),
+            ("gemma3 tensor 4 train global with statistics", 2, 1024, 1024,
+             1, 1, 256, tr, 0),
+            ("gemma3 tensor 4 train local with statistics", 2, 1024, 1024,
+             1, 1, 256, tr, 512),
+            ("gemma3 tensor 4 serve prefill local", 4, 1024, 1056, 1, 1, 256,
+             gp, 512),
+            ("gemma3 tensor 4 serve prefill global", 4, 1024, 1056, 1, 1,
+             256, gp, 0),
+            ("gemma3 tensor 4 decode local per-row", 4, 1, 1056, 1, 1, 256,
+             dq_, 512),
+            ("gemma3 tensor 4 decode global per-row", 4, 1, 1056, 1, 1, 256,
+             dq_, 0)):
         for dtype in (torch.float32, torch.bfloat16):
+            if "tensor" in label and dtype != torch.float32:
+                continue
             q = rnd(B, T, Hq, D, dt=dtype)
             k, v = rnd(B, S, Hkv, D, dt=dtype), rnd(B, S, Hkv, D, dt=dtype)
             qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
@@ -766,11 +835,24 @@ def phase_backward(FA, results: list) -> list:
               # 64-row tiles, G = 2 query heads a kv head's block walks
               ("D=128 edges T=S=1000 window=96 per-row with idle rows", 4,
                1000, 1000, 4, 2, 128, True, [0, 37, 0, -50],
-               [1000, 801, 0, 1000], 96)]
+               [1000, 801, 0, 1000], 96),
+              # one tensor shard's heads (phases 34-35, f32): llama3.2-1b
+              # at tensor 2, qwen3-1.7b at tensor 4, gemma3-1b at tensor 4
+              # (G = 1: one f32 part a kv head at D = 256)
+              ("llama tensor 2 train T=S=1024", 2, 1024, 1024, 16, 4, 64,
+               True, [0, 0], [1024, 1024], 0),
+              ("qwen3 tensor 4 train T=S=1024", 2, 1024, 1024, 4, 2, 128,
+               True, [0, 0], [1024, 1024], 0),
+              ("gemma3 tensor 4 train global T=S=1024", 2, 1024, 1024, 1, 1,
+               256, True, [0, 0], [1024, 1024], 0),
+              ("gemma3 tensor 4 train local T=S=1024 window=512", 2, 1024,
+               1024, 1, 1, 256, True, [0, 0], [1024, 1024], 512)]
     bad = []
     for label, B, T, S, Hq, Hkv, D, causal, q_start, kv_len, *w in cases:
         window = w[0] if w else 0
         for dtype in (torch.float32, torch.bfloat16):
+            if "tensor" in label and dtype != torch.float32:
+                continue
             q, do = rnd(B, T, Hq, D, dt=dtype), rnd(B, T, Hq, D, dt=dtype)
             k, v = rnd(B, S, Hkv, D, dt=dtype), rnd(B, S, Hkv, D, dt=dtype)
             qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
@@ -1476,15 +1558,13 @@ def phase_train_parity(FA, counters: dict, mods, arch: str = "llama3.2-1b",
 
 
 def _refused(train, argv: list, tag: str, plan) -> None:
-    """``train.main(argv)`` must print its plan and refuse it before
-    allocating anything: a plan with tensor above 1 by the
-    tensor-and-data-parallel item, one with data above 1 (tensor 1) in
-    this one process with the ranks it needs (it trains as ranks:
-    phase 32 runs the data axis)."""
+    """``train.main(argv)`` must print its plan and, in this one process,
+    refuse it before allocating anything, naming the ranks it needs: a
+    plan with tensor above 1 (it trains as ranks: phase 35) or with data
+    above 1 (phase 32 runs the data axis)."""
     tensor = plan.tensor > 1
-    err, why = ((NotImplementedError, "tensor and data parallel over NCCL")
-                if tensor else (ValueError, "the data axis runs only as "
-                                            "ranks"))
+    err, why = ValueError, ("tensor parallelism runs only as ranks" if tensor
+                            else "the data axis runs only as ranks")
     before = torch.cuda.memory_allocated()
     try:
         train.main(argv)
@@ -2768,6 +2848,448 @@ def phase_data_serve(mesh_mod, serve, counters: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 34-36: the tensor axis (Megatron tensor parallelism on gloo ranks
+# sharing the one card; one spawn of 4 ranks for the three phases).
+# ---------------------------------------------------------------------------
+
+#: phase 34's runs: (label, arch, grid, layers, schedule, runtime, batch,
+#: seq, M, config changes); full width; the grid "S2T2" is stages 2 x
+#: tensor 2, "S1T4" stages 1 x tensor 4 (gemma3's one kv head replicated
+#: over the shards and sliced; one local layer, window 512, and one
+#: global)
+TENSOR_PARITY_RUNS = (
+    ("llama3.2-1b S2T2 1f1b ticks", "llama3.2-1b", "S2T2", 3, "1f1b",
+     "ticks", 4, 512, 2, {}),
+    ("llama3.2-1b S2T2 1f1b stream", "llama3.2-1b", "S2T2", 3, "1f1b",
+     "stream", 4, 512, 2, {}),
+    ("llama3.2-1b S2T2 zb-h1 ticks", "llama3.2-1b", "S2T2", 3, "zb-h1",
+     "ticks", 4, 512, 2, {}),
+    ("llama3.2-1b S2T2 zb-h1 stream", "llama3.2-1b", "S2T2", 3, "zb-h1",
+     "stream", 4, 512, 2, {}),
+    ("gemma3-1b S1T4 1f1b ticks", "gemma3-1b", "S1T4", 2, "1f1b", "ticks",
+     4, 1024, 2, dict(global_every=2)),
+)
+#: the grids of the 4 ranks: (data, stages, tensor)
+TENSOR_GRIDS = {"S2T2": (1, 2, 2), "S1T4": (1, 1, 4)}
+#: phase 35's run: llama3.2-1b at full width and depth on stages 2 x
+#: tensor 2 (its config's tensor degree), phase 10's schedule, M, batch,
+#: seq and weights, 2 steps
+TENSOR_TRAIN = ["--arch", "llama3.2-1b", "--stages", "2", "--schedule",
+                "1f1b", "--microbatches", "4", "--batch", "8", "--seq",
+                "1024", "--steps", "2", "--log-every", "1", "--device",
+                "cuda", "--dist-backend", "gloo"]
+#: phase 35's planner run: phase 14's homogeneous --auto-plan at --stages
+#: 4 (its plan: stages 1 x tensor 4, M 1, one micro-batch of 8 rows), one
+#: step, each layer recomputed in the backward (--remat full: the one
+#: micro-batch's 16 layers of activations would not fit four ranks)
+TENSOR_AUTO_PLAN = ["--arch", "llama3.2-1b", "--tensor", "1", "--stages",
+                    "4", "--batch", "8", "--seq", "1024", "--steps", "1",
+                    "--device", "cuda", "--dist-backend", "gloo",
+                    "--auto-plan", "--remat", "full"]
+#: phase 36's runs: (label, arch, grid, layers, batch, prompt, tokens, M,
+#: config changes); llama3.2-1b at full width and depth, gemma3-1b at 2
+#: layers (one local, one global) with a prompt past its window
+TENSOR_SERVE_RUNS = (
+    ("llama3.2-1b S2T2", "llama3.2-1b", "S2T2", 16, 8, 512, 32, 2, {}),
+    ("gemma3-1b S1T4 2 layers", "gemma3-1b", "S1T4", 2, 4, 640, 8, 1,
+     dict(global_every=2)),
+)
+#: phase 36's engine: llama3.2-1b at full width, 2 layers, stages 2 x
+#: tensor 2, M 1, 4 slots, chunk 32, 6 requests
+TENSOR_ENGINE = dict(layers=2, n_slots=4, chunk=32, max_len=128 + 8 + 32,
+                     n_req=6)
+
+
+def _tensor_cfg(get_config, arch: str, grid: str, layers: int, over: dict):
+    _, S, T = TENSOR_GRIDS[grid]
+    return dataclasses.replace(get_config(arch), n_layers=layers, stages=S,
+                               tensor=T, virtual=1, **over)
+
+
+def serve_forced(RT, ST, cfg, plan, M_: int, params: dict, cache: dict,
+                 prompt, gen: int, forced=None, mesh=None) -> dict:
+    """Prefill ``prompt``, then ``gen - 1`` decode steps, each fed
+    ``forced[:, k]`` (teacher forcing) or, without ``forced``, the greedy
+    token; every step's f32 logits over the vocab (on the host), the
+    greedy tokens, and the prefill's and decode's seconds (each phase
+    starting with the card idle and, on ranks, every rank at a
+    barrier)."""
+    import torch.distributed as dist
+    steps = [RT.make_serve_step(cfg, plan, RT.PipelineConfig(
+        n_microbatches=M_), q_len=q, group=mesh)
+        for q in (prompt.shape[1], 1)]
+
+    def start():
+        torch.cuda.synchronize()
+        if mesh is not None:
+            dist.barrier()
+        return time.perf_counter()
+
+    logits, toks, secs, tok = [], [], [], prompt
+    for phase in (0, 1):
+        t0 = start()
+        for k in range(1 if phase == 0 else gen - 1):
+            lg, cache = steps[phase](params, cache, dict(tokens=tok))
+            lg = lg[:, 0, :cfg.vocab]
+            logits.append(lg.cpu())
+            toks.append(torch.argmax(lg, dim=-1))
+            nxt = len(toks) - 1
+            tok = (toks[-1] if forced is None else forced[:, nxt])[:, None]
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return dict(logits=logits, tokens=torch.stack(toks, 1).cpu(),
+                prefill_s=secs[0], decode_s=secs[1],
+                transport=None if mesh is None else {
+                    k: list(v) for k, v in steps[1].transport.stats.items()})
+
+
+def tensor_parity(mesh, run) -> dict:
+    """One phase-34 run on this rank: the rank executor's loss and
+    gradient share, then the in-process tensor-1 executor's on the same
+    weights (the seed) and batch in this process; per gradient leaf the
+    largest difference of this rank's share from the in-process
+    gradient's slice and that slice's largest value, both runs' launch
+    counts (set to 0 just before each, read just after)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.pipeline import runtime as RT
+    from repro_torch.pipeline import stage as ST
+    counters = dict(flash_attention=FA.flash_attend, ssd_scan=SSD.ssd_chunked)
+    label, arch, grid, L, schedule, runtime, B, seq, M_, over = run
+    cfg = _tensor_cfg(get_config, arch, grid, L, over)
+    plan = ST.plan_stages(cfg)
+    batch = SyntheticLM(cfg.vocab, seq, B, seed=0,
+                        device=str(mesh.device)).batch(0)
+    step = RT.make_train_step(cfg, plan, RT.PipelineConfig(
+        n_microbatches=M_, schedule=schedule, runtime=runtime), group=mesh)
+    params = ST.init_stage_params(cfg, 0, plan, mesh.stage,
+                                  tensor_rank=mesh.tensor_rank,
+                                  device=mesh.device)
+    (loss, grads), launches = counted(counters, lambda: step(params, batch))
+    torch.cuda.synchronize()
+    tensor_stats = list(step.transport.stats["tensor"])
+    del params, step
+    cfg1 = dataclasses.replace(cfg, tensor=1)
+    plan1 = ST.plan_stages(cfg1)
+    ref_step = RT.make_train_step(cfg1, plan1, RT.PipelineConfig(
+        n_microbatches=M_, schedule=schedule))
+    full = ST.init_stacked_params(cfg1, 0, plan1, device=mesh.device)
+    (ref_loss, ref_grads), ref_launches = counted(
+        counters, lambda: ref_step(full, batch))
+    del full
+    want = ST.tensor_share(ST.stage_share(ref_grads, plan1, mesh.stage), cfg,
+                           plan, mesh.tensor_rank)
+    leaves = [dict(leaf="/".join(p),
+                   diff=(ST._leaf_at(grads, p).float()
+                         - ST._leaf_at(want, p).float()).abs().max().item(),
+                   ref=ST._leaf_at(want, p).float().abs().max().item())
+              for p in ST.leaf_paths(want)]
+    out = dict(label=label, rank=mesh.rank, stage=mesh.stage,
+               tensor_rank=mesh.tensor_rank, loss=loss.item(),
+               ref_loss=ref_loss.item(), launches=launches,
+               ref_launches=ref_launches, leaves=leaves,
+               keys=sorted(ST.leaf_paths(grads)) == sorted(
+                   ST.leaf_paths(want)), tensor=tensor_stats)
+    del grads, ref_grads, want, batch, ref_step
+    torch.cuda.empty_cache()
+    return out
+
+
+def tensor_serve(mesh, run, prompt, forced) -> dict:
+    """One phase-36 run on this rank: the rank serve step teacher-forced
+    on the in-process tensor-1 run's tokens (``forced``), every kernel's
+    launch counters set to 0 just before and read just after; rank 0
+    keeps every step's logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.pipeline import runtime as RT
+    from repro_torch.pipeline import stage as ST
+    label, arch, grid, L, B, P, G, M_, over = run
+    cfg = _tensor_cfg(get_config, arch, grid, L, over)
+    plan = ST.plan_stages(cfg)
+    params = ST.init_stage_params(cfg, 0, plan, mesh.stage,
+                                  tensor_rank=mesh.tensor_rank,
+                                  device=mesh.device)
+    cache = RT.init_stage_cache(cfg, plan, mesh.stage, B, P + G,
+                                device=mesh.device)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    out, launches = counted(
+        dict(flash_attention=FA.flash_attend, ssd_scan=SSD.ssd_chunked),
+        lambda: serve_forced(RT, ST, cfg, plan, M_, params, cache,
+                             prompt.to(mesh.device), G,
+                             forced.to(mesh.device), mesh))
+    out.update(launches=launches, peak_gib=torch.cuda.max_memory_allocated(
+        mesh.device) / 2**30, k_heads=cache["kv"]["k"].shape[-2])
+    if mesh.rank != 0:
+        out["logits"] = None
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def tensor_engine(mesh, reqs) -> dict:
+    """Phase 36's engine on this rank: :data:`TENSOR_ENGINE` over the
+    stages 2 x tensor 2 serve step; the retired requests' tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import serve_sched as SS
+    from repro_torch.pipeline import runtime as RT
+    from repro_torch.pipeline import stage as ST
+    e = TENSOR_ENGINE
+    cfg = _tensor_cfg(get_config, "llama3.2-1b", "S2T2", e["layers"], {})
+    plan = ST.plan_stages(cfg)
+    step = RT.make_serve_step(cfg, plan, RT.PipelineConfig(n_microbatches=1),
+                              q_len=e["chunk"], group=mesh)
+    params = ST.init_stage_params(cfg, 0, plan, mesh.stage,
+                                  tensor_rank=mesh.tensor_rank,
+                                  device=mesh.device)
+    cache = RT.init_stage_cache(cfg, plan, mesh.stage, e["n_slots"],
+                                e["max_len"], device=mesh.device)
+    eng = SS.ContinuousEngine(cfg, step, params, cache, e["n_slots"],
+                              e["chunk"])
+    done = eng.run(reqs)
+    return dict(retired=sorted((r.rid, list(r.generated)) for r in done),
+                steps=eng.steps_run)
+
+
+def rank_tensor(mesh, serve_work: dict) -> dict:
+    """Phases 34-36 on one rank of the stages 2 x tensor 2 world (the
+    stages 1 x tensor 4 grid made on the same ranks): phase 34's runs,
+    phase 35's ``train.main`` runs, phase 36's serving runs (each
+    teacher-forced on ``serve_work``'s prompt and tokens) and engine."""
+    card_flags()
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import train
+    grids = {"S2T2": mesh, "S1T4": MESH.make_grid(1, mesh.backend,
+                                                  mesh.device, 4)}
+    out = dict(parity=[tensor_parity(grids[r[2]], r)
+                       for r in TENSOR_PARITY_RUNS])
+    drop = ("params", "opt_state", "plan")
+    for key, argv, grid in (("train", TENSOR_TRAIN, "S2T2"),
+                            ("auto plan", TENSOR_AUTO_PLAN, "S1T4")):
+        r = train.main(argv, mesh=grids[grid])
+        out[key] = {k: v for k, v in r.items() if k not in drop}
+        if r["plan"] is not None:
+            p = r["plan"]
+            out[key]["planned"] = dict(stages=p.stages, tensor=p.tensor,
+                                       data=p.data_axis,
+                                       microbatches=p.n_microbatches,
+                                       schedule=p.schedule)
+        del r
+        torch.cuda.empty_cache()
+    out["serve"] = {run[0]: tensor_serve(grids[run[2]], run,
+                                         *serve_work[run[0]])
+                    for run in TENSOR_SERVE_RUNS}
+    out["engine"] = tensor_engine(grids["S2T2"], serve_work["engine"])
+    return out
+
+
+def phase_tensor(mesh_mod, mods, trained: dict) -> dict:
+    """Phases 34-36: the tensor axis as 4 gloo ranks on the one card (one
+    spawn), against the in-process tensor-1 executors on the card.
+
+    34. :data:`TENSOR_PARITY_RUNS` (llama3.2-1b at 3 layers as stages 2 x
+        tensor 2, 1f1b and zb-h1, ticks and stream; gemma3-1b at 2
+        layers as stages 1 x tensor 4): the loss within 1e-5 relative,
+        every gradient leaf, its shards gathered back, within the
+        harness's 1e-4 relative; the flash launches summed over ranks T
+        times the in-process run's (each shard attends its heads).
+    35. :data:`TENSOR_TRAIN` through ``train.main``: step 0's loss within
+        1e-5 relative of phase 10's, the launches summed over ranks twice
+        phase 28's a step; then :data:`TENSOR_AUTO_PLAN`, whose plan
+        (stages 1 x tensor 4) trains one step, its loss within 1e-5 of
+        phase 10's step 0.
+    36. :data:`TENSOR_SERVE_RUNS`: the prefill logits within 2e-4 of the
+        in-process tensor-1 serve's, every decode step (fed the tensor-1
+        run's tokens) too; the greedy tokens that agree are reported;
+        the kv heads a rank holds; the flash launches summed over ranks
+        T times the in-process run's; then :data:`TENSOR_ENGINE` against
+        the in-process engine (tokens equal)."""
+    get_config, RT, ST, SS, FA, SSD = mods
+    counters = dict(flash_attention=FA.flash_attend, ssd_scan=SSD.ssd_chunked)
+    # the in-process tensor-1 references of phase 36, here before the spawn
+    work, refs = {}, {}
+    for run in TENSOR_SERVE_RUNS:
+        label, arch, grid, L, B, P, G, M_, over = run
+        cfg = dataclasses.replace(_tensor_cfg(get_config, arch, grid, L,
+                                              over), tensor=1)
+        plan = ST.plan_stages(cfg)
+        g = torch.Generator().manual_seed(1)
+        prompt = torch.randint(0, cfg.vocab, (B, P), generator=g)
+        params = ST.init_stacked_params(cfg, 0, plan, device="cuda")
+        cache = RT.init_pipeline_cache(cfg, plan, B, P + G, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        ref, launches = counted(counters, lambda: serve_forced(
+            RT, ST, cfg, plan, M_, params, cache, prompt.cuda(), G))
+        ref.update(launches=launches,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        refs[label] = ref
+        work[label] = (prompt, ref["tokens"])
+        del params, cache
+    e = TENSOR_ENGINE
+    reqs = lambda: engine_requests(SS, get_config("llama3.2-1b").vocab,
+                                   e["n_req"], 16, 128, max_new=8)
+    cfg = dataclasses.replace(_tensor_cfg(get_config, "llama3.2-1b", "S2T2",
+                                          e["layers"], {}), tensor=1)
+    plan = ST.plan_stages(cfg)
+    eng = SS.ContinuousEngine(
+        cfg, RT.make_serve_step(cfg, plan, RT.PipelineConfig(
+            n_microbatches=1), q_len=e["chunk"]),
+        ST.init_stacked_params(cfg, 0, plan, device="cuda"),
+        RT.init_pipeline_cache(cfg, plan, e["n_slots"], e["max_len"],
+                               device="cuda"), e["n_slots"], e["chunk"])
+    ref_engine = sorted((r.rid, list(r.generated)) for r in eng.run(reqs()))
+    work["engine"] = reqs()         # fresh requests (a run fills them)
+    del eng
+    torch.cuda.empty_cache()
+    print("tensor: spawn_ranks(rank_tensor, 4, 'gloo', tensor=2): phases "
+          "34-36 as 4 ranks on one card", flush=True)
+    t0 = time.perf_counter()
+    outs = mesh_mod.spawn_ranks(rank_tensor, 4, "gloo", work, device="cuda",
+                                tensor=2)
+    wall = time.perf_counter() - t0
+    res = dict(wall_s=wall, parity={}, serve={})
+
+    # ---- 34. training parity ------------------------------------------------
+    for i, run in enumerate(TENSOR_PARITY_RUNS):
+        label, grid, T = run[0], run[2], TENSOR_GRIDS[run[2]][2]
+        rows = [o["parity"][i] for o in outs]
+        ref_launches = rows[0]["ref_launches"]
+        summed = {k: sum(r["launches"][k] for r in rows) for k in ref_launches}
+        want = {k: T * v for k, v in ref_launches.items()}
+        worst = {}
+        for r in rows:          # each leaf's shards gathered back
+            for lf in r["leaves"]:
+                d, m = worst.get(lf["leaf"], (0.0, 0.0))
+                worst[lf["leaf"]] = (max(d, lf["diff"]), max(m, lf["ref"]))
+        rel = {k: d / (m + 1e-30) for k, (d, m) in worst.items()}
+        loss_rel = max(abs(r["loss"] - r["ref_loss"]) / abs(r["ref_loss"])
+                       for r in rows)
+        tensor_by_rank = [dict(messages=r["tensor"][0], bytes=r["tensor"][1],
+                               ms=1e3 * r["tensor"][2],
+                               copy_ms=1e3 * r["tensor"][3]) for r in rows]
+        res["parity"][label] = dict(
+            loss=rows[0]["loss"], ref_loss=rows[0]["ref_loss"],
+            loss_rel=loss_rel, worst_leaf_rel=max(rel.values()),
+            n_leaves=len(rel), launches_summed=summed,
+            ref_launches=ref_launches, tensor_by_rank=tensor_by_rank)
+        print(f"tensor parity {label}: {json.dumps(res['parity'][label])}",
+              flush=True)
+        if loss_rel > 1e-5 or not all(r["keys"] for r in rows):
+            fail(f"tensor parity {label}: losses "
+                 f"{[r['loss'] for r in rows]} against the in-process "
+                 f"tensor-1 {rows[0]['ref_loss']} (bar 1e-5 relative)")
+        if max(rel.values()) > 1e-4:
+            bad = sorted(rel.items(), key=lambda kv: -kv[1])[:6]
+            fail(f"tensor parity {label}: gradient leaves past 1e-4: {bad}")
+        if summed != want:
+            fail(f"tensor parity {label}: launches summed over ranks "
+                 f"{summed}, want {T} x the in-process run's {ref_launches}")
+
+    # ---- 35. training at full width -----------------------------------------
+    tag = "tensor train llama3.2-1b stages 2 x tensor 2 1f1b M=4"
+    o = outs[0]["train"]
+    per_step = {k: 2 * v for k, v in train_launches(16, 4, False,
+                                                    False).items()}
+    steps = o["transport"]
+    res["train"] = dict(
+        losses=o["losses"], phase10_step0=trained["losses"][0],
+        step_ms=[1e3 * s for s in o["step_s"]],
+        launches_per_step=o["launches"], peak_gib_by_rank=o["peak_gib_by_rank"],
+        # the tensor kind per rank per step: messages, bytes, ms, copies
+        tensor_by_rank_step=[[dict(messages=st["tensor"][0],
+                                   bytes=st["tensor"][1],
+                                   ms=1e3 * st["tensor"][2],
+                                   copy_ms=1e3 * st["tensor"][3])
+                              for st in tr] for tr in steps],
+        transport_ms_last_step={k: [round(1e3 * st[k][2], 1)
+                                    for st in steps[-1]]
+                                for k in steps[-1][0]
+                                if any(st[k][0] for st in steps[-1])})
+    print(f"{tag}: {json.dumps(res['train'])} (want launches "
+          f"{json.dumps(per_step)} a step)", flush=True)
+    ref0 = trained["losses"][0]
+    if abs(o["losses"][0] - ref0) > 1e-5 * abs(ref0):
+        fail(f"{tag}: step 0 loss {o['losses'][0]} not within 1e-5 of "
+             f"phase 10's {ref0}")
+    if not all(math.isfinite(x) for x in o["losses"]):
+        fail(f"{tag}: losses not finite {o['losses']}")
+    if any(d != per_step for d in o["launches"]):
+        fail(f"{tag}: launches per step {o['launches']}, want {per_step}")
+    a = outs[0]["auto plan"]
+    res["auto plan"] = dict(planned=a["planned"], losses=a["losses"],
+                            step_ms=[1e3 * s for s in a["step_s"]],
+                            launches=a["launches"],
+                            peak_gib_by_rank=a["peak_gib_by_rank"],
+                            tensor_by_rank=[dict(
+                                messages=st["tensor"][0],
+                                bytes=st["tensor"][1],
+                                ms=1e3 * st["tensor"][2])
+                                for st in a["transport"][-1]])
+    print(f"tensor train {' '.join(TENSOR_AUTO_PLAN)}: "
+          f"{json.dumps(res['auto plan'])}", flush=True)
+    if (a["planned"]["stages"], a["planned"]["tensor"]) != (1, 4):
+        fail(f"tensor train --auto-plan: plan {a['planned']}, want stages 1 "
+             f"x tensor 4")
+    if abs(a["losses"][0] - ref0) > 1e-5 * abs(ref0):
+        fail(f"tensor train --auto-plan: step 0 loss {a['losses'][0]} not "
+             f"within 1e-5 of phase 10's {ref0}")
+
+    # ---- 36. serving ----------------------------------------------------------
+    for run in TENSOR_SERVE_RUNS:
+        label, arch, grid, L, B, P, G, M_, over = run
+        T = TENSOR_GRIDS[grid][2]
+        ref, rows = refs[label], [o["serve"][label] for o in outs]
+        got = rows[0]
+        errs = [float((a - b).abs().max())
+                for a, b in zip(got["logits"], ref["logits"])]
+        agree = int((got["tokens"] == ref["tokens"]).sum())
+        summed = {k: sum(r["launches"][k] for r in rows)
+                  for k in ref["launches"]}
+        want = {k: T * v for k, v in ref["launches"].items()}
+        slow_p = max(r["prefill_s"] for r in rows)
+        slow_d = max(r["decode_s"] for r in rows)
+        res["serve"][label] = dict(
+            prefill_max_abs_err=errs[0], decode_max_abs_err=max(errs[1:]),
+            steps=len(errs), greedy_tokens_agree=agree,
+            tokens=int(ref["tokens"].numel()),
+            prefill_tok_s=B * P / slow_p, decode_tok_s=B * (G - 1) / slow_d,
+            ref_prefill_tok_s=B * P / ref["prefill_s"],
+            ref_decode_tok_s=B * (G - 1) / ref["decode_s"],
+            peak_gib_by_rank=[r["peak_gib"] for r in rows],
+            ref_peak_gib=ref["peak_gib"],
+            kv_heads_by_rank=[r["k_heads"] for r in rows],
+            launches_summed=summed, ref_launches=ref["launches"],
+            tensor_by_rank_last_decode_step=[dict(
+                messages=r["transport"]["tensor"][0],
+                bytes=r["transport"]["tensor"][1],
+                ms=1e3 * r["transport"]["tensor"][2]) for r in rows])
+        print(f"tensor serve {label}: {json.dumps(res['serve'][label])}",
+              flush=True)
+        if max(errs) > PATH_TOL or len(errs) != G:
+            fail(f"tensor serve {label}: logits differ from the in-process "
+                 f"tensor-1 serve by {max(errs)} (bar {PATH_TOL}) over "
+                 f"{len(errs)} steps")
+        if summed != want:
+            fail(f"tensor serve {label}: launches summed over ranks "
+                 f"{summed}, want {T} x the in-process run's "
+                 f"{ref['launches']}")
+    res["engine"] = dict(equal=all(o["engine"]["retired"] == ref_engine
+                                   for o in outs),
+                         steps=outs[0]["engine"]["steps"],
+                         requests=len(ref_engine))
+    print(f"tensor engine stages 2 x tensor 2: {json.dumps(res['engine'])}",
+          flush=True)
+    if not res["engine"]["equal"]:
+        fail("tensor engine: the ranks' retired tokens differ from the "
+             "in-process tensor-1 engine's")
+    print(f"tensor: spawn to exit {wall:.1f}s", flush=True)
+    return res
+
+
 #: the f32 GEMMs of one llama3.2-1b layer's forward at a micro-batch of
 #: 2048 tokens (batch 8 x seq 1024 in 4 micro-batches): (m, k, n, count)
 #: for q and o, k and v, the gate and up projections, the down projection
@@ -2831,6 +3353,7 @@ def main() -> None:
     from repro_torch.pipeline import stage as ST
 
     # ---- 1. the card ------------------------------------------------------
+    mark("1")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -2841,6 +3364,7 @@ def main() -> None:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     # ---- 2. build ---------------------------------------------------------
+    mark("2")
     t0 = time.perf_counter()
     secs = build.build_all()
     print(f"build: {json.dumps(secs)} in {time.perf_counter() - t0:.1f}s "
@@ -2883,6 +3407,7 @@ def main() -> None:
                  f"cp.async: {ssd_sass}")
 
     # ---- 3. kernels against their plain versions --------------------------
+    mark("3")
     rows: list = []
     bad = phase_kernels(FA, rows)
     if bad:
@@ -2901,6 +3426,7 @@ def main() -> None:
              f"call's time")
 
     # ---- 4. the llama3.2-1b path at full width ---------------------------
+    mark("4")
     counters = dict(flash_attention=FA.flash_attend, ssd_scan=SSD.ssd_chunked)
     llama = serve_main_path(
         serve, ["--arch", "llama3.2-1b", "--stages", "8", "--tensor", "1",
@@ -2914,16 +3440,19 @@ def main() -> None:
         128256)
 
     # ---- 5. whole llama path, kernel vs plain -----------------------------
+    mark("5")
     serve_mods = (get_config, RT, ST)
     path_err = phase_parity(serve_mods, "llama3.2-1b", 128)
 
     # ---- 6. the SSD scan against its plain version ------------------------
+    mark("6")
     ssd_rows: list = []
     bad = phase_ssd(SSD, ssd_rows)
     if bad:
         fail(f"ssd_scan disagrees with its plain version: {bad}")
 
     # ---- 7. the mamba2-2.7b path at full width ----------------------------
+    mark("7")
     mamba = serve_main_path(
         serve, ["--arch", "mamba2-2.7b", "--stages", "16", "--tensor", "1",
                 "--microbatches", "2", "--batch", "8", "--prompt-len", "512",
@@ -2933,9 +3462,11 @@ def main() -> None:
                    "ssd_scan": 64 * 2, "ssd_scan.bwd": 0}, 50280)
 
     # ---- 8. whole mamba2 path, kernel vs plain ----------------------------
+    mark("8")
     ssd_path_err = phase_parity(serve_mods, "mamba2-2.7b", 512)
 
     # ---- 9. the flash backward against its plain version ------------------
+    mark("9")
     bwd_rows: list = []
     bad = phase_backward(FA, bwd_rows)
     if bad:
@@ -2951,24 +3482,30 @@ def main() -> None:
     print(f"bwd D=128 kernels: {json.dumps(bwd128)}", flush=True)
 
     # ---- 10. llama3.2-1b training at full width ---------------------------
+    mark("10")
     train_mods = (get_config, RT, ST, M, SP, SyntheticLM)
     trained = phase_train(train, counters, train_mods)
 
     # ---- 11. schedules, non-pipelined autograd, card vs CPU ---------------
+    mark("11")
     train_parity = phase_train_parity(FA, counters, train_mods)
 
     # ---- 12. interleaved training (V = 2) at full width -------------------
+    mark("12")
     interleaved = phase_train(train, counters, train_mods,
                               schedule="1f1b-interleaved", virtual=2, M_=4)
 
     # ---- 13. zero-bubble H2 training at full width ------------------------
+    mark("13")
     zb_h2 = phase_train(train, counters, train_mods, schedule="zb-h2",
                         M_=8)
 
     # ---- 14. the planner: --auto-plan, --cluster, --auto-plan3d ----------
+    mark("14")
     planner = phase_planner(train, counters, train_mods)
 
     # ---- 15. the gemma3-1b path at full width -----------------------------
+    mark("15")
     # 26 layers (22 local, window 512; 4 global), head_dim 256, 2 stages of
     # 13 layers; every decode step on the decode route (T * 4 / 1 <= 16)
     gemma = serve_main_path(
@@ -2982,11 +3519,13 @@ def main() -> None:
                    "ssd_scan.bwd": 0}, 262144)
 
     # ---- 16. whole gemma3 path, kernel vs plain ---------------------------
+    mark("16")
     # one local layer (window 512) and one global, a prompt past the window
     gemma_path_err = phase_parity(serve_mods, "gemma3-1b", 640,
                                   global_every=2)
 
     # ---- 17. the qwen3-1.7b path at full width ----------------------------
+    mark("17")
     qwen = serve_main_path(
         serve, ["--arch", "qwen3-1.7b", "--stages", "4", "--tensor", "1",
                 "--microbatches", "2", "--batch", "8", "--prompt-len", "512",
@@ -3001,10 +3540,12 @@ def main() -> None:
     qwen_path_err = phase_parity(serve_mods, "qwen3-1.7b", 512)
 
     # ---- 18. gemma3-1b and qwen3-1.7b training at full width --------------
+    mark("18")
     dense_trained = {arch: phase_train(train, counters, train_mods, arch=arch)
                      for arch in ("gemma3-1b", "qwen3-1.7b")}
 
     # ---- 19. gemma3 and qwen3 training parity: 3 layers -------------------
+    mark("19")
     gemma_parity = phase_train_parity(
         FA, counters, train_mods, arch="gemma3-1b", over=dict(global_every=3),
         runs=[r for r in PARITY_RUNS if r[0] in ("1f1b", "zb-h1")],
@@ -3015,6 +3556,7 @@ def main() -> None:
         card_vs_cpu=(), seq=1024)
 
     # ---- 20. the SSD backward against its plain version ------------------
+    mark("20")
     ssd_bwd_rows: list = []
     bad = phase_ssd_bwd(SSD, ssd_bwd_rows)
     if bad:
@@ -3022,19 +3564,23 @@ def main() -> None:
              f"bitwise reproducible: {bad}")
 
     # ---- 21. mamba2-2.7b training at full width ---------------------------
+    mark("21")
     mamba_trained = phase_train(train, counters, train_mods,
                                 arch="mamba2-2.7b")
 
     # ---- 22. mamba2 training parity: 3 layers -----------------------------
+    mark("22")
     mamba_parity = phase_train_parity(
         FA, counters, train_mods, arch="mamba2-2.7b",
         runs=[r for r in PARITY_RUNS if r[0] in ("1f1b", "zb-h1")],
         card_vs_cpu=(), seq=1024)
 
     # ---- 23. interleaved serving: V = 2 prefill, the handoff, V = 1 -------
+    mark("23")
     interleaved_serve = phase_interleaved(serve, counters, get_config)
 
     # ---- 24. continuous batching at chunk 64 ------------------------------
+    mark("24")
     engine_mods = (get_config, RT, ST, SS, FA)
     vocab = get_config("llama3.2-1b").vocab
     captures, cap = {}, AttentionCapture(LYR)
@@ -3045,6 +3591,7 @@ def main() -> None:
     captures["chunk 64"] = cap.args
 
     # ---- 25. the same engine on other shapes ------------------------------
+    mark("25")
     cap = AttentionCapture(LYR)
     engine["chunk 4"] = phase_engine(
         engine_mods, counters, "engine chunk 4",
@@ -3060,33 +3607,46 @@ def main() -> None:
              f"{[k for k, v in captures.items() if v is None]}")
 
     # ---- 26. the mixed step's attention against its plain version --------
+    mark("26")
     mixed_rows = phase_mixed_attention(
         FA, captures, {k: engine[k]["continuous"]["launches"][
             "flash_attention"] for k in captures})
     gemma_mixed_err = phase_gemma_mixed(serve_mods)
 
     # ---- 27. stages on separate ranks: parity at full width, 3 layers ----
+    mark("27")
     rank_parity_res = phase_rank_parity(MESH)
 
     # ---- 28. llama3.2-1b at full width as 4 ranks on the one card --------
+    mark("28")
     rank_trained = phase_rank_train(MESH, SP, trained)
 
     # ---- 29. serving on separate ranks: parity at full width, few layers -
+    mark("29")
     rank_serve_res = phase_rank_serve_parity(MESH)
 
     # ---- 30. llama3.2-1b served at full width as 4 ranks ------------------
+    mark("30")
     rank_served = phase_rank_serve(MESH, interleaved_serve)
 
     # ---- 31. phase 28's run under the stream runtime ----------------------
+    mark("31")
     rank_streamed = phase_rank_train(MESH, SP, trained, runtime="stream",
                                      ticks_run=rank_trained)
 
     # ---- 32. the data axis: data 2 x stages 2, end / overlap / 2bw -------
+    mark("32")
     data_trained = phase_data_train(MESH, trained)
 
     # ---- 33. serving at data 2 x stages 2 ---------------------------------
+    mark("33")
     data_served = phase_data_serve(MESH, serve, counters)
 
+    # ---- 34-36. the tensor axis: parity, training, serving ----------------
+    mark("34-36")
+    tensor_res = phase_tensor(MESH, (get_config, RT, ST, SS, FA, SSD), trained)
+
+    mark("done")
     train_paths = {f"train {r['schedule']} V={r['virtual']} "
                    f"M={r['microbatches']}": r["launches"]
                    for r in (trained, interleaved, zb_h2)}
@@ -3108,6 +3668,15 @@ def main() -> None:
         steps = data_trained[gs]["launches_per_step"]
         train_paths[f"ranks train llama3.2-1b data 2 x stages 2 1f1b M=2 "
                     f"{gs}"] = {k: sum(d[k] for d in steps) for k in steps[0]}
+    # the tensor axis: each kernel's launches summed over the ranks
+    train_paths.update({f"ranks tensor {k}": r["launches_summed"]
+                        for k, r in tensor_res["parity"].items()})
+    for key, label in (("train", "stages 2 x tensor 2 1f1b M=4"),
+                       ("auto plan", "--auto-plan stages 1 x tensor 4")):
+        steps = tensor_res[key]["launches_per_step" if key == "train"
+                                else "launches"]
+        train_paths[f"ranks train llama3.2-1b {label}"] = {
+            k: sum(d[k] for d in steps) for k in steps[0]}
 
     main_row = pick(rows, "main-path prefill")
     keys = ("label", "dtype", "ms", "call_ms", "plain_ms", "library_ms",
@@ -3135,7 +3704,10 @@ def main() -> None:
             **{"ranks serve llama3.2-1b 4 ranks V=2 M=4":
                rank_served["launches_summed"]["flash_attention"],
                "ranks serve llama3.2-1b data 2 x stages 2 M=2":
-               data_served["launches_summed"]["flash_attention"]}),
+               data_served["launches_summed"]["flash_attention"]},
+            **{f"ranks tensor serve {k}": r["launches_summed"][
+                "flash_attention"]
+               for k, r in tensor_res["serve"].items()}),
         max_abs_err=main_row["max_abs_err"],
         ms=main_row["ms"], call_ms=main_row["call_ms"],
         plain_ms=main_row["plain_ms"],
@@ -3160,7 +3732,11 @@ def main() -> None:
         # long windowed prefill beside the global one
         dense_variant_rows=[{k: r[k] for k in keys} for r in rows
                             if r["label"].startswith(("gemma3", "qwen3",
-                                                      "long prefill"))],
+                                                      "long prefill"))
+                            and "tensor" not in r["label"]],
+        # one tensor shard's heads (phases 34-36)
+        tensor_rows=[{k: r[k] for k in keys + ("route",)} for r in rows
+                     if "tensor" in r["label"]],
         window_prefill_ratio=window_ratio,
         # the continuous-batching step's first-layer attention (phase 26)
         mixed_rows=[{k: r[k] for k in keys + ("route", "launches")}
@@ -3220,7 +3796,10 @@ def main() -> None:
         bf16={k: v for k, v in pick(bwd_rows, "train", "bfloat16").items()
               if k in bwd_keys},
         dense_variant_rows=[{k: r[k] for k in bwd_keys} for r in bwd_rows
-                            if r["label"].startswith(("gemma3", "qwen3"))],
+                            if r["label"].startswith(("gemma3", "qwen3"))
+                            and "tensor" not in r["label"]],
+        tensor_rows=[{k: r[k] for k in bwd_keys} for r in bwd_rows
+                     if "tensor" in r["label"]],
         d128_kernels=bwd128)
     sbwd_row = pick(ssd_bwd_rows, "train")
     ssd_bwd = dict(
@@ -3247,7 +3826,9 @@ def main() -> None:
                                 "engine": engine,
                                 "ranks parity": rank_serve_res,
                                 "ranks llama3.2-1b": rank_served,
-                                "ranks data 2 x stages 2": data_served}}),
+                                "ranks data 2 x stages 2": data_served,
+                                "ranks tensor": tensor_res["serve"],
+                                "ranks tensor engine": tensor_res["engine"]}}),
           flush=True)
     print(json.dumps({"train": {"llama3.2-1b": trained,
                                 "interleaved": interleaved, "zb-h2": zb_h2,
@@ -3260,7 +3841,11 @@ def main() -> None:
                                 "ranks parity": rank_parity_res,
                                 "ranks llama3.2-1b": rank_trained,
                                 "ranks llama3.2-1b stream": rank_streamed,
-                                "ranks data 2 x stages 2": data_trained}}),
+                                "ranks data 2 x stages 2": data_trained,
+                                "ranks tensor parity": tensor_res["parity"],
+                                "ranks tensor": tensor_res["train"],
+                                "ranks tensor auto plan":
+                                    tensor_res["auto plan"]}}),
           flush=True)
     print(json.dumps({"kernels": [flash, ssd, flash_bwd, ssd_bwd]}),
           flush=True)

@@ -17,11 +17,19 @@ The AdamW state crosses the same way: ``{"m": tree, "v": tree, "step":
 int}`` in both packages (f32 moments shaped like the parameters; the step
 an int32 scalar, a 0-d array or a Python int on the JAX side, a 0-d int32
 tensor in the port), so one optimizer step can be compared.
+
+A rank of the port's (data, stage, tensor) grid holds one share of such a
+tree: :func:`to_rank_share` cuts it from the JAX side's stacked tree (its
+stage's rows, then its tensor shard), and :func:`from_rank_shares` puts
+the ranks' shares (gradients, say) back into the whole stacked tree, as
+numpy, to compare with ``jax.grad``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.pipeline import stage as ST
 
 
 def _to_torch(a, device) -> torch.Tensor:
@@ -55,3 +63,37 @@ def to_jax(tree):
     if isinstance(tree, dict):
         return {k: to_jax(v) for k, v in tree.items()}
     return _to_numpy(tree)
+
+
+def to_rank_share(tree, cfg, plan, stage: int, tensor_rank: int = 0, *,
+                  device="cuda") -> dict:
+    """The share of the rank running tensor shard ``tensor_rank`` of stage
+    ``stage`` of ``plan``, from a JAX-side tree of numpy arrays stacked for
+    ``plan`` (``[S, Lps, ...]`` or ``[S, V, Lc, ...]`` layers): the
+    stage's rows (``stage.stage_share``), then the shard
+    (``stage.tensor_share``: an embedding of ``padded_vocab(1)`` rows is
+    padded with zero rows up to ``padded_vocab(plan.tensor)``), as
+    tensors on ``device``."""
+    share = ST.stage_share(from_jax(tree, device=device), plan, stage)
+    return ST.tensor_share(share, cfg, plan, tensor_rank)
+
+
+def from_rank_shares(shares: list, cfg, plan) -> dict:
+    """The whole stacked tree, as numpy, from every rank's share of one
+    replica: ``shares[s][t]`` is tensor shard t of stage s (parameters or
+    gradients).  Each stage's shards are joined (``stage.
+    tensor_gather``); the layers are stacked by stage; ``embed`` is stage
+    0's, ``final_norm`` and ``head`` the last stage's (the embedding and
+    head keep their ``padded_vocab(plan.tensor)`` rows)."""
+    full = [ST.tensor_gather(list(row), cfg, plan) for row in shares]
+
+    def stack(trees):
+        return {k: stack([t[k] for t in trees])
+                if isinstance(trees[0][k], dict)
+                else torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+    out = dict(layers=stack([f["layers"] for f in full]),
+               embed=full[0]["embed"], final_norm=full[-1]["final_norm"])
+    if "head" in full[-1]:
+        out["head"] = full[-1]["head"]
+    return to_jax(out)

@@ -1,17 +1,21 @@
-"""The (data, stage) grid of processes: one process per pipeline stage of
-each data-parallel replica (the port's counterpart of
-``repro/launch/mesh.py``, whose ``("data", "stage", "tensor")`` mesh
-``shard_map`` runs over).
+"""The (data, stage, tensor) grid of processes: one process per tensor
+shard of each pipeline stage of each data-parallel replica (the port's
+counterpart of ``repro/launch/mesh.py``, whose ``("data", "stage",
+"tensor")`` mesh ``shard_map`` runs over).
 
-Global rank ``r = d * S + s`` runs stage ``s`` of replica ``d`` (data
-major, the JAX mesh's axis order).  :func:`make_grid` builds, with
-``dist.new_group`` on every rank in the same order, one stage group per
-replica (its ranks by stage: the rings' peers), one data group per stage
-(its ranks by replica: the gradient sync and the serve step's logits)
-and, where the embedding is shared by the first and the last stage of a
-replica of more than two stages, one tied-embedding group per replica.
-At data 1 no group is made: the stage group is the whole world, as
-before the data axis.
+Global rank ``r = (d * S + s) * T + t`` runs tensor shard ``t`` of stage
+``s`` of replica ``d`` (the JAX mesh's axis order, tensor fastest).
+:func:`make_grid` builds, with ``dist.new_group`` on every rank in the
+same order, one stage group per (replica, tensor shard) (its ranks by
+stage: the rings' peers; shard t of stage s talks to shard t of s+1),
+one data group per (stage, tensor shard) (its ranks by replica: the
+gradient sync and the serve step's logits), one tensor group per
+(replica, stage) (its ranks by shard: the Megatron all-reduces inside
+every block, the vocab-parallel embedding and loss) and, where the
+embedding is shared by the first and the last stage of a replica of
+more than two stages, one tied-embedding group per (replica, tensor
+shard).  At data 1 and tensor 1 no group is made: the stage group is
+the whole world, as before the data and tensor axes.
 
 A group is set up from ``torchrun``'s environment (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, the rendezvous in
@@ -32,6 +36,7 @@ port is opened and concurrent runs never meet.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
 import tempfile
 
@@ -45,14 +50,17 @@ BACKENDS = ("nccl", "gloo")
 
 @dataclasses.dataclass(frozen=True)
 class StageMesh:
-    """This process's place on the (data, stage) grid: global rank
-    ``rank = data_rank * stages + stage``.  ``group`` is this replica's
-    stage group (the world at data 1), ``data_group`` this stage's
-    replicas (None at data 1) and ``tie_group`` stages 0 and S-1 of this
-    replica (the stage group itself at two stages; None at one stage and
-    on a middle stage); ``stage_ranks`` and ``data_ranks`` their global
-    ranks, by stage and by replica."""
-    group: object                   # this replica's stage group
+    """This process's place on the (data, stage, tensor) grid: global
+    rank ``rank = (data_rank * stages + stage) * tensor + tensor_rank``.
+    ``group`` is the stage group of this replica's tensor shard (the
+    world at data 1 and tensor 1), ``data_group`` this stage's and
+    shard's replicas (None at data 1), ``tensor_group`` this stage's
+    shards (None at tensor 1) and ``tie_group`` stages 0 and S-1 of this
+    replica's shard (the stage group itself at two stages; None at one
+    stage and on a middle stage); ``stage_ranks``, ``data_ranks`` and
+    ``tensor_ranks`` their global ranks, by stage, by replica and by
+    shard."""
+    group: object                   # this replica's and shard's stages
     rank: int                       # global rank
     world: int
     backend: str
@@ -64,10 +72,14 @@ class StageMesh:
     tie_group: object = None
     stage_ranks: tuple = ()
     data_ranks: tuple = ()
+    tensor: int = 1
+    tensor_rank: int = 0
+    tensor_group: object = None
+    tensor_ranks: tuple = ()
 
     @property
     def stages(self) -> int:
-        return self.world // self.data
+        return self.world // (self.data * self.tensor)
 
 
 def rank_device(device_type: str, local_rank: int) -> torch.device:
@@ -101,53 +113,81 @@ def check_backend(backend: str, device_type: str, local_world: int) -> None:
                 f"memory), or one card per rank")
 
 
-def check_world(n_stages: int, world: int, data: int = 1) -> None:
-    """Refuse a grid whose data x stages is not the world size (one
-    process runs one stage of one replica), before any group is set
-    up."""
-    if data < 1 or n_stages * data != world:
+def check_world(n_stages: int, world: int, data: int = 1,
+                tensor: int = 1) -> None:
+    """Refuse a grid whose data x stages x tensor is not the world size
+    (one process runs one tensor shard of one stage of one replica),
+    before any group is set up."""
+    if data < 1 or tensor < 1 or n_stages * data * tensor != world:
+        tp = f" x tensor {tensor}" if tensor != 1 else ""
         raise ValueError(
-            f"data {data} x {n_stages} stages on {world} ranks: one "
-            f"process runs one stage of one replica, so --data x --stages "
-            f"(or the planner's) must equal the world size")
+            f"data {data} x {n_stages} stages{tp} on {world} ranks: one "
+            f"process runs one {'tensor shard of one ' if tp else ''}stage "
+            f"of one replica, so --data x --stages"
+            f"{' x --tensor' if tp else ''} (or the planner's) must equal "
+            f"the world size")
 
 
-def make_grid(data: int, backend: str, device: torch.device) -> StageMesh:
-    """This rank's :class:`StageMesh` on a data x stages grid over the
-    default process group (already set up; every rank calls this, and
-    every rank makes every group, in the same order)."""
+def grid_ranks(data: int, stages: int, tensor: int) -> dict:
+    """The grid's groups as lists of global ranks, in the order
+    :func:`make_grid` makes them: ``stage`` (one a (replica, shard),
+    ranks by stage), ``data`` (one a (stage, shard), ranks by replica),
+    ``tensor`` (one a (replica, stage), ranks by shard) and ``tie`` (one
+    a (replica, shard): its first and last stage, when S > 2)."""
+    D, S, T = data, stages, tensor
+    at = lambda d, s, t: (d * S + s) * T + t
+    return dict(
+        stage=[[at(d, s, t) for s in range(S)]
+               for d in range(D) for t in range(T)],
+        data=[[at(d, s, t) for d in range(D)]
+              for s in range(S) for t in range(T)],
+        tensor=[[at(d, s, t) for t in range(T)]
+                for d in range(D) for s in range(S)],
+        tie=[[at(d, 0, t), at(d, S - 1, t)]
+             for d in range(D) for t in range(T)] if S > 2 else [])
+
+
+def make_grid(data: int, backend: str, device: torch.device,
+              tensor: int = 1) -> StageMesh:
+    """This rank's :class:`StageMesh` on a data x stages x tensor grid
+    over the default process group (already set up; every rank calls
+    this, and every rank makes every group, in the same order)."""
     world, rank = dist.get_world_size(), dist.get_rank()
-    check_world(world // max(data, 1), world, data)
-    S = world // data
-    d, s = divmod(rank, S)
-    if data == 1:
-        stage_ranks, data_ranks = tuple(range(world)), (rank,)
-        group, data_group = dist.group.WORLD, None
-    else:
-        new = lambda ranks: dist.new_group(list(ranks),
-                                           timeout=GROUP_TIMEOUT)
-        stage_groups = [new(range(r * S, (r + 1) * S)) for r in range(data)]
-        data_groups = [new(range(j, world, S)) for j in range(S)]
-        group, data_group = stage_groups[d], data_groups[s]
-        stage_ranks = tuple(range(d * S, (d + 1) * S))
-        data_ranks = tuple(range(s, world, S))
-    tie = {1: None, 2: group}.get(S)
-    if S > 2:
-        ties = [dist.new_group([r * S, r * S + S - 1], timeout=GROUP_TIMEOUT)
-                for r in range(data)]
-        tie = ties[d] if s in (0, S - 1) else None
+    D, T = max(data, 1), max(tensor, 1)
+    check_world(world // (D * T), world, data, tensor)
+    S = world // (D * T)
+    ranks = grid_ranks(D, S, T)
+    mine = {kind: next((rs for rs in lines if rank in rs), None)
+            for kind, lines in ranks.items()}
+
+    def made(kind):
+        """Every group of ``kind`` made, in order; this rank's."""
+        own = None
+        for rs in ranks[kind]:
+            g = dist.new_group(rs, timeout=GROUP_TIMEOUT)
+            own = g if rs is mine[kind] else own
+        return own
+
+    group = dist.group.WORLD if D == 1 and T == 1 else made("stage")
+    data_group = made("data") if D > 1 else None
+    tensor_group = made("tensor") if T > 1 else None
+    tie = made("tie") if S > 2 else {1: None, 2: group}[S]
     return StageMesh(group=group, rank=rank, world=world, backend=backend,
-                     device=device, data=data, data_rank=d, stage=s,
-                     data_group=data_group, tie_group=tie,
-                     stage_ranks=stage_ranks, data_ranks=data_ranks)
+                     device=device, data=D, data_rank=rank // (S * T),
+                     stage=rank // T % S, data_group=data_group,
+                     tie_group=tie, stage_ranks=tuple(mine["stage"]),
+                     data_ranks=tuple(mine["data"]), tensor=T,
+                     tensor_rank=rank % T, tensor_group=tensor_group,
+                     tensor_ranks=tuple(mine["tensor"]))
 
 
 def init_stage_group(backend: str, device_type: str = "cuda", *,
                      rank: int | None = None, world: int | None = None,
                      init_method: str | None = None, store=None,
-                     data: int = 1) -> StageMesh:
+                     data: int = 1, tensor: int = 1) -> StageMesh:
     """Set up the default process group and the grid's groups
-    (:func:`make_grid`, ``data`` replicas) and return this rank's
+    (:func:`make_grid`, ``data`` replicas of ``tensor`` shards) and
+    return this rank's
     :class:`StageMesh`.  With ``rank`` None every figure comes from
     ``torchrun``'s environment (``init_method`` ``env://``); otherwise
     from the arguments, with ``store`` or ``init_method`` as the
@@ -163,7 +203,7 @@ def init_stage_group(backend: str, device_type: str = "cuda", *,
     else:
         local_rank, local_world = rank, world
     check_backend(backend, device_type, local_world)
-    check_world(world // max(data, 1), world, data)
+    check_world(world // max(data * tensor, 1), world, data, tensor)
     device = rank_device(device_type, local_rank)
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -171,7 +211,24 @@ def init_stage_group(backend: str, device_type: str = "cuda", *,
         init_method=init_method)
     dist.init_process_group(backend, rank=rank, world_size=world,
                             timeout=GROUP_TIMEOUT, **kw)
-    return make_grid(data, backend, device)
+    return make_grid(data, backend, device, tensor)
+
+
+def destroy_groups(wait: bool = True) -> None:
+    """Tear down this process's groups once its run is over.  The
+    caller drops its own references to the mesh and to anything that
+    holds a group first.  With ``wait`` (the run ended well on every
+    rank) a barrier keeps any rank from closing its connections while a
+    peer still uses them; the collection frees the step functions, which
+    hold their :class:`repro_torch.pipeline.comm.Transport` (and so the
+    groups) in reference cycles, so that each group is destroyed here,
+    with the interpreter alive: a gloo group left to the interpreter's
+    exit could abort the process ("terminate called without an active
+    exception") after a run that had ended."""
+    if wait:
+        dist.barrier()
+    gc.collect()
+    dist.destroy_process_group()
 
 
 def gather(obj, mesh: StageMesh) -> list:
@@ -183,24 +240,27 @@ def gather(obj, mesh: StageMesh) -> list:
 
 
 def _rank_main(rank: int, fn, world: int, backend: str, device_type: str,
-               tmp: str, args: tuple, data: int) -> None:
+               tmp: str, args: tuple, data: int, tensor: int) -> None:
     store = dist.FileStore(os.path.join(tmp, "store"), world)
     mesh = init_stage_group(backend, device_type, rank=rank, world=world,
-                            store=store, data=data)
+                            store=store, data=data, tensor=tensor)
+    ok = False
     try:
         out = fn(mesh, *args)
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
-        dist.barrier()
+        ok = True
     finally:
-        dist.destroy_process_group()
+        mesh = out = None       # the groups' last references here
+        destroy_groups(wait=ok)
 
 
 def spawn_ranks(fn, world: int, backend: str, *args,
-                device: str = "cpu", data: int = 1) -> list:
+                device: str = "cpu", data: int = 1, tensor: int = 1) -> list:
     """Run ``fn(mesh, *args)`` on ``world`` spawned processes, one a rank,
-    each with its :class:`StageMesh` (``data`` replicas of ``world //
-    data`` stages) on ``device`` ('cpu', or 'cuda': card ``rank %
-    cards``), and return their results in rank order.
+    each with its :class:`StageMesh` (``data`` replicas of ``world /
+    (data tensor)`` stages of ``tensor`` shards) on ``device`` ('cpu',
+    or 'cuda': card ``rank % cards``), and return their results in rank
+    order.
     ``fn`` and ``args`` are pickled (``fn`` by its import path); each
     result goes back through ``torch.save`` (its tensors land on the
     CPU).  A rank that raises ends the
@@ -208,10 +268,11 @@ def spawn_ranks(fn, world: int, backend: str, *args,
     after :data:`GROUP_TIMEOUT`."""
     import torch.multiprocessing as mp
     check_backend(backend, device, world)
-    check_world(world // max(data, 1), world, data)
+    check_world(world // max(data * tensor, 1), world, data, tensor)
     with tempfile.TemporaryDirectory() as tmp:
         mp.start_processes(_rank_main,
-                           args=(fn, world, backend, device, tmp, args, data),
+                           args=(fn, world, backend, device, tmp, args, data,
+                                 tensor),
                            nprocs=world, join=True, start_method="spawn")
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                            map_location="cpu", weights_only=False)

@@ -19,9 +19,10 @@ stage.
         --batch 8 --prompt-len 512 --gen 32
 
 ``--device cpu`` runs the same path on the CPU with the kernels' plain
-versions (add ``--reduced`` for a small model).  A config whose tensor
-degree is above 1 (llama3.2-1b's is 2, gemma3-1b's and qwen3-1.7b's 4) is
-refused unless ``--tensor 1`` is given, as in the training CLI.
+versions (add ``--reduced`` for a small model).  ``--tensor`` sets the
+tensor degree (0 keeps the config's own: llama3.2-1b's is 2, gemma3-1b's
+and qwen3-1.7b's 4); a degree above 1 runs only as ranks and raises in
+one process, naming the world it needs, as in the training CLI.
 gemma3-1b's local layers attend over a sliding window of 512 keys and its
 every sixth layer globally, all through the same flash kernel.  For mamba2 the prompt
 length must be a multiple of the SSD chunk (256; 16 reduced) or shorter
@@ -69,6 +70,17 @@ greedy-decodes the same tokens as one replica serving the whole batch:
         --stages 2 --data 2 --microbatches 2 --batch 8 --prompt-len 512 \\
         --gen 32 --dist-backend gloo
 
+A tensor degree T above 1 (ranks only: data x stages x T processes)
+runs each stage's blocks over its T shards (Megatron: the heads and the
+MLP's hidden units split, the kv cache holding each shard's kv heads,
+the embedding and the head split over the vocab; the last stage's
+shards gather their logits in shard order):
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+        -m repro_torch.launch.serve --arch llama3.2-1b --stages 2 \\
+        --microbatches 2 --batch 8 --prompt-len 512 --gen 32 \\
+        --dist-backend gloo
+
 Timing discipline: every phase ends in ``torch.cuda.synchronize()``.
 Warm-up (building the CUDA kernels, first cuBLAS use) is reported apart
 from prefill throughput and steady-state decode throughput.  Warm-up runs
@@ -91,7 +103,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import build, launch_counters
-from repro_torch.launch import one_card
+from repro_torch.launch import with_tensor
 from repro_torch.launch import mesh as MESH
 from repro_torch.pipeline import comm as C
 from repro_torch.pipeline import runtime as RT
@@ -152,7 +164,7 @@ def main(argv=None, mesh: MESH.StageMesh = None, *,
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced(n_layers=4, d_model=256)
-    cfg = one_card(cfg, args.tensor)
+    cfg = with_tensor(cfg, args.tensor)
     if args.stages:
         cfg = dataclasses.replace(cfg, stages=args.stages)
     if args.virtual:
@@ -161,20 +173,24 @@ def main(argv=None, mesh: MESH.StageMesh = None, *,
     kw = dict(microbatches=args.microbatches, schedule=args.schedule,
               batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
               seed=args.seed)
-    own_group = False
     if mesh is None and int(os.environ.get("WORLD_SIZE", "1")) > 1:
         MESH.check_world(cfg.stages, int(os.environ["WORLD_SIZE"]),
-                         args.data)
+                         args.data, cfg.tensor)
         mesh = MESH.init_stage_group(
             args.dist_backend or ("nccl" if device.type == "cuda"
-                                  else "gloo"), device.type, data=args.data)
-        own_group = True
-    try:
+                                  else "gloo"), device.type, data=args.data,
+            tensor=cfg.tensor)
+        ok = False
+        try:
+            out = serve(cfg, device=device, mesh=mesh, data=args.data,
+                        keep_logits=keep_logits, **kw)
+            ok = True
+        finally:
+            mesh = None         # the groups' last reference here
+            MESH.destroy_groups(wait=ok)
+    else:
         out = serve(cfg, device=device, mesh=mesh, data=args.data,
                     keep_logits=keep_logits, **kw)
-    finally:
-        if own_group:
-            dist.destroy_process_group()
     if args.tokens_out and out.get("rank", 0) == 0:
         with open(args.tokens_out, "w") as f:
             json.dump(dict(tokens=out["tokens"].tolist()), f)
@@ -199,10 +215,16 @@ def serve(cfg, *, microbatches: int, schedule: str, batch: int,
     and the cache, the same prompt on every rank, the handoff across
     ranks, the same logits and tokens on every rank; rank 0 alone
     prints, the times the slowest rank's).  On a mesh of D > 1 replicas
-    each serves its rows of the batch (``data`` must be the mesh's)."""
+    each serves its rows of the batch (``data`` must be the mesh's); on
+    a mesh of tensor degree T (``cfg.tensor``, which must be the mesh's)
+    each rank holds its tensor shard of its stage.  In one process a
+    data or tensor degree above 1 raises, naming the world it needs,
+    before anything is allocated."""
     rank = stage = None
+    if mesh is None and cfg.tensor > 1:
+        raise ValueError(RT.tensor_needs_ranks(cfg.tensor, cfg.stages, data))
     if mesh is not None:
-        MESH.check_world(cfg.stages, mesh.world, mesh.data)
+        MESH.check_world(cfg.stages, mesh.world, mesh.data, cfg.tensor)
         if data != mesh.data:
             raise ValueError(f"--data {data} on a grid of {mesh.data} "
                              f"replicas")
@@ -225,6 +247,7 @@ def serve(cfg, *, microbatches: int, schedule: str, batch: int,
                                        device=device)
     else:
         params = ST.init_stage_params(cfg, seed, plan_p, stage,
+                                      tensor_rank=mesh.tensor_rank,
                                       device=device)
         cache = RT.init_stage_cache(cfg, plan_p, stage, batch, max_len,
                                     data=mesh.data, device=device)
@@ -236,7 +259,8 @@ def serve(cfg, *, microbatches: int, schedule: str, batch: int,
                if device.type == "cuda" else f"device: {device}")
               + ("" if mesh is None else
                  f" ranks={mesh.world} backend={mesh.backend} (data "
-                 f"{mesh.data} x stages {mesh.stages})"), flush=True)
+                 f"{mesh.data} x stages {mesh.stages} x tensor "
+                 f"{mesh.tensor})"), flush=True)
 
     def start() -> float:
         """The phase starts with the queued work done (on every rank)."""
@@ -345,7 +369,7 @@ def serve(cfg, *, microbatches: int, schedule: str, batch: int,
             handoff = dict(handoff, by_rank=[p["handoff"] for p in per],
                            seconds=max(p["handoff"]["seconds"] for p in per))
         ranks = dict(rank=rank, world=mesh.world, data=mesh.data,
-                     backend=mesh.backend,
+                     tensor=mesh.tensor, backend=mesh.backend,
                      peak_gib_by_rank=[p["peak_gib"] for p in per],
                      transport=[p["transport"] for p in per])
     toks = torch.stack(generated, 1).cpu()

@@ -38,18 +38,28 @@ under ``torchrun``, one process per stage.
         --grad-sync overlap --schedule 1f1b --microbatches 2 --batch 8 \\
         --seq 1024 --steps 2
 
-With ``WORLD_SIZE`` above 1 (``torchrun``) each process is one stage of
-one replica on a ``--data`` x ``--stages`` grid
-(:mod:`repro_torch.launch.mesh`; data x stages, or the planner's, must
-equal the world size): it draws only its stage's share of the weights
-(:func:`repro_torch.pipeline.stage.init_stage_params`), runs its row of
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+        -m repro_torch.launch.train --arch llama3.2-1b --stages 2 \\
+        --dist-backend gloo --schedule 1f1b --microbatches 4 --batch 8 \\
+        --seq 1024 --steps 2
+
+With ``WORLD_SIZE`` above 1 (``torchrun``) each process is one tensor
+shard of one stage of one replica on a ``--data`` x ``--stages`` x
+``--tensor`` grid (:mod:`repro_torch.launch.mesh`; data x stages x
+tensor, or the planner's, must equal the world size): it draws only its
+share of the weights (:func:`repro_torch.pipeline.stage.
+init_stage_params`, its tensor shard of its stage's), runs its row of
 the same table on its replica's rows of the batch (``make_train_step(...,
-group=mesh)``), the rings as ``torch.distributed`` messages, and the
-gradients are summed over the replicas as ``--grad-sync`` says (``end``
-after the walk; ``overlap``, the default under ``--runtime stream``, at
-the ARSYNC slots of each rank's stream, ``--ar-groups`` buckets a chunk;
-``2bw``, PipeDream-2BW: each step applies the previous step's
-gradients).  ``--data`` above 1 needs ranks.  ``--dist-backend`` is ``nccl``
+group=mesh)``), the rings as ``torch.distributed`` messages, the blocks
+Megatron-style over its tensor group, and the gradients are summed over
+the replicas as ``--grad-sync`` says (``end`` after the walk;
+``overlap``, the default under ``--runtime stream``, at the ARSYNC slots
+of each rank's stream, ``--ar-groups`` buckets a chunk; ``2bw``,
+PipeDream-2BW: each step applies the previous step's gradients).
+``--data`` and a tensor degree above 1 (``--tensor``, 0 keeping the
+config's own: llama3.2-1b's is 2, gemma3-1b's and qwen3-1.7b's 4) need
+ranks: in one process they raise before anything is allocated, naming
+the world they need.  ``--dist-backend`` is ``nccl``
 (one card per rank; more ranks than cards raise) by default on
 ``--device cuda`` and ``gloo`` on ``--device cpu``; ``--dist-backend
 gloo`` runs every rank on one card, each message staged through pinned
@@ -57,8 +67,9 @@ host memory.  Every rank makes the same batches; rank 0 alone prints
 the losses, the step time (the slowest rank's), the launches summed over
 ranks, each rank's stash slots, most registers held live at once and
 peak memory, and the transport's messages, bytes and ms a step
-(activation hops apart from the tied embedding's all-reduce; the ms
-split into posting, receive waits, send waits and staging copies).
+(activation hops apart from the tied embedding's all-reduce and the
+tensor group's collectives; the ms split into posting, receive waits,
+send waits and staging copies).
 ``--runtime stream`` (in one process or as ranks) runs each stage's own
 RUN/SEND/RECV/FREE instruction stream instead of the lockstep tick
 replay: a rank waits only where a tick reads an arrival; the losses are
@@ -74,13 +85,11 @@ and ``--mem-limit``) and ``--auto-plan3d`` (over ``--pool`` devices, the
 cards present by default) let BaPipe's planner
 (:mod:`repro_torch.core.autoplan`, planning for the port's ``H100``)
 pick the stages, tensor degree, micro-batches, schedule and V (and, for
-``--auto-plan3d``, the data degree), as the JAX CLI does; a plan that
-needs tensor parallelism is printed, then refused.  ``--device cpu``
+``--auto-plan3d``, the data degree), as the JAX CLI does, and train that
+plan (a data or tensor degree above 1 as ranks).  ``--device cpu``
 runs the same path on the CPU with the kernels' plain versions.  As in
-the JAX CLI, ``--layers``/``--d-model`` apply only under ``--reduced``,
-and a config whose tensor degree is above 1 (llama3.2-1b's is 2,
-gemma3-1b's and qwen3-1.7b's 4) is refused unless ``--tensor 1`` is
-given.  Data
+the JAX CLI, ``--layers``/``--d-model`` apply only under ``--reduced``.
+Data
 come from :class:`repro_torch.data.synthetic.SyntheticLM`
 (the JAX package's generator, bit-identical tokens); the optimizer is
 AdamW with the reference settings (``warmup_cosine(lr, 20, steps)``,
@@ -107,7 +116,7 @@ from repro_torch.core.autoplan import auto_plan, auto_plan3d
 from repro_torch.core.hardware import CATALOGUE, H100
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.kernels import build, launch_counters
-from repro_torch.launch import PAR_ITEM as _PAR_ITEM, one_card
+from repro_torch.launch import with_tensor
 from repro_torch.launch import mesh as MESH
 from repro_torch.optim.adamw import AdamW, warmup_cosine
 from repro_torch.pipeline import runtime as RT
@@ -117,7 +126,6 @@ _CKPT_ITEM = "ROADMAP 'Still to port': checkpoints, reshard and elastic"
 
 #: flags of the JAX CLI the port does not run yet: (flag, accepted
 #: values, ROADMAP item); any other value raises NotImplementedError
-#: (``--tensor`` is held by :func:`repro_torch.launch.one_card`)
 _REFUSED = (
     ("ckpt", ("",), _CKPT_ITEM),
     ("ckpt_every", (0,), _CKPT_ITEM),
@@ -192,8 +200,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--ar-groups", type=int, default=1,
                     help="with overlapped sync: AR buckets a chunk, one "
                          "per layer group (must divide its layers)")
+    ap.add_argument("--tensor", type=int, default=0,
+                    help="tensor-parallel degree (0: the config's own; "
+                         "above 1, ranks: data x stages x tensor "
+                         "processes under torchrun)")
     # the JAX CLI's other flags: accepted, refused unless at their default
-    ap.add_argument("--tensor", type=int, default=0)
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", default="")
@@ -209,15 +220,15 @@ def _parser() -> argparse.ArgumentParser:
 def build_config(args: argparse.Namespace):
     """The model the CLI trains, as the JAX CLI builds it from the same
     argv: ``--layers``/``--d-model`` cut the model only under
-    ``--reduced``; the config's tensor degree must be 1 or be overridden
-    by ``--tensor 1`` (:func:`repro_torch.launch.one_card`);
-    ``--mem-limit`` without ``--schedule zb-auto`` (or ``--auto-plan``),
-    ``--cluster`` without ``--auto-plan``, and ``--auto-plan`` with
+    ``--reduced``; ``--tensor`` sets the tensor degree (0 keeps the
+    config's: :func:`repro_torch.launch.with_tensor`); ``--mem-limit``
+    without ``--schedule zb-auto`` (or ``--auto-plan``), ``--cluster``
+    without ``--auto-plan``, and ``--auto-plan`` with
     ``--auto-plan3d`` are usage errors (SystemExit 2), as in the JAX CLI.
     Under a planner flag the plan is printed and applied
-    (``args.microbatches`` takes its M, ``args.data`` its data degree),
-    or refused when it needs tensor parallelism.  Refused flags raise
-    NotImplementedError by their ROADMAP item."""
+    (``args.microbatches`` takes its M, ``args.data`` its data degree,
+    the config its stages, tensor degree, schedule and V).  Refused
+    flags raise NotImplementedError by their ROADMAP item."""
     for flag, ok, item in _REFUSED:
         val = getattr(args, flag)
         if val not in ok:
@@ -227,7 +238,7 @@ def build_config(args: argparse.Namespace):
     if args.reduced:
         cfg = cfg.reduced(n_layers=args.layers or 4,
                           d_model=args.d_model or 256, seq=args.seq)
-    cfg = one_card(cfg, args.tensor)
+    cfg = with_tensor(cfg, args.tensor)
     cfg = dataclasses.replace(cfg, virtual=args.virtual or cfg.virtual,
                               stages=args.stages or cfg.stages,
                               schedule=args.schedule or cfg.schedule,
@@ -281,10 +292,6 @@ def build_config(args: argparse.Namespace):
               flush=True)
     else:
         return cfg
-    if plan_.tensor != 1:
-        raise NotImplementedError(
-            f"the plan needs tensor={plan_.tensor}: not ported yet "
-            f"({_PAR_ITEM}); the port runs tensor = 1")
     args.microbatches = plan_.n_microbatches
     args.data = plan_.data_axis
     args.plan = plan_
@@ -302,6 +309,9 @@ def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
     cfg = build_config(args)
     under_ranks = mesh is not None or int(os.environ.get("WORLD_SIZE",
                                                          "1")) > 1
+    if cfg.tensor > 1 and not under_ranks:
+        raise ValueError(RT.tensor_needs_ranks(cfg.tensor, cfg.stages,
+                                               args.data))
     if args.data > 1 and not under_ranks:
         raise ValueError(RT.data_needs_ranks(args.data, cfg.stages))
     plan = ST.plan_stages(cfg)
@@ -311,20 +321,23 @@ def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
                              remat=args.remat, runtime=cfg.runtime,
                              grad_sync=args.grad_sync or "auto",
                              ar_groups=args.ar_groups)
-    own_group = False
     if mesh is None and int(os.environ.get("WORLD_SIZE", "1")) > 1:
         MESH.check_world(plan.n_stages, int(os.environ["WORLD_SIZE"]),
-                         args.data)
+                         args.data, plan.tensor)
         mesh = MESH.init_stage_group(
             args.dist_backend or ("nccl" if device.type == "cuda"
-                                  else "gloo"), device.type, data=args.data)
-        own_group = True
-    if mesh is not None:
+                                  else "gloo"), device.type, data=args.data,
+            tensor=plan.tensor)
+        ok = False
         try:
-            return _main_ranks(args, cfg, plan, opt, pcfg, mesh)
+            out = _main_ranks(args, cfg, plan, opt, pcfg, mesh)
+            ok = True
+            return out
         finally:
-            if own_group:
-                dist.destroy_process_group()
+            mesh = None         # the groups' last reference here
+            MESH.destroy_groups(wait=ok)
+    if mesh is not None:
+        return _main_ranks(args, cfg, plan, opt, pcfg, mesh)
     step_fn = RT.make_train_step(cfg, plan, pcfg, optimizer=opt)
     params = ST.init_stacked_params(cfg, args.seed, plan, device=device)
     opt_state = opt.init(params)
@@ -393,16 +406,19 @@ def _main_ranks(args, cfg, plan: ST.StagePlan, opt: AdamW,
                 pcfg: RT.PipelineConfig, mesh: MESH.StageMesh) -> dict:
     """:func:`main` as stage ``mesh.stage`` of replica ``mesh.data_rank``
     of the rank executor."""
-    MESH.check_world(plan.n_stages, mesh.world, mesh.data)
+    MESH.check_world(plan.n_stages, mesh.world, mesh.data, plan.tensor)
     if args.data != mesh.data:
         raise ValueError(f"--data {args.data} on a grid of {mesh.data} "
                          f"replicas")
+    if plan.tensor != mesh.tensor:
+        raise ValueError(f"tensor {plan.tensor} on a grid of tensor "
+                         f"{mesh.tensor}")
     device, rank = mesh.device, mesh.rank
     lead = rank == 0
     gather = lambda obj: MESH.gather(obj, mesh)
     step_fn = RT.make_train_step(cfg, plan, pcfg, optimizer=opt, group=mesh)
     params = ST.init_stage_params(cfg, args.seed, plan, mesh.stage,
-                                  device=device)
+                                  tensor_rank=mesh.tensor_rank, device=device)
     opt_state = opt.init(params)
     if pcfg.grad_sync == "2bw":
         opt_state = RT.init_2bw_state(opt_state, params)
@@ -415,7 +431,8 @@ def _main_ranks(args, cfg, plan: ST.StagePlan, opt: AdamW,
               f"V={plan.virtual} schedule={step_fn.lowering.schedule} "
               f"M={args.microbatches} ranks={mesh.world} "
               f"backend={mesh.backend} (data {mesh.data} x stages "
-              f"{plan.n_stages}, grad_sync {pcfg.grad_sync}) params per rank "
+              f"{plan.n_stages} x tensor {plan.tensor}, grad_sync "
+              f"{pcfg.grad_sync}) params per rank "
               f"{[round(n / 1e6, 1) for n in n_params]}M device={device} "
               f"({name})", flush=True)
     if device.type == "cuda":
@@ -484,7 +501,7 @@ def _main_ranks(args, cfg, plan: ST.StagePlan, opt: AdamW,
     return dict(plan=args.plan, schedule=step_fn.lowering.schedule,
                 stages=plan.n_stages, virtual=plan.virtual,
                 microbatches=args.microbatches, rank=rank, world=mesh.world,
-                data=mesh.data, grad_sync=pcfg.grad_sync,
+                data=mesh.data, tensor=mesh.tensor, grad_sync=pcfg.grad_sync,
                 backend=mesh.backend, losses=losses, step_s=step_s,
                 wall_s=wall, tok_per_step=args.batch * args.seq,
                 launches=launches, stash_slots=stash,

@@ -1,11 +1,19 @@
 """Functional building blocks of the dense GQA decoder and the Mamba-2
-block (the port's share of ``repro/models/layers.py``: tensor parallel
-degree 1).
+block (the port's share of ``repro/models/layers.py``).
 
 Plain functions over explicit parameter dictionaries, as in the JAX
 package.  Attention and the SSD scan go through the hand-written kernels
 on a CUDA tensor and through their plain versions on a CPU tensor; the
 projections and MLP products stay ``torch.matmul``.
+
+Tensor parallelism (Megatron): with ``tp`` (a
+:class:`repro_torch.pipeline.comm.TensorAxis`, the JAX layers'
+``tp_axis`` / ``tp_index``) a block holds its shard of the heads and of
+the MLP's hidden units; its input enters through ``tp.copy_to_tensor``
+(the gradient summed over the shards) and its row-parallel output
+leaves through ``tp.reduce_from_tensor`` (the sum over the shards,
+where the JAX layers call ``_maybe_psum``).  The Mamba-2 block stays
+replicated over tensor, with no reduction, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -131,24 +139,50 @@ def init_gqa(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> Params:
     return p
 
 
+def sliced_kv_heads(cfg: ArchConfig, nh_l: int) -> int:
+    """The kv heads that ``nh_l`` consecutive query heads read: what a
+    shard slices out of replicated k/v projections, and so the kv heads
+    its cache holds (``stage.kv_heads``)."""
+    return max(1, nh_l // (cfg.n_heads // cfg.n_kv_heads))
+
+
+def _slice_kv_heads(w: torch.Tensor, cfg: ArchConfig, nh_l: int, hd: int,
+                    tp_index) -> torch.Tensor:
+    """When the k/v projections are replicated over tensor (n_kv_heads
+    does not split over it), the columns of the kv head(s) this shard's
+    query heads read (a view); otherwise ``w`` as it is."""
+    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    if w.shape[-1] // hd != nkv or nh_l == nh or tp_index is None:
+        return w                        # sharded already, or tensor 1
+    start = tp_index * nh_l // (nh // nkv)
+    return w[:, start * hd:(start + sliced_kv_heads(cfg, nh_l)) * hd]
+
+
 def gqa_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                   pos: torch.Tensor, rope_theta: float,
-                  is_global: bool = True, cache: Optional[dict] = None
-                  ) -> tuple[torch.Tensor, Optional[dict]]:
+                  is_global: bool = True, cache: Optional[dict] = None,
+                  tp=None) -> tuple[torch.Tensor, Optional[dict]]:
     """One GQA self-attention.  ``is_global`` (a host bool from the layer's
     metadata) picks global masking or the config's sliding window.  With
     ``cache`` (k/v [B,S,Hkv,D] and ``len`` [B]), the new keys/values are
     written into it in place at the per-row offsets and the returned cache
-    carries ``len + T``."""
+    carries ``len + T``.  With ``tp`` the block runs on this shard's
+    heads (``wq.shape[1] // head_dim`` of them, the kv heads sliced by
+    :func:`_slice_kv_heads`) and its output is summed over the shards."""
     if cfg.mrope_sections is not None:
         raise NotImplementedError("M-RoPE is not ported yet")
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
     nh = p["wq"].shape[1] // hd
-    nkv = p["wk"].shape[1] // hd
+    wk, wv = p["wk"], p["wv"]
+    if tp is not None:
+        x = tp.copy_to_tensor(x)
+        wk = _slice_kv_heads(wk, cfg, nh, hd, tp.index)
+        wv = _slice_kv_heads(wv, cfg, nh, hd, tp.index)
+    nkv = wk.shape[1] // hd
     q = (x @ p["wq"]).reshape(B, T, nh, hd)
-    k = (x @ p["wk"]).reshape(B, T, nkv, hd)
-    v = (x @ p["wv"]).reshape(B, T, nkv, hd)
+    k = (x @ wk).reshape(B, T, nkv, hd)
+    v = (x @ wv).reshape(B, T, nkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -168,7 +202,8 @@ def gqa_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                      kv_len=new_len, window=window)
     else:
         out = attend(q, k, v, scale=scale, causal=True, window=window)
-    return out.reshape(B, T, nh * hd) @ p["wo"], new_cache
+    out = out.reshape(B, T, nh * hd) @ p["wo"]
+    return (out if tp is None else tp.reduce_from_tensor(out)), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -192,9 +227,15 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     return F.gelu(x, approximate="tanh") if kind == "gelu" else F.silu(x)
 
 
-def mlp(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, act: str = "silu",
+        tp=None) -> torch.Tensor:
+    """The gated MLP; with ``tp``, ``w1``/``w3`` column-parallel and
+    ``w2`` row-parallel, the output summed over the shards."""
+    if tp is not None:
+        x = tp.copy_to_tensor(x)
     h = _act(x @ p["w1"], act) * (x @ p["w3"])
-    return h @ p["w2"]
+    out = h @ p["w2"]
+    return out if tp is None else tp.reduce_from_tensor(out)
 
 
 # ---------------------------------------------------------------------------

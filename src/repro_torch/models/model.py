@@ -58,12 +58,15 @@ def init_block(cfg: ArchConfig, gen: torch.Generator, dtype, device) -> Params:
 
 
 def block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, meta_l: dict, *,
-                pos: torch.Tensor, cache_l: Optional[dict] = None):
+                pos: torch.Tensor, cache_l: Optional[dict] = None, tp=None):
     """Apply one dense or SSM block.  ``meta_l`` holds this layer's
     scalars (``rope_theta``, ``is_global``).  Returns (x', cache_l', aux_loss); the
     leaves of ``cache_l`` (k/v, or the SSM conv window and state) are
     updated in place.  Neither block has an auxiliary loss: aux is the
-    Python float 0.0 (no device work, no host sync)."""
+    Python float 0.0 (no device work, no host sync).  ``tp`` (a
+    ``comm.TensorAxis``, or None) runs the dense block on this tensor
+    shard's parameters; the SSM block is replicated over tensor and
+    ignores it, as in the JAX package."""
     if cfg.family == "ssm":
         h, new_ssm = L.ssm_block(
             p["ssm"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
@@ -73,9 +76,11 @@ def block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, meta_l: dict, *,
     xin = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     h, new_kv = L.gqa_attention(
         p["attn"], xin, cfg, pos=pos, rope_theta=meta_l["rope_theta"],
-        is_global=meta_l["is_global"], cache=None if cache_l is None else cache_l["kv"])
+        is_global=meta_l["is_global"],
+        cache=None if cache_l is None else cache_l["kv"], tp=tp)
     x = x + h
-    x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act)
+    x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act,
+                  tp)
     new_cache = None if cache_l is None else dict(cache_l, kv=new_kv)
     return x, new_cache, 0.0
 
@@ -120,11 +125,21 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg: ArchConfig, table: torch.Tensor,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    """Token embedding (tensor parallel degree 1: a plain gather), scaled
-    by sqrt(d_model) in the table's dtype for the gemma family, as the
-    JAX package does."""
-    x = table[tokens]
+                 tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """Token embedding, scaled by sqrt(d_model) in the table's dtype for
+    the gemma family, as the JAX package does.  With ``tp`` the table is
+    this shard's rows of the vocab: tokens outside them gather zeros and
+    the shards' gathers are summed (vocab-parallel, the JAX package's
+    masked ``take`` and ``psum``)."""
+    if tp is None:
+        x = table[tokens]
+    else:
+        vl = table.shape[0]
+        local = tokens - tp.index * vl
+        ok = (local >= 0) & (local < vl)
+        x = table[local.clamp(0, vl - 1)]
+        x = tp.reduce_from_tensor(torch.where(ok[..., None], x,
+                                              x.new_zeros(())))
     if cfg.arch_id.startswith("gemma"):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
@@ -157,18 +172,43 @@ def forward(cfg: ArchConfig, params: Params, batch: dict, *, cache=None):
 
 
 def logits_and_xent(cfg: ArchConfig, params: Params, x: torch.Tensor,
-                    labels: torch.Tensor) -> torch.Tensor:
+                    labels: torch.Tensor, tp=None) -> torch.Tensor:
     """Mean cross-entropy of the f32 logits ``x @ table.T`` against
-    ``labels`` (tensor parallel degree 1).  Rows of a table padded past
-    ``cfg.vocab`` (the stacked parameters' padded vocab) are masked at
-    -1e30, as the JAX pipeline's head does."""
+    ``labels``.  Rows of a table padded past ``cfg.vocab`` (the stacked
+    parameters' padded vocab) are masked at -1e30, as the JAX pipeline's
+    head does.  With ``tp`` the table is this shard's rows of the vocab
+    and the softmax is decomposed over the shards (the JAX package's):
+    the max of the logits taken over the shards outside autograd, the
+    sum of the exponentials and the label's logit summed over them;
+    ``x`` enters through ``tp.copy_to_tensor``, so its gradient sums the
+    shards' parts."""
     table = params.get("head", params["embed"])
+    if tp is not None:
+        return _vocab_parallel_xent(cfg, table, x, labels, tp)
     logits = (x @ table.T).float()                           # [B,T,V]
     if table.shape[0] > cfg.vocab:
         valid = torch.arange(table.shape[0], device=x.device) < cfg.vocab
         logits = torch.where(valid, logits, -1e30)
     lse = torch.logsumexp(logits, dim=-1)
     lab = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - lab)
+
+
+def _vocab_parallel_xent(cfg: ArchConfig, table: torch.Tensor,
+                         x: torch.Tensor, labels: torch.Tensor, tp
+                         ) -> torch.Tensor:
+    logits = (tp.copy_to_tensor(x) @ table.T).float()        # [B,T,Vl]
+    vl = table.shape[0]
+    valid = tp.index * vl + torch.arange(vl, device=x.device) < cfg.vocab
+    logits = torch.where(valid, logits, -1e30)
+    gmax = tp.max(logits.detach().amax(dim=-1))
+    sumexp = tp.reduce_from_tensor(
+        torch.exp(logits - gmax[..., None]).sum(dim=-1))
+    lse = gmax + torch.log(sumexp)
+    local = labels.long() - tp.index * vl
+    ok = (local >= 0) & (local < vl)
+    lab = torch.gather(logits, -1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    lab = tp.reduce_from_tensor(torch.where(ok, lab, lab.new_zeros(())))
     return torch.mean(lse - lab)
 
 

@@ -21,7 +21,12 @@ gradient-norm partials, the tied embedding's gradient, the serve step's
 logits), the V > 1 serving handoff's layers and, over the data group,
 the gradient sync (:meth:`Transport.reduce_bucket`: one bucket
 flattened per dtype, reduce-scattered and all-gathered, posted without
-waiting) and the replicas' logits.  Under gloo on a CUDA
+waiting) and the replicas' logits.  Over the tensor group it carries
+the Megatron collectives (:class:`TensorAxis`: the two autograd
+operators ``copy_to_tensor`` and ``reduce_from_tensor``, the
+vocab-parallel loss's max and sums, the serve step's logits gathered
+from the vocab shards) in place of the JAX runtime's ``psum`` / ``pmax``
+over ``tensor``.  Under gloo on a CUDA
 device every message goes device -> pinned host -> device in plain
 sight (gloo's send and recv take CPU tensors only); under NCCL the
 device tensors go as they are.  Each message's bytes and host time are
@@ -109,19 +114,22 @@ class Posted:
 
 class Transport:
     """One rank's messages over ``group`` (its stage group; ``rank`` is
-    its stage) and ``data_group`` (its stage's replicas, or None): the
-    ring hops and the step's collectives.  ``stats[kind] = [messages,
+    its stage), ``data_group`` (its stage's replicas, or None) and
+    ``tensor_group`` (its stage's tensor shards, or None): the ring hops
+    and the step's collectives.  ``stats[kind] = [messages,
     bytes, seconds, copy seconds, post seconds, receive-wait seconds,
     send-wait seconds]`` for the kinds ``hop`` (activations and
     cotangents), ``embed_allreduce`` (the tied embedding's gradient),
     ``scalars`` (the loss and the norm partials), ``logits`` (the serve
     step's broadcast from the last rank, and its gather over the
     replicas), ``handoff`` (the layers the V > 1 serving handoff moves
-    between ranks) and ``grad_sync`` (the gradient buckets summed over
+    between ranks), ``grad_sync`` (the gradient buckets summed over
     the replicas: a reduce-scatter and an all-gather per bucket and
     dtype, each a message; bytes the bucket's; the wait under receive
-    waits).  A message between two ranks counts at both its ends, a
-    collective once a call; bytes count what this rank sends; seconds
+    waits) and ``tensor`` (the collectives over the tensor group:
+    :class:`TensorAxis`).  A message between two ranks counts at both
+    its ends, a collective once a call; bytes count what this rank
+    sends; seconds
     are the host's wall time of the calls, waiting for the peers
     included (under NCCL, where nothing waits, the enqueue); of them,
     copy seconds are the staging copies (device -> pinned host ->
@@ -131,10 +139,11 @@ class Transport:
     buckets').  :meth:`reset` zeroes them."""
 
     KINDS = ("hop", "embed_allreduce", "scalars", "logits", "handoff",
-             "grad_sync")
+             "grad_sync", "tensor")
 
-    def __init__(self, group, data_group=None):
+    def __init__(self, group, data_group=None, tensor_group=None):
         self.group, self.data_group = group, data_group
+        self.tensor_group = tensor_group
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
         self.backend = dist.get_backend(group)
@@ -451,21 +460,23 @@ class Transport:
                     recv_wait_s=waited)
         r.parts = ()
 
-    def all_reduce_sum(self, x: torch.Tensor, group,
-                       kind: str = "embed_allreduce") -> torch.Tensor:
-        """``x`` summed IN PLACE over ``group`` (the tied embedding's two
-        ranks, or a replica's loss over the data group); returns
-        ``x``."""
+    def all_reduce(self, x: torch.Tensor, group,
+                   kind: str = "embed_allreduce",
+                   op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """``x`` reduced by ``op`` (a sum unless told otherwise) IN PLACE
+        over ``group`` (the tied embedding's two ranks, a replica's loss
+        over the data group, a tensor group's partial products or its
+        logits' max); returns ``x``."""
         if self._staged(x.device):
             torch.cuda.synchronize(x.device)
         t0 = time.perf_counter()
         copy_s = 0.0
         if self._staged(x.device):
             host, copy_s = self._to_host(x)
-            dist.all_reduce(host, group=group)
+            dist.all_reduce(host, op=op, group=group)
             copy_s += self._to_device(host, x)
         else:
-            dist.all_reduce(x, group=group)
+            dist.all_reduce(x, op=op, group=group)
         self._count(kind, x.numel() * x.element_size(), t0, copy_s)
         return x
 
@@ -483,3 +494,70 @@ class Reduction:
     def wait(self) -> None:
         if self.parts:
             self.tp._finish(self)
+
+
+class TensorAxis:
+    """One rank's place on the tensor axis: ``size`` shards, this rank's
+    ``index``, and the collectives over its tensor group (the JAX
+    layers' ``tp_axis`` / ``tp_index``), each counted under the
+    :class:`Transport`'s kind ``tensor``.  Every rank of a tensor group
+    issues them in the same order: the blocks' and the loss's, forward
+    and backward alike (a B or W tick re-runs the chunk's forward, and
+    with it its forward collectives, before its backward's)."""
+
+    def __init__(self, tp: Transport):
+        self.tp, self.group = tp, tp.tensor_group
+        self.size = dist.get_world_size(self.group)
+        self.index = dist.get_rank(self.group)
+
+    def all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM
+                   ) -> torch.Tensor:
+        """A new tensor: ``x`` reduced over the tensor group."""
+        return self.tp.all_reduce(x.detach().clone(), self.group,
+                                  kind="tensor", op=op)
+
+    def copy_to_tensor(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's ``f``: ``x`` as it is (the same on every shard),
+        its gradient summed over the shards (each shard's
+        column-parallel products give a part of it): the input of every
+        column-parallel block and of the vocab-parallel head."""
+        return _CopyToTensor.apply(x, self)
+
+    def reduce_from_tensor(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's ``g``: the shards' partial ``x`` summed (a
+        row-parallel product, the masked embedding gather, the loss's
+        sums), its gradient handed to each shard as it is (the JAX
+        layers' ``_maybe_psum``)."""
+        return _ReduceFromTensor.apply(x, self)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the group, outside autograd (the
+        vocab-parallel loss's ``stop_gradient``-ed max)."""
+        return self.all_reduce(x, dist.ReduceOp.MAX)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every shard's ``x`` concatenated along the last dim in rank
+        order, outside autograd (the serve step's vocab shards)."""
+        parts = self.tp.all_gather(x, self.group, kind="tensor")
+        return torch.cat(parts.unbind(0), dim=-1)
+
+
+class _CopyToTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_reduce(g), None
+
+
+class _ReduceFromTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None

@@ -1,5 +1,5 @@
 """BaPipe pipelined serving and training (the port's share of
-``repro/pipeline/runtime.py``: tensor = 1).
+``repro/pipeline/runtime.py``; fsdp is not ported).
 
 The JAX runtime runs every stage on its own device inside ``shard_map``
 and shifts activations around ``ppermute`` rings, one tick at a time.
@@ -38,6 +38,18 @@ replicas (``PipelineConfig.grad_sync``): after the walk (``end``), at
 the ARSYNC slots of each rank's stream (``overlap``: the JAX runtime's
 AR ops), or after the walk with the update one step behind (``2bw``,
 PipeDream-2BW); serving gathers the replicas' logits in row order.
+
+The tensor axis runs as ranks only too: on a (data, stage, tensor) grid
+each rank holds its tensor shard of its stage's parameters
+(:func:`repro_torch.pipeline.stage.tensor_share`) and runs the blocks
+Megatron-style (:class:`repro_torch.pipeline.comm.TensorAxis`: the
+column-parallel inputs through ``copy_to_tensor``, the row-parallel
+outputs through ``reduce_from_tensor``, the vocab-parallel embedding,
+loss and logits); the activations between blocks are the same on every
+shard, so shard t of stage s hops to shard t of stage s+1, as the JAX
+runtime's ``ppermute`` over ``stage`` pairs devices.  Where JAX runs
+``shard_map`` over ``("data", "stage", "tensor")``, here each tensor
+shard is a process.
 """
 from __future__ import annotations
 
@@ -91,7 +103,7 @@ class PipelineConfig:
 
 
 def apply_stage(cfg: ArchConfig, layer_params: list, stage_meta: list, x, *,
-                pos, cache=None, remat: str = "none"):
+                pos, cache=None, remat: str = "none", tp=None):
     """Run this stage's Lps layers over hidden state ``x`` [mb,T,d];
     ``layer_params[j]`` is layer slot j's parameter dict.
     Padded (inactive) layer slots pass ``x`` through and are not computed
@@ -102,7 +114,8 @@ def apply_stage(cfg: ArchConfig, layer_params: list, stage_meta: list, x, *,
     place.  ``remat='full'`` (training, no cache) runs each layer under
     ``torch.utils.checkpoint``: its activations are recomputed in the
     backward, as ``jax.checkpoint(layer_body)`` does in the JAX package.
-    Returns (x', aux, cache)."""
+    ``tp`` (a ``comm.TensorAxis``, or None) runs each block on this
+    rank's tensor shard.  Returns (x', aux, cache)."""
     aux = 0.0
     for j, ml in enumerate(stage_meta):
         if not ml["active"]:
@@ -110,19 +123,13 @@ def apply_stage(cfg: ArchConfig, layer_params: list, stage_meta: list, x, *,
         lp = layer_params[j]
         if remat == "full":
             x, _, a = checkpoint(M.block_apply, cfg, lp, x, ml, pos=pos,
-                                 use_reentrant=False)
+                                 tp=tp, use_reentrant=False)
         else:
             cl = None if cache is None else M.layer_slice(cache, j)
-            x, _, a = M.block_apply(cfg, lp, x, ml, pos=pos, cache_l=cl)
+            x, _, a = M.block_apply(cfg, lp, x, ml, pos=pos, cache_l=cl,
+                                    tp=tp)
         aux += a
     return x, aux, cache
-
-
-def _check_cache_plan(plan: ST.StagePlan) -> None:
-    if plan.tensor != 1:
-        raise NotImplementedError(
-            f"tensor={plan.tensor}: the port's pipeline cache is tensor = 1; "
-            f"a sharded cache is not ported yet ({PAR_ITEM})")
 
 
 def init_pipeline_cache(cfg: ArchConfig, plan: ST.StagePlan, batch: int,
@@ -133,8 +140,11 @@ def init_pipeline_cache(cfg: ArchConfig, plan: ST.StagePlan, batch: int,
     [S, Lps, B, max_len, Hkv, D] and per-slot ``len`` offsets
     [S, Lps, B]; or, for the SSM family, the conv window
     [S, Lps, B, d_conv-1, conv_ch] and state [S, Lps, B, H, P, N]
-    (``max_len`` unused)."""
-    _check_cache_plan(plan)
+    (``max_len`` unused).  This is the in-process executor's cache, so
+    tensor 1: at ``plan.tensor`` T > 1 each rank holds its shard's cache
+    (:func:`init_stage_cache`) and this raises."""
+    if plan.tensor > 1:
+        raise ValueError(tensor_needs_ranks(plan.tensor, plan.n_stages))
     pad_cfg = dataclasses.replace(cfg, n_layers=plan.n_layers_padded)
     c = M.init_cache(pad_cfg, batch, max_len, dtype=dtype, device=device)
     return ST._map_layers_(lambda a: ST._stack_chunks(a, plan), c)
@@ -150,14 +160,16 @@ def init_stage_cache(cfg: ArchConfig, plan: ST.StagePlan, stage: int,
     holds its replica's ``B / D`` rows of k/v (or of the SSM state) and
     every slot's ``len`` offsets (``[.., B]``), so the offsets are
     advanced, and reset by a continuous-batching engine, for the whole
-    batch on every rank."""
-    _check_cache_plan(plan)
+    batch on every rank.  At ``plan.tensor`` T > 1 a rank's k/v hold its
+    tensor shard's ``stage.kv_heads(cfg, T)`` heads (any shard's cache
+    starts as zeros; there is no stacked cache to be a row of)."""
     if not 0 <= stage < plan.n_stages:
         raise ValueError(f"stage {stage} of a {plan.n_stages}-stage plan")
     if data < 1 or batch % data:
         raise ValueError(f"batch {batch} does not split over data {data}")
     n_cfg = dataclasses.replace(
-        cfg, n_layers=plan.virtual * plan.layers_per_stage)
+        cfg, n_layers=plan.virtual * plan.layers_per_stage,
+        n_kv_heads=ST.kv_heads(cfg, plan.tensor))
     c = M.init_cache(n_cfg, batch // data, max_len, dtype=dtype,
                      device=device)
     if data > 1 and "kv" in c:
@@ -196,12 +208,13 @@ class _ServeRun:
     stage's in one loop; a rank runs its own.  ``layers`` and ``cache``
     are the stage's ``[Lps, ...]`` or ``[V, Lc, ...]`` trees (row s of a
     stacked tree, or a rank's own); ``pos`` the batch's positions and
-    ``x_all`` its embedded tokens (stage 0 only)."""
+    ``x_all`` its embedded tokens (stage 0 only); ``tp`` the rank's
+    tensor axis (or None)."""
 
     def __init__(self, cfg: ArchConfig, lo: SP.RingLowering, meta: list,
                  s: int, layers: dict, cache: dict, pos: torch.Tensor,
-                 x_all, mb: int, len_off: int = 0):
-        self.cfg, self.lo, self.meta, self.s = cfg, lo, meta, s
+                 x_all, mb: int, len_off: int = 0, tp=None):
+        self.cfg, self.lo, self.meta, self.s, self.tp = cfg, lo, meta, s, tp
         self.layers, self.cache = layers, cache
         self.pos, self.x_all, self.mb = pos, x_all, mb
         self.len_off = len_off          # a replica's first row in ``len``
@@ -237,7 +250,8 @@ class _ServeRun:
                   for j in range(self.lc)]
         y, _, _ = apply_stage(self.cfg, layers,
                               self.meta if lo.V == 1 else self.meta[v],
-                              x_in, pos=self.pos[rows], cache=c_mb)
+                              x_in, pos=self.pos[rows], cache=c_mb,
+                              tp=self.tp)
         if s == S - 1 and lo.collect[e]:
             self.outbuf[mc] = y
         return y
@@ -270,34 +284,70 @@ def data_needs_ranks(D: int, S: int) -> str:
             f"executor runs one replica")
 
 
+def tensor_needs_ranks(T: int, S: int, D: int = 1) -> str:
+    """Why tensor parallelism of degree T cannot run in one process, and
+    the world it needs (data x stages x tensor processes)."""
+    return (f"tensor {T}: tensor parallelism runs only as ranks, one a "
+            f"tensor shard: data {D} x {S} stages x tensor {T} = "
+            f"{D * S * T} processes on a (data, stage, tensor) grid "
+            f"(launch.mesh.init_stage_group(..., tensor={T}), or torchrun "
+            f"--nproc-per-node {D * S * T} with --tensor {T}); the "
+            f"in-process executor runs tensor 1")
+
+
 #: a bare process group's tied-embedding group: made by the train step
 _MAKE_TIE = object()
 
 
-def _grid(group, data: int, S: int) -> tuple:
-    """(stage group, data, replica index, data group, tied-embedding
-    group) of ``group``: a :class:`repro_torch.launch.mesh.StageMesh`
-    (its grid), a bare process group of one replica's stages (data 1;
-    the tied group :data:`_MAKE_TIE`), or None (in process: ``data``
+@dataclasses.dataclass(frozen=True)
+class _Grid:
+    """A step's place on the grid: its stage group (None in process),
+    the replicas and its replica, the data group, the tied-embedding
+    group, and the tensor group (None at tensor 1)."""
+    group: object
+    data: int
+    data_rank: int
+    data_group: object
+    tie_group: object
+    tensor_group: object = None
+
+
+def _grid(group, data: int, plan: ST.StagePlan) -> _Grid:
+    """The :class:`_Grid` of ``group``: a :class:`repro_torch.launch.
+    mesh.StageMesh` (its grid, whose tensor degree must be the plan's),
+    a bare process group of one replica's stages (data 1, tensor 1; the
+    tied group :data:`_MAKE_TIE`), or None (in process: data and tensor
     must be 1)."""
+    S, T = plan.n_stages, plan.tensor
     if group is None:
+        if T != 1:
+            raise ValueError(tensor_needs_ranks(T, S, data))
         if data != 1:
             raise ValueError(data_needs_ranks(data, S))
-        return None, 1, 0, None, None
+        return _Grid(None, 1, 0, None, None)
     if hasattr(group, "data_group"):
-        return (group.group, group.data, group.data_rank, group.data_group,
-                group.tie_group)
+        if group.tensor != T:
+            raise ValueError(f"a tensor-{T} plan on a grid of tensor "
+                             f"{group.tensor}")
+        return _Grid(group.group, group.data, group.data_rank,
+                     group.data_group, group.tie_group, group.tensor_group)
+    if T != 1:
+        raise ValueError(f"tensor={T} with a bare process group: pass the "
+                         f"rank's launch.mesh.StageMesh, which holds the "
+                         f"(data, stage, tensor) grid")
     if data != 1:
         raise ValueError(f"data={data} with a bare process group: pass "
                          f"the rank's launch.mesh.StageMesh, which holds "
                          f"the (data, stage) grid")
-    return group, 1, 0, None, _MAKE_TIE
+    return _Grid(group, 1, 0, None, _MAKE_TIE)
 
 
 def _serve_head(cfg: ArchConfig, params: dict, outbuf: list, nv,
-                q_len: int) -> torch.Tensor:
+                q_len: int, tp=None) -> torch.Tensor:
     """The collected hidden states' logits: at the last column, or at
-    each slot's last valid one (``nv``; an idle slot's column 0)."""
+    each slot's last valid one (``nv``; an idle slot's column 0).  With
+    ``tp`` the head is this shard's vocab rows and the shards' logits
+    are gathered in shard order, ``[B, 1, padded_vocab]``."""
     hidden = torch.cat(outbuf, dim=0)                     # [B,q,d]
     if nv is None:
         hidden = hidden[:, -1:]
@@ -307,7 +357,8 @@ def _serve_head(cfg: ArchConfig, params: dict, outbuf: list, nv,
                         col][:, None]
     h = LYR.rms_norm(hidden, params["final_norm"], cfg.norm_eps)
     table = params.get("head", params["embed"])
-    return (h @ table.T).float()
+    logits = (h @ table.T).float()
+    return logits if tp is None else tp.gather(logits)
 
 
 def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
@@ -363,14 +414,25 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
     the stage group and an all-gather over the data group puts the
     replicas' rows in order, so every rank returns the whole batch's.
 
+    With ``group`` a mesh of tensor degree T = ``plan.tensor`` > 1 (the
+    tensor axis, ranks only; in process it raises a ValueError naming the
+    world it needs) each rank holds its tensor shard of the parameters
+    (``stage.tensor_share``) and a cache of its shard's kv heads
+    (:func:`init_stage_cache`); the blocks run Megatron-style, stage 0's
+    shards embed the tokens vocab-parallel, the last stage's shards
+    gather their vocab shards' logits in shard order and each
+    broadcasts them along its own stage group.
+
     Returns f32 logits ``[B, 1, padded_vocab]``.  ``serve_step.lowering``
     is the replayed ring table."""
-    if plan.tensor != 1 or cfg.fsdp:
+    if cfg.fsdp:
         raise NotImplementedError(
-            f"tensor={plan.tensor}, fsdp={cfg.fsdp}: not ported yet "
-            f"({PAR_ITEM}); the port serves with tensor = 1, no fsdp")
+            f"fsdp={cfg.fsdp}: not ported yet ({PAR_ITEM}); the port "
+            f"serves without fsdp")
     S, V, M_ = plan.n_stages, plan.virtual, pcfg.n_microbatches
-    group, D, d_rank, data_group, _ = _grid(group, data, S)
+    grid = _grid(group, data, plan)
+    group, D, d_rank = grid.group, grid.data, grid.data_rank
+    data_group = grid.data_group
     sched = SP.resolve_ring_schedule(pcfg.schedule, V)
     ml = (pcfg.mem_limit or None) if sched == "zb-auto" else None
     lowering = SP.lower_to_ring(SP.build_schedule(sched, M_, S, V,
@@ -429,7 +491,8 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
 
     # ---- the rank executor: this process runs stage `rank` of replica
     # d_rank ---------------------------------------------------------------
-    tp = C.Transport(group, data_group)
+    tp = C.Transport(group, data_group, grid.tensor_group)
+    axis = C.TensorAxis(tp) if grid.tensor_group is not None else None
     rank = tp.rank
     if tp.size != S:
         raise ValueError(f"a {S}-stage plan needs a group of {S} ranks, "
@@ -446,11 +509,11 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
         B = tokens.shape[0]
         r0 = d_rank * (B // D)                  # this replica's first row
         mine = slice(r0, r0 + B // D)
-        x_all = (M.embed_tokens(cfg, params["embed"], tokens[mine])
+        x_all = (M.embed_tokens(cfg, params["embed"], tokens[mine], axis)
                  if rank == 0 else None)
         run = _ServeRun(cfg, lowering, smeta[rank], rank, params["layers"],
                         cache, M._default_pos(tokens, cache)[mine], x_all,
-                        mb, len_off=r0)
+                        mb, len_off=r0, tp=axis)
         like = torch.empty((mb, q_len, cfg.d_model), device=dev,
                            dtype=params["layers"]["ln1"].dtype)
         arr = None
@@ -464,7 +527,7 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
                                   like).get(C.FWD)
         _advance_len(cache, q_len if nv is None else nv)
         logits = (_serve_head(cfg, params, run.outbuf,
-                              None if nv is None else nv[mine], q_len)
+                              None if nv is None else nv[mine], q_len, axis)
                   if rank == S - 1 else
                   torch.empty((B // D, 1, vocab), dtype=torch.float32,
                               device=dev))
@@ -488,10 +551,6 @@ def _check_train_config(cfg: ArchConfig, plan: ST.StagePlan,
     """Refuse what the port's train executor does not run yet, naming the
     ROADMAP item that ports it, and the knobs the JAX runtime rejects,
     with its ValueErrors."""
-    if plan.tensor != 1:
-        raise NotImplementedError(
-            f"tensor={plan.tensor}: tensor parallelism is not ported yet "
-            f"({PAR_ITEM})")
     if cfg.fsdp:
         raise NotImplementedError(
             f"{cfg.arch_id}: fsdp (stage weights sharded over the data "
@@ -536,10 +595,12 @@ class _Tables:
 class _Call:
     """One call's inputs: positions and per-micro-batch labels; on the
     first stage the injections under autograd (``emb`` the embedding
-    leaf they hang from); on the last the loss head's parameters."""
+    leaf they hang from); on the last the loss head's parameters; the
+    rank's tensor axis (None at tensor 1)."""
     dev: torch.device
     pos: torch.Tensor
     labels_mb: torch.Tensor
+    tp: object = None
     emb: torch.Tensor = None
     inj: torch.Tensor = None
     fn_p: torch.Tensor = None
@@ -548,7 +609,7 @@ class _Call:
 
 
 def _call_inputs(cfg, M_: int, params: dict, batch: dict, *, first: bool,
-                 last: bool) -> _Call:
+                 last: bool, tp=None) -> _Call:
     tokens, labels = batch["tokens"], batch["labels"]
     B, T = tokens.shape
     if B % M_:
@@ -556,13 +617,13 @@ def _call_inputs(cfg, M_: int, params: dict, batch: dict, *, first: bool,
     mb = B // M_
     dev = tokens.device
     call = _Call(dev=dev, pos=torch.arange(T, device=dev)[None].expand(mb, T),
-                 labels_mb=labels.reshape(M_, mb, T))
+                 labels_mb=labels.reshape(M_, mb, T), tp=tp)
     if first:
         # the injections under autograd: the stage-0 B ticks' input
         # cotangents are back-propagated through this gather at the end
         with torch.enable_grad():
             call.emb = params["embed"].detach().requires_grad_()
-            call.inj = M.embed_tokens(cfg, call.emb, tokens).reshape(
+            call.inj = M.embed_tokens(cfg, call.emb, tokens, tp).reshape(
                 M_, mb, T, -1)
     if last:
         call.head_key = "head" if "head" in params else "embed"
@@ -605,14 +666,15 @@ class _StageRun:
         meta = self.tb.smeta[self.s]
         y, _, _ = apply_stage(self.tb.cfg, lp,
                               meta if self.tb.lo.V == 1 else meta[v], x,
-                              pos=self.call.pos, remat=remat)
+                              pos=self.call.pos, remat=remat,
+                              tp=self.call.tp)
         return y
 
     def _head_loss(self, fnp, hdp, y, m):
         h = LYR.rms_norm(y, fnp, self.tb.cfg.norm_eps)
         return M.logits_and_xent(self.tb.cfg,
                                  {self.call.head_key: hdp, "embed": hdp}, h,
-                                 self.call.labels_mb[m])
+                                 self.call.labels_mb[m], self.call.tp)
 
     def _layers(self, v) -> list:
         """Chunk v's per-layer parameter dicts (views)."""
@@ -811,21 +873,34 @@ def _arrived(x):
 
 
 def _rank_norm(tp: C.Transport, grads: dict, S: int, rank: int,
-               untied: bool) -> torch.Tensor:
+               untied: bool, cfg: ArchConfig = None,
+               tensor: int = 1) -> torch.Tensor:
     """The global gradient norm from one rank's share: each rank's terms
     (:func:`repro_torch.optim.adamw.norm_terms` of the whole tree: the
     embedding on rank 0, the final norm and the untied head on the last,
     its row of every layer leaf everywhere) are all-gathered over the
     stage group and added in the in-process order, so every rank gets
     the in-process norm's bits.  On a data axis the replicas' gradients
-    are summed first, so each replica forms the same norm alone."""
+    are summed first, so each replica forms the same norm alone.  At
+    tensor T > 1 a sharded leaf's term is first summed over the tensor
+    shards in shard order and a replicated leaf's counted once (shard
+    0's; after the tensor sums the shards hold it alike)."""
     sq = OPT.sum_squares
     layer = [sq(x) for x in ST.tree_leaves(grads["layers"])]
     zero = torch.zeros((), dtype=torch.float32, device=layer[0].device)
-    own = [sq(grads["embed"]) if rank == 0 else zero,
-           sq(grads["final_norm"]) if rank == S - 1 else zero,
-           sq(grads["head"]) if rank == S - 1 and untied else zero]
-    g = tp.all_gather(torch.stack(own + layer))          # [S, 3 + leaves]
+    own = torch.stack([sq(grads["embed"]) if rank == 0 else zero,
+                       sq(grads["final_norm"]) if rank == S - 1 else zero,
+                       sq(grads["head"]) if rank == S - 1 and untied
+                       else zero] + layer)
+    if tensor > 1:
+        paths = [("embed",), ("final_norm",), ("head",)] + [
+            ("layers",) + p for p in ST.leaf_paths(grads["layers"])]
+        shards = tp.all_gather(own, tp.tensor_group, kind="tensor")
+        own = torch.stack([
+            sum(shards[1:, i], shards[0, i])
+            if ST.tensor_dim(p, cfg, tensor) is not None else shards[0, i]
+            for i, p in enumerate(paths)])
+    g = tp.all_gather(own)                               # [S, 3 + leaves]
     terms = [[g[0, 0]], [g[S - 1, 1]]] + ([[g[S - 1, 2]]] if untied else [])
     terms += [[g[r, 3 + i] for r in range(S)] for i in range(len(layer))]
     return torch.sqrt(OPT.add_terms(terms))
@@ -980,7 +1055,21 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
     embedding over its two stages.  The same buckets go through the same
     collective in both modes, so ``'overlap'`` gives ``'end'``'s bits.
     The clip norm's terms are gathered over the stage group only (the
-    replicas' gradients are equal by then)."""
+    replicas' gradients are equal by then).
+
+    On a mesh of tensor degree T = ``plan.tensor`` > 1 (ranks only; in
+    process it raises a ValueError naming the world it needs) each rank
+    holds its tensor shard of its stage's parameters
+    (``stage.tensor_share``; ``stage.init_stage_params(...,
+    tensor_rank=)``) and returns its shard of the gradients: the blocks,
+    the embedding and the loss run Megatron-style (``comm.TensorAxis``),
+    the seed stays ``1/(M D)``, and the replicated leaves whose gradient
+    differs by shard (``stage.grad_sync_axes``: ``q_norm``/``k_norm``,
+    sliced ``wk``/``wv``) are summed over the tensor group after the
+    walk; the clip norm sums a sharded leaf's terms over the shards.  A B
+    or W tick re-runs its chunk's forward, and with it the forward's
+    collectives, in the same order on every shard (ticks and stream
+    alike)."""
     M.check_ported(cfg)
     _check_train_config(cfg, plan, pcfg, optimizer)
     if pcfg.remat not in ("none", "stage", "stage_save_moe", "full"):
@@ -990,7 +1079,9 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
             f"first-class backward ticks — B recomputes the stage from "
             f"its stashed input)")
     S, V, M_ = plan.n_stages, plan.virtual, pcfg.n_microbatches
-    group, D, d_rank, data_group, tie_group = _grid(group, data, S)
+    grid = _grid(group, data, plan)
+    group, D, d_rank = grid.group, grid.data, grid.data_rank
+    data_group, tie_group = grid.data_group, grid.tie_group
     overlap = D > 1 and (pcfg.grad_sync == "overlap" or (
         pcfg.grad_sync == "auto" and pcfg.runtime == "stream"))
     n_groups = pcfg.ar_groups if overlap else 1
@@ -1072,7 +1163,8 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
 
     # ---- the rank executor: this process runs stage `rank` of replica
     # d_rank ---------------------------------------------------------------
-    tp = C.Transport(group, data_group)
+    tp = C.Transport(group, data_group, grid.tensor_group)
+    axis = C.TensorAxis(tp) if grid.tensor_group is not None else None
     rank = tp.rank
     if tp.size != S:
         raise ValueError(f"a {S}-stage plan needs a group of {S} ranks, "
@@ -1105,7 +1197,8 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
                 raise ValueError(f"batch {B} does not split over data {D}")
             mine = slice(d_rank * (B // D), (d_rank + 1) * (B // D))
             batch = {k: batch[k][mine] for k in ("tokens", "labels")}
-        call = _call_inputs(cfg, M_, params, batch, first=first, last=last)
+        call = _call_inputs(cfg, M_, params, batch, first=first, last=last,
+                            tp=axis)
         dlp = ST._map_layers(torch.empty_like, params["layers"])
         run = _StageRun(tb, rank, params["layers"], dlp, call)
         mb, T = call.labels_mb.shape[1:]
@@ -1152,13 +1245,18 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
                 posted.append(tp.reduce_bucket(leaves))
             for r in posted:
                 r.wait()
+        if axis is not None:    # the leaves each shard saw a part of
+            for path, g in zip(ST.leaf_paths(dlp), ST.tree_leaves(dlp)):
+                if "tensor" in ST.grad_sync_axes(("layers",) + path, cfg,
+                                                 plan.tensor):
+                    tp.all_reduce(g, grid.tensor_group, kind="tensor")
         if tie_group is not None and (first or last):
             # d_embed + dhd on both ranks (two operands: the sum commutes)
-            grads["embed"] = tp.all_reduce_sum(rest["embed"], tie_group)
+            grads["embed"] = tp.all_reduce(rest["embed"], tie_group)
         ce = (run.ce / (M_ * D) if last
               else torch.zeros((), dtype=torch.float32, device=call.dev))
         if D > 1 and last:      # the replicas' terms of the batch mean
-            ce = tp.all_reduce_sum(ce, data_group, kind="scalars")
+            ce = tp.all_reduce(ce, data_group, kind="scalars")
         step.stash_slots = len(run.written)
         step.live_registers = run.peak_live
         return tp.broadcast(ce, S - 1), grads
@@ -1169,7 +1267,8 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
             return rank_loss_and_grads(params, batch)
     else:
         inner = _with_update(rank_loss_and_grads, optimizer, two_bw,
-                             lambda g: _rank_norm(tp, g, S, rank, not tied))
+                             lambda g: _rank_norm(tp, g, S, rank, not tied,
+                                                  cfg, plan.tensor))
 
         def step(params: dict, opt_state: dict, batch: dict):
             tp.reset()

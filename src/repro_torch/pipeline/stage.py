@@ -1,11 +1,20 @@
-"""Stage partitioning: ArchConfig -> stacked per-stage parameters (the
-port's copy of ``repro/pipeline/stage.py``, tensor parallel degree 1).
+"""Stage partitioning: ArchConfig -> stacked per-stage parameters and
+their tensor-parallel shares (the port's copy of
+``repro/pipeline/stage.py``).
 
 The BaPipe partitioner decides which contiguous layers each stage owns;
 stages are homogeneous, so layers are stacked to ``[S, Lps, ...]``
 (Lps = ceil(L/S)), or ``[S, V, Lc, ...]`` for an interleaved plan of V
 chunks per stage, with an ``active`` mask for the padded slots (inactive
 slots pass activations through unchanged).
+
+At tensor degree T each leaf is sharded over the tensor axis as the JAX
+package's ``param_specs`` says (:func:`tensor_dim`): the column-parallel
+projections on their last dim, the row-parallel ones on their
+next-to-last, the embedding and head on their vocab rows
+(``padded_vocab(T)`` of them), the rest replicated;
+:func:`tensor_share` cuts a rank's share and :func:`tensor_gather` puts
+the shares back together.
 """
 from __future__ import annotations
 
@@ -16,7 +25,12 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import sliced_kv_heads
 from repro_torch.models import model as M
+
+# parameter-name classes for the tensor sharding rules (the JAX package's)
+_TP_LAST = {"wq", "wk", "wv", "w1", "w3"}       # output dim sharded
+_TP_PENULT = {"wo", "w2"}                       # input dim sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,14 +207,18 @@ def init_stacked_params(cfg: ArchConfig, seed: int, plan: StagePlan, *,
                         dtype=torch.float32, device="cuda") -> dict:
     """Parameters with layers stacked [S, Lps, ...] or [S, V, Lc, ...]
     (padded slots get real weights and are skipped by the ``active``
-    mask); the global layers are drawn in the same order for any V.  Vocab is padded to
-    ``cfg.padded_vocab(plan.tensor)``.  Weights come from a
+    mask); the global layers are drawn in the same order for any V.  The
+    embedding (and untied head) has ``cfg.padded_vocab(plan.tensor)``
+    rows: the ``padded_vocab(1)`` rows drawn at tensor 1, then zero rows
+    (at tensor T the same model as at tensor 1: pad rows are never
+    looked up and their logits are masked).  Weights come from a
     ``torch.Generator`` on ``device`` seeded with ``seed``."""
     M.check_ported(cfg)
-    vocab = cfg.padded_vocab(plan.tensor)
+    vocab = cfg.padded_vocab(1)
     gen = torch.Generator(device=device).manual_seed(seed)
-    embed = torch.randn((vocab, cfg.d_model), generator=gen, dtype=dtype,
-                        device=device) / math.sqrt(cfg.d_model)
+    embed = _pad_vocab(torch.randn(
+        (vocab, cfg.d_model), generator=gen, dtype=dtype, device=device)
+        / math.sqrt(cfg.d_model), cfg, plan.tensor)
     blocks = [M.init_block(cfg, gen, dtype, device)
               for _ in range(plan.n_layers_padded)]
     layers = M.stack_layers(blocks)
@@ -211,9 +229,20 @@ def init_stacked_params(cfg: ArchConfig, seed: int, plan: StagePlan, *,
              final_norm=torch.zeros((cfg.d_model,), dtype=dtype,
                                     device=device))
     if not cfg.tie_embeddings:
-        p["head"] = torch.randn((vocab, cfg.d_model), generator=gen,
-                                dtype=dtype, device=device) / math.sqrt(cfg.d_model)
+        p["head"] = _pad_vocab(torch.randn(
+            (vocab, cfg.d_model), generator=gen, dtype=dtype, device=device)
+            / math.sqrt(cfg.d_model), cfg, plan.tensor)
     return p
+
+
+def _pad_vocab(table: torch.Tensor, cfg: ArchConfig,
+               tensor: int) -> torch.Tensor:
+    """``table`` ([padded_vocab(1), d]) with zero rows added up to
+    ``padded_vocab(tensor)``."""
+    extra = cfg.padded_vocab(tensor) - table.shape[0]
+    if extra <= 0:
+        return table
+    return torch.cat([table, table.new_zeros((extra,) + table.shape[1:])])
 
 
 def _stage_rows(a, plan: StagePlan):
@@ -225,8 +254,8 @@ def _stage_rows(a, plan: StagePlan):
 
 
 def init_stage_params(cfg: ArchConfig, seed: int, plan: StagePlan,
-                      stage: int, *, dtype=torch.float32,
-                      device="cuda") -> dict:
+                      stage: int, *, tensor_rank: int = 0,
+                      dtype=torch.float32, device="cuda") -> dict:
     """Stage ``stage``'s share of :func:`init_stacked_params`, drawn in
     the same order from one generator (the embedding, the padded layers
     one block at a time, the untied head), so every leaf equals row
@@ -236,26 +265,31 @@ def init_stage_params(cfg: ArchConfig, seed: int, plan: StagePlan,
     and ``head`` or, with tied embeddings, its own copy of ``embed``.  A
     stage that keeps no table still draws the embedding (the draw
     advances the generator) and drops it, so its peak is the larger of
-    that table and one block, not the model."""
+    that table and one block, not the model.  At ``plan.tensor`` T > 1
+    the share is tensor shard ``tensor_rank``'s (:func:`tensor_share`)
+    of the same draws, each block cut as it is drawn."""
     M.check_ported(cfg)
-    S = plan.n_stages
+    S, T = plan.n_stages, plan.tensor
     if not 0 <= stage < S:
         raise ValueError(f"stage {stage} of a {S}-stage plan")
+    if not 0 <= tensor_rank < T:
+        raise ValueError(f"tensor rank {tensor_rank} of tensor {T}")
     first, last = stage == 0, stage == S - 1
-    vocab = cfg.padded_vocab(plan.tensor)
+    cut = lambda tree, top: tensor_share({top: tree}, cfg, plan,
+                                         tensor_rank)[top]
+    vocab = cfg.padded_vocab(1)
     gen = torch.Generator(device=device).manual_seed(seed)
     embed = torch.randn((vocab, cfg.d_model), generator=gen, dtype=dtype,
                         device=device) / math.sqrt(cfg.d_model)
     keep_embed = first or (last and cfg.tie_embeddings)
-    if not keep_embed:
-        del embed
+    embed = cut(embed, "embed") if keep_embed else None
     n = plan.virtual * plan.layers_per_stage
     mine = _slot_of_layer(plan)[stage * n:(stage + 1) * n]  # in row order
     blocks = {}
     for i in range(plan.n_layers_padded):   # every block, in order
         b = M.init_block(cfg, gen, dtype, device)
         if i in mine:
-            blocks[i] = b
+            blocks[i] = cut(b, "layers")
     layers = M.stack_layers([blocks[i] for i in mine])
     del blocks, b
     p = dict(layers=_map_layers_(lambda a: _stage_rows(a, plan), layers))
@@ -268,8 +302,109 @@ def init_stage_params(cfg: ArchConfig, seed: int, plan: StagePlan,
         head = torch.randn((vocab, cfg.d_model), generator=gen, dtype=dtype,
                            device=device) / math.sqrt(cfg.d_model)
         if last:
-            p["head"] = head
+            p["head"] = cut(head, "head")
     return p
+
+
+def kv_replicated(cfg: ArchConfig, tensor: int) -> bool:
+    """The k/v projections are replicated over the tensor axis (each
+    shard slices the kv heads its query heads read) when the kv heads do
+    not split over it, as in the JAX package's ``param_specs``."""
+    return cfg.attn_kind == "gqa" and cfg.n_kv_heads % tensor != 0
+
+
+def kv_heads(cfg: ArchConfig, tensor: int) -> int:
+    """The kv heads one tensor shard's k/v projections (and cache) give:
+    its share of them, or, when :func:`kv_replicated`, the ones its
+    query heads read (the JAX package's ``_slice_kv_heads`` and its
+    cache's one kv slot a shard: the duplication of serving few-kv-head
+    models under tensor parallelism).  The SSM family has none to split:
+    ``max(1, n_kv_heads)``, as ``model.init_cache`` reads it."""
+    nkv = max(1, cfg.n_kv_heads)
+    if cfg.family == "ssm":
+        return nkv
+    if not kv_replicated(cfg, tensor):
+        return nkv // tensor
+    return sliced_kv_heads(cfg, cfg.n_heads // tensor)
+
+
+def tensor_dim(path: tuple, cfg: ArchConfig, tensor: int):
+    """The dim (counted from the end: -1 or -2) that the tensor axis
+    shards of the leaf at ``path`` (its keys from the top of the
+    parameter tree), or None for a replicated leaf: the JAX package's
+    ``param_specs`` in the port's terms (``embed``/``head`` on their
+    vocab rows; ``wq``, ``wk``, ``wv``, ``w1``, ``w3`` on their last
+    dim; ``wo``, ``w2`` on their next-to-last; ``wk``/``wv`` replicated
+    when :func:`kv_replicated`; the norms, ``final_norm`` and the SSM
+    block replicated)."""
+    top, name = path[0], path[-1]
+    if top in ("embed", "head"):
+        return -2
+    if top != "layers":
+        return None
+    if name in ("wk", "wv") and kv_replicated(cfg, tensor):
+        return None
+    if name in _TP_LAST:
+        return -1
+    if name in _TP_PENULT:
+        return -2
+    return None
+
+
+def _map_paths(fn, tree: dict, path: tuple = ()) -> dict:
+    return {k: _map_paths(fn, v, path + (k,)) if isinstance(v, dict)
+            else fn(path + (k,), v) for k, v in tree.items()}
+
+
+def tensor_share(tree: dict, cfg: ArchConfig, plan: StagePlan,
+                 t: int) -> dict:
+    """Tensor shard ``t``'s share of a parameter-shaped tree (parameters,
+    gradients, moments; any leading stack axes; tops ``embed``,
+    ``head``, ``final_norm``, ``layers``): chunk ``t`` of ``plan.tensor``
+    along each leaf's :func:`tensor_dim` (a contiguous copy), a
+    replicated leaf as it is.  An ``embed``/``head`` table with fewer
+    rows than ``padded_vocab(plan.tensor)`` (a tensor-1 tree) is first
+    padded with zero rows up to it."""
+    T = plan.tensor
+
+    def cut(path, a):
+        dim = tensor_dim(path, cfg, T)
+        if dim is None or T == 1:
+            return a
+        if path[0] in ("embed", "head"):
+            a = _pad_vocab(a, cfg, T)
+        return a.chunk(T, dim=dim)[t].contiguous()
+
+    return _map_paths(cut, tree)
+
+
+def tensor_gather(shares: list, cfg: ArchConfig, plan: StagePlan) -> dict:
+    """The inverse of :func:`tensor_share`: the shards' shares (in shard
+    order) put back into one tree, each sharded leaf concatenated along
+    its :func:`tensor_dim`, a replicated one taken from shard 0 (the
+    embedding and head keep ``padded_vocab(plan.tensor)`` rows)."""
+    def join(path, a):
+        dim = tensor_dim(path, cfg, plan.tensor)
+        if dim is None or plan.tensor == 1:
+            return a
+        parts = [_leaf_at(s, path) for s in shares]
+        return torch.cat(parts, dim=dim)
+
+    return _map_paths(join, shares[0])
+
+
+def _leaf_at(tree: dict, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def leaf_paths(tree) -> list:
+    """The paths of a nested dict's leaves, in :func:`tree_leaves`
+    order."""
+    if not isinstance(tree, dict):
+        return [()]
+    return [(k,) + p for k in sorted(tree) for p in leaf_paths(tree[k])]
 
 
 def stage_share(tree: dict, plan: StagePlan, stage: int) -> dict:
@@ -290,18 +425,38 @@ def stage_share(tree: dict, plan: StagePlan, stage: int) -> dict:
     return out
 
 
-def grad_sync_axes(key: str) -> tuple:
-    """The grid axes a gradient leaf under top-level ``key`` is summed
-    over (the JAX package's ``grad_sync_axes``: the axes the leaf is
-    replicated on, at tensor 1 without fsdp).  A ``layers`` leaf is held
-    by one stage of every replica: it sums over ``data``.  ``embed``,
-    ``head`` and ``final_norm`` sum over ``data`` and ``stage``; over the
-    stage axis the sum runs over the stages that hold the leaf, which is
-    two only for a tied embedding (the first stage's and the last's).
-    The data sum comes first, as in the JAX runtime; once it is done the
-    replicas hold the same gradients, so the clip norm's terms are
-    gathered over one replica's stages only."""
-    return ("data",) if key == "layers" else ("data", "stage")
+def grad_sync_axes(path, cfg: Optional[ArchConfig] = None,
+                   tensor: int = 1) -> tuple:
+    """The grid axes the gradient of the leaf at ``path`` (its keys from
+    the top of the tree, or the top-level key alone) is summed over (the
+    JAX package's ``grad_sync_axes``, without fsdp).  A ``layers`` leaf
+    is held by one stage of every replica: it sums over ``data``.
+    ``embed``, ``head`` and ``final_norm`` sum over ``data`` and
+    ``stage``; over the stage axis the sum runs over the stages that hold
+    the leaf, which is two only for a tied embedding (the first stage's
+    and the last's).  The data sum comes first, as in the JAX runtime;
+    once it is done the replicas hold the same gradients, so the clip
+    norm's terms are gathered over one replica's stages only.
+
+    At tensor T > 1 a replicated ``layers`` leaf whose gradient differs
+    by shard also sums over ``tensor``: ``q_norm``/``k_norm`` (each shard
+    normalises only its own heads) and ``wk``/``wv`` when
+    :func:`kv_replicated` (each shard slices the kv heads it reads).
+    Every other replicated leaf (the block norms, ``final_norm``, the
+    SSM block) sees the whole activation, whose gradient the Megatron
+    operators (``comm.TensorAxis.copy_to_tensor``) already sum over the
+    shards, so each shard holds its whole gradient; the JAX runtime
+    instead seeds
+    the backward with ``1/T`` and sums every replicated leaf over
+    ``tensor``, which gives the same gradients."""
+    path = (path,) if isinstance(path, str) else tuple(path)
+    if path[0] != "layers":
+        return ("data", "stage")
+    name = path[-1]
+    if tensor > 1 and (name in ("q_norm", "k_norm") or (
+            name in ("wk", "wv") and kv_replicated(cfg, tensor))):
+        return ("data", "tensor")
+    return ("data",)
 
 
 def stacked_meta(cfg: ArchConfig, plan: StagePlan) -> list:

@@ -1,10 +1,11 @@
 """The port's CLIs build the reference CLIs' model from the same argv, and
 the port's attention switches RoPE off as the reference does, on the CPU.
 
-* ``repro_torch.launch.serve`` and ``repro_torch.launch.train`` refuse a
-  config whose tensor degree is above 1 (llama3.2-1b's is 2) unless
-  ``--tensor 1`` is given, by the ROADMAP item's name, before anything is
-  allocated.
+* ``repro_torch.launch.serve`` and ``repro_torch.launch.train`` in one
+  process refuse a tensor degree above 1 (the config's own, llama3.2-1b's
+  2, or ``--tensor``), naming the world of ranks it needs (data x stages
+  x tensor processes), before anything is allocated; ``--tensor 1`` runs
+  in one process (the tensor axis on ranks: tests/test_torch_tensor.py).
 * ``--layers``/``--d-model`` cut the model only under ``--reduced``, as in
   ``repro.launch.train``; the parsed config is checked, nothing is run.
 * With ``rope_theta = 0`` (the reference's static off-switch for learned
@@ -16,9 +17,9 @@ the port's attention switches RoPE off as the reference does, on the CPU.
   planner makes on the same inputs (the port's ``H100`` handed to it
   field by field) and train under it with the losses of a run given the
   same stages, micro-batches, schedule and V explicitly, bit for bit; a
-  plan with tensor or data above 1 is printed, then refused before
-  anything is allocated; the reference CLI's usage errors are SystemExit
-  2.
+  plan with tensor or data above 1 is printed, then refused in one
+  process before anything is allocated, naming the ranks it needs; the
+  reference CLI's usage errors are SystemExit 2.
 """
 import dataclasses
 
@@ -40,7 +41,6 @@ from repro_torch.models import layers as TL
 from repro_torch.pipeline import runtime as RT
 from repro_torch.pipeline import stage as ST
 
-_NCCL = "tensor and data parallel over NCCL"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -70,19 +70,25 @@ _TRAIN = ["--arch", "llama3.2-1b", "--stages", "4", "--schedule", "1f1b",
           "--steps", "3", "--device", "cpu"]
 
 
-@pytest.mark.parametrize("cli,argv", [
-    pytest.param(tserve, _SERVE, id="serve"),
-    pytest.param(ttrain, _TRAIN, id="train"),
-    pytest.param(tserve, _SERVE + ["--tensor", "2"], id="serve-tensor2"),
-    pytest.param(ttrain, _TRAIN + ["--tensor", "2"], id="train-tensor2"),
+@pytest.mark.parametrize("cli,argv,world", [
+    pytest.param(tserve, _SERVE, 16, id="serve"),
+    pytest.param(ttrain, _TRAIN, 8, id="train"),
+    pytest.param(tserve, _SERVE + ["--tensor", "2"], 16, id="serve-tensor2"),
+    pytest.param(ttrain, _TRAIN + ["--tensor", "2"], 8, id="train-tensor2"),
     pytest.param(tserve, ["--arch", "llama3.2-1b", "--reduced", "--tensor",
-                          "2", "--device", "cpu"], id="serve-reduced-tensor2"),
+                          "2", "--device", "cpu"], 2,
+                 id="serve-reduced-tensor2"),
     pytest.param(ttrain, ["--arch", "llama3.2-1b", "--reduced", "--tensor",
-                          "2", "--steps", "1", "--device", "cpu"],
+                          "2", "--steps", "1", "--device", "cpu"], 2,
                  id="train-reduced-tensor2")])
-def test_clis_refuse_tensor_parallel_configs(no_allocation, cli, argv):
+def test_clis_refuse_tensor_parallel_configs(no_allocation, cli, argv,
+                                             world):
+    """In one process a tensor degree above 1 (the config's own, or
+    ``--tensor 2``) raises before anything is allocated, naming the
+    world of ranks it needs: data 1 x stages x tensor 2."""
     assert get_config("llama3.2-1b").tensor == 2
-    with pytest.raises(NotImplementedError, match=_NCCL):
+    with pytest.raises(ValueError, match=f"tensor 2 = {world} processes on "
+                                         f"a \\(data, stage, tensor\\) grid"):
         cli.main(argv)
 
 
@@ -213,10 +219,16 @@ def test_auto_plan_takes_mem_limit():
 
 def test_homogeneous_auto_plan_with_tensor_parallel_is_printed_then_refused(
         no_allocation, capsys):
+    """The homogeneous ``--auto-plan`` at ``--stages 4`` plans tensor 4:
+    in one process it is printed, then refused before anything is
+    allocated, naming the 4 ranks it trains on (as it does:
+    tests/test_torch_tensor.py)."""
     want = JA.auto_plan(_jax_cfg(4), global_batch=8, seq_len=32,
                         model_axis=4, data_axis=1, device=_JH100)
     assert want.tensor > 1
-    with pytest.raises(NotImplementedError, match=_NCCL):
+    with pytest.raises(ValueError, match=f"tensor {want.tensor} = "
+                                         f"{want.stages * want.tensor} "
+                                         f"processes"):
         ttrain.main(_RED + ["--stages", "4", "--auto-plan"])
     assert (f"auto-plan: stages={want.stages} tensor={want.tensor} "
             f"M={want.n_microbatches} sched={want.schedule}"
@@ -227,10 +239,9 @@ def test_homogeneous_auto_plan_with_tensor_parallel_is_printed_then_refused(
 def test_auto_plan3d_trains_its_plan_or_refuses_it(pool, request, capsys):
     """The pool's plan, read from the JAX planner: a one-card plan trains
     with the losses of the same flags given explicitly; a plan with
-    tensor above 1 is printed, then refused by the item's name, and one
-    with data above 1 printed, then refused in one process with the
-    ranks it needs (it trains as ranks: tests/test_torch_data.py), both
-    before anything is allocated (at the port's H100, pools 2 and 4 buy
+    tensor or data above 1 is printed, then refused in one process with
+    the ranks it needs (it trains as ranks: tests/test_torch_data.py,
+    tests/test_torch_tensor.py), before anything is allocated (at the port's H100, pools 2 and 4 buy
     data parallelism, pools 1 and 3 a pipeline)."""
     want = JA.auto_plan3d(_jax_cfg(), global_batch=8, seq_len=32,
                           n_devices=pool, device=_JH100)
@@ -238,7 +249,7 @@ def test_auto_plan3d_trains_its_plan_or_refuses_it(pool, request, capsys):
     if want.tensor > 1 or want.data_axis > 1:
         request.getfixturevalue("no_allocation")
         if want.tensor > 1:
-            err, match = NotImplementedError, _NCCL
+            err, match = ValueError, "tensor parallelism runs only as ranks"
         else:
             err, match = ValueError, (f"data {want.data_axis} x "
                                       f"{want.stages} stages: the data axis "

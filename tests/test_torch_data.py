@@ -449,8 +449,8 @@ def test_in_process_data_raises_naming_the_world():
 
 def test_grad_sync_knobs_raise_as_jax():
     """What the JAX runtime rejects (``runtime.py:478-495``), the port
-    rejects with its words; tensor > 1 and fsdp stay refused by the
-    item's name."""
+    rejects with its words; fsdp stays refused by the item's name, and
+    tensor > 1 in one process names the ranks it needs."""
     cfg = W.config(2)
     plan = ST.plan_stages(cfg)
     opt = OPT.AdamW()
@@ -464,12 +464,16 @@ def test_grad_sync_knobs_raise_as_jax():
                        "OVERLAPPED AR buckets")):
         with pytest.raises(ValueError, match=match):
             RT.make_train_step(cfg, plan, RT.PipelineConfig(**kw))
-    for bad in (dataclasses.replace(plan, tensor=2), plan):
-        c = cfg if bad is not plan else dataclasses.replace(cfg, fsdp=True)
-        with pytest.raises(NotImplementedError, match=ITEM):
-            RT.make_train_step(c, bad, RT.PipelineConfig(), optimizer=opt)
-        with pytest.raises(NotImplementedError, match=ITEM):
-            RT.make_serve_step(c, bad, RT.PipelineConfig())
+    fsdp = dataclasses.replace(cfg, fsdp=True)
+    with pytest.raises(NotImplementedError, match=ITEM):
+        RT.make_train_step(fsdp, plan, RT.PipelineConfig(), optimizer=opt)
+    with pytest.raises(NotImplementedError, match=ITEM):
+        RT.make_serve_step(fsdp, plan, RT.PipelineConfig())
+    plan2 = dataclasses.replace(plan, tensor=2)
+    with pytest.raises(ValueError, match="tensor 2 = 4 processes"):
+        RT.make_train_step(cfg, plan2, RT.PipelineConfig(), optimizer=opt)
+    with pytest.raises(ValueError, match="tensor 2 = 4 processes"):
+        RT.make_serve_step(cfg, plan2, RT.PipelineConfig())
 
 
 def test_check_world_names_both_numbers():
@@ -490,11 +494,10 @@ def test_check_world_names_both_numbers():
               "2"])])
 def test_torchrun_grid_refused_before_any_group(monkeypatch, cli, flags):
     """Under torchrun's environment (4 ranks) a grid that is not data x
-    stages = world, or tensor 2, raises before any group is set up."""
+    stages x tensor = world (data 2 x stages 2 x tensor 2 is 8) raises
+    before any group is set up."""
     for k, v in (("WORLD_SIZE", "4"), ("RANK", "0"), ("LOCAL_RANK", "0")):
         monkeypatch.setenv(k, v)
-    err = NotImplementedError if "--tensor" in flags else ValueError
-    with pytest.raises(err, match=ITEM if "--tensor" in flags
-                       else "must equal the world size"):
+    with pytest.raises(ValueError, match="must equal the world size"):
         cli.main(["--arch", "llama3.2-1b", "--device", "cpu"] + flags)
     assert not torch.distributed.is_initialized()

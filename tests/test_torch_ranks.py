@@ -408,15 +408,20 @@ def test_nccl_with_more_ranks_than_cards_raises():
         MESH.check_backend("mpi", "cpu", 2)
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--tensor", "2"], "tensor and data parallel over NCCL")])
-def test_rank_cli_still_refuses_by_item(monkeypatch, flag, item):
+@pytest.mark.parametrize("flag,err,item", [
+    (["--tensor", "2"], ValueError,
+     "stages x tensor 2 on 2 ranks.*must equal the world size"),
+    (["--ckpt", "run.ckpt"], NotImplementedError,
+     "checkpoints, reshard and elastic")])
+def test_rank_cli_still_refuses_by_item(monkeypatch, flag, err, item):
     """Under torchrun's environment the refused flags raise by their
-    ROADMAP item before any group is set up (``--data``, once refused
-    here, runs: tests/test_torch_data.py)."""
+    ROADMAP item, and a grid that is not the world size (``--tensor 2``
+    at 2 stages needs 4 ranks) names both numbers, before any group is
+    set up (``--data`` and ``--tensor``, once refused here, run:
+    tests/test_torch_data.py, tests/test_torch_tensor.py)."""
     for k, v in (("WORLD_SIZE", "2"), ("RANK", "0"), ("LOCAL_RANK", "0")):
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(err, match=item):
         ttrain.main(["--arch", "llama3.2-1b", "--reduced", "--stages", "2",
                      "--steps", "1", "--device", "cpu"] + flag)
     assert not torch.distributed.is_initialized()

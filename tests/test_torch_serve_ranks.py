@@ -272,16 +272,21 @@ def test_serve_refusals_name_the_item():
     plan = ST.plan_stages(cfg)
     plan2 = dataclasses.replace(plan, tensor=2)
     pcfg = RT.PipelineConfig()
-    # the data axis is ported, as ranks only: in process it names them
+    # the data and tensor axes are ported, as ranks only: in process
+    # they name them (the in-process cache too); a rank's cache shards
+    # the kv heads; fsdp is refused
     with pytest.raises(ValueError, match="runs only as ranks"):
         RT.make_serve_step(cfg, plan, pcfg, data=2)
     for call in (lambda: RT.make_serve_step(cfg, plan2, pcfg),
                  lambda: RT.init_pipeline_cache(cfg, plan2, 2, 4,
-                                                device="cpu"),
-                 lambda: RT.init_stage_cache(cfg, plan2, 0, 2, 4,
-                                             device="cpu")):
-        with pytest.raises(NotImplementedError, match=ITEM):
+                                                device="cpu")):
+        with pytest.raises(ValueError, match="tensor 2 = 4 processes"):
             call()
+    with pytest.raises(NotImplementedError, match=ITEM):
+        RT.make_serve_step(dataclasses.replace(cfg, fsdp=True), plan, pcfg)
+    share = RT.init_stage_cache(cfg, plan2, 0, 2, 4, device="cpu")
+    hd = cfg.resolved_head_dim
+    assert share["kv"]["k"].shape[-2:] == (cfg.n_kv_heads // 2, hd)
 
 
 _CLI = ["--arch", "llama3.2-1b", "--reduced", "--batch", "4",
@@ -290,7 +295,7 @@ _CLI = ["--arch", "llama3.2-1b", "--reduced", "--batch", "4",
 
 @pytest.mark.parametrize("flags,err,match", [
     (["--stages", "2", "--tensor", "2", "--device", "cpu"],
-     NotImplementedError, ITEM),
+     ValueError, "x tensor 2 on 2 ranks"),
     (["--stages", "3", "--device", "cpu"], ValueError,
      "must equal the world size"),
     (["--stages", "2", "--device", "cuda", "--dist-backend", "nccl"],
@@ -299,10 +304,11 @@ _CLI = ["--arch", "llama3.2-1b", "--reduced", "--batch", "4",
     (["--stages", "2", "--device", "cuda"], ValueError,
      "cannot put two ranks on one device")])
 def test_rank_cli_refuses_before_any_group(monkeypatch, flags, err, match):
-    """Under torchrun's environment (2 ranks) the serve CLI refuses
-    tensor parallelism by its ROADMAP item, a grid that is not the world
-    size, and nccl with more ranks than cards, before any group is set
-    up (``--data`` runs: tests/test_torch_data.py)."""
+    """Under torchrun's environment (2 ranks) the serve CLI refuses a
+    grid that is not the world size (``--tensor 2`` at 2 stages needs 4
+    ranks) and nccl with more ranks than cards, before any group is set
+    up (``--data`` and ``--tensor`` run: tests/test_torch_data.py,
+    tests/test_torch_tensor.py)."""
     if torch.cuda.device_count() >= 2 and "cuda" in flags:
         pytest.skip("two cards: nccl could run both ranks")
     for k, v in (("WORLD_SIZE", "2"), ("RANK", "0"), ("LOCAL_RANK", "0")):

@@ -400,17 +400,23 @@ def test_remat_full_attention_calls(monkeypatch, schedule, per_layer_mb):
     ["--auto-plan3d", "--pool", "8"], ["--auto-plan", "--stages", "2"]])
 def test_train_cli_refuses_unported_flags(flag):
     """The flags of items still to port raise by their ROADMAP item.  The
-    data axis is ported (tests/test_torch_data.py): in one process
-    ``--data 2`` and the planner's data-4 plan name the ranks they need,
-    the sync knobs raise as the JAX runtime does where they cannot run
-    (overlap and ar_groups need the stream runtime), and ``--grad-sync
-    2bw`` trains."""
+    data and tensor axes are ported (tests/test_torch_data.py,
+    tests/test_torch_tensor.py): in one process ``--data 2``,
+    ``--tensor 2`` and the planner's data and tensor plans name the
+    ranks they need, the sync knobs raise as the JAX runtime does where
+    they cannot run (overlap and ar_groups need the stream runtime), and
+    ``--grad-sync 2bw`` trains."""
     argv = ["--arch", "llama3.2-1b", "--reduced", "--steps", "1",
             "--device", "cpu"] + flag
     if flag == ["--grad-sync", "2bw"]:
         assert len(ttrain.main(argv)["losses"]) == 1
         return
+    tensor = (ValueError, "tensor parallelism runs only as ranks")
     err, match = {("--data", "2"): (ValueError, "runs only as ranks"),
+                  ("--tensor", "2"): tensor,
+                  ("--auto-plan", "--stages", "4"): tensor,
+                  ("--auto-plan", "--stages", "2"): tensor,
+                  ("--auto-plan3d", "--pool", "8"): tensor,
                   ("--grad-sync", "overlap"): (ValueError,
                                                "requires runtime='stream'"),
                   ("--ar-groups", "2"): (ValueError, "OVERLAPPED AR"),
@@ -426,12 +432,15 @@ def test_train_step_refuses_unported_configs():
     cfg = dataclasses.replace(_cfgs()[0], stages=2)
     plan = ST.plan_stages(cfg)
     # the scheduled sync needs the stream runtime (as in the JAX runtime);
-    # tensor parallelism is still to port
+    # tensor parallelism runs only as ranks; fsdp is still to port
     for kw in (dict(grad_sync="overlap"), dict(ar_groups=2)):
         with pytest.raises(ValueError, match="runtime='stream'"):
             RT.make_train_step(cfg, plan, RT.PipelineConfig(**kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="runs only as ranks"):
         RT.make_train_step(cfg, dataclasses.replace(plan, tensor=2),
+                           RT.PipelineConfig())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RT.make_train_step(dataclasses.replace(cfg, fsdp=True), plan,
                            RT.PipelineConfig())
     # the SSD kernel has its backward: mamba2's step builds (and trains:
     # tests/test_torch_ssm_train.py)

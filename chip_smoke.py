@@ -286,7 +286,25 @@ Phases, each reported on its own lines:
    rank, each rank's peak and kv heads; then a ``ContinuousEngine`` run
    at stages 2 x tensor 2 (2 layers) retiring the in-process engine's
    tokens.  No time of phases 34-36 is a tensor-parallel one: the ranks
-   time-slice one card and every collective crosses host memory.
+   time-slice one card and every collective crosses host memory;
+37. checkpoints, reshard and elastic through
+   ``repro_torch.launch.train.main`` with phase 10's argv at 4 steps
+   (llama3.2-1b at full width and depth; files in a temporary directory
+   removed at the end): (a) the uninterrupted run; (b) ``--ckpt
+   --ckpt-every 2 --die-at 3`` exits 17 with the file at step 2; (c)
+   ``--resume`` on the same layout: steps 2-3 bit for bit (a)'s; (d)
+   ``--resume`` at ``--stages 2 --virtual 2``: the file resharded on the
+   host (its layer leaves ``restack_layers`` of the saved ones bit for
+   bit), steps 2-3 within 1e-5 relative of (a)'s (it prints whether
+   bitwise); (e) 4 gloo ranks save at step 2 (rank 0 writes the shares
+   it gathers leaf by leaf: the file (b)'s bit for bit, the meta byte for
+   byte) and resume from (b)'s file (losses (c)'s bit for bit); (f)
+   ``--drift-every 1 --drift-inject 4,1,1,1`` trips the monitor at step
+   2 and prints the replan.  It prints the directory's free bytes before
+   the phase, the checkpoint's bytes, the save (device to host apart from
+   the disk write), restore and reshard ms and GB/s, and each run's peak
+   device memory; with less room than two copies of the state (~14.8 GB
+   each) it runs at the deepest that fits, which it prints.
 
 Every kernel's launch counters (``launches`` and, for flash attention,
 ``launches_prefill`` / ``launches_decode`` / ``launches_bwd``; for the
@@ -3297,6 +3315,324 @@ LAYER_GEMMS = ((2048, 2048, 2048, 2), (2048, 2048, 512, 2),
                (2048, 2048, 8192, 2), (2048, 8192, 2048, 1))
 
 
+# ---------------------------------------------------------------------------
+# Phase 37: checkpoints, reshard and elastic (llama3.2-1b at full width).
+# ---------------------------------------------------------------------------
+
+#: phase 37's run: phase 10's (llama3.2-1b at full width, 4 stages, 1f1b,
+#: M 4, batch 8, seq 1024, f32, seed 0), 4 steps
+ELASTIC = ["--arch", "llama3.2-1b", "--tensor", "1", "--stages", "4",
+           "--schedule", "1f1b", "--microbatches", "4", "--batch", "8",
+           "--seq", "1024", "--steps", "4", "--log-every", "1", "--seed",
+           "0", "--device", "cuda"]
+#: (d)'s layout: 2 stages x V 2
+ELASTIC_MOVED = ["--stages", "2", "--virtual", "2", "--schedule",
+                 "1f1b-interleaved"]
+#: (e)'s depth (full width, one layer a rank): 4 ranks time-slicing the
+#: card take ~2x a step in one process, and a file check reads two files
+ELASTIC_RANK_LAYERS = 4
+#: processes reading the two files of a check (one process reads a
+#: file at ~1.5 GB/s on the card's machine, four together ~5 GB/s)
+CHECK_PROCS = 4
+
+
+@contextlib.contextmanager
+def at_depth(train, layers: int):
+    """``train.main`` builds llama3.2-1b at ``layers`` layers and its full
+    width (the CLI cuts depth only together with width, under
+    ``--reduced``); at the config's own depth nothing changes."""
+    get = train.get_config
+    if layers != get("llama3.2-1b").n_layers:
+        train.get_config = lambda arch: dataclasses.replace(
+            get(arch), n_layers=layers)
+    try:
+        yield
+    finally:
+        train.get_config = get
+
+
+def elastic_run(train, argv: list, layers: int, saves: list = None) -> dict:
+    """``train.main(argv)`` at ``layers`` layers: its result without the
+    state, its wall seconds, or ``{"exit": status}`` for a ``SystemExit``;
+    each save's stats appended to ``saves``."""
+    from repro_torch.checkpoint import ckpt as CK
+    save = CK.save_checkpoint
+
+    def counted_save(*a, **k):
+        st = save(*a, **k)
+        if saves is not None:
+            saves.append(dict(st, step=k.get("step")))
+        return st
+
+    t0 = time.perf_counter()
+    CK.save_checkpoint = counted_save
+    try:
+        with at_depth(train, layers):
+            out = train.main(argv)
+    except SystemExit as e:
+        return dict(exit=e.code, wall_s=time.perf_counter() - t0)
+    finally:
+        CK.save_checkpoint = save
+    res = {k: v for k, v in out.items()
+           if k not in ("params", "opt_state", "plan")}
+    del out
+    torch.cuda.empty_cache()
+    return dict(res, wall_s=time.perf_counter() - t0)
+
+
+def rank_elastic(mesh, argv: list, ck: str, rank_ck: str,
+                 layers: int) -> dict:
+    """Phase 37 (e) on one rank: ``train.main`` with ``argv`` as this
+    rank, saving at step 2 (``--ckpt rank_ck``, 2 steps), then resumed
+    from the in-process run's checkpoint ``ck`` for steps 2-3."""
+    card_flags()
+    from repro_torch.launch import train
+    out = {}
+    for key, extra in (("save", ["--ckpt", rank_ck, "--ckpt-every", "2",
+                                 "--steps", "2"]),
+                       ("resume", ["--resume", ck])):
+        with at_depth(train, layers):
+            r = train.main(argv + ["--dist-backend", "gloo"] + extra,
+                           mesh=mesh)
+        out[key] = {k: v for k, v in r.items()
+                    if k not in ("params", "opt_state", "plan",
+                                 "transport")}
+        del r
+        torch.cuda.empty_cache()
+    return out
+
+
+def state_bytes(get_config, M, layers: int) -> int:
+    """Bytes of llama3.2-1b's f32 training state at ``layers`` layers:
+    parameters, AdamW's m and v (one block drawn on the CPU to count)."""
+    from repro_torch.pipeline.stage import tree_leaves
+    cfg = get_config("llama3.2-1b")
+    gen = torch.Generator().manual_seed(0)
+    block = sum(x.numel() for x in tree_leaves(
+        M.init_block(cfg, gen, torch.float32, "cpu")))
+    return 3 * 4 * (cfg.padded_vocab(1) * cfg.d_model + cfg.d_model
+                    + layers * block)
+
+
+def _differing(a: str, b: str, keys: list, refold) -> list:
+    """The keys of ``keys`` whose arrays differ between checkpoints ``a``
+    and ``b`` (bits and dtype), a layer leaf of ``a`` first re-folded by
+    ``refold`` = (plan_from, plan_to, n_layers) when given."""
+    import numpy as np
+    from repro_torch.checkpoint.ckpt import CheckpointReader
+    from repro_torch.pipeline.stage import restack_layers
+    out = []
+    with CheckpointReader(a, check_crc=False) as x, \
+            CheckpointReader(b, check_crc=False) as y:
+        for k in keys:
+            u, v = x.array(k), y.array(k)
+            if refold is not None and "layers" in k.split("/")[:-1]:
+                u = restack_layers(u, *refold)
+            if u.dtype != v.dtype or not np.array_equal(u, v):
+                out.append(k)
+    return out
+
+
+def same_checkpoint_files(a: str, b: str, refold=None) -> dict:
+    """Two checkpoints leaf by leaf, each array's bits compared whole
+    (the CRCs are not checked on the way), in ``CHECK_PROCS`` processes
+    at once; with ``refold`` the layer leaves of ``a`` re-folded first,
+    else the metas' bytes too."""
+    import multiprocessing
+    from repro_torch.checkpoint.ckpt import CheckpointReader
+    with CheckpointReader(a) as x, CheckpointReader(b) as y:
+        if x.keys != y.keys:
+            return dict(meta=False, arrays=False, keys=False)
+        keys = x.keys
+    with open(a + ".meta", "rb") as f, open(b + ".meta", "rb") as g:
+        meta = f.read() == g.read()
+    parts = [keys[i::CHECK_PROCS] for i in range(CHECK_PROCS)]
+    with concurrent.futures.ProcessPoolExecutor(
+            CHECK_PROCS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        differ = sum(pool.map(_differing, [a] * CHECK_PROCS,
+                              [b] * CHECK_PROCS, parts,
+                              [refold] * CHECK_PROCS), [])
+    return dict(meta=meta, arrays=not differ, keys=True, differ=differ[:8])
+
+
+def _gbps(nbytes: int, secs: float) -> float:
+    return nbytes / 1e9 / secs if secs > 0 else float("inf")
+
+
+def phase_elastic(train, mesh_mod, mods) -> dict:
+    """Phase 37: the elastic loop through ``launch.train.main`` at
+    llama3.2-1b's full width (phase 10's argv, 4 steps), files in a
+    temporary directory removed at the end: (a) the uninterrupted run;
+    (b) ``--ckpt --ckpt-every 2 --die-at 3``: exit 17, the file at step
+    2; (c) ``--resume`` on the same layout: steps 2-3 bit for bit (a)'s;
+    (d) ``--resume`` at 2 stages x V 2: the file resharded on the host
+    (its layer leaves ``restack_layers`` of the saved ones bit for bit),
+    steps 2-3 within 1e-5 relative of (a)'s; (e) 4 gloo ranks saving at
+    step 2 (the file (b)'s bit for bit, meta byte for byte) and resuming
+    from (b)'s file (losses (c)'s bit for bit); (f) ``--drift-every 1
+    --drift-inject 4,1,1,1`` for 3 steps: the monitor trips at step 2
+    and the replan is printed.  At full depth if the directory has room
+    for two copies of the state, else at the deepest that fits (printed;
+    the width kept)."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import ckpt as CK
+    from repro_torch.pipeline import stage as ST
+    get_config, M = mods
+    full = get_config("llama3.2-1b").n_layers
+    d = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    free = shutil.disk_usage(d).free
+    one, per_layer = (state_bytes(get_config, M, 0),
+                      state_bytes(get_config, M, 1)
+                      - state_bytes(get_config, M, 0))
+    need = lambda L: 2 * (one + L * per_layer) + 2**30
+    L = next((n for n in range(full, 0, -4) if need(n) < free), 0)
+    if L == 0:
+        shutil.rmtree(d)
+        fail(f"phase 37: {free} B free in {d}, less than two copies of a "
+             f"4-layer state ({need(4)} B)")
+    L_e = min(L, ELASTIC_RANK_LAYERS)
+    print(f"elastic: {free} B free in {d} before the phase; llama3.2-1b at "
+          f"full width, {L} of {full} layers (state {one + L * per_layer} "
+          f"B; the rank runs at {L_e})", flush=True)
+    ck = os.path.join(d, "ck")
+    try:
+        res = dict(free_bytes=free, layers=L, rank_layers=L_e)
+        # (a) the uninterrupted run
+        a = elastic_run(train, ELASTIC, L)
+        # (b) saved at step 2, dead after step 3
+        saves = []
+        b = elastic_run(train, ELASTIC + ["--ckpt", ck, "--ckpt-every", "2",
+                                          "--die-at", "3"], L, saves)
+        step_b = CK.checkpoint_step(ck)
+        if b.get("exit") != 17 or step_b != 2 or len(saves) != 1:
+            fail(f"phase 37 (b): exit {b.get('exit')}, file at step "
+                 f"{step_b}, {len(saves)} saves; want 17, 2, 1")
+        save = saves[0]
+        # (c) resumed on the same layout
+        c = elastic_run(train, ELASTIC + ["--resume", ck], L)
+        if c["start"] != 2 or c["losses"] != a["losses"][2:]:
+            fail(f"phase 37 (c): resumed at {c['start']}, losses "
+                 f"{c['losses']} != (a)'s {a['losses'][2:]}")
+        # (d) resumed at 2 stages x V 2: the reshard on the host
+        dd = elastic_run(train, ELASTIC + ELASTIC_MOVED + ["--resume", ck], L)
+        moved = f"{ck}.to2v2"
+        cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=L,
+                                  tensor=1)
+        pa = ST.plan_stages(cfg, n_stages=4, virtual=1)
+        pb = ST.plan_stages(cfg, n_stages=2, virtual=2)
+        refolded = same_checkpoint_files(ck, moved, refold=(pa, pb, L))
+        bad = refolded.get("differ", ["keys"])
+        rel = max(abs(p - q) / abs(q) for p, q in zip(dd["losses"],
+                                                      a["losses"][2:]))
+        if bad or dd["start"] != 2 or rel > 1e-5:
+            fail(f"phase 37 (d): leaves {bad[:8]} differ from restack_layers "
+                 f"of the saved ones; resumed at {dd['start']}, losses "
+                 f"{dd['losses']} vs (a)'s {a['losses'][2:]} ({rel:.2e})")
+        for ext in (".npz", ".meta"):
+            os.remove(moved + ext)
+        # (e) 4 gloo ranks: a save at step 2 and a resume from (b)'s file
+        if L_e == L:
+            ck_e, c_e = ck, c
+        else:
+            ck_e = os.path.join(d, "ck_e")
+            b_e = elastic_run(train, ELASTIC + [
+                "--ckpt", ck_e, "--ckpt-every", "2", "--die-at", "3"], L_e)
+            c_e = elastic_run(train, ELASTIC + ["--resume", ck_e], L_e)
+            if b_e.get("exit") != 17:
+                fail(f"phase 37 (e): the {L_e}-layer run exited "
+                     f"{b_e.get('exit')}")
+        rank_ck = os.path.join(d, "ranks")
+        t0 = time.perf_counter()
+        outs = mesh_mod.spawn_ranks(rank_elastic, 4, "gloo", ELASTIC, ck_e,
+                                    rank_ck, L_e, device="cuda")
+        e_wall = time.perf_counter() - t0
+        same = same_checkpoint_files(rank_ck, ck_e)
+        e_res = outs[0]["resume"]
+        if not (same["meta"] and same["arrays"]):
+            fail(f"phase 37 (e): the rank-written file differs from the "
+                 f"in-process one: {same}")
+        if e_res["start"] != 2 or e_res["losses"] != c_e["losses"]:
+            fail(f"phase 37 (e): the rank resume's losses "
+                 f"{e_res['losses']} != in process {c_e['losses']}")
+        # (f) the drift monitor
+        f = elastic_run(train, ELASTIC + ["--steps", "3", "--drift-every",
+                                          "1", "--drift-inject", "4,1,1,1"],
+                        L)
+        line = f["drift"]["replan"]
+        if not (line or "").startswith("drift 1.29 at step 2: replan"):
+            fail(f"phase 37 (f): the monitor did not trip at step 2 "
+                 f"({f['drift']})")
+        restore = c["io"]["restore"]
+        rank_save = outs[0]["save"]["io"]["saves"][0]
+        res.update(
+            a=dict(losses=a["losses"], peak_gib=a["peak_gib"],
+                   peak_setup_gib=a["io"].get("peak_setup_gib"),
+                   wall_s=a["wall_s"]),
+            b=dict(exit=b["exit"], step=step_b, wall_s=b["wall_s"],
+                   save=save, save_ms=1e3 * (save["copy_s"]
+                                             + save["write_s"]),
+                   disk_write_gbps=_gbps(save["bytes"], save["write_s"]),
+                   copy_gbps=_gbps(save["bytes"], save["copy_s"])),
+            c=dict(losses=c["losses"], restore=restore,
+                   restore_ms=1e3 * (restore["read_s"] + restore["copy_s"]),
+                   disk_read_gbps=_gbps(restore["bytes"],
+                                        restore["read_s"]),
+                   copy_gbps=_gbps(restore["bytes"], restore["copy_s"]),
+                   peak_gib=c["peak_gib"],
+                   peak_setup_gib=c["io"].get("peak_setup_gib"),
+                   wall_s=c["wall_s"]),
+            d=dict(losses=dd["losses"], bitwise=dd["losses"]
+                   == a["losses"][2:], max_rel=rel,
+                   reshard_ms=1e3 * dd["io"]["reshard_s"],
+                   reshard_gbps=_gbps(2 * save["bytes"],
+                                      dd["io"]["reshard_s"]),
+                   restore=dd["io"]["restore"], peak_gib=dd["peak_gib"],
+                   peak_setup_gib=dd["io"].get("peak_setup_gib"),
+                   wall_s=dd["wall_s"]),
+            e=dict(layers=L_e, same_file=same, losses=e_res["losses"],
+                   save=rank_save,
+                   restore_by_rank=[o["resume"]["io"]["restore"]
+                                    for o in outs],
+                   peak_gib_by_rank=e_res["peak_gib_by_rank"],
+                   wall_s=e_wall),
+            f=dict(drifts=f["drift"]["drifts"], replan=line,
+                   losses=f["losses"], wall_s=f["wall_s"]))
+        print(f"elastic (a)-(c): losses {a['losses']}; (b) exit 17, saved "
+              f"step 2: {save['bytes']} B, device to host "
+              f"{save['copy_s'] * 1e3:.1f} ms "
+              f"({res['b']['copy_gbps']:.2f} GB/s), disk write "
+              f"{save['write_s'] * 1e3:.1f} ms "
+              f"({res['b']['disk_write_gbps']:.2f} GB/s); (c) restore: disk "
+              f"read {restore['read_s'] * 1e3:.1f} ms "
+              f"({res['c']['disk_read_gbps']:.2f} GB/s), host to device "
+              f"{restore['copy_s'] * 1e3:.1f} ms "
+              f"({res['c']['copy_gbps']:.2f} GB/s); steps 2-3 bitwise (a)'s",
+              flush=True)
+        print(f"elastic (d): 4 x V 1 -> 2 x V 2 reshard "
+              f"{res['d']['reshard_ms']:.1f} ms on the host "
+              f"({res['d']['reshard_gbps']:.2f} GB/s read + written), layer "
+              f"leaves bitwise restack_layers'; losses {dd['losses']} "
+              f"({'bitwise' if res['d']['bitwise'] else 'not bitwise'}, max "
+              f"rel {rel:.2e}, bar 1e-5)", flush=True)
+        print(f"elastic (e): 4 gloo ranks at {L_e} layers: the rank-written "
+              f"file (saved in {rank_save['total_s'] * 1e3:.1f} ms, "
+              f"{rank_save['bytes']} B) equals in process (meta bytes, "
+              f"arrays); resume losses {e_res['losses']} bitwise; spawn to "
+              f"exit {e_wall:.1f} s", flush=True)
+        print(f"elastic (f): {line}", flush=True)
+        gib = lambda x: "n/a" if x is None else f"{x:.2f}"
+        print(f"elastic peak device memory GiB (steps / set-up, the "
+              f"restore included): " + ", ".join(
+                  f"({k}) {gib(res[k]['peak_gib'])} / "
+                  f"{gib(res[k]['peak_setup_gib'])}" for k in "acd")
+              + f"; (e) per rank {e_res['peak_gib_by_rank']}", flush=True)
+        return res
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def device_rates() -> dict:
     """The card's own numbers behind ``repro_torch.core.hardware.H100``:
     the f32 cuBLAS GEMM rate over one training layer's GEMMs
@@ -3646,6 +3982,10 @@ def main() -> None:
     mark("34-36")
     tensor_res = phase_tensor(MESH, (get_config, RT, ST, SS, FA, SSD), trained)
 
+    # ---- 37. checkpoints, reshard and elastic -----------------------------
+    mark("37")
+    elastic = phase_elastic(train, MESH, (get_config, M))
+
     mark("done")
     train_paths = {f"train {r['schedule']} V={r['virtual']} "
                    f"M={r['microbatches']}": r["launches"]
@@ -3845,7 +4185,8 @@ def main() -> None:
                                 "ranks tensor parity": tensor_res["parity"],
                                 "ranks tensor": tensor_res["train"],
                                 "ranks tensor auto plan":
-                                    tensor_res["auto plan"]}}),
+                                    tensor_res["auto plan"],
+                                "elastic": elastic}}),
           flush=True)
     print(json.dumps({"kernels": [flash, ssd, flash_bwd, ssd_bwd]}),
           flush=True)

@@ -80,20 +80,10 @@ def to_rank_share(tree, cfg, plan, stage: int, tensor_rank: int = 0, *,
 
 def from_rank_shares(shares: list, cfg, plan) -> dict:
     """The whole stacked tree, as numpy, from every rank's share of one
-    replica: ``shares[s][t]`` is tensor shard t of stage s (parameters or
-    gradients).  Each stage's shards are joined (``stage.
-    tensor_gather``); the layers are stacked by stage; ``embed`` is stage
-    0's, ``final_norm`` and ``head`` the last stage's (the embedding and
-    head keep their ``padded_vocab(plan.tensor)`` rows)."""
-    full = [ST.tensor_gather(list(row), cfg, plan) for row in shares]
-
-    def stack(trees):
-        return {k: stack([t[k] for t in trees])
-                if isinstance(trees[0][k], dict)
-                else torch.stack([t[k] for t in trees]) for k in trees[0]}
-
-    out = dict(layers=stack([f["layers"] for f in full]),
-               embed=full[0]["embed"], final_norm=full[-1]["final_norm"])
-    if "head" in full[-1]:
-        out["head"] = full[-1]["head"]
-    return to_jax(out)
+    replica: ``shares[s][t]`` is tensor shard t of stage s (parameters,
+    gradients or a training state), joined by ``stage.join_shares``: the
+    layers stacked by stage, ``embed`` stage 0's, ``final_norm`` and
+    ``head`` the last stage's, each sharded leaf's shards concatenated
+    (the embedding and head keep their ``padded_vocab(plan.tensor)``
+    rows)."""
+    return to_jax(ST.join_shares(shares, cfg, plan))

@@ -254,8 +254,9 @@ def replan(cfg: ArchConfig, incumbent: AutoPlan, *, budget_s: float,
     the baseline ``device`` per stage.  Either pins the stage count to
     the incumbent's — live replanning moves micro-batching, layer cuts,
     virtual chunking, and the schedule; CHANGING the device count is the
-    restart path (kill, reshard the checkpoint, relaunch; the port's
-    checkpoints wait for ROADMAP Queue 1 item 10).
+    restart path (kill, reshard the checkpoint with
+    :func:`repro_torch.checkpoint.reshard_checkpoint`, relaunch: the
+    train CLI's ``--resume`` does the reshard).
 
     Never-worse guarantee: the incumbent's (stages, tensor)
     factorisation is evaluated FIRST (before any deadline check can

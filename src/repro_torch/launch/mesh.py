@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import math
 import os
 import tempfile
 
@@ -237,6 +238,53 @@ def gather(obj, mesh: StageMesh) -> list:
     out = [None] * mesh.world
     dist.all_gather_object(out, obj)
     return out
+
+
+def _leaves(tree: dict, path: tuple = ()) -> dict:
+    """``{key path: leaf}`` of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        out.update(_leaves(v, path + (k,)) if isinstance(v, dict)
+                   else {path + (k,): v})
+    return out
+
+
+def gather_leaves(share: dict, mesh: StageMesh, holders):
+    """Replica 0's shares of a tree, leaf by leaf, at global rank 0 (a
+    checkpoint's save on ranks: :func:`repro_torch.checkpoint.ckpt.
+    save_rank_shares`).  A generator every rank runs to its end: for
+    each leaf path of the replica's shares, in sorted order, each rank
+    that ``holders(path)`` names (its (stage, tensor shard) pairs, of
+    replica 0) sends its share of the leaf to rank 0, which yields
+    ``(path, {(stage, shard): share on the CPU})`` before the next leaf
+    moves, so that it holds no more than one leaf of the others'.  The
+    other ranks yield nothing.  Each message is the leaf's bytes (any
+    dtype), over the host under gloo and from the card under nccl;
+    shapes and dtypes cross first, in one small gather."""
+    mine = _leaves(share)
+    every = gather({p: (tuple(a.shape), str(a.dtype).removeprefix("torch."))
+                    for p, a in mine.items()}, mesh)
+    S, T = mesh.stages, mesh.tensor
+    paths = sorted({p for r in range(S * T) for p in every[r]})
+    via = torch.device("cpu") if mesh.backend == "gloo" else mesh.device
+    for path in paths:
+        pieces = {}
+        for s, t in holders(path):
+            src = s * T + t                 # rank (replica 0, s, t)
+            if src == mesh.rank == 0:
+                pieces[(s, t)] = mine[path].detach().cpu()
+            elif src == mesh.rank:
+                a = mine[path].detach().to(via).contiguous()
+                dist.send(a.reshape(-1).view(torch.uint8), dst=0)
+            elif mesh.rank == 0:
+                shape, dtype = every[src][path]
+                dtype = getattr(torch, dtype)
+                n = math.prod(shape) * dtype.itemsize
+                buf = torch.empty(n, dtype=torch.uint8, device=via)
+                dist.recv(buf, src=src)
+                pieces[(s, t)] = buf.view(dtype).reshape(shape).cpu()
+        if mesh.rank == 0:
+            yield path, pieces
 
 
 def _rank_main(rank: int, fn, world: int, backend: str, device_type: str,

@@ -95,9 +95,23 @@ come from :class:`repro_torch.data.synthetic.SyntheticLM`
 AdamW with the reference settings (``warmup_cosine(lr, 20, steps)``,
 weight decay 0.01, b2 0.95, clip 1.0).  Each step prints its loss and
 tok/s; the run prints the peak device memory, the residual stash slots
-per stage and each kernel's launches per step.  Flags of the JAX CLI that
-the port does not run yet are accepted and refused with the ROADMAP item
-that ports them.
+per stage and each kernel's launches per step.
+
+The elastic loop runs as in the JAX CLI, in one process and as ranks.
+``--ckpt PATH`` saves ``{params, opt}``, the step and the stage layout
+(:mod:`repro_torch.checkpoint`, the JAX package's npz + msgpack format)
+at every ``--ckpt-every`` boundary and at the end; on ranks replica 0's
+ranks send their shares leaf by leaf to rank 0, which writes the whole
+stacked tree.  ``--die-at N`` exits with status 17 after step N without
+saving.  ``--resume PATH`` restores the saved state and runs the steps
+from the saved one on; a checkpoint of another (stages, virtual) layout
+is first resharded on the host into ``PATH.to{S}v{V}`` (on ranks by rank
+0, the others waiting), a change of tensor degree raises
+:class:`repro_torch.checkpoint.CheckpointMismatch`.  ``--drift-every N``
+feeds the drift monitor the measured stage times (times the
+``--drift-inject`` factors) every N steps; once it trips, the re-planner
+(under ``--replan-budget`` seconds) prints its recommendation, which a
+``--resume`` adopts (on ranks rank 0 alone measures and prints).
 """
 from __future__ import annotations
 
@@ -110,9 +124,12 @@ import time
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint import ckpt as CK
+from repro_torch.checkpoint import reshard as RS
 from repro_torch.configs import get_config
+from repro_torch.core import profiler as PF
 from repro_torch.core import schedplan as SP
-from repro_torch.core.autoplan import auto_plan, auto_plan3d
+from repro_torch.core.autoplan import AutoPlan, auto_plan, auto_plan3d, replan
 from repro_torch.core.hardware import CATALOGUE, H100
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.kernels import build, launch_counters
@@ -121,22 +138,6 @@ from repro_torch.launch import mesh as MESH
 from repro_torch.optim.adamw import AdamW, warmup_cosine
 from repro_torch.pipeline import runtime as RT
 from repro_torch.pipeline import stage as ST
-
-_CKPT_ITEM = "ROADMAP 'Still to port': checkpoints, reshard and elastic"
-
-#: flags of the JAX CLI the port does not run yet: (flag, accepted
-#: values, ROADMAP item); any other value raises NotImplementedError
-_REFUSED = (
-    ("ckpt", ("",), _CKPT_ITEM),
-    ("ckpt_every", (0,), _CKPT_ITEM),
-    ("resume", ("",), _CKPT_ITEM),
-    ("die_at", (0,), _CKPT_ITEM),
-    ("drift_every", (0,), _CKPT_ITEM),
-    ("drift_threshold", (None,), _CKPT_ITEM),
-    ("drift_inject", ("",), _CKPT_ITEM),
-    ("replan_budget", (None,), _CKPT_ITEM),
-)
-
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
@@ -204,15 +205,30 @@ def _parser() -> argparse.ArgumentParser:
                     help="tensor-parallel degree (0: the config's own; "
                          "above 1, ranks: data x stages x tensor "
                          "processes under torchrun)")
-    # the JAX CLI's other flags: accepted, refused unless at their default
-    ap.add_argument("--ckpt", default="")
-    ap.add_argument("--ckpt-every", type=int, default=0)
-    ap.add_argument("--resume", default="")
-    ap.add_argument("--die-at", type=int, default=0)
-    ap.add_argument("--drift-every", type=int, default=0)
-    ap.add_argument("--drift-threshold", type=float, default=None)
-    ap.add_argument("--drift-inject", default="")
-    ap.add_argument("--replan-budget", type=float, default=None)
+    ap.add_argument("--ckpt", default="",
+                    help="checkpoint base path: saves {params, opt}, the "
+                         "step and the stage layout (PATH.npz, PATH.meta)")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="with --ckpt: also save every N steps (0: only "
+                         "at the end)")
+    ap.add_argument("--resume", default="",
+                    help="checkpoint base path to resume from; another "
+                         "(stages, virtual) layout is resharded on the "
+                         "host first")
+    ap.add_argument("--die-at", type=int, default=0,
+                    help="fault injection: exit 17 after step N without "
+                         "saving")
+    ap.add_argument("--drift-every", type=int, default=0,
+                    help="feed the drift monitor measured stage times "
+                         "every N steps (0: off)")
+    ap.add_argument("--drift-threshold", type=float, default=0.25,
+                    help="largest relative stage-share error before the "
+                         "monitor asks for a replan")
+    ap.add_argument("--drift-inject", default="",
+                    help="comma-separated per-stage factors multiplied "
+                         "into the measured times")
+    ap.add_argument("--replan-budget", type=float, default=5.0,
+                    help="seconds the drift-triggered re-search may take")
     ap.set_defaults(plan=None)          # the adopted AutoPlan, if any
     return ap
 
@@ -227,13 +243,7 @@ def build_config(args: argparse.Namespace):
     ``--auto-plan3d`` are usage errors (SystemExit 2), as in the JAX CLI.
     Under a planner flag the plan is printed and applied
     (``args.microbatches`` takes its M, ``args.data`` its data degree,
-    the config its stages, tensor degree, schedule and V).  Refused
-    flags raise NotImplementedError by their ROADMAP item."""
-    for flag, ok, item in _REFUSED:
-        val = getattr(args, flag)
-        if val not in ok:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} {val}: not ported yet ({item})")
+    the config its stages, tensor degree, schedule and V)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced(n_layers=args.layers or 4,
@@ -298,6 +308,137 @@ def build_config(args: argparse.Namespace):
     return plan_.apply(cfg)
 
 
+def _resume_layout(args, layout: dict) -> dict:
+    """The layout ``--resume``'s checkpoint records (read before anything
+    is allocated or any group set up).  A checkpoint with no layout, or
+    of another tensor degree (its vocab padding and shards differ; the
+    reshard moves stage boundaries only), raises CheckpointMismatch."""
+    src = (CK.checkpoint_meta(args.resume).get("extra") or {}).get("layout")
+    if src is None:
+        raise CK.CheckpointMismatch(
+            f"checkpoint {args.resume!r} records no layout in its meta; "
+            f"--resume needs the layout the CLI saves")
+    if src["tensor"] != layout["tensor"]:
+        raise CK.CheckpointMismatch(
+            f"checkpoint {args.resume!r} is at tensor {src['tensor']}, the "
+            f"run at tensor {layout['tensor']}: a tensor degree change "
+            f"would re-pad the vocab; reshard only moves stage boundaries "
+            f"and virtual chunks")
+    return src
+
+
+def _resharded(args, src: dict, plan: ST.StagePlan, layout: dict,
+               lead: bool = True) -> tuple:
+    """The checkpoint to restore: ``--resume``'s, or, when its (stages,
+    virtual) layout differs from the run's, its reshard into
+    ``{resume}.to{S}v{V}`` (written here when ``lead``); and the
+    reshard's seconds (None without one)."""
+    if all(src.get(k) == layout[k] for k in (
+            "stages", "virtual", "layers_per_stage", "n_layers_padded")):
+        return args.resume, None
+    path = f"{args.resume}.to{plan.n_stages}v{plan.virtual}"
+    if not lead:
+        return path, None
+    t0 = time.perf_counter()
+    RS.reshard_checkpoint(args.resume, path, plan)
+    secs = time.perf_counter() - t0
+    print(f"resharded checkpoint: stages{src['stages']} x virtual"
+          f"{src.get('virtual', 1)} -> stages{plan.n_stages} x virtual"
+          f"{plan.virtual} ({secs * 1e3:.1f} ms, {path})", flush=True)
+    return path, secs
+
+
+def _host_primed(opt_state: dict) -> dict:
+    """2bw's ``primed`` back on the host, where the step reads it."""
+    if "primed" in opt_state:
+        opt_state["primed"] = opt_state["primed"].cpu()
+    return opt_state
+
+
+def _io_line(what: str, path: str, step: int, st: dict) -> str:
+    gb = st["bytes"] / 1e9
+    disk = st.get("write_s", st.get("read_s", 0.0))
+    return (f"{what} {path} at step {step}: {st['bytes']} B, "
+            f"{'device to host' if what == 'saved' else 'host to device'} "
+            f"{st['copy_s'] * 1e3:.1f} ms, "
+            f"{'disk write' if what == 'saved' else 'disk read'} "
+            f"{disk * 1e3:.1f} ms ({gb / max(disk, 1e-9):.2f} GB/s)")
+
+
+def _drift_inject(args, plan: ST.StagePlan):
+    """``--drift-inject``'s factors (one a stage), or None; a wrong count
+    is a usage error (SystemExit 2), as in the JAX CLI."""
+    if not (args.drift_every and args.drift_inject):
+        return None
+    inject = [float(x) for x in args.drift_inject.split(",")]
+    if len(inject) != plan.n_stages:
+        _parser().error(f"--drift-inject needs {plan.n_stages} factors, "
+                        f"got {len(inject)}")
+    return inject
+
+
+class _Drift:
+    """``--drift-every``: every N steps the monitor
+    (:class:`repro_torch.core.profiler.DriftMonitor` against
+    ``planned_stage_costs``) gets ``measure_stage_times`` on ``device``,
+    times the injected factors; once it trips, ``replan`` (under
+    ``--replan-budget``) runs and its recommendation is printed, once,
+    as the JAX CLI prints it.  The run itself goes on unchanged."""
+
+    def __init__(self, args, cfg, plan: ST.StagePlan, inject, device):
+        self.args, self.cfg, self.plan = args, cfg, plan
+        self.inject, self.device = inject, device
+        self.monitor = PF.DriftMonitor(
+            planned=tuple(PF.planned_stage_costs(cfg, plan, seq=args.seq)),
+            threshold=args.drift_threshold)
+        self.drifts, self.line = [], None
+
+    def after(self, step: int) -> None:
+        args, cfg = self.args, self.cfg
+        if self.line is not None or (step + 1) % args.drift_every:
+            return
+        measured = PF.measure_stage_times(cfg, self.plan,
+                                          seq=min(args.seq, 64), iters=2,
+                                          device=self.device)
+        if measured is None:    # no proxy timing: no live signal
+            measured = list(self.monitor.planned)
+        if self.inject:
+            measured = [m * f for m, f in zip(measured, self.inject)]
+        drift = self.monitor.update(measured)
+        self.drifts.append((step, drift))
+        if not self.monitor.should_replan():
+            return
+        incumbent = AutoPlan(
+            stages=cfg.stages, tensor=cfg.tensor,
+            n_microbatches=args.microbatches, schedule=cfg.schedule,
+            predicted_step_time=float("inf"), predicted_speedup_over_dp=1.0,
+            virtual=cfg.virtual, mem_limit=cfg.mem_limit,
+            data_axis=args.data)
+        new = replan(cfg, incumbent, budget_s=args.replan_budget,
+                     global_batch=args.batch, seq_len=args.seq,
+                     slowdown=list(self.monitor.slowdown()))
+        if new is incumbent:
+            self.line = (f"drift {drift:.2f} at step {step}: replan kept "
+                         f"the incumbent plan")
+        else:
+            self.line = (f"drift {drift:.2f} at step {step}: replan -> "
+                         f"stages={new.stages} tensor={new.tensor} "
+                         f"M={new.n_microbatches} sched={new.schedule} "
+                         f"V={new.virtual} (predicted "
+                         f"{new.predicted_step_time * 1e3:.2f} ms/step); "
+                         f"restart with --resume to adopt")
+        print(self.line, flush=True)
+
+    def report(self) -> dict:
+        return dict(drifts=self.drifts, replan=self.line)
+
+
+def _dump_losses(args, start: int, losses: list) -> None:
+    if args.losses_out:
+        with open(args.losses_out, "w") as f:
+            json.dump(dict(start=start, losses=losses), f)
+
+
 def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
     """Train as ``argv`` says, in one process, or as this process's stage
     of ``mesh`` (a group already set up, e.g. by
@@ -315,12 +456,16 @@ def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
     if args.data > 1 and not under_ranks:
         raise ValueError(RT.data_needs_ranks(args.data, cfg.stages))
     plan = ST.plan_stages(cfg)
+    layout = RS.layout_dict(plan, cfg.n_layers)
+    src = _resume_layout(args, layout) if args.resume else None
+    inject = _drift_inject(args, plan)
     opt = AdamW(lr=warmup_cosine(args.lr, 20, args.steps), weight_decay=0.01)
     pcfg = RT.PipelineConfig(n_microbatches=args.microbatches,
                              schedule=cfg.schedule, mem_limit=cfg.mem_limit,
                              remat=args.remat, runtime=cfg.runtime,
                              grad_sync=args.grad_sync or "auto",
                              ar_groups=args.ar_groups)
+    elastic = (layout, src, inject)
     if mesh is None and int(os.environ.get("WORLD_SIZE", "1")) > 1:
         MESH.check_world(plan.n_stages, int(os.environ["WORLD_SIZE"]),
                          args.data, plan.tensor)
@@ -330,14 +475,14 @@ def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
             tensor=plan.tensor)
         ok = False
         try:
-            out = _main_ranks(args, cfg, plan, opt, pcfg, mesh)
+            out = _main_ranks(args, cfg, plan, opt, pcfg, mesh, elastic)
             ok = True
             return out
         finally:
             mesh = None         # the groups' last reference here
             MESH.destroy_groups(wait=ok)
     if mesh is not None:
-        return _main_ranks(args, cfg, plan, opt, pcfg, mesh)
+        return _main_ranks(args, cfg, plan, opt, pcfg, mesh, elastic)
     step_fn = RT.make_train_step(cfg, plan, pcfg, optimizer=opt)
     params = ST.init_stacked_params(cfg, args.seed, plan, device=device)
     opt_state = opt.init(params)
@@ -353,15 +498,41 @@ def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
           flush=True)
     if device.type == "cuda":
         build.build_all()       # kernel builds before the first step
+    start, io = 0, dict(saves=[])
+    if src is not None:
+        path, io["reshard_s"] = _resharded(args, src, plan, layout)
+        io["restore"] = {}
+        state = CK.restore_checkpoint(path, dict(params=params,
+                                                 opt=opt_state),
+                                      device=device, stats=io["restore"])
+        del params, opt_state       # the fresh state, before the steps
+        params, opt_state = state["params"], _host_primed(state["opt"])
+        del state
+        start = CK.checkpoint_step(path)
+        print(f"resumed from {path} at step {start}; "
+              + _io_line("restored", path, start, io["restore"]),
+              flush=True)
+    drift = _Drift(args, cfg, plan, inject, device) if args.drift_every \
+        else None
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq,
                        global_batch=args.batch, seed=args.seed,
                        device=str(device))
     counters = launch_counters()
     if device.type == "cuda":
+        io["peak_setup_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
         torch.cuda.reset_peak_memory_stats(device)
+    extra, saved = dict(layout=layout, arch=cfg.arch_id), [None]
+
+    def save(step_done: int) -> None:
+        st = CK.save_checkpoint(args.ckpt, dict(params=params, opt=opt_state),
+                                step=step_done, extra=extra)
+        saved[0] = step_done
+        io["saves"].append(dict(st, step=step_done))
+        print(_io_line("saved", args.ckpt, step_done, st), flush=True)
+
     losses, step_s, launches = [], [], []
     t_start = time.perf_counter()
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         batch = data.batch(step)
         before = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
         if device.type == "cuda":       # the step's time alone
@@ -376,6 +547,15 @@ def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
             print(f"step {step:5d} loss {losses[-1]:.4f} "
                   f"({args.batch * args.seq / step_s[-1]:.0f} tok/s, "
                   f"{step_s[-1] * 1e3:.1f} ms)", flush=True)
+        if drift is not None:
+            drift.after(step)
+        if args.ckpt and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
+            save(step + 1)
+        if args.die_at and step + 1 >= args.die_at:
+            _dump_losses(args, start, losses)
+            print(f"fault injection: dying after step {step + 1}",
+                  flush=True)
+            raise SystemExit(17)
     wall = time.perf_counter() - t_start
     peak = (torch.cuda.max_memory_allocated(device) / 2**30
             if device.type == "cuda" else None)
@@ -386,24 +566,28 @@ def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
           f"(lower_to_ticks n_x = {step_fn.lowering.n_x}); registers live "
           f"at most per stage {step_fn.live_registers} (runtime "
           f"{pcfg.runtime})")
-    print(f"kernel launches per step {json.dumps(launches[-1])}")
+    print(f"kernel launches per step "
+          f"{json.dumps(launches[-1] if launches else {})}")
     print("peak device memory " + (f"{peak:.2f} GiB" if peak is not None
                                    else "not measured (cpu)"))
-    if args.losses_out:
-        with open(args.losses_out, "w") as f:
-            json.dump(dict(start=0, losses=losses), f)
+    _dump_losses(args, start, losses)
+    if args.ckpt and saved[0] != args.steps:    # unless just saved
+        save(args.steps)
     return dict(plan=args.plan, schedule=step_fn.lowering.schedule,
                 stages=plan.n_stages, virtual=plan.virtual,
-                microbatches=args.microbatches,
+                microbatches=args.microbatches, start=start,
                 losses=losses, step_s=step_s, wall_s=wall,
                 tok_per_step=args.batch * args.seq, launches=launches,
                 stash_slots=step_fn.stash_slots, n_x=step_fn.lowering.n_x,
                 live_registers=step_fn.live_registers, runtime=pcfg.runtime,
-                peak_gib=peak, params=params, opt_state=opt_state)
+                peak_gib=peak, io=io,
+                drift=None if drift is None else drift.report(),
+                params=params, opt_state=opt_state)
 
 
 def _main_ranks(args, cfg, plan: ST.StagePlan, opt: AdamW,
-                pcfg: RT.PipelineConfig, mesh: MESH.StageMesh) -> dict:
+                pcfg: RT.PipelineConfig, mesh: MESH.StageMesh,
+                elastic: tuple) -> dict:
     """:func:`main` as stage ``mesh.stage`` of replica ``mesh.data_rank``
     of the rank executor."""
     MESH.check_world(plan.n_stages, mesh.world, mesh.data, plan.tensor)
@@ -413,6 +597,7 @@ def _main_ranks(args, cfg, plan: ST.StagePlan, opt: AdamW,
     if plan.tensor != mesh.tensor:
         raise ValueError(f"tensor {plan.tensor} on a grid of tensor "
                          f"{mesh.tensor}")
+    layout, src, inject = elastic
     device, rank = mesh.device, mesh.rank
     lead = rank == 0
     gather = lambda obj: MESH.gather(obj, mesh)
@@ -439,15 +624,53 @@ def _main_ranks(args, cfg, plan: ST.StagePlan, opt: AdamW,
         if lead:
             build.build_all()   # kernel builds before the first step
         dist.barrier()          # the other ranks load what rank 0 built
+    start, io = 0, dict(saves=[])
+    if src is not None:
+        # rank 0 reshards (when the layout moved); every rank then cuts
+        # its own share from the file
+        path, io["reshard_s"] = _resharded(args, src, plan, layout, lead)
+        if path != args.resume:
+            dist.barrier()
+        io["restore"] = {}
+        state = CK.restore_rank_share(path, dict(params=params,
+                                                 opt=opt_state),
+                                      mesh, cfg, plan, device=device,
+                                      stats=io["restore"])
+        del params, opt_state
+        params, opt_state = state["params"], _host_primed(state["opt"])
+        del state
+        start = CK.checkpoint_step(path)
+        restored = gather(io["restore"])
+        if lead:
+            print(f"resumed from {path} at step {start}; per rank: "
+                  + "; ".join(_io_line("restored", path, start, st)
+                              for st in restored), flush=True)
+    drift = (_Drift(args, cfg, plan, inject, device)
+             if args.drift_every and lead else None)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq,
                        global_batch=args.batch, seed=args.seed,
                        device=str(device))
     counters = launch_counters()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    extra, saved = dict(layout=layout, arch=cfg.arch_id), [None]
+
+    def save(step_done: int) -> None:
+        st = CK.save_rank_shares(args.ckpt, dict(params=params,
+                                                 opt=opt_state),
+                                 mesh, cfg, plan, step=step_done,
+                                 extra=extra)
+        saved[0] = step_done
+        if lead:
+            io["saves"].append(dict(st, step=step_done))
+            print(_io_line("saved", args.ckpt, step_done, st)
+                  + f", {st['total_s'] * 1e3:.1f} ms in all (gathered "
+                    f"leaf by leaf from {mesh.world // mesh.data} ranks)",
+                  flush=True)
+
     losses, step_s, launches, transport = [], [], [], []
     t_start = time.perf_counter()
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         batch = data.batch(step)
         before = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
         if device.type == "cuda":
@@ -469,6 +692,16 @@ def _main_ranks(args, cfg, plan: ST.StagePlan, opt: AdamW,
                   f"({args.batch * args.seq / step_s[-1]:.0f} tok/s, "
                   f"{step_s[-1] * 1e3:.1f} ms, the slowest rank's)",
                   flush=True)
+        if drift is not None:
+            drift.after(step)
+        if args.ckpt and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
+            save(step + 1)
+        if args.die_at and step + 1 >= args.die_at:
+            if lead:
+                _dump_losses(args, start, losses)
+                print(f"fault injection: dying after step {step + 1}",
+                      flush=True)
+            raise SystemExit(17)
     wall = time.perf_counter() - t_start
     peak = gather(torch.cuda.max_memory_allocated(device) / 2**30
                   if device.type == "cuda" else None)
@@ -482,33 +715,35 @@ def _main_ranks(args, cfg, plan: ST.StagePlan, opt: AdamW,
               f"(lower_to_ticks n_x = {step_fn.lowering.n_x}); registers "
               f"live at most per rank {live} (runtime {pcfg.runtime})")
         print(f"kernel launches per step, summed over ranks "
-              f"{json.dumps(launches[-1])}")
+              f"{json.dumps(launches[-1] if launches else {})}")
         print("peak device memory per rank " + (
             ", ".join(f"{p:.2f} GiB" for p in peak) if device.type == "cuda"
             else "not measured (cpu)"))
         how = mesh.backend + (", host-staged" if mesh.backend == "gloo"
                               and device.type == "cuda" else "")
-        for r, st in enumerate(transport[-1]):
+        for r, st in enumerate(transport[-1] if transport else []):
             print(f"transport rank {r} ({how}) last step: " + ", ".join(
                       f"{k} {c} msgs {b} B {sec * 1e3:.1f} ms (post "
                       f"{post * 1e3:.1f}, receive waits {rw * 1e3:.1f}, send "
                       f"waits {sw * 1e3:.1f}, copies {cp * 1e3:.1f} ms)"
                       for k, (c, b, sec, cp, post, rw, sw) in st.items()
                       if c), flush=True)
-        if args.losses_out:
-            with open(args.losses_out, "w") as f:
-                json.dump(dict(start=0, losses=losses), f)
+        _dump_losses(args, start, losses)
+    if args.ckpt and saved[0] != args.steps:    # unless just saved
+        save(args.steps)
     return dict(plan=args.plan, schedule=step_fn.lowering.schedule,
                 stages=plan.n_stages, virtual=plan.virtual,
                 microbatches=args.microbatches, rank=rank, world=mesh.world,
                 data=mesh.data, tensor=mesh.tensor, grad_sync=pcfg.grad_sync,
-                backend=mesh.backend, losses=losses, step_s=step_s,
-                wall_s=wall, tok_per_step=args.batch * args.seq,
+                backend=mesh.backend, start=start, losses=losses,
+                step_s=step_s, wall_s=wall,
+                tok_per_step=args.batch * args.seq,
                 launches=launches, stash_slots=stash,
                 n_x=step_fn.lowering.n_x, live_registers=live,
                 runtime=pcfg.runtime,
                 peak_gib=None if peak[0] is None else max(peak),
-                peak_gib_by_rank=peak, transport=transport,
+                peak_gib_by_rank=peak, transport=transport, io=io,
+                drift=None if drift is None else drift.report(),
                 params=params, opt_state=opt_state)
 
 

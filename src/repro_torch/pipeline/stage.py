@@ -365,17 +365,20 @@ def tensor_share(tree: dict, cfg: ArchConfig, plan: StagePlan,
     replicated leaf as it is.  An ``embed``/``head`` table with fewer
     rows than ``padded_vocab(plan.tensor)`` (a tensor-1 tree) is first
     padded with zero rows up to it."""
+    return _map_paths(lambda path, a: _tensor_cut(path, a, cfg, plan, t),
+                      tree)
+
+
+def _tensor_cut(path: tuple, a, cfg: ArchConfig, plan: StagePlan, t: int):
+    """Tensor shard ``t``'s chunk of the leaf at parameter path ``path``
+    (:func:`tensor_share` of one leaf)."""
     T = plan.tensor
-
-    def cut(path, a):
-        dim = tensor_dim(path, cfg, T)
-        if dim is None or T == 1:
-            return a
-        if path[0] in ("embed", "head"):
-            a = _pad_vocab(a, cfg, T)
-        return a.chunk(T, dim=dim)[t].contiguous()
-
-    return _map_paths(cut, tree)
+    dim = tensor_dim(path, cfg, T)
+    if dim is None or T == 1:
+        return a
+    if path[0] in ("embed", "head"):
+        a = _pad_vocab(a, cfg, T)
+    return a.chunk(T, dim=dim)[t].contiguous()
 
 
 def tensor_gather(shares: list, cfg: ArchConfig, plan: StagePlan) -> dict:
@@ -422,6 +425,110 @@ def stage_share(tree: dict, plan: StagePlan, stage: int) -> dict:
         out["final_norm"] = tree["final_norm"]
         if "head" in tree:
             out["head"] = tree["head"]
+    return out
+
+
+#: the tops of a parameter-shaped tree
+_PARAM_TOPS = ("embed", "head", "final_norm", "layers")
+
+
+def param_path(path: tuple):
+    """The part of a training-state path (``("opt", "m", "layers",
+    "attn", "wq")``, say) from its parameter-shaped subtree's top on
+    (``("layers", "attn", "wq")``), or None for a leaf outside one (the
+    optimizer's ``step``, 2bw's ``primed``: scalars every rank holds)."""
+    for i, k in enumerate(path):
+        if k in _PARAM_TOPS:
+            return tuple(path[i:])
+    return None
+
+
+def share_holders(path: tuple, cfg: ArchConfig, plan: StagePlan) -> list:
+    """The (stage, tensor shard) pairs of one replica whose shares of the
+    leaf at ``path`` (a path of a training state: parameters, moments,
+    2bw's ``pending``; :func:`param_path`) make up the whole stacked
+    leaf: every stage of a ``layers`` leaf, stage 0 of ``embed``, the
+    last stage of ``final_norm`` and ``head``; every shard of a leaf the
+    tensor axis shards (:func:`tensor_dim`), shard 0 of a replicated
+    one.  A leaf outside a parameter tree is stage 0's, shard 0's."""
+    p = param_path(path)
+    if p is None:
+        return [(0, 0)]
+    S, T = plan.n_stages, plan.tensor
+    shards = (range(T) if T > 1 and tensor_dim(p, cfg, T) is not None
+              else (0,))
+    stages = (range(S) if p[0] == "layers"
+              else (0,) if p[0] == "embed" else (S - 1,))
+    return [(s, t) for s in stages for t in shards]
+
+
+def join_leaf(path: tuple, pieces: dict, cfg: ArchConfig, plan: StagePlan):
+    """The whole stacked leaf at ``path`` from the shares that
+    :func:`share_holders` names (``pieces[(stage, shard)]``): the shards
+    concatenated along the leaf's :func:`tensor_dim`, then, for a
+    ``layers`` leaf, the stages stacked."""
+    p = param_path(path)
+    if p is None:
+        return pieces[(0, 0)]
+    dim = tensor_dim(p, cfg, plan.tensor) if plan.tensor > 1 else None
+
+    def shards(s):
+        if dim is None:
+            return pieces[(s, 0)]
+        return torch.cat([pieces[(s, t)] for t in range(plan.tensor)],
+                         dim=dim)
+
+    if p[0] != "layers":
+        return shards(0 if p[0] == "embed" else plan.n_stages - 1)
+    return torch.stack([shards(s) for s in range(plan.n_stages)])
+
+
+def joined_shape(path: tuple, shape: tuple, cfg: ArchConfig,
+                 plan: StagePlan) -> tuple:
+    """The shape :func:`join_leaf` gives from shares of ``shape``."""
+    p = param_path(path)
+    shape = tuple(shape)
+    if p is None:
+        return shape
+    dim = tensor_dim(p, cfg, plan.tensor) if plan.tensor > 1 else None
+    if dim is not None:
+        shape = (shape[:dim] + (shape[dim] * plan.tensor,)
+                 + shape[len(shape) + dim + 1:])
+    return (plan.n_stages,) + shape if p[0] == "layers" else shape
+
+
+def cut_leaf(path: tuple, a, cfg: ArchConfig, plan: StagePlan, stage: int,
+             tensor_rank: int = 0, *, stacked: bool = True):
+    """Rank (``stage``, ``tensor_rank``)'s share of the whole stacked
+    leaf ``a`` at ``path`` (the inverse of :func:`join_leaf`: its stage's
+    row of a ``layers`` leaf, then its shard), as a tensor of its own, so
+    that ``a`` can be dropped once it is cut.  With ``stacked`` False a
+    ``layers`` leaf ``a`` is already the stage's row."""
+    p = param_path(path)
+    if p is None:
+        return a.clone()
+    if p[0] == "layers" and stacked:
+        a = a[stage]
+    return _tensor_cut(p, a, cfg, plan, tensor_rank).clone()
+
+
+def join_shares(shares: list, cfg: ArchConfig, plan: StagePlan) -> dict:
+    """The whole stacked tree of one replica from every rank's share of
+    it (``shares[s][t]``: tensor shard t of stage s; parameters,
+    gradients or a training state ``{params, opt}``), leaf by leaf
+    (:func:`join_leaf`).  The embedding and head keep their
+    ``padded_vocab(plan.tensor)`` rows."""
+    paths = sorted({p for row in shares for share in row
+                    for p in leaf_paths(share)})
+    out = {}
+    for path in paths:
+        leaf = join_leaf(path, {(s, t): _leaf_at(shares[s][t], path)
+                                for s, t in share_holders(path, cfg, plan)},
+                         cfg, plan)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
     return out
 
 

@@ -283,8 +283,14 @@ def test_planner_usage_errors_exit_2(extra, no_allocation):
     assert e.value.code == 2
 
 
-def test_drift_flags_stay_refused_under_the_planner(no_allocation):
-    with pytest.raises(NotImplementedError,
-                       match="checkpoints, reshard and elastic"):
-        ttrain.main(_RED + ["--stages", "2", "--auto-plan", "--cluster",
-                            "v100,v100", "--drift-every", "2"])
+def test_drift_flags_run_under_the_planner(capsys):
+    """The drift monitor watches the plan the planner adopted (2 stages
+    on v100 x 2); the first stage made 4x slower trips it at its third
+    update, and the re-planner's line is printed once."""
+    out = ttrain.main(_RED + ["--stages", "2", "--auto-plan", "--cluster",
+                              "v100,v100", "--drift-every", "1",
+                              "--drift-inject", "4,1", "--steps", "3"])
+    text = capsys.readouterr().out
+    assert text.startswith("auto-plan: stages=2")
+    assert out["drift"]["replan"].startswith("drift 0.60 at step 2: replan")
+    assert text.count(out["drift"]["replan"]) == 1

@@ -41,6 +41,8 @@ from repro.configs import get_config as jax_get_config
 from repro.data.synthetic import SyntheticLM as JaxSyntheticLM
 from repro.models import model as JM
 from repro_torch import convert
+from repro_torch.checkpoint import CheckpointMismatch
+from repro_torch.checkpoint import ckpt as CKP
 from repro_torch.core import schedplan as SP
 from repro_torch.launch import mesh as MESH
 from repro_torch.launch import train as ttrain
@@ -410,20 +412,46 @@ def test_nccl_with_more_ranks_than_cards_raises():
 
 @pytest.mark.parametrize("flag,err,item", [
     (["--tensor", "2"], ValueError,
-     "stages x tensor 2 on 2 ranks.*must equal the world size"),
-    (["--ckpt", "run.ckpt"], NotImplementedError,
-     "checkpoints, reshard and elastic")])
+     "stages x tensor 2 on 2 ranks.*must equal the world size")])
 def test_rank_cli_still_refuses_by_item(monkeypatch, flag, err, item):
-    """Under torchrun's environment the refused flags raise by their
-    ROADMAP item, and a grid that is not the world size (``--tensor 2``
-    at 2 stages needs 4 ranks) names both numbers, before any group is
-    set up (``--data`` and ``--tensor``, once refused here, run:
-    tests/test_torch_data.py, tests/test_torch_tensor.py)."""
+    """Under torchrun's environment a grid that is not the world size
+    (``--tensor 2`` at 2 stages needs 4 ranks) names both numbers, before
+    any group is set up (``--data`` and ``--tensor``, once refused here,
+    run: tests/test_torch_data.py, tests/test_torch_tensor.py; so do the
+    elastic flags: tests/test_torch_elastic.py and below)."""
     for k, v in (("WORLD_SIZE", "2"), ("RANK", "0"), ("LOCAL_RANK", "0")):
         monkeypatch.setenv(k, v)
     with pytest.raises(err, match=item):
         ttrain.main(["--arch", "llama3.2-1b", "--reduced", "--stages", "2",
                      "--steps", "1", "--device", "cpu"] + flag)
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("extra,err,match", [
+    (["--resume", "{ck}"], CheckpointMismatch,
+     "at tensor 2, the run at tensor 1: a tensor degree change"),
+    (["--resume", "{ck}.none"], FileNotFoundError, "none.meta"),
+    (["--drift-every", "1", "--drift-inject", "1,1,1"], SystemExit, None)])
+def test_rank_cli_checks_elastic_flags_before_any_group(monkeypatch,
+                                                        tmp_path, extra,
+                                                        err, match):
+    """Under torchrun's environment ``--resume`` reads the checkpoint's
+    layout first: one at another tensor degree raises CheckpointMismatch
+    and a missing one FileNotFoundError; a wrong ``--drift-inject`` count
+    is a usage error (exit 2); all before any group is set up."""
+    ck = str(tmp_path / "ck")
+    CKP.save_checkpoint(ck, dict(w=torch.zeros(1)), extra=dict(layout=dict(
+        stages=2, tensor=2, virtual=1, layers_per_stage=2,
+        n_layers_padded=4, n_layers=4)))
+    for k, v in (("WORLD_SIZE", "2"), ("RANK", "0"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(k, v)
+    with pytest.raises(err, match=match) as e:
+        ttrain.main(["--arch", "llama3.2-1b", "--reduced", "--layers", "4",
+                     "--d-model", "64", "--stages", "2", "--tensor", "1",
+                     "--steps", "1", "--device", "cpu"]
+                    + [a.format(ck=ck) for a in extra])
+    if err is SystemExit:
+        assert e.value.code == 2
     assert not torch.distributed.is_initialized()
 
 

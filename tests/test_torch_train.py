@@ -31,6 +31,7 @@ from repro.models import model as JM
 from repro.optim import adamw as JOPT
 from repro.pipeline import stage as JST
 from repro_torch import convert
+from repro_torch.checkpoint import ckpt as CKP
 from repro_torch.configs import get_config
 from repro_torch.core import schedplan as SP
 from repro_torch.data.synthetic import SyntheticLM
@@ -390,17 +391,14 @@ def test_remat_full_attention_calls(monkeypatch, schedule, per_layer_mb):
     ["--data", "2"], ["--tensor", "2"],
     ["--grad-sync", "overlap"],
     ["--grad-sync", "2bw"], ["--ar-groups", "2"],
-    ["--ckpt", "x"], ["--ckpt-every", "2"],
-    ["--resume", "x"], ["--die-at", "3"], ["--drift-every", "2"],
-    ["--drift-threshold", "0.5"], ["--drift-inject", "1,2"],
-    ["--replan-budget", "1"],
     # planner runs whose plans need tensor or data parallelism (the
     # planner itself is ported: tests/test_torch_planner.py)
     ["--auto-plan", "--stages", "4"], ["--auto-plan3d", "--pool", "4"],
     ["--auto-plan3d", "--pool", "8"], ["--auto-plan", "--stages", "2"]])
 def test_train_cli_refuses_unported_flags(flag):
-    """The flags of items still to port raise by their ROADMAP item.  The
-    data and tensor axes are ported (tests/test_torch_data.py,
+    """No flag of the JAX CLI is refused by a ROADMAP item any more (the
+    elastic flags run: below and tests/test_torch_elastic.py).  The data
+    and tensor axes are ported (tests/test_torch_data.py,
     tests/test_torch_tensor.py): in one process ``--data 2``,
     ``--tensor 2`` and the planner's data and tensor plans name the
     ranks they need, the sync knobs raise as the JAX runtime does where
@@ -422,10 +420,69 @@ def test_train_cli_refuses_unported_flags(flag):
                   ("--ar-groups", "2"): (ValueError, "OVERLAPPED AR"),
                   ("--auto-plan3d", "--pool", "4"): (
                       ValueError, "data 4 x 1 stages: the data axis runs "
-                                  "only as ranks")}.get(
-        tuple(flag), (NotImplementedError, "ROADMAP"))
+                                  "only as ranks")}[tuple(flag)]
     with pytest.raises(err, match=match):
         ttrain.main(argv)
+
+
+_TINY = ["--arch", "llama3.2-1b", "--reduced", "--layers", "2", "--d-model",
+         "64", "--stages", "2", "--microbatches", "2", "--batch", "4",
+         "--seq", "16", "--steps", "3", "--log-every", "100", "--device",
+         "cpu"]
+
+
+@pytest.mark.parametrize("flag", [
+    ["--ckpt"], ["--ckpt-every", "2"], ["--resume"], ["--die-at", "2"],
+    ["--drift-every", "1"], ["--drift-threshold", "0.5"],
+    ["--drift-inject", "4,1"], ["--replan-budget", "0"]])
+def test_train_cli_runs_the_elastic_flags(flag, tmp_path, capsys):
+    """Each flag once refused by "checkpoints, reshard and elastic" runs,
+    as in the JAX CLI (the whole loop: tests/test_torch_elastic.py).  The
+    drift cases feed the monitor every step: two one-layer stages time
+    alike, so the drift is the injected factors' alone (2,1: 1/3, under
+    0.5; 4,1: 0.6, tripping at the third update, step 2)."""
+    ck = str(tmp_path / "ck")
+    drift = ["--drift-every", "1"]
+    argv = _TINY + {
+        "--ckpt": ["--ckpt", ck],
+        "--ckpt-every": ["--ckpt", ck, "--ckpt-every", "2"],
+        "--resume": ["--resume", ck],
+        "--die-at": ["--ckpt", ck, "--die-at", "2", "--losses-out", ck],
+        "--drift-every": drift,
+        "--drift-threshold": drift + ["--drift-inject", "2,1"] + flag,
+        "--drift-inject": drift + flag,
+        "--replan-budget": drift + ["--drift-inject", "4,1"] + flag}[flag[0]]
+    if flag == ["--resume"]:
+        full = ttrain.main(_TINY)["losses"]
+        ttrain.main(_TINY + ["--steps", "2", "--ckpt", ck])
+    if flag[0] == "--die-at":
+        with pytest.raises(SystemExit) as e:
+            ttrain.main(argv)
+        assert e.value.code == 17 and not (tmp_path / "ck.npz").exists()
+        with open(ck) as f:
+            assert len(json.load(f)["losses"]) == 2
+        return
+    out = ttrain.main(argv)
+    text = capsys.readouterr().out
+    if flag[0].startswith("--ckpt"):
+        assert CKP.checkpoint_step(ck) == 3
+        assert CKP.checkpoint_meta(ck)["extra"]["layout"]["stages"] == 2
+        assert text.count(f"saved {ck} at step") == len(flag)
+    elif flag == ["--resume"]:
+        assert out["start"] == 2 and out["losses"] == full[2:]
+    else:
+        drifts = [d for _, d in out["drift"]["drifts"]]
+        assert [s for s, _ in out["drift"]["drifts"]] == [0, 1, 2]
+        line = out["drift"]["replan"]
+        if flag[0] in ("--drift-every", "--drift-threshold"):
+            assert line is None and "replan" not in text
+            assert drifts[-1] == pytest.approx(
+                0.0 if flag[0] == "--drift-every" else 1 / 3)
+        else:
+            assert line.startswith("drift 0.60 at step 2: replan")
+            assert ("kept the incumbent" in line) == (
+                flag[0] == "--replan-budget")
+            assert text.count("replan") == 1
 
 
 def test_train_step_refuses_unported_configs():

@@ -240,7 +240,8 @@ Phases, each reported on its own lines:
 32. the data axis: ``repro_torch.launch.train.main`` as 4 gloo ranks on
    the card on a data 2 x stages 2 grid (llama3.2-1b at full width, 16
    layers on 2 stages, 1f1b, M 2 a replica, batch 8, seq 1024, f32,
-   ``--runtime stream``, 2 steps) under ``--grad-sync end`` and then
+   ``--runtime stream``, 1 step: cut from 2 to keep the script's time
+   with phases 38-42) under ``--grad-sync end`` and then
    ``overlap`` (each gradient bucket posted at its ARSYNC slot): the two
    runs' losses bitwise equal, step 0's within 1e-5 relative of phase
    10's (the same weights and batch), exactly phase 10's 128 + 64 flash
@@ -305,15 +306,40 @@ Phases, each reported on its own lines:
    the disk write), restore and reshard ms and GB/s, and each run's peak
    device memory; with less room than two copies of the state (~14.8 GB
    each) it runs at the deepest that fits, which it prints.
+38. both kernels at hymba-1.5b's shapes (f32) against their plain
+   versions under phases 3, 6, 9 and 20's bars: the flash forward at 25
+   query heads over 5 kv heads, D 64 (G = 5), window 1024 and global:
+   trained (B 2, T = S = 1024, with and without the statistics), the
+   serving prefill (B 4, T 1024, S 1056) and the decode route per row
+   past the window's reach; the flash backward, window and global (its
+   bitwise repeat); the SSD scan at H 50, P 64, N 16, chunk 256: the
+   serving prefill seeded with a state (B 4, T 1024), the training
+   forward and backward (B 2, T 1024, the backward's bitwise repeat);
+39. hymba-1.5b served at full width (32 hybrid layers: attention and
+   the SSD side by side in each; 4 stages, batch 8, prompt 1024, 32
+   tokens): flash launches 64 prefill and 64 x 31 decode, SSD 64 (the
+   decode steps' SSM update is plain), prefill and decode tok/s, peak;
+40. phase 5's card-vs-CPU check at hymba-1.5b's full width cut to 2
+   layers (layer 0 global, layer 1 windowed), prompt 1024, decode past
+   the window;
+41. hymba-1.5b trained at full width (phase 10's flags: 4 stages, 1f1b,
+   M 4, batch 8, seq 1024, AdamW, 3 steps): each step 256 flash forward
+   launches (prefill route, half with the statistics), 128 flash
+   backward, 256 SSD forward and 128 SSD backward; step 0's loss
+   against a non-pipelined ``loss_fn``;
+42. phase 22's parity for hymba-1.5b at 3 layers (1f1b, zb-h1 against
+   one autograd pass with the plain attention and SSD, at the harness's
+   bar), and the reduced model's 1f1b and zb-h1 card against CPU.
 
 Every kernel's launch counters (``launches`` and, for flash attention,
 ``launches_prefill`` / ``launches_decode`` / ``launches_bwd``; for the
 SSD scan ``launches_bwd``) are set to 0 just before each driven path
-(phases 4, 7, 10, 12, 13, 15, 17, 18 and 21, and each run of phases 11,
-14, 19, 22, 23, 24 and 25; in phases 27-33 in each rank's process,
-the rank executor's and the in-process runs apart; in phases 34-36 in
-each rank's process for each run) and read just after it.  Every process
-runs with TF32 off and one cuBLAS workspace setting (``card_flags``).
+(phases 4, 7, 10, 12, 13, 15, 17, 18, 21, 39 and 41, and each run of
+phases 11, 14, 19, 22, 23, 24, 25 and 42; in phases 27-33 in each
+rank's process, the rank executor's and the in-process runs apart; in
+phases 34-36 in each rank's process for each run) and read just after
+it.  Every process runs with TF32 off and one cuBLAS workspace setting
+(``card_flags``).
 Each phase prints the second it starts at (``mark``).
 
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -343,6 +369,7 @@ PEAK_OPS_S = {torch.float32: 67e12,            # f32 outside tensor cores
 # products per f32 product: 495 / 3 TFLOP/s); bf16 as above
 PEAK_OPS_TC_S = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # the JAX kernel tests'
+DTYPES = (torch.float32, torch.bfloat16)
 # the backward, relative to max |ref|: f32 at the JAX harness's gradient
 # bar; bf16 as the forward
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -803,18 +830,20 @@ def phase_kernels(FA, results: list) -> list:
     return bad
 
 
-def phase_backward(FA, results: list) -> list:
+def phase_backward(FA, results: list, cases: list = None,
+                   dtypes=DTYPES) -> list:
     """Phase 9: the flash backward kernel against its plain version
     (attend_bwd_ref, from the kernel forward's output and statistics) and
     against torch autograd of attend_ref; a second call must give the same
-    bits.  Errors are max |got - ref| / max |ref| over dq, dk and dv."""
+    bits.  Errors are max |got - ref| / max |ref| over dq, dk and dv.
+    ``cases`` (phase 38) replaces phase 9's shapes, run in ``dtypes``."""
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     rnd = lambda *s, dt: torch.randn(*s, generator=g).to(dev, dt)
     rel = lambda a, b: ((a.float() - b.float()).abs().max()
                         / (b.float().abs().max() + 1e-12)).item()
     # (label, B, T, S, Hq, Hkv, D, causal, q_start, kv_len[, window])
-    cases = [(f"test_kernels BH={BH} T={T} S={S} D={D} causal={c}",
+    default = [(f"test_kernels BH={BH} T={T} S={S} D={D} causal={c}",
               BH, T, S, 1, 1, D, c, [0] * BH, [S] * BH)
              for BH, T, S, D, c in ((4, 128, 128, 64, True),
                                     (2, 256, 256, 64, True),
@@ -822,7 +851,7 @@ def phase_backward(FA, results: list) -> list:
                                     (3, 64, 256, 128, False),
                                     (2, 1, 256, 64, False),
                                     (1, 512, 512, 128, True))]
-    cases += [("test_kernels kv_len=40", 2, 1, 128, 1, 1, 64, False, [0, 0],
+    default += [("test_kernels kv_len=40", 2, 1, 128, 1, 1, 64, False, [0, 0],
                [40, 40]),
               ("decode B=4 per-row", 4, 1, 544, 32, 8, 64, True,
                [527, 520, 300, 543], [528, 521, 301, 544]),
@@ -866,9 +895,10 @@ def phase_backward(FA, results: list) -> list:
               ("gemma3 tensor 4 train local T=S=1024 window=512", 2, 1024,
                1024, 1, 1, 256, True, [0, 0], [1024, 1024], 512)]
     bad = []
-    for label, B, T, S, Hq, Hkv, D, causal, q_start, kv_len, *w in cases:
+    for label, B, T, S, Hq, Hkv, D, causal, q_start, kv_len, *w in (
+            default if cases is None else cases):
         window = w[0] if w else 0
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             if "tensor" in label and dtype != torch.float32:
                 continue
             q, do = rnd(B, T, Hq, D, dt=dtype), rnd(B, T, Hq, D, dt=dtype)
@@ -940,27 +970,30 @@ def ssd_bound(x, N: int, chunk: int, init_state: bool) -> dict:
     return bounds(nbytes, ops, x.dtype)
 
 
-def phase_ssd(SSD, results: list) -> list:
+def phase_ssd(SSD, results: list, cases: list = None,
+              dtypes=DTYPES) -> list:
     """Phase 6: the SSD kernel against its plain version (ssd_chunked_ref)
     on the card.  Error is the JAX kernel tests' measure, max |y - y_ref|
-    / max |y_ref| (and the same for the final state)."""
+    / max |y_ref| (and the same for the final state).  ``cases`` (phase
+    38) replaces phase 6's shapes, run in ``dtypes``."""
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     rnd = lambda *s: torch.randn(*s, generator=g)
     bad = []
     rel = lambda a, b: ((a.float() - b.float()).abs().max()
                         / (b.float().abs().max() + 1e-9)).item()
-    cases = [(f"test_kernels {s}", s, False)
-             for s in ((2, 64, 8, 32, 16, 16), (1, 128, 4, 64, 32, 32),
-                       (2, 256, 8, 32, 128, 64), (2, 32, 6, 16, 8, 32))]
-    cases.append(("init_state (2, 256, 8, 32, 128, 64)",
-                  (2, 256, 8, 32, 128, 64), True))
+    default = [(f"test_kernels {s}", s, False)
+               for s in ((2, 64, 8, 32, 16, 16), (1, 128, 4, 64, 32, 32),
+                         (2, 256, 8, 32, 128, 64), (2, 32, 6, 16, 8, 32))]
+    default.append(("init_state (2, 256, 8, 32, 128, 64)",
+                    (2, 256, 8, 32, 128, 64), True))
     # the serving path's call: mamba2-2.7b, a micro-batch of 4 rows, prompt
     # 512, seeded with the cache's state
-    cases.append(("main-path prefill B=4 T=512 H=80 P=64 N=128 chunk=256",
-                  (4, 512, 80, 64, 128, 256), True))
-    for label, (B, T, H, P, N, chunk), with_init in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+    default.append(("main-path prefill B=4 T=512 H=80 P=64 N=128 chunk=256",
+                    (4, 512, 80, 64, 128, 256), True))
+    for label, (B, T, H, P, N, chunk), with_init in (
+            default if cases is None else cases):
+        for dtype in dtypes:
             x = rnd(B, T, H, P).to(dev, dtype)
             dt = torch.nn.functional.softplus(rnd(B, T, H)).to(dev)
             A = -torch.exp(rnd(H) * 0.5).to(dev)
@@ -981,7 +1014,7 @@ def phase_ssd(SSD, results: list) -> list:
                        ms=time_ms(kern), call_ms=call_ms(kern),
                        plain_ms=time_ms(plain), library_ms=None,
                        **ssd_bound(x, N, chunk, with_init), ok=ok)
-            if label.startswith("main-path"):
+            if label.startswith(("main-path", "hymba")):
                 # device time of each of the scan's CUDA kernels
                 row["kernel_us"] = us = kernel_us(kern)
                 if sorted(k.split("<")[0] for k in us) != [
@@ -1026,44 +1059,47 @@ SSD_BWD_KERNELS = sorted(["ssd_states_kernel", "ssd_bwd_pass_kernel",
                           "ssd_bwd_fin_kernel", "ssd_bwd_sum_kernel"])
 
 
-def phase_ssd_bwd(SSD, results: list) -> list:
+def phase_ssd_bwd(SSD, results: list, cases: list = None,
+                  dtypes=DTYPES) -> list:
     """Phase 20: the SSD backward kernel against its plain version
     (ssd_chunked_bwd_ref) and against torch autograd of ssd_chunked_ref,
     from the forward kernel's scratch of the same inputs; a second call
     must give the same bits.  Errors are max over the six gradients of
-    max |got - ref| / max |ref|."""
+    max |got - ref| / max |ref|.  ``cases`` (phase 38) replaces phase
+    20's shapes, run in ``dtypes``."""
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     rnd = lambda *s: torch.randn(*s, generator=g)
     rel = lambda a, b: ((a.float() - b.float()).abs().max()
                         / (b.float().abs().max() + 1e-12)).item()
     # (label, (B, T, H, P, N, chunk), initial state and final gradient)
-    cases = [(f"test_kernels {s}", s, False)
-             for s in ((2, 64, 8, 32, 16, 16), (1, 128, 4, 64, 32, 32),
-                       (2, 256, 8, 32, 128, 64), (2, 32, 6, 16, 8, 32))]
-    cases += [("init_state dfinal (2, 256, 8, 32, 128, 64)",
-               (2, 256, 8, 32, 128, 64), True),
-              # one chunk; many chunks at P 128; a chunk of 100 (ragged
-              # 64-row tiles) with N 24; chunk 6 and N 12 (plain loads)
-              ("one chunk (1, 256, 4, 64, 128, 256)",
-               (1, 256, 4, 64, 128, 256), True),
-              ("8 chunks P=128 (1, 512, 4, 128, 64, 64)",
-               (1, 512, 4, 128, 64, 64), True),
-              ("chunk=100 N=24 (2, 300, 3, 32, 24, 100)",
-               (2, 300, 3, 32, 24, 100), True),
-              ("chunk=6 N=12 (1, 24, 2, 16, 12, 6)", (1, 24, 2, 16, 12, 6),
-               True),
-              # 13 heads: two head groups of the dG and dB/dC kernels, the
-              # last of them ragged (3 of 10 heads)
-              ("ragged head group (1, 256, 13, 64, 128, 128)",
-               (1, 256, 13, 64, 128, 128), True),
-              # the training path's call: mamba2-2.7b, a micro-batch of 2
-              # rows, seq 1024 (4 chunks), no state in or out
-              ("train B=2 T=1024 H=80 P=64 N=128 chunk=256",
-               (2, 1024, 80, 64, 128, 256), False)]
+    default = [(f"test_kernels {s}", s, False)
+               for s in ((2, 64, 8, 32, 16, 16), (1, 128, 4, 64, 32, 32),
+                         (2, 256, 8, 32, 128, 64), (2, 32, 6, 16, 8, 32))]
+    default += [("init_state dfinal (2, 256, 8, 32, 128, 64)",
+                 (2, 256, 8, 32, 128, 64), True),
+                # one chunk; many chunks at P 128; a chunk of 100 (ragged
+                # 64-row tiles) with N 24; chunk 6 and N 12 (plain loads)
+                ("one chunk (1, 256, 4, 64, 128, 256)",
+                 (1, 256, 4, 64, 128, 256), True),
+                ("8 chunks P=128 (1, 512, 4, 128, 64, 64)",
+                 (1, 512, 4, 128, 64, 64), True),
+                ("chunk=100 N=24 (2, 300, 3, 32, 24, 100)",
+                 (2, 300, 3, 32, 24, 100), True),
+                ("chunk=6 N=12 (1, 24, 2, 16, 12, 6)", (1, 24, 2, 16, 12, 6),
+                 True),
+                # 13 heads: two head groups of the dG and dB/dC kernels, the
+                # last of them ragged (3 of 10 heads)
+                ("ragged head group (1, 256, 13, 64, 128, 128)",
+                 (1, 256, 13, 64, 128, 128), True),
+                # the training path's call: mamba2-2.7b, a micro-batch of 2
+                # rows, seq 1024 (4 chunks), no state in or out
+                ("train B=2 T=1024 H=80 P=64 N=128 chunk=256",
+                 (2, 1024, 80, 64, 128, 256), False)]
     bad = []
-    for label, (B, T, H, P, N, chunk), seeded in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+    for label, (B, T, H, P, N, chunk), seeded in (
+            default if cases is None else cases):
+        for dtype in dtypes:
             x = rnd(B, T, H, P).to(dev, dtype)
             dt = torch.nn.functional.softplus(rnd(B, T, H)).to(dev)
             A = -torch.exp(rnd(H) * 0.5).to(dev)
@@ -1107,7 +1143,7 @@ def phase_ssd_bwd(SSD, results: list) -> list:
                        ms=time_ms(kern), call_ms=call_ms(kern),
                        plain_ms=time_ms(plain), library_ms=None,
                        **ssd_bwd_bound(x, N, chunk, seeded, seeded), ok=ok)
-            if label.startswith("train"):
+            if "train" in label:
                 # device time of each of the backward's CUDA kernels
                 row["kernel_us"] = us = kernel_us(kern)
                 if sorted(k.split("<")[0] for k in us) != SSD_BWD_KERNELS:
@@ -1118,6 +1154,75 @@ def phase_ssd_bwd(SSD, results: list) -> list:
             if not ok:
                 bad.append(f"{label} {row['dtype']}")
             del x, Bm, Cm, dy, saved, got, again, want, auto, leaves, y, fin
+    return bad
+
+
+#: phase 38's flash forward shapes, hymba-1.5b's (25 query heads over 5
+#: kv heads, G = 5, D 64; window 1024 on 29 of 32 layers, global on 3):
+#: (label, B, T, S, (q_start, kv_len), window).  Trained at a micro-batch
+#: of 2 rows, T = S = 1024 (the window then hides no key, but its kernel
+#: build runs); served at a micro-batch of 4 rows, the 1024-token prompt
+#: into the 1056-key cache, then decode per row past the window's reach
+HYMBA_FWD = tuple(
+    (f"hymba {name}", B, T, S, rows, w)
+    for name, B, T, S, rows in (
+        ("train", 2, 1024, 1024, ([0, 0], [1024, 1024])),
+        ("train with statistics", 2, 1024, 1024, ([0, 0], [1024, 1024])),
+        ("serve prefill", 4, 1024, 1056, ([0] * 4, [1024] * 4)),
+        ("decode per-row", 4, 1, 1056, ([1055, 1040, 1030, 1024],
+                                        [1056, 1041, 1031, 1025])))
+    for w in (1024, 0))
+
+
+def phase_hymba_kernels(FA, SSD, rows: dict) -> list:
+    """Phase 38: both kernels at hymba-1.5b's shapes, f32, against their
+    plain versions under phases 3, 6, 9 and 20's bars: the flash forward
+    (:data:`HYMBA_FWD`: its prefill and decode routes at G = 5), the
+    flash backward (windowed and global) and the SSD scan at H 50, P 64,
+    N 16, chunk 256 (the serving prefill seeded with the cache's state,
+    the training forward, and the backward with its bitwise repeat).
+    ``rows`` gets each kernel's rows; returns the failing labels."""
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev)
+    Hq, Hkv, D = 25, 5, 64
+    bad = []
+    rows["flash"] = []
+    for label, B, T, S, (q_start, kv_len), window in HYMBA_FWD:
+        q, k, v = rnd(B, T, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+        qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
+        kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+        kw = dict(scale=D ** -0.5, causal=True, q_start=qs, kv_len=kl,
+                  window=window)
+        lse = dict(return_lse=True) if "statistics" in label else {}
+        row = attention_row(
+            FA, f"{label} B={B} T={T} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+            f"window={window}", q, k, v, qs, kl, True,
+            lambda: (FA.flash_attend(q, k, v, **lse, **kw)[0] if lse
+                     else FA.flash_attend(q, k, v, **kw)),
+            lambda: FA.attend_ref(q, k, v, **kw), torch.float32, window)
+        rows["flash"].append(row)
+        if not row["ok"]:
+            bad.append(row["label"])
+        del q, k, v
+    f32 = (torch.float32,)
+    tr = ([0, 0], [1024, 1024])
+    rows["flash_bwd"] = []
+    bad += phase_backward(FA, rows["flash_bwd"], [
+        (f"hymba train {name} T=S=1024", 2, 1024, 1024, Hq, Hkv, D, True,
+         *tr, w) for name, w in (("local window=1024", 1024),
+                                 ("global", 0))], f32)
+    shape = "H=50 P=64 N=16 chunk=256"
+    rows["ssd"] = []
+    bad += phase_ssd(SSD, rows["ssd"], [
+        (f"hymba serve prefill B=4 T=1024 {shape}",
+         (4, 1024, 50, 64, 16, 256), True),
+        (f"hymba train forward B=2 T=1024 {shape}",
+         (2, 1024, 50, 64, 16, 256), False)], f32)
+    rows["ssd_bwd"] = []
+    bad += phase_ssd_bwd(SSD, rows["ssd_bwd"], [
+        (f"hymba train B=2 T=1024 {shape}", (2, 1024, 50, 64, 16, 256),
+         False)], f32)
     return bad
 
 
@@ -1263,20 +1368,22 @@ def _unstage(params: dict, plan, n_layers: int, ST) -> dict:
 
 
 def train_launches(n_layers: int, M: int, has_w: bool, full: bool,
-                   ssm: bool = False) -> dict:
+                   family: str = "dense") -> dict:
     """Each kernel's launches in one train step: an F tick runs each
-    layer's attention (or SSD scan) once, attention without statistics; a
-    B tick once more, attention with them (twice under remat 'full': the
-    layer's forward re-runs inside the backward), and one backward; a W
-    tick (zero-bubble plans) the same again.  Every attention forward
-    takes the prefill route.  ``ssm``: the layers are SSD scans, not
-    attention."""
+    layer's attention (or SSD scan, or both) once, attention without
+    statistics; a B tick once more, attention with them (twice under
+    remat 'full': the layer's forward re-runs inside the backward), and
+    one backward; a W tick (zero-bubble plans) the same again.  Every
+    attention forward takes the prefill route.  ``family``: a dense
+    layer runs attention, an ``ssm`` layer the SSD scan, a ``hybrid``
+    layer both."""
     fwd = n_layers * M * (1 + (1 + has_w) * (1 + full))
     bwd = n_layers * M * (1 + has_w)
-    fa_f, fa_b = (0, 0) if ssm else (fwd, bwd)
+    fa_f, fa_b = (0, 0) if family == "ssm" else (fwd, bwd)
+    sd_f, sd_b = (fwd, bwd) if family in ("ssm", "hybrid") else (0, 0)
     return {"flash_attention": fa_f, "flash_attention.prefill": fa_f,
             "flash_attention.decode": 0, "flash_attention.bwd": fa_b,
-            "ssd_scan": fwd - fa_f, "ssd_scan.bwd": bwd - fa_b}
+            "ssd_scan": sd_f, "ssd_scan.bwd": sd_b}
 
 
 def phase_train(train, counters: dict, mods, *, schedule: str = "1f1b",
@@ -1316,7 +1423,7 @@ def phase_train(train, counters: dict, mods, *, schedule: str = "1f1b",
         fail(f"{tag} ran stages/V/schedule/M {adopted}, want "
              f"{(stages, virtual, lowering.schedule, M_)}")
     per_step = train_launches(L, M_, lowering.has_w, False,
-                              get_config(arch).family == "ssm")
+                              get_config(arch).family)
     want = {k: steps * v for k, v in per_step.items()}
     losses = out["losses"]
     n_x = lowering.n_x
@@ -1445,7 +1552,7 @@ def phase_train_parity(FA, counters: dict, mods, arch: str = "llama3.2-1b",
         loss, grads = step(params, batch)
         launches = {k: getattr(fn, a) for k, (fn, a) in every.items()}
         want = train_launches(cfg.n_layers, M_, step.lowering.has_w,
-                              remat == "full", cfg.family == "ssm")
+                              remat == "full", cfg.family)
         if launches != want:
             fail(f"train parity {arch} {label}: launches {launches}, want "
                  f"{want}")
@@ -1503,7 +1610,7 @@ def phase_train_parity(FA, counters: dict, mods, arch: str = "llama3.2-1b",
             zip(range(n_lay), g[2:])))
     ref_loss, ref = reference()
     ref32 = None
-    if base_cfg.family == "ssm":
+    if base_cfg.family in ("ssm", "hybrid"):
         ssd_dtype = torch.float32
         ref32 = reference()[1]
     res = {}
@@ -2626,10 +2733,10 @@ def phase_rank_serve(mesh_mod, interleaved: dict) -> dict:
 
 #: phase 32's run: llama3.2-1b at full width, data 2 x stages 2 (16 layers
 #: on 2 stages), 1f1b, M 2 a replica (2-row micro-batches, phase 10's),
-#: batch 8, seq 1024, f32, 2 steps, the stream runtime
+#: batch 8, seq 1024, f32, 1 step, the stream runtime
 DATA_TRAIN = ["--arch", "llama3.2-1b", "--tensor", "1", "--stages", "2",
               "--data", "2", "--schedule", "1f1b", "--microbatches", "2",
-              "--batch", "8", "--seq", "1024", "--steps", "2",
+              "--batch", "8", "--seq", "1024", "--steps", "1",
               "--log-every", "1", "--device", "cuda", "--dist-backend",
               "gloo", "--runtime", "stream"]
 #: 2bw's depth when the card has no room for it at full depth
@@ -3986,6 +4093,48 @@ def main() -> None:
     mark("37")
     elastic = phase_elastic(train, MESH, (get_config, M))
 
+    # ---- 38. both kernels at hymba-1.5b's shapes --------------------------
+    mark("38")
+    hymba_rows: dict = {}
+    bad = phase_hymba_kernels(FA, SSD, hymba_rows)
+    if bad:
+        fail(f"a kernel disagrees with its plain version at hymba-1.5b's "
+             f"shapes or is not bitwise reproducible: {bad}")
+
+    # ---- 39. the hymba-1.5b path at full width ----------------------------
+    mark("39")
+    # 32 hybrid layers (attention and SSD side by side), 4 stages of 8;
+    # every layer's prefill launches both kernels once a micro-batch,
+    # every decode step the decode route (T * 25 / 5 <= 16) and the SSM's
+    # plain recurrent update (no SSD launch); positions reach 1024, so the
+    # window cuts keys from the first decode token on
+    hymba = serve_main_path(
+        serve, ["--arch", "hymba-1.5b", "--stages", "4", "--tensor", "1",
+                "--microbatches", "2", "--batch", "8", "--prompt-len", "1024",
+                "--gen", "32", "--device", "cuda"],
+        counters, {"flash_attention": 32 * 2 * 32,
+                   "flash_attention.prefill": 32 * 2,
+                   "flash_attention.decode": 32 * 2 * 31,
+                   "flash_attention.bwd": 0, "ssd_scan": 32 * 2,
+                   "ssd_scan.bwd": 0}, 32001)
+
+    # ---- 40. whole hymba path, kernels vs plain ---------------------------
+    mark("40")
+    # layer 0 global, layer 1 windowed (1024): prompt 1024, decode past it
+    hymba_path_err = phase_parity(serve_mods, "hymba-1.5b", 1024)
+
+    # ---- 41. hymba-1.5b training at full width ----------------------------
+    mark("41")
+    hymba_trained = phase_train(train, counters, train_mods,
+                                arch="hymba-1.5b")
+
+    # ---- 42. hymba training parity: 3 layers ------------------------------
+    mark("42")
+    hymba_parity = phase_train_parity(
+        FA, counters, train_mods, arch="hymba-1.5b",
+        runs=[r for r in PARITY_RUNS if r[0] in ("1f1b", "zb-h1")],
+        card_vs_cpu=("1f1b", "zb-h1"), seq=1024)
+
     mark("done")
     train_paths = {f"train {r['schedule']} V={r['virtual']} "
                    f"M={r['microbatches']}": r["launches"]
@@ -3995,7 +4144,8 @@ def main() -> None:
     train_paths.update({f"train {arch} 1f1b M=4": r["launches"]
                         for arch, r in dict(
                             dense_trained,
-                            **{"mamba2-2.7b": mamba_trained}).items()})
+                            **{"mamba2-2.7b": mamba_trained,
+                               "hymba-1.5b": hymba_trained}).items()})
 
     # the rank runs: each kernel's launches summed over the ranks
     train_paths.update({f"ranks {k}": r["launches_summed"]
@@ -4030,7 +4180,7 @@ def main() -> None:
         launches_by_path=dict({
             f"serve {name}": r["launches"]["flash_attention"]
             for name, r in (("llama3.2-1b", llama), ("gemma3-1b", gemma),
-                            ("qwen3-1.7b", qwen))},
+                            ("qwen3-1.7b", qwen), ("hymba-1.5b", hymba))},
             **{k: v["flash_attention"] for k, v in train_paths.items()},
             **{f"serve llama3.2-1b 4 stages M 4 V={V}":
                interleaved_serve[f"llama_v{V}"]["launches"]["flash_attention"]
@@ -4077,6 +4227,9 @@ def main() -> None:
         # one tensor shard's heads (phases 34-36)
         tensor_rows=[{k: r[k] for k in keys + ("route",)} for r in rows
                      if "tensor" in r["label"]],
+        # hymba-1.5b's 25/5 heads, window 1024 and global (phase 38)
+        hymba_rows=[{k: r[k] for k in keys + ("route",)}
+                    for r in hymba_rows["flash"]],
         window_prefill_ratio=window_ratio,
         # the continuous-batching step's first-layer attention (phase 26)
         mixed_rows=[{k: r[k] for k in keys + ("route", "launches")}
@@ -4084,7 +4237,8 @@ def main() -> None:
         gemma3_mixed_parity_max_abs_err=gemma_mixed_err,
         sass=sass, path_parity_max_abs_err=path_err,
         gemma3_path_parity_max_abs_err=gemma_path_err,
-        qwen3_path_parity_max_abs_err=qwen_path_err)
+        qwen3_path_parity_max_abs_err=qwen_path_err,
+        hymba_path_parity_max_abs_err=hymba_path_err)
     ssd_row = pick(ssd_rows, "main-path prefill")
     ssd_bf16 = next(r for r in ssd_rows if r["label"].startswith(
         "main-path prefill") and r["dtype"] == "bfloat16")
@@ -4099,7 +4253,8 @@ def main() -> None:
             interleaved_serve[f"mamba_v{V}"]["launches"]["ssd_scan"]
             for V in (2, 1)}, **{
             k: v["ssd_scan"] for k, v in train_paths.items()
-            if k.startswith("ranks mamba2")}, **{
+            if k.startswith("ranks mamba2") or "hymba" in k}, **{
+            "serve hymba-1.5b": hymba["launches"]["ssd_scan"]}, **{
             f"ranks serve {k}": r["launches_summed"]["ssd_scan"]
             for k, r in rank_serve_res.items() if k.startswith("mamba2")}),
         max_abs_err=ssd_row["max_abs_err"], rel_err=ssd_row["rel_err"],
@@ -4112,7 +4267,11 @@ def main() -> None:
         bf16=dict((k, ssd_bf16[k]) for k in
                   ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
                    "bound_tc_ms", "rel_err", "kernel_us")),
-        sass=ssd_sass, path_parity_max_abs_err=ssd_path_err)
+        sass=ssd_sass, path_parity_max_abs_err=ssd_path_err,
+        # hymba-1.5b's H 50, N 16 (phase 38)
+        hymba_rows=[{k: r[k] for k in keys + ("rel_err", "kernel_us")}
+                    for r in hymba_rows["ssd"]],
+        hymba_path_parity_max_abs_err=hymba_path_err)
     bwd_row = pick(bwd_rows, "train")
     bwd_keys = ("label", "dtype", "ms", "call_ms", "plain_ms", "library_ms",
                 "bound_ms", "bound_by", "bound_tc_ms", "rel_err", "bitwise",
@@ -4140,6 +4299,8 @@ def main() -> None:
                             and "tensor" not in r["label"]],
         tensor_rows=[{k: r[k] for k in bwd_keys} for r in bwd_rows
                      if "tensor" in r["label"]],
+        hymba_rows=[{k: r[k] for k in bwd_keys}
+                    for r in hymba_rows["flash_bwd"]],
         d128_kernels=bwd128)
     sbwd_row = pick(ssd_bwd_rows, "train")
     ssd_bwd = dict(
@@ -4158,10 +4319,12 @@ def main() -> None:
         kernel_us=sbwd_row["kernel_us"],
         bitwise=all(r["bitwise"] for r in ssd_bwd_rows),
         bf16={k: v for k, v in pick(ssd_bwd_rows, "train",
-                                    "bfloat16").items() if k in bwd_keys})
+                                    "bfloat16").items() if k in bwd_keys},
+        hymba_rows=[{k: r[k] for k in bwd_keys}
+                    for r in hymba_rows["ssd_bwd"]])
     print(json.dumps({"serve": {"llama3.2-1b": llama,
                                 "mamba2-2.7b": mamba, "gemma3-1b": gemma,
-                                "qwen3-1.7b": qwen,
+                                "qwen3-1.7b": qwen, "hymba-1.5b": hymba,
                                 "interleaved": interleaved_serve,
                                 "engine": engine,
                                 "ranks parity": rank_serve_res,
@@ -4178,6 +4341,8 @@ def main() -> None:
                                 "qwen3-1.7b parity": qwen_parity,
                                 "mamba2-2.7b": mamba_trained,
                                 "mamba2-2.7b parity": mamba_parity,
+                                "hymba-1.5b": hymba_trained,
+                                "hymba-1.5b parity": hymba_parity,
                                 "ranks parity": rank_parity_res,
                                 "ranks llama3.2-1b": rank_trained,
                                 "ranks llama3.2-1b stream": rank_streamed,

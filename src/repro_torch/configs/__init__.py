@@ -9,7 +9,8 @@ import importlib
 
 from repro_torch.configs.base import ArchConfig
 
-_ARCHS = ("llama3p2_1b", "mamba2_2p7b", "gemma3_1b", "qwen3_1p7b")
+_ARCHS = ("llama3p2_1b", "mamba2_2p7b", "gemma3_1b", "qwen3_1p7b",
+          "hymba_1p5b")
 
 _BY_ID: dict[str, ArchConfig] = {}
 

@@ -1004,12 +1004,17 @@ ssd_out_kernel(const Params p) {
 //   dC_i    = sum_h [sum_j dWL dt_j B_j + exp(cum_i) S_in^T dy_i]
 //   dB_j    = sum_h [sum_i dWL dt_j C_i
 //                    + exp(cum_end - cum_j) dt_j dS_own^T x_j]
-//   dcum_i  = sum_j dWL G dt_j - dt_i sum_{i'} dWL[i',i] G[i',i]
+//   dcum_i  = sum_{j<i} dWL G dt_j - dt_i sum_{i'>i} dWL[i',i] G[i',i]
 //             + dy_i . y_off_i - q_i  (+ sum_j q_j + e_k <g_{k+1}, S_in> at
 //             the end), q_j = dt_j r_j, r_j = exp(cum_end - cum_j) x_j .
-//             dS_own B_j
+//             dS_own B_j; the diagonal pair i' = i = j is in both sums
+//             and cancels exactly, so it is left out of both (its two
+//             rounded copies would not cancel: where the decay is steep
+//             they are most of each sum and set the error of R, so of
+//             ddt and dA)
 //   R       = the in-chunk reverse cumsum of dcum
-//   ddt_j   = sum_i dWL[i,j] G[i,j] + r_j + A R_j;  dA = sum_{b,k,j} dt_j R_j
+//   ddt_j   = sum_{i>=j} dWL[i,j] G[i,j] + r_j + A R_j;
+//   dA      = sum_{b,k,j} dt_j R_j
 // The forward's scratch (scores G, the passed-in states, the double cum)
 // comes in saved; masked pairs (j > i) are never exponentiated.  Bm and Cm
 // are one group shared by every head, so the intra-chunk terms of dB and
@@ -1020,11 +1025,11 @@ ssd_out_kernel(const Params p) {
 //   2. ssd_bwd_pass_kernel: the reverse pass over chunks, dS_own over Z in
 //      place, dinit, and per block a part of e_k <g_{k+1}, S_in[k]>;
 //   3. ssd_bwd_dg_kernel: per causal 64x64 tile and group of HG heads, each
-//      head's dW = dy . x^T, dWL, its row sums (sum_j dWL G dt_j) and
-//      column sums (sum_i dWL G), and dWL dt_j summed over the group's
-//      heads in registers, in head order, into an f32 part [B, nc, ng, c,
-//      c] (ng = ceil(H / HG) groups: 640 blocks at mamba2's training shape,
-//      where one per tile would be 80);
+//      head's dW = dy . x^T, dWL, its row sums (sum_{j<i} dWL G dt_j),
+//      column sums (sum_{i>j} dWL G) and diagonal dWL G, and dWL dt_j
+//      summed over the group's heads in registers, in head order, into
+//      an f32 part [B, nc, ng, c, c] (ng = ceil(H / HG) groups: 640
+//      blocks at mamba2's training shape, where one per tile would be 80);
 //   4. ssd_bwd_dgsum_kernel: dG = the groups' parts added in group order;
 //   5. ssd_bwd_dx_kernel: per 64 positions j, dS_own B_j (then r_j, and the
 //      rows scaled to dx's state term over dt_j), then u_j = sum_{i>=j} G
@@ -1070,7 +1075,8 @@ struct BwdParams {
   float* dgp;                           // dG's group parts [B,nc,ng,c,c]
   float* dg;                            // dG [B,nc,c,c]
   float* rs;                            // row-sum parts [B,nc,H,nt,c]
-  float* cs;                            // column-sum parts [B,nc,H,nt,c]
+  float* cs;                            // column-sum parts [B,nc,H,nt+1,c],
+                                        // slot nt the diagonal of dWL G
   float* yoff;                          // dy.y_off parts [B,nc,H,nnb,c]
   float* r;                             // r_j [B,nc,H,c]
   float* gpart;                         // [B,nc,H,npass]
@@ -1347,10 +1353,11 @@ __device__ __forceinline__ void column_sums(const float (&v)[8][2],
 // last column off the diagonal and, on it, the last column of each
 // 16-column block before the warp's rows, so those pairs take no exp of
 // their own; the pairs of a warp's own 16 x 16 diagonal block take one
-// each, masked pairs none.  They write the head's row sums (sum_j dWL G
-// dt_j) and column sums (sum_i dWL G) and add dWL dt_j to the group's dG
-// in registers.  The epilogue runs beside the next head's products
-// instead of after them.
+// each, masked pairs none.  They write the head's row sums (sum_{j<i}
+// dWL G dt_j), column sums (sum_{i>j} dWL G) and, on the diagonal tile,
+// the diagonal dWL G apart (into the column sums' last slot), and add dWL
+// dt_j to the group's dG in registers.  The epilogue runs beside the next
+// head's products instead of after them.
 template <typename T>
 __global__ void __launch_bounds__(DG_THREADS, 2)
 ssd_bwd_dg_kernel(const BwdParams p) {
@@ -1475,7 +1482,8 @@ ssd_bwd_dg_kernel(const BwdParams p) {
       const float* grow = Gs + il * LDGT;
       const float e_i = diag ? 0.f : ea[hh * TM + il];
       const double c_i = diag ? cd[il] : 0.0;
-      float rsum = 0.f, em = 0.f;
+      float rsum = 0.f, em = 0.f, ediag = 0.f;
+      bool has_diag = false;
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
         const int jl = n * 8 + 2 * t4, m = n >> 1;
@@ -1497,15 +1505,27 @@ ssd_bwd_dg_kernel(const BwdParams p) {
           if (i < c && jl + 1 <= il)
             v1 = acc[n][2 * h2 + 1] * expf((float)(c_i - cd[jl + 1]));
         }                             // later blocks: masked
-        const float e0 = v0 * gg.x, e1 = v1 * gg.y;
+        float e0 = v0 * gg.x, e1 = v1 * gg.y;
+        dg[n][2 * h2] += v0 * dd.x;
+        dg[n][2 * h2 + 1] += v1 * dd.y;
+        if (diag && m == warp && i < c) {     // the diagonal, kept apart
+          if (jl == il) {
+            ediag = e0;
+            e0 = 0.f;
+            has_diag = true;
+          } else if (jl + 1 == il) {
+            ediag = e1;
+            e1 = 0.f;
+            has_diag = true;
+          }
+        }
         rsum += e0 * dd.x + e1 * dd.y;
         colv[n][0] += e0;
         colv[n][1] += e1;
-        dg[n][2 * h2] += v0 * dd.x;
-        dg[n][2 * h2 + 1] += v1 * dd.y;
       }
       rsum = quad_sum(rsum);
       if (i < c && t4 == 0) p.rs[(bkh * p.nt + tj) * c + i] = rsum;
+      if (has_diag) p.cs[(bkh * (p.nt + 1) + p.nt) * c + i] = ediag;
     }
     // the column sums: over the warp's rows, then over the four warps in
     // order (red is two buffers: head hh + 2 writes this one after every
@@ -1514,7 +1534,7 @@ ssd_bwd_dg_kernel(const BwdParams p) {
     column_sums(colv, rd + warp * TM);
     bar_sync<BAR_EPI, THREADS>();
     if (etid < TM && j0 + etid < c)
-      p.cs[(bkh * p.nt + ti) * c + j0 + etid] =
+      p.cs[(bkh * (p.nt + 1) + ti) * c + j0 + etid] =
           rd[etid] + rd[TM + etid] + rd[2 * TM + etid] + rd[3 * TM + etid];
   }
 
@@ -2010,12 +2030,14 @@ ssd_bwd_fin_kernel(const BwdParams p) {
     const int te = e / TM;
     float rs = 0.f, cs = 0.f, yo = 0.f;
     for (int t = 0; t <= te; ++t) rs += p.rs[(bkh * p.nt + t) * c + e];
-    for (int t = te; t < p.nt; ++t) cs += p.cs[(bkh * p.nt + t) * c + e];
+    for (int t = te; t < p.nt; ++t)
+      cs += p.cs[(bkh * (p.nt + 1) + t) * c + e];
+    const float dgl = p.cs[(bkh * (p.nt + 1) + p.nt) * c + e];
     for (int t = 0; t < p.nnb; ++t) yo += p.yoff[(bkh * p.nnb + t) * c + e];
     const float d = dtp[(long long)e * p.sdt_t], r = p.r[bkh * c + e];
     const float q = d * r;
-    dc[e] = (double)rs - (double)d * cs + yo - q;
-    dd[e] = cs + r;
+    dc[e] = (double)rs - (double)d * cs + yo - q;   // no diagonal in either
+    dd[e] = cs + dgl + r;
     qsum += q;
   }
   qsum = fin_sum(qsum, red);
@@ -2257,10 +2279,10 @@ int ssd_scan_fwd(const void* x, const void* dt, const void* A, const void* Bm,
 // contiguous or null (zero).  scores, states, cum: the forward's scratch
 // of the same inputs, as it left them.  Scratch the caller allocates (f32
 // unless named): dstates [B,nc,H,P,N], dgp [B,nc,ng,c,c], dg [B,nc,c,c],
-// rs and cs [B,nc,H,nt,c], yoff [B,nc,H,nnb,c], r [B,nc,H,c], gpart
-// [B,nc,H,npass], dbcp [2,B,nc,ng+1,c,N], dapart [B,nc,H] f64, where nt =
-// ceil(c / 64), nnb = ceil(N / 64), npass = ceil(P N / 1024), ng =
-// ceil(H / 10) (HG).  Outputs, contiguous: dx
+// rs [B,nc,H,nt,c], cs [B,nc,H,nt+1,c], yoff [B,nc,H,nnb,c], r
+// [B,nc,H,c], gpart [B,nc,H,npass], dbcp [2,B,nc,ng+1,c,N], dapart
+// [B,nc,H] f64, where nt = ceil(c / 64), nnb = ceil(N / 64), npass =
+// ceil(P N / 1024), ng = ceil(H / 10) (HG).  Outputs, contiguous: dx
 // [B,T,H,P] and dB, dC [B,T,N] in x's dtype; ddt [B,T,H], dA [H] and
 // dinit [B,H,P,N] (null: not written) f32.  Returns a cudaError_t; the
 // eight launches are asynchronous on ``stream`` and allocate nothing.

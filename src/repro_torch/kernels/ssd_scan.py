@@ -195,7 +195,11 @@ def ssd_chunked_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
       -q_j at j and sum_j q_j at the chunk's end (q_j = exp(cum_end -
       cum_j) dt_j x_j . dS_own B_j), and e sum g.S_in at the end; its
       reverse cumsum R gives ddt += A R and dA = sum dt R, beside ddt's
-      direct terms sum_i dW G L and q_j / dt_j."""
+      direct terms sum_i dW G L and q_j / dt_j.  The pairs i = j, which
+      the first two terms hold once each and which cancel exactly, are
+      left out of both: where the decay is steep their two rounded
+      copies would be most of dcum, and their rounding would set dA's
+      (a_log's gradient) and ddt's error."""
     Bsz, T, H, P = x.shape
     N = Bm.shape[-1]
     nc, c = T // chunk, chunk
@@ -228,6 +232,7 @@ def ssd_chunked_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         g_end[k] = e_chunk[:, k] * (g * S_in[k]).sum((-1, -2))  # [B,H]
         g = g * e_chunk[:, k, :, None, None] + Z[:, k]
     causal = torch.tril(torch.ones((c, c), dtype=torch.bool, device=dev))
+    eye = torch.eye(c, dtype=torch.bool, device=dev)
     dx = torch.empty_like(xf)
     ddt = torch.empty_like(dtf)
     dB, dC = torch.empty_like(Bf), torch.empty_like(Cf)
@@ -253,8 +258,9 @@ def ssd_chunked_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             + torch.einsum("bjh,bjhp,bhpn->bjn", wend[:, k], xk, dS[k])
         E = dW * GL                                            # dW G L
         col = E.sum(1)                                         # at j
+        Eo = E.masked_fill(eye[None, :, :, None], 0.0)         # i != j
         q = dtk * r
-        dcum = ((E * dtk[:, None]).sum(2) - dtk * col
+        dcum = ((Eo * dtk[:, None]).sum(2) - dtk * Eo.sum(1)
                 + (dC_off * Ck[:, :, None, :]).sum(-1) - q).double()
         dcum[:, -1] += q.sum(1) + g_end[k]
         R = dcum.flip(1).cumsum(1).flip(1)                     # [B,c,H]
@@ -435,13 +441,16 @@ def bwd_scratch(B: int, T: int, H: int, P: int, N: int,
     state gradients and small per-position sums are per head: the scores'
     gradient is summed over each group's heads (``dgp``) and then over the
     groups (``dg``), and dB, dC are summed along their reduction axis into
-    one part per group and one for the intra-chunk term (``dbcp``)."""
+    one part per group and one for the intra-chunk term (``dbcp``); the
+    column sums' last slot holds the diagonal of dW G L, which ``dcum``
+    leaves out (``cs``)."""
     nc, c = T // chunk, chunk
     nt, nnb, npass = -(-c // 64), -(-N // 64), -(-(P * N // 4) // 256)
     ng = -(-H // HEAD_GROUP)
     return dict(dstates=(B, nc, H, P, N), dgp=(B, nc, ng, c, c),
                 dg=(B, nc, c, c), rs=(B, nc, H, nt, c),
-                cs=(B, nc, H, nt, c), yoff=(B, nc, H, nnb, c), r=(B, nc, H, c),
+                cs=(B, nc, H, nt + 1, c), yoff=(B, nc, H, nnb, c),
+                r=(B, nc, H, c),
                 gpart=(B, nc, H, npass), dbcp=(2, B, nc, ng + 1, c, N),
                 dapart=(B, nc, H))
 

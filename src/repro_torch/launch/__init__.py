@@ -14,8 +14,17 @@ def with_tensor(cfg, tensor: int):
     """``cfg`` at the CLI's ``--tensor`` degree (0 keeps the config's
     own, as the JAX CLI does: llama3.2-1b's is 2, gemma3-1b's and
     qwen3-1.7b's 4).  A degree above 1 runs only as ranks; the CLIs
-    refuse it in one process before anything is allocated."""
+    refuse it in one process before anything is allocated.  A degree
+    that does not divide the attention heads (hymba-1.5b's 25 split
+    only over 1, 5 or 25) raises here, before any process group is set
+    up: each shard holds ``n_heads / T`` whole heads."""
     if tensor < 0:
         raise ValueError(f"--tensor {tensor}: expected 0 (the config's) "
                          f"or a degree >= 1")
-    return dataclasses.replace(cfg, tensor=tensor or cfg.tensor)
+    t = tensor or cfg.tensor
+    if cfg.attn_kind != "none" and cfg.n_heads % t:
+        raise ValueError(
+            f"--tensor {t}: {cfg.arch_id}'s {cfg.n_heads} attention heads "
+            f"do not split over {t} shards; pick a degree that divides "
+            f"{cfg.n_heads}")
+    return dataclasses.replace(cfg, tensor=t)

@@ -13,7 +13,11 @@ the MLP's hidden units; its input enters through ``tp.copy_to_tensor``
 (the gradient summed over the shards) and its row-parallel output
 leaves through ``tp.reduce_from_tensor`` (the sum over the shards,
 where the JAX layers call ``_maybe_psum``).  The Mamba-2 block stays
-replicated over tensor, with no reduction, as in the JAX package.
+replicated over tensor, with no reduction, as in the JAX package; in a
+hybrid block its input is the attention's normed input taken before
+``copy_to_tensor`` (its gradient is whole on every shard already), and
+the attention's output is summed over the shards before the two are
+fused (``models.model.block_apply``).
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Model assembly, dense GQA and SSM branches (the port's share of
-``repro/models/model.py``): ArchConfig -> init / forward / loss / decode.
+"""Model assembly, dense GQA, SSM and hybrid branches (the port's share
+of ``repro/models/model.py``): ArchConfig -> init / forward / loss /
+decode.
 
 Layer parameters are stacked on a leading ``[L, ...]`` axis, as in the JAX
 package, so stage slicing and the numpy bridge (``repro_torch.convert``)
@@ -20,14 +21,16 @@ Params = dict
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Admit the families the port runs so far: dense GQA and pure SSM
-    (Mamba-2).  MoE, MLA, hybrid, audio and VLM raise."""
-    dense = (cfg.family == "dense" and cfg.attn_kind == "gqa"
-             and cfg.moe is None)
-    if not (dense or cfg.family == "ssm"):
+    """Admit the families the port runs so far: dense GQA, pure SSM
+    (Mamba-2) and the GQA + SSM hybrid (Hymba).  MoE, MLA, audio and VLM
+    raise."""
+    gqa = (cfg.family in ("dense", "hybrid") and cfg.attn_kind == "gqa"
+           and cfg.moe is None)
+    if not (gqa or cfg.family == "ssm"):
         raise NotImplementedError(
-            f"{cfg.arch_id}: only the dense GQA and ssm families are ported "
-            f"so far (family={cfg.family}, attn={cfg.attn_kind})")
+            f"{cfg.arch_id}: only the dense GQA, ssm and hybrid GQA "
+            f"families are ported so far (family={cfg.family}, "
+            f"attn={cfg.attn_kind})")
 
 
 # ---------------------------------------------------------------------------
@@ -51,22 +54,30 @@ def init_block(cfg: ArchConfig, gen: torch.Generator, dtype, device) -> Params:
     if cfg.family == "ssm":
         return {"ln1": L.init_rms_norm(d, dtype, device),
                 "ssm": L.init_ssm(gen, cfg, dtype, device)}
-    return {"ln1": L.init_rms_norm(d, dtype, device),
-            "attn": L.init_gqa(gen, cfg, dtype, device),
-            "ln2": L.init_rms_norm(d, dtype, device),
-            "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg.n_layers, dtype, device)}
+    p = {"ln1": L.init_rms_norm(d, dtype, device),
+         "attn": L.init_gqa(gen, cfg, dtype, device)}
+    if cfg.family == "hybrid":
+        p["ssm"] = L.init_ssm(gen, cfg, dtype, device)
+    p["ln2"] = L.init_rms_norm(d, dtype, device)
+    p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, cfg.n_layers, dtype, device)
+    return p
 
 
 def block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, meta_l: dict, *,
                 pos: torch.Tensor, cache_l: Optional[dict] = None, tp=None):
-    """Apply one dense or SSM block.  ``meta_l`` holds this layer's
-    scalars (``rope_theta``, ``is_global``).  Returns (x', cache_l', aux_loss); the
-    leaves of ``cache_l`` (k/v, or the SSM conv window and state) are
-    updated in place.  Neither block has an auxiliary loss: aux is the
-    Python float 0.0 (no device work, no host sync).  ``tp`` (a
-    ``comm.TensorAxis``, or None) runs the dense block on this tensor
-    shard's parameters; the SSM block is replicated over tensor and
-    ignores it, as in the JAX package."""
+    """Apply one dense, SSM or hybrid block.  ``meta_l`` holds this
+    layer's scalars (``rope_theta``, ``is_global``).  Returns (x',
+    cache_l', aux_loss); the leaves of ``cache_l`` (k/v, the SSM conv
+    window and state, or both for hybrid) are updated in place.  No
+    block has an auxiliary loss: aux is the Python float 0.0 (no device
+    work, no host sync).  The hybrid block (Hymba) runs attention and
+    the SSM on the same normed input and fuses them as ``0.5 * (h_attn
+    + h_ssm)`` before the MLP.  ``tp`` (a ``comm.TensorAxis``, or None)
+    runs the attention and MLP on this tensor shard's parameters; the
+    SSM is replicated over tensor and ignores it, as in the JAX package:
+    its input does not enter through ``copy_to_tensor`` (its gradient is
+    already whole on every shard) and the attention output is summed
+    over the shards before the fusion."""
     if cfg.family == "ssm":
         h, new_ssm = L.ssm_block(
             p["ssm"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
@@ -78,10 +89,17 @@ def block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, meta_l: dict, *,
         p["attn"], xin, cfg, pos=pos, rope_theta=meta_l["rope_theta"],
         is_global=meta_l["is_global"],
         cache=None if cache_l is None else cache_l["kv"], tp=tp)
+    new_cache = None if cache_l is None else dict(cache_l, kv=new_kv)
+    if cfg.family == "hybrid":
+        h_ssm, new_ssm = L.ssm_block(
+            p["ssm"], xin, cfg,
+            cache=None if cache_l is None else cache_l["ssm"])
+        h = 0.5 * (h + h_ssm)               # Hymba: parallel head fusion
+        if new_cache is not None:
+            new_cache["ssm"] = new_ssm
     x = x + h
     x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act,
                   tp)
-    new_cache = None if cache_l is None else dict(cache_l, kv=new_kv)
     return x, new_cache, 0.0
 
 
@@ -246,15 +264,19 @@ def _cache_len(cache):
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                dtype=torch.float32, device="cuda") -> dict:
     """Stacked [L, ...] decode cache for every layer: GQA k/v and
-    per-slot ``len``, or the SSM conv window and state (no positions)."""
+    per-slot ``len``, the SSM conv window and state (no positions), or,
+    for the hybrid family, both subtrees side by side."""
     check_ported(cfg)
     n, hd, nkv = cfg.n_layers, cfg.resolved_head_dim, max(1, cfg.n_kv_heads)
     z = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
     if cfg.family == "ssm":
         return {"ssm": _ssm_cache(cfg, n, batch, z)}
-    return {"kv": dict(k=z(n, batch, max_len, nkv, hd),
-                       v=z(n, batch, max_len, nkv, hd),
-                       len=z(n, batch, dt=torch.int32))}
+    c = {"kv": dict(k=z(n, batch, max_len, nkv, hd),
+                    v=z(n, batch, max_len, nkv, hd),
+                    len=z(n, batch, dt=torch.int32))}
+    if cfg.family == "hybrid":
+        c["ssm"] = _ssm_cache(cfg, n, batch, z)
+    return c
 
 
 def _ssm_cache(cfg: ArchConfig, n: int, batch: int, z) -> dict:

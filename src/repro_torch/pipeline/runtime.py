@@ -140,7 +140,8 @@ def init_pipeline_cache(cfg: ArchConfig, plan: ST.StagePlan, batch: int,
     [S, Lps, B, max_len, Hkv, D] and per-slot ``len`` offsets
     [S, Lps, B]; or, for the SSM family, the conv window
     [S, Lps, B, d_conv-1, conv_ch] and state [S, Lps, B, H, P, N]
-    (``max_len`` unused).  This is the in-process executor's cache, so
+    (``max_len`` unused); or, for the hybrid family, both subtrees side
+    by side.  This is the in-process executor's cache, so
     tensor 1: at ``plan.tensor`` T > 1 each rank holds its shard's cache
     (:func:`init_stage_cache`) and this raises."""
     if plan.tensor > 1:
@@ -157,12 +158,14 @@ def init_stage_cache(cfg: ArchConfig, plan: ST.StagePlan, stage: int,
     cache): ``[Lps, B, ...]`` or ``[V, Lc, B, ...]`` leaves with no stage
     axis, equal to row ``stage`` of the stacked cache bit for bit (every
     layer's cache starts as zeros).  With ``data`` = D replicas a rank
-    holds its replica's ``B / D`` rows of k/v (or of the SSM state) and
-    every slot's ``len`` offsets (``[.., B]``), so the offsets are
-    advanced, and reset by a continuous-batching engine, for the whole
-    batch on every rank.  At ``plan.tensor`` T > 1 a rank's k/v hold its
-    tensor shard's ``stage.kv_heads(cfg, T)`` heads (any shard's cache
-    starts as zeros; there is no stacked cache to be a row of)."""
+    holds its replica's ``B / D`` rows of k/v and of the SSM conv window
+    and state (whichever the family has) and every slot's ``len``
+    offsets (``[.., B]``), so the offsets are advanced, and reset by a
+    continuous-batching engine, for the whole batch on every rank.  At
+    ``plan.tensor`` T > 1 a rank's k/v hold its tensor shard's
+    ``stage.kv_heads(cfg, T)`` heads and its SSM state every head (the
+    SSM is replicated over tensor; any shard's cache starts as zeros;
+    there is no stacked cache to be a row of)."""
     if not 0 <= stage < plan.n_stages:
         raise ValueError(f"stage {stage} of a {plan.n_stages}-stage plan")
     if data < 1 or batch % data:
@@ -385,8 +388,8 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
     gathered at its last valid column (column 0 for an idle slot, whose
     logits mean nothing).  Padding columns write keys past the slot's
     offset, which valid queries never see (causal mask) and the next step
-    overwrites.  Attention families only: the SSM family's recurrent state
-    has no per-token offsets to mask padding with.
+    overwrites.  Attention families only: the SSM and hybrid families'
+    recurrent state has no per-token offsets to mask padding with.
 
     Interleaved plans (``plan.virtual`` = V > 1) replay the same ring
     table for prefill and for one-token decode; the cache and parameter

@@ -69,7 +69,9 @@ def _tiny_cfg(qk_norm=False):
     pytest.param("gemma3-1b", False, id="gemma3-False"),
     pytest.param("gemma3-1b", True, id="gemma3-True"),
     pytest.param("qwen3-1.7b", False, id="qwen3-False"),
-    pytest.param("qwen3-1.7b", True, id="qwen3-True")])
+    pytest.param("qwen3-1.7b", True, id="qwen3-True"),
+    pytest.param("hymba-1.5b", False, id="hymba-False"),
+    pytest.param("hymba-1.5b", True, id="hymba-True")])
 def test_config_matches_jax(arch, reduce):
     cfg, jcfg = get_config(arch), jax_get_config(arch)
     if reduce:
@@ -83,7 +85,7 @@ def test_config_matches_jax(arch, reduce):
     if cfg.ssm is not None:
         assert cfg.ssm.n_heads(cfg.d_model) == jcfg.ssm.n_heads(jcfg.d_model)
     with pytest.raises(KeyError):
-        get_config("hymba-1.5b")
+        get_config("whisper-base")
 
 
 @pytest.mark.parametrize("name", ["gpipe", "1f1b", "1f1b-2x", "1F1B-AS",

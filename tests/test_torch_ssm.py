@@ -226,7 +226,7 @@ def test_decode_step_matches_jax(ref):
     assert _rel_err(cache["ssm"]["state"], ref["state"]) < BLOCK_TOL
 
 
-@pytest.mark.parametrize("family", ["moe", "mla", "hybrid", "audio", "vlm"])
+@pytest.mark.parametrize("family", ["moe", "mla", "audio", "vlm"])
 def test_unported_families_raise(family):
     cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
                               family=family,
@@ -235,6 +235,25 @@ def test_unported_families_raise(family):
         TM.check_ported(cfg)
     with pytest.raises(NotImplementedError):
         TM.init_cache(cfg, 1, 4, device="cpu")
+
+
+def test_hybrid_family_is_admitted_with_both_cache_subtrees():
+    """The hybrid family (hymba-1.5b: GQA attention and the SSM in one
+    block) is ported: ``check_ported`` admits it and ``init_cache``
+    builds k/v with their offsets beside the SSM conv window and state;
+    with MLA attention it still raises."""
+    cfg = get_config("hymba-1.5b").reduced(n_layers=2)
+    TM.check_ported(cfg)
+    cache = TM.init_cache(cfg, 3, 8, device="cpu")
+    assert set(cache) == {"kv", "ssm"}
+    assert set(cache["kv"]) == {"k", "v", "len"}
+    assert set(cache["ssm"]) == {"conv", "state"}
+    assert tuple(cache["kv"]["len"].shape) == (2, 3)
+    s = cfg.ssm
+    assert tuple(cache["ssm"]["state"].shape) == (
+        2, 3, s.n_heads(cfg.d_model), s.head_dim, s.d_state)
+    with pytest.raises(NotImplementedError):
+        TM.check_ported(dataclasses.replace(cfg, attn_kind="mla"))
 
 
 # ---------------------------------------------------------------------------

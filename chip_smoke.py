@@ -329,13 +329,37 @@ Phases, each reported on its own lines:
    against a non-pipelined ``loss_fn``;
 42. phase 22's parity for hymba-1.5b at 3 layers (1f1b, zb-h1 against
    one autograd pass with the plain attention and SSD, at the harness's
-   bar), and the reduced model's 1f1b and zb-h1 card against CPU.
+   bar), and the reduced model's 1f1b and zb-h1 card against CPU;
+43. the flash kernel at whisper-base's shapes (f32, 8/8 heads, D 64,
+   G = 1) against its plain version under phases 3 and 9's bars
+   (:data:`WHISPER_FWD`): trained (a micro-batch of 2 rows) the
+   encoder's non-causal T = S = 1500 (no tile divides 1500), the
+   decoder's causal 448 and the cross-attention's non-causal T 448 over
+   S 1500, each with and without the statistics; served the encoder
+   over the batch of 4, the cross prefill (T 64) and decode (T 1, the
+   decode route with causal = 0) over 1500 keys and the decoder's
+   causal prefill and per-row decode; the backward at the three
+   training shapes (its bitwise repeat);
+44. whisper-base served at full width and depth (:func:`
+   phase_whisper_serve`: 2 stages, seeded frames [4, 1500, 512],
+   ``prefill_audio_cache`` on the card, prompt 64, 32 tokens, V 1 and
+   V 2 with equal tokens): flash exactly 3 + 12 prefill-route and 372
+   decode-route launches a run; encoder ms, prefill and decode tok/s,
+   peak;
+45. phase 5's card-vs-CPU check for whisper-base at full width and full
+   depth (6 layers, the cross keys and values of the same frames made
+   on each device);
+46. whisper-base trained at full width (:func:`phase_whisper_train`: 3
+   stages of 2 layers, 1f1b, M 4, batch 8, 1500 frames, 448 tokens,
+   AdamW, 3 steps): 72 + 36 flash launches a step, step 0's loss
+   against ``loss_fn``, step ms, tok/s, peak; then phase 19's parity at
+   3 layers (one encoder, two decoder layers; 1f1b and zb-h1).
 
 Every kernel's launch counters (``launches`` and, for flash attention,
 ``launches_prefill`` / ``launches_decode`` / ``launches_bwd``; for the
 SSD scan ``launches_bwd``) are set to 0 just before each driven path
-(phases 4, 7, 10, 12, 13, 15, 17, 18, 21, 39 and 41, and each run of
-phases 11, 14, 19, 22, 23, 24, 25 and 42; in phases 27-33 in each
+(phases 4, 7, 10, 12, 13, 15, 17, 18, 21, 39, 41 and 46, and each run
+of phases 11, 14, 19, 22, 23, 24, 25, 42 and 44; in phases 27-33 in each
 rank's process, the rank executor's and the in-process runs apart; in
 phases 34-36 in each rank's process for each run) and read just after
 it.  Every process runs with TF32 off and one cuBLAS workspace setting
@@ -1226,6 +1250,75 @@ def phase_hymba_kernels(FA, SSD, rows: dict) -> list:
     return bad
 
 
+#: phase 43's forward rows: (label, B, T, S, causal, (q_start, kv_len))
+#: at whisper-base's heads (8/8, D 64, G = 1), f32: training (a
+#: micro-batch of 2 rows of phase 46: 1500 frames, 448 decoder tokens) and
+#: serving (phase 44: the encoder over the batch of 4, then micro-batches
+#: of 2 rows, a 64-token prompt into a 96-key self cache, decode per row)
+WHISPER_FWD = (
+    ("whisper train encoder", 2, 1500, 1500, False, ([0, 0], [1500, 1500])),
+    ("whisper train encoder with statistics", 2, 1500, 1500, False,
+     ([0, 0], [1500, 1500])),
+    ("whisper train decoder self", 2, 448, 448, True, ([0, 0], [448, 448])),
+    ("whisper train decoder self with statistics", 2, 448, 448, True,
+     ([0, 0], [448, 448])),
+    ("whisper train cross", 2, 448, 1500, False, ([0, 0], [1500, 1500])),
+    ("whisper train cross with statistics", 2, 448, 1500, False,
+     ([0, 0], [1500, 1500])),
+    ("whisper serve encoder prefill", 4, 1500, 1500, False,
+     ([0] * 4, [1500] * 4)),
+    ("whisper serve cross prefill", 2, 64, 1500, False,
+     ([0, 0], [1500, 1500])),
+    ("whisper serve cross decode", 2, 1, 1500, False,
+     ([0, 0], [1500, 1500])),
+    ("whisper serve self prefill", 2, 64, 96, True, ([0, 0], [64, 64])),
+    ("whisper serve self decode per-row", 2, 1, 96, True,
+     ([80, 95], [81, 96])),
+)
+
+
+def phase_whisper_kernels(FA, rows: dict) -> list:
+    """Phase 43: the flash kernel at whisper-base's shapes, f32, against
+    its plain version under phases 3 and 9's bars: the forward rows of
+    :data:`WHISPER_FWD` (non-causal over 1500 keys, which no 64-key tile
+    divides: the tail tile is masked by S alone; T != S in the cross
+    rows; the decode route over the cross cache with causal = 0) and the
+    backward at the three training shapes (the encoder's non-causal
+    T = S = 1500, the decoder's causal 448, the cross's non-causal T 448
+    over S 1500), its bitwise repeat included.  ``rows`` gets the rows;
+    returns the failing labels."""
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev)
+    H, D = 8, 64
+    bad = []
+    rows["flash"] = []
+    for label, B, T, S, causal, (q_start, kv_len) in WHISPER_FWD:
+        q, k, v = rnd(B, T, H, D), rnd(B, S, H, D), rnd(B, S, H, D)
+        qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
+        kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+        kw = dict(scale=D ** -0.5, causal=causal, q_start=qs, kv_len=kl)
+        lse = dict(return_lse=True) if "statistics" in label else {}
+        row = attention_row(
+            FA, f"{label} B={B} T={T} S={S} Hq={H} Hkv={H} D={D} "
+            f"causal={causal}", q, k, v, qs, kl, causal,
+            lambda: (FA.flash_attend(q, k, v, **lse, **kw)[0] if lse
+                     else FA.flash_attend(q, k, v, **kw)),
+            lambda: FA.attend_ref(q, k, v, **kw), torch.float32)
+        rows["flash"].append(row)
+        if not row["ok"]:
+            bad.append(row["label"])
+        del q, k, v
+    rows["flash_bwd"] = []
+    bad += phase_backward(FA, rows["flash_bwd"], [
+        (f"whisper train {name}", 2, T, S, H, H, D, causal, [0, 0], [S, S])
+        for name, T, S, causal in (
+            ("encoder T=S=1500", 1500, 1500, False),
+            ("decoder self T=S=448", 448, 448, True),
+            ("cross T=448 S=1500", 448, 1500, False))], (torch.float32,))
+    return bad
+
+
 def launch_counters(counters: dict) -> dict:
     """Every launch counter of every kernel wrapper: ``name`` for its
     ``launches``, ``name.route`` for each ``launches_<route>``."""
@@ -1281,15 +1374,22 @@ def serve_main_path(serve, argv: list, counters: dict, want: dict,
     return res
 
 
-def phase_parity(serve_mods, arch: str, prompt_len: int, **over) -> float:
-    """Phases 5, 8, 16 and 17: the full width of ``arch`` cut to 2 layers and
-    2 stages (and the fields ``over``), served on the card (the kernels)
-    and on the CPU (their plain versions) with the same weights and
-    teacher-forced tokens.  Returns the largest logit difference."""
+def phase_parity(serve_mods, arch: str, prompt_len: int, layers: int = 2,
+                 **over) -> float:
+    """Phases 5, 8, 16, 17, 40 and 45: the full width of ``arch`` cut to
+    ``layers`` layers (2; whisper-base's 6 at full depth) on 2 stages (and
+    the fields ``over``), served on the card (the kernels) and on the CPU
+    (their plain versions) with the same weights and teacher-forced
+    tokens; for the audio family the cross keys and values come from
+    ``prefill_audio_cache`` of the same seeded frames (1500 a row) on each
+    device, laid into the cache by ``lay_cross_cache``.  Returns the
+    largest logit difference."""
     get_config, RT, ST = serve_mods
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, stages=2,
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers, stages=2,
                               tensor=1, **over)
-    B, gen = 4, 8
+    B, gen, n_frames = 4, 8, 1500
+    audio = cfg.family == "audio"
     plan = ST.plan_stages(cfg)
     pcfg = RT.PipelineConfig(n_microbatches=2)
     prefill = RT.make_serve_step(cfg, plan, pcfg, q_len=prompt_len)
@@ -1298,6 +1398,8 @@ def phase_parity(serve_mods, arch: str, prompt_len: int, **over) -> float:
     g = torch.Generator().manual_seed(1)
     prompt = torch.randint(0, cfg.vocab, (B, prompt_len), generator=g)
     forced = torch.randint(0, cfg.vocab, (B, gen - 1), generator=g)
+    frames = (torch.randn(B, n_frames, cfg.d_model, generator=g) if audio
+              else None)
     to = lambda tree, dev: {k: to(v, dev) if isinstance(v, dict)
                             else v.to(dev) for k, v in tree.items()}
 
@@ -1305,7 +1407,12 @@ def phase_parity(serve_mods, arch: str, prompt_len: int, **over) -> float:
         """The prefill's and every decode step's logits on ``dev``."""
         p = to(params, dev)
         cache = RT.init_pipeline_cache(cfg, plan, B, prompt_len + gen,
-                                       device=dev)
+                                       device=dev,
+                                       enc_len=n_frames if audio else 0)
+        if audio:
+            RT.lay_cross_cache(cfg, plan, cache, M.prefill_audio_cache(
+                cfg, _unstage(p, plan, cfg.n_layers, ST), frames.to(dev),
+                M.init_cache(cfg, B, 1, enc_len=n_frames, device=dev)))
         toks = forced.to(dev)
         lg, cache = prefill(p, cache, dict(tokens=prompt.to(dev)))
         steps = [lg[:, 0]]
@@ -1368,7 +1475,7 @@ def _unstage(params: dict, plan, n_layers: int, ST) -> dict:
 
 
 def train_launches(n_layers: int, M: int, has_w: bool, full: bool,
-                   family: str = "dense") -> dict:
+                   family: str = "dense", n_enc: int = 0) -> dict:
     """Each kernel's launches in one train step: an F tick runs each
     layer's attention (or SSD scan, or both) once, attention without
     statistics; a B tick once more, attention with them (twice under
@@ -1376,10 +1483,16 @@ def train_launches(n_layers: int, M: int, has_w: bool, full: bool,
     one backward; a W tick (zero-bubble plans) the same again.  Every
     attention forward takes the prefill route.  ``family``: a dense
     layer runs attention, an ``ssm`` layer the SSD scan, a ``hybrid``
-    layer both."""
+    layer both; an ``audio`` model's first ``n_enc`` layers (its
+    encoder) one attention each, its decoder layers two (self and
+    cross)."""
+    calls = n_layers + (n_layers - n_enc if family == "audio" else 0)
+    fa_f = calls * M * (1 + (1 + has_w) * (1 + full))
+    fa_b = calls * M * (1 + has_w)
     fwd = n_layers * M * (1 + (1 + has_w) * (1 + full))
     bwd = n_layers * M * (1 + has_w)
-    fa_f, fa_b = (0, 0) if family == "ssm" else (fwd, bwd)
+    if family == "ssm":
+        fa_f = fa_b = 0
     sd_f, sd_b = (fwd, bwd) if family in ("ssm", "hybrid") else (0, 0)
     return {"flash_attention": fa_f, "flash_attention.prefill": fa_f,
             "flash_attention.decode": 0, "flash_attention.bwd": fa_b,
@@ -1471,6 +1584,205 @@ def phase_train(train, counters: dict, mods, *, schedule: str = "1f1b",
     return res
 
 
+def phase_whisper_serve(mods, counters: dict) -> dict:
+    """Phase 44: whisper-base served at full width and depth (3 encoder +
+    3 decoder layers on the config's 2 stages, M 2, f32) through the
+    serving entry points (the serve CLI takes no frames): seeded frames
+    [4, 1500, 512] (whisper's 30-s window), ``prefill_audio_cache`` on the
+    card (the encoder once over the batch, then every layer's cross keys
+    and values), ``lay_cross_cache``, the prefill of a 64-token prompt,
+    then 31 greedy decode steps; at V 1 and at V 2 (interleaved prefill,
+    the handoff re-folding the cache with its xk/xv, V 1 decode).  Every
+    launch counter is set to 0 just before each run and read just after:
+    flash attention exactly 3 (the encoder, prefill route) + 3 x 2 x 2
+    (each decoder layer's self- and cross-attention a micro-batch,
+    prefill route) + 31 x 12 (decode route), nothing else; the tokens
+    of the two runs equal.  A V 1 run before them, outside the counts
+    and the times, warms the encoder's shapes."""
+    get_config, RT, ST, M = mods
+    B, P, G, F = 4, 64, 32, 1500
+    base = dataclasses.replace(get_config("whisper-base"), tensor=1)
+    n_dec = base.n_layers - base.n_enc_layers
+    g = torch.Generator().manual_seed(4)
+    frames = torch.randn(B, F, base.d_model, generator=g).to("cuda")
+    prompt = torch.randint(0, base.vocab, (B, P), generator=g).to("cuda")
+    pre = base.n_enc_layers + n_dec * 2 * 2
+    dec = (G - 1) * n_dec * 2 * 2
+    want = {"flash_attention": pre + dec, "flash_attention.prefill": pre,
+            "flash_attention.decode": dec, "flash_attention.bwd": 0,
+            "ssd_scan": 0, "ssd_scan.bwd": 0}
+    res = {}
+    # a V 1 run first, neither timed nor counted: the first use of the
+    # encoder's shapes (cuBLAS's choices among them) out of the figures
+    for V, keep in ((1, False), (1, True), (2, True)):
+        cfg = dataclasses.replace(base, virtual=V)
+        plan_p, plan = ST.plan_stages(cfg), ST.plan_stages(cfg, virtual=1)
+        pcfg = RT.PipelineConfig(n_microbatches=2)
+        prefill = RT.make_serve_step(cfg, plan_p, pcfg, q_len=P)
+        decode = RT.make_serve_step(cfg, plan, pcfg, q_len=1)
+        params = ST.init_stacked_params(cfg, 0, plan_p, device="cuda")
+        unstaged = _unstage(params, plan_p, cfg.n_layers, ST)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run():
+            t = {}
+            t0 = time.perf_counter()
+            cache = RT.init_pipeline_cache(cfg, plan_p, B, P + G, enc_len=F,
+                                           device="cuda")
+            RT.lay_cross_cache(cfg, plan_p, cache, M.prefill_audio_cache(
+                cfg, unstaged, frames,
+                M.init_cache(cfg, B, 1, enc_len=F, device="cuda")))
+            torch.cuda.synchronize()
+            t["encoder_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            lg, cache = prefill(params, cache, dict(tokens=prompt))
+            tok = torch.argmax(lg[:, 0, :cfg.vocab], dim=-1)
+            torch.cuda.synchronize()
+            t["prefill_s"] = time.perf_counter() - t0
+            toks = [tok]
+            if V > 1:
+                t0 = time.perf_counter()
+                for tree in (params["layers"], cache):
+                    ST.restack_tree_(tree, plan_p, plan, cfg.n_layers)
+                torch.cuda.synchronize()
+                t["handoff_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for _ in range(G - 1):
+                lg, cache = decode(params, cache, dict(tokens=tok[:, None]))
+                tok = torch.argmax(lg[:, 0, :cfg.vocab], dim=-1)
+                toks.append(tok)
+            torch.cuda.synchronize()
+            t["decode_s"] = time.perf_counter() - t0
+            return torch.stack(toks, 1).cpu(), lg, t
+
+        if not keep:
+            run()
+            del params, unstaged
+            continue
+        (toks, lg, t), launches = counted(counters, run)
+        r = dict(V=V, launches=launches, tokens=toks.tolist(),
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 encoder_ms=1e3 * t["encoder_s"],
+                 encoder_frames_s=B * F / t["encoder_s"],
+                 prefill_ms=1e3 * t["prefill_s"],
+                 prefill_tok_s=B * P / t["prefill_s"],
+                 decode_ms=1e3 * t["decode_s"],
+                 decode_tok_s=B * (G - 1) / t["decode_s"],
+                 handoff_ms=1e3 * t.get("handoff_s", 0.0))
+        print(f"whisper serve V={V}: encoder {r['encoder_ms']:.1f} ms "
+              f"({r['encoder_frames_s']:.0f} frames/s), prefill "
+              f"{r['prefill_tok_s']:.1f} tok/s, decode "
+              f"{r['decode_tok_s']:.1f} tok/s"
+              + (f", handoff {r['handoff_ms']:.1f} ms" if V > 1 else "")
+              + f", peak memory {r['peak_gib']:.2f} GiB, launches "
+              f"{json.dumps(launches)} (want {json.dumps(want)})",
+              flush=True)
+        if launches != want:
+            fail(f"whisper serve V={V}: launches {launches}, want {want}")
+        if (tuple(toks.shape) != (B, G) or not torch.isfinite(lg).all()
+                or not ((toks >= 0) & (toks < cfg.vocab)).all()):
+            fail(f"whisper serve V={V}: tokens {tuple(toks.shape)} or "
+                 f"logits out of range")
+        res[f"V={V}"] = r
+        del params, unstaged, lg
+        torch.cuda.empty_cache()
+    same = res["V=1"]["tokens"] == res["V=2"]["tokens"]
+    print(f"whisper serve: V 2 tokens equal V 1's: {same}", flush=True)
+    if not same:
+        fail("whisper serve: the V 2 run's tokens differ from V 1's")
+    for r in res.values():
+        del r["tokens"]
+    return res
+
+
+def phase_whisper_train(mods, counters: dict) -> dict:
+    """Phase 46: whisper-base trained at full width through
+    ``make_train_step`` with AdamW (the train CLI's settings): 3 stages of
+    2 layers (enc,enc | enc,dec | dec,dec: the middle stage holds both
+    kinds), 1f1b, M 4, batch 8 of 1500 seeded frames and 448 decoder
+    tokens, f32, 3 steps.  Every launch counter set to 0 just before the
+    steps and read just after: each step exactly
+    :func:`train_launches` (9 attention calls a micro-batch's forward:
+    72 forward launches, half with the statistics, and 36 backward), all
+    on the prefill route; the stash at ``n_x``; step 0's loss against a
+    non-pipelined ``loss_fn`` on the card (1e-4)."""
+    get_config, RT, ST, M, SP, SyntheticLM = mods
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    steps, batch, seq, F, M_ = 3, 8, 448, 1500, 4
+    cfg = dataclasses.replace(get_config("whisper-base"), stages=3,
+                              tensor=1)
+    plan = ST.plan_stages(cfg)
+    kinds = [["dec" if ml["is_decoder"] else "enc" for ml in row]
+             for row in ST.stacked_meta(cfg, plan)]
+    if kinds != [["enc", "enc"], ["enc", "dec"], ["dec", "dec"]]:
+        fail(f"whisper train: stage layout {kinds}")
+    opt = AdamW(lr=warmup_cosine(3e-3, 20, steps), weight_decay=0.01)
+    step = RT.make_train_step(cfg, plan, RT.PipelineConfig(
+        n_microbatches=M_, schedule="1f1b"), optimizer=opt)
+    params = ST.init_stacked_params(cfg, 0, plan, device="cuda")
+    data = SyntheticLM(cfg.vocab, seq, batch, seed=0, device="cuda")
+    frames = torch.randn(batch, F, cfg.d_model,
+                         generator=torch.Generator().manual_seed(6)).to(
+                             "cuda")
+
+    def batch_of(k: int) -> dict:
+        return dict(data.batch(k), frames=frames)
+
+    with torch.no_grad():       # before the updates change the weights
+        ref = M.loss_fn(cfg, _unstage(params, plan, cfg.n_layers, ST),
+                        batch_of(0)).item()
+    opt_state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    every = launch_counters(counters)
+    for fn, attr in every.values():
+        setattr(fn, attr, 0)
+    losses, step_s, per_step = [], [], []
+    for k in range(steps):
+        before = {key: getattr(fn, attr) for key, (fn, attr) in every.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch_of(k))
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        per_step.append({key: getattr(fn, attr) - before[key]
+                         for key, (fn, attr) in every.items()})
+    launches = {key: getattr(fn, attr) for key, (fn, attr) in every.items()}
+    want = train_launches(cfg.n_layers, M_, step.lowering.has_w, False,
+                          cfg.family, cfg.n_enc_layers)
+    after_first = sum(step_s[1:]) / (steps - 1)
+    res = dict(stages=3, schedule="1f1b", microbatches=M_, batch=batch,
+               frames=F, tokens=seq, losses=losses, step_s=step_s,
+               step_ms_after_first=1e3 * after_first,
+               tok_s=batch * seq / after_first,
+               frames_s=batch * F / after_first,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches, launches_per_step=per_step,
+               stash_slots=step.stash_slots, n_x=step.lowering.n_x,
+               step0_ref_loss=ref)
+    print(f"whisper train: losses {losses}, step "
+          f"{res['step_ms_after_first']:.1f} ms after the first "
+          f"({res['tok_s']:.0f} decoder tok/s, {res['frames_s']:.0f} "
+          f"frames/s), peak memory {res['peak_gib']:.2f} GiB, stash "
+          f"{res['stash_slots']} (n_x {res['n_x']}), launches "
+          f"{json.dumps(launches)} (want {json.dumps(want)} a step); step "
+          f"0 loss {losses[0]:.6f}, loss_fn {ref:.6f}", flush=True)
+    if any(d != want for d in per_step) or launches != {
+            key: steps * v for key, v in want.items()}:
+        fail(f"whisper train launches {per_step}, want {want} a step")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"whisper train losses are not finite: {losses}")
+    if max(step.stash_slots) != step.lowering.n_x:
+        fail(f"whisper train stash {step.stash_slots}, n_x "
+             f"{step.lowering.n_x}")
+    if abs(losses[0] - ref) > 1e-4:
+        fail(f"whisper train step 0 loss {losses[0]} != loss_fn {ref}")
+    del params, opt_state, data, frames
+    torch.cuda.empty_cache()
+    return res
+
+
 def _grad_errs(grads: dict, ref: dict) -> dict:
     """The JAX harness's measures: per layer leaf max |a-b| / max |b|
     (worst), embed max |a-b| / (max |b| + 1), final_norm relative."""
@@ -1532,6 +1844,10 @@ def phase_train_parity(FA, counters: dict, mods, arch: str = "llama3.2-1b",
                                    stages=2, tensor=1, **(over or {}))
     batch = SyntheticLM(base_cfg.vocab, seq, 4, seed=1,
                         device="cuda").batch(0)
+    if base_cfg.family == "audio":      # whisper's 1500 frames a row
+        batch["frames"] = torch.randn(
+            4, 1500, base_cfg.d_model,
+            generator=torch.Generator().manual_seed(8)).to("cuda")
     every = launch_counters(counters)
     out, params1 = {}, None
     for label, sched, V, M_, ml, remat in runs:
@@ -1552,7 +1868,7 @@ def phase_train_parity(FA, counters: dict, mods, arch: str = "llama3.2-1b",
         loss, grads = step(params, batch)
         launches = {k: getattr(fn, a) for k, (fn, a) in every.items()}
         want = train_launches(cfg.n_layers, M_, step.lowering.has_w,
-                              remat == "full", cfg.family)
+                              remat == "full", cfg.family, cfg.n_enc_layers)
         if launches != want:
             fail(f"train parity {arch} {label}: launches {launches}, want "
                  f"{want}")
@@ -4135,6 +4451,33 @@ def main() -> None:
         runs=[r for r in PARITY_RUNS if r[0] in ("1f1b", "zb-h1")],
         card_vs_cpu=("1f1b", "zb-h1"), seq=1024)
 
+    # ---- 43. the flash kernel at whisper-base's shapes -------------------
+    mark("43")
+    whisper_rows: dict = {}
+    bad = phase_whisper_kernels(FA, whisper_rows)
+    if bad:
+        fail(f"flash attention disagrees with its plain version at "
+             f"whisper-base's shapes or is not bitwise reproducible: {bad}")
+
+    # ---- 44. whisper-base served at full width ----------------------------
+    mark("44")
+    whisper = phase_whisper_serve((get_config, RT, ST, M), counters)
+
+    # ---- 45. whole whisper path, kernels vs plain, full depth -------------
+    mark("45")
+    whisper_path_err = phase_parity(serve_mods, "whisper-base", 64, layers=6)
+
+    # ---- 46. whisper-base training at full width, then parity -------------
+    mark("46")
+    whisper_trained = phase_whisper_train(train_mods, counters)
+    # 3 layers: the encoder's one, then two decoder layers (stage 0 holds
+    # an encoder and a decoder layer, stage 1 a decoder layer and a pad)
+    whisper_parity = phase_train_parity(
+        FA, counters, train_mods, arch="whisper-base",
+        over=dict(n_enc_layers=1),
+        runs=[r for r in PARITY_RUNS if r[0] in ("1f1b", "zb-h1")],
+        card_vs_cpu=(), seq=448)
+
     mark("done")
     train_paths = {f"train {r['schedule']} V={r['virtual']} "
                    f"M={r['microbatches']}": r["launches"]
@@ -4146,6 +4489,8 @@ def main() -> None:
                             dense_trained,
                             **{"mamba2-2.7b": mamba_trained,
                                "hymba-1.5b": hymba_trained}).items()})
+    train_paths["train whisper-base 3 stages 1f1b M=4"] = \
+        whisper_trained["launches"]
 
     # the rank runs: each kernel's launches summed over the ranks
     train_paths.update({f"ranks {k}": r["launches_summed"]
@@ -4197,7 +4542,9 @@ def main() -> None:
                data_served["launches_summed"]["flash_attention"]},
             **{f"ranks tensor serve {k}": r["launches_summed"][
                 "flash_attention"]
-               for k, r in tensor_res["serve"].items()}),
+               for k, r in tensor_res["serve"].items()},
+            **{f"serve whisper-base {k}": r["launches"]["flash_attention"]
+               for k, r in whisper.items()}),
         max_abs_err=main_row["max_abs_err"],
         ms=main_row["ms"], call_ms=main_row["call_ms"],
         plain_ms=main_row["plain_ms"],
@@ -4230,6 +4577,9 @@ def main() -> None:
         # hymba-1.5b's 25/5 heads, window 1024 and global (phase 38)
         hymba_rows=[{k: r[k] for k in keys + ("route",)}
                     for r in hymba_rows["flash"]],
+        # whisper-base's 8/8 heads, non-causal over 1500 frames (phase 43)
+        whisper_rows=[{k: r[k] for k in keys + ("route",)}
+                      for r in whisper_rows["flash"]],
         window_prefill_ratio=window_ratio,
         # the continuous-batching step's first-layer attention (phase 26)
         mixed_rows=[{k: r[k] for k in keys + ("route", "launches")}
@@ -4238,7 +4588,8 @@ def main() -> None:
         sass=sass, path_parity_max_abs_err=path_err,
         gemma3_path_parity_max_abs_err=gemma_path_err,
         qwen3_path_parity_max_abs_err=qwen_path_err,
-        hymba_path_parity_max_abs_err=hymba_path_err)
+        hymba_path_parity_max_abs_err=hymba_path_err,
+        whisper_path_parity_max_abs_err=whisper_path_err)
     ssd_row = pick(ssd_rows, "main-path prefill")
     ssd_bf16 = next(r for r in ssd_rows if r["label"].startswith(
         "main-path prefill") and r["dtype"] == "bfloat16")
@@ -4301,6 +4652,8 @@ def main() -> None:
                      if "tensor" in r["label"]],
         hymba_rows=[{k: r[k] for k in bwd_keys}
                     for r in hymba_rows["flash_bwd"]],
+        whisper_rows=[{k: r[k] for k in bwd_keys}
+                      for r in whisper_rows["flash_bwd"]],
         d128_kernels=bwd128)
     sbwd_row = pick(ssd_bwd_rows, "train")
     ssd_bwd = dict(
@@ -4325,6 +4678,7 @@ def main() -> None:
     print(json.dumps({"serve": {"llama3.2-1b": llama,
                                 "mamba2-2.7b": mamba, "gemma3-1b": gemma,
                                 "qwen3-1.7b": qwen, "hymba-1.5b": hymba,
+                                "whisper-base": whisper,
                                 "interleaved": interleaved_serve,
                                 "engine": engine,
                                 "ranks parity": rank_serve_res,
@@ -4343,6 +4697,8 @@ def main() -> None:
                                 "mamba2-2.7b parity": mamba_parity,
                                 "hymba-1.5b": hymba_trained,
                                 "hymba-1.5b parity": hymba_parity,
+                                "whisper-base": whisper_trained,
+                                "whisper-base parity": whisper_parity,
                                 "ranks parity": rank_parity_res,
                                 "ranks llama3.2-1b": rank_trained,
                                 "ranks llama3.2-1b stream": rank_streamed,

@@ -10,7 +10,7 @@ import importlib
 from repro_torch.configs.base import ArchConfig
 
 _ARCHS = ("llama3p2_1b", "mamba2_2p7b", "gemma3_1b", "qwen3_1p7b",
-          "hymba_1p5b")
+          "hymba_1p5b", "whisper_base")
 
 _BY_ID: dict[str, ArchConfig] = {}
 

@@ -18,7 +18,8 @@ stage.
         --arch qwen3-1.7b --tensor 1 --stages 4 --microbatches 2 \\
         --batch 8 --prompt-len 512 --gen 32
 
-``--device cpu`` runs the same path on the CPU with the kernels' plain
+whisper-base (the audio family) is refused before any group is set up:
+this CLI takes no encoder frames.  ``--device cpu`` runs the same path on the CPU with the kernels' plain
 versions (add ``--reduced`` for a small model).  ``--tensor`` sets the
 tensor degree (0 keeps the config's own: llama3.2-1b's is 2, gemma3-1b's
 and qwen3-1.7b's 4); a degree above 1 runs only as ranks and raises in
@@ -162,6 +163,15 @@ def main(argv=None, mesh: MESH.StageMesh = None, *,
         raise ValueError("--gen must be >= 1")
 
     cfg = get_config(args.arch)
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{cfg.arch_id}: this serve CLI takes tokens only, no encoder "
+            f"frames, so it does not serve the audio family (the JAX "
+            f"package's serve CLI does not serve it either); serve it "
+            f"through repro_torch.models.model.prefill_audio_cache (the "
+            f"encoder's cross keys and values, laid into the cache by "
+            f"repro_torch.pipeline.runtime.lay_cross_cache) and "
+            f"repro_torch.pipeline.runtime.make_serve_step")
     if args.reduced:
         cfg = cfg.reduced(n_layers=4, d_model=256)
     cfg = with_tensor(cfg, args.tensor)

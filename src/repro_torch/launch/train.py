@@ -1,7 +1,13 @@
 """Pipelined training entry point: dense GQA models (llama3.2-1b,
-gemma3-1b, qwen3-1.7b) and mamba2-2.7b through the BaPipe stage plan and
-a compiled F/B(/W) schedule: every stage in one process on one card, or,
-under ``torchrun``, one process per stage.
+gemma3-1b, qwen3-1.7b), mamba2-2.7b, hymba-1.5b and whisper-base through
+the BaPipe stage plan and a compiled F/B(/W) schedule: every stage in one
+process on one card, or, under ``torchrun``, one process per stage.
+whisper-base trains on the stub frontend's frames, zeros ``[batch, 64,
+d_model]`` beside each batch's tokens, as the JAX CLI feeds them:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \
+        --reduced --layers 6 --d-model 128 --stages 3 --microbatches 2 \
+        --batch 4 --seq 32 --steps 3 --device cpu
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --tensor 1 --stages 4 --schedule 1f1b --microbatches 4 --batch 8 \\
@@ -433,6 +439,21 @@ class _Drift:
         return dict(drifts=self.drifts, replan=self.line)
 
 
+#: the stub audio frontend's frames a batch row, as the JAX CLI feeds them
+STUB_FRAMES = 64
+
+
+def _batch(data: SyntheticLM, step: int, cfg, args, device) -> dict:
+    """Step ``step``'s batch; for the audio family (whisper) with the
+    stub frontend's frames, zeros ``[batch, 64, d_model]``, as the JAX
+    CLI feeds them."""
+    batch = data.batch(step)
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros((args.batch, STUB_FRAMES, cfg.d_model),
+                                      device=device)
+    return batch
+
+
 def _dump_losses(args, start: int, losses: list) -> None:
     if args.losses_out:
         with open(args.losses_out, "w") as f:
@@ -533,7 +554,7 @@ def main(argv=None, mesh: MESH.StageMesh = None) -> dict:
     losses, step_s, launches = [], [], []
     t_start = time.perf_counter()
     for step in range(start, args.steps):
-        batch = data.batch(step)
+        batch = _batch(data, step, cfg, args, device)
         before = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
         if device.type == "cuda":       # the step's time alone
             torch.cuda.synchronize(device)
@@ -671,7 +692,7 @@ def _main_ranks(args, cfg, plan: ST.StagePlan, opt: AdamW,
     losses, step_s, launches, transport = [], [], [], []
     t_start = time.perf_counter()
     for step in range(start, args.steps):
-        batch = data.batch(step)
+        batch = _batch(data, step, cfg, args, device)
         before = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
         if device.type == "cuda":
             torch.cuda.synchronize(device)

@@ -1,5 +1,6 @@
-"""Functional building blocks of the dense GQA decoder and the Mamba-2
-block (the port's share of ``repro/models/layers.py``).
+"""Functional building blocks of the dense GQA decoder, whisper's
+cross-attention and the Mamba-2 block (the port's share of
+``repro/models/layers.py``).
 
 Plain functions over explicit parameter dictionaries, as in the JAX
 package.  Attention and the SSD scan go through the hand-written kernels
@@ -93,8 +94,12 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     records and q/k/v require grad, a CUDA tensor goes through
     :class:`FlashAttention` (the forward with statistics, then one launch
     of the backward kernel) and a CPU tensor through the plain version
-    under torch autograd."""
+    under torch autograd.  Attention over zero keys (S = 0: a cross
+    cache with no encoder frames) is zeros, as the JAX ``attend`` gives,
+    on either device and with no launch: there is no work to do."""
     B, S = q.shape[0], k.shape[1]
+    if S == 0:
+        return q.new_zeros(q.shape[:3] + (v.shape[-1],))
     q_start = _per_row(q_start, B, q.device)
     kv_len = _per_row(S if kv_len is None else kv_len, B, q.device)
     window = window or 0
@@ -208,6 +213,56 @@ def gqa_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         out = attend(q, k, v, scale=scale, causal=True, window=window)
     out = out.reshape(B, T, nh * hd) @ p["wo"]
     return (out if tp is None else tp.reduce_from_tensor(out)), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+def init_cross(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> Params:
+    return init_gqa(gen, cfg, dtype, device)
+
+
+def cross_attention(p: Params, x: torch.Tensor, enc: torch.Tensor,
+                    cfg: ArchConfig, tp=None) -> torch.Tensor:
+    """Non-causal attention of ``x`` [B,T,d] over ``enc`` [B,S,d] (no
+    rope, no mask): the whisper decoder's cross-attention, and, with
+    ``enc`` the same tensor as ``x``, its encoder's self-attention.  With
+    ``tp`` the block runs on this shard's heads: both inputs enter
+    through ``copy_to_tensor`` (``x`` once when it is ``enc``) and the
+    output is summed over the shards."""
+    B, T, _ = x.shape
+    S = enc.shape[1]
+    if tp is not None:
+        same = enc is x
+        x = tp.copy_to_tensor(x)
+        enc = x if same else tp.copy_to_tensor(enc)
+    hd = cfg.resolved_head_dim
+    nh = p["wq"].shape[1] // hd
+    nkv = p["wk"].shape[1] // hd
+    q = (x @ p["wq"]).reshape(B, T, nh, hd)
+    k = (enc @ p["wk"]).reshape(B, S, nkv, hd)
+    v = (enc @ p["wv"]).reshape(B, S, nkv, hd)
+    out = attend(q, k, v, scale=1.0 / math.sqrt(hd), causal=False)
+    out = out.reshape(B, T, nh * hd) @ p["wo"]
+    return out if tp is None else tp.reduce_from_tensor(out)
+
+
+def cross_attention_cached(p: Params, x: torch.Tensor, xk: torch.Tensor,
+                           xv: torch.Tensor, cfg: ArchConfig,
+                           tp=None) -> torch.Tensor:
+    """The decoder's cross-attention in decode: ``x`` [B,T,d] attends,
+    non-causally, over the cached encoder keys and values ``xk``/``xv``
+    [B,S,H,D] (this shard's heads with ``tp``)."""
+    B, T, _ = x.shape
+    if tp is not None:
+        x = tp.copy_to_tensor(x)
+    hd = cfg.resolved_head_dim
+    nh = p["wq"].shape[1] // hd
+    q = (x @ p["wq"]).reshape(B, T, nh, hd)
+    out = attend(q, xk, xv, scale=1.0 / math.sqrt(hd), causal=False)
+    out = out.reshape(B, T, nh * hd) @ p["wo"]
+    return out if tp is None else tp.reduce_from_tensor(out)
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,10 @@ the Megatron collectives (:class:`TensorAxis`: the two autograd
 operators ``copy_to_tensor`` and ``reduce_from_tensor``, the
 vocab-parallel loss's max and sums, the serve step's logits gathered
 from the vocab shards) in place of the JAX runtime's ``psum`` / ``pmax``
-over ``tensor``.  Under gloo on a CUDA
+over ``tensor``.  A hop of the audio family carries a pair ``{h_enc, h_dec}`` of two
+shapes: :func:`pack` lays it out as one flat buffer, sent as one
+message and counted under the same kind, and :func:`unpack` views the
+arrival as the pair again.  Under gloo on a CUDA
 device every message goes device -> pinned host -> device in plain
 sight (gloo's send and recv take CPU tensors only); under NCCL the
 device tensors go as they are.  Each message's bytes and host time are
@@ -90,6 +93,39 @@ def serve_hops(lo: SP.RingLowering) -> tuple:
             hops.append((S - 1, 0))
         out.append(tuple(hops))
     return tuple(out)
+
+
+#: the audio family's carry: its two hidden states, in buffer order
+PAIR = ("h_enc", "h_dec")
+
+
+def pack(x):
+    """A hop's value as one tensor: a hidden state as it is, the audio
+    family's pair ``{h_enc, h_dec}`` flattened into one buffer (a copy),
+    ``h_enc`` first."""
+    if isinstance(x, dict):
+        return torch.cat([x[k].reshape(-1) for k in PAIR])
+    return x
+
+
+def flat_like(like):
+    """The buffer :func:`pack` makes of a carry shaped as ``like`` (a
+    tensor, or a pair of tensors), to receive into; ``like`` itself for a
+    tensor."""
+    if isinstance(like, dict):
+        return like["h_dec"].new_empty((sum(like[k].numel() for k in PAIR),))
+    return like
+
+
+def unpack(x, like):
+    """An arrival as the carry ``like`` describes: a flat buffer split
+    into views of the pair's shapes when ``like`` is a pair; anything
+    else (a hidden state, or a pair handed over in process) as it is."""
+    if not isinstance(like, dict) or isinstance(x, dict) or x is None:
+        return x
+    n = like["h_enc"].numel()
+    return dict(h_enc=x[:n].view(like["h_enc"].shape),
+                h_dec=x[n:].view(like["h_dec"].shape))
 
 
 class Posted:

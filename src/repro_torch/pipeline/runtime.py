@@ -39,6 +39,15 @@ the ARSYNC slots of each rank's stream (``overlap``: the JAX runtime's
 AR ops), or after the walk with the update one step behind (``2bw``,
 PipeDream-2BW); serving gathers the replicas' logits in row order.
 
+The audio family (whisper) carries a pair ``{h_enc, h_dec}`` through
+the training stages where the other families carry one hidden state:
+the stash, the rings and the cotangents hold the pair, a hop sends it as
+one flat buffer (:func:`repro_torch.pipeline.comm.pack`), and the
+stage-0 input cotangent reaches the tied embedding through ``h_dec``
+only (the frames are data).  Serving carries ``h_dec`` alone: in decode
+the cross keys and values come from the cache and nothing reads
+``h_enc``.
+
 The tensor axis runs as ranks only too: on a (data, stage, tensor) grid
 each rank holds its tensor shard of its stage's parameters
 (:func:`repro_torch.pipeline.stage.tensor_share`) and runs the blocks
@@ -104,7 +113,8 @@ class PipelineConfig:
 
 def apply_stage(cfg: ArchConfig, layer_params: list, stage_meta: list, x, *,
                 pos, cache=None, remat: str = "none", tp=None):
-    """Run this stage's Lps layers over hidden state ``x`` [mb,T,d];
+    """Run this stage's Lps layers over hidden state ``x`` [mb,T,d] (for
+    the audio family the pair ``{h_enc [mb,Sf,d], h_dec [mb,T,d]}``);
     ``layer_params[j]`` is layer slot j's parameter dict.
     Padded (inactive) layer slots pass ``x`` through and are not computed
     (their cache rows, k/v or SSM state, are left untouched).  ``cache``
@@ -113,7 +123,8 @@ def apply_stage(cfg: ArchConfig, layer_params: list, stage_meta: list, x, *,
     them once per step); the SSM conv window and state are overwritten in
     place.  ``remat='full'`` (training, no cache) runs each layer under
     ``torch.utils.checkpoint``: its activations are recomputed in the
-    backward, as ``jax.checkpoint(layer_body)`` does in the JAX package.
+    backward, as ``jax.checkpoint(layer_body)`` does in the JAX package
+    (the non-reentrant checkpoint takes the audio pair as it is).
     ``tp`` (a ``comm.TensorAxis``, or None) runs each block on this
     rank's tensor shard.  Returns (x', aux, cache)."""
     aux = 0.0
@@ -134,26 +145,30 @@ def apply_stage(cfg: ArchConfig, layer_params: list, stage_meta: list, x, *,
 
 def init_pipeline_cache(cfg: ArchConfig, plan: ST.StagePlan, batch: int,
                         max_len: int, *, dtype=torch.float32,
-                        device="cuda") -> dict:
+                        device="cuda", enc_len: int = 0) -> dict:
     """Cache [S, Lps, B, ...] (or [S, V, Lc, B, ...] for an interleaved
     plan, as :func:`stage._stack_chunks` lays out parameters): k/v
     [S, Lps, B, max_len, Hkv, D] and per-slot ``len`` offsets
     [S, Lps, B]; or, for the SSM family, the conv window
     [S, Lps, B, d_conv-1, conv_ch] and state [S, Lps, B, H, P, N]
     (``max_len`` unused); or, for the hybrid family, both subtrees side
-    by side.  This is the in-process executor's cache, so
+    by side; an encoder-decoder adds the cross keys and values
+    ``xk``/``xv`` [S, Lps, B, enc_len, H, D] (:func:`lay_cross_cache`
+    fills them).  This is the in-process executor's cache, so
     tensor 1: at ``plan.tensor`` T > 1 each rank holds its shard's cache
     (:func:`init_stage_cache`) and this raises."""
     if plan.tensor > 1:
         raise ValueError(tensor_needs_ranks(plan.tensor, plan.n_stages))
     pad_cfg = dataclasses.replace(cfg, n_layers=plan.n_layers_padded)
-    c = M.init_cache(pad_cfg, batch, max_len, dtype=dtype, device=device)
+    c = M.init_cache(pad_cfg, batch, max_len, dtype=dtype, device=device,
+                     enc_len=enc_len)
     return ST._map_layers_(lambda a: ST._stack_chunks(a, plan), c)
 
 
 def init_stage_cache(cfg: ArchConfig, plan: ST.StagePlan, stage: int,
                      batch: int, max_len: int, *, data: int = 1,
-                     dtype=torch.float32, device="cuda") -> dict:
+                     dtype=torch.float32, device="cuda",
+                     enc_len: int = 0) -> dict:
     """Stage ``stage``'s share of :func:`init_pipeline_cache` (one rank's
     cache): ``[Lps, B, ...]`` or ``[V, Lc, B, ...]`` leaves with no stage
     axis, equal to row ``stage`` of the stacked cache bit for bit (every
@@ -165,20 +180,51 @@ def init_stage_cache(cfg: ArchConfig, plan: ST.StagePlan, stage: int,
     ``plan.tensor`` T > 1 a rank's k/v hold its tensor shard's
     ``stage.kv_heads(cfg, T)`` heads and its SSM state every head (the
     SSM is replicated over tensor; any shard's cache starts as zeros;
-    there is no stacked cache to be a row of)."""
+    there is no stacked cache to be a row of); an encoder-decoder's
+    ``xk``/``xv`` hold its rows and its shard's ``n_heads / T`` heads (the
+    JAX package shards them over heads as it does k/v)."""
     if not 0 <= stage < plan.n_stages:
         raise ValueError(f"stage {stage} of a {plan.n_stages}-stage plan")
     if data < 1 or batch % data:
         raise ValueError(f"batch {batch} does not split over data {data}")
     n_cfg = dataclasses.replace(
         cfg, n_layers=plan.virtual * plan.layers_per_stage,
-        n_kv_heads=ST.kv_heads(cfg, plan.tensor))
+        n_kv_heads=ST.kv_heads(cfg, plan.tensor),
+        n_heads=cfg.n_heads // plan.tensor, head_dim=cfg.resolved_head_dim)
     c = M.init_cache(n_cfg, batch // data, max_len, dtype=dtype,
-                     device=device)
+                     device=device, enc_len=enc_len)
     if data > 1 and "kv" in c:
         n = c["kv"]["len"]
         c["kv"]["len"] = n.new_zeros(n.shape[:-1] + (batch,))
     return ST._map_layers_(lambda a: ST._stage_rows(a, plan), c)
+
+
+def lay_cross_cache(cfg: ArchConfig, plan: ST.StagePlan, cache: dict,
+                    cross: dict, *, stage=None, tensor_rank: int = 0,
+                    data: int = 1, data_rank: int = 0) -> dict:
+    """Write the cross keys and values that :func:`repro_torch.models.
+    model.prefill_audio_cache` made (``cross["xk"]``/``["xv"]``,
+    [L, B, S, H, D], every layer's) into a serve cache, IN PLACE: the
+    layers padded by repeating the last and stacked as
+    :func:`stage._stack_chunks` stacks parameters ([S, Lps, ...] or
+    [S, V, Lc, ...], as the JAX package lays its filled cache), then, for
+    a rank's cache (:func:`init_stage_cache`), stage ``stage``'s row,
+    tensor shard ``tensor_rank``'s heads and data replica ``data_rank``'s
+    rows.  Returns ``cache``."""
+    T = plan.tensor
+    for name in ("xk", "xv"):
+        a = cross[name]
+        pad = plan.n_layers_padded - a.shape[0]
+        a = ST._stack_chunks(torch.cat([a] + [a[-1:]] * pad) if pad else a,
+                             plan)
+        if stage is not None:
+            a = a[stage]
+        if T > 1:
+            a = a.chunk(T, dim=-2)[tensor_rank]
+        B = a.shape[-4]
+        rows = slice(data_rank * (B // data), (data_rank + 1) * (B // data))
+        cache[name].copy_(a[(slice(None),) * (a.dim() - 4) + (rows,)])
+    return cache
 
 
 def _kv_len_leaves(cache: dict, kv: bool = False) -> list:
@@ -251,10 +297,17 @@ class _ServeRun:
         c_mb = _cache_rows(self.cache, ch, rows, self.len_off)
         layers = [M.layer_slice(self.layers, ch + (j,))
                   for j in range(self.lc)]
+        audio = self.cfg.family == "audio"
+        if audio:
+            # the ring carries h_dec alone: in decode the cross K/V come
+            # from the cache and no block reads h_enc
+            x_in = dict(h_enc=None, h_dec=x_in)
         y, _, _ = apply_stage(self.cfg, layers,
                               self.meta if lo.V == 1 else self.meta[v],
                               x_in, pos=self.pos[rows], cache=c_mb,
                               tp=self.tp)
+        if audio:
+            y = y["h_dec"]
         if s == S - 1 and lo.collect[e]:
             self.outbuf[mc] = y
         return y
@@ -389,7 +442,13 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
     logits mean nothing).  Padding columns write keys past the slot's
     offset, which valid queries never see (causal mask) and the next step
     overwrites.  Attention families only: the SSM and hybrid families'
-    recurrent state has no per-token offsets to mask padding with.
+    recurrent state has no per-token offsets to mask padding with, and
+    the audio family is refused as in JAX.
+
+    The audio family (whisper) serves from a cache whose cross keys and
+    values ``prefill_audio_cache`` made and :func:`lay_cross_cache` laid
+    in; stage 0 adds the sinusoid at the per-row positions to the
+    embedded tokens, and the ring carries ``h_dec`` alone.
 
     Interleaved plans (``plan.virtual`` = V > 1) replay the same ring
     table for prefill and for one-token decode; the cache and parameter
@@ -442,6 +501,13 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
                                                   mem_limit=ml))
     smeta = ST.stacked_meta(cfg, plan)
 
+    def inject(x, pos):
+        """Stage 0's input: the embedded tokens, plus (audio) the
+        sinusoid at the per-row positions."""
+        if cfg.family == "audio":
+            x = x + M.sinusoid_pos(pos, cfg.d_model, x.dtype)
+        return x
+
     def check(batch: dict):
         """The batch's tokens, micro-batch rows and ``n_valid`` (or
         None), once the batch is one this step serves."""
@@ -473,9 +539,10 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
 
         def serve_step(params: dict, cache: dict, batch: dict):
             tokens, mb, nv = check(batch)
-            x_all = M.embed_tokens(cfg, params["embed"], tokens)   # [B,q,d]
             # per-slot cache offsets -> per-row positions
             pos_all = M._default_pos(tokens, cache)
+            x_all = inject(M.embed_tokens(cfg, params["embed"], tokens),
+                           pos_all)                              # [B,q,d]
             runs = [_ServeRun(cfg, lowering, smeta[s], s,
                               row(params["layers"], s), row(cache, s),
                               pos_all, x_all if s == 0 else None, mb)
@@ -512,11 +579,12 @@ def make_serve_step(cfg: ArchConfig, plan: ST.StagePlan,
         B = tokens.shape[0]
         r0 = d_rank * (B // D)                  # this replica's first row
         mine = slice(r0, r0 + B // D)
-        x_all = (M.embed_tokens(cfg, params["embed"], tokens[mine], axis)
+        pos = M._default_pos(tokens, cache)[mine]
+        x_all = (inject(M.embed_tokens(cfg, params["embed"], tokens[mine],
+                                       axis), pos)
                  if rank == 0 else None)
         run = _ServeRun(cfg, lowering, smeta[rank], rank, params["layers"],
-                        cache, M._default_pos(tokens, cache)[mine], x_all,
-                        mb, len_off=r0, tp=axis)
+                        cache, pos, x_all, mb, len_off=r0, tp=axis)
         like = torch.empty((mb, q_len, cfg.d_model), device=dev,
                            dtype=params["layers"]["ln1"].dtype)
         arr = None
@@ -598,14 +666,18 @@ class _Tables:
 class _Call:
     """One call's inputs: positions and per-micro-batch labels; on the
     first stage the injections under autograd (``emb`` the embedding
-    leaf they hang from); on the last the loss head's parameters; the
-    rank's tensor axis (None at tensor 1)."""
+    leaf they hang from) and, for the audio family, the frames' (data,
+    no gradient); on the last the loss head's parameters; the rank's
+    tensor axis (None at tensor 1); ``like``, the carry's shapes (a
+    tensor, or the audio pair) for the messages."""
     dev: torch.device
     pos: torch.Tensor
     labels_mb: torch.Tensor
+    like: object = None
     tp: object = None
     emb: torch.Tensor = None
     inj: torch.Tensor = None
+    inj_enc: torch.Tensor = None
     fn_p: torch.Tensor = None
     head_p: torch.Tensor = None
     head_key: str = ""
@@ -617,17 +689,34 @@ def _call_inputs(cfg, M_: int, params: dict, batch: dict, *, first: bool,
     B, T = tokens.shape
     if B % M_:
         raise ValueError(f"batch {B} not divisible by M={M_}")
+    audio = cfg.family == "audio"
+    if audio and "frames" not in batch:
+        raise ValueError(f"{cfg.arch_id}: the audio family trains on "
+                         f"frames [B, S_frames, d] beside the tokens")
     mb = B // M_
     dev = tokens.device
+    dt = params["layers"]["ln1"].dtype
+    like = torch.empty((mb, T, cfg.d_model), dtype=dt, device=dev)
+    if audio:
+        like = dict(h_enc=torch.empty((mb, batch["frames"].shape[1],
+                                       cfg.d_model), dtype=dt, device=dev),
+                    h_dec=like)
     call = _Call(dev=dev, pos=torch.arange(T, device=dev)[None].expand(mb, T),
-                 labels_mb=labels.reshape(M_, mb, T), tp=tp)
+                 labels_mb=labels.reshape(M_, mb, T), like=like, tp=tp)
     if first:
         # the injections under autograd: the stage-0 B ticks' input
         # cotangents are back-propagated through this gather at the end
         with torch.enable_grad():
             call.emb = params["embed"].detach().requires_grad_()
-            call.inj = M.embed_tokens(cfg, call.emb, tokens, tp).reshape(
-                M_, mb, T, -1)
+            x = M.embed_tokens(cfg, call.emb, tokens, tp)
+            if audio:
+                pair = M.audio_inputs(
+                    cfg, x, torch.arange(T, device=dev)[None].expand(B, T),
+                    batch["frames"])
+                x = pair["h_dec"]
+                call.inj_enc = pair["h_enc"].detach().reshape(M_, mb, -1,
+                                                              cfg.d_model)
+            call.inj = x.reshape(M_, mb, T, -1)
     if last:
         call.head_key = "head" if "head" in params else "embed"
         call.fn_p, call.head_p = params["final_norm"], params[call.head_key]
@@ -665,6 +754,19 @@ class _StageRun:
     def _chunk(self, v: int) -> tuple:
         return () if self.tb.lo.V == 1 else (v,)
 
+    def _inject(self, m: int):
+        """Micro-batch m's stage-0 input (no graph back to the
+        embedding: its cotangent goes there at the end)."""
+        x = self.call.inj[m].detach()
+        if self.call.inj_enc is None:
+            return x
+        return dict(h_enc=self.call.inj_enc[m], h_dec=x)
+
+    def _got(self, x):
+        """An arrival as the carry: waited for if still in flight, and a
+        flat audio pair viewed as the pair (:func:`comm.unpack`)."""
+        return C.unpack(_arrived(x), self.call.like)
+
     def _apply(self, v, lp, x, remat="none"):
         meta = self.tb.smeta[self.s]
         y, _, _ = apply_stage(self.tb.cfg, lp,
@@ -674,7 +776,7 @@ class _StageRun:
         return y
 
     def _head_loss(self, fnp, hdp, y, m):
-        h = LYR.rms_norm(y, fnp, self.tb.cfg.norm_eps)
+        h = LYR.rms_norm(_hidden_of(y), fnp, self.tb.cfg.norm_eps)
         return M.logits_and_xent(self.tb.cfg,
                                  {self.call.head_key: hdp, "embed": hdp}, h,
                                  self.call.labels_mb[m], self.call.tp)
@@ -734,8 +836,8 @@ class _StageRun:
             return None, None
         if kind == SP.TICK_F:
             src = lo.fsrc[s][t]
-            x_in = (call.inj[m].detach() if src == 0 else
-                    _arrived(f_arr if src == 1 else self.fin[lo.fr[s][t]]))
+            x_in = (self._inject(m) if src == 0 else
+                    self._got(f_arr if src == 1 else self.fin[lo.fr[s][t]]))
             with torch.no_grad():
                 y = self._apply(v, self._layers(v), x_in)
             self.xs[lo.xw[s][t]] = x_in
@@ -748,24 +850,23 @@ class _StageRun:
                 lp, flat = self._leaves(v, True)
                 y = self._apply(v, lp, x_res, remat)
                 # no graph when every slot of the chunk is padding
-                self._add_dlp(t, v, torch.autograd.grad(
-                    y, flat, ctan, allow_unused=True)
-                    if y.requires_grad else [None] * len(flat))
+                self._add_dlp(t, v, _vjp(y, ctan, flat))
             return None, None
         with torch.enable_grad():
-            x = x_res.detach().requires_grad_()
+            x = _carry_map(lambda a: a.detach().requires_grad_(), x_res)
+            xs = _parts(x)
             lp, flat = self._leaves(v, not lo.has_w)
             if kind == SP.TICK_B:
-                ctan = _arrived(b_arr if lo.bsrc[s][t] == 1
-                                else self.bin[lo.br[s][t]])
+                ctan = self._got(b_arr if lo.bsrc[s][t] == 1
+                                 else self.bin[lo.br[s][t]])
                 y = self._apply(v, lp, x, remat)
                 if lo.has_w:        # zb: input gradient only
-                    (dx,) = torch.autograd.grad(y, [x], ctan)
+                    dx = _carry_of(x, _vjp(y, ctan, xs))
                     self.cts[lo.cw[s][t]] = ctan
                 else:
-                    dx, *gs = torch.autograd.grad(y, [x] + flat, ctan,
-                                                  allow_unused=True)
-                    self._add_dlp(t, v, gs)
+                    gs = _vjp(y, ctan, xs + flat)
+                    dx = _carry_of(x, gs[:len(xs)])
+                    self._add_dlp(t, v, gs[len(xs):])
             else:                   # TICK_B_SEED: the loss head
                 fnp = call.fn_p.detach().requires_grad_()
                 hdp = call.head_p.detach().requires_grad_()
@@ -774,18 +875,24 @@ class _StageRun:
                 if lo.has_w:
                     # zb: the head's y-cotangent is stashed for W
                     y = self._apply(v, lp, x, remat)
-                    yd = y.detach().requires_grad_()
+                    yd = _carry_map(lambda a: a.detach().requires_grad_(),
+                                    y)
                     ce_m = self._head_loss(fnp, hdp, yd, m)
-                    dfn_d, dhd_d, dy = torch.autograd.grad(
-                        ce_m, [fnp, hdp, yd], seed)
-                    (dx,) = torch.autograd.grad(y, [x], dy)
+                    dfn_d, dhd_d, *dys = torch.autograd.grad(
+                        ce_m, [fnp, hdp] + _parts(yd), seed,
+                        allow_unused=True)
+                    dy = _carry_of(yd, dys)
+                    dx = _carry_of(x, _vjp(y, dy, xs))
                     self.cts[lo.cw[s][t]] = dy
                 else:
                     ce_m = self._head_loss(fnp, hdp,
                                            self._apply(v, lp, x, remat), m)
-                    dx, dfn_d, dhd_d, *gs = torch.autograd.grad(
-                        ce_m, [x, fnp, hdp] + flat, seed, allow_unused=True)
-                    self._add_dlp(t, v, gs)
+                    n = len(xs)
+                    gs = torch.autograd.grad(ce_m, xs + [fnp, hdp] + flat,
+                                             seed, allow_unused=True)
+                    dx = _carry_of(x, gs[:n])
+                    dfn_d, dhd_d = gs[n:n + 2]
+                    self._add_dlp(t, v, gs[n + 2:])
                 self.dfn = dfn_d if self.dfn is None else self.dfn.add_(dfn_d)
                 self.dhd = dhd_d if self.dhd is None else self.dhd.add_(dhd_d)
                 self.ce += ce_m.detach()
@@ -796,8 +903,9 @@ class _StageRun:
     def embed_grad(self) -> torch.Tensor:
         """The first stage's input cotangents back-propagated through the
         embedding gather."""
-        (d_embed,) = torch.autograd.grad(self.call.inj, self.call.emb,
-                                         torch.stack(self.dinj))
+        (d_embed,) = torch.autograd.grad(
+            self.call.inj, self.call.emb,
+            torch.stack([_hidden_of(d) for d in self.dinj]))
         return d_embed
 
 
@@ -857,7 +965,7 @@ def _walk_stream(tp: C.Transport, run: "_StageRun", stream,
     def post(sends, ins) -> dict:
         recvs = [i for i in ins if i.op == SP.INSTR_RECV]
         handles = tp.post(
-            [(_RING[ring], _ring_peers(ring, rank, S)[1], y)
+            [(_RING[ring], _ring_peers(ring, rank, S)[1], C.pack(y))
              for ring, y in sends],
             [(_RING[i.ring], _ring_peers(i.ring, rank, S)[0])
              for i in recvs], like)
@@ -873,6 +981,46 @@ def _walk_stream(tp: C.Transport, run: "_StageRun", stream,
 def _arrived(x):
     """An arrival: a tensor, or a posted receive waited for here."""
     return x.wait() if isinstance(x, C.Posted) else x
+
+
+def _parts(x) -> list:
+    """A carry's tensors: the hidden state, or the audio pair's two."""
+    return [x[k] for k in C.PAIR] if isinstance(x, dict) else [x]
+
+
+def _carry_map(fn, x):
+    """``fn`` on each tensor of a carry, the carry's structure kept."""
+    return {k: fn(x[k]) for k in C.PAIR} if isinstance(x, dict) else fn(x)
+
+
+def _carry_of(like, grads: list):
+    """The carry of ``grads`` (one a tensor of ``like``): a gradient
+    that autograd left None (a part the graph never read, such as
+    ``h_enc`` below a loss head with no decoder layer on its stage) is
+    zeros, as a message must carry something."""
+    gs = [torch.zeros_like(a) if g is None else g
+          for a, g in zip(_parts(like), grads)]
+    return dict(zip(C.PAIR, gs)) if isinstance(like, dict) else gs[0]
+
+
+def _hidden_of(y):
+    """The hidden state the loss head reads: the decoder's of a pair."""
+    return y["h_dec"] if isinstance(y, dict) else y
+
+
+def _vjp(y, ctan, inputs: list) -> list:
+    """The gradient of the carry ``y`` along the cotangent carry ``ctan``
+    with respect to ``inputs`` (None for one the graph does not reach).
+    A part of ``y`` outside the graph (a stage's chunk of padding, or the
+    ``h_dec`` that an encoder-only stage passes through unrecorded in a
+    W tick) has no gradient to give and is left out."""
+    pairs = [(a, c) for a, c in zip(_parts(y), _parts(ctan))
+             if a.requires_grad]
+    if not pairs:
+        return [None] * len(inputs)
+    return list(torch.autograd.grad([a for a, _ in pairs], inputs,
+                                    [c for _, c in pairs],
+                                    allow_unused=True))
 
 
 def _rank_norm(tp: C.Transport, grads: dict, S: int, rank: int,
@@ -1199,14 +1347,15 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
             if B % D:
                 raise ValueError(f"batch {B} does not split over data {D}")
             mine = slice(d_rank * (B // D), (d_rank + 1) * (B // D))
-            batch = {k: batch[k][mine] for k in ("tokens", "labels")}
+            batch = {k: batch[k][mine] for k in ("tokens", "labels",
+                                                 "frames") if k in batch}
         call = _call_inputs(cfg, M_, params, batch, first=first, last=last,
                             tp=axis)
         dlp = ST._map_layers(torch.empty_like, params["layers"])
         run = _StageRun(tb, rank, params["layers"], dlp, call)
-        mb, T = call.labels_mb.shape[1:]
-        like = torch.empty((mb, T, cfg.d_model), device=call.dev,
-                           dtype=params["layers"]["ln1"].dtype)
+        # what a hop carries, as one buffer: the hidden state, or the
+        # audio pair flattened (comm.pack; the tick views it as the pair)
+        like = C.flat_like(call.like)
         posted = []         # the gradient buckets in flight, post order
         if instr is None:
             f_arr = b_arr = None
@@ -1216,7 +1365,8 @@ def make_train_step(cfg: ArchConfig, plan: ST.StagePlan,
                 if t + 1 < lo.n_ticks:
                     sends, recvs = msgs[t + 1]
                     got = tp.exchange(
-                        [(ring, dst, f_out if ring == C.FWD else b_out)
+                        [(ring, dst, C.pack(f_out if ring == C.FWD
+                                            else b_out))
                          for ring, dst in sends], recvs, like)
                     f_arr, b_arr = got.get(C.FWD), got.get(C.BWD)
         else:

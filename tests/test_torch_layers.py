@@ -85,7 +85,7 @@ def test_config_matches_jax(arch, reduce):
     if cfg.ssm is not None:
         assert cfg.ssm.n_heads(cfg.d_model) == jcfg.ssm.n_heads(jcfg.d_model)
     with pytest.raises(KeyError):
-        get_config("whisper-base")
+        get_config("qwen2-vl-7b")
 
 
 @pytest.mark.parametrize("name", ["gpipe", "1f1b", "1f1b-2x", "1F1B-AS",
